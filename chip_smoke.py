@@ -6,10 +6,13 @@ Needs one CUDA device and ``nvcc``; exits non-zero without them.  The phases
 run in order and any failure raises, so the exit code is non-zero:
 
 1. device: the card's name and power limit (nvidia-smi), TF32 off;
-2. build: every CUDA source of the port, compiled from this checkout;
-3. kernel vs plain: each kernel against its plain PyTorch version on the
-   card at the serving path's shapes and two ragged ones, with its time, the
-   plain version's time and the least time the card could take (bound);
+2. build: every CUDA source of the port, compiled from this checkout (one
+   ``nvcc`` per source, all started together);
+3. kernel vs plain: each kernel (``cin_fwd``, ``cin_bwd_dx``, ``cin_dw``)
+   against its plain PyTorch version on the card at the serving and training
+   paths' shapes (layer 1's h a strided column view, as split-half gives it)
+   and at a ragged and a tiny shape, with its time, the plain version's time
+   and the least time the card could take (bound);
 4. serving: the canonical xDeepFM (26 sparse fields, vocab 10000, dim 10,
    13 dense, CIN (256, 128) split-half, DNN (256, 256)) with seeded random
    weights scores four requests through ``Scorer(batch_size=8192)``; the CIN
@@ -17,8 +20,18 @@ run in order and any failure raises, so the exit code is non-zero:
    plain-PyTorch CIN on the card and with the CPU model on a small input;
 5. profile: device time by kernel (torch.profiler) and the device's idle
    share over three scored 8192-row requests;
-6. a ``{"kernels": [...]}`` line, one entry per hand-written kernel;
-7. the last line: ``{"ok": true, "device": {...}}``.
+6. training: the canonical xDeepFM, ``compile("adam", "binary_crossentropy",
+   metrics=["auc"])``, ``fit`` at batch 4096 for three epochs on seeded
+   Criteo-like data labelled by a seeded logistic teacher.  Per step the CIN
+   kernels must launch 2 + 2 + 2 times (forward, cin_bwd_dx, cin_dw), and
+   6 + 0 + 2 under the legacy backward; one step's gradients must match the
+   plain CIN's on the card under both backward implementations, and one SGD
+   step on the card must match the CPU model's; loss and AUC must be finite
+   and the epoch loss must fall.  Examples/s trained with the kernels and
+   with the plain CIN, from CUDA events over train steps;
+7. training profile: device time by kernel and idle share over train steps;
+8. a ``{"kernels": [...]}`` line, one entry per hand-written kernel;
+9. the last line: ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -28,15 +41,26 @@ import time
 import numpy as np
 import torch
 
+from xdeepfm_tpu_torch.basemodel import _loss_fn_single
 from xdeepfm_tpu_torch.features import DenseFeat, SparseFeat
 from xdeepfm_tpu_torch.models import xDeepFM
 from xdeepfm_tpu_torch.ops import _build
-from xdeepfm_tpu_torch.ops.cin_cuda import cin_rows_forward, cin_rows_reference
+from xdeepfm_tpu_torch.ops.cin import set_backward_impl
+from xdeepfm_tpu_torch.ops.cin_cuda import (
+    cin_rows_backward,
+    cin_rows_backward_reference,
+    cin_rows_dw,
+    cin_rows_dw_reference,
+    cin_rows_forward,
+    cin_rows_reference,
+)
 from xdeepfm_tpu_torch.serving import Scorer
 from xdeepfm_tpu_torch.weights import flatten_tree, unflatten_tree
 
 SEED = 0
 BATCH = 8192
+TRAIN_BATCH = 4096  # bench.py's and cli/xdftrain.py's train batch
+TRAIN_STEPS_PER_EPOCH, TRAIN_EPOCHS = 8, 3
 N_SPARSE, VOCAB, DIM, N_DENSE = 26, 10_000, 10, 13
 CIN_LAYERS, DNN_UNITS = (256, 128), (256, 256)
 REQUESTS = (8192, 8192, 8192, 5000)  # the last one is padded to a whole batch
@@ -51,16 +75,32 @@ PEAKS = (
     ("H100", 67.0e12, 3.35e12),
 )
 
-# (label, N, H, M, O): the canonical batch's two CIN layers (N = 8192 * 10
-# rows), a ragged shape with split-half's odd H, and a tiny one.
-CIN_SHAPES = (
-    ("layer0", BATCH * DIM, N_SPARSE, N_SPARSE, CIN_LAYERS[0]),
-    ("layer1", BATCH * DIM, CIN_LAYERS[0] // 2, N_SPARSE, CIN_LAYERS[1]),
-    ("ragged", 1001, 13, 26, 7),
-    ("tiny", 5, 3, 2, 1),
+# (label, N, H, M, O, strided h): the canonical serving batch's two CIN
+# layers (N = 8192 * 10 rows), the train batch's (N = 4096 * 10; layer 1's h
+# is the first half of layer 0's output, a strided view), a ragged shape with
+# split-half's odd H, and a tiny one.
+SERVE_SHAPES = (
+    ("layer0", BATCH * DIM, N_SPARSE, N_SPARSE, CIN_LAYERS[0], False),
+    ("layer1", BATCH * DIM, CIN_LAYERS[0] // 2, N_SPARSE, CIN_LAYERS[1], False),
 )
+TRAIN_SHAPES = (
+    ("train_layer0", TRAIN_BATCH * DIM, N_SPARSE, N_SPARSE, CIN_LAYERS[0], False),
+    ("train_layer1", TRAIN_BATCH * DIM, CIN_LAYERS[0] // 2, N_SPARSE, CIN_LAYERS[1], True),
+)
+EDGE_SHAPES = (("ragged", 1001, 13, 26, 7, False), ("tiny", 5, 3, 2, 1, False))
 CIN_TOL = dict(rtol=1e-4, atol=1e-3)  # fp32 sums of up to 3328 products of
 # magnitude ~60 at unit-normal inputs, in another order than cuBLAS's
+# The backward kernels sum up to N = 40960 (dW) or O*M (dh, dx0) products, so
+# their rounding grows with the largest entry: atol is relative to it.
+BWD_RTOL = 1e-4
+SOURCES = {
+    "cin_fwd": ("xdeepfm_tpu_torch/ops/csrc/cin_fwd.cu", "xdeepfm_tpu/ops/cin_pallas.py:60"),
+    "cin_bwd_dx": ("xdeepfm_tpu_torch/ops/csrc/cin_bwd.cu", "xdeepfm_tpu/ops/cin_pallas.py:174"),
+    "cin_dw": ("xdeepfm_tpu_torch/ops/csrc/cin_bwd.cu", "xdeepfm_tpu/ops/cin_pallas.py:127"),
+}
+WRAPPERS = {
+    "cin_fwd": cin_rows_forward, "cin_bwd_dx": cin_rows_backward, "cin_dw": cin_rows_dw,
+}
 
 
 def emit(**record):
@@ -110,34 +150,65 @@ def phase_build():
             print(f"  [{name}] {line}", flush=True)
 
 
+def _kernel_case(name, N, H, M, O, strided, gen):
+    """(kernel call, plain call, bytes the function must move) on fresh
+    unit-normal inputs; h is a column view of an [N, 2H] tensor if
+    ``strided``."""
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    h = rand(N, 2 * H)[:, :H] if strided else rand(N, H)
+    x0, W, b, g = rand(N, M), rand(O, H * M), rand(O), rand(N, O)
+    ins = 4 * (N * H + N * M)
+    if name == "cin_fwd":
+        return (lambda: cin_rows_forward(h, x0, W, b), lambda: cin_rows_reference(h, x0, W, b),
+                ins + 4 * (O * H * M + O + N * O))
+    if name == "cin_bwd_dx":
+        return (lambda: cin_rows_backward(g, h, x0, W),
+                lambda: cin_rows_backward_reference(g, h, x0, W),
+                ins + 4 * (N * O + O * H * M) + ins)
+    return (lambda: cin_rows_dw(g, h, x0), lambda: cin_rows_dw_reference(g, h, x0),
+            ins + 4 * (N * O + O * H * M))
+
+
 def phase_kernels(peak):
+    """Every kernel against its plain version on the same inputs.  FLOPs are
+    the contraction's 2*N*H*M*O for each kernel (the N*H*M-sized epilogue
+    terms add under 1% at O >= 128 and are left out of the bound)."""
     _, peak_flops, peak_bw = peak
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     results = {}
-    for label, N, H, M, O in CIN_SHAPES:
-        h, x0, W, b = (
-            torch.randn(shape, generator=gen, device="cuda")
-            for shape in ((N, H), (N, M), (O, H * M), (O,))
-        )
-        got = cin_rows_forward(h, x0, W, b)
+    cases = [("cin_fwd", s) for s in SERVE_SHAPES] + [
+        (name, s) for s in TRAIN_SHAPES + EDGE_SHAPES
+        for name in ("cin_fwd", "cin_bwd_dx", "cin_dw")
+    ]
+    for name, (label, N, H, M, O, strided) in cases:
+        kernel, plain, nbytes = _kernel_case(name, N, H, M, O, strided, gen)
+        got = kernel()
         torch.cuda.synchronize()
-        want = cin_rows_reference(h, x0, W, b)
+        want = plain()
+        got, want = (got, want) if name != "cin_bwd_dx" else (torch.cat(got, 1), torch.cat(want, 1))
         err = (got - want).abs().max().item()
-        torch.testing.assert_close(got, want, **CIN_TOL)
+        if name == "cin_fwd":
+            torch.testing.assert_close(got, want, **CIN_TOL)
+        else:
+            torch.testing.assert_close(
+                got, want, rtol=BWD_RTOL, atol=BWD_RTOL * want.abs().max().item() + 1e-6
+            )
+        del got, want
         iters = 20 if N > 10_000 else 200
-        kernel_ms = cuda_ms(lambda: cin_rows_forward(h, x0, W, b), iters)
-        plain_ms = cuda_ms(lambda: cin_rows_reference(h, x0, W, b), iters)
+        kernel_ms = cuda_ms(kernel, iters)
+        plain_ms = cuda_ms(plain, iters)
         flops = 2 * N * H * M * O
-        nbytes = 4 * (N * H + N * M + O * H * M + O + N * O)
-        bound_ms = max(flops / peak_flops, nbytes / peak_bw) * 1e3
-        results[label] = dict(
-            N=N, H=H, M=M, O=O, max_abs_err=err, kernel_ms=kernel_ms,
-            plain_ms=plain_ms, library_ms=plain_ms, bound_ms=bound_ms,
-            bound_by="operations" if flops / peak_flops >= nbytes / peak_bw else "bytes",
-            gflop=flops / 1e9, mbytes=nbytes / 1e6,
-            tflops=flops / kernel_ms / 1e9,
+        by_ops = flops / peak_flops >= nbytes / peak_bw
+        results[name, label] = dict(
+            N=N, H=H, M=M, O=O, strided_h=strided, max_abs_err=err, kernel_ms=kernel_ms,
+            plain_ms=plain_ms, library_ms=plain_ms, library="the plain version (materialised)",
+            bound_ms=max(flops / peak_flops, nbytes / peak_bw) * 1e3,
+            bound_by="operations" if by_ops else "bytes",
+            gflop=flops / 1e9, mbytes=nbytes / 1e6, tflops=flops / kernel_ms / 1e9,
         )
-        emit(phase="kernel", kernel="cin_fwd", shape=label, **results[label])
+        emit(phase="kernel", kernel=name, shape=label, **results[name, label])
     return results
 
 
@@ -147,10 +218,14 @@ def canonical_columns():
     ]
 
 
-def canonical_model(device, weights=None):
+def canonical_model(device, weights=None, seeded=True):
+    """The canonical xDeepFM with ``weights``, else random weights from
+    SEED (``seeded``), else its own initialisation."""
     cols = canonical_columns()
     model = xDeepFM(cols, cols, dnn_hidden_units=DNN_UNITS,
                     cin_layer_size=CIN_LAYERS, device=device)
+    if weights is None and not seeded:
+        return model
     if weights is None:
         # random weights at scale 0.1 so that every tower, the CIN included,
         # moves the scores
@@ -191,13 +266,14 @@ def phase_serving():
     reqs = requests(np.random.default_rng(SEED + 1), REQUESTS)
     n_batches = sum(-(-n // BATCH) for n in REQUESTS)
 
-    cin_rows_forward.launches = 0
+    reset_launches()
     preds, _, _ = score_all(scorer, reqs)
-    launches = cin_rows_forward.launches
-    if launches != 2 * n_batches:
+    counts = read_launches()
+    launches = counts["cin_fwd"]
+    if counts != {"cin_fwd": 2 * n_batches, "cin_bwd_dx": 0, "cin_dw": 0}:
         raise AssertionError(
-            f"CIN kernel launched {launches} times for {n_batches} batches, "
-            f"expected {2 * n_batches}"
+            f"CIN kernels launched {counts} for {n_batches} scored batches, "
+            f"expected {2 * n_batches} forward launches and no backward"
         )
     for n, p in zip(REQUESTS, preds):
         if p.shape != (n, 1) or p.dtype != np.float64:
@@ -249,16 +325,199 @@ def phase_profile(scorer, req, calls=3):
             scorer.score(req)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    emit(phase="profile", calls=calls, rows_per_call=len(next(iter(req.values()))),
+         **device_breakdown(prof, wall_ms, calls))
+
+
+def train_data(rng, n):
+    """Criteo-like rows (26 ids uniform over the vocab, 13 dense in [0, 1))
+    labelled by a logistic teacher: per-id effects, dense weights and a
+    negative bias, so the click rate is about a third and the labels carry
+    signal that the model can learn."""
+    x = requests(rng, (n,))[0]
+    effects = rng.normal(0.0, 0.3, (N_SPARSE, VOCAB))
+    logit = -1.0 + sum(effects[i][x[f"C{i}"]] for i in range(N_SPARSE))
+    logit = logit + sum(w * x[f"I{i}"] for i, w in enumerate(rng.normal(0, 1, N_DENSE)))
+    y = (rng.uniform(size=n) < 1 / (1 + np.exp(-logit))).astype(np.float32)
+    return x, y
+
+
+def reset_launches():
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def device_batch(model, x, y, n):
+    packed = model.schema.pack({k: v[:n] for k, v in x.items()})
+    xb = {k: torch.as_tensor(v, device=model.device) for k, v in packed.items()}
+    return xb, torch.as_tensor(y[:n, None], device=model.device)
+
+
+def step_grads(model, xb, yb):
+    """Gradients of one step's loss (sum-BCE + L2 registry), no update."""
+    model.module.zero_grad(set_to_none=True)
+    out = model.module(xb, training=True)
+    mask = torch.ones(yb.shape[0], device=yb.device)
+    loss = _loss_fn_single("binary_crossentropy")(out["pred"].reshape(-1), yb.reshape(-1), mask)
+    (loss + model._regularization_loss()).backward()
+    return {k: p.grad.clone() for k, p in model.module.named_parameters()}
+
+
+def grad_err(got, want):
+    """Largest per-parameter error, relative to that gradient's largest entry."""
+    return max(
+        float((got[k] - want[k]).abs().max()) / max(float(want[k].abs().max()), 1e-30)
+        for k in want
+    )
+
+
+# fp32 sums in other orders (the kernels', cuBLAS's, the CPU's) through the
+# whole backward: each gradient within this share of its largest entry
+GRAD_RTOL = 1e-4
+
+
+def train_steps_ms(model, batches, steps):
+    """ms per train step (CUDA events over ``steps`` after one warm-up)."""
+    mask = torch.ones(TRAIN_BATCH, device="cuda")
+    it = [batches[i % len(batches)] for i in range(steps)]
+    model._train_step(*batches[0], mask)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for xb, yb in it:
+        model._train_step(xb, yb, mask)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / steps
+
+
+def phase_training():
+    set_backward_impl("auto")
+    model = canonical_model("cuda", seeded=False)
+    model.compile("adam", "binary_crossentropy", metrics=["auc"])
+    rng = np.random.default_rng(SEED + 3)
+    x, y = train_data(rng, TRAIN_STEPS_PER_EPOCH * TRAIN_BATCH + TRAIN_BATCH // 2)
+    x, y, val = (  # the last half batch validates
+        {k: v[: -TRAIN_BATCH // 2] for k, v in x.items()}, y[: -TRAIN_BATCH // 2],
+        ({k: v[-TRAIN_BATCH // 2 :] for k, v in x.items()}, y[-TRAIN_BATCH // 2 :]),
+    )
+    n_val_batches = 1
+
+    reset_launches()
+    t0 = time.perf_counter()
+    history = model.fit(x, y, batch_size=TRAIN_BATCH, epochs=TRAIN_EPOCHS, verbose=1,
+                        validation_data=val)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = read_launches()
+    steps = TRAIN_STEPS_PER_EPOCH * TRAIN_EPOCHS
+    want = {
+        "cin_fwd": 2 * (steps + TRAIN_EPOCHS * n_val_batches),  # + validation batches
+        "cin_bwd_dx": 2 * steps, "cin_dw": 2 * steps,
+    }
+    if launches != want:
+        raise AssertionError(f"CIN launches {launches} over {steps} steps, expected {want}")
+    logs = history.history
+    for k, v in logs.items():
+        if not np.isfinite(v).all():
+            raise AssertionError(f"{k} is not finite: {v}")
+    if not logs["loss"][0] > logs["loss"][1] > logs["loss"][2]:
+        raise AssertionError(f"the epoch loss did not fall: {logs['loss']}")
+
+    # one step's gradients, kernels against the plain CIN, per backward impl
+    xb, yb = device_batch(model, x, y, TRAIN_BATCH)
+    grad_errs, legacy_launches = {}, None
+    for impl in ("auto", "legacy"):
+        set_backward_impl(impl)
+        model.module.cin.backend = "torch"
+        want_g = step_grads(model, xb, yb)
+        model.module.cin.backend = None
+        reset_launches()
+        got_g = step_grads(model, xb, yb)
+        counts = read_launches()
+        if impl == "legacy":
+            legacy_launches = counts
+            if counts != {"cin_fwd": 6, "cin_bwd_dx": 0, "cin_dw": 2}:
+                raise AssertionError(f"legacy backward launched {counts} in one step")
+        elif counts != {"cin_fwd": 2, "cin_bwd_dx": 2, "cin_dw": 2}:
+            raise AssertionError(f"fused backward launched {counts} in one step")
+        grad_errs[impl] = grad_err(got_g, want_g)
+        if grad_errs[impl] > GRAD_RTOL:
+            raise AssertionError(f"{impl}: kernel gradients off by {grad_errs[impl]}")
+    set_backward_impl("auto")
+
+    # one SGD step on the card against the CPU model from the same weights
+    small = 256
+    pair = [canonical_model(dev, model.get_weights()) for dev in ("cuda", "cpu")]
+    for m in pair:
+        m.compile("sgd", "binary_crossentropy")
+        m.fit({k: v[:small] for k, v in x.items()}, y[:small], batch_size=small, epochs=1,
+              verbose=0, shuffle=False)
+    cpu_errs = {}
+    for what, get in (("grad", lambda m: {k: p.grad for k, p in m.module.named_parameters()}),
+                      ("weights", lambda m: dict(m.module.named_parameters()))):
+        got_t, want_t = ({k: t.detach().cpu() for k, t in get(m).items()} for m in pair)
+        cpu_errs[what] = grad_err(got_t, want_t)
+        if cpu_errs[what] > GRAD_RTOL:
+            raise AssertionError(f"card and CPU {what} after one step differ by {cpu_errs[what]}")
+
+    # examples/s trained, kernel CIN and plain CIN in turns
+    batches = [device_batch(model, {k: v[i * TRAIN_BATCH:] for k, v in x.items()},
+                            y[i * TRAIN_BATCH:], TRAIN_BATCH) for i in range(4)]
+    runs = {"kernel": [], "plain": []}
+    for backend in ("kernel", "plain", "plain", "kernel"):
+        model.module.cin.backend = None if backend == "kernel" else "torch"
+        runs[backend].append(train_steps_ms(model, batches, 20))
+    model.module.cin.backend = None
+    record = dict(
+        batch=TRAIN_BATCH, steps=steps, epochs=TRAIN_EPOCHS, fit_seconds=fit_s,
+        launches=launches, legacy_launches_per_step=legacy_launches,
+        history=logs, grad_rel_err_vs_plain_cin=grad_errs, rel_err_vs_cpu_one_sgd_step=cpu_errs,
+        ms_per_step_kernel=runs["kernel"], ms_per_step_plain_cin=runs["plain"],
+        examples_per_s_kernel=[TRAIN_BATCH / ms * 1e3 for ms in runs["kernel"]],
+        examples_per_s_plain_cin=[TRAIN_BATCH / ms * 1e3 for ms in runs["plain"]],
+    )
+    emit(phase="training", **record)
+    return record, model, batches
+
+
+def phase_train_profile(model, batches, steps=3):
+    """Device time by kernel over ``steps`` train steps (torch.profiler),
+    beside the host-clock wall time of the same window."""
+    mask = torch.ones(TRAIN_BATCH, device="cuda")
+    model._train_step(*batches[0], mask)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    ) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            model._train_step(*batches[i % len(batches)], mask)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    emit(phase="train_profile", steps=steps, batch=TRAIN_BATCH,
+         **device_breakdown(prof, wall_ms, steps))
+
+
+def device_breakdown(prof, wall_ms, calls):
+    """Device ms by kernel, busy and idle share.  User-annotation ranges on
+    the device (``Optimizer.step#Adam.step``) span kernels already counted,
+    so they are left out."""
     device_ms = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(
+            e, "is_user_annotation", False
+        ):
             device_ms[e.name] = device_ms.get(e.name, 0.0) + e.device_time_total / 1e3
     busy_ms = sum(device_ms.values())
-    top = sorted(device_ms.items(), key=lambda kv: -kv[1])[:10]
-    emit(phase="profile", calls=calls, rows_per_call=len(next(iter(req.values()))),
-         wall_ms_per_call=wall_ms / calls, device_busy_ms_per_call=busy_ms / calls,
-         device_idle_share=1.0 - busy_ms / wall_ms,
-         top_device_ms_per_call=[[name[:80], ms / calls] for name, ms in top])
+    top = sorted(device_ms.items(), key=lambda kv: -kv[1])[:12]
+    return dict(wall_ms_per_call=wall_ms / calls, device_busy_ms_per_call=busy_ms / calls,
+                device_idle_share=1.0 - busy_ms / wall_ms,
+                top_device_ms_per_call=[[name[:80], ms / calls] for name, ms in top])
 
 
 def main():
@@ -267,22 +526,27 @@ def main():
     shapes = phase_kernels(peak)
     serving, scorer, req = phase_serving()
     phase_profile(scorer, req)
-    main_path = [shapes["layer0"], shapes["layer1"]]  # per scored batch
-    ops_s = sum(r["gflop"] for r in main_path) * 1e9 / peak[1]
-    bytes_s = sum(r["mbytes"] for r in main_path) * 1e6 / peak[2]
-    emit(kernels=[dict(
-        name="cin_fwd",
-        route="cuda",
-        source="xdeepfm_tpu_torch/ops/csrc/cin_fwd.cu",
-        replaces="xdeepfm_tpu/ops/cin_pallas.py:60",
-        launches=serving["cin_launches"],
-        max_abs_err=max(r["max_abs_err"] for r in shapes.values()),
-        ms=sum(r["kernel_ms"] for r in main_path),
-        plain_ms=sum(r["plain_ms"] for r in main_path),
-        bound_ms=sum(r["bound_ms"] for r in main_path),
-        bound_by="operations" if ops_s >= bytes_s else "bytes",
-        library_ms=sum(r["library_ms"] for r in main_path),
-    )])
+    training, model, batches = phase_training()
+    phase_train_profile(model, batches)
+    kernels = []
+    for kname, (source, replaces) in SOURCES.items():
+        path = [shapes[kname, label] for label, *_ in TRAIN_SHAPES]  # per train step
+        ops_s = sum(r["gflop"] for r in path) * 1e9 / peak[1]
+        bytes_s = sum(r["mbytes"] for r in path) * 1e6 / peak[2]
+        kernels.append(dict(
+            name=kname, route="cuda", source=source, replaces=replaces,
+            launches=training["launches"][kname],
+            launches_by_path={"training": training["launches"][kname],
+                              "serving": serving["cin_launches"] if kname == "cin_fwd" else 0},
+            max_abs_err=max(r["max_abs_err"] for (k, _), r in shapes.items() if k == kname),
+            ms=sum(r["kernel_ms"] for r in path),
+            plain_ms=sum(r["plain_ms"] for r in path),
+            bound_ms=sum(r["bound_ms"] for r in path),
+            bound_by="operations" if ops_s >= bytes_s else "bytes",
+            library_ms=sum(r["library_ms"] for r in path),
+            per="train step at batch 4096 (2 launches)",
+        ))
+    emit(kernels=kernels)
     emit(ok=True, device=dict(platform="gpu", kind=name, count=torch.cuda.device_count()))
 
 

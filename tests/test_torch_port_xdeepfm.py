@@ -187,13 +187,6 @@ def test_cpu_model_never_launches_the_kernel(pair):
     assert cin_rows_forward.launches == 0
 
 
-def test_fit_waits_for_the_training_slice(pair):
-    _, p = pair
-    x, y = _data(10)
-    with pytest.raises(NotImplementedError, match="training"):
-        p.fit(x, y)
-
-
 def test_pack_matches_jax():
     x, _ = _data(20, seed=10)
     got = tf.FeatureSchema.build(_cols(tf)).pack(x)

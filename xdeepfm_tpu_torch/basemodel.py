@@ -1,26 +1,67 @@
-"""Keras-style engine, inference half (port of ``xdeepfm_tpu/basemodel.py``;
-reference ``deepctr/models/basemodel.py``).
+"""Keras-style engine (port of ``xdeepfm_tpu/basemodel.py``; reference
+``deepctr/models/basemodel.py``).
 
-``compile`` / ``evaluate`` / ``predict`` and weights I/O.  The model runs on a
-CUDA device unless the caller passes ``device="cpu"``; with no GPU present,
-``device=None`` raises instead of carrying on on the CPU.  Training (``fit``,
-optimizers, losses) arrives with the next port slice.
+``compile`` / ``fit`` / ``evaluate`` / ``predict`` and weights I/O.  The model
+runs on a CUDA device unless the caller passes ``device="cpu"``; with no GPU
+present, ``device=None`` raises instead of carrying on on the CPU.
+
+Training follows the JAX engine: a sum-reduced masked loss plus the L2
+registry over canonical parameter paths, the tail batch padded with row 0
+under a zero mask, per-batch metrics on the device, one host sync per epoch.
+``fit`` copies its data to the device once and gathers each batch there.
 
 Model classes subclass :class:`BaseModel` and implement ``_build_module()``
-returning an ``nn.Module`` with signature ``module(batch, training) -> dict``
-whose ``pred`` is [B, 1].
+returning an ``nn.Module`` with signature
+``module(batch, training, generator) -> dict`` whose ``pred`` is [B, 1]
+(optional ``aux_loss``: a scalar added to the loss).
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+import time
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
+from .callbacks import CallbackList, History
 from .features import FeatureSchema
-from .metrics import HOST_METRICS
-from .weights import flatten_tree, from_jax_weights, to_jax_weights, unflatten_tree
+from .metrics import DEVICE_METRICS, HOST_METRICS
+from .optimizers import get_optimizer
+from .weights import (
+    canonical_paths,
+    flatten_tree,
+    from_jax_weights,
+    to_jax_weights,
+    unflatten_tree,
+)
+
+# embedding_optimizer="auto" picks the lazy row-sparse optimizer for stacked
+# tables of at least this many rows (the JAX package's measured crossover,
+# xdeepfm_tpu/basemodel.py:47); the port has only the dense one so far.
+AUTO_LAZY_MIN_ROWS = 6_000_000
+_LAZY_NOT_PORTED = (
+    "the lazy row-sparse embedding optimizer is not ported yet "
+    "(ROADMAP.md, queue 1, item 11); use embedding_optimizer='dense'"
+)
+
+
+def _loss_fn_single(name):
+    """Sum-reduced masked losses (reference ``basemodel.py:463-481`` maps
+    strings to torch functionals called with reduction='sum')."""
+    if name == "binary_crossentropy":
+
+        def bce(y_pred, y_true, mask):
+            p = y_pred.clamp(1e-7, 1 - 1e-7)
+            ll = -(y_true * torch.log(p) + (1 - y_true) * torch.log(1 - p))
+            return (ll * mask).sum()
+
+        return bce
+    if name == "mse":
+        return lambda y_pred, y_true, mask: (mask * (y_pred - y_true) ** 2).sum()
+    if name == "mae":
+        return lambda y_pred, y_true, mask: (mask * (y_pred - y_true).abs()).sum()
+    raise NotImplementedError(name)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -64,8 +105,11 @@ class BaseModel:
         self.add_regularization_weight(("embedding_dict/",), l2=l2_reg_embedding)
         self.add_regularization_weight(("linear_model/",), l2=l2_reg_linear)
 
+        self.stop_training = False
+        self.history = History()
         self.metrics = {}
         self.metrics_names = ["loss"]
+        self.optimizer = None
         self.module = None
 
     def _finalize(self):
@@ -81,17 +125,74 @@ class BaseModel:
             pattern = (pattern,)
         self.regularization_weight.append((tuple(pattern), l1, l2))
 
+    # ------------------------------------------------------ regularization
+
+    def _regularization_terms(self):
+        """(parameter, l1, l2) per parameter that a registered pattern
+        matches, by its canonical path, with the coefficients of every
+        matching pattern added (``basemodel.py:247-253``): the linear table
+        ``linear_model/embedding_dict/table_d1`` matches both
+        ``embedding_dict/`` and ``linear_model/``."""
+        paths = canonical_paths(self.module)
+        terms = []
+        for name, param in self.module.named_parameters():
+            l1 = l2 = 0.0
+            for pattern, a, b in self.regularization_weight:
+                if all(s in paths[name] for s in pattern):
+                    l1, l2 = l1 + a, l2 + b
+            if l1 > 0 or l2 > 0:
+                terms.append((param, l1, l2))
+        return terms
+
+    def _regularization_loss(self):
+        """sum(l1*|w|) + sum(l2*w^2) over the registered parameters
+        (``basemodel.py:221-245``): part of the loss, so its gradient is
+        2*l2*w, not the optimizer's weight decay."""
+        total = torch.zeros((), device=self.device)
+        for param, l1, l2 in self._reg_terms:
+            if l1 > 0:
+                total = total + l1 * param.abs().sum()
+            if l2 > 0:
+                total = total + l2 * param.square().sum()
+        return total
+
     # ------------------------------------------------------------- compile
 
-    def compile(self, optimizer, loss=None, metrics=None, lr=None):
-        """Records the optimizer name, loss name(s) and host metrics
-        (``basemodel.py:433-445``).  The optimizer itself arrives with the
-        training slice."""
-        self.optimizer = optimizer
-        self.lr = lr
+    def compile(self, optimizer, loss=None, metrics=None, lr=None,
+                embedding_optimizer="dense", embedding_gradient="auto",
+                embedding_layout="auto", embedding_state_dtype="float32"):
+        """Optimizer (a name, or a factory of ``torch.optim.Optimizer`` in
+        place of an optax transformation), loss name(s) and host metric names
+        (``basemodel.py:257-440``).  The embedding-optimizer options are the
+        JAX package's; only their dense settings are ported, and any that
+        resolves to the lazy row-sparse optimizer raises."""
+        if embedding_optimizer not in ("dense", "auto", "lazy"):
+            raise ValueError(embedding_optimizer)
+        if embedding_gradient not in ("auto", "dense", "split"):
+            raise ValueError(embedding_gradient)
+        if embedding_layout not in ("auto", "packed", "flat"):
+            raise ValueError(embedding_layout)
+        if embedding_state_dtype not in ("float32", "bfloat16"):
+            raise ValueError(embedding_state_dtype)
+        if embedding_optimizer == "auto":
+            max_rows = max(
+                (p.shape[0] for n, p in self.module.named_parameters() if "table_d" in n),
+                default=0,
+            )
+            lazy = max_rows >= AUTO_LAZY_MIN_ROWS and optimizer in ("adam", "adagrad")
+            embedding_optimizer = "lazy" if lazy else "dense"
+        if embedding_optimizer == "lazy":
+            raise NotImplementedError(_LAZY_NOT_PORTED)
+        if embedding_layout == "packed" or embedding_state_dtype == "bfloat16":
+            raise ValueError(
+                "embedding_layout='packed' and embedding_state_dtype='bfloat16' "
+                "need embedding_optimizer='lazy'"
+            )
         self.loss_names = list(loss) if isinstance(loss, list) else loss
         self.metrics_names = ["loss"]
         self.metrics = self._get_metrics(metrics)
+        self.optimizer = get_optimizer(optimizer, self.module.parameters(), lr)
+        self._reg_terms = self._regularization_terms()
 
     def _get_metrics(self, metrics):
         metrics_ = {}
@@ -102,8 +203,151 @@ class BaseModel:
             self.metrics_names.append(m)
         return metrics_
 
-    def fit(self, *args, **kwargs):
-        raise NotImplementedError("training arrives in the next port slice")
+    # ----------------------------------------------------------------- fit
+
+    def _train_step(self, xb, y, mask, with_metrics=True):
+        """One step on device tensors (``basemodel.py:901-1210``): forward,
+        sum-loss + regularisation + aux loss, backward, optimizer update.
+        Returns (total loss, {metric: value}) as device scalars."""
+        out = self.module(xb, training=True, generator=self._dropout_gen)
+        pred = out["pred"]
+        loss = _loss_fn_single(self.loss_names)(pred.reshape(-1), y.reshape(-1), mask)
+        total = loss + self._regularization_loss() + out.get("aux_loss", 0.0)
+        self.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        self.optimizer.step()
+        mvals = {}
+        if with_metrics:
+            with torch.no_grad():
+                y0 = y.reshape(y.shape[0], -1)[:, 0]
+                p0 = pred.detach().reshape(pred.shape[0], -1)[:, 0]
+                mvals = {name: DEVICE_METRICS[name](y0, p0, mask) for name in self.metrics}
+        return total.detach(), mvals
+
+    def fit(self, x=None, y=None, batch_size=None, epochs=1, verbose=1,
+            initial_epoch=0, validation_split=0.0, validation_data=None,
+            shuffle=True, callbacks=None, steps_per_dispatch=1):
+        """Keras-style training loop (``basemodel.py:1288-1461``).  Returns the
+        ``History``.  ``steps_per_dispatch`` is accepted for the JAX engine's
+        signature, where it runs K steps as one XLA program; here every step
+        is its own Python-loop turn (K steps in one CUDA graph is later
+        work), so it changes no result."""
+        if self.optimizer is None:
+            raise RuntimeError("call compile() before fit()")
+        if isinstance(self.loss_names, list):
+            raise NotImplementedError("loss lists arrive with the multitask models")
+        if steps_per_dispatch < 1:
+            raise ValueError("steps_per_dispatch must be >= 1")
+        batch = self._pack_x(x)
+        y = np.asarray(y, dtype=np.float32)
+        if y.ndim == 1:
+            y = y[:, None]
+        n = len(y)
+
+        do_validation = False
+        if validation_data:
+            do_validation = True
+            if len(validation_data) not in (2, 3):
+                raise ValueError(
+                    "When passing a `validation_data` argument, it must contain "
+                    "either 2 items (x_val, y_val), or 3 items "
+                    "(x_val, y_val, val_sample_weights)"
+                )
+            val_batch = self._pack_x(validation_data[0])
+            val_y = np.asarray(validation_data[1], dtype=np.float32)
+        elif validation_split and 0.0 < validation_split < 1.0:
+            do_validation = True
+            split_at = int(n * (1.0 - validation_split))
+            val_batch = {k: v[split_at:] for k, v in batch.items()}
+            val_y = y[split_at:]
+            batch = {k: v[:split_at] for k, v in batch.items()}
+            y = y[:split_at]
+            n = split_at
+        else:
+            val_batch, val_y = None, []
+
+        if batch_size is None:
+            batch_size = 256
+        steps_per_epoch = (n - 1) // batch_size + 1
+        # the training data lives on the device; batches are gathered there
+        x_dev = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
+        y_dev = torch.as_tensor(y, device=self.device)
+
+        callbacks = CallbackList((callbacks or []) + [self.history])
+        callbacks.set_model(self)
+        callbacks.set_params({
+            "batch_size": batch_size, "epochs": epochs,
+            "steps": steps_per_epoch, "samples": n, "verbose": verbose,
+            "do_validation": do_validation, "metrics": self.metrics_names,
+        })
+        callbacks.on_train_begin()
+        self.stop_training = False
+        # dropout masks: one stream per fit, as the JAX engine folds the step
+        # number into a key seeded with seed + 1
+        self._dropout_gen = torch.Generator(device=self.device).manual_seed(self.seed + 1)
+
+        print(
+            "Train on {0} samples, validate on {1} samples, {2} steps per "
+            "epoch".format(n, len(val_y), steps_per_epoch)
+        )
+        rng = np.random.default_rng(self.seed)
+        for epoch in range(initial_epoch, epochs):
+            callbacks.on_epoch_begin(epoch)
+            start_time = time.time()
+            perm = rng.permutation(n) if shuffle else np.arange(n)
+            # the tail batch is padded with row 0 under a zero mask
+            idx = np.zeros(steps_per_epoch * batch_size, np.int64)
+            idx[:n] = perm
+            mask = np.zeros(steps_per_epoch * batch_size, np.float32)
+            mask[:n] = 1.0
+            idx = torch.as_tensor(idx, device=self.device)
+            mask = torch.as_tensor(mask, device=self.device)
+            totals, mvals = [], []
+            for i in range(steps_per_epoch):
+                take = idx[i * batch_size : (i + 1) * batch_size]
+                total, mv = self._train_step(
+                    {k: v.index_select(0, take) for k, v in x_dev.items()},
+                    y_dev.index_select(0, take),
+                    mask[i * batch_size : (i + 1) * batch_size],
+                    with_metrics=verbose > 0,
+                )
+                totals.append(total)
+                mvals.append(mv)
+            epoch_logs = self._epoch_logs(totals, mvals, n, steps_per_epoch)
+            if do_validation:
+                eval_result = self._evaluate_packed(val_batch, val_y, batch_size)
+                for name, result in eval_result.items():
+                    epoch_logs["val_" + name] = result
+
+            if verbose > 0:
+                epoch_time = int(time.time() - start_time)
+                print("Epoch {0}/{1}".format(epoch + 1, epochs))
+                eval_str = "{0}s - loss: {1: .4f}".format(epoch_time, epoch_logs["loss"])
+                for name in self.metrics:
+                    eval_str += " - " + name + ": {0: .4f}".format(epoch_logs[name])
+                if do_validation:
+                    for name in self.metrics:
+                        eval_str += " - val_" + name + ": {0: .4f}".format(
+                            epoch_logs["val_" + name]
+                        )
+                print(eval_str)
+            callbacks.on_epoch_end(epoch, epoch_logs)
+            if self.stop_training:
+                break
+        callbacks.on_train_end()
+        return self.history
+
+    @staticmethod
+    def _epoch_logs(totals, mvals, n, steps_per_epoch) -> Dict[str, float]:
+        """The epoch's loss (sum of step totals over n) and train metrics
+        (mean over steps), read from the device in one transfer."""
+        names = list(mvals[0]) if mvals else []
+        values = torch.stack(totals + [mv[k] for mv in mvals for k in names]).cpu().numpy()
+        logs = {"loss": float(np.sum(values[: len(totals)].astype(np.float64))) / n}
+        per_step = values[len(totals) :].reshape(len(mvals), len(names)).astype(np.float64)
+        for j, name in enumerate(names):
+            logs[name] = float(np.sum(per_step[:, j]) / steps_per_epoch)
+        return logs
 
     # ------------------------------------------------------ evaluate/predict
 
@@ -130,7 +374,10 @@ class BaseModel:
             return self.module(xb, training=False)["pred"]
 
     def evaluate(self, x, y, batch_size=256):
-        pred = self.predict(x, batch_size)
+        return self._evaluate_packed(self._pack_x(x), y, batch_size)
+
+    def _evaluate_packed(self, batch, y, batch_size=256):
+        pred = self._predict_packed(batch, batch_size)
         return {
             name: fn(np.asarray(y).reshape(pred.shape), pred)
             for name, fn in self.metrics.items()

@@ -53,8 +53,10 @@ def _require_no_varlen(feature_columns):
 def fused_gather(tables: Sequence[torch.Tensor], ids: torch.Tensor) -> torch.Tensor:
     """One gather serving several same-layout stacked tables (identical row
     count and id pattern, e.g. the main ``table_d10`` and the linear
-    ``table_d1``): rows of their column concat, [N, sum(dims)].  Forward-only
-    counterpart of ``embeddings.fused_gather`` (``embeddings.py:394-410``)."""
+    ``table_d1``): rows of their column concat, [N, sum(dims)].  Counterpart
+    of ``embeddings.fused_gather`` (``embeddings.py:394-427``); its backward
+    is autograd's, one dense scatter-add (``index_select``'s) into the concat,
+    split per table, as the JAX ``custom_vjp`` does."""
     return torch.cat(tuple(tables), dim=1).index_select(0, ids)
 
 

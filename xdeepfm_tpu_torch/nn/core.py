@@ -72,7 +72,9 @@ class DNN(nn.Module):
         if len(hidden_units) == 0:
             raise ValueError("hidden_units is empty!!")
         if use_bn:
-            raise NotImplementedError("use_bn arrives with the training slice")
+            raise NotImplementedError(
+                "use_bn (BatchNorm) is not ported yet: ROADMAP.md, deferred item D3"
+            )
         if generator is None:
             generator = torch.Generator().manual_seed(seed)
         self.dropout_rate = dropout_rate

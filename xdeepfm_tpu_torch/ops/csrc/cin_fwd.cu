@@ -33,17 +33,15 @@
 // ragged row, channel and K edges instead.  fp32 FMAs on the CUDA cores:
 // tensor cores (TF32/bf16 wgmma) are a later, opt-in change of numerics.
 
-#include <cuda_runtime.h>
+#include "cin_tile.cuh"
 
 namespace {
 
-constexpr int BM = 128;  // rows per block
-constexpr int BN = 128;  // output channels per block
-constexpr int BK = 16;   // depth of one K chunk
-constexpr int TM = 8;    // rows per thread: two groups of 4, BM/2 apart
-constexpr int TN = 8;    // channels per thread: two groups of 4, BN/2 apart
-constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
-constexpr int ZLD = BM + 4;  // z tile row, padded: float4-aligned, 2-way stores
+using cin::BK;
+using cin::BM;
+using cin::BN;
+using cin::THREADS;
+constexpr int ZLD = cin::ALD;           // z tile row, padded
 constexpr int ZROWS = THREADS / BK;     // rows the z loader covers per pass
 constexpr int ZPASS = BM / ZROWS;       // z values per thread per chunk
 constexpr int WSTEP = THREADS / BN;     // k slots the W^T loader covers per pass
@@ -63,8 +61,8 @@ cin_fwd_kernel(const float* __restrict__ h, int ldh,
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * BM;
   const int col0 = blockIdx.y * BN;
-  const int tr = tid / (BN / TN);  // this thread's row group, 0..15
-  const int tc = tid % (BN / TN);  // this thread's channel group, 0..15
+  const int tr = tid / (BN / cin::TN);  // this thread's row group, 0..15
+  const int tc = tid % (BN / cin::TN);  // this thread's channel group, 0..15
 
   // z loader: k slot zk of every chunk, rows zr + p * ZROWS.  (zh, zm) is
   // (k / M, k % M) for this thread's k in the chunk being loaded.
@@ -88,7 +86,7 @@ cin_fwd_kernel(const float* __restrict__ h, int ldh,
 #pragma unroll
     for (int p = 0; p < ZPASS; ++p) {
       zreg[p] = (k_ok && p * ZROWS < rows_left)
-                    ? __ldg(hz + p * ZROWS * ldh + zh) * __ldg(xz + p * ZROWS * M + zm)
+                    ? cin::z_at(hz + p * ZROWS * ldh, xz + p * ZROWS * M, zh, zm)
                     : 0.f;
     }
 #pragma unroll
@@ -104,11 +102,8 @@ cin_fwd_kernel(const float* __restrict__ h, int ldh,
     for (int p = 0; p < WPASS; ++p) ws[buf][wk + p * WSTEP][wc] = wreg[p];
   };
 
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  float acc[cin::TM][cin::TN];
+  cin::tile_zero(acc);
 
   load_chunk(0);
   store_chunk(0);
@@ -125,19 +120,7 @@ cin_fwd_kernel(const float* __restrict__ h, int ldh,
       }
       load_chunk(k0 + BK);
     }
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&zs[buf][kk][tr * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&zs[buf][kk][BM / 2 + tr * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&ws[buf][kk][tc * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&ws[buf][kk][BN / 2 + tc * 4]);
-      const float a[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[TN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
+    cin::tile_fma(zs[buf], ws[buf], tr, tc, acc);
     // The other buffer was last read before the previous barrier.
     if (more) store_chunk(buf ^ 1);
     __syncthreads();
@@ -147,8 +130,8 @@ cin_fwd_kernel(const float* __restrict__ h, int ldh,
   // Epilogue: add the bias and store, masking the ragged row/channel edges.
   const bool vec_ok = (O & 3) == 0;  // rows start 16-byte aligned
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = row0 + (i < 4 ? tr * 4 + i : BM / 2 + tr * 4 + (i - 4));
+  for (int i = 0; i < cin::TM; ++i) {
+    const int r = row0 + cin::tile_row(tr, i);
     if (r >= N) continue;
     float* orow = out + (long long)r * O;
 #pragma unroll

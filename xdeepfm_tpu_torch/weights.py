@@ -42,7 +42,9 @@ def unflatten_tree(flat: Dict[str, np.ndarray]) -> dict:
 def from_jax_weights(tree) -> Dict[str, torch.Tensor]:
     """Canonical JAX weight tree -> port ``state_dict`` (CPU fp32 tensors)."""
     if tree.get("batch_stats"):
-        raise NotImplementedError("BatchNorm statistics arrive with the training slice")
+        raise NotImplementedError(
+            "BatchNorm statistics are not ported yet: ROADMAP.md, deferred item D3"
+        )
     state = {}
     for path, leaf in flatten_tree(tree["params"]):
         segs = path.split("/")
@@ -54,17 +56,29 @@ def from_jax_weights(tree) -> Dict[str, torch.Tensor]:
     return state
 
 
-def to_jax_weights(module: nn.Module) -> dict:
-    """A port model's module -> the canonical JAX weight tree (numpy)."""
+def canonical_paths(module: nn.Module) -> Dict[str, str]:
+    """Port state-dict key -> its JAX parameter path (``cin/conv_w_0``,
+    ``dnn/linear_0/kernel``...): ``.`` becomes ``/`` and an ``nn.Linear``
+    ``weight`` is the flax ``kernel``."""
     linear_weights = {
         f"{name}.weight" for name, m in module.named_modules() if isinstance(m, nn.Linear)
     }
-    flat = {}
-    for key, t in module.state_dict().items():
+    paths = {}
+    for key in module.state_dict():
         segs = key.split(".")
-        arr = t.detach().cpu().numpy()
         if key in linear_weights:
             segs[-1] = "kernel"
+        paths[key] = "/".join(segs)
+    return paths
+
+
+def to_jax_weights(module: nn.Module) -> dict:
+    """A port model's module -> the canonical JAX weight tree (numpy)."""
+    paths = canonical_paths(module)
+    flat = {}
+    for key, t in module.state_dict().items():
+        arr = t.detach().cpu().numpy()
+        if paths[key].endswith("/kernel"):
             arr = arr.T
-        flat["/".join(segs)] = np.ascontiguousarray(arr)
+        flat[paths[key]] = np.ascontiguousarray(arr)
     return {"params": unflatten_tree(flat), "batch_stats": {}}
