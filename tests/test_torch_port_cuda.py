@@ -1,5 +1,6 @@
 """PyTorch port on the card: each CUDA kernel against its plain version, and
-the model on the card against the same model on the CPU.
+the models on the card against the same models on the CPU or with the plain
+versions.
 
 Every test needs an NVIDIA GPU and skips without one.  The file imports no
 JAX, so on a machine with PyTorch alone run it without the JAX conftest:
@@ -13,6 +14,13 @@ import torch
 
 from xdeepfm_tpu_torch.features import DenseFeat, SparseFeat
 from xdeepfm_tpu_torch.models import xDeepFM
+from xdeepfm_tpu_torch.ops import ce
+from xdeepfm_tpu_torch.ops.ce_cuda import (
+    ce_rows_backward,
+    ce_rows_backward_reference,
+    ce_rows_forward,
+    ce_rows_forward_reference,
+)
 from xdeepfm_tpu_torch.ops.cin import set_backward_impl
 from xdeepfm_tpu_torch.ops.cin_cuda import (
     cin_rows_backward,
@@ -22,6 +30,7 @@ from xdeepfm_tpu_torch.ops.cin_cuda import (
     cin_rows_forward,
     cin_rows_reference,
 )
+from xdeepfm_tpu_torch.pro import xDeepFMPro
 from xdeepfm_tpu_torch.weights import flatten_tree, unflatten_tree
 
 # fp32 sums of up to H*M unit-normal products, in another order than cuBLAS's
@@ -199,3 +208,132 @@ def test_model_on_card_matches_cpu(card):
     want = cpu.predict(x, 256)
     assert want.std() > 1e-2  # every tower moves the scores
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+def _ce_inputs(seed, F, B, K, V, pad=0):
+    """Unit-normal h, W / sqrt(K), b on the card; the last ``pad`` columns of
+    each head padded as the decoder pads stacked heads (W 0, b -1e30)."""
+    gen = torch.Generator().manual_seed(seed)
+    h = torch.randn(B, K, generator=gen)
+    W = torch.randn(F, V, K, generator=gen) / K**0.5
+    b = torch.randn(F, V, generator=gen)
+    if pad:
+        W[:, -pad:] = 0.0
+        b[:, -pad:] = ce._NEG
+    t = torch.randint(0, V - pad, (F, B), generator=gen)
+    g = torch.randn(F, B, generator=gen)
+    return [x.cuda() for x in (h, W, b, t, g)]
+
+
+# (F, B, K, V, pad, num_valid): the canonical stacked shape cut in depth, a
+# single head, ragged B, K and V, a tile straddling num_valid, num_valid 0,
+# a tiny one
+CE_SHAPES = [
+    (26, 512, 64, 10112, 112, None),
+    (1, 1000, 64, 10000, 0, 333),
+    (3, 1001, 13, 1000, 0, 700),
+    (2, 300, 40, 257, 5, 129),
+    (2, 256, 64, 1000, 0, 0),
+    (1, 5, 3, 7, 0, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("F,B,K,V,pad,nv", CE_SHAPES)
+def test_ce_kernels_match_plain(card, F, B, K, V, pad, nv, precision):
+    h, W, b, t, g = _ce_inputs(F + B + K + V, F, B, K, V, pad)
+    n_fwd, n_bwd = ce_rows_forward.launches, ce_rows_backward.launches
+    ll, logz = ce_rows_forward(h, W, b, t, nv, precision)
+    grads = ce_rows_backward(g, h, W, b, t, logz, nv, precision)
+    torch.cuda.synchronize()
+    assert (ce_rows_forward.launches, ce_rows_backward.launches) == (n_fwd + 1, n_bwd + 1)
+    want_ll, want_logz = ce_rows_forward_reference(h, W, b, t, nv, precision)
+    torch.testing.assert_close(ll, want_ll, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(logz, want_logz, rtol=1e-5, atol=1e-4)
+    # fp32: each gradient within 1e-4 of its largest entry.  bf16 rounds dS:
+    # where the kernel's fp32 value and the plain one straddle a rounding
+    # boundary they differ by one bf16 step (2^-8), hence 1e-2 there.
+    rtol = 1e-4 if precision == "fp32" else 1e-2
+    for got, want in zip(grads, ce_rows_backward_reference(g, h, W, b, t, logz, nv, precision)):
+        torch.testing.assert_close(got, want, rtol=rtol,
+                                   atol=rtol * float(want.abs().max()) + 1e-6)
+    if nv is not None:
+        assert (ll[:, nv:] == 0).all() and (grads[0][nv:] == 0).all()
+    if nv == 0:
+        assert all((x == 0).all() for x in grads)
+    # partial sums are added in a fixed order: a second run is bit-equal
+    for a, c in zip(grads, ce_rows_backward(g, h, W, b, t, logz, nv, precision)):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_ce_kernels_reject_bad_input(card):
+    h, W, b, t, g = _ce_inputs(0, 2, 64, 8, 100)
+    logz = torch.zeros_like(g)
+    for bad in (
+        (h.double(), W, b, t),
+        (h, W, b, t.int()),  # int32 targets
+        (h.t().contiguous().t(), W, b, t),  # column-major h
+        (h, W[:, :-1], b, t),
+        (h.cpu(), W, b, t),
+        (h[:, :0].contiguous(), W[..., :0].contiguous(), b, t),  # K = 0
+        (torch.randn(64, 65, device="cuda"), torch.randn(2, 100, 65, device="cuda"), b, t),
+        (h, W[:, :0].contiguous(), b[:, :0].contiguous(), t),  # V = 0
+    ):
+        with pytest.raises(ValueError):
+            ce_rows_forward(*bad)
+        with pytest.raises(ValueError):
+            ce_rows_backward(g, *bad, logz)
+    with pytest.raises(ValueError):
+        ce_rows_forward(h, W, b, t, 1.5)  # num_valid must be an integer
+    with pytest.raises(ValueError):
+        ce_rows_backward(g[:, :-1], h, W, b, t, logz)
+
+
+def _pro_batch(n, seed, vocabs):
+    rng = np.random.default_rng(seed)
+    return {
+        "sparse": torch.as_tensor(np.stack([rng.integers(0, v, n) for v in vocabs], 1),
+                                  device="cuda"),
+        "dense": torch.as_tensor(rng.uniform(0, 1, (n, 2)), dtype=torch.float32, device="cuda"),
+        "labels": torch.as_tensor(rng.uniform(size=(n, 1)) < 0.4, dtype=torch.float32,
+                                  device="cuda"),
+        "sample_mask": torch.as_tensor(np.arange(n) < n - 7, dtype=torch.float32, device="cuda"),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stack", [True, False])
+def test_pro_gradients_through_ce_kernels_match_plain(card, stack):
+    """The SFG loss's gradients reach every parameter through the CE kernels
+    (stacked heads, and one launch per head) as through the plain CE."""
+    vocabs = (300, 300, 290, 1000)  # a bucket of three heads (384) and one of 1024
+    cols = [SparseFeat(f"C{i}", v, 8) for i, v in enumerate(vocabs)] + [
+        DenseFeat(f"I{i}") for i in range(2)
+    ]
+    model = xDeepFMPro(cols, cols, dnn_hidden_units=(32,), cin_layer_size=(16, 8),
+                       sfg_hidden_units=(32, 24), sfg_dropout=0.0, device="cuda")
+    batch = _pro_batch(700, 4, vocabs)
+    params = dict(model.module.named_parameters())
+    grads, launches = {}, {}
+    ce.set_stack_heads(stack)
+    try:
+        for backend in (None, "torch"):
+            model.module.sfg_decoder.ce_backend = backend
+            model.module.zero_grad(set_to_none=True)
+            before = (ce_rows_forward.launches, ce_rows_backward.launches)
+            out = model.module(batch, training=True)
+            out["aux_loss"].backward()
+            launches[backend] = (ce_rows_forward.launches - before[0],
+                                 ce_rows_backward.launches - before[1])
+            grads[backend] = {k: p.grad.clone() for k, p in params.items() if p.grad is not None}
+    finally:
+        ce.set_stack_heads(True)
+        model.module.sfg_decoder.ce_backend = None
+    per_step = (2, 2) if stack else (4, 4)
+    assert launches == {None: per_step, "torch": (0, 0)}
+    assert sorted(grads[None]) == sorted(grads["torch"])
+    assert any(k.startswith("sfg_decoder.head_C3") for k in grads[None])
+    for k in grads["torch"]:
+        _close(grads[None][k], grads["torch"][k])

@@ -13,7 +13,8 @@ under a zero mask, per-batch metrics on the device, one host sync per epoch.
 Model classes subclass :class:`BaseModel` and implement ``_build_module()``
 returning an ``nn.Module`` with signature
 ``module(batch, training, generator) -> dict`` whose ``pred`` is [B, 1]
-(optional ``aux_loss``: a scalar added to the loss).
+(optional ``aux_loss``: a scalar added to the loss; optional ``logs``: named
+scalars averaged into the epoch logs).
 """
 
 from __future__ import annotations
@@ -208,7 +209,11 @@ class BaseModel:
     def _train_step(self, xb, y, mask, with_metrics=True):
         """One step on device tensors (``basemodel.py:901-1210``): forward,
         sum-loss + regularisation + aux loss, backward, optimizer update.
-        Returns (total loss, {metric: value}) as device scalars."""
+        Returns (total loss, {metric or module log: value}) as device
+        scalars.  The batch gains ``labels`` and ``sample_mask``, as the JAX
+        engine's does (``basemodel.py:904-905``), for modules whose loss needs
+        them (the SFG decoder)."""
+        xb = dict(xb, labels=y[:, :1] if y.ndim > 1 else y[:, None], sample_mask=mask.reshape(-1))
         out = self.module(xb, training=True, generator=self._dropout_gen)
         pred = out["pred"]
         loss = _loss_fn_single(self.loss_names)(pred.reshape(-1), y.reshape(-1), mask)
@@ -222,6 +227,10 @@ class BaseModel:
                 y0 = y.reshape(y.shape[0], -1)[:, 0]
                 p0 = pred.detach().reshape(pred.shape[0], -1)[:, 0]
                 mvals = {name: DEVICE_METRICS[name](y0, p0, mask) for name in self.metrics}
+        # scalars a module publishes (sfg_loss) reach the epoch logs even at
+        # verbose=0 (basemodel_sfg.py:366-367)
+        for name, value in out.get("logs", {}).items():
+            mvals[name] = value.detach()
         return total.detach(), mvals
 
     def fit(self, x=None, y=None, batch_size=None, epochs=1, verbose=1,
@@ -339,8 +348,8 @@ class BaseModel:
 
     @staticmethod
     def _epoch_logs(totals, mvals, n, steps_per_epoch) -> Dict[str, float]:
-        """The epoch's loss (sum of step totals over n) and train metrics
-        (mean over steps), read from the device in one transfer."""
+        """The epoch's loss (sum of step totals over n) and train metrics and
+        module logs (mean over steps), read from the device in one transfer."""
         names = list(mvals[0]) if mvals else []
         values = torch.stack(totals + [mv[k] for mv in mvals for k in names]).cpu().numpy()
         logs = {"loss": float(np.sum(values[: len(totals)].astype(np.float64))) / n}
