@@ -11,8 +11,9 @@ run in order and any failure raises, so the exit code is non-zero:
 3. kernel vs plain: each kernel (``cin_fwd``, ``cin_bwd_dx``, ``cin_dw``)
    against its plain PyTorch version on the card at the serving and training
    paths' shapes (layer 1's h a strided column view, as split-half gives it)
-   and at a ragged and a tiny shape, with its time, the plain version's time
-   and the least time the card could take (bound);
+   and at a ragged and a tiny shape, with its time, the plain version's time,
+   one ``torch.einsum`` over the three operands (the library yardstick) and
+   the least time the card could take (bound);
 4. serving: the canonical xDeepFM (26 sparse fields, vocab 10000, dim 10,
    13 dense, CIN (256, 128) split-half, DNN (256, 256)) with seeded random
    weights scores four requests through ``Scorer(batch_size=8192)``; the CIN
@@ -50,10 +51,30 @@ run in order and any failure raises, so the exit code is non-zero:
 10. Pro scoring: ``Scorer(batch_size=8192)`` over the Pro model scores the
    serving requests with 2 ``cin_fwd`` and no CE launch per batch, and agrees
    with the CPU model on a small input;
-11. a ``{"kernels": [...]}`` line, one entry per hand-written kernel;
-12. the last line: ``{"ok": true, "device": {...}}``.
+11. attention kernels vs plain (run right after the CE kernels): ``sa_fwd``
+   / ``sa_bwd`` (small_attention) at V2's train shape (G 8192, dh 5, S 256),
+   its serving shape (G 16384), ragged, tiny and bf16, beside
+   ``F.scaled_dot_product_attention`` on the [G, S, dh] views (backward by
+   autograd); ``ab_fwd`` / ``ab_bwd`` (the fused block) at V1's train shape
+   (B 4096, E 10, S 256, 2 heads, L 1), at L = 2, without the residual,
+   without the LayerNorm and ragged; every backward bit-equal over two runs;
+12. attention training, for xDeepFMAttention (V1) and xDeepFMAttentionV2
+   (V2, 2 layers) at the canonical widths: ``fit`` at batch 4096 with Adam
+   for three epochs; per step the CIN's 2 + 2 + 2 launches and V1's
+   ``ab_fwd`` + ``ab_bwd`` or V2's 2 ``sa_fwd`` + 2 ``sa_bwd``; one step's
+   gradients with the kernels and with the plain versions, both held against
+   a float64 copy of the model (each parameter's kernel gradient as close to
+   float64 as the plain fp32 one, or within 1e-4 of its largest entry), one
+   SGD step against the CPU model,
+   the epoch loss falling, examples/s with the kernels and the plain
+   versions; a training profile; then ``Scorer(batch_size=8192)`` with 2
+   ``cin_fwd`` + 1 ``ab_fwd`` (V1) or + 2 ``sa_fwd`` (V2) per batch, agreeing
+   with the CPU model on a small input;
+13. a ``{"kernels": [...]}`` line, one entry per hand-written kernel;
+14. the last line: ``{"ok": true, "device": {...}}``.
 """
 
+import copy
 import json
 import subprocess
 import time
@@ -64,8 +85,21 @@ import torch.nn.functional as F
 
 from xdeepfm_tpu_torch.basemodel import _loss_fn_single
 from xdeepfm_tpu_torch.features import DenseFeat, SparseFeat
-from xdeepfm_tpu_torch.models import xDeepFM
-from xdeepfm_tpu_torch.ops import _build, ce
+from xdeepfm_tpu_torch.models import xDeepFM, xDeepFMAttention, xDeepFMAttentionV2
+from xdeepfm_tpu_torch.ops import _build, attention, attn_block, ce
+from xdeepfm_tpu_torch.ops.attention_cuda import (
+    sa_backward,
+    sa_backward_reference,
+    sa_forward,
+    sa_forward_reference,
+)
+from xdeepfm_tpu_torch.ops.attn_block_cuda import (
+    BlockCfg,
+    ab_backward,
+    ab_backward_reference,
+    ab_forward,
+    ab_forward_reference,
+)
 from xdeepfm_tpu_torch.ops.ce_cuda import (
     ce_rows_backward,
     ce_rows_backward_reference,
@@ -129,12 +163,16 @@ SOURCES = {
                ["xdeepfm_tpu/ops/ce_pallas.py:138", "xdeepfm_tpu/ops/ce_pallas.py:369"]),
     "ce_bwd": ("xdeepfm_tpu_torch/ops/csrc/ce_bwd.cu",
                ["xdeepfm_tpu/ops/ce_pallas.py:204", "xdeepfm_tpu/ops/ce_pallas.py:423"]),
+    "sa_fwd": ("xdeepfm_tpu_torch/ops/csrc/sa_fwd.cu", "xdeepfm_tpu/ops/attention_pallas.py:204"),
+    "sa_bwd": ("xdeepfm_tpu_torch/ops/csrc/sa_bwd.cu", "xdeepfm_tpu/ops/attention_pallas.py:229"),
+    "ab_fwd": ("xdeepfm_tpu_torch/ops/csrc/ab_fwd.cu", "xdeepfm_tpu/ops/attn_block_pallas.py:502"),
+    "ab_bwd": ("xdeepfm_tpu_torch/ops/csrc/ab_bwd.cu", "xdeepfm_tpu/ops/attn_block_pallas.py:541"),
 }
 WRAPPERS = {
     "cin_fwd": cin_rows_forward, "cin_bwd_dx": cin_rows_backward, "cin_dw": cin_rows_dw,
     "ce_fwd": ce_rows_forward, "ce_bwd": ce_rows_backward,
+    "sa_fwd": sa_forward, "sa_bwd": sa_backward, "ab_fwd": ab_forward, "ab_bwd": ab_backward,
 }
-NO_CE = {"ce_fwd": 0, "ce_bwd": 0}
 
 # The Pro step's fused CE (canonical xDeepFMPro: 26 heads of vocabulary 10000,
 # padded to 10112 and stacked; hidden K = 64, the last SFG hidden width).
@@ -203,23 +241,29 @@ def phase_build():
 
 
 def _kernel_case(name, N, H, M, O, strided, gen):
-    """(kernel call, plain call, bytes the function must move) on fresh
-    unit-normal inputs; h is a column view of an [N, 2H] tensor if
-    ``strided``."""
+    """(kernel call, plain call, library call, bytes the function must move)
+    on fresh unit-normal inputs; h is a column view of an [N, 2H] tensor if
+    ``strided``.  The library call is one ``torch.einsum`` over the three
+    operands per output (dh and dx0 for cin_bwd_dx), timed only."""
     def rand(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
 
     h = rand(N, 2 * H)[:, :H] if strided else rand(N, H)
     x0, W, b, g = rand(N, M), rand(O, H * M), rand(O), rand(N, O)
+    W3 = W.view(O, H, M)
     ins = 4 * (N * H + N * M)
     if name == "cin_fwd":
         return (lambda: cin_rows_forward(h, x0, W, b), lambda: cin_rows_reference(h, x0, W, b),
+                lambda: torch.einsum("nh,nm,ohm->no", h, x0, W3),
                 ins + 4 * (O * H * M + O + N * O))
     if name == "cin_bwd_dx":
         return (lambda: cin_rows_backward(g, h, x0, W),
                 lambda: cin_rows_backward_reference(g, h, x0, W),
+                lambda: (torch.einsum("no,nm,ohm->nh", g, x0, W3),
+                         torch.einsum("no,nh,ohm->nm", g, h, W3)),
                 ins + 4 * (N * O + O * H * M) + ins)
     return (lambda: cin_rows_dw(g, h, x0), lambda: cin_rows_dw_reference(g, h, x0),
+            lambda: torch.einsum("no,nh,nm->ohm", g, h, x0),
             ins + 4 * (N * O + O * H * M))
 
 
@@ -235,7 +279,7 @@ def phase_kernels(peak):
         for name in ("cin_fwd", "cin_bwd_dx", "cin_dw")
     ]
     for name, (label, N, H, M, O, strided) in cases:
-        kernel, plain, nbytes = _kernel_case(name, N, H, M, O, strided, gen)
+        kernel, plain, library, nbytes = _kernel_case(name, N, H, M, O, strided, gen)
         got = kernel()
         torch.cuda.synchronize()
         want = plain()
@@ -251,11 +295,12 @@ def phase_kernels(peak):
         iters = 20 if N > 10_000 else 200
         kernel_ms = cuda_ms(kernel, iters)
         plain_ms = cuda_ms(plain, iters)
+        library_ms = cuda_ms(library, iters)
         flops = 2 * N * H * M * O
         by_ops = flops / peak_flops >= nbytes / peak_bw
         results[name, label] = dict(
             N=N, H=H, M=M, O=O, strided_h=strided, max_abs_err=err, kernel_ms=kernel_ms,
-            plain_ms=plain_ms, library_ms=plain_ms, library="the plain version (materialised)",
+            plain_ms=plain_ms, library_ms=library_ms, library="torch.einsum over h, x0 and W",
             bound_ms=max(flops / peak_flops, nbytes / peak_bw) * 1e3,
             bound_by="operations" if by_ops else "bytes",
             gflop=flops / 1e9, mbytes=nbytes / 1e6, tflops=flops / kernel_ms / 1e9,
@@ -270,12 +315,27 @@ def canonical_columns():
     ]
 
 
-def canonical_model(device, weights=None, seeded=True):
-    """The canonical xDeepFM with ``weights``, else random weights from
-    SEED (``seeded``), else its own initialisation."""
-    cols = canonical_columns()
-    model = xDeepFM(cols, cols, dnn_hidden_units=DNN_UNITS,
-                    cin_layer_size=CIN_LAYERS, device=device)
+# The models at the canonical widths: xDeepFM, and the attention CIN's two
+# (bench.py's rows attn, xDeepFMAttention(cols, cols, cin_num_heads=2), and
+# attn2, xDeepFMAttentionV2(cols, cols, cin_num_heads=4,
+# cin_num_attn_layers=2); E = 10 allows 2 heads, so V2 runs 2 of dh 5)
+MODELS = {
+    "xdeepfm": lambda cols, device: xDeepFM(
+        cols, cols, dnn_hidden_units=DNN_UNITS, cin_layer_size=CIN_LAYERS, device=device),
+    "v1": lambda cols, device: xDeepFMAttention(
+        cols, cols, dnn_hidden_units=DNN_UNITS, cin_layer_size=CIN_LAYERS, cin_num_heads=2,
+        device=device),
+    "v2": lambda cols, device: xDeepFMAttentionV2(
+        cols, cols, dnn_hidden_units=DNN_UNITS, cin_layer_size=CIN_LAYERS, cin_num_heads=4,
+        cin_num_attn_layers=2, device=device),
+}
+
+
+def canonical_model(device, weights=None, seeded=True, version="xdeepfm"):
+    """The canonical xDeepFM (or attention ``version``) with ``weights``,
+    else random weights from SEED (``seeded``), else its own
+    initialisation."""
+    model = MODELS[version](canonical_columns(), device)
     if weights is None and not seeded:
         return model
     if weights is None:
@@ -322,7 +382,7 @@ def phase_serving():
     preds, _, _ = score_all(scorer, reqs)
     counts = read_launches()
     launches = counts["cin_fwd"]
-    if counts != {"cin_fwd": 2 * n_batches, "cin_bwd_dx": 0, "cin_dw": 0, **NO_CE}:
+    if counts != expected(cin_fwd=2 * n_batches):
         raise AssertionError(
             f"CIN kernels launched {counts} for {n_batches} scored batches, "
             f"expected {2 * n_batches} forward launches and no backward"
@@ -403,6 +463,11 @@ def read_launches():
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
+def expected(**counts):
+    """Launch counts of every kernel: ``counts``, and 0 for the rest."""
+    return {name: counts.get(name, 0) for name in WRAPPERS}
+
+
 def device_batch(model, x, y, n):
     packed = model.schema.pack({k: v[:n] for k, v in x.items()})
     xb = {k: torch.as_tensor(v, device=model.device) for k, v in packed.items()}
@@ -467,10 +532,10 @@ def phase_training():
     fit_s = time.perf_counter() - t0
     launches = read_launches()
     steps = TRAIN_STEPS_PER_EPOCH * TRAIN_EPOCHS
-    want = {
-        "cin_fwd": 2 * (steps + TRAIN_EPOCHS * n_val_batches),  # + validation batches
-        "cin_bwd_dx": 2 * steps, "cin_dw": 2 * steps, **NO_CE,
-    }
+    want = expected(
+        cin_fwd=2 * (steps + TRAIN_EPOCHS * n_val_batches),  # + validation batches
+        cin_bwd_dx=2 * steps, cin_dw=2 * steps,
+    )
     if launches != want:
         raise AssertionError(f"CIN launches {launches} over {steps} steps, expected {want}")
     logs = history.history
@@ -493,9 +558,9 @@ def phase_training():
         counts = read_launches()
         if impl == "legacy":
             legacy_launches = counts
-            if counts != {"cin_fwd": 6, "cin_bwd_dx": 0, "cin_dw": 2, **NO_CE}:
+            if counts != expected(cin_fwd=6, cin_dw=2):
                 raise AssertionError(f"legacy backward launched {counts} in one step")
-        elif counts != {"cin_fwd": 2, "cin_bwd_dx": 2, "cin_dw": 2, **NO_CE}:
+        elif counts != expected(cin_fwd=2, cin_bwd_dx=2, cin_dw=2):
             raise AssertionError(f"fused backward launched {counts} in one step")
         grad_errs[impl] = grad_err(got_g, want_g)
         if grad_errs[impl] > GRAD_RTOL:
@@ -698,8 +763,8 @@ def phase_pro_training():
     steps = TRAIN_STEPS_PER_EPOCH * TRAIN_EPOCHS
     # one bucket of 26 heads: one ce_fwd and one ce_bwd a step, none in the
     # 3 validation batches (no labels there)
-    want = {"cin_fwd": 2 * (steps + TRAIN_EPOCHS), "cin_bwd_dx": 2 * steps,
-            "cin_dw": 2 * steps, "ce_fwd": steps, "ce_bwd": steps}
+    want = expected(cin_fwd=2 * (steps + TRAIN_EPOCHS), cin_bwd_dx=2 * steps,
+                    cin_dw=2 * steps, ce_fwd=steps, ce_bwd=steps)
     if launches != want:
         raise AssertionError(f"Pro launches {launches} over {steps} steps, expected {want}")
     logs = history.history
@@ -726,7 +791,7 @@ def phase_pro_training():
         got_g = pro_step_grads(model, batch, yb)
         counts = read_launches()
         n = 1 if stack else N_SPARSE
-        if counts != {"cin_fwd": 2, "cin_bwd_dx": 2, "cin_dw": 2, "ce_fwd": n, "ce_bwd": n}:
+        if counts != expected(cin_fwd=2, cin_bwd_dx=2, cin_dw=2, ce_fwd=n, ce_bwd=n):
             raise AssertionError(f"stack_heads={stack}: one step launched {counts}")
         key = "stacked" if stack else "per_head"
         step_launches[key] = counts
@@ -781,7 +846,7 @@ def phase_pro_scoring(model):
     reset_launches()
     preds, eps, ms = score_all(scorer, reqs)
     counts = read_launches()
-    if counts != {"cin_fwd": 2 * n_batches, "cin_bwd_dx": 0, "cin_dw": 0, **NO_CE}:
+    if counts != expected(cin_fwd=2 * n_batches):
         raise AssertionError(f"Pro scoring launched {counts} for {n_batches} batches")
     for n, p in zip(REQUESTS, preds):
         if p.shape != (n, 1) or not (np.isfinite(p).all() and (p > 0).all() and (p < 1).all()):
@@ -795,6 +860,320 @@ def phase_pro_scoring(model):
                   examples_per_s=eps, ms=ms, max_abs_diff_vs_cpu=cpu_err,
                   score_std=float(np.concatenate(preds).std()))
     emit(phase="pro_scoring", **record)
+    return record
+
+
+# ---------------------------------------------------------------------------
+# the attention CIN: TPU kernel rows 8-11
+# ---------------------------------------------------------------------------
+
+ATTN_S = CIN_LAYERS[0] // 2 + CIN_LAYERS[1]  # 256 feature maps (split-half)
+# (label, G, dh, S, precision): V2's train step launches small_attention twice
+# at G = 4096 rows x 2 heads; scoring at batch 8192; a ragged and a tiny
+# shape; the train shape under set_precision("bf16")
+SA_SHAPES = (
+    ("v2_train", TRAIN_BATCH * 2, DIM // 2, ATTN_S, "fp32"),
+    ("v2_serve", BATCH * 2, DIM // 2, ATTN_S, "fp32"),
+    ("ragged", 7, 3, 37, "fp32"),
+    ("tiny", 2, 1, 5, "fp32"),
+    ("v2_train_bf16", TRAIN_BATCH * 2, DIM // 2, ATTN_S, "bf16"),
+)
+SA_PATH_SHAPE = "v2_train"
+# (label, B, E, S, H, L, use_residual, use_layer_norm): V1's train step runs
+# the block once; L = 2, each of the residual and the LayerNorm off (a
+# quarter of the batch: not on the path), a ragged shape
+AB_SHAPES = (
+    ("v1_train", TRAIN_BATCH, DIM, ATTN_S, 2, 1, True, True),
+    ("layers_2", TRAIN_BATCH, DIM, ATTN_S, 2, 2, True, True),
+    ("no_residual", TRAIN_BATCH // 4, DIM, ATTN_S, 2, 1, False, True),
+    ("no_layer_norm", TRAIN_BATCH // 4, DIM, ATTN_S, 2, 1, True, False),
+    ("ragged", 5, DIM, 37, 2, 1, True, True),
+)
+AB_PATH_SHAPE = "v1_train"
+# fp32: values and gradients within 1e-4 of the largest entry (sums of S
+# terms in another order than cuBLAS's).  bf16: an e or ds computed in
+# another order can round to the neighbouring bf16 value (2^-8 apart).
+ATTN_RTOL = {"fp32": 1e-4, "bf16": 1e-2}
+# kernel launches per train step and per forward-only batch
+ATTN_STEP = {"v1": dict(cin_fwd=2, cin_bwd_dx=2, cin_dw=2, ab_fwd=1, ab_bwd=1),
+             "v2": dict(cin_fwd=2, cin_bwd_dx=2, cin_dw=2, sa_fwd=2, sa_bwd=2)}
+ATTN_EVAL = {"v1": dict(cin_fwd=2, ab_fwd=1), "v2": dict(cin_fwd=2, sa_fwd=2)}
+
+
+def _checked(got, want, rtol):
+    """Largest absolute error, after asserting it within ``rtol`` of the
+    largest entry of ``want``."""
+    torch.testing.assert_close(got, want, rtol=rtol, atol=rtol * float(want.abs().max()) + 1e-6)
+    return float((got - want).abs().max())
+
+
+def _bound(flops, nbytes, peak):
+    by_ops = flops / peak[1] >= nbytes / peak[2]
+    return max(flops / peak[1], nbytes / peak[2]) * 1e3, "operations" if by_ops else "bytes"
+
+
+def phase_attn_kernels(peak):
+    """sa_fwd / sa_bwd and ab_fwd / ab_bwd against their plain versions on the
+    same inputs, each backward bit-equal over two runs, with times and bounds.
+    FLOPs: small_attention's two [S, S] products forward (4 G S^2 dh) and five
+    backward (10 G S^2 dh); the block adds its E-wide products (projections,
+    W_o, pooling: 8 B S E^2 a layer and 2 B S E^2 forward, 16 and 4
+    backward).  The exps (G S^2 a pass, on the SFU) are reported, not in the
+    bound.  Bytes: each input read once, each output written once (the
+    block's forward with the activations it saves for the backward)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    results = {}
+    for label, G, dh, S, prec in SA_SHAPES:
+        q, k, v, g = (torch.randn(G, dh, S, generator=gen, device="cuda") for _ in range(4))
+        scale = dh ** -0.5
+        rtol = ATTN_RTOL[prec]
+        o, m, z = sa_forward(q, k, v, scale, prec)
+        grads = sa_backward(g, q, k, v, o, m, z, scale, prec)
+        torch.cuda.synchronize()
+        want_o, want_m, want_z = sa_forward_reference(q, k, v, scale, prec)
+        fwd_err = max(_checked(o, want_o, rtol), _checked(m, want_m, 1e-5),
+                      _checked(z, want_z, 1e-4))
+        del want_o, want_m, want_z
+        bwd_err = max(_checked(a, b, rtol) for a, b in zip(
+            grads, sa_backward_reference(g, q, k, v, o, m, z, scale, prec)))
+        if not all(torch.equal(a, b) for a, b in zip(
+                grads, sa_backward(g, q, k, v, o, m, z, scale, prec))):
+            raise AssertionError(f"sa_bwd at {label}: two runs differ")
+        del grads
+        torch.cuda.empty_cache()
+        # the library yardstick: SDPA on the [G, S, dh] views, fp32
+        ql, kl, vl = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
+        gl = g.transpose(1, 2)
+        iters = 5 if G > 1000 else 50
+        times = dict(
+            fwd_ms=cuda_ms(lambda: sa_forward(q, k, v, scale, prec), iters),
+            bwd_ms=cuda_ms(lambda: sa_backward(g, q, k, v, o, m, z, scale, prec), iters),
+            plain_fwd_ms=cuda_ms(lambda: sa_forward_reference(q, k, v, scale, prec), iters),
+            plain_bwd_ms=cuda_ms(
+                lambda: sa_backward_reference(g, q, k, v, o, m, z, scale, prec), iters),
+            library_fwd_ms=cuda_ms(
+                lambda: F.scaled_dot_product_attention(ql, kl, vl, scale=scale), iters),
+            library_bwd_ms=cuda_ms(lambda: torch.autograd.grad(
+                lib_out, (ql, kl, vl), gl, retain_graph=True), iters),
+        )
+        del lib_out, ql, kl, vl
+        rec = dict(G=G, dh=dh, S=S, precision=prec, **times, fwd_max_abs_err=fwd_err,
+                   bwd_max_abs_err=bwd_err, bwd_bit_equal=True, gexp=G * S * S / 1e9)
+        n = G * dh * S
+        for kind, flops, nbytes in (("fwd", 4 * G * S * S * dh, 4 * (4 * n + 2 * G * S)),
+                                    ("bwd", 10 * G * S * S * dh, 4 * (8 * n + 2 * G * S))):
+            rec[f"{kind}_bound_ms"], rec[f"{kind}_bound_by"] = _bound(flops, nbytes, peak)
+            rec[f"{kind}_gflop"] = flops / 1e9
+            rec[f"{kind}_tflops"] = flops / rec[f"{kind}_ms"] / 1e9
+        results["sa", label] = rec
+        emit(phase="attn_kernel", kernel="small_attention", shape=label, **rec)
+        del q, k, v, g, o, m, z
+        torch.cuda.empty_cache()
+
+    for label, B, E, S, H, L, res, ln in AB_SHAPES:
+        dh = E // H
+
+        def w(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda") / E**0.5
+
+        x = torch.randn(B, E, S, generator=gen, device="cuda")
+        ws = [w(L * H, E, dh), w(L * H, E, dh), w(L * H, E, dh), w(L * H, dh, E),
+              1 + 0.1 * w(L, E, 1), 0.1 * w(L, E, 1), w(E, E), 0.1 * w(E, 1), w(E, 1)]
+        g = torch.randn(B, E, generator=gen, device="cuda")
+        cfg = BlockCfg(L, H, dh ** -0.5, res, ln, 1e-5)
+        pooled, saved = ab_forward(cfg, x, *ws)
+        grads = ab_backward(cfg, g, x, *ws, saved)
+        torch.cuda.synchronize()
+        fwd_err = _checked(pooled, ab_forward_reference(cfg, x, *ws), 1e-4)
+        if not torch.equal(ab_forward(cfg, x, *ws, save=False)[0], pooled):
+            raise AssertionError(f"ab_fwd at {label}: scoring and training forwards differ")
+        bwd_err = max(_checked(a, b, BWD_RTOL) for a, b in zip(
+            grads, ab_backward_reference(cfg, g, x, *ws)))
+        if not all(torch.equal(a, b) for a, b in zip(grads, ab_backward(cfg, g, x, *ws, saved))):
+            raise AssertionError(f"ab_bwd at {label}: two runs differ")
+        del grads
+        torch.cuda.empty_cache()
+        iters = 5 if B > 100 else 50
+        times = dict(
+            fwd_ms=cuda_ms(lambda: ab_forward(cfg, x, *ws), iters),
+            serve_fwd_ms=cuda_ms(lambda: ab_forward(cfg, x, *ws, save=False), iters),
+            bwd_ms=cuda_ms(lambda: ab_backward(cfg, g, x, *ws, saved), iters),
+            plain_fwd_ms=cuda_ms(lambda: ab_forward_reference(cfg, x, *ws), iters),
+            plain_bwd_ms=cuda_ms(lambda: ab_backward_reference(cfg, g, x, *ws), iters),
+        )
+        rec = dict(B=B, E=E, S=S, H=H, L=L, use_residual=res, use_layer_norm=ln, **times,
+                   library_ms=None, library="no single PyTorch call",
+                   fwd_max_abs_err=fwd_err, bwd_max_abs_err=bwd_err, bwd_bit_equal=True,
+                   gexp=L * B * H * S * S / 1e9)
+        glue = B * S * E * E
+        wbytes = 4 * sum(t.numel() for t in ws)
+        act = 4 * (B * E * S)
+        saves = 4 * (2 * B * L * H * S + 2 * B * L * E * S)
+        for kind, flops, nbytes in (
+                ("fwd", L * (4 * B * H * S * S * dh + 8 * glue) + 2 * glue,
+                 act + wbytes + 4 * B * E + saves),
+                ("bwd", L * (10 * B * H * S * S * dh + 16 * glue) + 4 * glue,
+                 2 * act + 2 * wbytes + 4 * B * E + saves)):
+            rec[f"{kind}_bound_ms"], rec[f"{kind}_bound_by"] = _bound(flops, nbytes, peak)
+            rec[f"{kind}_gflop"] = flops / 1e9
+            rec[f"{kind}_tflops"] = flops / rec[f"{kind}_ms"] / 1e9
+        results["ab", label] = rec
+        emit(phase="attn_kernel", kernel="attn_block", shape=label, **rec)
+        del x, ws, g, pooled, saved
+        torch.cuda.empty_cache()
+    return results
+
+
+# A gradient summed over 10^6 terms that cancel to a small total carries
+# fp32 rounding of the terms' size: against float64, each parameter's
+# gradient with the kernels must be within 1e-4 of its largest entry or
+# within FP32_SLACK times the plain fp32 version's own error.
+FP32_SLACK = 4.0
+
+
+def fp64_grads(model, xb, yb):
+    """One step's gradients (as :func:`step_grads`) of a float64 copy of
+    ``model`` on its plain unfused route: the CIN's plain version,
+    ``attn_block.set_backend("xla")`` and ``set_mhsa_backend("xla")``."""
+    m64 = copy.deepcopy(model)
+    m64.module = m64.module.double()
+    m64.module.cin.backend = "torch"
+    m64.compile("sgd", "binary_crossentropy")
+    attn_block.set_backend("xla")
+    attention.set_mhsa_backend("xla")
+    try:
+        xb64 = {k: v.double() if v.is_floating_point() else v for k, v in xb.items()}
+        return step_grads(m64, xb64, yb.double())
+    finally:
+        attn_block.set_backend("auto")
+        attention.set_mhsa_backend("auto")
+
+
+def phase_attn_training(version):
+    """The attention model ``version`` ("v1" or "v2") trained as the
+    canonical xDeepFM is in phase_training: fit at batch 4096, Adam, three
+    epochs of 8 steps; launches per step and per validation batch; one step's
+    gradients with the kernels against the plain versions (the CIN's and the
+    attention's) on the card; one SGD step on the card against the CPU
+    model; the epoch loss falls; examples/s with the kernels and with the
+    plain versions."""
+    model = canonical_model("cuda", seeded=False, version=version)
+    model.compile("adam", "binary_crossentropy", metrics=["auc"])
+    rng = np.random.default_rng(SEED + 3)
+    x, y = train_data(rng, TRAIN_STEPS_PER_EPOCH * TRAIN_BATCH + TRAIN_BATCH // 2)
+    x, y, val = (  # the last half batch validates
+        {k: v[: -TRAIN_BATCH // 2] for k, v in x.items()}, y[: -TRAIN_BATCH // 2],
+        ({k: v[-TRAIN_BATCH // 2 :] for k, v in x.items()}, y[-TRAIN_BATCH // 2 :]),
+    )
+    reset_launches()
+    t0 = time.perf_counter()
+    history = model.fit(x, y, batch_size=TRAIN_BATCH, epochs=TRAIN_EPOCHS, verbose=1,
+                        validation_data=val)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = read_launches()
+    steps = TRAIN_STEPS_PER_EPOCH * TRAIN_EPOCHS
+    per_step, per_eval = ATTN_STEP[version], ATTN_EVAL[version]
+    want = expected(**{k: steps * per_step.get(k, 0) + TRAIN_EPOCHS * per_eval.get(k, 0)
+                       for k in WRAPPERS})
+    if launches != want:
+        raise AssertionError(f"{version}: launches {launches} over {steps} steps, expected {want}")
+    logs = history.history
+    for k, v in logs.items():
+        if not np.isfinite(v).all():
+            raise AssertionError(f"{version}: {k} is not finite: {v}")
+    if not logs["loss"][0] > logs["loss"][1] > logs["loss"][2]:
+        raise AssertionError(f"{version}: the epoch loss did not fall: {logs['loss']}")
+
+    # one step's gradients, every kernel of the path against its plain
+    # version, both held against float64
+    xb, yb = device_batch(model, x, y, TRAIN_BATCH)
+    model.module.cin.backend = "torch"
+    want_g = step_grads(model, xb, yb)
+    model.module.cin.backend = None
+    reset_launches()
+    got_g = step_grads(model, xb, yb)
+    step_launches = read_launches()
+    if step_launches != expected(**per_step):
+        raise AssertionError(f"{version}: one step launched {step_launches}")
+    grad_rel = grad_err(got_g, want_g)
+    ref = fp64_grads(model, xb, yb)
+    vs64 = {k: (grad_err({k: got_g[k].double()}, {k: ref[k]}),
+                grad_err({k: want_g[k].double()}, {k: ref[k]})) for k in ref}
+    bad = {k: e for k, e in vs64.items() if e[0] > max(GRAD_RTOL, FP32_SLACK * e[1])}
+    if bad:
+        raise AssertionError(f"{version}: kernel gradients off float64 by (kernel, plain) {bad}")
+    worst = sorted(vs64.items(), key=lambda kv: -kv[1][0])[:5]
+    del want_g, got_g, ref
+
+    # one SGD step on the card against the CPU model from the same weights
+    small = 256
+    pair = [canonical_model(dev, model.get_weights(), version=version) for dev in ("cuda", "cpu")]
+    for m in pair:
+        m.compile("sgd", "binary_crossentropy")
+        m.fit({k: v[:small] for k, v in x.items()}, y[:small], batch_size=small, epochs=1,
+              verbose=0, shuffle=False)
+    cpu_errs = {}
+    for what, get in (("grad", lambda m: {k: p.grad for k, p in m.module.named_parameters()}),
+                      ("weights", lambda m: dict(m.module.named_parameters()))):
+        got_t, want_t = ({k: t.detach().cpu() for k, t in get(m).items()} for m in pair)
+        cpu_errs[what] = grad_err(got_t, want_t)
+        if cpu_errs[what] > GRAD_RTOL:
+            raise AssertionError(f"{version}: card and CPU {what} after one step differ by "
+                                 f"{cpu_errs[what]}")
+    del pair
+
+    # examples/s trained, the kernels and the plain versions in turns
+    batches = [device_batch(model, {k: v[i * TRAIN_BATCH:] for k, v in x.items()},
+                            y[i * TRAIN_BATCH:], TRAIN_BATCH) for i in range(4)]
+    runs = {"kernel": [], "plain": []}
+    for backend in ("kernel", "plain", "plain", "kernel"):
+        model.module.cin.backend = None if backend == "kernel" else "torch"
+        runs[backend].append(train_steps_ms(model, batches, 10))
+    model.module.cin.backend = None
+    torch.cuda.empty_cache()
+    record = dict(
+        model=version, batch=TRAIN_BATCH, steps=steps, epochs=TRAIN_EPOCHS, fit_seconds=fit_s,
+        launches=launches, step_launches=step_launches, history=logs,
+        grad_rel_err_vs_plain=grad_rel,
+        grad_rel_err_vs_float64_worst={k: {"kernel": e[0], "plain": e[1]} for k, e in worst},
+        rel_err_vs_cpu_one_sgd_step=cpu_errs,
+        ms_per_step_kernel=runs["kernel"], ms_per_step_plain=runs["plain"],
+        examples_per_s_kernel=[TRAIN_BATCH / ms * 1e3 for ms in runs["kernel"]],
+        examples_per_s_plain=[TRAIN_BATCH / ms * 1e3 for ms in runs["plain"]],
+    )
+    emit(phase=f"attn_{version}_training", **record)
+    return record, model, batches
+
+
+def phase_attn_scoring(model, version):
+    """The trained attention model through ``Scorer(batch_size=8192)`` over
+    the serving requests: per batch 2 cin_fwd and V1 one ab_fwd, V2 two
+    sa_fwd, no backward; the scores agree with the CPU model's on a small
+    input."""
+    scorer = Scorer(model, batch_size=BATCH).warmup()
+    reqs = requests(np.random.default_rng(SEED + 1), REQUESTS)
+    n_batches = sum(-(-n // BATCH) for n in REQUESTS)
+    reset_launches()
+    preds, eps, ms = score_all(scorer, reqs)
+    counts = read_launches()
+    want = expected(**{k: n_batches * c for k, c in ATTN_EVAL[version].items()})
+    if counts != want:
+        raise AssertionError(f"{version} scoring launched {counts}, expected {want}")
+    for n, p in zip(REQUESTS, preds):
+        if p.shape != (n, 1) or not (np.isfinite(p).all() and (p > 0).all() and (p < 1).all()):
+            raise AssertionError(f"bad {version} scores: shape {p.shape}")
+    runs = [score_all(scorer, reqs) for _ in range(2)]
+    cpu_model = canonical_model("cpu", model.get_weights(), version=version)
+    small = requests(np.random.default_rng(SEED + 2), (64,))[0]
+    cpu_err = float(np.abs(model.predict(small, 64) - cpu_model.predict(small, 64)).max())
+    if cpu_err > 1e-5:
+        raise AssertionError(f"{version}: card and CPU scores differ by {cpu_err}")
+    record = dict(model=version, requests=list(REQUESTS), batches=n_batches, launches=counts,
+                  examples_per_s=[eps] + [r[1] for r in runs], ms=[ms] + [r[2] for r in runs],
+                  max_abs_diff_vs_cpu=cpu_err, score_std=float(np.concatenate(preds).std()))
+    emit(phase=f"attn_{version}_scoring", **record)
     return record
 
 
@@ -820,6 +1199,7 @@ def main():
     phase_build()
     shapes = phase_kernels(peak)
     ce_shapes = phase_ce_kernels(peak)
+    attn_shapes = phase_attn_kernels(peak)
     serving, scorer, req = phase_serving()
     phase_profile(scorer, req)
     training, model, batches = phase_training()
@@ -829,6 +1209,20 @@ def main():
     pro, pro_m, pro_batches = phase_pro_training()
     phase_train_profile(pro_m, pro_batches, phase="pro_train_profile")
     pro_scoring = phase_pro_scoring(pro_m)
+    del pro_m, pro_batches
+    torch.cuda.empty_cache()
+    attn = {}
+    for version in ("v1", "v2"):
+        rec, attn_m, attn_batches = phase_attn_training(version)
+        phase_train_profile(attn_m, attn_batches, phase=f"attn_{version}_train_profile")
+        attn[version] = rec, phase_attn_scoring(attn_m, version)
+        del attn_m, attn_batches
+        torch.cuda.empty_cache()
+    paths = {"training": training["launches"], "pro_training": pro["launches"],
+             "pro_scoring": pro_scoring["launches"]}
+    for version, (rec, scoring) in attn.items():
+        paths[f"attn_{version}_training"] = rec["launches"]
+        paths[f"attn_{version}_scoring"] = scoring["launches"]
     kernels = []
     for kname in ("cin_fwd", "cin_bwd_dx", "cin_dw"):
         source, replaces = SOURCES[kname]
@@ -838,10 +1232,9 @@ def main():
         kernels.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces,
             launches=training["launches"][kname],
-            launches_by_path={"training": training["launches"][kname],
-                              "serving": serving["cin_launches"] if kname == "cin_fwd" else 0,
-                              "pro_training": pro["launches"][kname],
-                              "pro_scoring": pro_scoring["launches"][kname]},
+            launches_by_path={
+                "serving": serving["cin_launches"] if kname == "cin_fwd" else 0,
+                **{path: counts[kname] for path, counts in paths.items()}},
             max_abs_err=max(r["max_abs_err"] for (k, _), r in shapes.items() if k == kname),
             ms=sum(r["kernel_ms"] for r in path),
             plain_ms=sum(r["plain_ms"] for r in path),
@@ -856,14 +1249,35 @@ def main():
         kernels.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces,
             launches=pro["launches"][kname],
-            launches_by_path={"pro_training": pro["launches"][kname],
-                              "pro_scoring": pro_scoring["launches"][kname]},
+            launches_by_path={path: counts[kname] for path, counts in paths.items()},
             max_abs_err=max(x[f"{kind}_max_abs_err"] for x in ce_shapes.values()),
             ms=r[f"{kind}_ms"], plain_ms=r[f"plain_{kind}_ms"],
             bound_ms=r[f"{kind}_bound_ms"], bound_by=r[f"{kind}_bound_by"],
             library_ms=r[f"library_{kind}_ms"],
             per=f"Pro train step at batch 4096, {r['F']} stacked heads, {r['num_valid']} "
                 "valid rows (1 launch)",
+        ))
+    # rows 8-9 on V2's train step (2 launches of each), rows 10-11 on V1's (1)
+    for kname, kind, key, path, n in (
+            ("sa_fwd", "fwd", ("sa", SA_PATH_SHAPE), "attn_v2_training", 2),
+            ("sa_bwd", "bwd", ("sa", SA_PATH_SHAPE), "attn_v2_training", 2),
+            ("ab_fwd", "fwd", ("ab", AB_PATH_SHAPE), "attn_v1_training", 1),
+            ("ab_bwd", "bwd", ("ab", AB_PATH_SHAPE), "attn_v1_training", 1)):
+        source, replaces = SOURCES[kname]
+        r = attn_shapes[key]
+        lib = r.get(f"library_{kind}_ms")
+        kernels.append(dict(
+            name=kname, route="cuda", source=source, replaces=replaces,
+            launches=paths[path][kname],
+            launches_by_path={p: counts[kname] for p, counts in paths.items()},
+            max_abs_err=max(x[f"{kind}_max_abs_err"] for (k, _), x in attn_shapes.items()
+                            if k == key[0]),
+            ms=n * r[f"{kind}_ms"], plain_ms=n * r[f"plain_{kind}_ms"],
+            bound_ms=n * r[f"{kind}_bound_ms"], bound_by=r[f"{kind}_bound_by"],
+            library_ms=None if lib is None else n * lib,
+            per=(f"V2 train step at batch 4096 ({n} launches, G {r['G']}, dh {r['dh']}, "
+                 f"S {r['S']})" if key[0] == "sa" else
+                 f"V1 train step at batch 4096 (1 launch, E {r['E']}, S {r['S']}, H {r['H']})"),
         ))
     emit(kernels=kernels)
     emit(ok=True, device=dict(platform="gpu", kind=name, count=torch.cuda.device_count()))

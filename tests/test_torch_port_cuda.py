@@ -30,6 +30,21 @@ from xdeepfm_tpu_torch.ops.cin_cuda import (
     cin_rows_forward,
     cin_rows_reference,
 )
+from xdeepfm_tpu_torch.ops.attention_cuda import (
+    sa_backward,
+    sa_backward_reference,
+    sa_forward,
+    sa_forward_reference,
+)
+from xdeepfm_tpu_torch.ops.attn_block_cuda import (
+    BlockCfg,
+    ab_backward,
+    ab_backward_reference,
+    ab_forward,
+    ab_forward_reference,
+    ab_smem_bytes,
+)
+from xdeepfm_tpu_torch.ops.attn_block_cuda import _fn as _attn_block_fn
 from xdeepfm_tpu_torch.pro import xDeepFMPro
 from xdeepfm_tpu_torch.weights import flatten_tree, unflatten_tree
 
@@ -89,9 +104,9 @@ def test_cin_kernel_rejects_bad_input(card):
             cin_rows_forward(*bad)
 
 
-def _close(got, want):
+def _close(got, want, rtol=BWD_RTOL):
     torch.testing.assert_close(
-        got, want, rtol=BWD_RTOL, atol=BWD_RTOL * float(want.abs().max()) + 1e-6
+        got, want, rtol=rtol, atol=rtol * float(want.abs().max()) + 1e-6
     )
 
 
@@ -337,3 +352,190 @@ def test_pro_gradients_through_ce_kernels_match_plain(card, stack):
     assert any(k.startswith("sfg_decoder.head_C3") for k in grads[None])
     for k in grads["torch"]:
         _close(grads[None][k], grads["torch"][k])
+
+
+# ------------------------------------------------- attention kernels (rows 8-11)
+
+# (G, dh, S): V2's pairs cut in number, ragged S, dh 1 and 16 (the kernels'
+# instantiated range), a tiny one
+SA_SHAPES = [(64, 5, 256), (7, 3, 37), (3, 16, 100), (2, 1, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("G,dh,S", SA_SHAPES)
+def test_small_attention_kernels_match_plain(card, G, dh, S, precision):
+    gen = torch.Generator().manual_seed(G + dh + S)
+    q, k, v, g = (torch.randn(G, dh, S, generator=gen).cuda() for _ in range(4))
+    scale = dh ** -0.5
+    n_fwd, n_bwd = sa_forward.launches, sa_backward.launches
+    o, m, inv_z = sa_forward(q, k, v, scale, precision)
+    grads = sa_backward(g, q, k, v, o, m, inv_z, scale, precision)
+    torch.cuda.synchronize()
+    assert (sa_forward.launches, sa_backward.launches) == (n_fwd + 1, n_bwd + 1)
+    want_o, want_m, want_z = sa_forward_reference(q, k, v, scale, precision)
+    # fp32 sums of S terms in another order than cuBLAS's; bf16: an e or ds
+    # on the other side of a rounding boundary moves one bf16 step (2^-8)
+    rtol = 1e-4 if precision == "fp32" else 1e-2
+    _close(o, want_o, rtol)
+    torch.testing.assert_close(m, want_m, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(inv_z, want_z, rtol=1e-4, atol=1e-7)
+    for got, want in zip(grads, sa_backward_reference(g, q, k, v, o, m, inv_z, scale, precision)):
+        _close(got, want, rtol)
+    # every sum is one thread's loop: a second run is bit-equal
+    for a, b in zip(grads, sa_backward(g, q, k, v, o, m, inv_z, scale, precision)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_small_attention_kernels_reject_bad_input(card):
+    q = torch.randn(4, 5, 32, device="cuda")
+    stats = torch.zeros(4, 32, device="cuda")
+    for bad in (
+        (q.double(), q, q),
+        (q.cpu(), q, q),
+        (q.transpose(1, 2).contiguous().transpose(1, 2), q, q),  # not contiguous
+        (q, q[:, :4].contiguous(), q),
+        (torch.randn(4, 17, 32, device="cuda"),) * 3,  # dh = 17
+        (torch.randn(1, 5, 4000, device="cuda"),) * 3,  # beyond shared memory
+    ):
+        with pytest.raises(ValueError):
+            sa_forward(*bad, 0.5)
+    with pytest.raises(ValueError):
+        sa_forward(q, q, q, 0.5, "fp16")
+    with pytest.raises(ValueError):
+        sa_backward(q, q, q, q, q, stats[:, :-1], stats, 0.5)
+
+
+# (B, E, S, H, L, residual, layer_norm): V1's block cut in rows, L = 2, the
+# residual off, the LayerNorm off, ragged S, a single head of width 10
+AB_SHAPES = [
+    (64, 10, 256, 2, 1, True, True),
+    (16, 10, 64, 2, 2, True, True),
+    (16, 10, 64, 2, 1, False, True),
+    (16, 10, 64, 2, 1, True, False),
+    (5, 10, 37, 2, 1, True, True),
+    (3, 10, 20, 1, 1, True, True),
+]
+
+
+def _block_inputs(seed, B, E, S, H, L):
+    gen = torch.Generator().manual_seed(seed)
+    dh = E // H
+
+    def w(*shape):
+        return torch.randn(*shape, generator=gen) / E**0.5
+
+    x = torch.randn(B, E, S, generator=gen)
+    ws = [w(L * H, E, dh), w(L * H, E, dh), w(L * H, E, dh), w(L * H, dh, E),
+          1 + 0.1 * torch.randn(L, E, 1, generator=gen), 0.1 * torch.randn(L, E, 1, generator=gen),
+          w(E, E), 0.1 * torch.randn(E, 1, generator=gen), w(E, 1)]
+    g = torch.randn(B, E, generator=gen)
+    return x.cuda(), [t.cuda() for t in ws], g.cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,E,S,H,L,residual,layer_norm", AB_SHAPES)
+def test_attn_block_kernels_match_plain(card, B, E, S, H, L, residual, layer_norm):
+    x, ws, g = _block_inputs(B + S + L, B, E, S, H, L)
+    cfg = BlockCfg(L, H, (E // H) ** -0.5, residual, layer_norm, 1e-5)
+    n_fwd, n_bwd = ab_forward.launches, ab_backward.launches
+    pooled, saved = ab_forward(cfg, x, *ws)
+    grads = ab_backward(cfg, g, x, *ws, saved)
+    torch.cuda.synchronize()
+    assert (ab_forward.launches, ab_backward.launches) == (n_fwd + 1, n_bwd + 1)
+    torch.testing.assert_close(pooled, ab_forward_reference(cfg, x, *ws), rtol=1e-4, atol=1e-5)
+    assert torch.equal(ab_forward(cfg, x, *ws, save=False)[0], pooled)
+    for got, want in zip(grads, ab_backward_reference(cfg, g, x, *ws)):
+        _close(got, want)
+    # fixed-order partial sums: a second run is bit-equal
+    for a, b in zip(grads, ab_backward(cfg, g, x, *ws, saved)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_attn_block_kernels_reject_bad_input(card):
+    x, ws, g = _block_inputs(0, 4, 10, 16, 2, 1)
+    cfg = BlockCfg(1, 2, 0.5, True, True, 1e-5)
+    with pytest.raises(ValueError):
+        ab_forward(cfg, x.double(), *ws)
+    with pytest.raises(ValueError):
+        ab_forward(cfg, x.cpu(), *ws)
+    with pytest.raises(ValueError):
+        ab_forward(cfg._replace(heads=3), x, *ws)  # E % H
+    with pytest.raises(ValueError):
+        ab_forward(cfg, x, *ws[:6], ws[6][:, :-1].contiguous(), *ws[7:])
+    with pytest.raises(ValueError):
+        ab_forward(cfg, torch.randn(2, 32, 2000, device="cuda"), *ws)  # shared memory
+    _, saved = ab_forward(cfg, x, *ws)
+    with pytest.raises(ValueError):
+        ab_backward(cfg, g[:-1], x, *ws, saved)
+    # the kernels' own shared-memory formula agrees with the wrapper's gate
+    smem = _attn_block_fn("ab_smem_bytes")
+    for E, S, H in ((10, 256, 2), (10, 37, 2), (32, 100, 4)):
+        assert smem(E, S, H, 1) == ab_smem_bytes(E, S, H)
+        assert smem(E, S, H, 0) == ab_smem_bytes(E, S, H, backward=False)
+
+
+def _attn_models(device):
+    from xdeepfm_tpu_torch.models import xDeepFMAttention, xDeepFMAttentionV2
+
+    cols = [SparseFeat(f"C{i}", 100, 10) for i in range(6)] + [
+        DenseFeat(f"I{i}") for i in range(3)
+    ]
+    kw = dict(dnn_hidden_units=(32,), cin_layer_size=(16, 8), device=device)
+    return cols, {
+        "v1": xDeepFMAttention(cols, cols, cin_num_heads=2, **kw),
+        "v2": xDeepFMAttentionV2(cols, cols, cin_num_heads=4, cin_num_attn_layers=2, **kw),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version", ["v1", "v2"])
+def test_attention_model_gradients_through_kernels_match_plain(card, version):
+    """Every parameter's gradient through the CIN and attention kernels
+    matches the plain versions' on the card; V1 runs the fused block (1 + 1
+    launch), V2 two small_attention layers (2 + 2)."""
+    model = _attn_models("cuda")[1][version]
+    rng = np.random.default_rng(5)
+    batch = {
+        "sparse": torch.as_tensor(rng.integers(0, 100, (300, 6)), device="cuda"),
+        "dense": torch.as_tensor(rng.uniform(0, 1, (300, 3)), dtype=torch.float32, device="cuda"),
+    }
+    params = dict(model.module.named_parameters())
+    counters = (sa_forward, sa_backward, ab_forward, ab_backward)
+    grads, launches = {}, {}
+    try:
+        for backend in (None, "torch"):
+            model.module.cin.backend = backend
+            model.module.zero_grad(set_to_none=True)
+            before = [fn.launches for fn in counters]
+            model.module(batch, training=True)["pred"].square().sum().backward()
+            launches[backend] = tuple(fn.launches - b for fn, b in zip(counters, before))
+            grads[backend] = {k: p.grad.clone() for k, p in params.items()}
+    finally:
+        model.module.cin.backend = None
+    assert launches == {None: (0, 0, 1, 1) if version == "v1" else (2, 2, 0, 0),
+                        "torch": (0, 0, 0, 0)}
+    assert any(k.startswith("cin.mhsa") and grads[None][k].abs().max() > 0 for k in params)
+    for k in params:
+        _close(grads[None][k], grads["torch"][k])
+
+
+@pytest.mark.cuda
+def test_attention_models_on_card_match_cpu(card):
+    _, gpu = _attn_models("cuda")
+    _, cpu = _attn_models("cpu")
+    rng = np.random.default_rng(2)
+    n = 500
+    x = {f"C{i}": rng.integers(0, 100, n) for i in range(6)}
+    x.update({f"I{i}": rng.uniform(0, 1, n).astype(np.float32) for i in range(3)})
+    for version in ("v1", "v2"):
+        flat = {k: (0.1 * rng.standard_normal(v.shape)).astype(np.float32)
+                for k, v in flatten_tree(cpu[version].get_weights()["params"])}
+        weights = {"params": unflatten_tree(flat), "batch_stats": {}}
+        gpu[version].set_weights(weights)
+        cpu[version].set_weights(weights)
+        want = cpu[version].predict(x, 256)
+        assert want.std() > 1e-3
+        np.testing.assert_allclose(gpu[version].predict(x, 256), want, rtol=0, atol=1e-5)

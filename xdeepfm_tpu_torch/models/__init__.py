@@ -1,3 +1,4 @@
 from .xdeepfm import xDeepFM
+from .xdeepfm_attn import xDeepFMAttention, xDeepFMAttentionV2
 
-__all__ = ["xDeepFM"]
+__all__ = ["xDeepFM", "xDeepFMAttention", "xDeepFMAttentionV2"]

@@ -44,7 +44,11 @@ class XDeepFMModule(nn.Module):
         dnn_activation: str = "relu",
         dnn_use_bn: bool = False,
         task: str = "binary",
+        cin_factory=None,
     ):
+        """``cin_factory(field_num, generator)`` -> (CIN-like module, output
+        width) builds the CIN tower (default: :class:`CIN`); the attention
+        models pass theirs."""
         super().__init__()
         gen = torch.Generator().manual_seed(seed)
         self.dnn_cols = tuple(dnn_cols)
@@ -71,17 +75,19 @@ class XDeepFMModule(nn.Module):
             self.dnn_linear = nn.Linear(dnn_hidden_units[-1], 1, bias=False)
             torch_linear_init(self.dnn_linear.weight, gen)
         if self.use_cin:
-            self.cin = CIN(
-                len(sp) + len(vl),
-                cin_layer_size,
-                activation=cin_activation,
-                split_half=cin_split_half,
-                l2_reg=l2_reg_cin,
-                generator=gen,
-            )
-            self.cin_linear = nn.Linear(
-                cin_featuremap_num(cin_layer_size, cin_split_half), 1, bias=False
-            )
+            if cin_factory is None:
+                self.cin = CIN(
+                    len(sp) + len(vl),
+                    cin_layer_size,
+                    activation=cin_activation,
+                    split_half=cin_split_half,
+                    l2_reg=l2_reg_cin,
+                    generator=gen,
+                )
+                width = cin_featuremap_num(cin_layer_size, cin_split_half)
+            else:
+                self.cin, width = cin_factory(len(sp) + len(vl), gen)
+            self.cin_linear = nn.Linear(width, 1, bias=False)
             torch_linear_init(self.cin_linear.weight, gen)
         self.out = PredictionLayer(task=task)
         # The main and linear tables index with identical row offsets when
@@ -112,7 +118,7 @@ class XDeepFMModule(nn.Module):
         )
         final_logit = self.linear_model(batch, sparse_rows=lin_rows)
         if self.use_cin:
-            cin_output = self.cin(sparse_stack, training=training)
+            cin_output = self.cin(sparse_stack, training=training, generator=generator)
             final_logit = final_logit + self.cin_linear(cin_output)
         if self.use_dnn:
             dnn_input = combined_dnn_input(

@@ -78,6 +78,20 @@ def cin_feature_maps_rows(
     return torch.cat(final_result, dim=1)  # [B*D, Fm]
 
 
+def cin_feature_maps_t(
+    inputs, kernels, biases, act, layer_size, split_half, training=False,
+    backend=None,
+):
+    """Transposed feature maps [B, E, featuremap_num] (``interaction.py:249-261``):
+    a view of the row-major stack's [B*D, Fm] output, rows (b, d)-major, the
+    layout the attention CIN runs in."""
+    B, _, D = inputs.shape
+    rows = cin_feature_maps_rows(
+        inputs, kernels, biases, act, layer_size, split_half, training, backend
+    )
+    return rows.view(B, D, -1)
+
+
 def cin_featuremap_num(layer_size, split_half):
     return (
         sum(layer_size[:-1]) // 2 + layer_size[-1]
@@ -117,7 +131,9 @@ class CIN(nn.Module):
         make_cin_params(self, field_size, self.layer_size, split_half, generator)
         self.act = make_activation(activation)
 
-    def forward(self, inputs, training: bool = False):
+    def forward(self, inputs, training: bool = False, generator=None):
+        """``generator`` is taken for the attention CIN's signature and unused
+        (the CIN draws no random numbers)."""
         B, _, D = inputs.shape
         n = len(self.layer_size)
         rows = cin_feature_maps_rows(

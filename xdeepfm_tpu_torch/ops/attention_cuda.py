@@ -1,0 +1,169 @@
+"""Small-sequence attention on Hopper: counterpart of
+``xdeepfm_tpu/ops/attention_pallas.py``'s kernels.
+
+On dh-major operands q, k, v [G, dh, S] (G = batch * heads), per pair:
+scores s = q^T k (unscaled), m = their row max, e = exp((s - m) * scale),
+inv_z = 1 / sum_j e, o = (v e^T) * inv_z.  Each wrapper takes CUDA fp32
+tensors only, launches its hand-written CUDA kernel on PyTorch's current
+stream, raises on bad input and on a failed launch, and counts its launches
+in ``<wrapper>.launches``:
+
+* :func:`sa_forward` — ``csrc/sa_fwd.cu`` (replaces ``_sa_fwd`` /
+  ``_fwd_kernel``): (o, m, inv_z);
+* :func:`sa_backward` — ``csrc/sa_bwd.cu`` (replaces ``_sa_bwd`` /
+  ``_bwd_kernel``): (dq, dk, dv) from the saved m and inv_z.
+
+Beside each is the same function in plain PyTorch (``*_reference``), which
+materialises the [G, S, S] scores.  The CPU path and the kernels' checks use
+them.  ``precision`` "bf16" rounds every product operand to bf16 and sums in
+fp32, as the TPU kernel's ``set_precision("bf16")``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+SA_MAX_DH = 16  # the kernels are instantiated for head widths 1..16
+SMEM_BYTES = 232_448  # shared memory one Hopper block may take
+
+
+def sa_smem_bytes(dh: int, S: int) -> int:
+    """Shared memory of the backward kernel, the larger of the two: q, k, v,
+    g and g * inv_z [dh, S] plus three [S] rows."""
+    return (5 * dh + 3) * S * 4
+
+
+def check_sa_shape(dh: int, S: int) -> None:
+    """The kernels' shape gate; raises ValueError past it (no fallback)."""
+    if not 1 <= dh <= SA_MAX_DH:
+        raise ValueError(f"small_attention: head width dh = {dh} outside 1..{SA_MAX_DH}")
+    if S < 1 or sa_smem_bytes(dh, S) > SMEM_BYTES:
+        raise ValueError(
+            f"small_attention: S = {S} at dh = {dh} needs {sa_smem_bytes(dh, S)} bytes of "
+            f"shared memory per block, above the {SMEM_BYTES} a Hopper block may take "
+            "(the kernel holds a whole pair's q, k, v and g); use backend='torch'"
+        )
+
+
+def _bf16(x, precision):
+    return x.to(torch.bfloat16).float() if precision == "bf16" else x
+
+
+def sa_forward_reference(q, k, v, scale, precision="fp32"):
+    """(o [G, dh, S], m [G, S], inv_z [G, S]) with the [G, S, S] scores
+    materialised, in the kernel's order of operations."""
+    s = torch.einsum("gds,gdt->gst", _bf16(q, precision), _bf16(k, precision))
+    m = s.amax(-1)
+    e = torch.exp((s - m[..., None]) * scale)
+    inv_z = 1.0 / e.sum(-1)
+    o = torch.einsum("gdt,gst->gds", _bf16(v, precision), _bf16(e, precision))
+    return o * inv_z[:, None, :], m, inv_z
+
+
+def sa_backward_reference(g, q, k, v, o, m, inv_z, scale, precision="fp32"):
+    """(dq, dk, dv) [G, dh, S] for the output gradient g, the flash
+    backward from the saved m and inv_z with the scores materialised."""
+    qb, kb, vb = (_bf16(t, precision) for t in (q, k, v))
+    s = torch.einsum("gds,gdt->gst", qb, kb)
+    e = torch.exp((s - m[..., None]) * scale)
+    dv = torch.einsum("gds,gst->gdt", _bf16(g * inv_z[:, None, :], precision),
+                      _bf16(e, precision))
+    delta = (g * o).sum(1)
+    dp = torch.einsum("gds,gdt->gst", _bf16(g, precision), vb)
+    ds = _bf16((dp - delta[..., None]) * (inv_z * scale)[..., None] * e, precision)
+    dq = torch.einsum("gdt,gst->gds", kb, ds)
+    dk = torch.einsum("gds,gst->gdt", qb, ds)
+    return dq, dk, dv
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "sa_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    "sa_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+}
+_FNS = {}
+
+
+def _fn(name):
+    """The C function ``name`` of ``csrc/<name>.cu``, loaded (and built) at
+    first use, never at import."""
+    if name not in _FNS:
+        fn = getattr(_build.load(name), name)
+        fn.argtypes = _SIGNATURES[name]
+        fn.restype = ctypes.c_int
+        _FNS[name] = fn
+    return _FNS[name]
+
+
+def _launch(name, device, *args):
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _fn(name)(*args, stream)
+    if err != 0:
+        err_fn = getattr(_build.load(name), f"{name}_error_string")
+        err_fn.argtypes = [ctypes.c_int]
+        err_fn.restype = ctypes.c_char_p
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({err_fn(err).decode()})")
+
+
+def _check(fn, precision, **named):
+    """Shared input checks: CUDA fp32 contiguous tensors on one device, the
+    [G, dh, S] operands of one shape, [G, S] statistics.  Returns (G, dh, S)."""
+    if precision not in ("fp32", "bf16"):
+        raise ValueError(f"{fn}: unknown precision {precision!r}")
+    first = next(iter(named.values()))
+    for name, t in named.items():
+        if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+            raise ValueError(f"{fn}: {name} must be a CUDA tensor")
+        if t.device != first.device:
+            raise ValueError(f"{fn}: all inputs must be on one device")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{fn}: {name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be contiguous")
+    if first.ndim != 3:
+        raise ValueError(f"{fn}: expects [G, dh, S] operands, got {tuple(first.shape)}")
+    G, dh, S = first.shape
+    for name, t in named.items():
+        want = (G, S) if name in ("m", "inv_z") else (G, dh, S)
+        if tuple(t.shape) != want:
+            raise ValueError(f"{fn}: {name} must be {want}, got {tuple(t.shape)}")
+    if G < 1:
+        raise ValueError(f"{fn}: needs G >= 1")
+    check_sa_shape(dh, S)
+    if G > 2**31 - 1:
+        raise ValueError(f"{fn}: G = {G} exceeds the grid")
+    return G, dh, S
+
+
+def sa_forward(q, k, v, scale, precision="fp32"):
+    """The forward kernel: same contract as :func:`sa_forward_reference`,
+    on CUDA fp32 contiguous tensors."""
+    G, dh, S = _check("sa_forward", precision, q=q, k=k, v=v)
+    o = torch.empty_like(q)
+    m = torch.empty((G, S), device=q.device, dtype=torch.float32)
+    inv_z = torch.empty_like(m)
+    _launch("sa_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            m.data_ptr(), inv_z.data_ptr(), G, dh, S, float(scale), int(precision == "bf16"))
+    sa_forward.launches += 1
+    return o, m, inv_z
+
+
+def sa_backward(g, q, k, v, o, m, inv_z, scale, precision="fp32"):
+    """The backward kernel: same contract as :func:`sa_backward_reference`,
+    on CUDA fp32 contiguous tensors."""
+    G, dh, S = _check("sa_backward", precision, q=q, k=k, v=v, g=g, o=o, m=m, inv_z=inv_z)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    _launch("sa_bwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            o.data_ptr(), m.data_ptr(), inv_z.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), G, dh, S, float(scale), int(precision == "bf16"))
+    sa_backward.launches += 1
+    return dq, dk, dv
+
+
+sa_forward.launches = 0
+sa_backward.launches = 0
