@@ -65,13 +65,33 @@ run in order and any failure raises, so the exit code is non-zero:
    gradients with the kernels and with the plain versions, both held against
    a float64 copy of the model (each parameter's kernel gradient as close to
    float64 as the plain fp32 one, or within 1e-4 of its largest entry), one
-   SGD step against the CPU model,
-   the epoch loss falling, examples/s with the kernels and the plain
+   SGD step against the CPU model, the epoch loss falling, examples/s with the kernels and the plain
    versions; a training profile; then ``Scorer(batch_size=8192)`` with 2
    ``cin_fwd`` + 1 ``ab_fwd`` (V1) or + 2 ``sa_fwd`` (V2) per batch, agreeing
    with the CPU model on a small input;
-13. a ``{"kernels": [...]}`` line, one entry per hand-written kernel;
-14. the last line: ``{"ok": true, "device": {...}}``.
+13. lane-attention kernels vs plain (run right after the attention
+   kernels): ``la_fwd`` / ``la_bwd`` at AutoInt's train shape (B 4096, 2
+   heads of dh 5, S 26, scale 1) on the [B, S, E] projections' strides, its
+   serving shape (B 8192), DIFM's scale, the train shape contiguous
+   [H, dh, S, B], S 64, ragged (B 1001, S 39), tiny and dh 16, beside
+   ``F.scaled_dot_product_attention`` on the [B, H, S, dh] views (backward
+   by autograd); every backward bit-equal over two runs;
+14. AutoInt (3 layers of 2 heads, DNN (256, 128)) and DIFM (2 heads, DNN
+   (256, 128)) at the canonical columns, trained, profiled and scored as the
+   attention models are in 12: per step 3 ``la_fwd`` + 3 ``la_bwd``
+   (AutoInt) or 1 + 1 (DIFM), per scored batch 3 or 1 ``la_fwd``;
+15. a ``{"kernels": [...]}`` line, one entry per hand-written kernel;
+16. the last line: ``{"ok": true, "device": {...}}``.
+
+In every gradient comparison of a model (kernels against plain versions,
+against float64, card against CPU) the second side's relus that follow a
+kernel (each CIN layer's, each InteractingLayer's) are compared input by
+input with the first side's (:class:`ReluRecord`): relu's gradient jumps at
+0, so an input that the two sides' fp32 sums put on opposite sides of it
+moves the gradients by far more than rounding.  Such a flip is held (the
+second side takes the first side's sign) only where both inputs lie within
+``RELU_BAND`` of the layer's largest input; a flip farther out, or more than
+``MAX_HELD_FLIPS`` in one comparison, fails the run.
 """
 
 import copy
@@ -82,11 +102,13 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.overrides import TorchFunctionMode
 
 from xdeepfm_tpu_torch.basemodel import _loss_fn_single
 from xdeepfm_tpu_torch.features import DenseFeat, SparseFeat
-from xdeepfm_tpu_torch.models import xDeepFM, xDeepFMAttention, xDeepFMAttentionV2
-from xdeepfm_tpu_torch.ops import _build, attention, attn_block, ce
+from xdeepfm_tpu_torch.models import DIFM, AutoInt, xDeepFM, xDeepFMAttention, xDeepFMAttentionV2
+from xdeepfm_tpu_torch.nn import CIN, CINAttention, CINAttentionV2, InteractingLayer
+from xdeepfm_tpu_torch.ops import _build, attention, attn_block, ce, lane_attention
 from xdeepfm_tpu_torch.ops.attention_cuda import (
     sa_backward,
     sa_backward_reference,
@@ -107,6 +129,12 @@ from xdeepfm_tpu_torch.ops.ce_cuda import (
     ce_rows_forward_reference,
 )
 from xdeepfm_tpu_torch.ops.cin import set_backward_impl
+from xdeepfm_tpu_torch.ops.lane_attention_cuda import (
+    la_backward,
+    la_backward_reference,
+    la_forward,
+    la_forward_reference,
+)
 from xdeepfm_tpu_torch.ops.cin_cuda import (
     cin_rows_backward,
     cin_rows_backward_reference,
@@ -167,11 +195,14 @@ SOURCES = {
     "sa_bwd": ("xdeepfm_tpu_torch/ops/csrc/sa_bwd.cu", "xdeepfm_tpu/ops/attention_pallas.py:229"),
     "ab_fwd": ("xdeepfm_tpu_torch/ops/csrc/ab_fwd.cu", "xdeepfm_tpu/ops/attn_block_pallas.py:502"),
     "ab_bwd": ("xdeepfm_tpu_torch/ops/csrc/ab_bwd.cu", "xdeepfm_tpu/ops/attn_block_pallas.py:541"),
+    "la_fwd": ("xdeepfm_tpu_torch/ops/csrc/la_fwd.cu", "xdeepfm_tpu/ops/lane_attention.py:124"),
+    "la_bwd": ("xdeepfm_tpu_torch/ops/csrc/la_bwd.cu", "xdeepfm_tpu/ops/lane_attention.py:143"),
 }
 WRAPPERS = {
     "cin_fwd": cin_rows_forward, "cin_bwd_dx": cin_rows_backward, "cin_dw": cin_rows_dw,
     "ce_fwd": ce_rows_forward, "ce_bwd": ce_rows_backward,
     "sa_fwd": sa_forward, "sa_bwd": sa_backward, "ab_fwd": ab_forward, "ab_bwd": ab_backward,
+    "la_fwd": la_forward, "la_bwd": la_backward,
 }
 
 # The Pro step's fused CE (canonical xDeepFMPro: 26 heads of vocabulary 10000,
@@ -328,7 +359,21 @@ MODELS = {
     "v2": lambda cols, device: xDeepFMAttentionV2(
         cols, cols, dnn_hidden_units=DNN_UNITS, cin_layer_size=CIN_LAYERS, cin_num_heads=4,
         cin_num_attn_layers=2, device=device),
+    # AutoInt and DIFM as scripts/bench_zoo.py:44,49 build them: AutoInt's
+    # defaults (3 layers of 2 heads, dh 5, unscaled, DNN (256, 128)), DIFM
+    # with 2 heads (one scaled layer, DNN (256, 128))
+    "autoint": lambda cols, device: AutoInt(cols, cols, device=device),
+    "difm": lambda cols, device: DIFM(cols, cols, att_head_num=2, device=device),
 }
+
+
+def set_kernel_backend(model, backend):
+    """``backend`` (None: the kernels, "torch": their plain versions) on
+    every module of ``model`` that routes to a kernel: the CIN, the
+    attention CIN, each InteractingLayer."""
+    for m in model.module.modules():
+        if hasattr(m, "backend"):
+            m.backend = backend
 
 
 def canonical_model(device, weights=None, seeded=True, version="xdeepfm"):
@@ -484,6 +529,105 @@ def step_grads(model, xb, yb):
     return {k: p.grad.clone() for k, p in model.module.named_parameters()}
 
 
+# A relu input that two routes put on opposite sides of 0 is held only where
+# both lie within this share of the layer's largest |input|: fp32 rounding
+# of the sums that made them.  At most MAX_HELD_FLIPS such inputs in one
+# comparison, out of ~1.6e7 CIN relu inputs a step at batch 4096
+RELU_BAND = 1e-5
+MAX_HELD_FLIPS = 32
+_RELUS = (torch.relu, F.relu, torch.Tensor.relu)
+# the modules whose relus follow a kernel: the CIN's layers, InteractingLayer
+_KERNEL_FED = (CIN, CINAttention, CINAttentionV2, InteractingLayer)
+
+
+class ReluRecord(TorchFunctionMode):
+    """The inputs of ``model``'s relus that follow a kernel (a relu called
+    within a CIN, attention CIN or InteractingLayer forward), in call order,
+    while it is entered.  With ``ref``, another route's record of the same
+    step on the same batch, each input is compared with the one ``ref``
+    recorded at its place instead: where their signs differ, the relu takes
+    ``ref``'s sign if both lie within RELU_BAND of the larger of the two
+    layers' largest |input|, and fails otherwise; more than MAX_HELD_FLIPS
+    held flips fail on exit.  ``flips`` counts them, ``shares`` gives each
+    one's |input| as a share of that layer's largest, ``worst`` the
+    largest share."""
+
+    def __init__(self, model, ref=None):
+        super().__init__()
+        self.ref, self.inputs, self.calls, self.depth = ref, [], 0, 0
+        self.flips, self.worst, self.shares = 0, 0.0, []
+        self.sites = [m for m in model.module.modules() if isinstance(m, _KERNEL_FED)]
+        # one relu per CIN layer, one per InteractingLayer, in each forward
+        self.least = sum(len(getattr(m, "layer_size", (0,))) for m in self.sites)
+
+    def __enter__(self):
+        self.hooks = [h for m in self.sites for h in (
+            m.register_forward_pre_hook(self._enter_site),
+            m.register_forward_hook(self._leave_site))]
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        super().__exit__(*exc)
+        for h in self.hooks:
+            h.remove()
+        if exc[0] is not None:
+            return
+        if self.calls < self.least:
+            raise AssertionError(f"{self.calls} kernel-fed relus ran, fewer than the "
+                                 f"{self.least} of the model's layers")
+        if self.ref is not None and self.calls != self.ref.calls:
+            raise AssertionError(f"{self.calls} kernel-fed relus ran, {self.ref.calls} in the "
+                                 "route compared")
+        if self.flips > MAX_HELD_FLIPS:
+            raise AssertionError(f"{self.flips} relu inputs flipped, more than {MAX_HELD_FLIPS}")
+
+    def _enter_site(self, module, args):
+        self.depth += 1
+
+    def _leave_site(self, module, args, out):
+        self.depth -= 1
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if self.depth == 0 or func not in _RELUS:
+            return out
+        x, i = args[0], self.calls
+        self.calls += 1
+        if self.ref is None:
+            self.inputs.append(x.detach())
+            return out
+        if i >= len(self.ref.inputs) or self.ref.inputs[i].shape != x.shape:
+            raise AssertionError(f"kernel-fed relu {i} of {tuple(x.shape)} has no counterpart")
+        mine, theirs = x.detach(), self.ref.inputs[i].to(x.device, x.dtype)
+        keep = theirs > 0
+        flip = (mine > 0) != keep
+        n = int(flip.sum())
+        if n == 0:
+            return out
+        size = torch.maximum(mine.abs(), theirs.abs())
+        shares = (size[flip] / size.max()).tolist()
+        share = max(shares)
+        self.flips += n
+        self.worst = max(self.worst, share)
+        self.shares += shares[:MAX_HELD_FLIPS + 1]
+        if share > RELU_BAND:
+            raise AssertionError(f"kernel-fed relu {i}: an input flipped at {share:.3g} of the "
+                                 f"layer's largest, beyond {RELU_BAND}")
+        return torch.where(flip, x * keep.to(x.dtype), out)
+
+    def stats(self):
+        return {"relus": self.calls, "flips": self.flips, "worst_share": self.worst,
+                "shares": sorted(self.shares, reverse=True)}
+
+
+def relu_step_grads(model, xb, yb, ref=None):
+    """(:func:`step_grads`, the :class:`ReluRecord` of its kernel-fed
+    relus, compared with ``ref`` where given)."""
+    with ReluRecord(model, ref) as rec:
+        grads = step_grads(model, xb, yb)
+    return grads, rec
+
+
 def grad_err(got, want):
     """Largest per-parameter error, relative to that gradient's largest entry."""
     return max(
@@ -495,6 +639,28 @@ def grad_err(got, want):
 # fp32 sums in other orders (the kernels', cuBLAS's, the CPU's) through the
 # whole backward: each gradient within this share of its largest entry
 GRAD_RTOL = 1e-4
+
+
+def sgd_step_vs_cpu(pair, x, y, label):
+    """One SGD step on 256 rows from the same weights by the card's and the
+    CPU's model (``pair``), the CPU's kernel-fed relus compared with the
+    card's (:class:`ReluRecord`); the gradients and the weights after it
+    each within GRAD_RTOL.  Returns both errors and the relu flips."""
+    small, rec = 256, None
+    for m in pair:
+        m.compile("sgd", "binary_crossentropy")
+        with ReluRecord(m, rec) as rec:
+            m.fit({k: v[:small] for k, v in x.items()}, y[:small], batch_size=small, epochs=1,
+                  verbose=0, shuffle=False)
+    errs = {"relus": rec.stats()}
+    for what, get in (("grad", lambda m: {k: p.grad for k, p in m.module.named_parameters()}),
+                      ("weights", lambda m: dict(m.module.named_parameters()))):
+        got_t, want_t = ({k: t.detach().cpu() for k, t in get(m).items()} for m in pair)
+        errs[what] = grad_err(got_t, want_t)
+        if errs[what] > GRAD_RTOL:
+            raise AssertionError(f"{label}card and CPU {what} after one step differ by "
+                                 f"{errs[what]}")
+    return errs
 
 
 def train_steps_ms(model, batches, steps):
@@ -545,17 +711,19 @@ def phase_training():
     if not logs["loss"][0] > logs["loss"][1] > logs["loss"][2]:
         raise AssertionError(f"the epoch loss did not fall: {logs['loss']}")
 
-    # one step's gradients, kernels against the plain CIN, per backward impl
+    # one step's gradients, kernels against the plain CIN, its relus
+    # compared with the kernels', per backward impl
     xb, yb = device_batch(model, x, y, TRAIN_BATCH)
-    grad_errs, legacy_launches = {}, None
+    grad_errs, relu_flips, legacy_launches = {}, {}, None
     for impl in ("auto", "legacy"):
         set_backward_impl(impl)
-        model.module.cin.backend = "torch"
-        want_g = step_grads(model, xb, yb)
-        model.module.cin.backend = None
         reset_launches()
-        got_g = step_grads(model, xb, yb)
+        got_g, rec = relu_step_grads(model, xb, yb)
         counts = read_launches()
+        model.module.cin.backend = "torch"
+        want_g, held = relu_step_grads(model, xb, yb, rec)
+        model.module.cin.backend = None
+        relu_flips[impl] = held.stats()
         if impl == "legacy":
             legacy_launches = counts
             if counts != expected(cin_fwd=6, cin_dw=2):
@@ -568,19 +736,8 @@ def phase_training():
     set_backward_impl("auto")
 
     # one SGD step on the card against the CPU model from the same weights
-    small = 256
-    pair = [canonical_model(dev, model.get_weights()) for dev in ("cuda", "cpu")]
-    for m in pair:
-        m.compile("sgd", "binary_crossentropy")
-        m.fit({k: v[:small] for k, v in x.items()}, y[:small], batch_size=small, epochs=1,
-              verbose=0, shuffle=False)
-    cpu_errs = {}
-    for what, get in (("grad", lambda m: {k: p.grad for k, p in m.module.named_parameters()}),
-                      ("weights", lambda m: dict(m.module.named_parameters()))):
-        got_t, want_t = ({k: t.detach().cpu() for k, t in get(m).items()} for m in pair)
-        cpu_errs[what] = grad_err(got_t, want_t)
-        if cpu_errs[what] > GRAD_RTOL:
-            raise AssertionError(f"card and CPU {what} after one step differ by {cpu_errs[what]}")
+    cpu_errs = sgd_step_vs_cpu(
+        [canonical_model(dev, model.get_weights()) for dev in ("cuda", "cpu")], x, y, "")
 
     # examples/s trained, kernel CIN and plain CIN in turns
     batches = [device_batch(model, {k: v[i * TRAIN_BATCH:] for k, v in x.items()},
@@ -593,7 +750,8 @@ def phase_training():
     record = dict(
         batch=TRAIN_BATCH, steps=steps, epochs=TRAIN_EPOCHS, fit_seconds=fit_s,
         launches=launches, legacy_launches_per_step=legacy_launches,
-        history=logs, grad_rel_err_vs_plain_cin=grad_errs, rel_err_vs_cpu_one_sgd_step=cpu_errs,
+        history=logs, grad_rel_err_vs_plain_cin=grad_errs, relu_flips_vs_plain_cin=relu_flips,
+        rel_err_vs_cpu_one_sgd_step=cpu_errs,
         ms_per_step_kernel=runs["kernel"], ms_per_step_plain_cin=runs["plain"],
         examples_per_s_kernel=[TRAIN_BATCH / ms * 1e3 for ms in runs["kernel"]],
         examples_per_s_plain_cin=[TRAIN_BATCH / ms * 1e3 for ms in runs["plain"]],
@@ -802,21 +960,9 @@ def phase_pro_training():
     del want_g, got_g
 
     # one SGD step on the card against the CPU model from the same weights
-    small = 256
-    pair = [pro_model(dev, model.get_weights(), sfg_dropout=0.0) for dev in ("cuda", "cpu")]
-    for m in pair:
-        m.compile("sgd", "binary_crossentropy")
-        m.fit({k: v[:small] for k, v in x.items()}, y[:small], batch_size=small, epochs=1,
-              verbose=0, shuffle=False)
-    cpu_errs = {}
-    for what, get in (("grad", lambda m: {k: p.grad for k, p in m.module.named_parameters()}),
-                      ("weights", lambda m: dict(m.module.named_parameters()))):
-        got_t, want_t = ({k: t.detach().cpu() for k, t in get(m).items()} for m in pair)
-        cpu_errs[what] = grad_err(got_t, want_t)
-        if cpu_errs[what] > GRAD_RTOL:
-            raise AssertionError(f"Pro: card and CPU {what} after one step differ by "
-                                 f"{cpu_errs[what]}")
-    del pair
+    cpu_errs = sgd_step_vs_cpu(
+        [pro_model(dev, model.get_weights(), sfg_dropout=0.0) for dev in ("cuda", "cpu")],
+        x, y, "Pro: ")
     dec.dropout_rate = model.sfg_dropout
 
     # examples/s trained, CE kernels and the plain CE in turns
@@ -898,6 +1044,11 @@ ATTN_RTOL = {"fp32": 1e-4, "bf16": 1e-2}
 ATTN_STEP = {"v1": dict(cin_fwd=2, cin_bwd_dx=2, cin_dw=2, ab_fwd=1, ab_bwd=1),
              "v2": dict(cin_fwd=2, cin_bwd_dx=2, cin_dw=2, sa_fwd=2, sa_bwd=2)}
 ATTN_EVAL = {"v1": dict(cin_fwd=2, ab_fwd=1), "v2": dict(cin_fwd=2, sa_fwd=2)}
+# AutoInt's three InteractingLayers and DIFM's one: a forward and a backward
+# launch each per step
+ATTN_STEP.update(autoint=dict(la_fwd=3, la_bwd=3), difm=dict(la_fwd=1, la_bwd=1))
+ATTN_EVAL.update(autoint=dict(la_fwd=3), difm=dict(la_fwd=1))
+PHASE = {"v1": "attn_v1", "v2": "attn_v2", "autoint": "autoint", "difm": "difm"}
 
 
 def _checked(got, want, rtol):
@@ -1025,6 +1176,87 @@ def phase_attn_kernels(peak):
     return results
 
 
+# ---------------------------------------------------------------------------
+# the lane attention of AutoInt and DIFM: TPU kernel rows 12-13
+# ---------------------------------------------------------------------------
+
+# (label, B, H, dh, S, scale, layout): AutoInt's train step launches each
+# kernel 3 times at B 4096 on its [B, S, E] projections ("packed": the
+# strided [H, dh, S, B] views the model hands over), scoring at B 8192;
+# DIFM's scaled layer; the same train shape as contiguous [H, dh, S, B]
+# ("lanes"); S 64, ragged, tiny and dh 16, the kernels' limits
+LA_SHAPES = (
+    ("autoint_train", TRAIN_BATCH, 2, DIM // 2, N_SPARSE, 1.0, "packed"),
+    ("autoint_serve", BATCH, 2, DIM // 2, N_SPARSE, 1.0, "packed"),
+    ("difm_train", TRAIN_BATCH, 2, DIM // 2, N_SPARSE, (DIM // 2) ** -0.5, "packed"),
+    ("autoint_train_lanes", TRAIN_BATCH, 2, DIM // 2, N_SPARSE, 1.0, "lanes"),
+    ("s64", TRAIN_BATCH, 2, DIM // 2, 64, 1.0, "lanes"),
+    ("ragged", 1001, 2, DIM // 2, 39, 1.0, "lanes"),
+    ("tiny", 5, 1, 4, 3, 1.0, "lanes"),
+    ("dh16", TRAIN_BATCH // 4, 1, 16, N_SPARSE, 0.25, "lanes"),
+)
+LA_PATH_SHAPE = {"autoint": "autoint_train", "difm": "difm_train"}
+# fp32 sums of S terms in another order than the plain einsums': each output
+# within 1e-5 of its largest entry
+LA_RTOL = 1e-5
+
+
+def phase_lane_kernels(peak):
+    """la_fwd / la_bwd against their plain versions on the same inputs, the
+    backward bit-equal over two runs, with times, the library's (SDPA on the
+    [B, H, S, dh] views, backward by autograd) and bounds.  FLOPs: the two
+    [S, S] products forward (4 S^2 dh a pair), five backward (10 S^2 dh);
+    the exps (S^2 a pair and sweep) are reported, not in the bound.  Bytes:
+    q, k, v and o forward, q, k, v, g, dq, dk and dv backward, once each."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    results = {}
+    for label, B, H, dh, S, scale, layout in LA_SHAPES:
+        if layout == "lanes":
+            q, k, v, g = (torch.randn(H, dh, S, B, generator=gen, device="cuda") for _ in range(4))
+        else:
+            q, k, v, g = (torch.randn(B, S, H * dh, generator=gen, device="cuda")
+                          .view(B, S, H, dh).permute(2, 3, 1, 0) for _ in range(4))
+        o = la_forward(q, k, v, scale)
+        grads = la_backward(g, q, k, v, scale)
+        torch.cuda.synchronize()
+        fwd_err = _checked(o, la_forward_reference(q, k, v, scale), LA_RTOL)
+        bwd_err = max(_checked(a, b, LA_RTOL) for a, b in zip(
+            grads, la_backward_reference(g, q, k, v, scale)))
+        if not all(torch.equal(a, b) for a, b in zip(grads, la_backward(g, q, k, v, scale))):
+            raise AssertionError(f"la_bwd at {label}: two runs differ")
+        del grads
+        # the library yardstick: SDPA on the [B, H, S, dh] views, fp32
+        ql, kl, vl = (t.permute(3, 0, 2, 1).detach().requires_grad_(True) for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
+        gl = g.permute(3, 0, 2, 1)
+        times = dict(
+            fwd_ms=cuda_ms(lambda: la_forward(q, k, v, scale), 50),
+            bwd_ms=cuda_ms(lambda: la_backward(g, q, k, v, scale), 50),
+            plain_fwd_ms=cuda_ms(lambda: la_forward_reference(q, k, v, scale), 20),
+            plain_bwd_ms=cuda_ms(lambda: la_backward_reference(g, q, k, v, scale), 20),
+            library_fwd_ms=cuda_ms(
+                lambda: F.scaled_dot_product_attention(ql, kl, vl, scale=scale), 20),
+            library_bwd_ms=cuda_ms(lambda: torch.autograd.grad(
+                lib_out, (ql, kl, vl), gl, retain_graph=True), 20),
+        )
+        del lib_out, ql, kl, vl
+        rec = dict(B=B, H=H, dh=dh, S=S, scale=scale, layout=layout, strides=list(q.stride()),
+                   **times, fwd_max_abs_err=fwd_err, bwd_max_abs_err=bwd_err, bwd_bit_equal=True,
+                   gexp=B * H * S * S / 1e9)
+        n = B * H * S * dh
+        for kind, flops, nbytes in (("fwd", 4 * B * H * S * S * dh, 4 * 4 * n),
+                                    ("bwd", 10 * B * H * S * S * dh, 4 * 7 * n)):
+            rec[f"{kind}_bound_ms"], rec[f"{kind}_bound_by"] = _bound(flops, nbytes, peak)
+            rec[f"{kind}_gflop"] = flops / 1e9
+            rec[f"{kind}_mbytes"] = nbytes / 1e6
+            rec[f"{kind}_gbytes_per_s"] = nbytes / rec[f"{kind}_ms"] / 1e6
+        results[label] = rec
+        emit(phase="lane_kernel", shape=label, **rec)
+        del q, k, v, g, o
+        torch.cuda.empty_cache()
+    return results
+
+
 # A gradient summed over 10^6 terms that cancel to a small total carries
 # fp32 rounding of the terms' size: against float64, each parameter's
 # gradient with the kernels must be within 1e-4 of its largest entry or
@@ -1032,32 +1264,37 @@ def phase_attn_kernels(peak):
 FP32_SLACK = 4.0
 
 
-def fp64_grads(model, xb, yb):
+def fp64_grads(model, xb, yb, ref):
     """One step's gradients (as :func:`step_grads`) of a float64 copy of
-    ``model`` on its plain unfused route: the CIN's plain version,
-    ``attn_block.set_backend("xla")`` and ``set_mhsa_backend("xla")``."""
+    ``model`` on its plain unfused route (the CIN's plain version,
+    ``attn_block.set_backend("xla")``, ``set_mhsa_backend("xla")`` and
+    ``lane_attention.set_backend("xla")``), and the flips of its kernel-fed
+    relus against the fp32 route's record ``ref`` (:class:`ReluRecord`)."""
     m64 = copy.deepcopy(model)
     m64.module = m64.module.double()
-    m64.module.cin.backend = "torch"
+    set_kernel_backend(m64, "torch")
     m64.compile("sgd", "binary_crossentropy")
     attn_block.set_backend("xla")
     attention.set_mhsa_backend("xla")
+    lane_attention.set_backend("xla")
     try:
         xb64 = {k: v.double() if v.is_floating_point() else v for k, v in xb.items()}
-        return step_grads(m64, xb64, yb.double())
+        grads, held = relu_step_grads(m64, xb64, yb.double(), ref)
+        return grads, held.stats()
     finally:
         attn_block.set_backend("auto")
         attention.set_mhsa_backend("auto")
+        lane_attention.set_backend("auto")
 
 
-def phase_attn_training(version):
-    """The attention model ``version`` ("v1" or "v2") trained as the
+def phase_model_training(version):
+    """The model ``version`` ("v1", "v2", "autoint" or "difm") trained as the
     canonical xDeepFM is in phase_training: fit at batch 4096, Adam, three
     epochs of 8 steps; launches per step and per validation batch; one step's
     gradients with the kernels against the plain versions (the CIN's and the
-    attention's) on the card; one SGD step on the card against the CPU
-    model; the epoch loss falls; examples/s with the kernels and with the
-    plain versions."""
+    attention's) on the card, both against float64; one SGD step on the card
+    against the CPU model; the epoch loss falls; examples/s with the kernels
+    and with the plain versions."""
     model = canonical_model("cuda", seeded=False, version=version)
     model.compile("adam", "binary_crossentropy", metrics=["auc"])
     rng = np.random.default_rng(SEED + 3)
@@ -1087,71 +1324,75 @@ def phase_attn_training(version):
         raise AssertionError(f"{version}: the epoch loss did not fall: {logs['loss']}")
 
     # one step's gradients, every kernel of the path against its plain
-    # version, both held against float64
+    # version, each against float64, their kernel-fed relus compared
+    # (ReluRecord); the parameters whose gradients a second identical step
+    # does not reproduce bit for bit
     xb, yb = device_batch(model, x, y, TRAIN_BATCH)
-    model.module.cin.backend = "torch"
-    want_g = step_grads(model, xb, yb)
-    model.module.cin.backend = None
+    set_kernel_backend(model, "torch")
+    want_g, plain_rec = relu_step_grads(model, xb, yb)
+    set_kernel_backend(model, None)
     reset_launches()
-    got_g = step_grads(model, xb, yb)
+    got_g, kernel_rec = relu_step_grads(model, xb, yb)
     step_launches = read_launches()
     if step_launches != expected(**per_step):
         raise AssertionError(f"{version}: one step launched {step_launches}")
-    grad_rel = grad_err(got_g, want_g)
-    ref = fp64_grads(model, xb, yb)
+    again = step_grads(model, xb, yb)
+    unsteady = sorted(k for k in got_g if not torch.equal(got_g[k], again[k]))
+    del again
+    set_kernel_backend(model, "torch")
+    held_g, held = relu_step_grads(model, xb, yb, kernel_rec)
+    set_kernel_backend(model, None)
+    grad_rel = grad_err(got_g, held_g)
+    del held_g
+    ref, kernel_vs64 = fp64_grads(model, xb, yb, kernel_rec)
+    ref_plain, plain_vs64 = fp64_grads(model, xb, yb, plain_rec)
+    relu_flips = dict(kernel_vs_plain=held.stats(), kernel_vs_float64=kernel_vs64,
+                      plain_vs_float64=plain_vs64)
     vs64 = {k: (grad_err({k: got_g[k].double()}, {k: ref[k]}),
-                grad_err({k: want_g[k].double()}, {k: ref[k]})) for k in ref}
+                grad_err({k: want_g[k].double()}, {k: ref_plain[k]})) for k in ref}
     bad = {k: e for k, e in vs64.items() if e[0] > max(GRAD_RTOL, FP32_SLACK * e[1])}
     if bad:
         raise AssertionError(f"{version}: kernel gradients off float64 by (kernel, plain) {bad}")
     worst = sorted(vs64.items(), key=lambda kv: -kv[1][0])[:5]
-    del want_g, got_g, ref
+    del want_g, got_g, ref, ref_plain, kernel_rec, plain_rec
 
     # one SGD step on the card against the CPU model from the same weights
-    small = 256
-    pair = [canonical_model(dev, model.get_weights(), version=version) for dev in ("cuda", "cpu")]
-    for m in pair:
-        m.compile("sgd", "binary_crossentropy")
-        m.fit({k: v[:small] for k, v in x.items()}, y[:small], batch_size=small, epochs=1,
-              verbose=0, shuffle=False)
-    cpu_errs = {}
-    for what, get in (("grad", lambda m: {k: p.grad for k, p in m.module.named_parameters()}),
-                      ("weights", lambda m: dict(m.module.named_parameters()))):
-        got_t, want_t = ({k: t.detach().cpu() for k, t in get(m).items()} for m in pair)
-        cpu_errs[what] = grad_err(got_t, want_t)
-        if cpu_errs[what] > GRAD_RTOL:
-            raise AssertionError(f"{version}: card and CPU {what} after one step differ by "
-                                 f"{cpu_errs[what]}")
-    del pair
+    cpu_errs = sgd_step_vs_cpu(
+        [canonical_model(dev, model.get_weights(), version=version) for dev in ("cuda", "cpu")],
+        x, y, f"{version}: ")
 
-    # examples/s trained, the kernels and the plain versions in turns
+    # examples/s trained, the kernels and the plain versions in turns; these
+    # 44 steps repeat 4 batches (DIFM's refined FM saturates its sigmoid on
+    # them), so the weights go back to those fit trained before scoring
+    trained = model.get_weights()
     batches = [device_batch(model, {k: v[i * TRAIN_BATCH:] for k, v in x.items()},
                             y[i * TRAIN_BATCH:], TRAIN_BATCH) for i in range(4)]
     runs = {"kernel": [], "plain": []}
     for backend in ("kernel", "plain", "plain", "kernel"):
-        model.module.cin.backend = None if backend == "kernel" else "torch"
+        set_kernel_backend(model, None if backend == "kernel" else "torch")
         runs[backend].append(train_steps_ms(model, batches, 10))
-    model.module.cin.backend = None
+    set_kernel_backend(model, None)
+    model.set_weights(trained)
     torch.cuda.empty_cache()
     record = dict(
         model=version, batch=TRAIN_BATCH, steps=steps, epochs=TRAIN_EPOCHS, fit_seconds=fit_s,
         launches=launches, step_launches=step_launches, history=logs,
-        grad_rel_err_vs_plain=grad_rel,
+        grad_rel_err_vs_plain=grad_rel, relu_flips=relu_flips, grads_not_reproduced=unsteady,
         grad_rel_err_vs_float64_worst={k: {"kernel": e[0], "plain": e[1]} for k, e in worst},
         rel_err_vs_cpu_one_sgd_step=cpu_errs,
         ms_per_step_kernel=runs["kernel"], ms_per_step_plain=runs["plain"],
         examples_per_s_kernel=[TRAIN_BATCH / ms * 1e3 for ms in runs["kernel"]],
         examples_per_s_plain=[TRAIN_BATCH / ms * 1e3 for ms in runs["plain"]],
     )
-    emit(phase=f"attn_{version}_training", **record)
+    emit(phase=f"{PHASE[version]}_training", **record)
     return record, model, batches
 
 
-def phase_attn_scoring(model, version):
-    """The trained attention model through ``Scorer(batch_size=8192)`` over
-    the serving requests: per batch 2 cin_fwd and V1 one ab_fwd, V2 two
-    sa_fwd, no backward; the scores agree with the CPU model's on a small
-    input."""
+def phase_model_scoring(model, version):
+    """The trained model through ``Scorer(batch_size=8192)`` over the serving
+    requests: per batch V1 2 cin_fwd and one ab_fwd, V2 2 cin_fwd and two
+    sa_fwd, AutoInt three la_fwd, DIFM one, no backward; the scores agree
+    with the CPU model's on a small input."""
     scorer = Scorer(model, batch_size=BATCH).warmup()
     reqs = requests(np.random.default_rng(SEED + 1), REQUESTS)
     n_batches = sum(-(-n // BATCH) for n in REQUESTS)
@@ -1163,7 +1404,8 @@ def phase_attn_scoring(model, version):
         raise AssertionError(f"{version} scoring launched {counts}, expected {want}")
     for n, p in zip(REQUESTS, preds):
         if p.shape != (n, 1) or not (np.isfinite(p).all() and (p > 0).all() and (p < 1).all()):
-            raise AssertionError(f"bad {version} scores: shape {p.shape}")
+            raise AssertionError(f"bad {version} scores: shape {p.shape}, "
+                                 f"range [{p.min()}, {p.max()}]")
     runs = [score_all(scorer, reqs) for _ in range(2)]
     cpu_model = canonical_model("cpu", model.get_weights(), version=version)
     small = requests(np.random.default_rng(SEED + 2), (64,))[0]
@@ -1173,7 +1415,7 @@ def phase_attn_scoring(model, version):
     record = dict(model=version, requests=list(REQUESTS), batches=n_batches, launches=counts,
                   examples_per_s=[eps] + [r[1] for r in runs], ms=[ms] + [r[2] for r in runs],
                   max_abs_diff_vs_cpu=cpu_err, score_std=float(np.concatenate(preds).std()))
-    emit(phase=f"attn_{version}_scoring", **record)
+    emit(phase=f"{PHASE[version]}_scoring", **record)
     return record
 
 
@@ -1200,6 +1442,7 @@ def main():
     shapes = phase_kernels(peak)
     ce_shapes = phase_ce_kernels(peak)
     attn_shapes = phase_attn_kernels(peak)
+    la_shapes = phase_lane_kernels(peak)
     serving, scorer, req = phase_serving()
     phase_profile(scorer, req)
     training, model, batches = phase_training()
@@ -1212,17 +1455,17 @@ def main():
     del pro_m, pro_batches
     torch.cuda.empty_cache()
     attn = {}
-    for version in ("v1", "v2"):
-        rec, attn_m, attn_batches = phase_attn_training(version)
-        phase_train_profile(attn_m, attn_batches, phase=f"attn_{version}_train_profile")
-        attn[version] = rec, phase_attn_scoring(attn_m, version)
+    for version in ("v1", "v2", "autoint", "difm"):
+        rec, attn_m, attn_batches = phase_model_training(version)
+        phase_train_profile(attn_m, attn_batches, phase=f"{PHASE[version]}_train_profile")
+        attn[version] = rec, phase_model_scoring(attn_m, version)
         del attn_m, attn_batches
         torch.cuda.empty_cache()
     paths = {"training": training["launches"], "pro_training": pro["launches"],
              "pro_scoring": pro_scoring["launches"]}
     for version, (rec, scoring) in attn.items():
-        paths[f"attn_{version}_training"] = rec["launches"]
-        paths[f"attn_{version}_scoring"] = scoring["launches"]
+        paths[f"{PHASE[version]}_training"] = rec["launches"]
+        paths[f"{PHASE[version]}_scoring"] = scoring["launches"]
     kernels = []
     for kname in ("cin_fwd", "cin_bwd_dx", "cin_dw"):
         source, replaces = SOURCES[kname]
@@ -1278,6 +1521,22 @@ def main():
             per=(f"V2 train step at batch 4096 ({n} launches, G {r['G']}, dh {r['dh']}, "
                  f"S {r['S']})" if key[0] == "sa" else
                  f"V1 train step at batch 4096 (1 launch, E {r['E']}, S {r['S']}, H {r['H']})"),
+        ))
+    # rows 12-13 on AutoInt's train step (3 launches of each)
+    for kname, kind in (("la_fwd", "fwd"), ("la_bwd", "bwd")):
+        source, replaces = SOURCES[kname]
+        r = la_shapes[LA_PATH_SHAPE["autoint"]]
+        n = ATTN_STEP["autoint"][kname]
+        kernels.append(dict(
+            name=kname, route="cuda", source=source, replaces=replaces,
+            launches=paths["autoint_training"][kname],
+            launches_by_path={p: counts[kname] for p, counts in paths.items()},
+            max_abs_err=max(x[f"{kind}_max_abs_err"] for x in la_shapes.values()),
+            ms=n * r[f"{kind}_ms"], plain_ms=n * r[f"plain_{kind}_ms"],
+            bound_ms=n * r[f"{kind}_bound_ms"], bound_by=r[f"{kind}_bound_by"],
+            library_ms=n * r[f"library_{kind}_ms"],
+            per=(f"AutoInt train step at batch 4096 ({n} launches, H {r['H']}, dh {r['dh']}, "
+                 f"S {r['S']}, [B, S, E] strides)"),
         ))
     emit(kernels=kernels)
     emit(ok=True, device=dict(platform="gpu", kind=name, count=torch.cuda.device_count()))

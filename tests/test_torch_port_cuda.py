@@ -539,3 +539,118 @@ def test_attention_models_on_card_match_cpu(card):
         want = cpu[version].predict(x, 256)
         assert want.std() > 1e-3
         np.testing.assert_allclose(gpu[version].predict(x, 256), want, rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------- lane attention kernels (rows 12-13)
+
+# (B, H, S, dh): AutoInt's train shape cut in rows, ragged B and S, S 64 at
+# dh 16 (the kernels' limits), dh 4 over three heads, a tiny one
+LA_SHAPES = [(512, 2, 26, 5), (1001, 2, 39, 5), (64, 1, 64, 16), (33, 3, 26, 4), (5, 1, 3, 4)]
+
+
+def _la_operands(seed, B, H, S, dh, layout):
+    """q, k, v, g as [H, dh, S, B]: contiguous ("lanes") or views of [B, S, E]
+    projections ("packed")."""
+    gen = torch.Generator().manual_seed(seed)
+    if layout == "lanes":
+        return [torch.randn(H, dh, S, B, generator=gen).cuda() for _ in range(4)]
+    return [torch.randn(B, S, H * dh, generator=gen).cuda().reshape(B, S, H, dh).permute(2, 3, 1, 0)
+            for _ in range(4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["lanes", "packed"])
+@pytest.mark.parametrize("B,H,S,dh", LA_SHAPES)
+def test_lane_attention_kernels_match_plain(card, B, H, S, dh, layout):
+    from xdeepfm_tpu_torch.ops.lane_attention_cuda import (
+        la_backward, la_backward_reference, la_forward, la_forward_reference)
+
+    q, k, v, g = _la_operands(B + S + dh, B, H, S, dh, layout)
+    scale = 1.0 if dh == 5 else dh ** -0.5
+    n_fwd, n_bwd = la_forward.launches, la_backward.launches
+    o = la_forward(q, k, v, scale)
+    grads = la_backward(g, q, k, v, scale)
+    torch.cuda.synchronize()
+    assert (la_forward.launches, la_backward.launches) == (n_fwd + 1, n_bwd + 1)
+    assert o.stride() == q.stride() and all(t.stride() == q.stride() for t in grads)
+    # fp32 sums of S terms in another order than the plain einsums'
+    _close(o, la_forward_reference(q, k, v, scale), 1e-5)
+    for got, want in zip(grads, la_backward_reference(g, q, k, v, scale)):
+        _close(got, want, 1e-5)
+    # every (head, sample) is one block's, every sum one thread's loop
+    for a, b in zip(grads, la_backward(g, q, k, v, scale)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_lane_attention_kernels_reject_bad_input(card):
+    from xdeepfm_tpu_torch.ops.lane_attention_cuda import la_backward, la_forward
+
+    q = torch.randn(2, 5, 26, 64, device="cuda")
+    for bad in (
+        (q.double(), q.double(), q.double()),
+        (q.cpu(), q, q),
+        (q, q[..., :32], q),  # shapes differ
+        (q, q.transpose(2, 3).contiguous().transpose(2, 3), q),  # strides differ
+        (q[..., ::2],) * 3,  # gaps between samples
+        (torch.randn(1, 17, 26, 8, device="cuda"),) * 3,  # dh = 17
+        (torch.randn(1, 5, 65, 8, device="cuda"),) * 3,  # S = 65
+        (torch.randn(2, 5, 26, device="cuda"),) * 3,  # not [H, dh, S, B]
+    ):
+        with pytest.raises(ValueError):
+            la_forward(*bad, 1.0)
+    with pytest.raises(ValueError):
+        la_backward(q[..., :32].contiguous(), q, q, q, 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scaling", [False, True])
+def test_interacting_layer_gradients_through_kernels_match_plain(card, scaling):
+    """Every parameter's and the input's gradient through the lane kernels
+    (1 + 1 launches) matches the plain versions' on the card."""
+    from xdeepfm_tpu_torch.nn.interaction import InteractingLayer
+    from xdeepfm_tpu_torch.ops.lane_attention_cuda import la_backward, la_forward
+
+    layer = InteractingLayer(10, head_num=2, scaling=scaling).cuda()
+    x0 = torch.randn(700, 26, 10, generator=torch.Generator().manual_seed(4)).cuda()
+    grads, launches = {}, {}
+    for backend in (None, "torch"):
+        layer.backend = backend
+        layer.zero_grad(set_to_none=True)
+        x = x0.clone().requires_grad_(True)
+        before = (la_forward.launches, la_backward.launches)
+        layer(x).square().sum().backward()
+        launches[backend] = (la_forward.launches - before[0], la_backward.launches - before[1])
+        grads[backend] = {"x": x.grad, **{k: p.grad.clone() for k, p in layer.named_parameters()}}
+    assert launches == {None: (1, 1), "torch": (0, 0)}
+    for k in grads["torch"]:
+        _close(grads[None][k], grads["torch"][k])
+
+
+@pytest.mark.cuda
+def test_autoint_and_difm_on_card_match_cpu(card):
+    from xdeepfm_tpu_torch.models import DIFM, AutoInt
+    from xdeepfm_tpu_torch.ops.lane_attention_cuda import la_forward
+
+    cols = [SparseFeat(f"C{i}", 100, 10) for i in range(6)] + [
+        DenseFeat(f"I{i}") for i in range(3)
+    ]
+    rng = np.random.default_rng(6)
+    n = 500
+    x = {f"C{i}": rng.integers(0, 100, n) for i in range(6)}
+    x.update({f"I{i}": rng.uniform(0, 1, n).astype(np.float32) for i in range(3)})
+    for make, layers in ((lambda d: AutoInt(cols, cols, dnn_hidden_units=(32,), device=d), 3),
+                         (lambda d: DIFM(cols, cols, att_head_num=2, dnn_hidden_units=(32,),
+                                         device=d), 1)):
+        gpu, cpu = make("cuda"), make("cpu")
+        flat = {k: (0.1 * rng.standard_normal(v.shape)).astype(np.float32)
+                for k, v in flatten_tree(cpu.get_weights()["params"])}
+        weights = {"params": unflatten_tree(flat), "batch_stats": {}}
+        gpu.set_weights(weights)
+        cpu.set_weights(weights)
+        before = la_forward.launches
+        got = gpu.predict(x, 256)
+        assert la_forward.launches - before == 2 * layers  # 2 batches
+        want = cpu.predict(x, 256)
+        assert want.std() > 1e-3
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from .callbacks import CallbackList, History
-from .features import FeatureSchema
+from .features import FeatureSchema, SparseFeat, VarLenSparseFeat
 from .metrics import DEVICE_METRICS, HOST_METRICS
 from .optimizers import get_optimizer
 from .weights import (
@@ -120,6 +120,18 @@ class BaseModel:
 
     def _build_module(self):
         raise NotImplementedError
+
+    @property
+    def embedding_size(self):
+        """The one embedding dim of the sparse DNN features
+        (``basemodel.py:2078-2093``); raises if they differ."""
+        sizes = {f.embedding_dim for f in self.dnn_feature_columns
+                 if isinstance(f, (SparseFeat, VarLenSparseFeat))}
+        if len(sizes) > 1:
+            raise ValueError(
+                "embedding_dim of SparseFeat and VarlenSparseFeat must be same in this model!"
+            )
+        return sizes.pop()
 
     def add_regularization_weight(self, pattern, l1=0.0, l2=0.0):
         if isinstance(pattern, str):

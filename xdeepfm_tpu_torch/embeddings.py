@@ -127,6 +127,45 @@ class EmbeddingCollection(nn.Module):
         return sparse_stack, dense
 
 
+def _id_layout(collection: EmbeddingCollection, feats):
+    """((batch column, row offset) per feature, table rows) for a uniform-dim
+    lookup, else None: two collections with equal layouts gather equal ids."""
+    dims = {collection._offsets[f.embedding_name][0] for f in feats}
+    if len(dims) != 1:
+        return None
+    cols = tuple(
+        (collection.schema.sparse_index(f.name), collection._offsets[f.embedding_name][1])
+        for f in feats
+    )
+    return cols, collection.table(dims.pop()).shape[0]
+
+
+def can_fuse_lookup(main: EmbeddingCollection, linear: "LinearModel", feats) -> bool:
+    """Whether the main and linear tables index ``feats`` with identical row
+    offsets, as when both column lists hold the same sparse features: then
+    one gather through their column concat serves both (the JAX engine's
+    fused lookup, ``basemodel.py:634-660``)."""
+    lin_sp = split_columns(linear.feature_columns)[0]
+    layout = _id_layout(main, feats) if feats else None
+    return layout is not None and layout == _id_layout(linear.embedding_dict, lin_sp)
+
+
+def lookup_inputs(main: EmbeddingCollection, linear: "LinearModel", batch, feature_columns,
+                  fused: bool):
+    """(sparse_stack [B, F, D] | None, dense [B, Dd] | None, the linear
+    table's [B*F, 1] rows | None): with ``fused`` (see
+    :func:`can_fuse_lookup`) one :func:`fused_gather` fetches the main and
+    linear rows, else the main lookup gathers alone and the linear model
+    gathers its own."""
+    main_rows = lin_rows = None
+    if fused:
+        dim, ids = main.sparse_ids(batch, split_columns(feature_columns)[0])
+        rows = fused_gather((main.table(dim), linear.embedding_dict.table_d1), ids.reshape(-1))
+        main_rows, lin_rows = rows[:, :dim], rows[:, dim:]
+    sparse_stack, dense = main.stacked_inputs(batch, feature_columns, rows=main_rows)
+    return sparse_stack, dense, lin_rows
+
+
 def combined_dnn_input(sparse_embedding_list, dense_value_list):
     """Flatten + concat (reference ``inputs.py:126-138``): the sparse part in
     (field, dim) order, then the dense values."""
@@ -168,14 +207,18 @@ class LinearModel(nn.Module):
             w = torch.empty(dense_dim, 1).normal_(0.0, init_std, generator=generator)
             self.weight = nn.Parameter(w)
 
-    def forward(self, batch, sparse_rows=None):
+    def forward(self, batch, sparse_rows=None, sparse_feat_refine_weight=None):
         """[B, 1] logits.  ``sparse_rows``: the sparse features' [B*F, 1]
-        table rows when a fused gather already fetched them."""
+        table rows when a fused gather already fetched them.
+        ``sparse_feat_refine_weight`` [B, F] (IFM / DIFM) multiplies the
+        per-field logits before their sum."""
         sp, de, _ = split_columns(self.feature_columns)
         out = None
         if sp:
-            emb = self.embedding_dict.stacked_sparse(batch, sp, sparse_rows)
-            out = emb[:, :, 0].sum(dim=-1, keepdim=True)
+            logits = self.embedding_dict.stacked_sparse(batch, sp, sparse_rows)[:, :, 0]
+            if sparse_feat_refine_weight is not None:
+                logits = logits * sparse_feat_refine_weight
+            out = logits.sum(dim=-1, keepdim=True)
         if de:
             dense_vals = torch.cat(
                 [batch["dense"][:, slice(*self.schema.dense_slice(f.name))] for f in de],

@@ -15,8 +15,9 @@ from ..basemodel import BaseModel
 from ..embeddings import (
     EmbeddingCollection,
     LinearModel,
+    can_fuse_lookup,
     combined_dnn_input,
-    fused_gather,
+    lookup_inputs,
 )
 from ..features import FeatureSchema, compute_input_dim, split_columns
 from ..nn.core import DNN, PredictionLayer, torch_linear_init
@@ -90,31 +91,15 @@ class XDeepFMModule(nn.Module):
             self.cin_linear = nn.Linear(width, 1, bias=False)
             torch_linear_init(self.cin_linear.weight, gen)
         self.out = PredictionLayer(task=task)
-        # The main and linear tables index with identical row offsets when
-        # both column lists hold the same sparse features: then one gather
-        # through their column concat serves both (the JAX engine's fused
-        # lookup, basemodel.py:634-660).
-        lin_sp = split_columns(self.linear_model.feature_columns)[0]
-        self._sparse = sp
-        layout = _id_layout(self.embedding_dict, sp) if sp else None
-        self._fused = layout is not None and layout == _id_layout(
-            self.linear_model.embedding_dict, lin_sp
-        )
+        # one gather through the main and linear tables where they allow it
+        self._fused = can_fuse_lookup(self.embedding_dict, self.linear_model, sp)
 
     def forward(self, batch, training: bool = False, generator=None):
         """``batch``: typed tensors (``sparse`` int [B, F], ``dense`` f32).
         Returns ``{"pred": [B, 1]}``.  ``generator`` draws dropout masks when
         ``training``."""
-        main_rows = lin_rows = None
-        if self._fused:
-            dim, ids = self.embedding_dict.sparse_ids(batch, self._sparse)
-            rows = fused_gather(
-                (self.embedding_dict.table(dim), self.linear_model.embedding_dict.table_d1),
-                ids.reshape(-1),
-            )
-            main_rows, lin_rows = rows[:, :dim], rows[:, dim:]
-        sparse_stack, dense_vals = self.embedding_dict.stacked_inputs(
-            batch, self.dnn_cols, rows=main_rows
+        sparse_stack, dense_vals, lin_rows = lookup_inputs(
+            self.embedding_dict, self.linear_model, batch, self.dnn_cols, self._fused
         )
         final_logit = self.linear_model(batch, sparse_rows=lin_rows)
         if self.use_cin:
@@ -128,19 +113,6 @@ class XDeepFMModule(nn.Module):
             dnn_output = self.dnn(dnn_input, training=training, generator=generator)
             final_logit = final_logit + self.dnn_linear(dnn_output)
         return {"pred": self.out(final_logit)}
-
-
-def _id_layout(collection: EmbeddingCollection, feats):
-    """((batch column, row offset) per feature, table rows) for a uniform-dim
-    lookup, else None: two collections with equal layouts gather equal ids."""
-    dims = {collection._offsets[f.embedding_name][0] for f in feats}
-    if len(dims) != 1:
-        return None
-    cols = tuple(
-        (collection.schema.sparse_index(f.name), collection._offsets[f.embedding_name][1])
-        for f in feats
-    )
-    return cols, collection.table(dims.pop()).shape[0]
 
 
 class xDeepFM(BaseModel):

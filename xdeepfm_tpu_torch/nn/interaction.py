@@ -1,6 +1,6 @@
 """Feature-interaction layers (port of ``xdeepfm_tpu/nn/interaction.py``;
-reference ``deepctr/layers/interaction.py``).  This slice ports the CIN; the
-rest of the zoo follows.
+reference ``deepctr/layers/interaction.py``): the CIN, FM and AutoInt's
+``InteractingLayer`` so far; the rest of the zoo follows.
 
 Modules take stacked ``[B, F, E]`` field-embedding tensors.
 """
@@ -13,6 +13,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from ..ops import lane_attention as _lane
 from ..ops.cin import cin_rows_contract
 from .activations import apply_activation, make_activation
 
@@ -145,3 +146,71 @@ class CIN(nn.Module):
         )  # [B*D, Fm]
         # sum over the embedding axis == sum the D rows of each example
         return rows.view(B, D, -1).sum(dim=1)
+
+
+class FM(nn.Module):
+    """Order-2 interactions: 0.5*((sum v)^2 - sum v^2) summed over the
+    embedding axis (reference: ``interaction.py:12-34``). [B, F, E] -> [B, 1]."""
+
+    def forward(self, inputs):
+        square_of_sum = inputs.sum(dim=1, keepdim=True).square()
+        sum_of_square = (inputs * inputs).sum(dim=1, keepdim=True)
+        return 0.5 * (square_of_sum - sum_of_square).sum(dim=2)
+
+
+class InteractingLayer(nn.Module):
+    """AutoInt multi-head self-attention over fields with residual
+    (reference: ``interaction.py:328-394``). [B, F, E] -> [B, F, E].
+
+    ``W_Query``, ``W_Key``, ``W_Value`` and ``W_Res`` are raw [E, E]
+    parameters used as ``x @ W`` (the JAX paths), init normal(0.05) from
+    ``generator``.  The projections are ``torch.matmul``; the attention takes
+    ``ops.lane_attention.lane_mhsa_packed`` when ``use_lane_attention(F)``
+    holds, else the plain head-split einsums.  ``backend`` goes to the lane
+    route: None (by device) or "torch" (the plain version on any device)."""
+
+    def __init__(
+        self,
+        embedding_size: int,
+        head_num: int = 2,
+        use_res: bool = True,
+        scaling: bool = False,
+        seed: int = 1024,
+        generator: Optional[torch.Generator] = None,
+        backend: Optional[str] = None,
+    ):
+        super().__init__()
+        if head_num <= 0:
+            raise ValueError("head_num must be a int > 0")
+        if embedding_size % head_num != 0:
+            raise ValueError("embedding_size is not an integer multiple of head_num!")
+        if generator is None:
+            generator = torch.Generator().manual_seed(seed)
+        self.embedding_size = embedding_size
+        self.head_num = head_num
+        self.use_res = use_res
+        self.scale = (embedding_size // head_num) ** -0.5 if scaling else 1.0
+        self.backend = backend
+        names = ("W_Query", "W_Key", "W_Value") + (("W_Res",) if use_res else ())
+        E = embedding_size
+        for name in names:
+            w = torch.empty(E, E).normal_(0.0, 0.05, generator=generator)
+            self.register_parameter(name, nn.Parameter(w))
+
+    def forward(self, inputs, training: bool = False):
+        if inputs.ndim != 3:
+            raise ValueError(
+                "Unexpected inputs dimensions %d, expect to be 3 dimensions" % inputs.ndim
+            )
+        B, F_, E = inputs.shape
+        Q, K, V = (inputs @ w for w in (self.W_Query, self.W_Key, self.W_Value))
+        if _lane.use_lane_attention(F_):
+            result = _lane.lane_mhsa_packed(Q, K, V, self.scale, self.head_num, self.backend)
+        else:
+            dh = E // self.head_num
+            Qr, Kr, Vr = (x.reshape(B, F_, self.head_num, dh) for x in (Q, K, V))
+            scores = torch.softmax(torch.einsum("bihk,bjhk->bhij", Qr, Kr) * self.scale, dim=-1)
+            result = torch.einsum("bhij,bjhk->bihk", scores, Vr).reshape(B, F_, E)
+        if self.use_res:
+            result = result + inputs @ self.W_Res
+        return torch.relu(result)

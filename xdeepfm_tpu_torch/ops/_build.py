@@ -15,7 +15,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Sequence, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -26,6 +28,7 @@ NVCC_FLAGS = (
 )
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_FNS: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -94,3 +97,29 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         _LOADED[name] = ctypes.CDLL(str(library_path(name)))
     return _LOADED[name]
+
+
+def function(lib: str, name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """The C function ``name`` of ``csrc/<lib>.cu``, returning int, with
+    ``argtypes`` declared; loaded (and built) at first use."""
+    if (lib, name) not in _FNS:
+        fn = getattr(load(lib), name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _FNS[lib, name] = fn
+    return _FNS[lib, name]
+
+
+def launch(lib: str, name: str, argtypes: Sequence, device, *args) -> None:
+    """Call the kernel launcher ``name`` of ``csrc/<lib>.cu`` with ``args``
+    and, last, ``device``'s current PyTorch stream (``argtypes`` include the
+    stream's pointer); raise RuntimeError with the CUDA error's text when it
+    returns one."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = function(lib, name, argtypes)(*args, stream)
+    if err != 0:
+        err_fn = getattr(load(lib), f"{lib}_error_string")
+        err_fn.argtypes = [ctypes.c_int]
+        err_fn.restype = ctypes.c_char_p
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({err_fn(err).decode()})")

@@ -138,30 +138,19 @@ _SIGNATURES = {
     "ab_smem_bytes": ("ab_bwd", [_I, _I, _I, _I]),
     "ab_num_params": ("ab_bwd", [_I, _I]),
 }
-_FNS = {}
 
 
 def _fn(name):
     """The C function ``name``, loaded (and built) at first use, never at
     import."""
-    if name not in _FNS:
-        lib, argtypes = _SIGNATURES[name]
-        fn = getattr(_build.load(lib), name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _FNS[name] = fn
-    return _FNS[name]
+    lib, argtypes = _SIGNATURES[name]
+    return _build.function(lib, name, argtypes)
 
 
 def _launch(name, device, *args):
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _fn(name)(*args, stream)
-    if err != 0:
-        err_fn = getattr(_build.load(name), f"{name}_error_string")
-        err_fn.argtypes = [ctypes.c_int]
-        err_fn.restype = ctypes.c_char_p
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({err_fn(err).decode()})")
+    """The launcher ``name`` on ``device``'s current stream."""
+    lib, argtypes = _SIGNATURES[name]
+    _build.launch(lib, name, argtypes, device, *args)
 
 
 def _check(fn, cfg, x, weights, **extra):

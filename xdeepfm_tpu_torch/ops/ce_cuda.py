@@ -88,35 +88,13 @@ def ce_rows_backward_reference(g, h, W, b, targets, logz, num_valid=None, precis
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "ce_fwd": {"ce_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]},
-    "ce_bwd": {
-        "ce_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I,
-                   _I, _I, _I, _I, _I, _P],
-    },
+    "ce_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "ce_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I,
+               _I, _I, _I, _I, _I, _P],
 }
-_FNS = {}
-
-
-def _fn(name):
-    """The C function ``name`` of ``csrc/<name>.cu``, loaded (and built) at
-    first use, never at import."""
-    if name not in _FNS:
-        fn = getattr(_build.load(name), name)
-        fn.argtypes = _SIGNATURES[name][name]
-        fn.restype = ctypes.c_int
-        _FNS[name] = fn
-    return _FNS[name]
-
-
 def _launch(name, device, *args):
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _fn(name)(*args, stream)
-    if err != 0:
-        err_fn = getattr(_build.load(name), f"{name}_error_string")
-        err_fn.argtypes = [ctypes.c_int]
-        err_fn.restype = ctypes.c_char_p
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({err_fn(err).decode()})")
+    """``csrc/<name>.cu``'s launcher ``name`` on ``device``'s current stream."""
+    _build.launch(name, name, _SIGNATURES[name], device, *args)
 
 
 def _check(fn, h, W, b, targets, num_valid, precision, **extra):

@@ -68,30 +68,10 @@ _SIGNATURES = {
 }
 
 
-_FNS = {}
-
-
-def _fn(lib_name, fn_name):
-    """The C function, loaded (and built) at first use, never at import."""
-    if fn_name not in _FNS:
-        lib = _build.load(lib_name)
-        fn = getattr(lib, fn_name)
-        fn.argtypes = _SIGNATURES[lib_name][fn_name]
-        fn.restype = ctypes.c_int
-        err_fn = getattr(lib, f"{lib_name}_error_string")
-        err_fn.argtypes = [ctypes.c_int]
-        err_fn.restype = ctypes.c_char_p
-        _FNS[fn_name] = fn
-    return _FNS[fn_name]
-
-
 def _launch(lib_name, fn_name, device, *args):
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _fn(lib_name, fn_name)(*args, stream)
-    if err != 0:
-        msg = getattr(_build.load(lib_name), f"{lib_name}_error_string")(err).decode()
-        raise RuntimeError(f"{fn_name} launch failed: CUDA error {err} ({msg})")
+    """``csrc/<lib_name>.cu``'s launcher ``fn_name`` on ``device``'s current
+    stream."""
+    _build.launch(lib_name, fn_name, _SIGNATURES[lib_name][fn_name], device, *args)
 
 
 def _check(fn, named, h_rows, x0_rows, O):

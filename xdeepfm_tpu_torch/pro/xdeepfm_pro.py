@@ -17,9 +17,8 @@ import torch
 from torch import nn
 
 from ..basemodel import BaseModel
-from ..embeddings import EmbeddingCollection, LinearModel, fused_gather
+from ..embeddings import EmbeddingCollection, LinearModel, can_fuse_lookup, lookup_inputs
 from ..features import SparseFeat, compute_input_dim, split_columns
-from ..models.xdeepfm import _id_layout
 from ..nn.core import DNN, PredictionLayer, torch_linear_init
 from ..nn.interaction import CIN, cin_featuremap_num
 from .autodis import DenseFeatureEncoder
@@ -103,13 +102,8 @@ class XDeepFMProModule(nn.Module):
                 num_fields=len(sp) + len(vl), generator=gen,
             )
         self.out = PredictionLayer(task=task)
-        # one gather through the main and linear tables where their id
-        # layouts agree (as models/xdeepfm.py)
-        lin_sp = split_columns(self.linear_model.feature_columns)[0]
-        layout = _id_layout(self.embedding_dict, sp) if sp else None
-        self._fused = layout is not None and layout == _id_layout(
-            self.linear_model.embedding_dict, lin_sp
-        )
+        # one gather through the main and linear tables where they allow it
+        self._fused = can_fuse_lookup(self.embedding_dict, self.linear_model, sp)
 
     def _sfg_impl(self, B, device):
         """"pallas" (the kernel route), "remat" or "materialized"."""
@@ -128,16 +122,8 @@ class XDeepFMProModule(nn.Module):
         in training ``labels`` [B, 1] and ``sample_mask`` [B]).  Returns
         ``{"pred": [B, 1]}``, plus ``aux_loss`` and ``logs`` when training
         with labels."""
-        main_rows = lin_rows = None
-        if self._fused:
-            dim, ids = self.embedding_dict.sparse_ids(batch, self._sparse)
-            rows = fused_gather(
-                (self.embedding_dict.table(dim), self.linear_model.embedding_dict.table_d1),
-                ids.reshape(-1),
-            )
-            main_rows, lin_rows = rows[:, :dim], rows[:, dim:]
-        sparse_stack, dense_vals = self.embedding_dict.stacked_inputs(
-            batch, self.dnn_cols, rows=main_rows
+        sparse_stack, dense_vals, lin_rows = lookup_inputs(
+            self.embedding_dict, self.linear_model, batch, self.dnn_cols, self._fused
         )
         final_logit = self.linear_model(batch, sparse_rows=lin_rows)
         if self.use_cin:
