@@ -64,9 +64,10 @@ run in order and any failure raises, so the exit code is non-zero:
    ``ab_fwd`` + ``ab_bwd`` or V2's 2 ``sa_fwd`` + 2 ``sa_bwd``; one step's
    gradients with the kernels and with the plain versions, both held against
    a float64 copy of the model (each parameter's kernel gradient as close to
-   float64 as the plain fp32 one, or within 1e-4 of its largest entry), one
-   SGD step against the CPU model, the epoch loss falling, examples/s with the kernels and the plain
-   versions; a training profile; then ``Scorer(batch_size=8192)`` with 2
+   float64 as the plain fp32 one, or within 1e-4 of its largest entry or of
+   1e-3 of the model's largest gradient entry, whichever is larger), one
+   SGD step against the CPU model, the epoch loss falling, examples/s with
+   the kernels and the plain versions; a training profile; then ``Scorer(batch_size=8192)`` with 2
    ``cin_fwd`` + 1 ``ab_fwd`` (V1) or + 2 ``sa_fwd`` (V2) per batch, agreeing
    with the CPU model on a small input;
 13. lane-attention kernels vs plain (run right after the attention
@@ -80,12 +81,34 @@ run in order and any failure raises, so the exit code is non-zero:
    (256, 128)) at the canonical columns, trained, profiled and scored as the
    attention models are in 12: per step 3 ``la_fwd`` + 3 ``la_bwd``
    (AutoInt) or 1 + 1 (DIFM), per scored batch 3 or 1 ``la_fwd``;
-15. a ``{"kernels": [...]}`` line, one entry per hand-written kernel;
-16. the last line: ``{"ok": true, "device": {...}}``.
+15. GRU-scan kernels vs plain (run right after the lane kernels):
+   ``gru_fwd`` / ``gru_bwd`` for each cell (gru, agru, augru) at DIEN's train
+   shape (B 4096, T 50, H 10, lengths uniform in 1..50), its serving shape
+   (B 8192), ragged (B 1001, T 37, some lengths 0), tiny and H 16; every
+   backward bit-equal over two runs; beside them for cell gru cuDNN's
+   ``torch.nn.GRU`` over ``pack_padded_sequence`` (backward by autograd)
+   and the kernel plus the hoisted input projection, which cuDNN includes;
+16. DIEN (``bench.py``'s ``dien`` row: AUGRU, negative sampling, user and
+   item of vocab 10 000 and dim 10, one dense field, histories of maxlen 50)
+   trained, profiled and scored as the models in 12: per step 2 ``gru_fwd``
+   + 2 ``gru_bwd`` (the extractor's GRU and the AUGRU), per scored batch 2
+   ``gru_fwd``;
+17. the embedding tables' backward (``gather`` lines): the port's
+   deterministic ``fused_gather`` beside ``F.embedding``'s and
+   ``index_select``'s, bit-equality over two calls, error against float64
+   and time, at DIEN's and xDeepFM's step;
+18. a ``{"kernels": [...]}`` line, one entry per hand-written kernel;
+19. the last line: ``{"ok": true, "device": {...}}``.
+
+Every model's training record lists the gradients that a second identical
+step does not reproduce bit for bit (``grads_not_reproduced``); the run fails
+unless that list is empty, since every gather and kernel of the port is
+deterministic.
 
 In every gradient comparison of a model (kernels against plain versions,
 against float64, card against CPU) the second side's relus that follow a
-kernel (each CIN layer's, each InteractingLayer's) are compared input by
+kernel (each CIN layer's, each InteractingLayer's, and DIEN's attention MLP
+and DNN, which read the recurrences' outputs) are compared input by
 input with the first side's (:class:`ReluRecord`): relu's gradient jumps at
 0, so an input that the two sides' fp32 sums put on opposite sides of it
 moves the gradients by far more than rounding.  Such a flip is held (the
@@ -105,10 +128,25 @@ import torch.nn.functional as F
 from torch.overrides import TorchFunctionMode
 
 from xdeepfm_tpu_torch.basemodel import _loss_fn_single
-from xdeepfm_tpu_torch.features import DenseFeat, SparseFeat
-from xdeepfm_tpu_torch.models import DIFM, AutoInt, xDeepFM, xDeepFMAttention, xDeepFMAttentionV2
-from xdeepfm_tpu_torch.nn import CIN, CINAttention, CINAttentionV2, InteractingLayer
-from xdeepfm_tpu_torch.ops import _build, attention, attn_block, ce, lane_attention
+from xdeepfm_tpu_torch.embeddings import fused_gather
+from xdeepfm_tpu_torch.features import DenseFeat, SparseFeat, VarLenSparseFeat
+from xdeepfm_tpu_torch.models import (
+    DIEN,
+    DIFM,
+    AutoInt,
+    xDeepFM,
+    xDeepFMAttention,
+    xDeepFMAttentionV2,
+)
+from xdeepfm_tpu_torch.models.dien import DIENModule
+from xdeepfm_tpu_torch.nn import (
+    CIN,
+    CINAttention,
+    CINAttentionV2,
+    InteractingLayer,
+    LocalActivationUnit,
+)
+from xdeepfm_tpu_torch.ops import _build, attention, attn_block, ce, gru, lane_attention
 from xdeepfm_tpu_torch.ops.attention_cuda import (
     sa_backward,
     sa_backward_reference,
@@ -129,6 +167,12 @@ from xdeepfm_tpu_torch.ops.ce_cuda import (
     ce_rows_forward_reference,
 )
 from xdeepfm_tpu_torch.ops.cin import set_backward_impl
+from xdeepfm_tpu_torch.ops.gru_cuda import (
+    gru_backward,
+    gru_backward_reference,
+    gru_forward,
+    gru_forward_reference,
+)
 from xdeepfm_tpu_torch.ops.lane_attention_cuda import (
     la_backward,
     la_backward_reference,
@@ -197,12 +241,14 @@ SOURCES = {
     "ab_bwd": ("xdeepfm_tpu_torch/ops/csrc/ab_bwd.cu", "xdeepfm_tpu/ops/attn_block_pallas.py:541"),
     "la_fwd": ("xdeepfm_tpu_torch/ops/csrc/la_fwd.cu", "xdeepfm_tpu/ops/lane_attention.py:124"),
     "la_bwd": ("xdeepfm_tpu_torch/ops/csrc/la_bwd.cu", "xdeepfm_tpu/ops/lane_attention.py:143"),
+    "gru_fwd": ("xdeepfm_tpu_torch/ops/csrc/gru_fwd.cu", "xdeepfm_tpu/ops/gru_pallas.py:245"),
+    "gru_bwd": ("xdeepfm_tpu_torch/ops/csrc/gru_bwd.cu", "xdeepfm_tpu/ops/gru_pallas.py:275"),
 }
 WRAPPERS = {
     "cin_fwd": cin_rows_forward, "cin_bwd_dx": cin_rows_backward, "cin_dw": cin_rows_dw,
     "ce_fwd": ce_rows_forward, "ce_bwd": ce_rows_backward,
     "sa_fwd": sa_forward, "sa_bwd": sa_backward, "ab_fwd": ab_forward, "ab_bwd": ab_backward,
-    "la_fwd": la_forward, "la_bwd": la_backward,
+    "la_fwd": la_forward, "la_bwd": la_backward, "gru_fwd": gru_forward, "gru_bwd": gru_backward,
 }
 
 # The Pro step's fused CE (canonical xDeepFMPro: 26 heads of vocabulary 10000,
@@ -346,6 +392,26 @@ def canonical_columns():
     ]
 
 
+# DIEN at bench.py's dien row (bench.py:338-371, 389-393): user and item of
+# vocab 10 000 and dim 10, one dense field, the item history and its
+# negatives (maxlen 50, lengths uniform in 1..50, padded ids 0) sharing the
+# item table
+DIEN_MAXLEN = 50
+
+
+def dien_columns():
+    def hist(name):
+        return VarLenSparseFeat(SparseFeat(name, VOCAB, DIM, embedding_name="item"), DIEN_MAXLEN,
+                                length_name="seq_length")
+
+    return [SparseFeat("user", VOCAB, DIM), SparseFeat("item", VOCAB, DIM), DenseFeat("score"),
+            hist("hist_item"), hist("neg_hist_item")]
+
+
+def model_columns(version):
+    return dien_columns() if version == "dien" else canonical_columns()
+
+
 # The models at the canonical widths: xDeepFM, and the attention CIN's two
 # (bench.py's rows attn, xDeepFMAttention(cols, cols, cin_num_heads=2), and
 # attn2, xDeepFMAttentionV2(cols, cols, cin_num_heads=4,
@@ -364,6 +430,8 @@ MODELS = {
     # with 2 heads (one scaled layer, DNN (256, 128))
     "autoint": lambda cols, device: AutoInt(cols, cols, device=device),
     "difm": lambda cols, device: DIFM(cols, cols, att_head_num=2, device=device),
+    "dien": lambda cols, device: DIEN(cols, ["item"], gru_type="AUGRU", use_negsampling=True,
+                                      device=device),
 }
 
 
@@ -380,7 +448,7 @@ def canonical_model(device, weights=None, seeded=True, version="xdeepfm"):
     """The canonical xDeepFM (or attention ``version``) with ``weights``,
     else random weights from SEED (``seeded``), else its own
     initialisation."""
-    model = MODELS[version](canonical_columns(), device)
+    model = MODELS[version](model_columns(version), device)
     if weights is None and not seeded:
         return model
     if weights is None:
@@ -396,13 +464,26 @@ def canonical_model(device, weights=None, seeded=True, version="xdeepfm"):
     return model
 
 
-def requests(rng, sizes):
+def requests(rng, sizes, version="xdeepfm"):
+    if version == "dien":
+        return [dien_rows(rng, n) for n in sizes]
     out = []
     for n in sizes:
         x = {f"C{i}": rng.integers(0, VOCAB, n) for i in range(N_SPARSE)}
         x.update({f"I{i}": rng.uniform(0, 1, n).astype(np.float32) for i in range(N_DENSE)})
         out.append(x)
     return out
+
+
+def dien_rows(rng, n):
+    """DIEN's rows as bench.py's dien_x draws them."""
+    lengths = rng.integers(1, DIEN_MAXLEN + 1, n)
+    valid = np.arange(DIEN_MAXLEN)[None, :] < lengths[:, None]
+    return {"user": rng.integers(0, VOCAB, n), "item": rng.integers(0, VOCAB, n),
+            "score": rng.uniform(0, 1, n).astype(np.float32),
+            "hist_item": rng.integers(1, VOCAB, (n, DIEN_MAXLEN)) * valid,
+            "neg_hist_item": rng.integers(1, VOCAB, (n, DIEN_MAXLEN)) * valid,
+            "seq_length": lengths}
 
 
 def score_all(scorer, reqs):
@@ -486,11 +567,19 @@ def phase_profile(scorer, req, calls=3):
          **device_breakdown(prof, wall_ms, calls))
 
 
-def train_data(rng, n):
+def train_data(rng, n, version="xdeepfm"):
     """Criteo-like rows (26 ids uniform over the vocab, 13 dense in [0, 1))
     labelled by a logistic teacher: per-id effects, dense weights and a
     negative bias, so the click rate is about a third and the labels carry
-    signal that the model can learn."""
+    signal that the model can learn.  DIEN's rows (``dien_rows``) take a
+    teacher over the dense score, the item and the mean effect of the
+    history's items, with the same negative bias."""
+    if version == "dien":
+        x = dien_rows(rng, n)
+        effects = rng.normal(0.0, 0.5, VOCAB)
+        hist = np.where(x["hist_item"] > 0, effects[x["hist_item"]], 0.0).sum(1) / x["seq_length"]
+        logit = -1.0 + 3.0 * (x["score"] - 0.5) + effects[x["item"]] + hist
+        return x, (rng.uniform(size=n) < 1 / (1 + np.exp(-logit))).astype(np.float32)
     x = requests(rng, (n,))[0]
     effects = rng.normal(0.0, 0.3, (N_SPARSE, VOCAB))
     logit = -1.0 + sum(effects[i][x[f"C{i}"]] for i in range(N_SPARSE))
@@ -520,12 +609,13 @@ def device_batch(model, x, y, n):
 
 
 def step_grads(model, xb, yb):
-    """Gradients of one step's loss (sum-BCE + L2 registry), no update."""
+    """Gradients of one step's loss (sum-BCE + L2 registry + a module's
+    aux loss, as ``_train_step``), no update."""
     model.module.zero_grad(set_to_none=True)
     out = model.module(xb, training=True)
     mask = torch.ones(yb.shape[0], device=yb.device)
     loss = _loss_fn_single("binary_crossentropy")(out["pred"].reshape(-1), yb.reshape(-1), mask)
-    (loss + model._regularization_loss()).backward()
+    (loss + model._regularization_loss() + out.get("aux_loss", 0.0)).backward()
     return {k: p.grad.clone() for k, p in model.module.named_parameters()}
 
 
@@ -536,13 +626,22 @@ def step_grads(model, xb, yb):
 RELU_BAND = 1e-5
 MAX_HELD_FLIPS = 32
 _RELUS = (torch.relu, F.relu, torch.Tensor.relu)
-# the modules whose relus follow a kernel: the CIN's layers, InteractingLayer
-_KERNEL_FED = (CIN, CINAttention, CINAttentionV2, InteractingLayer)
+# the modules whose relus follow a kernel: the CIN's layers, InteractingLayer,
+# DIEN's attention MLP (on the extractor's states) and its DNN (on the
+# evolution's last state)
+_KERNEL_FED = (CIN, CINAttention, CINAttentionV2, InteractingLayer, LocalActivationUnit)
+
+
+def kernel_fed_sites(model):
+    sites = [m for m in model.module.modules() if isinstance(m, _KERNEL_FED)]
+    if isinstance(model.module, DIENModule):
+        sites.append(model.module.dnn)
+    return sites
 
 
 class ReluRecord(TorchFunctionMode):
     """The inputs of ``model``'s relus that follow a kernel (a relu called
-    within a CIN, attention CIN or InteractingLayer forward), in call order,
+    within a forward of :func:`kernel_fed_sites`), in call order,
     while it is entered.  With ``ref``, another route's record of the same
     step on the same batch, each input is compared with the one ``ref``
     recorded at its place instead: where their signs differ, the relu takes
@@ -556,7 +655,7 @@ class ReluRecord(TorchFunctionMode):
         super().__init__()
         self.ref, self.inputs, self.calls, self.depth = ref, [], 0, 0
         self.flips, self.worst, self.shares = 0, 0.0, []
-        self.sites = [m for m in model.module.modules() if isinstance(m, _KERNEL_FED)]
+        self.sites = kernel_fed_sites(model)
         # one relu per CIN layer, one per InteractingLayer, in each forward
         self.least = sum(len(getattr(m, "layer_size", (0,))) for m in self.sites)
 
@@ -620,6 +719,15 @@ class ReluRecord(TorchFunctionMode):
                 "shares": sorted(self.shares, reverse=True)}
 
 
+def reproduced(label, got, again):
+    """[] after checking that a second identical step (``again``) gave every
+    gradient of ``got`` bit for bit; fails the run otherwise."""
+    unsteady = sorted(k for k in got if not torch.equal(got[k], again[k]))
+    if unsteady:
+        raise AssertionError(f"{label}a second identical step changed the gradients of {unsteady}")
+    return unsteady
+
+
 def relu_step_grads(model, xb, yb, ref=None):
     """(:func:`step_grads`, the :class:`ReluRecord` of its kernel-fed
     relus, compared with ``ref`` where given)."""
@@ -628,12 +736,29 @@ def relu_step_grads(model, xb, yb, ref=None):
     return grads, rec
 
 
-def grad_err(got, want):
-    """Largest per-parameter error, relative to that gradient's largest entry."""
-    return max(
-        float((got[k] - want[k]).abs().max()) / max(float(want[k].abs().max()), 1e-30)
-        for k in want
-    )
+# A gradient far below the others may cancel to rounding noise by
+# construction, and its error over its own size is then noise over noise.
+# DIEN's attention MLP is such a gradient: the softmax over T cancels
+# whatever shift a row's scores share, and at init_std 1e-4 nearly all of
+# the MLP's gradient is such a shift.  So DIEN's gradients are each held
+# relative to their largest entry or to GRAD_FLOOR of the largest entry of
+# all the gradients compared, whichever is larger; every other model's
+# relative to their own largest entry alone.
+GRAD_FLOOR = {"dien": 1e-3}
+
+
+def per_grad_err(got, want, floor=0.0):
+    """Per-parameter error of ``got`` against ``want``, relative to that
+    gradient's largest entry or ``floor`` times the largest entry of all,
+    whichever is larger."""
+    least = floor * max(float(w.abs().max()) for w in want.values())
+    return {k: float((got[k].to(want[k].dtype) - want[k]).abs().max())
+            / max(float(want[k].abs().max()), least, 1e-30) for k in want}
+
+
+def grad_err(got, want, floor=0.0):
+    """The largest of :func:`per_grad_err`."""
+    return max(per_grad_err(got, want, floor).values())
 
 
 # fp32 sums in other orders (the kernels', cuBLAS's, the CPU's) through the
@@ -641,25 +766,45 @@ def grad_err(got, want):
 GRAD_RTOL = 1e-4
 
 
-def sgd_step_vs_cpu(pair, x, y, label):
+def sgd_step_vs_cpu(pair, x, y, label, floor=0.0):
     """One SGD step on 256 rows from the same weights by the card's and the
     CPU's model (``pair``), the CPU's kernel-fed relus compared with the
-    card's (:class:`ReluRecord`); the gradients and the weights after it
-    each within GRAD_RTOL.  Returns both errors and the relu flips."""
-    small, rec = 256, None
+    card's (:class:`ReluRecord`).  Errors by :func:`per_grad_err` with
+    ``floor``: the weights after it within GRAD_RTOL; the gradients within
+    GRAD_RTOL, or, for a gradient that rounding moves further, as close to a
+    float64 copy's gradients as the CPU's own fp32 ones, up to FP32_SLACK.
+    Returns the errors and the relu flips."""
+    small, recs = 256, []
+    m64 = copy.deepcopy(pair[1])  # the CPU model before its step
     for m in pair:
         m.compile("sgd", "binary_crossentropy")
-        with ReluRecord(m, rec) as rec:
+        with ReluRecord(m, recs[0] if recs else None) as rec:
             m.fit({k: v[:small] for k, v in x.items()}, y[:small], batch_size=small, epochs=1,
                   verbose=0, shuffle=False)
-    errs = {"relus": rec.stats()}
-    for what, get in (("grad", lambda m: {k: p.grad for k, p in m.module.named_parameters()}),
-                      ("weights", lambda m: dict(m.module.named_parameters()))):
-        got_t, want_t = ({k: t.detach().cpu() for k, t in get(m).items()} for m in pair)
-        errs[what] = grad_err(got_t, want_t)
-        if errs[what] > GRAD_RTOL:
-            raise AssertionError(f"{label}card and CPU {what} after one step differ by "
-                                 f"{errs[what]}")
+        recs.append(rec)
+    errs = {"relus": recs[1].stats()}
+    card, cpu = ({k: p.grad.detach().cpu() for k, p in m.module.named_parameters()} for m in pair)
+    errs["grad"] = grad_err(card, cpu, floor)
+    if errs["grad"] > GRAD_RTOL:
+        m64.module = m64.module.double()
+        m64.compile("sgd", "binary_crossentropy")
+        xb, yb = device_batch(m64, x, y, small)
+        xb = {k: v.double() if v.is_floating_point() else v for k, v in xb.items()}
+        ref, held = relu_step_grads(m64, xb, yb.double(), recs[0])
+        card64, cpu64 = per_grad_err(card, ref, floor), per_grad_err(cpu, ref, floor)
+        vs64 = {k: (card64[k], cpu64[k]) for k in ref}
+        bad = {k: e for k, e in vs64.items() if e[0] > max(GRAD_RTOL, FP32_SLACK * e[1])}
+        if bad:
+            raise AssertionError(f"{label}card and CPU grad after one step differ by "
+                                 f"{errs['grad']}; off float64 by (card, CPU) {bad}")
+        errs["relus_float64"] = held.stats()
+        errs["grad_vs_float64_worst"] = {k: {"card": e[0], "cpu": e[1]} for k, e in sorted(
+            vs64.items(), key=lambda kv: -kv[1][0])[:3]}
+    weights = [{k: p.detach().cpu() for k, p in m.module.named_parameters()} for m in pair]
+    errs["weights"] = grad_err(*weights, floor)
+    if errs["weights"] > GRAD_RTOL:
+        raise AssertionError(f"{label}card and CPU weights after one step differ by "
+                             f"{errs['weights']}")
     return errs
 
 
@@ -734,6 +879,7 @@ def phase_training():
         if grad_errs[impl] > GRAD_RTOL:
             raise AssertionError(f"{impl}: kernel gradients off by {grad_errs[impl]}")
     set_backward_impl("auto")
+    unsteady = reproduced("xDeepFM: ", step_grads(model, xb, yb), step_grads(model, xb, yb))
 
     # one SGD step on the card against the CPU model from the same weights
     cpu_errs = sgd_step_vs_cpu(
@@ -751,6 +897,7 @@ def phase_training():
         batch=TRAIN_BATCH, steps=steps, epochs=TRAIN_EPOCHS, fit_seconds=fit_s,
         launches=launches, legacy_launches_per_step=legacy_launches,
         history=logs, grad_rel_err_vs_plain_cin=grad_errs, relu_flips_vs_plain_cin=relu_flips,
+        grads_not_reproduced=unsteady,
         rel_err_vs_cpu_one_sgd_step=cpu_errs,
         ms_per_step_kernel=runs["kernel"], ms_per_step_plain_cin=runs["plain"],
         examples_per_s_kernel=[TRAIN_BATCH / ms * 1e3 for ms in runs["kernel"]],
@@ -957,6 +1104,8 @@ def phase_pro_training():
         if grad_errs[key] > GRAD_RTOL:
             raise AssertionError(f"{key}: CE kernel gradients off by {grad_errs[key]}")
     ce.set_stack_heads(True)
+    unsteady = reproduced("Pro: ", pro_step_grads(model, batch, yb),
+                          pro_step_grads(model, batch, yb))
     del want_g, got_g
 
     # one SGD step on the card against the CPU model from the same weights
@@ -976,7 +1125,8 @@ def phase_pro_training():
     record = dict(
         batch=TRAIN_BATCH, steps=steps, epochs=TRAIN_EPOCHS, fit_seconds=fit_s,
         positive_share=positive_share, launches=launches, step_launches=step_launches,
-        history=logs, grad_rel_err_vs_plain_ce=grad_errs, rel_err_vs_cpu_one_sgd_step=cpu_errs,
+        history=logs, grad_rel_err_vs_plain_ce=grad_errs, grads_not_reproduced=unsteady,
+        rel_err_vs_cpu_one_sgd_step=cpu_errs,
         ms_per_step_kernel=runs["kernel"], ms_per_step_plain_ce=runs["plain"],
         examples_per_s_kernel=[TRAIN_BATCH / ms * 1e3 for ms in runs["kernel"]],
         examples_per_s_plain_ce=[TRAIN_BATCH / ms * 1e3 for ms in runs["plain"]],
@@ -1048,7 +1198,10 @@ ATTN_EVAL = {"v1": dict(cin_fwd=2, ab_fwd=1), "v2": dict(cin_fwd=2, sa_fwd=2)}
 # launch each per step
 ATTN_STEP.update(autoint=dict(la_fwd=3, la_bwd=3), difm=dict(la_fwd=1, la_bwd=1))
 ATTN_EVAL.update(autoint=dict(la_fwd=3), difm=dict(la_fwd=1))
-PHASE = {"v1": "attn_v1", "v2": "attn_v2", "autoint": "autoint", "difm": "difm"}
+# DIEN: the extractor's GRU and the AUGRU, a forward and a backward each
+ATTN_STEP.update(dien=dict(gru_fwd=2, gru_bwd=2))
+ATTN_EVAL.update(dien=dict(gru_fwd=2))
+PHASE = {"v1": "attn_v1", "v2": "attn_v2", "autoint": "autoint", "difm": "difm", "dien": "dien"}
 
 
 def _checked(got, want, rtol):
@@ -1257,18 +1410,187 @@ def phase_lane_kernels(peak):
     return results
 
 
+# ---------------------------------------------------------------------------
+# the GRU / AGRU / AUGRU recurrence of DIEN: TPU kernel rows 14-15
+# ---------------------------------------------------------------------------
+
+# (label, B, T, H, shortest length): DIEN's train step runs the extractor's
+# gru and the augru once each at B 4096, T 50, H 10 with lengths uniform in
+# 1..50; scoring at B 8192; a ragged batch and a tiny one with length-0 rows;
+# H 16, the kernels' gate
+GRU_SHAPES = (
+    ("dien_train", TRAIN_BATCH, DIEN_MAXLEN, DIM, 1),
+    ("dien_serve", BATCH, DIEN_MAXLEN, DIM, 1),
+    ("ragged", 1001, 37, DIM, 0),
+    ("tiny", 5, 3, 2, 0),
+    ("h16", TRAIN_BATCH, DIEN_MAXLEN, 16, 1),
+)
+GRU_PATH_SHAPE = "dien_train"
+# fp32 recurrences over up to 50 steps, the plain version's gate products in
+# cuBLAS's order: outs within 1e-5 of their largest entry; the gradients
+# (dW and db sum B * T terms) within BWD_RTOL of theirs
+GRU_RTOL = 1e-5
+
+
+def _gru_case(cell, B, T, H, shortest, gen):
+    """Fresh operands of one GRU-scan shape on the card."""
+    def rand(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=gen, device="cuda")
+
+    att = None if cell == "gru" else torch.rand(B, T, generator=gen, device="cuda")
+    lengths = torch.randint(shortest, T + 1, (B,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    return (rand(B, T, 3, H), rand(3, H, H, scale=H ** -0.5), rand(3, H, scale=0.3), att,
+            lengths, rand(B, H, scale=0.5), rand(B, T, H))
+
+
+def _cudnn_gru(lengths, T, H, gen):
+    """The library yardstick for cell gru: ``torch.nn.GRU`` (cuDNN) over
+    ``pack_padded_sequence`` at [B, T, H] inputs, input projection included.
+    (forward call, forward + autograd backward call)."""
+    net = torch.nn.GRU(H, H, batch_first=True).cuda()
+    x = torch.randn(lengths.shape[0], T, H, generator=gen, device="cuda", requires_grad=True)
+    lens = lengths.cpu().long()
+
+    def fwd():
+        packed = torch.nn.utils.rnn.pack_padded_sequence(x, lens, batch_first=True,
+                                                         enforce_sorted=False)
+        return net(packed)[0].data
+
+    g = torch.randn(fwd().shape, generator=gen, device="cuda")
+    params = (x, *net.parameters())
+    return fwd, lambda: torch.autograd.grad(fwd(), params, g)
+
+
+def phase_gru_kernels(peak):
+    """gru_fwd / gru_bwd against their plain versions on the same inputs for
+    each cell, the backward bit-equal over two runs, with times, bounds and
+    for cell gru cuDNN's GRU beside the kernels plus the hoisted input
+    projection (x W_ih^T + b_ih, one product; its backward three).  The
+    work counts what this run's lengths need: gi, att and the h history are
+    read, and the gate products done, only at the N_valid valid steps; g,
+    outs, dgi and datt are every step's.  FLOPs a valid step: forward the
+    three [H, H] products and the gates (6 H^2 + 12 H), backward the
+    recompute, dW and dh products (18 H^2 + 30 H)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    results = {}
+    for cell in ("gru", "agru", "augru"):
+        for label, B, T, H, shortest in GRU_SHAPES:
+            gi, w, b, att, lengths, h0, g = _gru_case(cell, B, T, H, shortest, gen)
+            args = (cell, gi, w, b, att, lengths, h0)
+            outs = gru_forward(*args)
+            grads = gru_backward(cell, g, *args[1:], outs)
+            torch.cuda.synchronize()
+            fwd_err = _checked(outs, gru_forward_reference(*args), GRU_RTOL)
+            bwd_err = max(_checked(a, e, BWD_RTOL) for a, e in zip(
+                grads, gru_backward_reference(cell, g, *args[1:], outs)))
+            if not all(torch.equal(a, c) for a, c in zip(grads, gru_backward(cell, g, *args[1:],
+                                                                              outs))):
+                raise AssertionError(f"gru_bwd {cell} at {label}: two runs differ")
+            del grads
+            iters = 50 if B > 100 else 200
+            times = dict(
+                fwd_ms=cuda_ms(lambda: gru_forward(*args), iters),
+                bwd_ms=cuda_ms(lambda: gru_backward(cell, g, *args[1:], outs), iters),
+                plain_fwd_ms=cuda_ms(lambda: gru_forward_reference(*args), 3),
+                plain_bwd_ms=cuda_ms(lambda: gru_backward_reference(cell, g, *args[1:], outs), 3),
+                library_fwd_ms=None, library_bwd_ms=None,
+            )
+            if cell == "gru" and shortest > 0:
+                x = torch.randn(B, T, H, generator=gen, device="cuda")
+                w_ih, b_ih = torch.randn(3 * H, H, device="cuda"), torch.randn(3 * H, device="cuda")
+                dgi = torch.randn(B * T, 3 * H, device="cuda")
+                xf = x.view(-1, H)
+                times["kernel_with_projection_fwd_ms"] = cuda_ms(lambda: gru_forward(
+                    cell, torch.addmm(b_ih, xf, w_ih.T).view(B, T, 3, H), *args[2:]), iters)
+                times["kernel_with_projection_bwd_ms"] = cuda_ms(lambda: (
+                    gru_backward(cell, g, *args[1:], outs), dgi @ w_ih, dgi.T @ xf, dgi.sum(0)),
+                    iters)
+                lib_fwd, lib_fwd_bwd = _cudnn_gru(lengths, T, H, gen)
+                times["library_fwd_ms"] = cuda_ms(lib_fwd, 20)
+                times["library_bwd_ms"] = cuda_ms(lib_fwd_bwd, 20) - times["library_fwd_ms"]
+            nv = int(lengths.sum())
+            att_in = 0 if cell == "gru" else 1
+            small = B + B * H + 3 * H * H + 3 * H  # lengths, h0 (or dh0), w and b
+            rec = dict(cell=cell, B=B, T=T, H=H, valid_steps=nv, **times, fwd_max_abs_err=fwd_err,
+                       bwd_max_abs_err=bwd_err, bwd_bit_equal=True,
+                       library="torch.nn.GRU (cuDNN) over pack_padded_sequence, fwd + autograd bwd "
+                               "less fwd" if cell == "gru" else "none computes this cell")
+            for kind, flops, nbytes in (
+                    ("fwd", nv * (6 * H * H + 12 * H),
+                     4 * (nv * (3 * H + att_in) + B * T * H + small)),
+                    ("bwd", nv * (18 * H * H + 30 * H),
+                     4 * (nv * (4 * H + att_in) + B * T * (H + 3 * H + 1) + 2 * small))):
+                rec[f"{kind}_bound_ms"], rec[f"{kind}_bound_by"] = _bound(flops, nbytes, peak)
+                rec[f"{kind}_gflop"] = flops / 1e9
+                rec[f"{kind}_mbytes"] = nbytes / 1e6
+                rec[f"{kind}_gbytes_per_s"] = nbytes / rec[f"{kind}_ms"] / 1e6
+            results[cell, label] = rec
+            emit(phase="gru_kernel", shape=label, **rec)
+            del gi, w, b, att, lengths, h0, g, outs
+            torch.cuda.empty_cache()
+    return results
+
+
+# ---------------------------------------------------------------------------
+# the embedding tables' backward
+# ---------------------------------------------------------------------------
+
+
+def phase_gather():
+    """The table gradient of one step's gathers three ways, each run twice on
+    the same cotangent: ``fused_gather`` (the port's: a segment sum over the
+    sorted ids), ``F.embedding`` (PyTorch's sorted CUDA backward) and
+    ``index_select`` (an fp32 atomic scatter-add).  Whether each is bit-equal
+    between calls, its distance from float64 and its time (forward and
+    backward), at DIEN's step (4096 rows of 2 + 100 ids over one 10 000-row
+    table, half the history positions padding id 0) and xDeepFM's (4096 x 26
+    ids over the 26 stacked tables of 10 000 rows, main and linear)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    rng = np.random.default_rng(SEED + 50)
+    dien = dien_rows(rng, TRAIN_BATCH)
+    dien_ids = np.concatenate([dien["user"][:, None], dien["item"][:, None], dien["hist_item"],
+                               dien["neg_hist_item"]], 1)
+    xdfm_ids = rng.integers(0, VOCAB, (TRAIN_BATCH, N_SPARSE)) + VOCAB * np.arange(N_SPARSE)
+    for label, ids, rows, dim in (("dien_step", dien_ids, VOCAB, DIM),
+                                  ("xdeepfm_step", xdfm_ids, N_SPARSE * VOCAB, DIM + 1)):
+        ids = torch.as_tensor(ids.reshape(-1), device="cuda")
+        table = torch.randn(rows, dim, generator=gen, device="cuda", requires_grad=True)
+        g = torch.randn(ids.shape[0], dim, generator=gen, device="cuda")
+        want = torch.zeros(rows, dim, dtype=torch.float64, device="cuda").index_add_(
+            0, ids, g.double())
+        ways = {"fused_gather": lambda: fused_gather((table,), ids),
+                "F.embedding": lambda: F.embedding(ids, table),
+                "index_select": lambda: table.index_select(0, ids)}
+        rec = dict(ids=ids.shape[0], table_rows=rows, dim=dim,
+                   longest_run=int(torch.bincount(ids).max()))
+        for name, fwd in ways.items():
+            first, second = (torch.autograd.grad(fwd(), table, g)[0] for _ in range(2))
+            out = fwd()
+            rec[name] = dict(
+                bit_equal=bool(torch.equal(first, second)),
+                rel_err_vs_float64=float((first.double() - want).abs().max() / want.abs().max()),
+                fwd_ms=cuda_ms(fwd, 20),
+                bwd_ms=cuda_ms(lambda: torch.autograd.grad(out, table, g, retain_graph=True), 20))
+        if not rec["fused_gather"]["bit_equal"]:
+            raise AssertionError(f"fused_gather at {label}: two backward calls differ")
+        emit(phase="gather", shape=label, **rec)
+
+
 # A gradient summed over 10^6 terms that cancel to a small total carries
 # fp32 rounding of the terms' size: against float64, each parameter's
-# gradient with the kernels must be within 1e-4 of its largest entry or
-# within FP32_SLACK times the plain fp32 version's own error.
+# gradient with the kernels must be within 1e-4 of its largest entry (for
+# DIEN, or of GRAD_FLOOR of the model's largest) or within FP32_SLACK times
+# the plain fp32 version's own error.
 FP32_SLACK = 4.0
 
 
 def fp64_grads(model, xb, yb, ref):
     """One step's gradients (as :func:`step_grads`) of a float64 copy of
     ``model`` on its plain unfused route (the CIN's plain version,
-    ``attn_block.set_backend("xla")``, ``set_mhsa_backend("xla")`` and
-    ``lane_attention.set_backend("xla")``), and the flips of its kernel-fed
+    ``attn_block.set_backend("xla")``, ``set_mhsa_backend("xla")``,
+    ``lane_attention.set_backend("xla")`` and ``gru.set_backend("xla")``, the
+    plain scan), and the flips of its kernel-fed
     relus against the fp32 route's record ``ref`` (:class:`ReluRecord`)."""
     m64 = copy.deepcopy(model)
     m64.module = m64.module.double()
@@ -1277,6 +1599,7 @@ def fp64_grads(model, xb, yb, ref):
     attn_block.set_backend("xla")
     attention.set_mhsa_backend("xla")
     lane_attention.set_backend("xla")
+    gru.set_backend("xla")
     try:
         xb64 = {k: v.double() if v.is_floating_point() else v for k, v in xb.items()}
         grads, held = relu_step_grads(m64, xb64, yb.double(), ref)
@@ -1285,20 +1608,22 @@ def fp64_grads(model, xb, yb, ref):
         attn_block.set_backend("auto")
         attention.set_mhsa_backend("auto")
         lane_attention.set_backend("auto")
+        gru.set_backend("auto")
 
 
 def phase_model_training(version):
-    """The model ``version`` ("v1", "v2", "autoint" or "difm") trained as the
-    canonical xDeepFM is in phase_training: fit at batch 4096, Adam, three
-    epochs of 8 steps; launches per step and per validation batch; one step's
-    gradients with the kernels against the plain versions (the CIN's and the
-    attention's) on the card, both against float64; one SGD step on the card
-    against the CPU model; the epoch loss falls; examples/s with the kernels
-    and with the plain versions."""
+    """The model ``version`` ("v1", "v2", "autoint", "difm" or "dien")
+    trained as the canonical xDeepFM is in phase_training: fit at batch 4096,
+    Adam, three epochs of 8 steps; launches per step and per validation
+    batch; one step's gradients with the kernels against the plain versions
+    (the CIN's, the attention's, the recurrences') on the card, both against
+    float64; a second identical step reproduces every gradient; one SGD step
+    on the card against the CPU model; the epoch loss falls; examples/s with
+    the kernels and with the plain versions."""
     model = canonical_model("cuda", seeded=False, version=version)
     model.compile("adam", "binary_crossentropy", metrics=["auc"])
     rng = np.random.default_rng(SEED + 3)
-    x, y = train_data(rng, TRAIN_STEPS_PER_EPOCH * TRAIN_BATCH + TRAIN_BATCH // 2)
+    x, y = train_data(rng, TRAIN_STEPS_PER_EPOCH * TRAIN_BATCH + TRAIN_BATCH // 2, version)
     x, y, val = (  # the last half batch validates
         {k: v[: -TRAIN_BATCH // 2] for k, v in x.items()}, y[: -TRAIN_BATCH // 2],
         ({k: v[-TRAIN_BATCH // 2 :] for k, v in x.items()}, y[-TRAIN_BATCH // 2 :]),
@@ -1336,20 +1661,19 @@ def phase_model_training(version):
     step_launches = read_launches()
     if step_launches != expected(**per_step):
         raise AssertionError(f"{version}: one step launched {step_launches}")
-    again = step_grads(model, xb, yb)
-    unsteady = sorted(k for k in got_g if not torch.equal(got_g[k], again[k]))
-    del again
+    unsteady = reproduced(f"{version}: ", got_g, step_grads(model, xb, yb))
     set_kernel_backend(model, "torch")
     held_g, held = relu_step_grads(model, xb, yb, kernel_rec)
     set_kernel_backend(model, None)
-    grad_rel = grad_err(got_g, held_g)
+    floor = GRAD_FLOOR.get(version, 0.0)
+    grad_rel = grad_err(got_g, held_g, floor)
     del held_g
     ref, kernel_vs64 = fp64_grads(model, xb, yb, kernel_rec)
     ref_plain, plain_vs64 = fp64_grads(model, xb, yb, plain_rec)
     relu_flips = dict(kernel_vs_plain=held.stats(), kernel_vs_float64=kernel_vs64,
                       plain_vs_float64=plain_vs64)
-    vs64 = {k: (grad_err({k: got_g[k].double()}, {k: ref[k]}),
-                grad_err({k: want_g[k].double()}, {k: ref_plain[k]})) for k in ref}
+    kernel64, plain64 = per_grad_err(got_g, ref, floor), per_grad_err(want_g, ref_plain, floor)
+    vs64 = {k: (kernel64[k], plain64[k]) for k in ref}
     bad = {k: e for k, e in vs64.items() if e[0] > max(GRAD_RTOL, FP32_SLACK * e[1])}
     if bad:
         raise AssertionError(f"{version}: kernel gradients off float64 by (kernel, plain) {bad}")
@@ -1359,7 +1683,7 @@ def phase_model_training(version):
     # one SGD step on the card against the CPU model from the same weights
     cpu_errs = sgd_step_vs_cpu(
         [canonical_model(dev, model.get_weights(), version=version) for dev in ("cuda", "cpu")],
-        x, y, f"{version}: ")
+        x, y, f"{version}: ", floor)
 
     # examples/s trained, the kernels and the plain versions in turns; these
     # 44 steps repeat 4 batches (DIFM's refined FM saturates its sigmoid on
@@ -1379,6 +1703,8 @@ def phase_model_training(version):
         launches=launches, step_launches=step_launches, history=logs,
         grad_rel_err_vs_plain=grad_rel, relu_flips=relu_flips, grads_not_reproduced=unsteady,
         grad_rel_err_vs_float64_worst={k: {"kernel": e[0], "plain": e[1]} for k, e in worst},
+        grad_rel_err_vs_float64_tables={k: {"kernel": e[0], "plain": e[1]}
+                                         for k, e in vs64.items() if "table_d" in k},
         rel_err_vs_cpu_one_sgd_step=cpu_errs,
         ms_per_step_kernel=runs["kernel"], ms_per_step_plain=runs["plain"],
         examples_per_s_kernel=[TRAIN_BATCH / ms * 1e3 for ms in runs["kernel"]],
@@ -1391,10 +1717,10 @@ def phase_model_training(version):
 def phase_model_scoring(model, version):
     """The trained model through ``Scorer(batch_size=8192)`` over the serving
     requests: per batch V1 2 cin_fwd and one ab_fwd, V2 2 cin_fwd and two
-    sa_fwd, AutoInt three la_fwd, DIFM one, no backward; the scores agree
-    with the CPU model's on a small input."""
+    sa_fwd, AutoInt three la_fwd, DIFM one, DIEN two gru_fwd, no backward;
+    the scores agree with the CPU model's on a small input."""
     scorer = Scorer(model, batch_size=BATCH).warmup()
-    reqs = requests(np.random.default_rng(SEED + 1), REQUESTS)
+    reqs = requests(np.random.default_rng(SEED + 1), REQUESTS, version)
     n_batches = sum(-(-n // BATCH) for n in REQUESTS)
     reset_launches()
     preds, eps, ms = score_all(scorer, reqs)
@@ -1408,7 +1734,7 @@ def phase_model_scoring(model, version):
                                  f"range [{p.min()}, {p.max()}]")
     runs = [score_all(scorer, reqs) for _ in range(2)]
     cpu_model = canonical_model("cpu", model.get_weights(), version=version)
-    small = requests(np.random.default_rng(SEED + 2), (64,))[0]
+    small = requests(np.random.default_rng(SEED + 2), (64,), version)[0]
     cpu_err = float(np.abs(model.predict(small, 64) - cpu_model.predict(small, 64)).max())
     if cpu_err > 1e-5:
         raise AssertionError(f"{version}: card and CPU scores differ by {cpu_err}")
@@ -1443,6 +1769,7 @@ def main():
     ce_shapes = phase_ce_kernels(peak)
     attn_shapes = phase_attn_kernels(peak)
     la_shapes = phase_lane_kernels(peak)
+    gru_shapes = phase_gru_kernels(peak)
     serving, scorer, req = phase_serving()
     phase_profile(scorer, req)
     training, model, batches = phase_training()
@@ -1455,12 +1782,13 @@ def main():
     del pro_m, pro_batches
     torch.cuda.empty_cache()
     attn = {}
-    for version in ("v1", "v2", "autoint", "difm"):
+    for version in ("v1", "v2", "autoint", "difm", "dien"):
         rec, attn_m, attn_batches = phase_model_training(version)
         phase_train_profile(attn_m, attn_batches, phase=f"{PHASE[version]}_train_profile")
         attn[version] = rec, phase_model_scoring(attn_m, version)
         del attn_m, attn_batches
         torch.cuda.empty_cache()
+    phase_gather()
     paths = {"training": training["launches"], "pro_training": pro["launches"],
              "pro_scoring": pro_scoring["launches"]}
     for version, (rec, scoring) in attn.items():
@@ -1537,6 +1865,23 @@ def main():
             library_ms=n * r[f"library_{kind}_ms"],
             per=(f"AutoInt train step at batch 4096 ({n} launches, H {r['H']}, dh {r['dh']}, "
                  f"S {r['S']}, [B, S, E] strides)"),
+        ))
+    # rows 14-15 on DIEN's train step: the extractor's gru and the augru, one
+    # launch of each kernel each
+    for kname, kind in (("gru_fwd", "fwd"), ("gru_bwd", "bwd")):
+        source, replaces = SOURCES[kname]
+        rs = [gru_shapes[cell, GRU_PATH_SHAPE] for cell in ("gru", "augru")]
+        kernels.append(dict(
+            name=kname, route="cuda", source=source, replaces=replaces,
+            launches=paths["dien_training"][kname],
+            launches_by_path={p: counts[kname] for p, counts in paths.items()},
+            max_abs_err=max(x[f"{kind}_max_abs_err"] for x in gru_shapes.values()),
+            ms=sum(r[f"{kind}_ms"] for r in rs), plain_ms=sum(r[f"plain_{kind}_ms"] for r in rs),
+            bound_ms=sum(r[f"{kind}_bound_ms"] for r in rs),
+            bound_by=max(rs, key=lambda r: r[f"{kind}_bound_ms"])[f"{kind}_bound_by"],
+            library_ms=None, library_gru_cell_ms=rs[0][f"library_{kind}_ms"],
+            per=f"DIEN train step at batch 4096 (1 gru + 1 augru launch, T {rs[0]['T']}, "
+                f"H {rs[0]['H']}); no library call computes the augru",
         ))
     emit(kernels=kernels)
     emit(ok=True, device=dict(platform="gpu", kind=name, count=torch.cuda.device_count()))

@@ -654,3 +654,142 @@ def test_autoint_and_difm_on_card_match_cpu(card):
         want = cpu.predict(x, 256)
         assert want.std() > 1e-3
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+# ------------------------------------------------- GRU scan (rows 14-15)
+
+# (B, T, H, shortest length): DIEN's train shape, a ragged batch with
+# length-0 rows, each shuffle group (H 3, 8, 16), tiny
+GRU_SHAPES = [(4096, 50, 10, 1), (1001, 37, 10, 0), (33, 5, 3, 0), (300, 20, 8, 0),
+              (257, 12, 16, 1), (5, 3, 2, 0)]
+
+
+def _gru_operands(seed, cell, B, T, H, shortest):
+    gen = torch.Generator().manual_seed(seed)
+    ops = [torch.randn(B, T, 3, H, generator=gen), torch.randn(3, H, H, generator=gen) / H**0.5,
+           0.3 * torch.randn(3, H, generator=gen),
+           None if cell == "gru" else torch.rand(B, T, generator=gen),
+           torch.randint(shortest, T + 1, (B,), generator=gen, dtype=torch.int32),
+           0.5 * torch.randn(B, H, generator=gen), torch.randn(B, T, H, generator=gen)]
+    return [None if t is None else t.cuda() for t in ops]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["gru", "agru", "augru"])
+@pytest.mark.parametrize("B,T,H,shortest", GRU_SHAPES)
+def test_gru_kernels_match_plain(card, cell, B, T, H, shortest):
+    from xdeepfm_tpu_torch.ops.gru_cuda import (
+        gru_backward,
+        gru_backward_reference,
+        gru_forward,
+        gru_forward_reference,
+    )
+
+    gi, w, b, att, lengths, h0, g = _gru_operands(B + T + H, cell, B, T, H, shortest)
+    outs = gru_forward(cell, gi, w, b, att, lengths, h0)
+    want = gru_forward_reference(cell, gi, w, b, att, lengths, h0)
+    torch.testing.assert_close(outs, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+    got = gru_backward(cell, g, gi, w, b, att, lengths, h0, outs)
+    for a, e in zip(got, gru_backward_reference(cell, g, gi, w, b, att, lengths, h0, outs)):
+        _close(a, e)
+    past = torch.arange(T, device="cuda")[None, :] >= lengths[:, None]
+    assert (got[0][past] == 0).all()  # no gradient past a row's length
+    again = gru_backward(cell, g, gi, w, b, att, lengths, h0, outs)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))  # deterministic
+
+
+@pytest.mark.cuda
+def test_gru_kernels_reject_bad_input(card):
+    from xdeepfm_tpu_torch.ops.gru_cuda import gru_backward, gru_forward
+
+    gi, w, b, att, lengths, h0, g = _gru_operands(1, "augru", 64, 5, 10, 0)
+    good = ["augru", gi, w, b, att, lengths, h0]
+    for i, bad in ((0, "lstm"), (1, gi.double()), (1, gi.cpu()), (2, w[:, :9]), (3, b.T),
+                   (4, None), (5, lengths.long()), (6, h0[:32]), (1, gi.transpose(0, 1))):
+        args = list(good)
+        args[i] = bad
+        with pytest.raises(ValueError):
+            gru_forward(*args)
+    wide = _gru_operands(2, "gru", 8, 3, 17, 0)
+    with pytest.raises(ValueError, match="gate"):
+        gru_forward("gru", *wide[:6])
+    with pytest.raises(ValueError):
+        gru_backward("augru", g[:, :4], *good[1:], g)
+
+
+@pytest.mark.cuda
+def test_fused_gather_backward_is_deterministic_on_card(card):
+    """DIEN's padding row's share of ids: two backward calls bit-equal, and
+    within 1e-6 of float64."""
+    from xdeepfm_tpu_torch.embeddings import fused_gather
+
+    gen = torch.Generator().manual_seed(3)
+    ids = torch.randint(0, 10_000, (400_000,), generator=gen)
+    ids[torch.rand(400_000, generator=gen) < 0.5] = 0
+    ids = ids.cuda()
+    table = torch.randn(10_000, 10, generator=gen).cuda().requires_grad_(True)
+    g = torch.randn(400_000, 10, generator=gen).cuda()
+    first, second = (torch.autograd.grad(fused_gather((table,), ids), table, g)[0] for _ in range(2))
+    assert torch.equal(first, second)
+    want = torch.zeros(10_000, 10, dtype=torch.float64, device="cuda").index_add_(0, ids, g.double())
+    _close(first.double(), want, rtol=1e-6)
+
+
+def _dien_pair():
+    from xdeepfm_tpu_torch.features import VarLenSparseFeat
+    from xdeepfm_tpu_torch.models import DIEN
+
+    def hist(name):
+        return VarLenSparseFeat(SparseFeat(name, 200, 10, embedding_name="item"), 20,
+                                length_name="seq_length")
+
+    cols = [SparseFeat("user", 200, 10), SparseFeat("item", 200, 10), DenseFeat("score"),
+            hist("hist_item"), hist("neg_hist_item")]
+    rng = np.random.default_rng(8)
+    n = 600
+    lengths = rng.integers(0, 21, n)
+    valid = np.arange(20)[None, :] < lengths[:, None]
+    x = {"user": rng.integers(0, 200, n), "item": rng.integers(0, 200, n),
+         "score": rng.uniform(0, 1, n).astype(np.float32), "seq_length": lengths,
+         "hist_item": rng.integers(1, 200, (n, 20)) * valid,
+         "neg_hist_item": rng.integers(1, 200, (n, 20)) * valid}
+    models = [DIEN(cols, ["item"], gru_type="AUGRU", use_negsampling=True,
+                   dnn_hidden_units=(32, 16), device=d) for d in ("cuda", "cpu")]
+    flat = {k: (0.3 * rng.standard_normal(v.shape)).astype(np.float32)
+            for k, v in flatten_tree(models[1].get_weights()["params"])}
+    for m in models:
+        m.set_weights({"params": unflatten_tree(flat), "batch_stats": {}})
+    return models, x, (x["item"] % 2).astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_dien_gradients_through_gru_kernels_match_plain(card):
+    """Every parameter's gradient of one DIEN step (BCE + aux loss) with the
+    kernels (2 + 2 launches) against the plain versions on the card, and the
+    scores against the CPU model."""
+    from xdeepfm_tpu_torch.ops.gru_cuda import gru_backward, gru_forward
+
+    (gpu, cpu), x, y = _dien_pair()
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in gpu.schema.pack(x).items()}
+    yb = torch.as_tensor(y, device="cuda")
+    grads, launches = {}, {}
+    for backend in (None, "torch"):
+        for m in gpu.module.modules():
+            if hasattr(m, "backend"):
+                m.backend = backend
+        gpu.module.zero_grad(set_to_none=True)
+        before = (gru_forward.launches, gru_backward.launches)
+        out = gpu.module(batch, training=True)
+        loss = torch.nn.functional.binary_cross_entropy(out["pred"][:, 0], yb) + out["aux_loss"]
+        loss.backward()
+        launches[backend] = (gru_forward.launches - before[0], gru_backward.launches - before[1])
+        grads[backend] = {k: p.grad.clone() for k, p in gpu.module.named_parameters()}
+    assert launches == {None: (2, 2), "torch": (0, 0)}
+    for k in grads["torch"]:
+        _close(grads[None][k], grads["torch"][k])
+    for m in gpu.module.modules():
+        if hasattr(m, "backend"):
+            m.backend = None
+    got, want = gpu.predict(x, 256), cpu.predict(x, 256)
+    assert want.std() > 1e-3
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)

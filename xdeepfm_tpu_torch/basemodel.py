@@ -386,6 +386,10 @@ class BaseModel:
             batch["sparse"] = np.zeros((n, self.schema.n_sparse), np.int32)
         if self.schema.dense:
             batch["dense"] = np.zeros((n, self.schema.dense_dim), np.float32)
+        for f in self.schema.varlen:
+            batch["vl_" + f.name] = np.zeros((n, f.maxlen), np.int32)
+            if f.length_name is not None:
+                batch["len_" + f.length_name] = np.ones((n, 1), np.int32)
         return batch
 
     def _predict_step(self, batch):
@@ -446,6 +450,56 @@ class BaseModel:
             np.savez(f, **flat)
 
     def load_weights(self, path):
+        """Reads ``save_weights``' file, or the weights of
+        ``save_checkpoint``'s."""
         with np.load(path, allow_pickle=False) as data:
-            tree = unflatten_tree({k: data[k] for k in data.files})
+            tree = unflatten_tree({k: data[k] for k in data.files if k.startswith("params/")})
         self.set_weights({"params": tree["params"], "batch_stats": {}})
+
+    def _parameter_paths(self):
+        """(canonical path by parameter id, parameter by canonical path)."""
+        paths = canonical_paths(self.module)
+        named = dict(self.module.named_parameters())
+        return {id(p): paths[n] for n, p in named.items()}, {paths[n]: p for n, p in named.items()}
+
+    def save_checkpoint(self, path, epoch=0):
+        """The full training checkpoint (``basemodel.py:1860-1877``) in the
+        port's own format, one ``.npz``: the canonical params
+        (``params/...``, as ``save_weights``), the optimizer state keyed by
+        canonical parameter path (``opt_state/<path>/<slot>``, e.g.
+        ``opt_state/dnn/linear_0/kernel/exp_avg``; each slot in the
+        parameter's own layout) and ``epoch``.  The JAX package's msgpack
+        checkpoints are not read (ROADMAP.md, D1)."""
+        if self.optimizer is None:
+            raise RuntimeError("compile() before save_checkpoint()")
+        flat = dict(flatten_tree(self.get_weights()["params"], "params"))
+        path_of, _ = self._parameter_paths()
+        for param, state in self.optimizer.state.items():
+            for slot, value in state.items():
+                if value is not None:
+                    value = value.detach().cpu() if torch.is_tensor(value) else value
+                    flat[f"opt_state/{path_of[id(param)]}/{slot}"] = np.asarray(value)
+        flat["epoch"] = np.asarray(epoch, np.int64)
+        with open(path, "wb") as f:
+            np.savez(f, **flat)
+
+    def load_checkpoint(self, path) -> int:
+        """Restore ``save_checkpoint``'s params and optimizer state; returns
+        the epoch, for ``fit(initial_epoch=...)``."""
+        if self.optimizer is None:
+            raise RuntimeError("compile() before load_checkpoint()")
+        with np.load(path, allow_pickle=False) as data:
+            flat = {k: data[k] for k in data.files}
+        params = {k: v for k, v in flat.items() if k.startswith("params/")}
+        self.set_weights({"params": unflatten_tree(params)["params"], "batch_stats": {}})
+        _, param_at = self._parameter_paths()
+        index = {id(p): i for i, p in enumerate(
+            p for group in self.optimizer.param_groups for p in group["params"])}
+        state = {}
+        for key, value in flat.items():
+            if key.startswith("opt_state/"):
+                where, slot = key[len("opt_state/"):].rsplit("/", 1)
+                state.setdefault(index[id(param_at[where])], {})[slot] = torch.from_numpy(value)
+        sd = self.optimizer.state_dict()
+        self.optimizer.load_state_dict({"state": state, "param_groups": sd["param_groups"]})
+        return int(flat["epoch"])

@@ -7,8 +7,15 @@ feature, ``deepctr/inputs.py:158-180``).
 
 Semantics preserved: shared tables via ``embedding_name`` (features with the
 same name index the same rows), init normal(std=init_std)
-(``inputs.py:177-178``), the linear variant forces dim=1 (``inputs.py:168``).
-Varlen (sequence) lookups arrive with the sequence models.
+(``inputs.py:177-178``), the linear variant forces dim=1 (``inputs.py:168``),
+varlen (sequence) fields looked up per position and pooled by their combiner
+(``inputs.py:141-155, 213-227``).
+
+Every gather from a table goes through :func:`fused_gather`, whose backward is
+a fixed-order segment sum over the sorted ids (:func:`sorted_segment_sum`),
+not ``index_select``'s atomic scatter-add: two identical steps give
+bit-equal table gradients on the card, as the JAX ``.at[].add`` does on its
+chip.
 """
 
 from __future__ import annotations
@@ -17,8 +24,10 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.autograd.function import once_differentiable
 
-from .features import FeatureSchema, SparseFeat, split_columns
+from .features import FeatureSchema, SparseFeat, VarLenSparseFeat, split_columns
+from .nn.sequence import sequence_pool
 
 
 def _table_layout(feature_columns, linear: bool):
@@ -43,21 +52,60 @@ def _table_layout(feature_columns, linear: bool):
     return offsets, table_rows
 
 
-def _require_no_varlen(feature_columns):
-    if split_columns(feature_columns)[2]:
-        raise NotImplementedError(
-            "VarLenSparseFeat lookups arrive with the sequence-model port"
-        )
+def sorted_segment_sum(values: torch.Tensor, ids: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """[num_rows, D] zeros with each ``values[k]`` added at row ``ids[k]``,
+    summed in an order fixed by the ids alone.  The ids are sorted (stable),
+    the rows of each id's run summed by a segmented Hillis-Steele scan (step
+    k adds the row k places back within the run, k = 1, 2, 4, ...), and each
+    run's last row written once.  A run as long as a padding id's (~10^5
+    rows) takes log2 steps of whole-tensor ops, never a walk by one thread;
+    no atomics, so the result is bit-equal between calls on the card."""
+    n, D = values.shape
+    out = values.new_zeros(num_rows + 1, D)
+    if n == 0:
+        return out[:num_rows]
+    sorted_ids, order = torch.sort(ids, stable=True)
+    x = values.index_select(0, order)
+    # each row's place within its run: its position less its run's first
+    rank = torch.arange(n, device=ids.device) - torch.searchsorted(sorted_ids, sorted_ids)
+    rank = rank.unsqueeze(1)  # [n, 1]
+    k = 1
+    while k < n:
+        y = x.clone()
+        y[k:].addcmul_(x[:-k], rank[k:] >= k)
+        x, k = y, 2 * k
+    last = torch.ones(n, dtype=torch.bool, device=ids.device)
+    last[:-1] = sorted_ids[1:] != sorted_ids[:-1]
+    # each run's total lands on its id once; every other row on the spare
+    # row num_rows, which is dropped
+    out.index_put_((torch.where(last, sorted_ids, num_rows),), x)
+    return out[:num_rows]
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ids, *tables):
+        ctx.save_for_backward(ids)
+        ctx.rows, ctx.dims = tables[0].shape[0], [t.shape[1] for t in tables]
+        table = tables[0] if len(tables) == 1 else torch.cat(tables, dim=1)
+        return table.index_select(0, ids)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        grad = sorted_segment_sum(g.contiguous(), ids, ctx.rows)
+        return (None, *grad.split(ctx.dims, dim=1))
 
 
 def fused_gather(tables: Sequence[torch.Tensor], ids: torch.Tensor) -> torch.Tensor:
-    """One gather serving several same-layout stacked tables (identical row
-    count and id pattern, e.g. the main ``table_d10`` and the linear
-    ``table_d1``): rows of their column concat, [N, sum(dims)].  Counterpart
-    of ``embeddings.fused_gather`` (``embeddings.py:394-427``); its backward
-    is autograd's, one dense scatter-add (``index_select``'s) into the concat,
-    split per table, as the JAX ``custom_vjp`` does."""
-    return torch.cat(tuple(tables), dim=1).index_select(0, ids)
+    """Rows ``ids`` [N] of the column concat of one or more same-row-count
+    stacked tables (e.g. the main ``table_d10`` and the linear ``table_d1``,
+    same id pattern), [N, sum(dims)].  Counterpart of
+    ``embeddings.fused_gather`` (``embeddings.py:394-427``); its backward is
+    one segment sum into the concat (:func:`sorted_segment_sum`), split per
+    table, as the JAX ``custom_vjp``'s one scatter-add."""
+    return _GatherRows.apply(ids.reshape(-1).long(), *tables)
 
 
 class EmbeddingCollection(nn.Module):
@@ -73,7 +121,6 @@ class EmbeddingCollection(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        _require_no_varlen(feature_columns)
         self.feature_columns = tuple(feature_columns)
         self.schema = schema
         self._offsets, table_rows = _table_layout(feature_columns, linear)
@@ -104,20 +151,64 @@ class EmbeddingCollection(nn.Module):
         dim, ids = self.sparse_ids(batch, feats)
         B, F = ids.shape
         if rows is None:
-            rows = self.table(dim).index_select(0, ids.reshape(-1))
+            rows = fused_gather((self.table(dim),), ids)
         return rows.reshape(B, F, dim)
+
+    def field_ids(self, batch, feat) -> torch.Tensor:
+        """[B, width] table rows of one field: a SparseFeat's column (width
+        1) or a VarLenSparseFeat's positions (width maxlen)."""
+        off = self._offsets[feat.embedding_name][1]
+        if isinstance(feat, VarLenSparseFeat):
+            ids = batch["vl_" + feat.name]
+        else:
+            i = self.schema.sparse_index(feat.name)
+            ids = batch["sparse"][:, i : i + 1]
+        return ids.long() + off
+
+    def lookup_fields(self, batch, feats):
+        """[B, width, dim] per field of ``feats`` (SparseFeat width 1,
+        VarLenSparseFeat width maxlen), in order, with one gather per table."""
+        by_dim = {}
+        for f in feats:
+            by_dim.setdefault(self._offsets[f.embedding_name][0], []).append(f)
+        found = {}
+        for dim, fs in by_dim.items():
+            ids = [self.field_ids(batch, f) for f in fs]
+            widths = [t.shape[1] for t in ids]
+            rows = fused_gather((self.table(dim),), torch.cat(ids, dim=1))
+            for f, part in zip(fs, rows.reshape(ids[0].shape[0], sum(widths), dim).split(widths, 1)):
+                found[f.name] = part
+        return [found[f.name] for f in feats]
+
+    def lookup_varlen_seq(self, batch, feat: VarLenSparseFeat) -> torch.Tensor:
+        """[B, maxlen, dim] sequence embeddings (``inputs.py:213-227``)."""
+        return self.lookup_fields(batch, [feat])[0]
+
+    def lookup_varlen_pooled(self, batch, feat: VarLenSparseFeat) -> torch.Tensor:
+        """[B, 1, dim] pooled by the feature's combiner (``inputs.py:141-155``):
+        over the positions below ``len_<length_name>``, or over the nonzero
+        ids when the feature has no length column."""
+        seq_emb = self.lookup_varlen_seq(batch, feat)
+        if feat.length_name is None:
+            mask = batch["vl_" + feat.name] != 0
+            return sequence_pool((seq_emb, mask), mode=feat.combiner, supports_masking=True)
+        length = batch["len_" + feat.length_name]
+        return sequence_pool((seq_emb, length), mode=feat.combiner, supports_masking=False)
 
     def stacked_inputs(self, batch, feature_columns=None, support_dense=True,
                        rows=None):
         """(sparse_stack [B, F, D] | None, dense [B, Dd] | None) with ONE
         gather for all sparse features (``stacked_sparse``'s ``rows`` may
-        carry it in)."""
+        carry it in), then each varlen feature pooled, as one more field."""
         cols = self.feature_columns if feature_columns is None else feature_columns
-        _require_no_varlen(cols)
-        sp, de, _ = split_columns(cols)
+        sp, de, vl = split_columns(cols)
         if not support_dense and len(de) > 0:
             raise ValueError("DenseFeat is not supported in dnn_feature_columns")
-        sparse_stack = self.stacked_sparse(batch, sp, rows) if sp else None
+        parts = [self.stacked_sparse(batch, sp, rows)] if sp else []
+        # each varlen field pooled to [B, 1, dim] after the sparse fields
+        # (``embeddings.py:280-281``)
+        parts += [self.lookup_varlen_pooled(batch, f) for f in vl]
+        sparse_stack = torch.cat(parts, dim=1) if parts else None
         dense = None
         if de:
             dense = torch.cat(
@@ -211,11 +302,16 @@ class LinearModel(nn.Module):
         """[B, 1] logits.  ``sparse_rows``: the sparse features' [B*F, 1]
         table rows when a fused gather already fetched them.
         ``sparse_feat_refine_weight`` [B, F] (IFM / DIFM) multiplies the
-        per-field logits before their sum."""
-        sp, de, _ = split_columns(self.feature_columns)
+        per-field logits (the sparse fields', then each varlen field's pooled
+        one) before their sum."""
+        sp, de, vl = split_columns(self.feature_columns)
         out = None
+        per_field = []
         if sp:
-            logits = self.embedding_dict.stacked_sparse(batch, sp, sparse_rows)[:, :, 0]
+            per_field.append(self.embedding_dict.stacked_sparse(batch, sp, sparse_rows)[:, :, 0])
+        per_field += [self.embedding_dict.lookup_varlen_pooled(batch, f)[:, :, 0] for f in vl]
+        if per_field:
+            logits = torch.cat(per_field, dim=1)
             if sparse_feat_refine_weight is not None:
                 logits = logits * sparse_feat_refine_weight
             out = logits.sum(dim=-1, keepdim=True)

@@ -2,7 +2,7 @@
 ``deepctr/layers/activation.py``).
 
 Stateless activations are plain functions on tensors; ``PReLU`` carries one
-learnable slope.  ``Dice`` (BatchNorm statistics) arrives with the model zoo.
+learnable slope.  ``Dice`` (BatchNorm statistics) is not ported yet (D3).
 """
 
 from __future__ import annotations
@@ -61,7 +61,7 @@ def make_activation(
         return act
     act_l = act.lower()
     if act_l == "dice":
-        raise NotImplementedError("Dice arrives with the model-zoo port")
+        raise NotImplementedError("Dice is not ported yet: ROADMAP.md, deferred item D3")
     if act_l == "prelu":
         return PReLU()
     return activation_fn(act_l)

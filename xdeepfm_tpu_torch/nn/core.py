@@ -1,5 +1,5 @@
 """Core layers (port of ``xdeepfm_tpu/nn/core.py``; reference
-``deepctr/layers/core.py``): DNN and PredictionLayer.
+``deepctr/layers/core.py``): DNN, PredictionLayer and LocalActivationUnit.
 
 Parameters are created on the CPU from a ``torch.Generator`` seeded by the
 model, so a seed gives the same weights on every device; the model moves them
@@ -123,3 +123,35 @@ class PredictionLayer(nn.Module):
         if self.task == "binary":
             out = torch.sigmoid(out)
         return out
+
+
+class LocalActivationUnit(nn.Module):
+    """DIN attention MLP over [q, k, q - k, q * k] (reference
+    ``core.py:10-64``): query [B, 1, E], keys [B, T, E] -> scores [B, T, 1].
+    Parameters ``dnn`` (a :class:`DNN` over 4E inputs) and ``dense`` (one
+    output, torch-Linear init).  Batch-major; the JAX ``call_t`` computed
+    the same in its transposed layout."""
+
+    def __init__(
+        self,
+        hidden_units: Sequence[int] = (64, 32),
+        embedding_dim: int = 4,
+        activation: Union[str, Callable] = "sigmoid",
+        dropout_rate: float = 0.0,
+        dice_dim: int = 3,
+        l2_reg: float = 0.0,
+        use_bn: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.dnn = DNN(4 * embedding_dim, hidden_units, activation=activation, l2_reg=l2_reg,
+                       dropout_rate=dropout_rate, use_bn=use_bn, dice_dim=dice_dim,
+                       generator=generator)
+        self.dense = nn.Linear(hidden_units[-1], 1)
+        torch_linear_init(self.dense.weight, generator)
+        torch_bias_init(self.dense.bias, hidden_units[-1], generator)
+
+    def forward(self, query, user_behavior, training: bool = False, generator=None):
+        q = query.expand(-1, user_behavior.shape[1], -1)
+        att_input = torch.cat([q, user_behavior, q - user_behavior, q * user_behavior], dim=-1)
+        return self.dense(self.dnn(att_input, training=training, generator=generator))

@@ -5,7 +5,9 @@ The canonical tree is what the JAX ``BaseModel.get_weights()`` returns:
 ``params/embedding_dict/table_d10`` or ``params/cin/conv_w_0``.  A port
 parameter's name is its JAX path with ``.`` for ``/``, except that a flax
 ``Dense`` ``kernel`` [in, out] is an ``nn.Linear`` ``weight`` [out, in]
-(its transpose).  ``conv_w_i`` keeps its [O, H*M] layout, channel h*M + m.
+(its transpose) and a flax ``Conv`` ``kernel`` [kh, kw, in, out] an
+``nn.Conv2d`` ``weight`` [out, in, kh, kw].  ``conv_w_i`` keeps its
+[O, H*M] layout, channel h*M + m.
 """
 
 from __future__ import annotations
@@ -51,17 +53,18 @@ def from_jax_weights(tree) -> Dict[str, torch.Tensor]:
         arr = np.asarray(leaf, dtype=np.float32)
         if segs[-1] == "kernel":
             segs[-1] = "weight"
-            arr = arr.T
+            arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
         state[".".join(segs)] = torch.from_numpy(np.array(arr, order="C"))  # a copy
     return state
 
 
 def canonical_paths(module: nn.Module) -> Dict[str, str]:
     """Port state-dict key -> its JAX parameter path (``cin/conv_w_0``,
-    ``dnn/linear_0/kernel``...): ``.`` becomes ``/`` and an ``nn.Linear``
-    ``weight`` is the flax ``kernel``."""
+    ``dnn/linear_0/kernel``...): ``.`` becomes ``/`` and an ``nn.Linear`` or
+    ``nn.Conv2d`` ``weight`` is the flax ``kernel``."""
     linear_weights = {
-        f"{name}.weight" for name, m in module.named_modules() if isinstance(m, nn.Linear)
+        f"{name}.weight" for name, m in module.named_modules()
+        if isinstance(m, (nn.Linear, nn.Conv2d))
     }
     paths = {}
     for key in module.state_dict():
@@ -79,6 +82,6 @@ def to_jax_weights(module: nn.Module) -> dict:
     for key, t in module.state_dict().items():
         arr = t.detach().cpu().numpy()
         if paths[key].endswith("/kernel"):
-            arr = arr.T
+            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
         flat[paths[key]] = np.ascontiguousarray(arr)
     return {"params": unflatten_tree(flat), "batch_stats": {}}
