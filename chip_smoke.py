@@ -117,9 +117,14 @@ second side takes the first side's sign) only where both inputs lie within
 ``MAX_HELD_FLIPS`` in one comparison, fails the run.
 """
 
+import concurrent.futures
 import copy
 import json
+import os
+import pickle
 import subprocess
+import sys
+import tempfile
 import time
 
 import numpy as np
@@ -127,7 +132,9 @@ import torch
 import torch.nn.functional as F
 from torch.overrides import TorchFunctionMode
 
+from xdeepfm_tpu_torch import native
 from xdeepfm_tpu_torch.basemodel import _loss_fn_single
+from xdeepfm_tpu_torch.cli import xdftrain, xdftrain_attn, xdftrain_pro
 from xdeepfm_tpu_torch.embeddings import fused_gather
 from xdeepfm_tpu_torch.features import DenseFeat, SparseFeat, VarLenSparseFeat
 from xdeepfm_tpu_torch.models import (
@@ -147,6 +154,12 @@ from xdeepfm_tpu_torch.nn import (
     LocalActivationUnit,
 )
 from xdeepfm_tpu_torch.ops import _build, attention, attn_block, ce, gru, lane_attention
+from xdeepfm_tpu_torch.ops.attn_ablate_cuda import (
+    REFERENCES as ABLATE_REFERENCES,
+    ablate_dots,
+    ablate_full,
+    ablate_soft,
+)
 from xdeepfm_tpu_torch.ops.attention_cuda import (
     sa_backward,
     sa_backward_reference,
@@ -188,7 +201,8 @@ from xdeepfm_tpu_torch.ops.cin_cuda import (
     cin_rows_reference,
 )
 from xdeepfm_tpu_torch.pro import xDeepFMPro
-from xdeepfm_tpu_torch.serving import Scorer
+from xdeepfm_tpu_torch.scripts import bench_attn_ablate
+from xdeepfm_tpu_torch.serving import Scorer, load_scorer
 from xdeepfm_tpu_torch.weights import flatten_tree, unflatten_tree
 
 SEED = 0
@@ -208,6 +222,11 @@ PEAKS = (
     ("H200", 67.0e12, 4.8e12),
     ("H100", 67.0e12, 3.35e12),
 )
+# exp2 runs on the special-function units: 16 results a clock an SM against
+# the FMA pipe's 128 fp32 FMAs (2 FLOP each) for compute capability 9.0
+# (CUDA C++ Programming Guide, throughput of native arithmetic instructions),
+# so the card's exp2 rate is its fp32 FLOP rate / 16 (4.19e12/s on the SXM).
+EXP_PER_FLOP = 1 / 16
 
 # (label, N, H, M, O, strided h): the canonical serving batch's two CIN
 # layers (N = 8192 * 10 rows), the train batch's (N = 4096 * 10; layer 1's h
@@ -243,12 +262,16 @@ SOURCES = {
     "la_bwd": ("xdeepfm_tpu_torch/ops/csrc/la_bwd.cu", "xdeepfm_tpu/ops/lane_attention.py:143"),
     "gru_fwd": ("xdeepfm_tpu_torch/ops/csrc/gru_fwd.cu", "xdeepfm_tpu/ops/gru_pallas.py:245"),
     "gru_bwd": ("xdeepfm_tpu_torch/ops/csrc/gru_bwd.cu", "xdeepfm_tpu/ops/gru_pallas.py:275"),
+    "ablate_full": ("xdeepfm_tpu_torch/ops/csrc/sa_ablate.cu", "scripts/bench_attn_ablate.py:51"),
+    "ablate_dots": ("xdeepfm_tpu_torch/ops/csrc/sa_ablate.cu", "scripts/bench_attn_ablate.py:66"),
+    "ablate_soft": ("xdeepfm_tpu_torch/ops/csrc/sa_ablate.cu", "scripts/bench_attn_ablate.py:78"),
 }
 WRAPPERS = {
     "cin_fwd": cin_rows_forward, "cin_bwd_dx": cin_rows_backward, "cin_dw": cin_rows_dw,
     "ce_fwd": ce_rows_forward, "ce_bwd": ce_rows_backward,
     "sa_fwd": sa_forward, "sa_bwd": sa_backward, "ab_fwd": ab_forward, "ab_bwd": ab_backward,
     "la_fwd": la_forward, "la_bwd": la_backward, "gru_fwd": gru_forward, "gru_bwd": gru_backward,
+    "ablate_full": ablate_full, "ablate_dots": ablate_dots, "ablate_soft": ablate_soft,
 }
 
 # The Pro step's fused CE (canonical xDeepFMPro: 26 heads of vocabulary 10000,
@@ -308,10 +331,22 @@ def phase_device():
     return name, peak
 
 
-def phase_build():
+def _timed_parser_build():
     t0 = time.time()
-    logs = _build.build()
-    emit(phase="build", seconds=round(time.time() - t0, 3), sources=sorted(logs))
+    lib = native.build()
+    return str(lib), time.time() - t0
+
+
+def phase_build():
+    """Every CUDA source (one nvcc each, all started together) and, beside
+    them, the native Criteo parser (g++; raises without g++)."""
+    t0 = time.time()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        parser = pool.submit(_timed_parser_build)
+        logs = _build.build()
+        parser_lib, parser_s = parser.result()
+    emit(phase="build", seconds=round(time.time() - t0, 3), sources=sorted(logs),
+         parser_library=os.path.relpath(parser_lib), parser_seconds=round(parser_s, 3))
     for name, log in logs.items():
         for line in log.strip().splitlines():
             print(f"  [{name}] {line}", flush=True)
@@ -1533,6 +1568,311 @@ def phase_gru_kernels(peak):
 
 
 # ---------------------------------------------------------------------------
+# the attention ablation: TPU kernel row 16
+# ---------------------------------------------------------------------------
+
+# (label, G, S, dh): the ablation script's default, V2's train shape (where
+# full is also held against sa_fwd), a ragged and a tiny shape
+ABLATE_SHAPES = (
+    ("default", 8192, 266, 5),
+    ("v2_train", TRAIN_BATCH * 2, ATTN_S, DIM // 2),
+    ("ragged", 1001, 39, 3),
+    ("tiny", 2, 5, 1),
+)
+ABLATE_PATH_SHAPE = "default"
+ABLATE_RTOL = 1e-5  # of the largest |o|: fp32 sums of S terms in another order
+ABLATE_KERNELS = {"full": ablate_full, "dots": ablate_dots, "soft": ablate_soft}
+
+
+def _ablate_library(variant, q, k, v, scale):
+    """One PyTorch call computing the variant's function, or None: full is
+    SDPA on the [G, S, dh] views; dots one einsum over q, k and v (its
+    contraction order is PyTorch's choice); no call computes soft."""
+    if variant == "full":
+        ql, kl, vl = (t.transpose(1, 2) for t in (q, k, v))
+        return lambda: F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
+    if variant == "dots":
+        return lambda: torch.einsum("gds,gdt,get->ges", q, k, v)
+    return None
+
+
+def phase_ablate_kernels(peak):
+    """ablate_full / ablate_dots / ablate_soft against their plain versions
+    on the same inputs, each bit-equal over two runs, with times and bounds;
+    at V2's train shape full is also held against sa_fwd (exp against exp2)
+    and timed beside it.  Work a call, per pair: full 4 S^2 dh FLOP of
+    products and 3 S^2 of softmax (scale-subtract FMA, sum), S^2 exp2; dots
+    4 S^2 dh; soft 5 S^2 (product, FMA, row and column sums) and S^2 exp2.
+    The FLOPs go against the fp32 rate and the exp2 against the
+    special-function rate (EXP_PER_FLOP); the bound is the largest of those
+    two times and the bytes' (q, k and v read, o written; soft reads only
+    row 0 of q and k)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    results = {}
+    for label, G, S, dh in ABLATE_SHAPES:
+        q, k, v = (torch.randn(G, dh, S, generator=gen, device="cuda") for _ in range(3))
+        scale = dh ** -0.5
+        iters = 5 if G > 1000 else 50
+        n = G * dh * S
+        for variant, kernel in ABLATE_KERNELS.items():
+            o = kernel(q, k, v, scale)
+            again = kernel(q, k, v, scale)
+            torch.cuda.synchronize()
+            if not torch.equal(o, again):
+                raise AssertionError(f"ablate_{variant} at {label}: two runs differ")
+            plain = ABLATE_REFERENCES[variant]
+            err = _checked(o, plain(q, k, v, scale), ABLATE_RTOL)
+            rec = dict(G=G, S=S, dh=dh, max_abs_err=err, max_abs_out=float(o.abs().max()),
+                       bit_equal=True,
+                       ms=cuda_ms(lambda: kernel(q, k, v, scale), iters),
+                       plain_ms=cuda_ms(lambda: plain(q, k, v, scale), max(2, iters // 5)))
+            lib = _ablate_library(variant, q, k, v, scale)
+            rec["library_ms"] = None if lib is None else cuda_ms(lib, iters)
+            rec["library"] = {"full": "F.scaled_dot_product_attention on [G, S, dh] views",
+                              "dots": "torch.einsum('gds,gdt,get->ges', q, k, v)",
+                              "soft": "no single PyTorch call"}[variant]
+            pairs = G * S * S
+            flops = {"full": (4 * dh + 3) * pairs, "dots": 4 * dh * pairs,
+                     "soft": 5 * pairs}[variant]
+            exps = 0 if variant == "dots" else pairs
+            nbytes = 4 * ((2 * G * S if variant == "soft" else 3 * n) + n)
+            times = {"fp32": flops / peak[1], "exp2": exps / (peak[1] * EXP_PER_FLOP),
+                     "bytes": nbytes / peak[2]}
+            limit = max(times, key=times.get)
+            rec.update(bound_ms=times[limit] * 1e3,
+                       bound_by="bytes" if limit == "bytes" else "operations",
+                       bound_unit=limit, gflop=flops / 1e9, gexp=exps / 1e9,
+                       mbytes=nbytes / 1e6, fp32_ms=times["fp32"] * 1e3,
+                       exp2_ms=times["exp2"] * 1e3, bytes_ms=times["bytes"] * 1e3)
+            if variant == "full" and label == "v2_train":
+                o_sa = sa_forward(q, k, v, scale)[0]
+                rec["max_abs_diff_vs_sa_fwd"] = _checked(o, o_sa, ABLATE_RTOL)
+                rec["sa_fwd_ms"] = cuda_ms(lambda: sa_forward(q, k, v, scale), iters)
+                del o_sa
+            results[variant, label] = rec
+            emit(phase="ablate_kernel", kernel=f"ablate_{variant}", shape=label, **rec)
+            del o, again
+            torch.cuda.empty_cache()
+        del q, k, v
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_ablate_script():
+    """The ablation's entry point (``bench_attn_ablate.main``) once, at its
+    default shape, counts set to 0 just before: it prints its three keys and
+    launches each kernel."""
+    reset_launches()
+    out = bench_attn_ablate.main([])
+    counts = read_launches()
+    for key in ("full_fwd_ms", "dots_only_fwd_ms", "softmax_only_fwd_ms"):
+        if not (isinstance(out.get(key), float) and out[key] > 0):
+            raise AssertionError(f"the ablation script printed no {key}: {out}")
+    moved = {k: counts[k] for k in ("ablate_full", "ablate_dots", "ablate_soft")}
+    if min(moved.values()) < 1 or sum(counts.values()) != sum(moved.values()):
+        raise AssertionError(f"the ablation script launched {counts}")
+    emit(phase="ablate_script", **out, launches=counts)
+    return dict(out, launches=counts)
+
+
+# ---------------------------------------------------------------------------
+# the training CLIs over the native parser
+# ---------------------------------------------------------------------------
+
+CLI_TRAIN_ROWS, CLI_TEST_ROWS, CLI_VALUES = 131_072, 16_384, 10_000
+CLI_RUNS = (  # (path, CLI module, arguments beyond the common ones)
+    ("cli_eval", xdftrain, ["--mode", "eval", "--epochs", "2"]),
+    ("cli_final", xdftrain, ["--mode", "final", "--epochs", "1", "--test_path", "{test}"]),
+    ("cli_streaming", xdftrain, ["--mode", "eval", "--epochs", "1", "--streaming",
+                                 "--eval_path", "{eval}"]),
+    ("cli_pro", xdftrain_pro, ["--mode", "eval", "--epochs", "1", "--use_sfg"]),
+    ("cli_attn_v1", xdftrain_attn, ["--mode", "eval", "--epochs", "1", "--model_version", "v1"]),
+)
+# kernel launches a train step and a predicted batch, by CLI module
+CLI_STEP = {xdftrain: dict(cin_fwd=2, cin_bwd_dx=2, cin_dw=2),
+            xdftrain_pro: dict(cin_fwd=2, cin_bwd_dx=2, cin_dw=2, ce_fwd=1, ce_bwd=1),
+            xdftrain_attn: ATTN_STEP["v1"]}
+CLI_EVAL = {xdftrain: dict(cin_fwd=2), xdftrain_pro: dict(cin_fwd=2),
+            xdftrain_attn: ATTN_EVAL["v1"]}
+
+
+def cli_corpus(d):
+    """A seeded Criteo-like corpus in ``d``: ``train.txt`` (label, 13
+    integer-like dense fields with 10% empty, 26 categories of 8 hex digits
+    drawn from 10 000 values a field with 2% empty; tab-separated, no
+    header), ``eval.txt`` (16 384 more labelled rows) and ``test.txt`` (the
+    same rows without the label: the 39-column test format).  Labels come
+    from a logistic teacher over per-value effects and the dense fields."""
+    rng = np.random.default_rng(SEED + 30)
+    n = CLI_TRAIN_ROWS + CLI_TEST_ROWS
+    ids = rng.integers(0, CLI_VALUES, (n, N_SPARSE))
+    dense = rng.integers(0, 100, (n, N_DENSE))
+    dense_empty = rng.uniform(size=(n, N_DENSE)) < 0.1
+    cat_empty = rng.uniform(size=(n, N_SPARSE)) < 0.02
+    effects = rng.normal(0.0, 0.3, (N_SPARSE, CLI_VALUES))
+    logit = (-1.0 + effects[np.arange(N_SPARSE), ids].sum(1)
+             + (np.where(dense_empty, 0, dense) / 100.0) @ rng.normal(0, 1.5, N_DENSE))
+    labels = (rng.uniform(size=n) < 1 / (1 + np.exp(-logit))).astype(int)
+    tokens = rng.integers(0, 2**32, (N_SPARSE, CLI_VALUES))
+    words = [[f"{t:08x}" for t in row] for row in tokens]
+    cats = [["" if cat_empty[r, f] else words[f][ids[r, f]] for f in range(N_SPARSE)]
+            for r in range(n)]
+    nums = [["" if dense_empty[r, f] else str(dense[r, f]) for f in range(N_DENSE)]
+            for r in range(n)]
+    rows = ["\t".join(nums[r] + cats[r]) for r in range(n)]
+    paths = {name: os.path.join(d, f"{name}.txt") for name in ("train", "eval", "test")}
+    with open(paths["train"], "w") as f:
+        f.writelines(f"{labels[r]}\t{rows[r]}\n" for r in range(CLI_TRAIN_ROWS))
+    with open(paths["eval"], "w") as f:
+        f.writelines(f"{labels[r]}\t{rows[r]}\n" for r in range(CLI_TRAIN_ROWS, n))
+    with open(paths["test"], "w") as f:
+        f.writelines(f"{rows[r]}\n" for r in range(CLI_TRAIN_ROWS, n))
+    return paths
+
+
+def _timed_build(module, rec):
+    """``module.build_model`` that records the seconds from the run's start
+    to the model (the parse and preprocessing) and the seconds of its
+    ``fit`` / ``fit_stream`` (synchronised at both ends)."""
+    build = module.build_model
+
+    def timed(args, linear_cols, dnn_cols, final_mode=False):
+        rec["parse_seconds"] = time.perf_counter() - rec["t0"]
+        model = build(args, linear_cols, dnn_cols, final_mode)
+        for name in ("fit", "fit_stream"):
+            def wrapped(*a, _fit=getattr(model, name), **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                history = _fit(*a, **kw)
+                torch.cuda.synchronize()
+                rec["fit_seconds"] = time.perf_counter() - t0
+                return history
+            setattr(model, name, wrapped)
+        return model
+
+    return timed
+
+
+def _cli_launches(module, n_train, n_eval, n_test, epochs):
+    """The kernel launches a CLI run makes: its train steps, and its
+    predicted batches (validation each epoch at the train batch, the eval
+    set again at 8192 in eval mode, the test file at 8192)."""
+    steps = epochs * -(-n_train // TRAIN_BATCH)
+    batches = epochs * -(-n_eval // TRAIN_BATCH) + -(-n_eval // BATCH) + -(-n_test // BATCH)
+    return expected(**{k: steps * CLI_STEP[module].get(k, 0) + batches * CLI_EVAL[module].get(k, 0)
+                       for k in WRAPPERS}), steps
+
+
+def phase_cli():
+    """The port's training CLIs in-process over a Criteo-like corpus at the
+    canonical width (26 categories of ~10 000 values, 13 dense, embedding
+    dim 10, the CLIs' default models), all through the native parser on the
+    card at batch 4096: xdftrain eval (2 epochs, a 10% validation split),
+    final (with --test_path), --streaming (fit_stream, with --eval_path),
+    xdftrain_pro --use_sfg and xdftrain_attn --model_version v1 (1 epoch
+    each).  Each run's counts are set to 0 just before it and read just
+    after; every artifact must exist, preprocess.pkl must say native, no
+    pandas may be imported, eval AUC must be finite and above 0.5, the
+    2-epoch loss must fall, and load_scorer over the final run's artifacts
+    must reproduce test_predictions.csv within 1e-6."""
+    records = {}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        files = cli_corpus(d)
+        corpus_s = time.perf_counter() - t0
+        for path, module, extra in CLI_RUNS:
+            out = os.path.join(d, path)
+            argv = ["--data_path", files["train"], "--out_dir", out, "--use_native_parser",
+                    "--device", "cuda", "--batch_size", str(TRAIN_BATCH), "--verbose", "0",
+                    *(a.format(**files) for a in extra)]
+            args = module.parse_args(argv)
+            rec = {"t0": time.perf_counter()}
+            build = module.build_model
+            module.build_model = _timed_build(module, rec)
+            reset_launches()
+            try:
+                log = module.main(argv)
+            finally:
+                module.build_model = build
+            counts = read_launches()
+            total_s = time.perf_counter() - rec.pop("t0")
+            info = log["data_info"]
+            n_train = info.get("train_samples", info.get("total_samples"))
+            n_test = CLI_TEST_ROWS if args.test_path else 0
+            want, steps = _cli_launches(module, n_train, info.get("eval_samples", 0), n_test,
+                                        args.epochs)
+            if counts != want:
+                raise AssertionError(f"{path}: launches {counts} over {steps} steps, "
+                                     f"expected {want}")
+            name = log.get("model_config", {}).get("model_version")
+            stem = {xdftrain: "xdeepfm", xdftrain_pro: "xdeepfm_pro",
+                    xdftrain_attn: f"xdeepfm_attn_{name}"}[module]
+            if args.mode == "final":
+                artifacts = [f"{stem}_full_weights.bin", "history_full.json",
+                             "training_log_full.json", "test_predictions.csv"]
+            else:
+                artifacts = [f"{stem}_weights.bin", f"{stem}_best.weights", "history.json",
+                             "training_log.json"]
+            artifacts += ["preprocess.pkl", "native_vocab.bin", log["tensorboard_log_dir"]]
+            missing = [a for a in artifacts if not os.path.exists(os.path.join(out, a))]
+            if missing:
+                raise AssertionError(f"{path}: missing artifacts {missing}")
+            with open(os.path.join(out, "preprocess.pkl"), "rb") as f:
+                if pickle.load(f).get("native") is not True:
+                    raise AssertionError(f"{path}: preprocess.pkl is not the native route's")
+            losses = log["history"]["loss"]
+            if not np.isfinite(losses).all():
+                raise AssertionError(f"{path}: loss not finite: {losses}")
+            if len(losses) > 1 and not losses[-1] < losses[0]:
+                raise AssertionError(f"{path}: the epoch loss did not fall: {losses}")
+            if args.mode == "eval":
+                auc = log["results"]["eval_auc"]
+                if not (np.isfinite(auc) and auc > 0.5):
+                    raise AssertionError(f"{path}: eval AUC {auc}")
+            rec.update(module=module.__name__.rsplit(".", 1)[-1], argv_extra=extra,
+                       data_info=log["data_info"], results=log.get("results"),
+                       history=log["history"], steps=steps, launches=counts,
+                       total_seconds=total_s,
+                       examples_per_s_fit=args.epochs * n_train / rec["fit_seconds"])
+            records[path] = rec
+            emit(phase="cli", path=path, **rec)
+        if "pandas" in sys.modules:
+            raise AssertionError("the native CLI runs imported pandas")
+
+        # the final run's artifacts back through load_scorer
+        out = os.path.join(d, "cli_final")
+        parser = native.NativeCriteoParser()
+        parser.load_vocab(os.path.join(out, "native_vocab.bin"))
+        vocab = parser.vocab_sizes()
+        cols = [SparseFeat(f"C{j + 1}", int(vocab[j]), DIM) for j in range(N_SPARSE)] + [
+            DenseFeat(f"I{j + 1}", 1) for j in range(N_DENSE)]
+        final_args = xdftrain.parse_args(["--data_path", files["train"], "--device", "cuda"])
+        scorer, pp = load_scorer(
+            lambda: xdftrain.build_model(final_args, cols, cols, final_mode=True),
+            os.path.join(out, "xdeepfm_full_weights.bin"), os.path.join(out, "preprocess.pkl"))
+        if pp is None or pp.get("native") is not True:
+            raise AssertionError(f"load_scorer returned no native preprocess dict: {pp}")
+        _, dense, ids = parser.transform(files["test"], with_label=False)
+        dense = pp["scaler"].transform(dense)
+        x = {f"C{j + 1}": ids[:, j] for j in range(N_SPARSE)}
+        x.update({f"I{j + 1}": dense[:, j] for j in range(N_DENSE)})
+        with open(os.path.join(out, "test_predictions.csv")) as f:
+            lines = f.read().splitlines()
+        if lines[0] != "predicted_ctr" or len(lines) != CLI_TEST_ROWS + 1:
+            raise AssertionError(f"test_predictions.csv: {lines[0]!r}, {len(lines)} lines")
+        written = np.array([float(v) for v in lines[1:]])
+        scored = scorer.score(x)[:, 0]
+        score_err = float(np.abs(scored - written).max())
+        if score_err > 1e-6:
+            raise AssertionError(f"load_scorer's scores differ from the CSV by {score_err}")
+    summary = dict(corpus_seconds=corpus_s, train_rows=CLI_TRAIN_ROWS, test_rows=CLI_TEST_ROWS,
+                   vocab=[int(v) for v in vocab], load_scorer_max_abs_diff=score_err,
+                   pandas_imported=False)
+    emit(phase="cli_summary", **summary)
+    return records
+
+
+# ---------------------------------------------------------------------------
 # the embedding tables' backward
 # ---------------------------------------------------------------------------
 
@@ -1770,6 +2110,8 @@ def main():
     attn_shapes = phase_attn_kernels(peak)
     la_shapes = phase_lane_kernels(peak)
     gru_shapes = phase_gru_kernels(peak)
+    ablate_shapes = phase_ablate_kernels(peak)
+    ablation = phase_ablate_script()
     serving, scorer, req = phase_serving()
     phase_profile(scorer, req)
     training, model, batches = phase_training()
@@ -1789,11 +2131,14 @@ def main():
         del attn_m, attn_batches
         torch.cuda.empty_cache()
     phase_gather()
+    cli = phase_cli()
     paths = {"training": training["launches"], "pro_training": pro["launches"],
              "pro_scoring": pro_scoring["launches"]}
     for version, (rec, scoring) in attn.items():
         paths[f"{PHASE[version]}_training"] = rec["launches"]
         paths[f"{PHASE[version]}_scoring"] = scoring["launches"]
+    paths["ablation"] = ablation["launches"]
+    paths.update({path: rec["launches"] for path, rec in cli.items()})
     kernels = []
     for kname in ("cin_fwd", "cin_bwd_dx", "cin_dw"):
         source, replaces = SOURCES[kname]
@@ -1882,6 +2227,21 @@ def main():
             library_ms=None, library_gru_cell_ms=rs[0][f"library_{kind}_ms"],
             per=f"DIEN train step at batch 4096 (1 gru + 1 augru launch, T {rs[0]['T']}, "
                 f"H {rs[0]['H']}); no library call computes the augru",
+        ))
+    # row 16: one forward of each variant at the ablation script's default
+    for variant in ABLATE_KERNELS:
+        kname = f"ablate_{variant}"
+        source, replaces = SOURCES[kname]
+        r = ablate_shapes[variant, ABLATE_PATH_SHAPE]
+        kernels.append(dict(
+            name=kname, route="cuda", source=source, replaces=replaces,
+            launches=paths["ablation"][kname],
+            launches_by_path={p: counts[kname] for p, counts in paths.items()},
+            max_abs_err=max(x["max_abs_err"] for (v, _), x in ablate_shapes.items()
+                            if v == variant),
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            bound_unit=r["bound_unit"], library_ms=r["library_ms"],
+            per=f"one forward at G {r['G']}, S {r['S']}, dh {r['dh']} (the script's default)",
         ))
     emit(kernels=kernels)
     emit(ok=True, device=dict(platform="gpu", kind=name, count=torch.cuda.device_count()))

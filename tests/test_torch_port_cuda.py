@@ -793,3 +793,82 @@ def test_dien_gradients_through_gru_kernels_match_plain(card):
     got, want = gpu.predict(x, 256), cpu.predict(x, 256)
     assert want.std() > 1e-3
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+# (G, dh, S): the ablation script's width at a smaller G, V2's train width,
+# ragged, tiny and dh 16 past one block's 256 threads
+ABLATE_SHAPES = [(512, 5, 266), (256, 5, 256), (1001, 3, 39), (2, 1, 5), (3, 16, 300)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["full", "dots", "soft"])
+@pytest.mark.parametrize("G,dh,S", ABLATE_SHAPES)
+def test_ablation_kernels_match_plain(card, variant, G, dh, S):
+    """Each ablation kernel against its plain version, within 1e-5 of the
+    largest |o| (fp32 sums of S terms in another order), bit-equal over two
+    runs, one launch a call."""
+    from xdeepfm_tpu_torch.ops import attn_ablate_cuda as ab
+
+    gen = torch.Generator().manual_seed(G + dh + S)
+    q, k, v = (torch.randn(G, dh, S, generator=gen).cuda() for _ in range(3))
+    kernel = ab.KERNELS[variant]
+    before = kernel.launches
+    got = kernel(q, k, v, dh ** -0.5)
+    again = kernel(q, k, v, dh ** -0.5)
+    torch.cuda.synchronize()
+    assert kernel.launches - before == 2
+    want = ab.REFERENCES[variant](q, k, v, dh ** -0.5)
+    _close(got, want, rtol=1e-5)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_ablation_kernels_reject_bad_input(card):
+    from xdeepfm_tpu_torch.ops.attn_ablate_cuda import ablate_full, ablate_soft
+
+    q = torch.randn(4, 5, 40, device="cuda")
+    for bad in (q.double(), q.cpu(), q[:, :, :20], q.transpose(1, 2), q[:, :, ::2]):
+        with pytest.raises(ValueError):
+            ablate_full(bad, q, q, 1.0)
+    wide = torch.randn(2, 17, 8, device="cuda")
+    with pytest.raises(ValueError):
+        ablate_soft(wide, wide, wide, 1.0)
+    long = torch.randn(1, 16, 4000, device="cuda")
+    with pytest.raises(ValueError, match="shared memory"):
+        ablate_soft(long, long, long, 1.0)
+
+
+@pytest.mark.cuda
+def test_cli_eval_trains_on_card(card, tmp_path):
+    """``xdftrain --mode eval`` on the card through the native parser: the
+    CIN kernels launch 2 + 2 + 2 times a step, the artifacts are written and
+    the eval AUC is a probability."""
+    import json
+    import os
+
+    from xdeepfm_tpu_torch import native
+    from xdeepfm_tpu_torch.cli.xdftrain import main
+
+    rng = np.random.default_rng(0)
+    path = tmp_path / "train.txt"
+    with open(path, "w") as f:
+        for _ in range(1000):
+            dense = [str(rng.integers(0, 50)) if rng.uniform() > 0.1 else "" for _ in range(13)]
+            sparse = [f"{rng.integers(0, 40):08x}" for _ in range(26)]
+            f.write("\t".join([str(rng.integers(0, 2))] + dense + sparse) + "\n")
+    flags = ["--use_native_parser"] if native.available() else []
+    out = str(tmp_path / "out")
+    before = (cin_rows_forward.launches, cin_rows_backward.launches, cin_rows_dw.launches)
+    log = main(["--data_path", str(path), "--out_dir", out, "--epochs", "2", "--batch_size",
+                "256", "--verbose", "0", "--device", "cuda", *flags])
+    launched = [a.launches - b for a, b in zip(
+        (cin_rows_forward, cin_rows_backward, cin_rows_dw), before)]
+    steps = 2 * -(-900 // 256)  # 900 train rows, 2 epochs
+    assert launched[1] == launched[2] == 2 * steps and launched[0] > 2 * steps
+    for name in ("history.json", "preprocess.pkl", "training_log.json", "xdeepfm_best.weights",
+                 "xdeepfm_weights.bin"):
+        assert os.path.exists(os.path.join(out, name)), name
+    with open(os.path.join(out, "training_log.json")) as f:
+        saved = json.load(f)
+    assert saved["model_config"]["device"] == "cuda" and saved["data_info"]["train_samples"] == 900
+    assert 0.0 <= log["results"]["eval_auc"] <= 1.0

@@ -1,0 +1,34 @@
+"""Import guard: each module of the port that the training CLIs, the data
+pipeline and the attention ablation added imports neither JAX nor anything
+of ``xdeepfm_tpu``, and none imports pandas when it is imported (the native
+route runs without it).  Each module is imported in a fresh interpreter, so
+no other test's imports count."""
+
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODULES = ["cli", "cli.common", "cli.xdftrain", "cli.xdftrain_v1", "cli.xdftrain_attn",
+           "cli.xdftrain_pro", "data", "native", "profiling", "utils", "callbacks", "serving",
+           "scripts", "scripts.bench_attn_ablate", "ops.attn_ablate", "ops.attn_ablate_cuda"]
+PROBE = """
+import importlib, json, sys
+importlib.import_module(sys.argv[1])
+print(json.dumps(sorted({k.split(".")[0] for k in sys.modules}
+                        & {"jax", "jaxlib", "xdeepfm_tpu", "pandas"})))
+"""
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_port_module_imports_no_jax(module):
+    proc = subprocess.run(
+        [sys.executable, "-c", PROBE, f"xdeepfm_tpu_torch.{module}"],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, PYTHONPATH=REPO),
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []

@@ -7,6 +7,7 @@ receives them through ``from_jax_weights``.  Both sides are fp32 on the CPU.
 
 import ast
 import pathlib
+import pickle
 
 import jax
 import numpy as np
@@ -169,8 +170,15 @@ def test_load_scorer_round_trip(pair, tmp_path):
     scorer, preprocess = load_scorer(lambda: _port_model(seed=9), path, batch_size=64)
     assert preprocess is None
     np.testing.assert_array_equal(scorer.score(x), p.predict(x, 64))
-    with pytest.raises(NotImplementedError):
-        load_scorer(lambda: _port_model(seed=9), path, preprocess_path="preprocess.pkl")
+    # a preprocess.pkl comes back as the dict that was pickled
+    from xdeepfm_tpu_torch.data import MinMaxScaler
+
+    scaler = MinMaxScaler(data_min_=np.zeros(2), data_max_=np.array([1.0, 4.0]))
+    pp = tmp_path / "preprocess.pkl"
+    pp.write_bytes(pickle.dumps({"native": True, "scaler": scaler, "feature_names": ["I0"]}))
+    _, preprocess = load_scorer(lambda: _port_model(seed=9), path, preprocess_path=str(pp))
+    assert preprocess["native"] is True and preprocess["feature_names"] == ["I0"]
+    np.testing.assert_array_equal(preprocess["scaler"].data_max_, [1.0, 4.0])
 
 
 def test_model_without_device_raises_when_no_gpu(monkeypatch):

@@ -19,6 +19,9 @@ scalars averaged into the epoch logs).
 
 from __future__ import annotations
 
+import itertools
+import queue
+import threading
 import time
 from typing import Dict, List, Tuple
 
@@ -351,6 +354,166 @@ class BaseModel:
                         eval_str += " - val_" + name + ": {0: .4f}".format(
                             epoch_logs["val_" + name]
                         )
+                print(eval_str)
+            callbacks.on_epoch_end(epoch, epoch_logs)
+            if self.stop_training:
+                break
+        callbacks.on_train_end()
+        return self.history
+
+    @staticmethod
+    def _prefetch_iter(it, depth=3):
+        """Pull ``it`` in a background thread (queue depth bounded) so that
+        host-side batch production (file parse, preprocessing) overlaps the
+        device steps.  The native parser (ctypes) and numpy release the GIL,
+        so a plain thread captures most of the overlap.  The thread runs no
+        CUDA work: the copies and launches stay with the consumer.  An
+        exception raised by ``it`` is raised in the consumer; a consumer that
+        stops early stops the thread, which has exited when the generator
+        closes."""
+        q: "queue.Queue" = queue.Queue(maxsize=depth)
+        end = object()
+        stop = threading.Event()
+
+        def put(item):
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.2)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def worker():
+            try:
+                for item in it:
+                    if not put(item):
+                        return
+                put(end)
+            except BaseException as e:  # re-raised in the consumer below
+                put(e)
+
+        t = threading.Thread(target=worker, name="fit_stream-prefetch", daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is end:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+            t.join()
+
+    def fit_stream(self, generator, epochs=1, verbose=1, initial_epoch=0, validation_data=None,
+                   callbacks=None, steps_per_dispatch=1, steps_per_epoch=None, prefetch=3):
+        """Out-of-core training from a batch stream (``basemodel.py:1507-1711``).
+
+        ``generator`` yields ``(x, y)`` batches (``x`` a feature dict, ``y``
+        labels) of one batch size; the final batch may be shorter, and is
+        padded and masked like ``fit``'s tail.  It is a callable
+        ``epoch -> iterable`` (a fresh stream each epoch) or a re-iterable; a
+        one-shot iterator supports ``epochs=1`` only.  With ``prefetch`` > 0 a
+        thread reads up to that many batches ahead (:meth:`_prefetch_iter`).
+        Epoch logs, callbacks, the sum-loss normalisation and the train
+        metrics follow :meth:`fit`.  ``steps_per_epoch`` caps each epoch, the
+        read-ahead included (the source is consumed exactly that many times);
+        by default an epoch is one pass of the stream.  ``steps_per_dispatch``
+        changes no result, as in :meth:`fit`."""
+        if self.optimizer is None:
+            raise RuntimeError("call compile() before fit_stream()")
+        if isinstance(self.loss_names, list):
+            raise NotImplementedError("loss lists arrive with the multitask models")
+        if steps_per_dispatch < 1:
+            raise ValueError("steps_per_dispatch must be >= 1")
+        do_validation = bool(validation_data)
+        if do_validation:
+            val_batch = self._pack_x(validation_data[0])
+            val_y = np.asarray(validation_data[1], dtype=np.float32)
+
+        callbacks = CallbackList((callbacks or []) + [self.history])
+        callbacks.set_model(self)
+        callbacks.set_params({
+            "epochs": epochs, "verbose": verbose,
+            # keras convention: steps present but None when the stream's
+            # length is unknown up front
+            "steps": steps_per_epoch,
+            "do_validation": do_validation, "metrics": self.metrics_names,
+        })
+        callbacks.on_train_begin()
+        self.stop_training = False
+        self._dropout_gen = torch.Generator(device=self.device).manual_seed(self.seed + 1)
+        if verbose > 0:
+            print("Train on stream, validate on {0} samples".format(
+                len(val_y) if do_validation else 0))
+
+        batch_size = None
+        for epoch in range(initial_epoch, epochs):
+            callbacks.on_epoch_begin(epoch)
+            start_time = time.time()
+            n_seen = 0
+            totals, mvals = [], []
+            stream = generator(epoch) if callable(generator) else generator
+            if prefetch:
+                src = iter(stream)
+                if steps_per_epoch:
+                    src = itertools.islice(src, steps_per_epoch)
+                stream = self._prefetch_iter(src, depth=prefetch)
+            try:
+                for x, yb in stream:
+                    xb = self._pack_x(x)
+                    yb = np.asarray(yb, dtype=np.float32)
+                    if yb.ndim == 1:
+                        yb = yb[:, None]
+                    bs = len(yb)
+                    if batch_size is None:
+                        batch_size = bs
+                    if bs > batch_size:
+                        raise ValueError(f"stream batch of {bs} rows exceeds the stream's "
+                                         f"batch size {batch_size}")
+                    n_seen += bs
+                    mask = np.ones((batch_size,), np.float32)
+                    if bs < batch_size:
+                        pad = batch_size - bs
+                        mask[bs:] = 0.0
+                        xb = {k: np.concatenate([v, np.repeat(v[-1:], pad, axis=0)])
+                              for k, v in xb.items()}
+                        yb = np.concatenate([yb, np.zeros((pad,) + yb.shape[1:], yb.dtype)])
+                    total, mv = self._train_step(
+                        {k: torch.as_tensor(v, device=self.device) for k, v in xb.items()},
+                        torch.as_tensor(yb, device=self.device),
+                        torch.as_tensor(mask, device=self.device),
+                        with_metrics=verbose > 0,
+                    )
+                    totals.append(total)
+                    mvals.append(mv)
+                    if steps_per_epoch and len(totals) >= steps_per_epoch:
+                        break
+            finally:
+                if prefetch:
+                    stream.close()  # stops the prefetch thread, also on an error
+            if totals:
+                epoch_logs = self._epoch_logs(totals, mvals, n_seen, len(totals))
+            else:
+                epoch_logs = {"loss": float("nan")}
+            if do_validation:
+                eval_result = self._evaluate_packed(val_batch, val_y, batch_size or 256)
+                for name, result in eval_result.items():
+                    epoch_logs["val_" + name] = result
+
+            if verbose > 0:
+                epoch_time = int(time.time() - start_time)
+                print("Epoch {0}/{1}".format(epoch + 1, epochs))
+                eval_str = "{0}s - {1} samples - loss: {2: .4f}".format(
+                    epoch_time, n_seen, epoch_logs["loss"])
+                for name in self.metrics:
+                    eval_str += " - " + name + ": {0: .4f}".format(epoch_logs[name])
+                if do_validation:
+                    for name in self.metrics:
+                        eval_str += " - val_" + name + ": {0: .4f}".format(
+                            epoch_logs["val_" + name])
                 print(eval_str)
             callbacks.on_epoch_end(epoch, epoch_logs)
             if self.stop_training:

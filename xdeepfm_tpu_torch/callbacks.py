@@ -9,6 +9,8 @@ monitor/mode/min_delta/patience behaviour.
 
 from __future__ import annotations
 
+import json
+import os
 import warnings
 
 import numpy as np
@@ -230,3 +232,60 @@ class ModelCheckpoint(Callback):
                 "\nEpoch %05d: %s did not improve from %0.5f"
                 % (epoch + 1, self.monitor, self.best)
             )
+
+
+class LogWriter(Callback):
+    """Scalar logger: JSONL always; TensorBoard events where
+    ``torch.utils.tensorboard`` imports (the JAX package's ``LogWriter``,
+    ``xdeepfm_tpu/callbacks.py:247``; stand-in for the CLIs' inline
+    TensorBoardCallback, ``xdftrain.py:31-97``).
+    """
+
+    def __init__(self, log_dir, tensorboard=True):
+        super().__init__()
+        self.log_dir = log_dir
+        os.makedirs(log_dir, exist_ok=True)
+        self._jsonl = open(os.path.join(log_dir, "scalars.jsonl"), "a")
+        self._tb = None
+        if tensorboard:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError:
+                SummaryWriter = None
+            if SummaryWriter is not None:
+                self._tb = SummaryWriter(log_dir=log_dir)
+
+    def scalar(self, tag, value, step):
+        self._jsonl.write(
+            json.dumps({"tag": tag, "value": float(value), "step": int(step)}) + "\n"
+        )
+        self._jsonl.flush()
+        if self._tb is not None:
+            self._tb.add_scalar(tag, float(value), step)
+
+    def text(self, tag, value, step=0):
+        if self._tb is not None:
+            self._tb.add_text(tag, value, step)
+
+    def on_epoch_end(self, epoch, logs=None):
+        logs = logs or {}
+        for k, v in logs.items():
+            section = "Validation" if k.startswith("val_") else "Training"
+            name = k[4:] if k.startswith("val_") else k
+            self.scalar(f"{section}/{name}", v, epoch)
+
+    def on_train_end(self, logs=None):
+        self._jsonl.flush()
+        if self._tb is not None:
+            self._tb.flush()
+
+    def close(self):
+        self._jsonl.close()
+        if self._tb is not None:
+            self._tb.close()
+
+    def __del__(self):  # fd-leak guard for writers never explicitly closed
+        try:
+            self.close()
+        except Exception:
+            pass

@@ -2,11 +2,13 @@
 
 * :class:`Scorer` — fixed-batch scoring over a model (pad + slice, float64
   outputs like ``predict``),
-* :func:`load_scorer` — rebuild a scorer from the port's ``.npz`` weights.
+* :func:`load_scorer` — rebuild a scorer from the CLIs' artifacts: the
+  port's ``.npz`` weights and a ``preprocess.pkl`` written by either package.
 """
 
 from __future__ import annotations
 
+import pickle
 from typing import Dict, Optional
 
 import numpy as np
@@ -47,6 +49,31 @@ class Scorer:
         return torch.cat(out).cpu().numpy().astype("float64")
 
 
+class PreprocessUnpickler(pickle.Unpickler):
+    """Reads a CLI's ``preprocess.pkl`` written by either package: classes of
+    the JAX package's ``data`` and ``features`` modules load as the port's
+    copies (the same names and attributes), so reading a JAX-written file
+    imports neither JAX nor ``xdeepfm_tpu``.  Any other module of the JAX
+    package is refused.  The pandas route's payload holds ``SafeLabelEncoder``s
+    built on ``pd.Index`` and needs pandas; the native route's holds only
+    the scaler's arrays and lists."""
+
+    MODULES = {"xdeepfm_tpu.data": "xdeepfm_tpu_torch.data",
+               "xdeepfm_tpu.features": "xdeepfm_tpu_torch.features"}
+
+    def find_class(self, module, name):
+        module = self.MODULES.get(module, module)
+        if module == "xdeepfm_tpu" or module.startswith("xdeepfm_tpu."):
+            raise pickle.UnpicklingError(f"preprocess.pkl refers to {module}.{name}")
+        return super().find_class(module, name)
+
+
+def load_preprocess(path: str):
+    """The dict of a CLI's ``preprocess.pkl`` (see :class:`PreprocessUnpickler`)."""
+    with open(path, "rb") as f:
+        return PreprocessUnpickler(f).load()
+
+
 def load_scorer(
     build_model,
     weights_path: str,
@@ -55,16 +82,12 @@ def load_scorer(
 ):
     """Rebuild a scorer from persisted artifacts.
 
-    ``build_model()`` -> a BaseModel with the right feature columns; its
-    weights come from ``weights_path`` (``save_weights``' ``.npz``).  Returns
-    (scorer, None).  ``preprocess_path`` raises until the port has its own
-    ``data.py``: the JAX CLI's ``preprocess.pkl`` unpickles JAX-package
-    classes.
+    ``build_model()`` -> a BaseModel with the right feature columns (the
+    CLI's ``training_log.json`` records the config); its weights come from
+    ``weights_path`` (``save_weights``' ``.npz``).  Returns
+    (scorer, preprocess dict | None).
     """
-    if preprocess_path:
-        raise NotImplementedError(
-            "preprocess.pkl loading arrives with the port's data.py"
-        )
     model = build_model()
     model.load_weights(weights_path)
-    return Scorer(model, batch_size=batch_size).warmup(), None
+    preprocess = load_preprocess(preprocess_path) if preprocess_path else None
+    return Scorer(model, batch_size=batch_size).warmup(), preprocess
