@@ -13,7 +13,10 @@ run in order and any failure raises, so the exit code is non-zero:
    paths' shapes (layer 1's h a strided column view, as split-half gives it)
    and at a ragged and a tiny shape, with its time, the plain version's time,
    one ``torch.einsum`` over the three operands (the library yardstick) and
-   the least time the card could take (bound);
+   the least time the card could take (bound); ``cin_dw`` (3xTF32 on the
+   tensor cores) must also be bit-equal over two runs and, against a float64
+   dW, within twice the plain fp32 version's error (or 1e-6 of the largest
+   entry), with a second bound at the TF32 tensor-core peak;
 4. serving: the canonical xDeepFM (26 sparse fields, vocab 10000, dim 10,
    13 dense, CIN (256, 128) split-half, DNN (256, 256)) with seeded random
    weights scores four requests through ``Scorer(batch_size=8192)``; the CIN
@@ -36,9 +39,12 @@ run in order and any failure raises, so the exit code is non-zero:
    canonical Pro step's stacked shape (26 heads, batch 4096, hidden 64,
    vocabulary 10000 padded to 10112) with every row and with a third of the
    rows valid, one head of the same shape, a ragged shape, no valid row and a
-   tiny shape; the backward must be bit-deterministic; times beside the
-   plain version's, the library's (``F.linear`` then ``F.cross_entropy``,
-   logits materialised, backward by autograd) and the bound;
+   tiny shape; the backward (3xTF32 on the tensor cores) must be
+   bit-deterministic and, against its plain version in float64, within twice
+   the plain fp32 version's error (or 1e-6 of the largest entry); times
+   beside the plain version's, the library's (``F.linear`` then
+   ``F.cross_entropy``, logits materialised, backward by autograd) and the
+   bounds on the fp32 pipes and the TF32 tensor cores;
 9. Pro training: the canonical xDeepFMPro (the columns above, SFG decoder
    (128, 64) with label attention, positive-only, dropout 0.1), ``fit`` at
    batch 4096 with Adam for three epochs.  Per step one ``ce_fwd`` and one
@@ -214,14 +220,17 @@ CIN_LAYERS, DNN_UNITS = (256, 128), (256, 256)
 REQUESTS = (8192, 8192, 8192, 5000)  # the last one is padded to a whole batch
 
 # Published dense peaks at the full power limit (NVIDIA data sheets): fp32 on
-# the CUDA cores (the kernel uses no tensor cores) and device-memory bytes/s.
+# the CUDA cores, device-memory bytes/s and TF32 on the tensor cores (each
+# sheet's sparse TF32 figure halved: PCIe 756, NVL 835, H200 and SXM 989).
 # First matching name wins; "H100" alone is the SXM part ("H100 80GB HBM3").
 PEAKS = (
-    ("H100 PCIe", 51.2e12, 2.0e12),
-    ("H100 NVL", 60.0e12, 3.9e12),
-    ("H200", 67.0e12, 4.8e12),
-    ("H100", 67.0e12, 3.35e12),
+    ("H100 PCIe", 51.2e12, 2.0e12, 378e12),
+    ("H100 NVL", 60.0e12, 3.9e12, 417.5e12),
+    ("H200", 67.0e12, 4.8e12, 495e12),
+    ("H100", 67.0e12, 3.35e12, 495e12),
 )
+# 3xTF32 (cin_dw, ce_bwd): three TF32 products for each fp32 one
+TF32_PASSES = 3
 # exp2 runs on the special-function units: 16 results a clock an SM against
 # the FMA pipe's 128 fp32 FMAs (2 FLOP each) for compute capability 9.0
 # (CUDA C++ Programming Guide, throughput of native arithmetic instructions),
@@ -327,7 +336,8 @@ def phase_device():
         raise SystemExit(f"chip_smoke: no published peaks for {smi!r}")
     emit(phase="device", nvidia_smi=smi, name=name, count=torch.cuda.device_count(),
          torch=torch.__version__, cuda=torch.version.cuda,
-         peak_source=peak[0], peak_fp32_flops=peak[1], peak_bytes_per_s=peak[2])
+         peak_source=peak[0], peak_fp32_flops=peak[1], peak_bytes_per_s=peak[2],
+         peak_tf32_flops=peak[3])
     return name, peak
 
 
@@ -356,7 +366,8 @@ def _kernel_case(name, N, H, M, O, strided, gen):
     """(kernel call, plain call, library call, bytes the function must move)
     on fresh unit-normal inputs; h is a column view of an [N, 2H] tensor if
     ``strided``.  The library call is one ``torch.einsum`` over the three
-    operands per output (dh and dx0 for cin_bwd_dx), timed only."""
+    operands per output (dh and dx0 for cin_bwd_dx), timed only.  cin_dw's
+    kernel call carries ``float64()``, its plain version in float64."""
     def rand(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
 
@@ -374,16 +385,36 @@ def _kernel_case(name, N, H, M, O, strided, gen):
                 lambda: (torch.einsum("no,nm,ohm->nh", g, x0, W3),
                          torch.einsum("no,nh,ohm->nm", g, h, W3)),
                 ins + 4 * (N * O + O * H * M) + ins)
-    return (lambda: cin_rows_dw(g, h, x0), lambda: cin_rows_dw_reference(g, h, x0),
+    def dw():
+        return cin_rows_dw(g, h, x0)
+
+    dw.float64 = lambda: cin_rows_dw_reference(g.double(), h.double(), x0.double())
+    return (dw, lambda: cin_rows_dw_reference(g, h, x0),
             lambda: torch.einsum("no,nh,nm->ohm", g, h, x0),
             ins + 4 * (N * O + O * H * M))
+
+
+def _f64_gate(label, got, want, exact):
+    """The 3xTF32 numerics gate: the kernel's largest error against the
+    float64 result at most twice the plain fp32 version's, or within 1e-6 of
+    the result's largest entry.  Returns (kernel error, plain error)."""
+    err = float((got.double() - exact).abs().max()) if got.numel() else 0.0
+    plain = float((want.double() - exact).abs().max()) if got.numel() else 0.0
+    top = float(exact.abs().max()) if got.numel() else 0.0
+    if not (err <= 2 * plain or err <= 1e-6 * top):
+        raise AssertionError(f"{label}: error against float64 {err} exceeds twice the plain "
+                             f"fp32 version's {plain} and 1e-6 of the largest entry {top}")
+    return err, plain
 
 
 def phase_kernels(peak):
     """Every kernel against its plain version on the same inputs.  FLOPs are
     the contraction's 2*N*H*M*O for each kernel (the N*H*M-sized epilogue
-    terms add under 1% at O >= 128 and are left out of the bound)."""
-    _, peak_flops, peak_bw = peak
+    terms add under 1% at O >= 128 and are left out of the bound).
+    ``cin_dw`` (3xTF32 on the tensor cores) is also held against a float64
+    dW on the card (:func:`_f64_gate`), must be bit-equal over two runs, and
+    carries a second bound, 3 * FLOPs at the TF32 peak (``bound_tc_ms``)."""
+    _, peak_flops, peak_bw, peak_tc = peak
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     results = {}
     cases = [("cin_fwd", s) for s in SERVE_SHAPES] + [
@@ -397,12 +428,21 @@ def phase_kernels(peak):
         want = plain()
         got, want = (got, want) if name != "cin_bwd_dx" else (torch.cat(got, 1), torch.cat(want, 1))
         err = (got - want).abs().max().item()
+        extra = {}
         if name == "cin_fwd":
             torch.testing.assert_close(got, want, **CIN_TOL)
         else:
             torch.testing.assert_close(
                 got, want, rtol=BWD_RTOL, atol=BWD_RTOL * want.abs().max().item() + 1e-6
             )
+        if name == "cin_dw":
+            exact = kernel.float64()
+            extra["err_vs_float64"], extra["plain_err_vs_float64"] = _f64_gate(
+                f"cin_dw at {label}", got, want, exact)
+            del exact
+            extra["bit_equal"] = bool(torch.equal(got, kernel()))
+            if not extra["bit_equal"]:
+                raise AssertionError(f"cin_dw at {label}: two runs differ")
         del got, want
         iters = 20 if N > 10_000 else 200
         kernel_ms = cuda_ms(kernel, iters)
@@ -410,12 +450,14 @@ def phase_kernels(peak):
         library_ms = cuda_ms(library, iters)
         flops = 2 * N * H * M * O
         by_ops = flops / peak_flops >= nbytes / peak_bw
+        if name == "cin_dw":
+            extra["bound_tc_ms"] = max(TF32_PASSES * flops / peak_tc, nbytes / peak_bw) * 1e3
         results[name, label] = dict(
             N=N, H=H, M=M, O=O, strided_h=strided, max_abs_err=err, kernel_ms=kernel_ms,
             plain_ms=plain_ms, library_ms=library_ms, library="torch.einsum over h, x0 and W",
             bound_ms=max(flops / peak_flops, nbytes / peak_bw) * 1e3,
             bound_by="operations" if by_ops else "bytes",
-            gflop=flops / 1e9, mbytes=nbytes / 1e6, tflops=flops / kernel_ms / 1e9,
+            gflop=flops / 1e9, mbytes=nbytes / 1e6, tflops=flops / kernel_ms / 1e9, **extra,
         )
         emit(phase="kernel", kernel=name, shape=label, **results[name, label])
     return results
@@ -994,8 +1036,11 @@ def phase_ce_kernels(peak):
     forward's products 2*nv*K*V*F, the backward's least work three times that
     (the logit recompute, dh and dW; the kernels recompute the logits once per
     output, 4x).  Bytes: each input read once (nv rows of h, t, g, logz) and
-    each output written once.  The exps (nv*V*F a pass) are left out."""
-    _, peak_flops, peak_bw = peak
+    each output written once.  The exps (nv*V*F a pass) are left out.  The
+    backward (3xTF32 on the tensor cores) is also held against its plain
+    version in float64 on the card (:func:`_f64_gate`, each of dh, dW, db)
+    and carries a second bound, 3 * FLOPs at the TF32 peak (``bwd_bound_tc_ms``)."""
+    _, peak_flops, peak_bw, peak_tc = peak
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
     results = {}
     for label, F_, B, K, V, pad, nv in CE_SHAPES:
@@ -1008,10 +1053,18 @@ def phase_ce_kernels(peak):
         torch.testing.assert_close(logz, want_logz, **CE_TOL)
         fwd_err = max(float((ll - want_ll).abs().max()), float((logz - want_logz).abs().max()))
         bwd_err = 0.0
-        for got, want in zip(grads, ce_rows_backward_reference(g, h, W, b, t, logz, nvd)):
+        plain = ce_rows_backward_reference(g, h, W, b, t, logz, nvd)
+        for got, want in zip(grads, plain):
             torch.testing.assert_close(got, want, rtol=BWD_RTOL,
                                        atol=BWD_RTOL * float(want.abs().max()) + 1e-6)
             bwd_err = max(bwd_err, float((got - want).abs().max()) if got.numel() else 0.0)
+        # the float64 [F, B, V] block is ~8.6 GB at the stacked shapes: freed at once
+        exact = ce_rows_backward_reference(g.double(), h.double(), W.double(), b.double(), t,
+                                           logz.double(), nvd)
+        vs64 = {out: _f64_gate(f"ce_bwd {out} at {label}", got, want, ex)
+                for out, got, want, ex in zip(("dh", "dW", "db"), grads, plain, exact)}
+        del exact, plain
+        torch.cuda.empty_cache()
         again = ce_rows_backward(g, h, W, b, t, logz, nvd)
         deterministic = all(torch.equal(a, c) for a, c in zip(grads, again))
         if not deterministic:
@@ -1041,7 +1094,11 @@ def phase_ce_kernels(peak):
         bwd_bytes = (4 * (rows * K + F_ * V * K + F_ * V + 2 * F_ * rows) + 8 * F_ * rows
                      + 4 * (B * K + F_ * V * K + F_ * V))
         rec = dict(F=F_, B=B, K=K, V=V, padded_columns=pad, num_valid=nv, **times,
-                   fwd_max_abs_err=fwd_err, bwd_max_abs_err=bwd_err, bwd_bit_equal=deterministic)
+                   fwd_max_abs_err=fwd_err, bwd_max_abs_err=bwd_err, bwd_bit_equal=deterministic,
+                   bwd_err_vs_float64={k: e[0] for k, e in vs64.items()},
+                   plain_bwd_err_vs_float64={k: e[1] for k, e in vs64.items()},
+                   bwd_bound_tc_ms=max(TF32_PASSES * 3 * flops / peak_tc,
+                                       bwd_bytes / peak_bw) * 1e3)
         for kind, n_flops, n_bytes, ms in (("fwd", flops, fwd_bytes, times["fwd_ms"]),
                                            ("bwd", 3 * flops, bwd_bytes, times["bwd_ms"])):
             by_ops = n_flops / peak_flops >= n_bytes / peak_bw
@@ -2158,6 +2215,9 @@ def main():
             bound_by="operations" if ops_s >= bytes_s else "bytes",
             library_ms=sum(r["library_ms"] for r in path),
             per="train step at batch 4096 (2 launches)",
+            **({"bound_tc_ms": sum(r["bound_tc_ms"] for r in path),
+                "err_vs_float64": max(r["err_vs_float64"] for (k, _), r in shapes.items()
+                                      if k == kname)} if kname == "cin_dw" else {}),
         ))
     for kname, kind in (("ce_fwd", "fwd"), ("ce_bwd", "bwd")):
         source, replaces = SOURCES[kname]
@@ -2172,6 +2232,7 @@ def main():
             library_ms=r[f"library_{kind}_ms"],
             per=f"Pro train step at batch 4096, {r['F']} stacked heads, {r['num_valid']} "
                 "valid rows (1 launch)",
+            **({"bound_tc_ms": r["bwd_bound_tc_ms"]} if kind == "bwd" else {}),
         ))
     # rows 8-9 on V2's train step (2 launches of each), rows 10-11 on V1's (1)
     for kname, kind, key, path, n in (

@@ -1,8 +1,8 @@
 """The attention ablation's CUDA source, run on the CPU by a host emulation.
 
 ``ops/csrc/sa_ablate.cu`` (TPU kernel row 16: ``full``, ``dots`` and
-``soft``) is compiled with g++ against the stand-in for the CUDA runtime of
-``tests/test_torch_port_ce_emulated.py`` (a block's threads are OS threads,
+``soft``) is compiled with g++ against the stand-in for the CUDA runtime in
+``tests/cuda_emulation.py`` (a block's threads are OS threads,
 barriers and shuffles are emulated, one block runs at a time).  Each
 variant's output is held against its plain PyTorch version in
 ``ops/attn_ablate_cuda.py`` at ragged and tiny shapes, at S past one block's
@@ -29,7 +29,7 @@ import subprocess
 import numpy as np
 import pytest
 import torch
-from test_torch_port_ce_emulated import SHIM
+from cuda_emulation import SHIM
 
 from xdeepfm_tpu_torch.ops import attn_ablate_cuda as ab
 

@@ -2,8 +2,8 @@
 
 ``ops/csrc/sa_fwd.cu`` and ``sa_bwd.cu`` (rows 8-9) and ``ab_fwd.cu`` and
 ``ab_bwd.cu`` (rows 10-11, with the backward's fixed-order reduce) are
-compiled with g++ against the stand-in for the CUDA runtime of
-``tests/test_torch_port_ce_emulated.py`` (a block's threads are OS threads,
+compiled with g++ against the stand-in for the CUDA runtime in
+``tests/cuda_emulation.py`` (a block's threads are OS threads,
 barriers and shuffles are emulated, one block runs at a time), and their
 outputs are held against the plain PyTorch versions in
 ``ops/attention_cuda.py`` and ``ops/attn_block_cuda.py``.  This checks the
@@ -26,7 +26,7 @@ import subprocess
 import numpy as np
 import pytest
 import torch
-from test_torch_port_ce_emulated import SHIM
+from cuda_emulation import SHIM
 
 from xdeepfm_tpu_torch.ops import attention_cuda as sa
 from xdeepfm_tpu_torch.ops import attn_block_cuda as ab

@@ -1,13 +1,14 @@
 """The CE kernels' CUDA sources, run on the CPU by a host emulation.
 
-``ops/csrc/ce_fwd.cu`` and ``ce_bwd.cu`` are compiled with g++ against a
-small stand-in for the CUDA runtime (below): a block's 256 threads are OS
-threads, ``__syncthreads`` and ``__shfl_xor_sync`` are barriers, shared memory
-is one buffer (one block runs at a time), and ``cudaLaunchKernel`` walks the
-grid.  The emulated kernels' outputs are held against the plain PyTorch
-versions in ``ops/ce_cuda.py``.  This checks the kernels' indexing, masking,
-tiling and partial sums without a GPU; it says nothing about their speed or
-about the GPU's compiler, which ``chip_smoke.py`` and the ``cuda`` tests cover.
+``ops/csrc/ce_fwd.cu`` and ``ce_bwd.cu`` are compiled with g++ against the
+stand-in for the CUDA runtime and for ``tc_tf32.cuh`` in
+``tests/cuda_emulation.py`` (a block's threads are OS threads, barriers,
+shuffles and the tensor-core MMA are emulated, one block runs at a time).
+The emulated kernels' outputs are held against the plain PyTorch versions in
+``ops/ce_cuda.py``.  This checks the kernels' indexing, masking, tiling,
+fragment layouts and partial sums without a GPU; it says nothing about their
+speed or about the GPU's compiler, which ``chip_smoke.py`` and the ``cuda``
+tests cover.
 Skips where no g++ is installed.
 """
 
@@ -18,128 +19,16 @@ import subprocess
 import numpy as np
 import pytest
 import torch
+from cuda_emulation import SHIM
 
 from xdeepfm_tpu_torch.ops import ce_cuda
 
 CSRC = pathlib.Path(ce_cuda.__file__).resolve().with_name("csrc")
 
-SHIM = r"""
-#pragma once
-#include <barrier>
-#include <cfloat>
-#include <cmath>
-#include <cstdint>
-#include <cstring>
-#include <memory>
-#include <thread>
-#include <tuple>
-#include <type_traits>
-#include <utility>
-#include <vector>
-#include <algorithm>
-
-#define __global__
-#define __device__
-#define __host__
-#define __forceinline__ inline
-#define __launch_bounds__(...)
-#define __align__(n) __attribute__((aligned(n)))
-#define __shared__
-
-struct dim3 {
-  unsigned x, y, z;
-  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
-};
-struct __attribute__((aligned(16))) float4 { float x, y, z, w; };
-inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-typedef void* cudaStream_t;
-enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
-using std::min;
-using std::max;
-
-namespace emu {
-struct Warp {
-  std::barrier<> bar{32};
-  float vals[32];
-};
-inline thread_local dim3 tidx, bidx;
-inline thread_local std::barrier<>* block_bar = nullptr;
-inline thread_local Warp* warp = nullptr;
-inline dim3 grid_dim, block_dim;
-}  // namespace emu
-#define threadIdx emu::tidx
-#define blockIdx emu::bidx
-#define gridDim emu::grid_dim
-#define blockDim emu::block_dim
-
-inline void __syncthreads() { emu::block_bar->arrive_and_wait(); }
-inline float __shfl_xor_sync(unsigned, float v, int off) {
-  const int lane = emu::tidx.x % 32;
-  emu::warp->vals[lane] = v;
-  emu::warp->bar.arrive_and_wait();
-  const float r = emu::warp->vals[lane ^ off];
-  emu::warp->bar.arrive_and_wait();
-  return r;
-}
-template <class T> inline T __ldg(const T* p) { return *p; }
-inline float __expf(float x) { return std::exp(x); }
-
-struct __nv_bfloat16 { uint16_t x; };
-inline __nv_bfloat16 __float2bfloat16_rn(float f) {
-  uint32_t u;
-  std::memcpy(&u, &f, 4);
-  u += 0x7fffu + ((u >> 16) & 1u);  // round to nearest even (no NaN inputs here)
-  return {static_cast<uint16_t>(u >> 16)};
-}
-inline float __bfloat162float(__nv_bfloat16 b) {
-  const uint32_t u = static_cast<uint32_t>(b.x) << 16;
-  float f;
-  std::memcpy(&f, &u, 4);
-  return f;
-}
-
-template <class T> cudaError_t cudaFuncSetAttribute(T*, cudaFuncAttribute, int) { return cudaSuccess; }
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
-inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
-
-namespace emu {
-template <class... A, size_t... I>
-cudaError_t launch(void (*f)(A...), dim3 grid, dim3 block, void** args, std::index_sequence<I...>) {
-  std::tuple<std::decay_t<A>...> vals(*static_cast<std::decay_t<A>*>(args[I])...);
-  grid_dim = grid;
-  block_dim = block;
-  const unsigned n = block.x;
-  for (unsigned z = 0; z < grid.z; ++z)
-    for (unsigned y = 0; y < grid.y; ++y)
-      for (unsigned x = 0; x < grid.x; ++x) {
-        std::barrier<> bar(n);
-        std::unique_ptr<Warp[]> warps(new Warp[n / 32]);
-        std::vector<std::thread> threads;
-        for (unsigned t = 0; t < n; ++t)
-          threads.emplace_back([&, t] {
-            tidx = dim3(t);
-            bidx = dim3(x, y, z);
-            block_bar = &bar;
-            warp = &warps[t / 32];
-            std::apply(f, vals);
-          });
-        for (auto& th : threads) th.join();
-      }
-  return cudaSuccess;
-}
-}  // namespace emu
-
-template <class... A>
-cudaError_t cudaLaunchKernel(void (*f)(A...), dim3 grid, dim3 block, void** args,
-                             size_t, cudaStream_t) {
-  return emu::launch(f, grid, block, args, std::index_sequence_for<A...>{});
-}
-"""
-
 # Reads one case (ints, then h, W, b, t, g, each raw), runs ce_fwd, then
 # ce_bwd with the forward's logz, and writes ll, logz, dh, dW, db.
 MAIN = r"""
+#include <cmath>
 #include <cstdio>
 #include <vector>
 #include "cuda_runtime.h"
@@ -147,7 +36,7 @@ alignas(16) float ce_smem[1 << 16];
 extern "C" int ce_fwd(const void*, const void*, const void*, const void*, const void*, void*,
                       void*, void*, int, int, int, int, int, int, int, void*);
 extern "C" int ce_bwd(const void*, const void*, const void*, const void*, const void*,
-                      const void*, const void*, void*, void*, int, int, void*, void*, void*,
+                      const void*, const void*, void*, void*, int, int, int, void*, void*, void*,
                       void*, int, int, int, int, int, int, int, void*);
 template <class T> std::vector<T> take(FILE* f, size_t n) {
   std::vector<T> v(n);
@@ -156,10 +45,10 @@ template <class T> std::vector<T> take(FILE* f, size_t n) {
 }
 int main(int argc, char** argv) {
   FILE* in = fopen(argv[1], "rb");
-  auto hd = take<int>(in, 12);
+  auto hd = take<int>(in, 13);
   const int B = hd[0], K = hd[1], V = hd[2], F = hd[3], bf16 = hd[4], nv = hd[5];
-  const int splits = hd[6], per_split = hd[7], slices = hd[8], rows = hd[9];
-  const int ranges = hd[10], per_range = hd[11];
+  const int splits = hd[6], per_split = hd[7], blocks = hd[8], slices = hd[9], rows = hd[10];
+  const int ranges = hd[11], per_range = hd[12];
   auto h = take<float>(in, (size_t)B * K);
   auto w = take<float>(in, (size_t)F * V * K);
   auto b = take<float>(in, (size_t)F * V);
@@ -173,8 +62,9 @@ int main(int argc, char** argv) {
   const int* nvp = nv < 0 ? nullptr : &nv;
   int err = ce_fwd(h.data(), w.data(), b.data(), t.data(), nvp, ll.data(), logz.data(),
                    part.data(), ranges, per_range, B, K, V, F, bf16, nullptr);
+  for (auto& x : ce_smem) x = NAN;  // a read of a slot never written spreads NaN
   err |= ce_bwd(h.data(), w.data(), b.data(), t.data(), logz.data(), g.data(), nvp, dh.data(),
-                dh_part.data(), splits, per_split, dw.data(), db.data(), dw_part.data(),
+                dh_part.data(), splits, per_split, blocks, dw.data(), db.data(), dw_part.data(),
                 db_part.data(), slices, rows, B, K, V, F, bf16, nullptr);
   FILE* out = fopen(argv[2], "wb");
   for (auto* v : {&ll, &logz, &dh, &dw, &db}) fwrite(v->data(), 4, v->size(), out);
@@ -219,17 +109,17 @@ def _run(emulator, h, W, b, t, g, nv, bf16, split):
     return [torch.from_numpy(p.reshape(s).copy()) for p, s in zip(parts, shapes)]
 
 
-# (B, K, V, F, num_valid, split): split = (splits, pairs per split, slices,
-# rows per slice) of the backward, then (vocabulary ranges, tiles per range)
-# of the forward.  Ragged B, K and V; a tile straddling num_valid;
+# (B, K, V, F, num_valid, split): split = (splits, pairs per split, dh
+# blocks, slices, rows per slice) of the backward, then (vocabulary ranges,
+# tiles per range) of the forward.  Ragged B, K and V; a tile straddling num_valid;
 # num_valid 0; several partial sums on every side; padded (-1e30) vocabulary
 # columns.
 CASES = [
-    (300, 13, 300, 2, None, (1, 6, 1, 384, 1, 3)),
-    (300, 64, 257, 3, 150, (3, 3, 3, 128, 3, 1)),
-    (200, 40, 130, 2, 0, (2, 2, 2, 128, 2, 1)),
-    (5, 3, 7, 1, 4, (1, 1, 1, 128, 1, 1)),
-    (130, 64, 600, 2, 129, (4, 3, 2, 128, 2, 3)),
+    (300, 13, 300, 2, None, (1, 6, 2, 1, 384, 1, 3)),
+    (300, 64, 257, 3, 150, (3, 3, 4, 3, 128, 3, 1)),
+    (200, 40, 130, 2, 0, (2, 2, 3, 2, 128, 2, 1)),
+    (5, 3, 7, 1, 4, (1, 1, 1, 1, 128, 1, 1)),
+    (130, 64, 600, 2, 129, (4, 3, 5, 2, 128, 2, 3)),
 ]
 
 
@@ -267,9 +157,10 @@ def test_forward_split_covers_the_vocabulary():
 
 def test_backward_split_covers_the_work():
     # canonical Pro: 26 heads of 10112 columns, 4096 rows, 132 SMs
-    splits, per, slices, rows = ce_cuda.backward_split(4096, 10112, 26, 132)
+    splits, per, blocks, slices, rows = ce_cuda.backward_split(4096, 10112, 26, 132)
     assert (slices, rows) == (1, 4096) and splits * per >= 26 * 79 > (splits - 1) * per
-    splits, per, slices, rows = ce_cuda.backward_split(4096, 10000, 1, 132)
-    assert splits * per >= 79 > (splits - 1) * per
+    assert blocks == 2 * 132 and 64 * splits >= 16 * 132  # ~16 items a SM, all rows valid
+    splits, per, blocks, slices, rows = ce_cuda.backward_split(4096, 10000, 1, 132)
+    assert splits * per >= 79 > (splits - 1) * per and blocks == 2 * 132
     assert slices > 1 and rows % 128 == 0 and slices * rows >= 4096 > (slices - 1) * rows
-    assert ce_cuda.backward_split(5, 7, 1, 132) == (1, 1, 1, 128)
+    assert ce_cuda.backward_split(5, 7, 1, 132) == (1, 1, 1, 1, 128)

@@ -282,6 +282,61 @@ def test_ce_kernels_match_plain(card, F, B, K, V, pad, nv, precision):
         assert torch.equal(a, c)
 
 
+def _f64_gate(got, want, exact):
+    """The 3xTF32 kernels' numerics: the largest error against float64 at
+    most twice the plain fp32 version's, or within 1e-6 of the largest entry
+    (as ``chip_smoke.py`` holds them)."""
+    err = float((got.double() - exact).abs().max())
+    plain = float((want.double() - exact).abs().max())
+    assert err <= 2 * plain or err <= 1e-6 * float(exact.abs().max()), (err, plain)
+
+
+# (N, H, M, O, strided): layer 1 of a train batch of 1024 (split-half's
+# strided h), and a ragged shape
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,H,M,O,strided", [(10240, 128, 26, 128, True),
+                                             (1001, 13, 26, 7, False)])
+def test_cin_dw_kernel_is_fp32_accurate_and_deterministic(card, N, H, M, O, strided):
+    h, x0, _, _ = _inputs(N + O, N, 2 * H if strided else H, M, O)
+    h = h[:, :H]
+    g = torch.randn(N, O, generator=torch.Generator().manual_seed(N)).cuda()
+    got = cin_rows_dw(g, h, x0)
+    torch.cuda.synchronize()
+    want = cin_rows_dw_reference(g, h, x0)
+    _close(got, want)
+    _f64_gate(got, want, cin_rows_dw_reference(g.double(), h.double(), x0.double()))
+    assert torch.equal(got, cin_rows_dw(g, h, x0))
+
+
+# (F, B, K, V, pad, num_valid): the Pro step's stacked heads cut to 4 with a
+# third of a 4096 batch valid; ragged; no valid row; num_valid not a
+# multiple of the 64-row items (nor of 128)
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,B,K,V,pad,nv", [(4, 4096, 64, 10112, 112, 1365),
+                                            (3, 1001, 13, 1000, 0, 700),
+                                            (2, 512, 64, 1000, 0, 0),
+                                            (2, 777, 64, 3000, 0, 321)])
+def test_ce_backward_kernel_is_fp32_accurate_and_deterministic(card, F, B, K, V, pad, nv):
+    h, W, b, t, g = _ce_inputs(F * B + V, F, B, K, V, pad)
+    nvd = torch.tensor(nv, device="cuda")
+    _, logz = ce_rows_forward(h, W, b, t, nvd)
+    grads = ce_rows_backward(g, h, W, b, t, logz, nvd)
+    torch.cuda.synchronize()
+    want = ce_rows_backward_reference(g, h, W, b, t, logz, nvd)
+    exact = ce_rows_backward_reference(g.double(), h.double(), W.double(), b.double(), t,
+                                       logz.double(), nvd)
+    for got, w, ex in zip(grads, want, exact):
+        torch.testing.assert_close(got, w, rtol=BWD_RTOL,
+                                   atol=BWD_RTOL * float(w.abs().max()) + 1e-6)
+        if nv:
+            _f64_gate(got, w, ex)
+    assert (grads[0][nv:] == 0).all()
+    if nv == 0:
+        assert all((x == 0).all() for x in grads)
+    for a, c in zip(grads, ce_rows_backward(g, h, W, b, t, logz, nvd)):
+        assert torch.equal(a, c)
+
+
 @pytest.mark.cuda
 def test_ce_kernels_reject_bad_input(card):
     h, W, b, t, g = _ce_inputs(0, 2, 64, 8, 100)

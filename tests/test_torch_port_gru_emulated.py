@@ -1,8 +1,8 @@
 """The GRU-scan kernels' CUDA sources, run on the CPU by a host emulation.
 
 ``ops/csrc/gru_fwd.cu`` and ``gru_bwd.cu`` (TPU kernel rows 14-15) are
-compiled with g++ against the stand-in for the CUDA runtime of
-``tests/test_torch_port_ce_emulated.py`` (a block's threads are OS threads,
+compiled with g++ against the stand-in for the CUDA runtime in
+``tests/cuda_emulation.py`` (a block's threads are OS threads,
 barriers and shuffles are emulated, one block runs at a time), extended by
 the width form of ``__shfl_sync`` that the kernels' shuffle groups use.  Their
 outputs are held against the plain PyTorch versions in ``ops/gru_cuda.py``
@@ -25,7 +25,7 @@ import subprocess
 import numpy as np
 import pytest
 import torch
-from test_torch_port_ce_emulated import SHIM
+from cuda_emulation import SHIM
 
 from xdeepfm_tpu_torch.ops import gru_cuda
 

@@ -2,8 +2,8 @@
 emulation.
 
 ``ops/csrc/la_fwd.cu`` and ``la_bwd.cu`` (rows 12-13) are compiled with g++
-against the stand-in for the CUDA runtime of
-``tests/test_torch_port_ce_emulated.py`` (a block's threads are OS threads,
+against the stand-in for the CUDA runtime in
+``tests/cuda_emulation.py`` (a block's threads are OS threads,
 barriers are emulated, one block runs at a time), and their outputs are held
 against the plain PyTorch versions in ``ops/lane_attention_cuda.py``.  Every
 case runs at both stride sets the kernels serve: [H, dh, S, B] contiguous
@@ -26,7 +26,7 @@ import subprocess
 import numpy as np
 import pytest
 import torch
-from test_torch_port_ce_emulated import SHIM
+from cuda_emulation import SHIM
 
 from xdeepfm_tpu_torch.ops import lane_attention_cuda as lac
 

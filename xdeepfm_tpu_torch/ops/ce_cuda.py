@@ -14,7 +14,10 @@ counts its launches in ``<wrapper>.launches``:
 * :func:`ce_rows_forward` — ``csrc/ce_fwd.cu`` (replaces ``_ce_fwd`` /
   ``_fwd_kernel`` and ``_ces_fwd`` / ``_fwd_kernel_stacked``);
 * :func:`ce_rows_backward` — ``csrc/ce_bwd.cu`` (replaces ``_ce_bwd`` /
-  ``_bwd_kernel`` and ``_ces_bwd`` / ``_bwd_kernel_stacked``).
+  ``_bwd_kernel`` and ``_ces_bwd`` / ``_bwd_kernel_stacked``), its products
+  on the tensor cores in 3xTF32 (``csrc/tc_tf32.cuh``: each fp32 operand
+  split into two TF32 halves and three products summed, within the plain
+  fp32 version's error of a float64 result; one exact product under "bf16").
 
 Beside each is the same function in plain PyTorch (``*_reference``), which
 materialises the [F, B, V] logits.  The CPU path and the kernels' checks use
@@ -35,11 +38,15 @@ from . import _build
 CE_MAX_K = 64
 _ROWS = 128  # rows (and vocabulary columns) of one tile
 # Blocks per SM the work is split into where the shapes allow, with every row
-# valid: the forward runs 2 blocks per SM and the backward 1, and about a
-# third of a Pro batch is valid, so the forward and ce_dh_kernel aim at
-# several waves; ce_dw_kernel has heads x tiles blocks already.
+# valid: the forward runs 2 blocks per SM and aims at several waves, since
+# about a third of a Pro batch is valid; ce_dw_kernel has heads x tiles blocks
+# already.  ce_dh_kernel's persistent blocks (2 a SM) stride over items of 64
+# valid rows x a split of the pairs: ~16 items a SM with every row valid,
+# ~5.5 at a third.
 _FWD_BLOCKS_PER_SM = 16
-_DH_BLOCKS_PER_SM = 16
+_DH_ITEMS_PER_SM = 16
+_DH_RESIDENT = 2
+_DH_ROWS = 64
 _DW_BLOCKS_PER_SM = 4
 _MAX_PARTIALS = 64
 
@@ -78,7 +85,8 @@ def ce_rows_backward_reference(g, h, W, b, targets, logz, num_valid=None, precis
     keep = _valid_mask(num_valid, h.shape[0], h.device)
     dS = (_logits(h, W, b, precision) - logz[..., None]).exp_()
     t = targets.long()[..., None]
-    dS.scatter_add_(-1, t, torch.full(t.shape, -1.0, device=dS.device))  # P - onehot
+    minus_one = torch.full(t.shape, -1.0, device=dS.device, dtype=dS.dtype)
+    dS.scatter_add_(-1, t, minus_one)  # P - onehot
     dS.mul_(g[..., None]).masked_fill_(keep[None, :, None] == 0, 0.0)  # logz is 0 there
     dSp = _bf16(dS, precision)
     dh = torch.matmul(dSp, _bf16(W, precision)).sum(0)
@@ -89,7 +97,7 @@ def ce_rows_backward_reference(g, h, W, b, targets, logz, num_valid=None, precis
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "ce_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "ce_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I,
+    "ce_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I,
                _I, _I, _I, _I, _I, _P],
 }
 def _launch(name, device, *args):
@@ -174,23 +182,29 @@ def ce_rows_forward(h, W, b, targets, num_valid=None, precision="fp32"):
 
 
 def backward_split(B, V, F, sms):
-    """(splits, pairs per split, slices, rows per slice) of the backward:
-    ``ce_dh_kernel``'s B / 128 row tiles times the splits of its F * V / 128
-    (head, tile) pairs, about ``_DH_BLOCKS_PER_SM`` blocks per SM, and
-    ``ce_dw_kernel``'s F * V / 128 tiles times the row slices, about
-    ``_DW_BLOCKS_PER_SM``; at most ``_MAX_PARTIALS`` partials each."""
-    row_tiles = -(-B // _ROWS)
+    """(splits, pairs per split, dh blocks, slices, rows per slice) of the
+    backward: ``ce_dh_kernel``'s items are its 64-row tiles of the valid rows
+    times the splits of the F * V / 128 (head, tile) pairs, about
+    ``_DH_ITEMS_PER_SM`` items per SM with every row valid, taken by at most
+    ``_DH_RESIDENT`` persistent blocks per SM; ``ce_dw_kernel``'s blocks are
+    the F * V / 128 tiles times the row slices, about ``_DW_BLOCKS_PER_SM``
+    per SM; at most ``_MAX_PARTIALS`` partials each."""
+    row_tiles = -(-B // _DH_ROWS)
     pairs = F * -(-V // _ROWS)
-    splits = max(1, min(pairs, _MAX_PARTIALS, -(-(_DH_BLOCKS_PER_SM * sms) // row_tiles)))
+    splits = max(1, min(pairs, _MAX_PARTIALS, -(-(_DH_ITEMS_PER_SM * sms) // row_tiles)))
     per_split = -(-pairs // splits)
-    slices = max(1, min(row_tiles, _MAX_PARTIALS, -(-(_DW_BLOCKS_PER_SM * sms) // pairs)))
-    rows = -(-row_tiles // slices) * _ROWS
-    return -(-pairs // per_split), per_split, -(-B // rows), rows
+    splits = -(-pairs // per_split)
+    blocks = min(_DH_RESIDENT * sms, row_tiles * splits)
+    dw_tiles = -(-B // _ROWS)
+    slices = max(1, min(dw_tiles, _MAX_PARTIALS, -(-(_DW_BLOCKS_PER_SM * sms) // pairs)))
+    rows = -(-dw_tiles // slices) * _ROWS
+    return splits, per_split, blocks, -(-B // rows), rows
 
 
 def ce_rows_backward(g, h, W, b, targets, logz, num_valid=None, precision="fp32"):
     """The backward kernels: same contract as
-    :func:`ce_rows_backward_reference` on CUDA tensors."""
+    :func:`ce_rows_backward_reference` on CUDA tensors, the products in
+    3xTF32 on the tensor cores."""
     (B, K, V, F), nv = _check("ce_rows_backward", h, W, b, targets, num_valid, precision,
                               g=g, logz=logz)
     dev = h.device
@@ -199,16 +213,16 @@ def ce_rows_backward(g, h, W, b, targets, logz, num_valid=None, precision="fp32"
     db = torch.empty((F, V), device=dev, dtype=torch.float32)
     if B == 0 or F == 0:
         return dh.zero_(), dW.zero_(), db.zero_()
-    splits, per_split, slices, rows = backward_split(B, V, F, _sms(dev))
+    splits, per_split, blocks, slices, rows = backward_split(B, V, F, _sms(dev))
     if slices * F * V * K >= 2**31 or splits * B * K >= 2**31:
         raise ValueError("ce_rows_backward: partial sums exceed 32-bit indexing")
     empty = torch.empty(0, device=dev)
-    dh_part = torch.empty((splits, B, K), device=dev) if splits > 1 else empty
+    dh_part = torch.empty((splits, B, K), device=dev)
     dw_part = torch.empty((slices, F, V, K), device=dev) if slices > 1 else empty
     db_part = torch.empty((slices, F, V), device=dev) if slices > 1 else empty
     _launch("ce_bwd", dev, h.data_ptr(), W.data_ptr(), b.data_ptr(), targets.data_ptr(),
             logz.data_ptr(), g.data_ptr(), None if nv is None else nv.data_ptr(),
-            dh.data_ptr(), dh_part.data_ptr(), splits, per_split,
+            dh.data_ptr(), dh_part.data_ptr(), splits, per_split, blocks,
             dW.data_ptr(), db.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(), slices, rows,
             B, K, V, F, int(precision == "bf16"))
     ce_rows_backward.launches += 1

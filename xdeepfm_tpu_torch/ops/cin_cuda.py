@@ -10,7 +10,10 @@ launch, and counts its launches in ``<wrapper>.launches``:
 * :func:`cin_rows_backward` — ``cin_bwd_dx`` in ``csrc/cin_bwd.cu``, dh and
   dx0 (the dh/dx0 half of ``_bwd_fused_t`` / ``_bwd_kernel``);
 * :func:`cin_rows_dw` — ``cin_dw`` in ``csrc/cin_bwd.cu``, dW (replaces
-  ``_dw_contract`` / ``_dw_kernel`` and the dW half of ``_bwd_kernel``).
+  ``_dw_contract`` / ``_dw_kernel`` and the dW half of ``_bwd_kernel``), on
+  the tensor cores in 3xTF32 (``csrc/tc_tf32.cuh``): each fp32 operand split
+  into two TF32 halves and three products summed, within the plain fp32
+  product's error of a float64 dW.
 
 Beside each is the same function in plain PyTorch (``*_reference``), the
 materialised lowering of ``xdeepfm_tpu/ops/cin.py:114-120`` and of its
@@ -27,7 +30,7 @@ from . import _build
 
 # cin_bwd_dx pads each h group's M columns to a power of two up to this
 FUSED_MAX_M = 64
-_SLOTS_PER_SM = 2  # resident blocks per SM of every CIN kernel (launch bounds)
+_SLOTS_PER_SM = 2  # resident blocks per SM of cin_fwd and cin_bwd_dx (launch bounds)
 _MAX_DX_SPLITS = 8
 
 
@@ -66,6 +69,7 @@ _SIGNATURES = {
         "cin_sum_slices": [_P, _I, ctypes.c_longlong, _P, _I, _P],
     },
 }
+_GEOMETRY = {}  # cin_dw's tile, read once from the built library
 
 
 def _launch(lib_name, fn_name, device, *args):
@@ -160,14 +164,25 @@ def _dx_split(N, H, M, slots):
     return mp, best[1], best[2]
 
 
-def _dw_slices(N, H, M, O, slots):
+def _dw_geometry():
+    """cin_dw's (tile rows, tile columns, rows a chunk, blocks a SM), read
+    from the built kernel."""
+    if not _GEOMETRY:
+        vals = [ctypes.c_int() for _ in range(4)]
+        fn = _build.function("cin_bwd", "cin_dw_geometry", [ctypes.POINTER(ctypes.c_int)] * 4)
+        fn(*map(ctypes.byref, vals))
+        _GEOMETRY["dw"] = tuple(v.value for v in vals)
+    return _GEOMETRY["dw"]
+
+
+def _dw_slices(N, H, M, O, slots, bm=128, bn=128, kc=32):
     """(slices, rows per slice) for cin_dw: as many row slices as fill one
-    wave of ``slots`` blocks with the output's 128 x 128 tiles, at least 256
-    rows each."""
-    tiles = -(-(H * M) // 128) * -(-O // 128)
+    wave of ``slots`` blocks with the output's bm x bn tiles, at least 256
+    rows each, each a multiple of the kernel's ``kc`` rows a chunk."""
+    tiles = -(-(H * M) // bn) * -(-O // bm)
     slices = max(1, min(slots // tiles, -(-N // 256)))
     rows = -(-N // slices)
-    rows = -(-rows // 16) * 16
+    rows = -(-rows // kc) * kc
     return -(-N // rows), rows
 
 
@@ -207,7 +222,8 @@ def cin_rows_backward(g, h_rows, x0_rows, W):
 
 def cin_rows_dw(g, h_rows, x0_rows):
     """The ``cin_dw`` kernel: same contract as :func:`cin_rows_dw_reference`
-    on CUDA fp32 tensors; ``g`` must be contiguous."""
+    on CUDA fp32 tensors, in 3xTF32 on the tensor cores; ``g`` must be
+    contiguous."""
     if g.ndim != 2:
         raise ValueError("cin_rows_dw: expects g [N, O]")
     O = g.shape[1]
@@ -219,7 +235,9 @@ def cin_rows_dw(g, h_rows, x0_rows):
     if N == 0 or O == 0:
         return h_rows.new_zeros((O, H * M))
     dW = torch.empty((O, H * M), device=dev, dtype=torch.float32)
-    slices, rows = _dw_slices(N, H, M, O, _slots(dev))
+    bm, bn, kc, per_sm = _dw_geometry()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    slices, rows = _dw_slices(N, H, M, O, per_sm * sms, bm, bn, kc)
     if slices * O * H * M >= 2**31:
         raise ValueError("cin_rows_dw: operands exceed 32-bit indexing")
     part = dW if slices == 1 else torch.empty(

@@ -16,295 +16,488 @@
 // _ces_bwd / _bwd_kernel_stacked (F heads in one launch).
 //
 // Bound: operations.  The least work is the logit recompute plus the two
-// gradient products, 3 * 2*nv*K*V*F FLOPs (413 GFLOP at the canonical Pro
-// step with nv = B = 4096, K = 64, F = 26, V = 10112), against W, dW and a few
-// MB of row data in bytes.  The TPU kernel carried dW/db in its output block
-// along a sequential batch axis and dh in VMEM for the whole grid; Hopper's
-// blocks run in no order and nothing carries between them, so the work is
-// split by what each block owns, and every sum is taken in a fixed order
-// (deterministic, no atomics):
-//   * ce_dw_kernel owns a 128-column vocabulary tile of one head, dW [128, K]
-//     and db [128] in registers, and walks the valid rows 128 at a time:
-//     logit tile (h rows x W tile, both in shared memory), dS in registers,
-//     dS to shared memory, then dW += dS^T h.  Where heads x tiles fill the
-//     card too thinly (one head), the rows are cut into slices over
-//     gridDim.z whose partials ce_sum_slices adds in order;
-//   * ce_dh_kernel owns 128 rows of dh [128, K] in registers and walks a
-//     range of (head, vocabulary tile) pairs: the transposed logit tile, dS
-//     in registers, dS to shared memory, then dh += dS W.  The pairs are
-//     split over gridDim.y so that B / 128 row tiles fill the card; each
-//     split writes a partial dh that ce_sum_slices adds in order.
-// So each kernel recomputes the logits once: 4 * 2*nv*K*V*F FLOPs in all,
-// a third more than the least.  Tiles with no valid row do no work and write
-// zeros, so every output is defined at num_valid = 0.  Ragged B, V and K are
-// masked, not padded.
+// gradient products, 3 * 2*nv*K*V*F FLOPs (137.8 GFLOP at the canonical Pro
+// step's nv = 1365 valid rows of B = 4096, K = 64, F = 26, V = 10112), against
+// W, dW and a few MB of row data in bytes: 2.057 ms on the fp32 FMA pipes
+// (67 TFLOP/s), 0.835 ms on the tensor cores in 3xTF32 (495 / 3 TFLOP/s).
+// Every product here is a 3xTF32 mma.sync of tc_tf32.cuh (one MMA under
+// "bf16", exact since a bf16 operand's TF32 small part is 0).  The TPU
+// kernel carried dW/db in its output block along a sequential batch axis
+// and dh in VMEM for the whole grid; Hopper's blocks run in no order and
+// nothing carries between them, so the work is split by what each block
+// owns, and every sum is taken in a fixed order (deterministic, no atomics):
+//   * ce_dw_kernel owns a 128-column vocabulary tile of one head: its W tile,
+//     split once into TF32 halves in shared memory, dW [128, K] and db [128]
+//     in registers (a warp owns 16 columns).  It walks the valid rows 32 at
+//     a time, their h rows, logz, g and targets brought in by cp.async into
+//     a ring of two stages while the previous chunk computes: the transposed
+//     logit tile S^T = W h^T (MMAs), dS in place in the accumulator
+//     fragments, then dW += dS^T h straight from those fragments.  Where heads
+//     x tiles fill the card too thinly (one head), the rows are cut into
+//     slices over gridDim.z whose partials ce_sum_slices adds in order;
+//   * ce_dh_kernel: persistent blocks read num_valid and stride over the
+//     items (64-row tile of the valid rows, split of the (head, vocabulary
+//     tile) pairs), so no block is planned for rows that take no part.  An
+//     item keeps its h rows split in shared memory and dh [64, K] in
+//     registers, and walks its pairs 64 columns at a time, each W half-tile
+//     (with its bias and the rows' logz, g and targets for its head) brought
+//     in by cp.async into a ring of two stages: the logit tile S = h W^T,
+//     dS in the fragments, then dh += dS W.  Eight warps own 16 rows x 32
+//     columns; the two column halves' dh are added in order at the item's
+//     end, and each split writes its partial, which ce_dh_sum adds in order
+//     (zero past num_valid).
+// dS never goes through shared memory: the m16n8k8 accumulator holds columns
+// (2 tig, 2 tig + 1) of row group, so reading the reduction axis of the next
+// product in the order (0, 2, 4, 6, 1, 3, 5, 7) makes the accumulator
+// (c0, c2, c1, c3) exactly the A fragment of that product.  Operand tiles
+// are laid out [row][k] 68 floats apart, so every fragment load is free of
+// bank conflicts.  Each kernel recomputes the logits once: 4 * 2*nv*K*V*F
+// FLOPs in all, a third more than the least.  Two blocks of ~105 KB of shared
+// memory share an SM.  Ragged B, V and K are masked (zero-filled operands),
+// not padded; every output is defined at num_valid = 0.  Against float64, at
+// the Pro step's shape, dh, dW and db err 0.2-1.3x as much as the plain fp32
+// version (chip_smoke.py, an NVIDIA H100 80GB HBM3 at 700 W).
 
 #include <cmath>
+#include <stdint.h>
 
 #include "ce_tile.cuh"
+#include "tc_tf32.cuh"
 
 namespace {
 
-using ce::BK;
-using ce::BM;
-using ce::BN;
-using ce::KLD;
 using ce::KMAX;
-using ce::LD;
-using ce::THREADS;
 
-int dw_smem_bytes(int kp) { return (kp * LD + BM * KLD + BM * LD + BN + 3 * BM) * 4; }
-int dh_smem_bytes(int kp) { return (kp * LD + BN * KLD + BN * LD + BN + 3 * BM) * 4; }
+constexpr int THREADS = 256;       // 8 warps
+constexpr int LDK = KMAX + 4;      // row of a [rows][K] operand tile (68)
+constexpr int DW_V = 128;          // ce_dw_kernel: vocabulary columns of a block
+constexpr int DW_R = 32;           // ce_dw_kernel: rows of a chunk
+constexpr int DH_R = 64;           // ce_dh_kernel: rows of an item
+constexpr int DH_V = 64;           // ce_dh_kernel: vocabulary columns of a step
+constexpr int DW_STAGE = DW_R * KMAX + 3 * DW_R;  // h rows, logz, g, targets
+constexpr int DH_STAGE = DH_V * KMAX + DH_V + 3 * DH_R;  // W rows, bias, row values
+static_assert(THREADS / 32 * 16 == DW_V, "ce_dw: a warp owns 16 columns");
+static_assert(4 * 16 == DH_R && 2 * 32 == DH_V, "ce_dh: 4 x 2 warps of 16 x 32");
 
-__device__ __forceinline__ void store_row(float* dst, const float (&v)[8]) {
-  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-  *reinterpret_cast<float4*>(dst + BN / 2) = make_float4(v[4], v[5], v[6], v[7]);
+constexpr int dw_smem_floats() {
+  return 2 * DW_V * LDK + 2 * DW_R * LDK + 2 * DW_STAGE + DW_V + 3 * DW_R;
+}
+constexpr int dh_smem_floats() {
+  return 2 * DH_R * LDK + 2 * DH_V * LDK + 2 * DH_STAGE + DH_V + 3 * DH_R;
+}
+
+// x as TF32 halves (x itself rounded to bf16 and a zero small half under "bf16")
+__device__ __forceinline__ void split_op(float x, int bf16, uint32_t& big, uint32_t& small) {
+  if (bf16) {
+    big = __float_as_uint(ce::operand(x, 1));
+    small = 0u;
+  } else {
+    tc::split(x, big, small);
+  }
+}
+
+// n floats at src (rows of a contiguous [*, K] operand) to dst by cp.async,
+// `valid` of them read, the rest zero; 16-byte copies when src is aligned.
+// slots is n rounded up to 4.
+__device__ __forceinline__ void copy_rows(float* dst, const float* src, int slots, int valid,
+                                          int tid) {
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    for (int e = tid * 4; e < slots; e += THREADS * 4) {
+      const int left = valid - e;
+      const int bytes = left <= 0 ? 0 : (left >= 4 ? 16 : 4 * left);
+      tc::cp_async16(dst + e, bytes ? src + e : src, bytes);
+    }
+  } else {
+    for (int e = tid; e < slots; e += THREADS)
+      tc::cp_async4(dst + e, e < valid ? src + e : src, e < valid);
+  }
+}
+
+// One row value per slot: logz and g as floats, the target's low word (a
+// column index below 2^31) as an int; zero past `valid`.
+__device__ __forceinline__ void copy_row_values(float* dst, const float* lz, const float* g,
+                                                const long long* t, int n, int valid, int tid) {
+  for (int e = tid; e < 3 * n; e += THREADS) {
+    const int which = e / n;
+    const int r = e - which * n;
+    const bool ok = r < valid;
+    const void* src = which == 0 ? static_cast<const void*>(lz + (ok ? r : 0))
+                    : which == 1 ? static_cast<const void*>(g + (ok ? r : 0))
+                                 : static_cast<const void*>(t + (ok ? r : 0));
+    tc::cp_async4(dst + e, src, ok);
+  }
+}
+
+// [n][K] packed rows at src -> split big / small [n][LDK], zero for k in
+// [K, KP): a thread's elements go through registers (src and the halves may
+// overlap).  n * KP / THREADS <= CAP.
+template <int CAP>
+__device__ __forceinline__ void split_rows(const float* src, uint32_t* big, uint32_t* small, int n,
+                                           int K, int KP, int bf16, int tid) {
+  float v[CAP];
+#pragma unroll
+  for (int i = 0; i < CAP; ++i) {
+    const int e = tid + i * THREADS;
+    const int r = e / KP;
+    const int k = e - r * KP;
+    v[i] = (r < n && k < K) ? src[r * K + k] : 0.f;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < CAP; ++i) {
+    const int e = tid + i * THREADS;
+    const int r = e / KP;
+    const int k = e - r * KP;
+    if (r < n) split_op(v[i], bf16, big[r * LDK + k], small[r * LDK + k]);
+  }
+}
+
+// n packed rows [n][K] of a ring stage -> split big / small [n][LDK], zero
+// for k in [K, KP): four columns a thread where K is a multiple of 4
+__device__ __forceinline__ void split_stage(const float* st, uint32_t* big, uint32_t* small,
+                                            int n, int K, int KP, int bf16, int tid) {
+  if ((K & 3) == 0) {
+    for (int e = 4 * tid; e < n * KP; e += 4 * THREADS) {
+      const int r = e / KP;
+      const int k = e - r * KP;
+      const float4 v = k < K ? *reinterpret_cast<const float4*>(st + r * K + k)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+      uint4 b, sm;
+      split_op(v.x, bf16, b.x, sm.x);
+      split_op(v.y, bf16, b.y, sm.y);
+      split_op(v.z, bf16, b.z, sm.z);
+      split_op(v.w, bf16, b.w, sm.w);
+      *reinterpret_cast<uint4*>(big + r * LDK + k) = b;
+      *reinterpret_cast<uint4*>(small + r * LDK + k) = sm;
+    }
+  } else {
+    for (int e = tid; e < n * KP; e += THREADS) {
+      const int r = e / KP;
+      const int k = e - r * KP;
+      split_op(k < K ? st[r * K + k] : 0.f, bf16, big[r * LDK + k], small[r * LDK + k]);
+    }
+  }
 }
 
 // grid (vocabulary tiles, heads, row slices); dw [slices][F][V][K] and
 // db [slices][F][V] (the outputs themselves when slices == 1)
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(THREADS, 2)
 ce_dw_kernel(const float* __restrict__ h, const float* __restrict__ w,
              const float* __restrict__ bias, const long long* __restrict__ tgt,
              const float* __restrict__ logz, const float* __restrict__ g,
              const int* __restrict__ nv_ptr, float* __restrict__ dw,
              float* __restrict__ db, int B, int K, int V, int F, int rows_per_slice,
              int bf16) {
-  const int KP = ce::round_up(K, BK);
-  float* ws = ce_smem;              // [KP][LD]: W tile, k-major (columns v)
-  float* hr = ws + KP * LD;         // [BM][KLD]: h rows, row-major
-  float* dss = hr + BM * KLD;       // [BM][LD]: dS[r][v]
-  float* bs = dss + BM * LD;        // [BN]: bias
-  float* lz = bs + BN;              // [BM]: logz of the rows
-  float* gg = lz + BM;              // [BM]: g of the rows
-  int* tt = reinterpret_cast<int*>(gg + BM);  // [BM]: targets of the rows
+  const int KP = ce::round_up(K, 8);
+  uint32_t* wb = reinterpret_cast<uint32_t*>(ce_smem);  // [DW_V][LDK]: W tile, big
+  uint32_t* ws = wb + DW_V * LDK;                        // small
+  uint32_t* hb = ws + DW_V * LDK;                        // [DW_R][LDK]: h rows, big
+  uint32_t* hs = hb + DW_R * LDK;                        // small
+  float* ring = reinterpret_cast<float*>(hs + DW_R * LDK);  // 2 x DW_STAGE
+  float* bs = ring + 2 * DW_STAGE;                       // [DW_V]: bias
+  float* rv = bs + DW_V;                                 // [3][DW_R]: logz, g, targets
 
   const int tid = threadIdx.x;
-  const int tr = tid / 16;
-  const int tc = tid % 16;
-  const int v0 = blockIdx.x * BN;
+  const int warp = tid / 32, lane = tid % 32, group = lane / 4, tig = lane % 4;
+  const int v0 = blockIdx.x * DW_V;
   const int f = blockIdx.y;
   const int slice = blockIdx.z;
   const int nv = ce::valid_rows(nv_ptr, B);
   const int r_begin = slice * rows_per_slice;
   const int r_end = min(nv, r_begin + rows_per_slice);
+  const int n_chunks = r_end > r_begin ? (r_end - r_begin + DW_R - 1) / DW_R : 0;
   const float* w_f = w + (long long)f * V * K;
   const float* lz_f = logz + (long long)f * B;
   const float* g_f = g + (long long)f * B;
   const long long* t_f = tgt + (long long)f * B;
 
-  for (int e = tid; e < BN * KP; e += THREADS) {
-    const int v = e / KP;
-    const int k = e - v * KP;
-    ws[k * LD + v] = (v0 + v < V && k < K)
-                         ? ce::operand(__ldg(w_f + (long long)(v0 + v) * K + k), bf16)
-                         : 0.f;
-  }
-  for (int v = tid; v < BN; v += THREADS)
+  // the W tile, once: raw rows into ws's space, then split in place
+  copy_rows(reinterpret_cast<float*>(ws), w_f + (long long)v0 * K, ce::round_up(DW_V * K, 4),
+            (min(V, v0 + DW_V) - v0) * K, tid);
+  tc::cp_async_commit();
+  for (int v = tid; v < DW_V; v += THREADS)
     bs[v] = v0 + v < V ? __ldg(bias + (long long)f * V + v0 + v) : 0.f;
+  auto issue = [&](int c, int s) {
+    float* st = ring + s * DW_STAGE;
+    const int r0 = r_begin + c * DW_R;
+    const int valid = min(r_end, r0 + DW_R) - r0;
+    copy_rows(st, h + r0 * K, DW_R * K, valid * K, tid);
+    copy_row_values(st + DW_R * KMAX, lz_f + r0, g_f + r0, t_f + r0, DW_R, valid, tid);
+  };
+  if (n_chunks > 0) issue(0, 0);
+  tc::cp_async_commit();
+  tc::cp_async_wait<1>();
+  __syncthreads();
+  split_rows<DW_V * KMAX / THREADS>(reinterpret_cast<const float*>(ws), wb, ws, DW_V, K, KP,
+                                    bf16, tid);
 
-  float out[8][4];
+  const int vb = warp * 16;  // this warp's columns of the tile
+  float acc[8][4];           // dW [vb + 16][k]: k tiles of 8
+  float dbp[2] = {0.f, 0.f};  // db of columns vb + group and vb + group + 8
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int kt = 0; kt < 8; ++kt)
 #pragma unroll
-    for (int q = 0; q < 4; ++q) out[i][q] = 0.f;
-  float dbp[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) dbp[j] = 0.f;
+    for (int q = 0; q < 4; ++q) acc[kt][q] = 0.f;
 
-  for (int r0 = r_begin; r0 < r_end; r0 += BM) {
-    __syncthreads();  // the previous chunk's products are done with hr and dss
-    for (int e = tid; e < BM * KMAX; e += THREADS) {
-      const int r = e / KMAX;
-      const int k = e - r * KMAX;
-      const int row = r0 + r;
-      hr[r * KLD + k] = (row < r_end && k < K) ? ce::operand(__ldg(h + row * K + k), bf16) : 0.f;
+  for (int c = 0; c < n_chunks; ++c) {
+    if (c + 1 < n_chunks) {
+      issue(c + 1, (c + 1) % 2);  // that stage's chunk c - 1 is converted
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
     }
-    for (int r = tid; r < BM; r += THREADS) {
-      const int row = r0 + r;
-      const bool ok = row < r_end;
-      lz[r] = ok ? __ldg(lz_f + row) : 0.f;
-      gg[r] = ok ? __ldg(g_f + row) : 0.f;
-      tt[r] = ok ? static_cast<int>(__ldg(t_f + row)) : -1;
-    }
+    __syncthreads();  // chunk c has landed; every warp is done with chunk c - 1
+    const float* st = ring + (c % 2) * DW_STAGE;
+    split_stage(st, hb, hs, DW_R, K, KP, bf16, tid);
+    for (int e = tid; e < 3 * DW_R; e += THREADS) rv[e] = st[DW_R * KMAX + e];
     __syncthreads();
 
-    float acc[8][8];
-    ce::zero(acc);
-    ce::mma_rk(hr, ws, LD, KP, tr, tc, acc);  // acc[i][j] = S[r_i][v_j] - b[v_j]
-    float bv[8];
-    bool vok[8];
+    const int r0 = r_begin + c * DW_R;
+    // S^T [16 columns][32 rows] = W h^T
+    float s[4][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int v = ce::tile_col(tc, j);
-      bv[j] = bs[v];
-      vok[j] = v0 + v < V;
-    }
+    for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = ce::tile_row(tr, i);
-      const bool rok = r0 + r < r_end;
-      const float lzr = lz[r];
-      const float gr = gg[r];
-      const int lt = tt[r] - v0;
+      for (int q = 0; q < 4; ++q) s[nt][q] = 0.f;
+    for (int k8 = 0; k8 < KP; k8 += 8) {
+      const int a0 = (vb + group) * LDK + k8 + tig;
+      const int a1 = a0 + 8 * LDK;
+      const uint32_t ab[4] = {wb[a0], wb[a1], wb[a0 + 4], wb[a1 + 4]};
+      const uint32_t as[4] = {ws[a0], ws[a1], ws[a0 + 4], ws[a1 + 4]};
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        float d = 0.f;
-        if (rok && vok[j]) {
-          const float onehot = ce::tile_col(tc, j) == lt ? 1.f : 0.f;
-          d = (__expf(acc[i][j] + bv[j] - lzr) - onehot) * gr;
-        }
-        dbp[j] += d;
-        acc[i][j] = ce::operand(d, bf16);
+      for (int nt = 0; nt < 4; ++nt) {
+        const int b0 = (8 * nt + group) * LDK + k8 + tig;
+        const uint32_t bb[2] = {hb[b0], hb[b0 + 4]};
+        const uint32_t bsm[2] = {hs[b0], hs[b0 + 4]};
+        tc::mma3_add(s[nt], ab, as, bb, bsm, bf16);
       }
-      store_row(dss + r * LD + tc * 4, acc[i]);
     }
-    __syncthreads();
-    ce::mma_out_k(dss, hr, BM, tr, tc, out);  // out[v_i][k_q] += sum_r dS[r][v] h[r][k]
+    // dS in the fragments: s[nt][q] is column vb + group + 8 (q / 2), row
+    // 8 nt + 2 tig + q % 2
+    const float* lz = rv;
+    const float* gr = rv + DW_R;
+    const int* tt = reinterpret_cast<const int*>(rv + 2 * DW_R);
+    float dbc[2] = {0.f, 0.f};  // this chunk's, added to dbp once: a shorter sum
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int v = vb + group + 8 * (q / 2);
+        const int r = 8 * nt + 2 * tig + q % 2;
+        float d = 0.f;
+        if (r0 + r < r_end && v0 + v < V) {
+          const float onehot = tt[r] == v0 + v ? 1.f : 0.f;
+          d = (__expf(s[nt][q] + bs[v] - lz[r]) - onehot) * gr[r];
+        }
+        dbc[q / 2] += d;
+        s[nt][q] = d;
+      }
+    dbp[0] += dbc[0];
+    dbp[1] += dbc[1];
+    // dW [16 columns][k] += dS^T h, rows in the order (0, 2, 4, 6, 1, 3, 5, 7)
+    // of each 8, so that (c0, c2, c1, c3) is the A fragment
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      uint32_t ab[4], as[4];
+      split_op(s[nt][0], bf16, ab[0], as[0]);
+      split_op(s[nt][2], bf16, ab[1], as[1]);
+      split_op(s[nt][1], bf16, ab[2], as[2]);
+      split_op(s[nt][3], bf16, ab[3], as[3]);
+      const int b0 = (8 * nt + 2 * tig) * LDK + group;
+#pragma unroll
+      for (int kt = 0; kt < 8; ++kt) {
+        if (8 * kt >= KP) break;
+        const uint32_t bb[2] = {hb[b0 + 8 * kt], hb[b0 + LDK + 8 * kt]};
+        const uint32_t bsm[2] = {hs[b0 + 8 * kt], hs[b0 + LDK + 8 * kt]};
+        tc::mma3_add(acc[kt], ab, as, bb, bsm, bf16);
+      }
+    }
   }
 
   float* dw_s = dw + ((long long)slice * F + f) * V * K;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int v = v0 + ce::tile_row(tr, i);
-    if (v >= V) continue;
+  for (int kt = 0; kt < 8; ++kt)
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      const int k = tc * 4 + q;
-      if (k < K) dw_s[(long long)v * K + k] = out[i][q];
+      const int v = v0 + vb + group + 8 * (q / 2);
+      const int k = 8 * kt + 2 * tig + q % 2;
+      if (v < V && k < K) dw_s[(long long)v * K + k] = acc[kt][q];
     }
-  }
-  // db: the 16 threads that share a column add their row sums in order of tr
-  __syncthreads();
-  float* red = dss;  // [16][BN]
+  // db: the four lanes of a group hold one column's row sums; add in order
 #pragma unroll
-  for (int j = 0; j < 8; ++j) red[tr * BN + ce::tile_col(tc, j)] = dbp[j];
-  __syncthreads();
-  if (tid < BN && v0 + tid < V) {
-    float s = 0.f;
-    for (int q = 0; q < THREADS / 16; ++q) s += red[q * BN + tid];
-    db[((long long)slice * F + f) * V + v0 + tid] = s;
+  for (int i = 0; i < 2; ++i) {
+    dbp[i] += __shfl_xor_sync(0xffffffffu, dbp[i], 1);
+    dbp[i] += __shfl_xor_sync(0xffffffffu, dbp[i], 2);
+    const int v = v0 + vb + group + 8 * i;
+    if (tig == 0 && v < V) db[((long long)slice * F + f) * V + v] = dbp[i];
   }
 }
 
-// grid (row tiles, splits of the (head, vocabulary tile) pairs);
-// dh [splits][B][K] (the output itself when splits == 1)
-__global__ void __launch_bounds__(THREADS, 1)
+// Persistent: block b takes items b, b + gridDim.x, ... of the
+// ceil(num_valid / 64) x splits items (row tile = item % tiles, split =
+// item / tiles).  Split s walks the (head, vocabulary tile) pairs
+// [s * pairs_per_split, ...) in the order f * tiles + t, two 64-column steps
+// a pair.  dh_part [splits][B][K]: only the valid rows of each split are
+// written.
+__global__ void __launch_bounds__(THREADS, 2)
 ce_dh_kernel(const float* __restrict__ h, const float* __restrict__ w,
              const float* __restrict__ bias, const long long* __restrict__ tgt,
              const float* __restrict__ logz, const float* __restrict__ g,
-             const int* __restrict__ nv_ptr, float* __restrict__ dh, int B, int K, int V,
-             int F, int pairs_per_split, int bf16) {
-  const int KP = ce::round_up(K, BK);
-  float* hk = ce_smem;              // [KP][LD]: h tile, k-major (columns r)
-  float* wr = hk + KP * LD;         // [BN][KLD]: W tile, row-major
-  float* dss = wr + BN * KLD;       // [BN][LD]: dS^T[v][r]
-  float* bs = dss + BN * LD;        // [BN]: bias
-  float* lz = bs + BN;              // [BM]
-  float* gg = lz + BM;              // [BM]
-  int* tt = reinterpret_cast<int*>(gg + BM);  // [BM]
+             const int* __restrict__ nv_ptr, float* __restrict__ dh_part, int B, int K, int V,
+             int F, int splits, int pairs_per_split, int bf16) {
+  const int KP = ce::round_up(K, 8);
+  uint32_t* hb = reinterpret_cast<uint32_t*>(ce_smem);  // [DH_R][LDK]: h rows, big
+  uint32_t* hs = hb + DH_R * LDK;                        // small
+  uint32_t* wb = hs + DH_R * LDK;                        // [DH_V][LDK]: W rows, big
+  uint32_t* ws = wb + DH_V * LDK;                        // small
+  float* ring = reinterpret_cast<float*>(ws + DH_V * LDK);  // 2 x DH_STAGE
+  float* bs = ring + 2 * DH_STAGE;                       // [DH_V]: bias
+  float* rv = bs + DH_V;                                 // [3][DH_R]: logz, g, targets
+  float* red = reinterpret_cast<float*>(wb);             // [DH_R][LDK]: the item's end
 
   const int tid = threadIdx.x;
-  const int tr = tid / 16;
-  const int tc = tid % 16;
-  const int row0 = blockIdx.x * BM;
-  const int split = blockIdx.y;
+  const int warp = tid / 32, lane = tid % 32, group = lane / 4, tig = lane % 4;
+  const int rb = (warp % 4) * 16;  // this warp's rows of the item
+  const int vb = (warp / 4) * 32;  // and columns of a step
   const int nv = ce::valid_rows(nv_ptr, B);
-  float* out = dh + (long long)split * B * K;
+  const int n_vt = (V + 127) / 128;
+  const int pairs = F * n_vt;
+  const int tiles = (nv + DH_R - 1) / DH_R;
 
-  if (row0 >= nv) {  // no valid row: a zero partial
-    for (int e = tid; e < BM * K; e += THREADS) {
-      const int row = row0 + e / K;
-      if (row < B) out[row * K + e % K] = 0.f;
-    }
-    return;
-  }
-  for (int e = tid; e < BM * KP; e += THREADS) {
-    const int r = e / KP;
-    const int k = e - r * KP;
-    const int row = row0 + r;
-    hk[k * LD + r] = (row < nv && k < K) ? ce::operand(__ldg(h + row * K + k), bf16) : 0.f;
-  }
+  for (int item = blockIdx.x; item < tiles * splits; item += gridDim.x) {
+    const int row0 = (item % tiles) * DH_R;
+    const int split = item / tiles;
+    const int rows = min(nv, row0 + DH_R) - row0;
+    const int p_begin = split * pairs_per_split;
+    const int n_steps = 2 * (min(pairs, p_begin + pairs_per_split) - p_begin);
 
-  const int n_vt = (V + BN - 1) / BN;
-  const int p_begin = split * pairs_per_split;
-  const int p_end = min(F * n_vt, p_begin + pairs_per_split);
-  float acc2[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc2[i][q] = 0.f;
-
-  int f_rows = -1;  // the head whose row values lz, gg, tt hold
-  for (int p = p_begin; p < p_end; ++p) {
-    const int f = p / n_vt;
-    const int v0 = (p - f * n_vt) * BN;
-    const float* w_f = w + (long long)f * V * K;
-    __syncthreads();  // the previous pair's products are done with wr, dss and the rows
-    for (int e = tid; e < BN * KMAX; e += THREADS) {
-      const int v = e / KMAX;
-      const int k = e - v * KMAX;
-      wr[v * KLD + k] = (v0 + v < V && k < K)
-                            ? ce::operand(__ldg(w_f + (long long)(v0 + v) * K + k), bf16)
-                            : 0.f;
-    }
-    for (int v = tid; v < BN; v += THREADS)
-      bs[v] = v0 + v < V ? __ldg(bias + (long long)f * V + v0 + v) : 0.f;
-    if (f != f_rows) {
-      for (int r = tid; r < BM; r += THREADS) {
-        const int row = row0 + r;
-        const bool ok = row < nv;
-        lz[r] = ok ? __ldg(logz + (long long)f * B + row) : 0.f;
-        gg[r] = ok ? __ldg(g + (long long)f * B + row) : 0.f;
-        tt[r] = ok ? static_cast<int>(__ldg(tgt + (long long)f * B + row)) : -1;
-      }
-      f_rows = f;
-    }
+    // the item's h rows: raw into hs's space, then split in place
+    copy_rows(reinterpret_cast<float*>(hs), h + row0 * K, DH_R * K, rows * K, tid);
+    tc::cp_async_commit();
+    auto issue = [&](int j, int s) {
+      float* st = ring + s * DH_STAGE;
+      const int pair = p_begin + j / 2;
+      const int f = pair / n_vt;
+      const int v0 = (pair - f * n_vt) * 128 + (j % 2) * DH_V;
+      const int cols = max(0, min(V, v0 + DH_V) - v0);
+      copy_rows(st, cols ? w + ((long long)f * V + v0) * K : w, DH_V * K, cols * K, tid);
+      const float* bf = bias + (long long)f * V + v0;
+      for (int e = tid; e < DH_V; e += THREADS)
+        tc::cp_async4(st + DH_V * KMAX + e, e < cols ? bf + e : bias, e < cols);
+      const long long off = (long long)f * B + row0;
+      copy_row_values(st + DH_V * KMAX + DH_V, logz + off, g + off, tgt + off, DH_R, rows, tid);
+    };
+    issue(0, 0);
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();
     __syncthreads();
+    split_rows<DH_R * KMAX / THREADS>(reinterpret_cast<const float*>(hs), hb, hs, DH_R, K, KP,
+                                      bf16, tid);
 
-    float acc[8][8];
-    ce::zero(acc);
-    ce::mma_rk(wr, hk, LD, KP, tr, tc, acc);  // acc[i][j] = S[r_j][v_i] - b[v_i]
-    float lzr[8], ggr[8];
-    int ltr[8];
-    bool rok[8];
+    float acc[8][4];  // dh [rb + 16][k] over this warp's columns: k tiles of 8
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int r = ce::tile_col(tc, j);
-      lzr[j] = lz[r];
-      ggr[j] = gg[r];
-      ltr[j] = tt[r] - v0;
-      rok[j] = row0 + r < nv;
-    }
+    for (int kt = 0; kt < 8; ++kt)
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int v = ce::tile_row(tr, i);
-      const bool vok = v0 + v < V;
-      const float bvi = bs[v];
+      for (int q = 0; q < 4; ++q) acc[kt][q] = 0.f;
+
+    for (int j = 0; j < n_steps; ++j) {
+      if (j + 1 < n_steps) {
+        issue(j + 1, (j + 1) % 2);  // that stage's step j - 1 is converted
+        tc::cp_async_commit();
+        tc::cp_async_wait<1>();
+      } else {
+        tc::cp_async_wait<0>();
+      }
+      __syncthreads();  // step j has landed; every warp is done with step j - 1
+      const float* st = ring + (j % 2) * DH_STAGE;
+      split_stage(st, wb, ws, DH_V, K, KP, bf16, tid);
+      for (int e = tid; e < DH_V + 3 * DH_R; e += THREADS) bs[e] = st[DH_V * KMAX + e];
+      __syncthreads();
+
+      const int pair = p_begin + j / 2;
+      const int f = pair / n_vt;
+      const int v0 = (pair - f * n_vt) * 128 + (j % 2) * DH_V;
+      // S [16 rows][32 columns] = h W^T
+      float s[4][4];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        float d = 0.f;
-        if (vok && rok[j]) {
-          const float onehot = v == ltr[j] ? 1.f : 0.f;
-          d = (__expf(acc[i][j] + bvi - lzr[j]) - onehot) * ggr[j];
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) s[nt][q] = 0.f;
+      for (int k8 = 0; k8 < KP; k8 += 8) {
+        const int a0 = (rb + group) * LDK + k8 + tig;
+        const int a1 = a0 + 8 * LDK;
+        const uint32_t ab[4] = {hb[a0], hb[a1], hb[a0 + 4], hb[a1 + 4]};
+        const uint32_t as[4] = {hs[a0], hs[a1], hs[a0 + 4], hs[a1 + 4]};
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int b0 = (vb + 8 * nt + group) * LDK + k8 + tig;
+          const uint32_t bb[2] = {wb[b0], wb[b0 + 4]};
+          const uint32_t bsm[2] = {ws[b0], ws[b0 + 4]};
+          tc::mma3_add(s[nt], ab, as, bb, bsm, bf16);
         }
-        acc[i][j] = ce::operand(d, bf16);
       }
-      store_row(dss + v * LD + tc * 4, acc[i]);
+      // dS in the fragments: s[nt][q] is row rb + group + 8 (q / 2), column
+      // vb + 8 nt + 2 tig + q % 2
+      const float* lz = rv;
+      const float* gr = rv + DH_R;
+      const int* tt = reinterpret_cast<const int*>(rv + 2 * DH_R);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int r = rb + group + 8 * (q / 2);
+          const int v = vb + 8 * nt + 2 * tig + q % 2;
+          float d = 0.f;
+          if (r < rows && v0 + v < V) {
+            const float onehot = tt[r] == v0 + v ? 1.f : 0.f;
+            d = (__expf(s[nt][q] + bs[v] - lz[r]) - onehot) * gr[r];
+          }
+          s[nt][q] = d;
+        }
+      // dh [16 rows][k] += dS W, columns in the order (0, 2, 4, 6, 1, 3, 5, 7)
+      // of each 8, so that (c0, c2, c1, c3) is the A fragment
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        uint32_t ab[4], as[4];
+        split_op(s[nt][0], bf16, ab[0], as[0]);
+        split_op(s[nt][2], bf16, ab[1], as[1]);
+        split_op(s[nt][1], bf16, ab[2], as[2]);
+        split_op(s[nt][3], bf16, ab[3], as[3]);
+        const int b0 = (vb + 8 * nt + 2 * tig) * LDK + group;
+#pragma unroll
+        for (int kt = 0; kt < 8; ++kt) {
+          if (8 * kt >= KP) break;
+          const uint32_t bb[2] = {wb[b0 + 8 * kt], wb[b0 + LDK + 8 * kt]};
+          const uint32_t bsm[2] = {ws[b0 + 8 * kt], ws[b0 + LDK + 8 * kt]};
+          tc::mma3_add(acc[kt], ab, as, bb, bsm, bf16);
+        }
+      }
+    }
+
+    // the two column halves' dh, added in order: warps 4-7 through shared memory
+    __syncthreads();  // every warp is done with wb
+    if (vb != 0) {
+#pragma unroll
+      for (int kt = 0; kt < 8; ++kt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          red[(rb + group + 8 * (q / 2)) * LDK + 8 * kt + 2 * tig + q % 2] = acc[kt][q];
     }
     __syncthreads();
-    ce::mma_out_k(dss, wr, BN, tr, tc, acc2);  // acc2[r_i][k_q] += sum_v dS[r][v] W[v][k]
-  }
-
+    if (vb == 0) {
+      float* out = dh_part + (long long)split * B * K;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = row0 + ce::tile_row(tr, i);
-    if (row >= B) continue;
+      for (int kt = 0; kt < 8; ++kt)
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int k = tc * 4 + q;
-      if (k < K) out[row * K + k] = acc2[i][q];
+        for (int q = 0; q < 4; ++q) {
+          const int r = rb + group + 8 * (q / 2);
+          const int k = 8 * kt + 2 * tig + q % 2;
+          if (r < rows && k < K)
+            out[(row0 + r) * K + k] = acc[kt][q] + red[r * LDK + k];
+        }
     }
+    __syncthreads();  // red (wb) and hs are free for the next item
   }
 }
 
@@ -319,12 +512,30 @@ __global__ void ce_sum_slices_kernel(const float* __restrict__ part, int slices,
   }
 }
 
+// dh[r, k] = sum_s part[s][r][k] in order for r < num_valid, else 0
+__global__ void ce_dh_sum_kernel(const float* __restrict__ part, int splits,
+                                 const int* __restrict__ nv_ptr, int B, int K,
+                                 float* __restrict__ dh) {
+  const long long n = (long long)B * K;
+  const long long valid = (long long)ce::valid_rows(nv_ptr, B) * K;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    float s = 0.f;
+    if (i < valid)
+      for (int t = 0; t < splits; ++t) s += __ldg(part + t * n + i);
+    dh[i] = s;
+  }
+}
+
+dim3 sum_grid(long long n) {
+  const long long blocks = (n + 255) / 256;
+  return dim3(static_cast<unsigned>(blocks < 2048 ? blocks : 2048));
+}
+
 cudaError_t sum_slices(const float* part, int slices, long long n, float* out,
                        cudaStream_t stream) {
-  const long long blocks = (n + 255) / 256;
-  const dim3 grid(static_cast<unsigned>(blocks < 2048 ? blocks : 2048));
   void* args[] = {&part, &slices, &n, &out};
-  return cudaLaunchKernel(ce_sum_slices_kernel, grid, dim3(256), args, 0, stream);
+  return cudaLaunchKernel(ce_sum_slices_kernel, sum_grid(n), dim3(256), args, 0, stream);
 }
 
 }  // namespace
@@ -334,18 +545,20 @@ extern "C" {
 // Launches on `stream` and returns the first CUDA error (0 on success).  The
 // caller has checked dtypes, shapes, contiguity, 1 <= K <= 64, B, V, F >= 1
 // and 32-bit element offsets, and allocated the outputs dh [B, K],
-// dw [F, V, K], db [F, V] and, where splits > 1 or slices > 1, the partials
-// dh_part [splits, B, K], dw_part [slices, F, V, K], db_part [slices, F, V].
-// ce_dh_kernel's split s walks (head, vocabulary tile) pairs
+// dw [F, V, K], db [F, V], the partials dh_part [splits, B, K] and, where
+// slices > 1, dw_part [slices, F, V, K] and db_part [slices, F, V].
+// ce_dh_kernel runs dh_blocks persistent blocks over (valid row tile, split)
+// items, split s walking the (head, vocabulary tile) pairs
 // [s * pairs_per_split, (s + 1) * pairs_per_split) in the order f * tiles + t;
-// ce_dw_kernel's slice s walks rows [s * rows_per_slice, ...).
+// ce_dw_kernel's slice s walks rows [s * rows_per_slice, ...), a multiple
+// of 128.
 int ce_bwd(const void* h, const void* w, const void* b, const void* t, const void* logz,
            const void* g, const void* nv, void* dh, void* dh_part, int splits,
-           int pairs_per_split, void* dw, void* db, void* dw_part, void* db_part, int slices,
-           int rows_per_slice, int B, int K, int V, int F, int bf16, void* stream) {
-  const int kp = ce::round_up(K, BK);
-  const int dw_smem = dw_smem_bytes(kp);
-  const int dh_smem = dh_smem_bytes(kp);
+           int pairs_per_split, int dh_blocks, void* dw, void* db, void* dw_part,
+           void* db_part, int slices, int rows_per_slice, int B, int K, int V, int F, int bf16,
+           void* stream) {
+  const int dw_smem = dw_smem_floats() * 4;
+  const int dh_smem = dh_smem_floats() * 4;
   cudaError_t err = cudaFuncSetAttribute(
       ce_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dw_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -364,25 +577,26 @@ int ce_bwd(const void* h, const void* w, const void* b, const void* t, const voi
   float* dbo = static_cast<float*>(slices > 1 ? db_part : db);
   void* dw_args[] = {&hp, &wp, &bp, &tp, &lzp, &gp, &nvp, &dwo, &dbo,
                      &B, &K, &V, &F, &rows_per_slice, &bf16};
-  err = cudaLaunchKernel(ce_dw_kernel, dim3((V + BN - 1) / BN, F, slices), dim3(THREADS),
+  err = cudaLaunchKernel(ce_dw_kernel, dim3((V + DW_V - 1) / DW_V, F, slices), dim3(THREADS),
                          dw_args, static_cast<size_t>(dw_smem), st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  float* dho = static_cast<float*>(splits > 1 ? dh_part : dh);
-  void* dh_args[] = {&hp, &wp, &bp, &tp, &lzp, &gp, &nvp, &dho,
-                     &B, &K, &V, &F, &pairs_per_split, &bf16};
-  err = cudaLaunchKernel(ce_dh_kernel, dim3((B + BM - 1) / BM, splits), dim3(THREADS), dh_args,
+  float* dhp = static_cast<float*>(dh_part);
+  void* dh_args[] = {&hp, &wp, &bp, &tp, &lzp, &gp, &nvp, &dhp,
+                     &B, &K, &V, &F, &splits, &pairs_per_split, &bf16};
+  err = cudaLaunchKernel(ce_dh_kernel, dim3(dh_blocks), dim3(THREADS), dh_args,
                          static_cast<size_t>(dh_smem), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long n = (long long)B * K;
+  float* dho = static_cast<float*>(dh);
+  void* sum_args[] = {&dhp, &splits, &nvp, &B, &K, &dho};
+  err = cudaLaunchKernel(ce_dh_sum_kernel, sum_grid(n), dim3(256), sum_args, 0, st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   if (slices > 1) {
     err = sum_slices(dwo, slices, (long long)F * V * K, static_cast<float*>(dw), st);
     if (err != cudaSuccess) return static_cast<int>(err);
     err = sum_slices(dbo, slices, (long long)F * V, static_cast<float*>(db), st);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (splits > 1) {
-    err = sum_slices(dho, splits, (long long)B * K, static_cast<float*>(dh), st);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());

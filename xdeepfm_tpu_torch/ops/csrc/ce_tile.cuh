@@ -1,11 +1,14 @@
 // Shared pieces of the softmax cross-entropy kernels (ce_fwd.cu, ce_bwd.cu).
 //
-// Every kernel works on 128 x 128 tiles of logits S[r, v] = h[r, :] . W[v, :]
-// + b[v] (rows r of the hidden state h [B, K], vocabulary columns v of one
-// head W [V, K]) that 256 threads compute as 8 x 8 register tiles, with the
-// whole depth K <= KMAX in shared memory.  The products are fp32 FMAs on the
-// CUDA cores; under set_precision("bf16") each operand is first rounded to
-// bf16 (round to nearest even), which is what the TPU kernel's bf16 dots did.
+// The forward (ce_fwd.cu) works on 128 x 128 tiles of logits S[r, v] =
+// h[r, :] . W[v, :] + b[v] (rows r of the hidden state h [B, K], vocabulary
+// columns v of one head W [V, K]) that 256 threads compute as 8 x 8 register
+// tiles, with the whole depth K <= KMAX in shared memory: fp32 FMAs on the
+// CUDA cores.  The backward (ce_bwd.cu) takes its products to the tensor
+// cores in 3xTF32 (tc_tf32.cuh) and uses only the helpers below that are not
+// tile products.  Under set_precision("bf16") each operand is first rounded
+// to bf16 (round to nearest even), which is what the TPU kernel's bf16 dots
+// did.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -22,7 +25,6 @@ constexpr int BK = 16;       // depth unrolled at once; K is padded to it
 constexpr int KMAX = 64;     // largest hidden width K the kernels take
 constexpr int THREADS = 256;
 constexpr int LD = BN + 4;   // padded row of a 128-wide tile: float4-aligned
-constexpr int KLD = KMAX + 4;  // padded row of a [128, K] tile: float4-aligned
 static_assert(BM == BN && THREADS == (BM / 8) * (BN / 8), "8 x 8 per thread");
 
 // Thread (tr, tc) = (tid / 16, tid % 16) owns tile rows tile_row(tr, 0..7) and
@@ -81,49 +83,6 @@ __device__ __forceinline__ void mma_kk(const float* a, int lda, const float* b, 
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
-  }
-}
-
-// acc[i][j] += sum_{k < depth} a[tile_row(tr, i)][k] * b[k][tile_col(tc, j)]:
-// a row-major [128][KLD] (read 4 k at a time; a warp touches 2 of its rows,
-// so the loads are broadcasts), b k-major (rows ldb apart).
-__device__ __forceinline__ void mma_rk(const float* a, const float* b, int ldb, int depth,
-                                       int tr, int tc, float (&acc)[8][8]) {
-  for (int k0 = 0; k0 < depth; k0 += 4) {
-    float4 ar[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) ar[i] = ld4(a + tile_row(tr, i) * KLD + k0);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const float* bk = b + (k0 + kk) * ldb;
-      const float4 b0 = ld4(bk + tc * 4), b1 = ld4(bk + BN / 2 + tc * 4);
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float av = kk == 0 ? ar[i].x : kk == 1 ? ar[i].y : kk == 2 ? ar[i].z : ar[i].w;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av, bv[j], acc[i][j]);
-      }
-    }
-  }
-}
-
-// The [128, KMAX] output of a gradient product:
-// out[i][q] += sum_{n < depth} a[n][tile_row(tr, i)] * b[n][tc * 4 + q],
-// a k-major [depth][LD] (the dS tile), b row-major [depth][KLD] (h or W).
-__device__ __forceinline__ void mma_out_k(const float* a, const float* b, int depth, int tr,
-                                          int tc, float (&out)[8][4]) {
-#pragma unroll 4
-  for (int n = 0; n < depth; ++n) {
-    const float* an = a + n * LD;
-    const float4 a0 = ld4(an + tr * 4), a1 = ld4(an + BM / 2 + tr * 4);
-    const float4 b0 = ld4(b + n * KLD + tc * 4);
-    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float bv[4] = {b0.x, b0.y, b0.z, b0.w};
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) out[i][q] = fmaf(av[i], bv[q], out[i][q]);
   }
 }
 

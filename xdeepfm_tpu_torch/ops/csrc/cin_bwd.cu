@@ -18,36 +18,57 @@
 //
 // Bound: operations.  At batch 4096 (N = 40960 rows) each kernel does the
 // forward's 2*N*H*M*O FLOPs (14.2 GFLOP at layer 0, 34.9 at layer 1) on a few
-// MB of operands: hundreds of FLOPs per byte, far above the card's fp32 ridge
-// (20 FLOP/byte).  So, as in cin_fwd.cu, neither [N, H*M] intermediate (Z or
-// the outer product z = h x x0) ever reaches device memory, and the FMA
-// pipes run the 128 x 128 tile with 8 x 8 register tiles of cin_tile.cuh:
-//   * cin_bwd_dx: one block owns 128 rows and walks the K = H*M columns in
-//     chunks of whole h groups, each group's M columns padded to MP (a power
-//     of two: 32 at M = 26), so that a chunk is 128 / MP groups.  The chunk's
-//     Z tile (a GEMM over O: g rows times W columns, W from L2) stays in
-//     registers and is reduced at once: dh by a shuffle over the MP / 4 lanes
-//     that hold one group's columns, dx0 by a shuffle over the lanes that hold
-//     one m, summed over chunks in shared memory and written at the end.
-//     The padded columns cost (MP - M) / M more FLOPs (23% at M = 26); the
-//     measured TFLOP/s count only the unpadded work.  A block holds too little
-//     work for 132 SMs when N is small, so the chunks are split over
-//     gridDim.y: each split writes its own dx0 partial, summed in a fixed
-//     order afterwards (deterministic).
-//   * cin_dw: the GEMM dW[O, K] = g^T z reduces over N = 40960 rows while the
-//     output has only 12 (layer 0) or 26 (layer 1) 128 x 128 tiles, too few
-//     for 132 SMs.  So the rows are cut into slices over gridDim.z, each
-//     block builds its z tile (h x x0) in shared memory from the rows it
-//     owns, writes its partial tile, and cin_sum_slices adds the partials in
-//     a fixed order: deterministic, no atomics.
+// MB of operands: hundreds of FLOPs per byte, far above the card's ridge.
+// So neither [N, H*M] intermediate (Z or the outer product z = h x x0) ever
+// reaches device memory.  The two kernels take the work two ways:
+//   * cin_bwd_dx, fp32 FMAs on the CUDA cores (bound 0.732 ms a train step
+//     at 67 TFLOP/s), with the 8 x 8 register tiles of cin_tile.cuh: one
+//     block owns 128 rows and walks the K = H*M columns in chunks of whole h
+//     groups, each group's M columns padded to MP (a power of two: 32 at
+//     M = 26), so that a chunk is 128 / MP groups.  The chunk's Z tile (a GEMM
+//     over O: g rows times W columns, W from L2) stays in registers and is
+//     reduced at once: dh by a shuffle over the MP / 4 lanes that hold one
+//     group's columns, dx0 by a shuffle over the lanes that hold one m,
+//     summed over chunks in shared memory and written at the end.  The padded
+//     columns cost (MP - M) / M more FLOPs (23% at M = 26); the measured
+//     TFLOP/s count only the unpadded work.  A block holds too little work
+//     for 132 SMs when N is small, so the chunks are split over gridDim.y:
+//     each split writes its own dx0 partial, summed in a fixed order
+//     afterwards (deterministic).
+//   * cin_dw, 3xTF32 on the tensor cores (tc_tf32.cuh; bound 0.298 ms a
+//     train step at 495 / 3 TFLOP/s, against 0.732 on the FMA pipes): the
+//     GEMM dW[O, K] = g^T z reduces over N rows while the output has only 12
+//     (layer 0) or 26 (layer 1) 128 x 128 tiles, too few for 132 SMs.  So
+//     the rows are cut into slices over gridDim.z, and cin_sum_slices adds
+//     the slices' partial tiles in a fixed order: deterministic, no atomics.
+//     A block walks its rows 32 at a time.  cp.async brings the next
+//     chunk's g rows, the window of h columns its tile touches and the x0
+//     rows into the other stage of a two-stage ring while this chunk
+//     computes.  One pass forms the z tile from the staged h and x0 (each
+//     element read once from device memory, not once per column) and splits
+//     z and g once per element into their TF32 halves, four at a time, laid
+//     out [n][column] with rows 136 apart so that the fragment loads are free
+//     of bank conflicts.  Eight warps, 2 x 4 over the tile, each own a
+//     64 x 32 block of dW in registers: 16 m16n8k8 tiles of three MMAs a k8
+//     step, each step's product added to dW in fp32 (tc::mma3_add).  A warp
+//     whose rows or columns are all padding (layer 0's last column tile)
+//     skips its MMAs.  Two barriers a chunk; two blocks of 113 KB a SM at
+//     M = 26, with no register spills.  Against a float64 dW at batch 4096
+//     it errs 0.3-0.4x as much as the plain fp32 product (chip_smoke.py).
 // The TPU kernels summed over rows (dW) and over H chunks along a sequential
 // grid axis in their output block (cin_pallas.py:134-144, 209-215) and kept
 // dW as [M, O, H]; blocks here run in no order, so the sums are split into
 // partials instead and dW keeps the parameter's own [O, H*M] layout.  Ragged
-// N, H, M and O edges are masked, not padded.  fp32 FMAs on the CUDA cores;
-// tensor cores are a later change of numerics.
+// N, H, M and O edges are masked, not padded.  cin_dw's error against a
+// float64 dW is held to the plain fp32 product's in chip_smoke.py.
+
+#include <stdint.h>
 
 #include "cin_tile.cuh"
+#include "tc_tf32.cuh"
+
+// the dynamic shared memory of every kernel here
+extern __shared__ __align__(16) float cin_smem[];
 
 namespace {
 
@@ -82,7 +103,7 @@ cin_bwd_dx_kernel(const float* __restrict__ g, const float* __restrict__ w,
   static_assert(MP >= 4 && MP <= BN / 2 && (BN / 2) % MP == 0, "MP");
   constexpr int HC = BN / MP;  // h groups per chunk
   constexpr int GL = MP / 4;   // lanes holding one group's columns in a half
-  extern __shared__ __align__(16) float smem[];
+  float* smem = cin_smem;
   auto gs = reinterpret_cast<float (*)[BK][ALD]>(smem);  // [2][o][row]: g^T
   auto ws = reinterpret_cast<float (*)[BK][BN]>(smem + 2 * BK * ALD);  // [2][o][col]
   auto dxs = reinterpret_cast<float (*)[MP]>(smem + 2 * BK * ALD + 2 * BK * BN);
@@ -216,16 +237,53 @@ cin_bwd_dx_kernel(const float* __restrict__ g, const float* __restrict__ w,
 
 // ----------------------------------------------------------------- cin_dw
 
-constexpr int LSTEP = THREADS / BM;  // row slots the loaders cover per pass (2)
-constexpr int LPASS = BK / LSTEP;    // values per thread per operand per step (8)
-static_assert(BM == BN && THREADS % BM == 0 && BK % LSTEP == 0, "dW loaders");
+namespace dw {
+constexpr int WARPS_M = 2, WARPS_N = 4;  // warps over the tile's rows o and columns k
+constexpr int MT = 4, NT = 4;            // m16 and n8 MMA tiles of a warp
+constexpr int KC = 32;                   // rows n of one chunk: KC / 8 k8 steps
+constexpr int MINB = 2;                  // resident blocks a SM (launch bounds)
+constexpr int THREADS = 32 * WARPS_M * WARPS_N;
+constexpr int BM = WARPS_M * 16 * MT;    // output rows (channels o) of a block's tile
+constexpr int BN = WARPS_N * 8 * NT;     // output columns (k = h*M + m) of a block's tile
+constexpr int STAGES = 2;                // chunks in flight in the copy ring
+// rows of the [KC][BM] g and [KC][BN] z tiles: lanes (tig, group) hit banks
+// 8 * tig + group, free of conflicts
+constexpr int LDG = BM + 8;
+constexpr int LDZ = BN + 8;
+constexpr int XMAX = 128;  // x0 rows up to this width are staged whole
+constexpr int SPLIT_FLOATS = 2 * KC * (LDG + LDZ);  // g and z, each big and small
+static_assert(BM % 32 == 0 && BN % 32 == 0 && KC % (THREADS / (BN / 4)) == 0, "tile shapes");
+}  // namespace dw
 
-__global__ void __launch_bounds__(THREADS, 2)
+// The three staged operands of one chunk: g rows [KC][LDG] (columns o0..),
+// the h window [KC][hw] (columns hlo..) and x0: whole rows [KC * M] when
+// M <= XMAX, else [KC][BN], column j holding x0[n, (k0 + j) % M].
+__host__ __device__ inline int dw_x_floats(int M) {
+  return M <= dw::XMAX ? (dw::KC * M + 3) / 4 * 4 : dw::KC * dw::BN;
+}
+__host__ __device__ inline int dw_stage_floats(int M, int hw) {
+  return dw::KC * dw::LDG + (dw::KC * hw + 3) / 4 * 4 + dw_x_floats(M);
+}
+// h columns a BN-column tile can touch: ceil(127 / M) + 1, at most H
+inline int dw_h_window(int H, int M) { return min(H, (dw::BN - 1) / M + 2); }
+inline int dw_smem_bytes(int M, int hw) {
+  return (dw::SPLIT_FLOATS + dw::STAGES * dw_stage_floats(M, hw)) * 4;
+}
+
+// grid (k tiles, o tiles, row slices); part [slices][O][K]
+__global__ void __launch_bounds__(dw::THREADS, dw::MINB)
 cin_dw_kernel(const float* __restrict__ g, const float* __restrict__ h, int ldh,
               const float* __restrict__ x0, float* __restrict__ part, int N,
-              int H, int M, int O, int rows_per_slice) {
-  __shared__ __align__(16) float gs[2][BK][ALD];  // g tile, row-major: [row][o]
-  __shared__ __align__(16) float zs[2][BK][BN];   // z tile, row-major: [row][k]
+              int H, int M, int O, int rows_per_slice, int hw) {
+  constexpr int BM = dw::BM, BN = dw::BN, KC = dw::KC, STAGES = dw::STAGES;
+  constexpr int LDG = dw::LDG, LDZ = dw::LDZ, XMAX = dw::XMAX, THREADS = dw::THREADS;
+  constexpr int MT = dw::MT, NT = dw::NT, SPLIT_FLOATS = dw::SPLIT_FLOATS;
+  uint32_t* gb = reinterpret_cast<uint32_t*>(cin_smem);  // [KC][LDG]: g, big
+  uint32_t* gsm = gb + KC * LDG;                          // g, small
+  uint32_t* zb = gsm + KC * LDG;                          // [KC][LDZ]: z = h x x0, big
+  uint32_t* zsm = zb + KC * LDZ;                          // z, small
+  float* ring = cin_smem + SPLIT_FLOATS;
+  const int stage_floats = dw_stage_floats(M, hw);
 
   const int K = H * M;
   const int tid = threadIdx.x;
@@ -233,74 +291,179 @@ cin_dw_kernel(const float* __restrict__ g, const float* __restrict__ h, int ldh,
   const int o0 = blockIdx.y * BM;
   const int n_begin = blockIdx.z * rows_per_slice;
   const int n_end = min(N, n_begin + rows_per_slice);
-  const int tr = tid / (BN / TN);  // output rows are channels o
-  const int tc = tid % (BN / TN);  // output columns are k = h*M + m
+  const int n_chunks = n_end > n_begin ? (n_end - n_begin + KC - 1) / KC : 0;
+  const int hlo = k0 / M;
+  const bool x_whole = M <= XMAX;
+  const bool g_vec = (O & 3) == 0 && (reinterpret_cast<uintptr_t>(g) & 15) == 0;
 
-  // loaders: column lc (an o for g, a k for z), row slots ls + p * LSTEP;
-  // a warp reads 32 consecutive o (or k) of one row
-  const int lc = tid % BM;
-  const int ls = tid / BM;
-  const bool o_ok = o0 + lc < O;
-  const int k = k0 + lc;
-  const bool k_ok = k < K;
-  const int zh = k_ok ? k / M : 0;
-  const int zm = k_ok ? k - zh * M : 0;
-
-  float greg[LPASS];
-  float zreg[LPASS];
-  auto load_chunk = [&](int n0) {
-#pragma unroll
-    for (int p = 0; p < LPASS; ++p) {
-      const int n = n0 + ls + p * LSTEP;
-      const bool n_ok = n < n_end;
-      greg[p] = (n_ok && o_ok) ? __ldg(g + n * O + o0 + lc) : 0.f;
-      zreg[p] = (n_ok && k_ok) ? cin::z_at(h + n * ldh, x0 + n * M, zh, zm) : 0.f;
+  // copies of chunk c into stage s: every slot of the stage is written (a
+  // zero past the valid rows and columns)
+  auto issue = [&](int c, int s) {
+    float* gr = ring + s * stage_floats;
+    float* hr = gr + KC * LDG;
+    float* xr = hr + (KC * hw + 3) / 4 * 4;
+    const int n0 = n_begin + c * KC;
+    if (g_vec) {
+      for (int e = tid; e < KC * (BM / 4); e += THREADS) {
+        const int r = e / (BM / 4);
+        const int col = (e - r * (BM / 4)) * 4;
+        const int left = (n0 + r < n_end) ? O - (o0 + col) : 0;
+        const int bytes = left <= 0 ? 0 : (left >= 4 ? 16 : 4 * left);
+        tc::cp_async16(gr + r * LDG + col, bytes ? g + (n0 + r) * O + o0 + col : g, bytes);
+      }
+    } else {
+      for (int e = tid; e < KC * BM; e += THREADS) {
+        const int r = e / BM;
+        const int col = e - r * BM;
+        const bool ok = n0 + r < n_end && o0 + col < O;
+        tc::cp_async4(gr + r * LDG + col, ok ? g + (n0 + r) * O + o0 + col : g, ok);
+      }
     }
-  };
-  auto store_chunk = [&](int buf) {
-#pragma unroll
-    for (int p = 0; p < LPASS; ++p) {
-      gs[buf][ls + p * LSTEP][lc] = greg[p];
-      zs[buf][ls + p * LSTEP][lc] = zreg[p];
+    for (int e = tid; e < KC * hw; e += THREADS) {
+      const int r = e / hw;
+      const int j = e - r * hw;
+      const bool ok = n0 + r < n_end && hlo + j < H;
+      tc::cp_async4(hr + e, ok ? h + (n0 + r) * ldh + hlo + j : h, ok);
     }
-  };
-
-  float acc[TM][TN];
-  cin::tile_zero(acc);
-  load_chunk(n_begin);
-  store_chunk(0);
-  __syncthreads();
-  int buf = 0;
-  for (int n0 = n_begin; n0 < n_end; n0 += BK) {
-    const bool more = n0 + BK < n_end;
-    if (more) load_chunk(n0 + BK);
-    cin::tile_fma(gs[buf], zs[buf], tr, tc, acc);
-    if (more) store_chunk(buf ^ 1);
-    __syncthreads();
-    buf ^= 1;
-  }
-
-  float* out = part + (long long)blockIdx.z * O * K;
-  const bool vec_ok = (K & 3) == 0;  // rows start 16-byte aligned
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int o = o0 + cin::tile_row(tr, i);
-    if (o >= O) continue;
-    float* orow = out + o * K;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int c = k0 + cin::tile_col(tc, half * 4);
-      const int j0 = half * 4;
-      if (vec_ok && c + 3 < K) {
-        *reinterpret_cast<float4*>(orow + c) =
-            make_float4(acc[i][j0], acc[i][j0 + 1], acc[i][j0 + 2], acc[i][j0 + 3]);
+    if (x_whole) {
+      const float* src = x0 + n0 * M;  // rows n0.. are contiguous
+      const int valid = (min(n_end, n0 + KC) - n0) * M;
+      const int slots = dw_x_floats(M);
+      if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+        for (int e = tid * 4; e < slots; e += THREADS * 4) {
+          const int left = valid - e;
+          const int bytes = left <= 0 ? 0 : (left >= 4 ? 16 : 4 * left);
+          tc::cp_async16(xr + e, bytes ? src + e : x0, bytes);
+        }
       } else {
+        for (int e = tid; e < slots; e += THREADS)
+          tc::cp_async4(xr + e, e < valid ? src + e : x0, e < valid);
+      }
+    } else {
+      for (int e = tid; e < KC * BN; e += THREADS) {
+        const int r = e / BN;
+        const int j = e - r * BN;
+        const bool ok = n0 + r < n_end && k0 + j < K;
+        tc::cp_async4(xr + e, ok ? x0 + (n0 + r) * M + (k0 + j) % M : x0, ok);
+      }
+    }
+  };
+
+  // the conversion pass: z column cc of the tile, rows cr + THREADS / BN * p
+  const int zq = 4 * (tid % (BN / 4));  // z columns zq..zq + 3, rows zr + 8 p
+  const int zr = tid / (BN / 4);
+  const int z_h = (k0 + zq) / M - hlo;
+  const int z_m = (k0 + zq) % M;
+
+  // the MMA: warp (wo, wk) owns output rows wo.. and columns wk..
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int group = lane / 4;
+  const int tig = lane % 4;
+  const int wo = (warp / dw::WARPS_N) * 16 * MT;
+  const int wk = (warp % dw::WARPS_N) * 8 * NT;
+  float acc[MT][NT][4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (c + j < K) orow[c + j] = acc[i][j0 + j];
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+
+  if (n_chunks > 0) {
+    issue(0, 0);
+    tc::cp_async_commit();
+  }
+  for (int c = 0; c < n_chunks; ++c) {
+    if (c + 1 < n_chunks) {
+      issue(c + 1, (c + 1) % STAGES);  // that stage's chunk c - 1 is converted
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();  // chunk c has landed; every warp is done with chunk c - 1's tiles
+
+    const float* gr = ring + (c % STAGES) * stage_floats;
+    const float* hr = gr + KC * LDG;
+    const float* xr = hr + (KC * hw + 3) / 4 * 4;
+#pragma unroll 4
+    for (int e = 4 * tid; e < KC * BM; e += 4 * THREADS) {  // 4 channels a thread
+      const int r = e / BM;
+      const int o = r * LDG + e - r * BM;
+      const float4 v = *reinterpret_cast<const float4*>(gr + o);
+      uint4 big, small;
+      tc::split(v.x, big.x, small.x);
+      tc::split(v.y, big.y, small.y);
+      tc::split(v.z, big.z, small.z);
+      tc::split(v.w, big.w, small.w);
+      *reinterpret_cast<uint4*>(gb + o) = big;
+      *reinterpret_cast<uint4*>(gsm + o) = small;
+    }
+#pragma unroll 2
+    for (int r = zr; r < KC; r += THREADS / (BN / 4)) {  // 4 columns a thread
+      float zv[4];
+      int hh = z_h, mm = z_m;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        zv[q] = k0 + zq + q < K ? hr[r * hw + hh] * xr[x_whole ? r * M + mm : r * BN + zq + q]
+                                : 0.f;
+        if (++mm == M) {
+          mm = 0;
+          ++hh;
+        }
+      }
+      uint4 big, small;
+      tc::split(zv[0], big.x, small.x);
+      tc::split(zv[1], big.y, small.y);
+      tc::split(zv[2], big.z, small.z);
+      tc::split(zv[3], big.w, small.w);
+      *reinterpret_cast<uint4*>(zb + r * LDZ + zq) = big;
+      *reinterpret_cast<uint4*>(zsm + r * LDZ + zq) = small;
+    }
+    __syncthreads();
+
+    if (o0 + wo < O && k0 + wk < K)  // not a warp of padding alone
+#pragma unroll
+    for (int kk = 0; kk < KC; kk += 8) {
+      const int z0 = (kk + tig) * LDZ, z1 = (kk + tig + 4) * LDZ;
+      const int g0 = (kk + tig) * LDG, g1 = (kk + tig + 4) * LDG;
+      uint32_t bb[NT][2], bs[NT][2];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int col = wk + 8 * j + group;
+        bb[j][0] = zb[z0 + col];
+        bb[j][1] = zb[z1 + col];
+        bs[j][0] = zsm[z0 + col];
+        bs[j][1] = zsm[z1 + col];
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const int row = wo + 16 * i + group;
+        const uint32_t ab[4] = {gb[g0 + row], gb[g0 + row + 8], gb[g1 + row], gb[g1 + row + 8]};
+        const uint32_t as[4] = {gsm[g0 + row], gsm[g0 + row + 8], gsm[g1 + row],
+                                gsm[g1 + row + 8]};
+#pragma unroll
+        for (int j = 0; j < NT; ++j) tc::mma3_add(acc[i][j], ab, as, bb[j], bs[j]);
       }
     }
   }
+
+  float* out = part + (long long)blockIdx.z * O * K;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int o = o0 + wo + 16 * i + group + 8 * half;
+      if (o >= O) continue;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int k = k0 + wk + 8 * j + 2 * tig + q;
+          if (k < K) out[o * K + k] = acc[i][j][2 * half + q];
+        }
+    }
 }
 
 // out[i] = sum_s part[s * n + i], s = 0, 1, ... in order: deterministic
@@ -323,8 +486,10 @@ int launch_dx(const float* g, const float* w, const float* h, int ldh,
       cin_bwd_dx_kernel<MP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + BM - 1) / BM, splits);
-  cin_bwd_dx_kernel<MP><<<grid, THREADS, smem, stream>>>(
-      g, w, h, ldh, x0, dh, dx0, N, H, M, O, chunks_per_split);
+  void* args[] = {&g, &w, &h, &ldh, &x0, &dh, &dx0, &N, &H, &M, &O, &chunks_per_split};
+  err = cudaLaunchKernel(cin_bwd_dx_kernel<MP>, grid, dim3(THREADS), args,
+                         static_cast<size_t>(smem), stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -364,24 +529,47 @@ int cin_bwd_dx(const void* g, const void* w, const void* h, int ldh,
   }
 }
 
-// part [slices, O, H*M]: slice s sums rows [s * rows_per_slice, ...).
+// part [slices, O, H*M]: slice s sums rows [s * rows_per_slice, ...),
+// rows_per_slice a multiple of cin_dw_geometry's kc.
 int cin_dw(const void* g, const void* h, int ldh, const void* x0, void* part,
            int N, int H, int M, int O, int slices, int rows_per_slice,
            void* stream) {
-  const dim3 grid((H * M + BN - 1) / BN, (O + BM - 1) / BM, slices);
-  cin_dw_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(g), static_cast<const float*>(h), ldh,
-      static_cast<const float*>(x0), static_cast<float*>(part), N, H, M, O,
-      rows_per_slice);
+  int hw = dw_h_window(H, M);
+  const int smem = dw_smem_bytes(M, hw);
+  cudaError_t err = cudaFuncSetAttribute(
+      cin_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto G = static_cast<const float*>(g);
+  auto Hr = static_cast<const float*>(h);
+  auto X0 = static_cast<const float*>(x0);
+  auto P = static_cast<float*>(part);
+  void* args[] = {&G, &Hr, &ldh, &X0, &P, &N, &H, &M, &O, &rows_per_slice, &hw};
+  const dim3 grid((H * M + dw::BN - 1) / dw::BN, (O + dw::BM - 1) / dw::BM, slices);
+  err = cudaLaunchKernel(cin_dw_kernel, grid, dim3(dw::THREADS), args, static_cast<size_t>(smem),
+                         static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// cin_dw's tile: output rows, output columns, rows a chunk (rows_per_slice
+// is a multiple of it) and the blocks a SM its launch bounds plan for
+int cin_dw_geometry(int* bm, int* bn, int* kc, int* blocks_per_sm) {
+  *bm = dw::BM;
+  *bn = dw::BN;
+  *kc = dw::KC;
+  *blocks_per_sm = dw::MINB;
+  return 0;
 }
 
 // out [n] = sum over s of part [slices, n]
 int cin_sum_slices(const void* part, int slices, long long n, void* out,
                    int blocks, void* stream) {
-  cin_sum_slices_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(part), slices, n, static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+  auto P = static_cast<const float*>(part);
+  auto Out = static_cast<float*>(out);
+  void* args[] = {&P, &slices, &n, &Out};
+  const cudaError_t err = cudaLaunchKernel(cin_sum_slices_kernel, dim3(blocks), dim3(256), args,
+                                           0, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err);
 }
 
 const char* cin_bwd_error_string(int err) {
