@@ -1308,6 +1308,15 @@ def _bound(flops, nbytes, peak):
     return max(flops / peak[1], nbytes / peak[2]) * 1e3, "operations" if by_ops else "bytes"
 
 
+def _bwd_tc_bounds(rec, flops, nbytes, exps, peak):
+    """The backwards' second bound and floor (rows 9 and 11 run 3xTF32 on the
+    tensor cores): every FLOP at a third of the TF32 rate, or the bytes, the
+    larger (``bwd_bound_3xtf32_ms``, the convention of rows 3 and 7); and one
+    exp per (i, j) at the card's exp rate (``bwd_exp_floor_ms``)."""
+    rec["bwd_bound_3xtf32_ms"] = max(TF32_PASSES * flops / peak[3], nbytes / peak[2]) * 1e3
+    rec["bwd_exp_floor_ms"] = exps / (peak[1] * EXP_PER_FLOP) * 1e3
+
+
 def phase_attn_kernels(peak):
     """sa_fwd / sa_bwd and ab_fwd / ab_bwd against their plain versions on the
     same inputs, each backward bit-equal over two runs, with times and bounds.
@@ -1316,7 +1325,11 @@ def phase_attn_kernels(peak):
     W_o, pooling: 8 B S E^2 a layer and 2 B S E^2 forward, 16 and 4
     backward).  The exps (G S^2 a pass, on the SFU) are reported, not in the
     bound.  Bytes: each input read once, each output written once (the
-    block's forward with the activations it saves for the backward)."""
+    block's forward with the activations it saves for the backward).  The
+    backwards run three of their five [S, S] products in 3xTF32 on the
+    tensor cores: at the path shapes each gradient is also held against
+    float64 (:func:`_f64_gate`), and :func:`_bwd_tc_bounds` adds their 3xTF32
+    bound and exp floor."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
     results = {}
     for label, G, dh, S, prec in SA_SHAPES:
@@ -1335,6 +1348,13 @@ def phase_attn_kernels(peak):
         if not all(torch.equal(a, b) for a, b in zip(
                 grads, sa_backward(g, q, k, v, o, m, z, scale, prec))):
             raise AssertionError(f"sa_bwd at {label}: two runs differ")
+        gate = {}
+        if label == SA_PATH_SHAPE:
+            want = sa_backward_reference(g, q, k, v, o, m, z, scale, prec)
+            exact = sa_backward_reference(*(t.double() for t in (g, q, k, v, o, m, z)), scale)
+            for name, a, b, e in zip(("dq", "dk", "dv"), grads, want, exact):
+                gate[name] = _f64_gate(f"sa_bwd {name} at {label}", a, b, e)
+            del want, exact
         del grads
         torch.cuda.empty_cache()
         # the library yardstick: SDPA on the [G, S, dh] views, fp32
@@ -1356,12 +1376,16 @@ def phase_attn_kernels(peak):
         del lib_out, ql, kl, vl
         rec = dict(G=G, dh=dh, S=S, precision=prec, **times, fwd_max_abs_err=fwd_err,
                    bwd_max_abs_err=bwd_err, bwd_bit_equal=True, gexp=G * S * S / 1e9)
+        if gate:
+            rec["bwd_err_vs_float64"] = {k: e[0] for k, e in gate.items()}
+            rec["bwd_plain_err_vs_float64"] = {k: e[1] for k, e in gate.items()}
         n = G * dh * S
         for kind, flops, nbytes in (("fwd", 4 * G * S * S * dh, 4 * (4 * n + 2 * G * S)),
                                     ("bwd", 10 * G * S * S * dh, 4 * (8 * n + 2 * G * S))):
             rec[f"{kind}_bound_ms"], rec[f"{kind}_bound_by"] = _bound(flops, nbytes, peak)
             rec[f"{kind}_gflop"] = flops / 1e9
             rec[f"{kind}_tflops"] = flops / rec[f"{kind}_ms"] / 1e9
+        _bwd_tc_bounds(rec, 10 * G * S * S * dh, 4 * (8 * n + 2 * G * S), G * S * S, peak)
         results["sa", label] = rec
         emit(phase="attn_kernel", kernel="small_attention", shape=label, **rec)
         del q, k, v, g, o, m, z
@@ -1388,6 +1412,14 @@ def phase_attn_kernels(peak):
             grads, ab_backward_reference(cfg, g, x, *ws)))
         if not all(torch.equal(a, b) for a, b in zip(grads, ab_backward(cfg, g, x, *ws, saved))):
             raise AssertionError(f"ab_bwd at {label}: two runs differ")
+        gate = {}
+        if label == AB_PATH_SHAPE:
+            want = ab_backward_reference(cfg, g, x, *ws)
+            exact = ab_backward_reference(cfg, g.double(), x.double(), *(t.double() for t in ws))
+            names = ("dx", "dwq", "dwk", "dwv", "dwo", "dgamma", "dbeta", "dw1", "db1", "dw2")
+            for name, a, b, e in zip(names, grads, want, exact):
+                gate[name] = _f64_gate(f"ab_bwd {name} at {label}", a, b, e)
+            del want, exact
         del grads
         torch.cuda.empty_cache()
         iters = 5 if B > 100 else 50
@@ -1402,18 +1434,23 @@ def phase_attn_kernels(peak):
                    library_ms=None, library="no single PyTorch call",
                    fwd_max_abs_err=fwd_err, bwd_max_abs_err=bwd_err, bwd_bit_equal=True,
                    gexp=L * B * H * S * S / 1e9)
+        if gate:
+            rec["bwd_err_vs_float64"] = {k: e[0] for k, e in gate.items()}
+            rec["bwd_plain_err_vs_float64"] = {k: e[1] for k, e in gate.items()}
         glue = B * S * E * E
         wbytes = 4 * sum(t.numel() for t in ws)
         act = 4 * (B * E * S)
         saves = 4 * (2 * B * L * H * S + 2 * B * L * E * S)
+        bwd = (L * (10 * B * H * S * S * dh + 16 * glue) + 4 * glue,
+               2 * act + 2 * wbytes + 4 * B * E + saves)
         for kind, flops, nbytes in (
                 ("fwd", L * (4 * B * H * S * S * dh + 8 * glue) + 2 * glue,
                  act + wbytes + 4 * B * E + saves),
-                ("bwd", L * (10 * B * H * S * S * dh + 16 * glue) + 4 * glue,
-                 2 * act + 2 * wbytes + 4 * B * E + saves)):
+                ("bwd", *bwd)):
             rec[f"{kind}_bound_ms"], rec[f"{kind}_bound_by"] = _bound(flops, nbytes, peak)
             rec[f"{kind}_gflop"] = flops / 1e9
             rec[f"{kind}_tflops"] = flops / rec[f"{kind}_ms"] / 1e9
+        _bwd_tc_bounds(rec, *bwd, L * B * H * S * S, peak)
         results["ab", label] = rec
         emit(phase="attn_kernel", kernel="attn_block", shape=label, **rec)
         del x, ws, g, pooled, saved
@@ -2252,6 +2289,10 @@ def main():
             ms=n * r[f"{kind}_ms"], plain_ms=n * r[f"plain_{kind}_ms"],
             bound_ms=n * r[f"{kind}_bound_ms"], bound_by=r[f"{kind}_bound_by"],
             library_ms=None if lib is None else n * lib,
+            **({"bound_tc_ms": n * r["bwd_bound_3xtf32_ms"],
+                "exp_floor_ms": n * r["bwd_exp_floor_ms"],
+                "err_vs_float64": max(r["bwd_err_vs_float64"].values())}
+               if kind == "bwd" else {}),
             per=(f"V2 train step at batch 4096 ({n} launches, G {r['G']}, dh {r['dh']}, "
                  f"S {r['S']})" if key[0] == "sa" else
                  f"V1 train step at batch 4096 (1 launch, E {r['E']}, S {r['S']}, H {r['H']})"),

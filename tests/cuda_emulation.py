@@ -9,7 +9,8 @@ and ``cudaLaunchKernel`` walks the grid, recording the most dynamic shared
 memory a launch asked for in ``emu::smem_high``.  It also stands in for
 ``tc_tf32.cuh``: ``cvt.rna.tf32`` rounds away the low 13 mantissa bits, the
 ``mma.sync`` m16n8k8 is computed by the warp's 32 lanes from the PTX ISA's
-fragment layout through the warp barrier, and ``cp.async`` is a plain copy
+fragment layout through the warp barrier (reading its operands as TF32,
+the low 13 bits ignored), and ``cp.async`` is a plain copy
 whose waits are no-ops.  This checks a kernel's indexing, masking, tiling,
 fragment layouts and partial sums without a GPU; it says nothing about its
 speed, about the GPU's compiler or about the order of asynchronous copies,
@@ -159,7 +160,8 @@ inline void split(float x, uint32_t& big, uint32_t& small) {
 }
 // mma.sync m16n8k8 row.col f32.tf32: the warp's 32 lanes post their
 // fragments, then each lane sums its own four C entries in the PTX ISA's
-// layout (products of TF32 values are exact in fp32)
+// layout (products of TF32 values are exact in fp32); as the tensor cores,
+// it reads an operand register as TF32, ignoring its low 13 bits
 inline void mma(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
   const int lane = emu::tidx.x % 32;
   uint32_t (&mine)[6] = emu::warp->frag[lane];
@@ -174,7 +176,7 @@ inline void mma(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
     for (int k = 0; k < 8; ++k) {
       const uint32_t av = emu::warp->frag[4 * (row % 8) + k % 4][(row >= 8) + 2 * (k >= 4)];
       const uint32_t bv = emu::warp->frag[4 * col + k % 4][4 + (k >= 4)];
-      s += __uint_as_float(av) * __uint_as_float(bv);
+      s += __uint_as_float(av & 0xffffe000u) * __uint_as_float(bv & 0xffffe000u);
     }
     c[q] = s;
   }

@@ -33,9 +33,21 @@ from xdeepfm_tpu_torch.ops import attn_block_cuda as ab
 
 CSRC = pathlib.Path(sa.__file__).resolve().with_name("csrc")
 
-# what the attention sources use beyond the CE kernels' stand-in
+# what the attention sources use beyond the CE kernels' stand-in: the
+# backward routine's 8-byte words and its lane-indexed shuffle of TF32 bits
 EXTRA = r"""
 inline float rsqrtf(float x) { return 1.f / std::sqrt(x); }
+struct __attribute__((aligned(8))) float2 { float x, y; };
+struct __attribute__((aligned(8))) uint2 { uint32_t x, y; };
+inline float2 make_float2(float a, float b) { return {a, b}; }
+inline uint32_t __shfl_sync(unsigned, uint32_t v, int src) {
+  const int lane = emu::tidx.x % 32;
+  emu::warp->vals[lane] = __uint_as_float(v);
+  emu::warp->bar.arrive_and_wait();
+  const uint32_t r = __float_as_uint(emu::warp->vals[src % 32]);
+  emu::warp->bar.arrive_and_wait();
+  return r;
+}
 """
 
 # Reads one case and writes the kernels' outputs.  Mode 0 (rows 8-9): ints
@@ -45,10 +57,14 @@ inline float rsqrtf(float x) { return 1.f / std::sqrt(x); }
 # b1, w2, g; writes pooled, then pooled again with no saves, dx and the
 # reduced parameter gradients.
 MAIN = r"""
+#include <cmath>
 #include <cstdio>
 #include <vector>
 #include "cuda_runtime.h"
 alignas(16) float attn_smem[1 << 18];
+// before each launch: a kernel that reads shared memory it did not write
+// meets NaN
+static void poison() { std::fill(attn_smem, attn_smem + (1 << 18), NAN); }
 extern "C" int sa_fwd(const void*, const void*, const void*, void*, void*, void*, int, int, int,
                       float, int, void*);
 extern "C" int sa_bwd(const void*, const void*, const void*, const void*, const void*,
@@ -82,8 +98,10 @@ int main(int argc, char** argv) {
     auto q = take<float>(in, n), k = take<float>(in, n), v = take<float>(in, n),
          g = take<float>(in, n);
     std::vector<float> o(n), m((size_t)G * S), z((size_t)G * S), dq(n), dk(n), dv(n);
+    poison();
     err |= sa_fwd(q.data(), k.data(), v.data(), o.data(), m.data(), z.data(), G, dh, S, scale,
                   bf16, nullptr);
+    poison();
     err |= sa_bwd(q.data(), k.data(), v.data(), g.data(), o.data(), m.data(), z.data(),
                   dq.data(), dk.data(), dv.data(), G, dh, S, scale, bf16, nullptr);
     for (auto* x : {&o, &m, &z, &dq, &dk, &dv}) put(out, *x);
@@ -103,12 +121,15 @@ int main(int argc, char** argv) {
         dx((size_t)B * E * S);
     const int np = ab_num_params(E, L);
     std::vector<float> part((size_t)np * B), grads(np);
+    poison();
     err |= ab_fwd(x.data(), wq.data(), wk.data(), wv.data(), wo.data(), gam.data(), bet.data(),
                   w1.data(), b1.data(), w2.data(), pooled.data(), m.data(), z.data(), os.data(),
                   ys.data(), B, E, S, L, H, fl[0], fl[1], res, ln, nullptr);
+    poison();
     err |= ab_fwd(x.data(), wq.data(), wk.data(), wv.data(), wo.data(), gam.data(), bet.data(),
                   w1.data(), b1.data(), w2.data(), pooled2.data(), nullptr, nullptr, nullptr,
                   nullptr, B, E, S, L, H, fl[0], fl[1], res, ln, nullptr);
+    poison();
     err |= ab_bwd(x.data(), wq.data(), wk.data(), wv.data(), wo.data(), gam.data(), bet.data(),
                   w1.data(), b1.data(), w2.data(), g.data(), m.data(), z.data(), os.data(),
                   ys.data(), dx.data(), part.data(), grads.data(), B, E, S, L, H, fl[0], fl[1],
@@ -132,11 +153,20 @@ def emulator(tmp_path_factory):
     (d / "cuda_bf16.h").write_text('#pragma once\n#include "cuda_runtime.h"\n')
     (d / "main.cpp").write_text(MAIN)
     exe = d / "attn_emu"
-    cmd = [cxx, "-std=c++20", "-O1", "-pthread", "-fno-strict-aliasing", "-Wno-unknown-pragmas",
-           f"-I{d}", f"-I{CSRC}", "-x", "c++",
-           *(str(CSRC / f"{name}.cu") for name in ("sa_fwd", "sa_bwd", "ab_fwd", "ab_bwd")),
-           str(d / "main.cpp"), "-o", str(exe)]
-    subprocess.run(cmd, check=True, capture_output=True, text=True, timeout=600)
+    flags = [cxx, "-std=c++20", "-O1", "-pthread", "-fno-strict-aliasing",
+             "-Wno-unknown-pragmas", f"-I{d}", f"-I{CSRC}"]
+    # one g++ per source, all started together, then the link
+    sources = [CSRC / f"{name}.cu" for name in ("sa_fwd", "sa_bwd", "ab_fwd", "ab_bwd")]
+    sources.append(d / "main.cpp")
+    objs = [d / f"{src.stem}.o" for src in sources]
+    procs = [subprocess.Popen([*flags, "-x", "c++", "-c", str(src), "-o", str(obj)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    for proc in procs:
+        log, _ = proc.communicate(timeout=600)
+        assert proc.returncode == 0, log
+    subprocess.run([*flags, *map(str, objs), "-o", str(exe)], check=True, capture_output=True,
+                   text=True, timeout=600)
     return d, exe
 
 
@@ -158,8 +188,12 @@ def _close_to_max(got, want, rtol):
     torch.testing.assert_close(got, want, rtol=rtol, atol=rtol * float(want.abs().max()) + 1e-6)
 
 
-# (G, dh, S): ragged S below one warp and above, dh as V2's (5) and others
-SA_CASES = [(3, 5, 37), (2, 3, 70), (2, 8, 16), (1, 1, 5)]
+# (G, dh, S): ragged S below one warp and above, dh as V2's (5) and others;
+# for the backward's tensor-core routine also dh 16 (two k8 steps) at an S
+# that is not a multiple of 8, S a multiple of 8 but not of 16, and S 150
+# (10 key tiles over 8 warps: two rounds of dQ partials)
+SA_CASES = [(3, 5, 37), (2, 3, 70), (2, 8, 16), (1, 1, 5), (1, 16, 45), (2, 5, 40),
+            (1, 1, 150)]
 
 
 @pytest.mark.parametrize("precision", ["fp32", "bf16"])
@@ -185,13 +219,19 @@ def test_emulated_small_attention_matches_plain(emulator, G, dh, S, precision):
 
 
 # (B, E, S, H, L, residual, layer_norm): V1's block (L 1), L 2, each of the
-# residual and the LayerNorm off, a ragged S
+# residual and the LayerNorm off, a ragged S; then eight heads of dh 1 with
+# neither the residual nor the LayerNorm, whose backward keeps the attention
+# routine's scratch in a borrowed gradient row (the others past the
+# statistics).  Wider E costs the emulation a block of 256 threads per
+# parameter entry in the reduce, so dh 16 and the routine's one-buffer mode
+# are the card tests' cases.
 AB_CASES = [
     (3, 10, 16, 2, 1, True, True),
     (2, 10, 16, 2, 2, True, True),
     (2, 10, 16, 2, 1, False, True),
     (2, 10, 16, 2, 1, True, False),
     (2, 6, 37, 3, 1, True, True),
+    (1, 8, 21, 8, 1, False, False),
 ]
 
 
@@ -234,3 +274,4 @@ def test_emulated_attn_block_matches_plain(emulator, B, E, S, H, L, residual, la
         _close_to_max(got, w, 1e-4)
     if not layer_norm:
         assert (grads[5] == 0).all() and (grads[6] == 0).all()
+

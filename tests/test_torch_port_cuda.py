@@ -31,10 +31,13 @@ from xdeepfm_tpu_torch.ops.cin_cuda import (
     cin_rows_reference,
 )
 from xdeepfm_tpu_torch.ops.attention_cuda import (
+    SMEM_BYTES,
     sa_backward,
     sa_backward_reference,
     sa_forward,
     sa_forward_reference,
+    sa_smem_bytes,
+    smem_bytes_of_kernel,
 )
 from xdeepfm_tpu_torch.ops.attn_block_cuda import (
     BlockCfg,
@@ -471,6 +474,12 @@ AB_SHAPES = [
     (16, 10, 64, 2, 1, True, False),
     (5, 10, 37, 2, 1, True, True),
     (3, 10, 20, 1, 1, True, True),
+    # one head of dh 16; E 32 at S 157, where the backward's attention
+    # routine takes one chunk a step, and E 96 at S 16, where it fits shared
+    # memory with one buffer only
+    (2, 16, 24, 1, 1, True, True),
+    (2, 32, 157, 2, 1, True, True),
+    (2, 96, 16, 6, 1, True, True),
 ]
 
 
@@ -527,9 +536,61 @@ def test_attn_block_kernels_reject_bad_input(card):
         ab_backward(cfg, g[:-1], x, *ws, saved)
     # the kernels' own shared-memory formula agrees with the wrapper's gate
     smem = _attn_block_fn("ab_smem_bytes")
-    for E, S, H in ((10, 256, 2), (10, 37, 2), (32, 100, 4)):
+    for E, S, H in ((10, 256, 2), (10, 37, 2), (32, 100, 4), (32, 157, 2), (8, 21, 8),
+                    (96, 16, 6)):
         assert smem(E, S, H, 1) == ab_smem_bytes(E, S, H)
         assert smem(E, S, H, 0) == ab_smem_bytes(E, S, H, backward=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["sa", "ab"])
+def test_attention_backwards_are_fp32_accurate_and_deterministic(card, kernel):
+    """The 3xTF32 backwards at a path-width shape (V2's pairs and V1's rows,
+    cut in number): every gradient's error against float64 at most twice
+    the plain fp32 version's, or within 1e-6 of its largest entry, and a
+    second run bit-equal."""
+    if kernel == "sa":
+        G, dh, S = 512, 5, 256
+        gen = torch.Generator().manual_seed(9)
+        q, k, v, g = (torch.randn(G, dh, S, generator=gen).cuda() for _ in range(4))
+        o, m, inv_z = sa_forward(q, k, v, dh ** -0.5)
+        args = (g, q, k, v, o, m, inv_z)
+        got = sa_backward(*args, dh ** -0.5)
+        again = sa_backward(*args, dh ** -0.5)
+        torch.cuda.synchronize()
+        want = sa_backward_reference(*args, dh ** -0.5)
+        exact = sa_backward_reference(*(t.double() for t in args), dh ** -0.5)
+    else:
+        x, ws, g = _block_inputs(11, 256, 10, 256, 2, 1)
+        cfg = BlockCfg(1, 2, 5 ** -0.5, True, True, 1e-5)
+        _, saved = ab_forward(cfg, x, *ws)
+        got = ab_backward(cfg, g, x, *ws, saved)
+        again = ab_backward(cfg, g, x, *ws, saved)
+        torch.cuda.synchronize()
+        want = ab_backward_reference(cfg, g, x, *ws)
+        exact = ab_backward_reference(cfg, g.double(), x.double(), *(w.double() for w in ws))
+    for a, b, e, a2 in zip(got, want, exact, again):
+        _close(a, b)
+        _f64_gate(a, b, e)
+        assert torch.equal(a, a2)
+
+
+# the parent design's largest S at dh 5 and 16: (5 dh + 3) S floats of
+# shared memory; the 3xTF32 backward needs less and takes them
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [5, 16])
+def test_small_attention_takes_the_largest_S_of_the_earlier_gate(card, dh):
+    S = SMEM_BYTES // (4 * (5 * dh + 3))
+    assert sa_smem_bytes(dh, S) <= SMEM_BYTES
+    for s in (S, 37, 256, 1):
+        assert smem_bytes_of_kernel(dh, s) == sa_smem_bytes(dh, s)
+    gen = torch.Generator().manual_seed(dh)
+    q, k, v, g = (torch.randn(1, dh, S, generator=gen).cuda() for _ in range(4))
+    o, m, inv_z = sa_forward(q, k, v, dh ** -0.5)
+    got = sa_backward(g, q, k, v, o, m, inv_z, dh ** -0.5)
+    torch.cuda.synchronize()
+    for a, b in zip(got, sa_backward_reference(g, q, k, v, o, m, inv_z, dh ** -0.5)):
+        _close(a, b)
 
 
 def _attn_models(device):

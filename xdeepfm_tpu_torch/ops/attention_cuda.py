@@ -29,12 +29,38 @@ from . import _build
 
 SA_MAX_DH = 16  # the kernels are instantiated for head widths 1..16
 SMEM_BYTES = 232_448  # shared memory one Hopper block may take
+TWO_BLOCK_SMEM_BYTES = 115_712  # the most a block may take for two to share an SM
+
+
+def routine_pitch(S: int) -> int:
+    """Row pitch of the backward's operands (``csrc/attn_bwd_tc.cuh``
+    ``pitch``): the least P >= S with P = 2 mod 4."""
+    return S + (6 - S % 4) % 4
+
+
+def routine_scratch_floats(dh: int, warps: int, nbuf: int = 2, ch: int = 1) -> int:
+    """Shared scratch of the backward's attention routine
+    (``csrc/attn_bwd_tc.cuh``): ``nbuf`` stages of ``ch`` chunks of 16
+    queries (the TF32 halves of g inv_z and q at a row pitch of 16 ch + 8,
+    three statistics) and ``nbuf`` dQ partial slots per warp."""
+    return nbuf * (4 * dh * (16 * ch + 8) + 48 * ch + warps * 16 * ch * dh)
 
 
 def sa_smem_bytes(dh: int, S: int) -> int:
-    """Shared memory of the backward kernel, the larger of the two: q, k, v,
-    g and g * inv_z [dh, S] plus three [S] rows."""
-    return (5 * dh + 3) * S * 4
+    """Shared memory of the backward kernel, the larger of the two
+    (``csrc/sa_bwd.cu``'s ``bwd_floats``): q, k, v and g [dh, P] at
+    :func:`routine_pitch`, three [S] rows (and a float that keeps what
+    follows 8-byte aligned) and the routine's scratch for its warps (one per
+    16 keys, at most 8), with the most of 8, 4, 2 or 1 chunks of 16 queries
+    a step with which two blocks share an SM, else with which one fits."""
+    warps = min(8, -(-S // 16))
+    for limit in (TWO_BLOCK_SMEM_BYTES, SMEM_BYTES):
+        for ch in (8, 4, 2, 1):
+            floats = (4 * dh * routine_pitch(S) + 3 * S + S % 2
+                      + routine_scratch_floats(dh, warps, 2, ch))
+            if 4 * floats <= limit:
+                return 4 * floats
+    return 4 * floats
 
 
 def check_sa_shape(dh: int, S: int) -> None:
@@ -45,7 +71,7 @@ def check_sa_shape(dh: int, S: int) -> None:
         raise ValueError(
             f"small_attention: S = {S} at dh = {dh} needs {sa_smem_bytes(dh, S)} bytes of "
             f"shared memory per block, above the {SMEM_BYTES} a Hopper block may take "
-            "(the kernel holds a whole pair's q, k, v and g); use backend='torch'"
+            "(the backward holds a whole pair's q, k, v and g); use backend='torch'"
         )
 
 
@@ -85,6 +111,15 @@ _SIGNATURES = {
     "sa_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "sa_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
 }
+
+
+def smem_bytes_of_kernel(dh: int, S: int) -> int:
+    """The backward kernel's own shared-memory formula (``sa_bwd_smem_bytes``
+    in ``csrc/sa_bwd.cu``, built at first use); the card tests hold
+    :func:`sa_smem_bytes` against it."""
+    return _build.function("sa_bwd", "sa_bwd_smem_bytes", [_I, _I])(dh, S)
+
+
 def _launch(name, device, *args):
     """``csrc/<name>.cu``'s launcher ``name`` on ``device``'s current stream."""
     _build.launch(name, name, _SIGNATURES[name], device, *args)

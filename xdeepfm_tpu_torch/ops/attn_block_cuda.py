@@ -34,7 +34,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
-from .attention_cuda import SA_MAX_DH, SMEM_BYTES
+from .attention_cuda import SA_MAX_DH, SMEM_BYTES, routine_pitch, routine_scratch_floats
 
 
 class BlockCfg(NamedTuple):
@@ -50,14 +50,32 @@ def _pitch(S):
     return S + 1 if S % 2 == 0 else S
 
 
+def _bwd_layout(E, S, H):
+    """(chunks a step, routine buffers, floats) of ``ab_bwd``'s block, as
+    ``BwdLayout`` in ``csrc/ab_bwd.cu`` chooses them: (2, 2) where the block
+    fits, else (1, 2), else (1, 1); the routine's scratch borrows the rows
+    of X and DY where it fits there."""
+    P, warps = routine_pitch(S), min(8, -(-S // 32))
+    for ch, nbuf in ((2, 2), (1, 2), (1, 1)):
+        scratch = routine_scratch_floats(E // H, warps, nbuf, ch)
+        extra = scratch if scratch > 2 * E * P else 0
+        floats = 10 * E * P + 3 * H * S + (3 * H * S) % 2 + extra + 4 * E * E + 3 * E + 32
+        if 4 * floats <= SMEM_BYTES:
+            break
+    return ch, nbuf, floats
+
+
 def ab_smem_bytes(E: int, S: int, H: int, backward: bool = True) -> int:
     """Shared memory of a block of ``ab_fwd`` / ``ab_bwd`` (the formulas of
-    ``csrc/attn_block.cuh``: [E, S] rows at an odd pitch, 10 of them in the
-    backward, 5 in the forward, plus the weights and [S] rows)."""
-    weights = 5 * E * E + 4 * E
+    ``csrc/attn_block.cuh`` and ``csrc/ab_bwd.cu``).  The forward holds 5
+    [E, S] rows at an odd pitch plus the weights and an [S] row.  The
+    backward holds 10 rows at the attention routine's pitch, three [H, S]
+    statistics, the layer weights (the pooling MLP's share their space) and
+    the routine's scratch where it does not fit in the rows of X and DY
+    (:func:`_bwd_layout`)."""
     if backward:
-        return 4 * (10 * E * _pitch(S) + weights + 2 * S + 3 * H * S + E + 32)
-    return 4 * (5 * E * _pitch(S) + weights + S + 32)
+        return 4 * _bwd_layout(E, S, H)[2]
+    return 4 * (5 * E * _pitch(S) + 5 * E * E + 4 * E + S + 32)
 
 
 def num_params(E: int, L: int) -> int:

@@ -7,24 +7,63 @@
 //
 // Bound: operations.  At V1's training shape the attention backward's five
 // [S, S] products a head are 26.8 GFLOP of about 30.  Design: a block per
-// batch row walks pool -> LayerNorm -> W_o -> attention (a sweep per query
-// for dq, a sweep per key for dk / dv, as sa_bwd.cu, scores recomputed from
-// the saved statistics) -> projections, writes dx, and writes each parameter
-// gradient's sum over its row's S columns (one thread's loop, in order) as a
-// per-row partial into part [NP][B]; ab_reduce_kernel then sums the B
-// partials of each parameter in a fixed order.  No atomics: bit-equal from
-// run to run.  The TPU kernel carried the weight gradients in revisited
-// output blocks along its sequential grid and reduced the vector gradients
-// outside the kernel; blocks run concurrently here, hence the partials.
-// Shared memory: 10 E P + 5 E^2 + 3 H S floats (P the padded pitch).
+// batch row walks pool -> LayerNorm -> W_o -> attention -> projections,
+// writes dx, and writes each parameter gradient's sum over its row's S
+// columns (one thread's loop, in order) as a per-row partial into part
+// [NP][B]; ab_reduce_kernel then sums the B partials of each parameter in a
+// fixed order.  The attention backward of each head is attn_bwd_tc.cuh's
+// routine (each score and exp computed once, dV, dK and dQ in 3xTF32 on the
+// tensor cores), on the row's q, k, v and do in shared memory; the rest is
+// one thread per column s.  No atomics: bit-equal from run to run.  The
+// TPU kernel carried the weight gradients in revisited output blocks along
+// its sequential grid and reduced the vector gradients outside the kernel;
+// blocks run concurrently here, hence the partials.  Shared memory:
+// 10 E P + 3 H S + 4 E^2 + 3 E + 32 floats (P the routine's pitch, S + 2 at
+// V1's S = 256), plus the routine's scratch where it does not fit in the
+// rows it borrows (BwdLayout): 109 KB, two blocks an SM, at V1's shape.
 
 #include "attn_block.cuh"
+#include "attn_bwd_tc.cuh"
 
 namespace {
 
+// The routine's chunks a step and buffers: (2, 2) where a block fits, else
+// (1, 2), else (1, 1).  Its scratch lies in the rows of X and DY, which hold
+// no live value while it runs (X is loaded again after it), or past the
+// statistics where it does not fit there.  The pooling MLP's weights share
+// the layer weights' space (they are read before the first layer's are
+// loaded).
+struct BwdLayout {
+  int ch, nbuf, extra, floats;
+  __host__ __device__ BwdLayout(int E, int S, int H) {
+    const int P = attn_tc::pitch(S), warps = attn::threads_for(S) / 32;
+    for (int c = 0; c < 3; ++c) {
+      ch = c == 0 ? 2 : 1;
+      nbuf = c < 2 ? 2 : 1;
+      const int f = attn_tc::scratch_floats(E / H, warps, nbuf, ch);
+      extra = f > 2 * E * P ? f : 0;
+      floats = 10 * E * P + 3 * H * S + (3 * H * S & 1) + extra + 4 * E * E + 3 * E + 32;
+      if (floats * 4 <= attn::MAX_SMEM_BYTES) break;
+    }
+  }
+};
+
+// dq, dk, dv [dh][P] of one head in shared memory
+struct HeadOut {
+  float* dq;
+  float* dk;
+  float* dv;
+  int P;
+  __device__ float* at(int which, int d, int col) const {
+    return (which == 0 ? dq : which == 1 ? dk : dv) + d * P + col;
+  }
+};
+
 template <int DH>
-__global__ void __launch_bounds__(attn::MAX_THREADS) ab_bwd_kernel(Params p, BwdIo io) {
-  const int E = p.E, S = p.S, H = p.H, L = p.L, P = pitch(S), EP = E * P, EE = E * E;
+__global__ void __launch_bounds__(attn::MAX_THREADS, 2) ab_bwd_kernel(Params p, BwdIo io) {
+  const int E = p.E, S = p.S, H = p.H, L = p.L, EE = E * E;
+  const BwdLayout lay(E, S, H);
+  const int P = attn_tc::pitch(S), EP = E * P;
   float* X = attn_smem;  // [E][P] layer input (the final y for the pooling)
   float* DY = X + EP;    // [E][P] gradient of the layer output, then dx
   float* DR = DY + EP;   // [E][P] gradient of r (pre-LayerNorm)
@@ -35,15 +74,16 @@ __global__ void __launch_bounds__(attn::MAX_THREADS) ab_bwd_kernel(Params p, Bwd
   float* DQ = DO + EP;   // [E][P] o, then dq; the pooling's dpre
   float* DK = DQ + EP;   // the pooling's h1 * dsc, then dk
   float* DV = DK + EP;   // the LayerNorm's normalised r, then dv
-  float* W = DV + EP;
-  float* PW = W + 4 * EE + 2 * E;
-  float* SC = PW + EE + 2 * E;  // [S] pooling weights
-  float* DSC = SC + S;          // [S]
-  float* M = DSC + S;           // [H][S]
-  float* Z = M + H * S;         // [H][S]
-  float* DL = Z + H * S;        // [H][S] delta
-  float* GP = DL + H * S;       // [E]
-  float* red = GP + E;          // [32]
+  float* M = DV + EP;    // [H][S] row max
+  float* Z = M + H * S;  // [H][S] inverse normaliser
+  float* DL = Z + H * S;  // [H][S] delta
+  float* SC = M;          // [S] pooling weights (before the layers)
+  float* DSC = M + S;     // [S]
+  float* SCR = lay.extra ? DL + H * S + (3 * H * S & 1) : X;  // the routine's scratch
+  float* W = DL + H * S + (3 * H * S & 1) + lay.extra;         // the layer's weights
+  float* PW = W;                         // the pooling MLP (before the layers)
+  float* GP = W + 4 * EE + 2 * E;        // [E]
+  float* red = GP + E;                   // [32]
   const int b = blockIdx.x;
   const Offsets off(E, L);
   auto put = [&](int idx, float v) { io.part[static_cast<long long>(idx) * p.B + b] = v; };
@@ -161,71 +201,19 @@ __global__ void __launch_bounds__(attn::MAX_THREADS) ab_bwd_kernel(Params p, Bwd
                  [&](int c, int f, float v) { put(off.wo + l * EE + c * E + f, v); });
     __syncthreads();
 
-    // attention backward per head: dq a thread per query, dk / dv a thread
-    // per key (as sa_bwd.cu); each thread writes its own columns only
+    // attention backward per head (the routine ends on a barrier)
     for (int h = 0; h < H; ++h) {
-      const float* Qh = Q + h * DH * P;
-      const float* Kh = K + h * DH * P;
-      const float* Vh = V + h * DH * P;
-      const float* DOh = DO + h * DH * P;
-      const float* Mh = M + h * S;
-      const float* Zh = Z + h * S;
-      const float* DLh = DL + h * S;
-      for (int i = threadIdx.x; i < S; i += blockDim.x) {
-        float qi[DH], gi[DH], acc[DH];
-#pragma unroll
-        for (int d = 0; d < DH; ++d) {
-          qi[d] = Qh[d * P + i];
-          gi[d] = DOh[d * P + i];
-          acc[d] = 0.f;
-        }
-        const float mi = Mh[i], di = DLh[i], zsc = Zh[i] * p.scale;
-        for (int j = 0; j < S; ++j) {
-          float s = 0.f, dp = 0.f;
-#pragma unroll
-          for (int d = 0; d < DH; ++d) {
-            s = fmaf(qi[d], Kh[d * P + j], s);
-            dp = fmaf(gi[d], Vh[d * P + j], dp);
-          }
-          const float ds = (dp - di) * zsc * __expf((s - mi) * p.scale);
-#pragma unroll
-          for (int d = 0; d < DH; ++d) acc[d] = fmaf(Kh[d * P + j], ds, acc[d]);
-        }
-#pragma unroll
-        for (int d = 0; d < DH; ++d) DQ[(h * DH + d) * P + i] = acc[d];
-      }
-      for (int j = threadIdx.x; j < S; j += blockDim.x) {
-        float kj[DH], vj[DH], ak[DH], av[DH];
-#pragma unroll
-        for (int d = 0; d < DH; ++d) {
-          kj[d] = Kh[d * P + j];
-          vj[d] = Vh[d * P + j];
-          ak[d] = 0.f;
-          av[d] = 0.f;
-        }
-        for (int i = 0; i < S; ++i) {
-          float s = 0.f, dp = 0.f;
-#pragma unroll
-          for (int d = 0; d < DH; ++d) {
-            s = fmaf(Qh[d * P + i], kj[d], s);
-            dp = fmaf(DOh[d * P + i], vj[d], dp);
-          }
-          const float e = __expf((s - Mh[i]) * p.scale);
-          const float ds = (dp - DLh[i]) * (Zh[i] * p.scale) * e;
-#pragma unroll
-          for (int d = 0; d < DH; ++d) {
-            av[d] = fmaf(DOh[d * P + i] * Zh[i], e, av[d]);
-            ak[d] = fmaf(Qh[d * P + i], ds, ak[d]);
-          }
-        }
-#pragma unroll
-        for (int d = 0; d < DH; ++d) {
-          DK[(h * DH + d) * P + j] = ak[d];
-          DV[(h * DH + d) * P + j] = av[d];
-        }
-      }
+      const int c = h * DH * P;
+      attn_tc::attn_bwd_head<DH, false>(Q + c, K + c, V + c, DO + c, M + h * S, Z + h * S,
+                                        DL + h * S, S, P, p.scale, SCR, lay.nbuf, lay.ch,
+                                        HeadOut{DQ + c, DK + c, DV + c, P});
     }
-    __syncthreads();
+    if (!lay.extra) {  // X lent its rows to the routine
+      load_rows(X, l == 0 ? p.x + static_cast<long long>(b) * E * S
+                          : io.ysave + (static_cast<long long>(b) * L + l - 1) * E * S,
+                E, S, P);
+      __syncthreads();
+    }
 
     // projection gradients, and dx into DY (the next layer's dy)
     auto head_major = [&](int base, int e, int c, float v) {
@@ -276,7 +264,7 @@ ab_reduce_kernel(const float* __restrict__ part, float* __restrict__ out, int B)
 template <int DH>
 int launch_bwd(Params p, BwdIo io, float* grads, cudaStream_t st) {
   auto kern = ab_bwd_kernel<DH>;
-  const int smem = bwd_floats(p.E, p.S, p.H) * static_cast<int>(sizeof(float));
+  const int smem = BwdLayout(p.E, p.S, p.H).floats * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   void* args[] = {&p, &io};
@@ -325,7 +313,8 @@ int ab_bwd(const void* x, const void* wq, const void* wk, const void* wv, const 
 // parameter-gradient entries (the card tests hold ops/attn_block_cuda.py's
 // formulas against these)
 int ab_smem_bytes(int E, int S, int H, int backward) {
-  return (backward ? bwd_floats(E, S, H) : fwd_floats(E, S)) * static_cast<int>(sizeof(float));
+  return (backward ? BwdLayout(E, S, H).floats : fwd_floats(E, S)) *
+         static_cast<int>(sizeof(float));
 }
 
 int ab_num_params(int E, int L) { return Offsets(E, L).np; }

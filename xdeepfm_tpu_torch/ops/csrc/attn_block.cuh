@@ -14,11 +14,13 @@
 //
 // All fp32.  One block owns one batch row: x [E, S], the per-head q / k / v
 // and (in the backward) every gradient of the row sit in shared memory, rows
-// padded to an odd pitch so that column walks and row walks are both free of
-// bank conflicts; the layer's weights (4 E^2 + 2 E floats) and the pooling
-// MLP's are loaded into shared memory once per layer.  One thread owns one
-// column s: the E-sized projections, W_o, the residual and the LayerNorm
-// over E are that thread's loops.
+// padded to a pitch: odd in the forward, so that column walks and row walks
+// are both free of bank conflicts; in the backward the attention routine's
+// (attn_bwd_tc.cuh: even, 2 mod 4), which keeps the row walks of up to 16
+// rows free of conflicts too.  The layer's weights (4 E^2 + 2 E floats) and
+// the pooling MLP's are loaded into shared memory once per layer.  One
+// thread owns one column s: the E-sized projections, W_o, the residual and
+// the LayerNorm over E are that thread's loops.
 #pragma once
 
 #include <cfloat>
@@ -62,15 +64,14 @@ struct BwdIo {
   float* part;         // [NP, B] per-row parameter gradients
 };
 
+// the forward's pitch (the backward's is attn_bwd_tc.cuh's)
 __host__ __device__ inline int pitch(int S) { return S % 2 == 0 ? S + 1 : S; }
 
-// shared-memory floats of each kernel (the wrappers repeat these formulas)
+// shared-memory floats of the forward kernel (the wrapper repeats this; the
+// backward's formula is in ab_bwd.cu)
 __host__ __device__ inline int weight_floats(int E) { return 5 * E * E + 4 * E; }
 __host__ __device__ inline int fwd_floats(int E, int S) {
   return 5 * E * pitch(S) + weight_floats(E) + S + 32;
-}
-__host__ __device__ inline int bwd_floats(int E, int S, int H) {
-  return 10 * E * pitch(S) + weight_floats(E) + 2 * S + 3 * H * S + E + 32;
 }
 
 // Layer l's weights into W: wq, wk, wv [H][E][dh] (E*E each), wo [H][dh][E],

@@ -17,6 +17,9 @@ namespace attn {
 
 constexpr int MAX_DH = 16;       // widest head the kernels are instantiated for
 constexpr int MAX_THREADS = 256;
+constexpr int MAX_SMEM_BYTES = 232448;  // dynamic shared memory one Hopper block may take
+// the most a block may take for two to share an SM (228 KB, 1 KB reserved a block)
+constexpr int TWO_BLOCK_SMEM_BYTES = 115712;
 
 // One thread per query (or key) column, at most MAX_THREADS; a block of
 // fewer than S threads walks the columns in strides of blockDim.x.

@@ -14,118 +14,102 @@
 // Replaces: xdeepfm_tpu/ops/attention_pallas.py _sa_bwd / _bwd_kernel.
 //
 // Bound: operations.  At the V2 training shape (G = 8192, dh = 5, S = 256)
-// the five [S, S] products are 26.8 GFLOP.  Design: one block per pair, with
-// q, k, v, g and g * inv_z [dh, S] and the row statistics in shared memory
-// ((5 * dh + 3) * S floats, 28 KB at dh = 5, S = 256: the limit on S); the dq
-// sweep has a thread per query and the dk / dv sweep a thread per key,
-// recomputing the scores bit for bit (same products, same order), so every
-// sum over queries or keys is one thread's loop: no atomics, bit-equal from
-// run to run.
+// the five [S, S] products are 26.8 GFLOP: 0.401 ms on the fp32 FMA pipes,
+// 0.163 ms on the tensor cores in 3xTF32 (three TF32 products each), and
+// G * S^2 = 0.54 G exps, 0.128 ms on the special-function units.  Design:
+// one block per pair, q, k, v and g [dh, P] and the row statistics in shared
+// memory, and the head's backward in attn_bwd_tc.cuh: a warp per 16-key
+// tile computes each score and exp once (the scores and dp by fp32 FMAs) and
+// feeds e and ds straight into the dV, dK and dQ products, 3xTF32 on the
+// tensor cores; the warps' dQ partials are added in a fixed order, a barrier
+// every `ch` chunks of 16 queries.  No atomics: bit-equal from run to run.
+// Shared memory: 4 dh P + 3 S floats plus the routine's scratch (P the
+// routine's pitch; 87 KB at dh = 5, S = 256, with 8 chunks a step and two
+// blocks an SM).
 
-#include <cfloat>
-#include <cmath>
-
-#include "attn_common.cuh"
+#include "attn_bwd_tc.cuh"
 
 namespace {
 
-using attn::operand;
+// threads of a block: a warp per 16-key tile, at most MAX_THREADS
+inline int bwd_threads(int S) {
+  const int w = (S + 15) / 16;
+  return 32 * (w < attn::MAX_THREADS / 32 ? w : attn::MAX_THREADS / 32);
+}
+
+// shared-memory floats of a block with `ch` chunks of queries a step
+inline int bwd_floats_at(int dh, int S, int ch) {
+  return 4 * dh * attn_tc::pitch(S) + 3 * S + (S & 1) +
+         attn_tc::scratch_floats(dh, bwd_threads(S) / 32, 2, ch);
+}
+
+// chunks of 16 queries a step (a barrier a step): the most of 8, 4, 2, 1
+// with which two blocks share an SM, else with which a block fits
+inline int bwd_ch(int dh, int S) {
+  const int limits[2] = {attn::TWO_BLOCK_SMEM_BYTES, attn::MAX_SMEM_BYTES};
+  for (const int limit : limits) {
+    for (int ch = 8; ch >= 1; ch /= 2) {
+      if (bwd_floats_at(dh, S, ch) * 4 <= limit) return ch;
+    }
+  }
+  return 1;
+}
+
+// shared-memory floats of a block (ops/attention_cuda.py repeats this)
+inline int bwd_floats(int dh, int S) { return bwd_floats_at(dh, S, bwd_ch(dh, S)); }
+
+// dq, dk, dv [dh][S] of one pair in device memory
+struct PairOut {
+  float* dq;
+  float* dk;
+  float* dv;
+  int S;
+  __device__ float* at(int which, int d, int col) const {
+    return (which == 0 ? dq : which == 1 ? dk : dv) + d * S + col;
+  }
+};
 
 template <int DH>
-__global__ void __launch_bounds__(attn::MAX_THREADS)
+__global__ void __launch_bounds__(attn::MAX_THREADS, 2)
 sa_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ g,
               const float* __restrict__ o, const float* __restrict__ m_in,
               const float* __restrict__ z_in, float* __restrict__ dq, float* __restrict__ dk,
-              float* __restrict__ dv, int S, float scale, int bf16) {
-  float* qs = attn_smem;      // [DH][S] q (operand)
-  float* ks = qs + DH * S;    // [DH][S] k (operand)
-  float* vs = ks + DH * S;    // [DH][S] v (operand)
-  float* gs = vs + DH * S;    // [DH][S] g (operand of dp)
-  float* gz = gs + DH * S;    // [DH][S] g * inv_z (operand of dv)
-  float* ms = gz + DH * S;    // [S] row max
-  float* zs = ms + S;         // [S] inverse normaliser
-  float* dl = zs + S;         // [S] delta
+              float* __restrict__ dv, int S, float scale, int bf16, int ch) {
+  const int P = attn_tc::pitch(S);
+  float* qs = attn_smem;    // [DH][P] q
+  float* ks = qs + DH * P;  // [DH][P] k
+  float* vs = ks + DH * P;  // [DH][P] v
+  float* gs = vs + DH * P;  // [DH][P] g
+  float* ms = gs + DH * P;   // [S] row max
+  float* zs = ms + S;        // [S] inverse normaliser
+  float* dl = zs + S;        // [S] delta
+  float* scratch = dl + S + (S & 1);  // the routine's stages and dQ partial slots
   const long long base = static_cast<long long>(blockIdx.x) * DH * S;
   const long long row = static_cast<long long>(blockIdx.x) * S;
+  // fp32 as given: the routine rounds product operands to bf16 under "bf16"
   for (int i = threadIdx.x; i < S; i += blockDim.x) {
-    const float zi = __ldg(z_in + row + i);
     float delta = 0.f;
 #pragma unroll
     for (int d = 0; d < DH; ++d) {
       const float gi = __ldg(g + base + d * S + i);
       delta = fmaf(gi, __ldg(o + base + d * S + i), delta);
-      qs[d * S + i] = operand(__ldg(q + base + d * S + i), bf16);
-      ks[d * S + i] = operand(__ldg(k + base + d * S + i), bf16);
-      vs[d * S + i] = operand(__ldg(v + base + d * S + i), bf16);
-      gs[d * S + i] = operand(gi, bf16);
-      gz[d * S + i] = operand(gi * zi, bf16);
+      qs[d * P + i] = __ldg(q + base + d * S + i);
+      ks[d * P + i] = __ldg(k + base + d * S + i);
+      vs[d * P + i] = __ldg(v + base + d * S + i);
+      gs[d * P + i] = gi;
     }
     ms[i] = __ldg(m_in + row + i);
-    zs[i] = zi;
+    zs[i] = __ldg(z_in + row + i);
     dl[i] = delta;
   }
   __syncthreads();
-
-  // dq: a thread per query i, walking the keys
-  for (int i = threadIdx.x; i < S; i += blockDim.x) {
-    float qi[DH], gi[DH], acc[DH];
-#pragma unroll
-    for (int d = 0; d < DH; ++d) {
-      qi[d] = qs[d * S + i];
-      gi[d] = gs[d * S + i];
-      acc[d] = 0.f;
-    }
-    const float mi = ms[i], di = dl[i], zsc = zs[i] * scale;
-    for (int j = 0; j < S; ++j) {
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) {
-        s = fmaf(qi[d], ks[d * S + j], s);
-        dp = fmaf(gi[d], vs[d * S + j], dp);
-      }
-      const float e = __expf((s - mi) * scale);
-      const float ds = operand((dp - di) * zsc * e, bf16);
-#pragma unroll
-      for (int d = 0; d < DH; ++d) acc[d] = fmaf(ks[d * S + j], ds, acc[d]);
-    }
-#pragma unroll
-    for (int d = 0; d < DH; ++d) dq[base + d * S + i] = acc[d];
-  }
-
-  // dk, dv: a thread per key j, walking the queries (scores recomputed in
-  // the dq sweep's order: the same bits)
-  for (int j = threadIdx.x; j < S; j += blockDim.x) {
-    float kj[DH], vj[DH], ak[DH], av[DH];
-#pragma unroll
-    for (int d = 0; d < DH; ++d) {
-      kj[d] = ks[d * S + j];
-      vj[d] = vs[d * S + j];
-      ak[d] = 0.f;
-      av[d] = 0.f;
-    }
-    for (int i = 0; i < S; ++i) {
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) {
-        s = fmaf(qs[d * S + i], kj[d], s);
-        dp = fmaf(gs[d * S + i], vj[d], dp);
-      }
-      const float e = __expf((s - ms[i]) * scale);
-      const float ep = operand(e, bf16);
-      const float ds = operand((dp - dl[i]) * (zs[i] * scale) * e, bf16);
-#pragma unroll
-      for (int d = 0; d < DH; ++d) {
-        av[d] = fmaf(gz[d * S + i], ep, av[d]);
-        ak[d] = fmaf(qs[d * S + i], ds, ak[d]);
-      }
-    }
-#pragma unroll
-    for (int d = 0; d < DH; ++d) {
-      dk[base + d * S + j] = ak[d];
-      dv[base + d * S + j] = av[d];
-    }
-  }
+  const PairOut out{dq + base, dk + base, dv + base, S};
+  if (bf16)
+    attn_tc::attn_bwd_head<DH, true>(qs, ks, vs, gs, ms, zs, dl, S, P, scale, scratch, 2, ch, out);
+  else
+    attn_tc::attn_bwd_head<DH, false>(qs, ks, vs, gs, ms, zs, dl, S, P, scale, scratch, 2, ch,
+                                      out);
 }
 
 template <int DH>
@@ -133,11 +117,12 @@ int launch_bwd(const float* q, const float* k, const float* v, const float* g, c
                const float* m, const float* z, float* dq, float* dk, float* dv, int G, int S,
                float scale, int bf16, cudaStream_t st) {
   auto kern = sa_bwd_kernel<DH>;
-  const int smem = (5 * DH + 3) * S * static_cast<int>(sizeof(float));
+  const int smem = bwd_floats(DH, S) * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  void* args[] = {&q, &k, &v, &g, &o, &m, &z, &dq, &dk, &dv, &S, &scale, &bf16};
-  err = cudaLaunchKernel(kern, dim3(G), dim3(attn::threads_for(S)), args,
+  int ch = bwd_ch(DH, S);
+  void* args[] = {&q, &k, &v, &g, &o, &m, &z, &dq, &dk, &dv, &S, &scale, &bf16, &ch};
+  err = cudaLaunchKernel(kern, dim3(G), dim3(bwd_threads(S)), args,
                          static_cast<size_t>(smem), st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
@@ -149,8 +134,8 @@ extern "C" {
 
 // Launches on `stream` and returns the first CUDA error (0 on success).  The
 // caller has checked dtypes, shapes, contiguity, G >= 1, 1 <= dh <= 16,
-// S >= 1, the shared memory ((5 * dh + 3) * S floats) and 32-bit offsets
-// within a pair, and allocated dq, dk, dv [G, dh, S].
+// S >= 1, the shared memory (sa_bwd_smem_bytes) and 32-bit offsets within a
+// pair, and allocated dq, dk, dv [G, dh, S].
 int sa_bwd(const void* q, const void* k, const void* v, const void* g, const void* o,
            const void* m, const void* z, void* dq, void* dk, void* dv, int G, int dh, int S,
            float scale, int bf16, void* stream) {
@@ -160,6 +145,12 @@ int sa_bwd(const void* q, const void* k, const void* v, const void* g, const voi
                    static_cast<const float*>(z), static_cast<float*>(dq),
                    static_cast<float*>(dk), static_cast<float*>(dv), G, S, scale, bf16,
                    static_cast<cudaStream_t>(stream))
+}
+
+// shared-memory bytes of a block (the card tests hold ops/attention_cuda.py's
+// formula against this)
+int sa_bwd_smem_bytes(int dh, int S) {
+  return bwd_floats(dh, S) * static_cast<int>(sizeof(float));
 }
 
 const char* sa_bwd_error_string(int err) {
