@@ -275,6 +275,16 @@ SOURCES = {
     "ablate_dots": ("xdeepfm_tpu_torch/ops/csrc/sa_ablate.cu", "scripts/bench_attn_ablate.py:66"),
     "ablate_soft": ("xdeepfm_tpu_torch/ops/csrc/sa_ablate.cu", "scripts/bench_attn_ablate.py:78"),
 }
+# the headers that hold a kernel's design beyond its source
+HEADERS = {
+    "cin_dw": ("xdeepfm_tpu_torch/ops/csrc/tc_tf32.cuh",),
+    "ce_bwd": ("xdeepfm_tpu_torch/ops/csrc/tc_tf32.cuh",),
+    "sa_fwd": ("xdeepfm_tpu_torch/ops/csrc/attn_fwd_tc.cuh",),
+    "sa_bwd": ("xdeepfm_tpu_torch/ops/csrc/attn_bwd_tc.cuh",),
+    "ab_bwd": ("xdeepfm_tpu_torch/ops/csrc/attn_bwd_tc.cuh",),
+    **{f"ablate_{v}": ("xdeepfm_tpu_torch/ops/csrc/attn_fwd_tc.cuh",)
+       for v in ("full", "dots", "soft")},
+}
 WRAPPERS = {
     "cin_fwd": cin_rows_forward, "cin_bwd_dx": cin_rows_backward, "cin_dw": cin_rows_dw,
     "ce_fwd": ce_rows_forward, "ce_bwd": ce_rows_backward,
@@ -1308,13 +1318,14 @@ def _bound(flops, nbytes, peak):
     return max(flops / peak[1], nbytes / peak[2]) * 1e3, "operations" if by_ops else "bytes"
 
 
-def _bwd_tc_bounds(rec, flops, nbytes, exps, peak):
-    """The backwards' second bound and floor (rows 9 and 11 run 3xTF32 on the
-    tensor cores): every FLOP at a third of the TF32 rate, or the bytes, the
-    larger (``bwd_bound_3xtf32_ms``, the convention of rows 3 and 7); and one
-    exp per (i, j) at the card's exp rate (``bwd_exp_floor_ms``)."""
-    rec["bwd_bound_3xtf32_ms"] = max(TF32_PASSES * flops / peak[3], nbytes / peak[2]) * 1e3
-    rec["bwd_exp_floor_ms"] = exps / (peak[1] * EXP_PER_FLOP) * 1e3
+def _tc_bounds(rec, prefix, flops, nbytes, exps, peak):
+    """The attention kernels' second bound and floor: every FLOP at a third
+    of the TF32 rate, or the bytes, the larger (``<prefix>bound_3xtf32_ms``,
+    the least time at fp32 accuracy on the card: the convention of rows 3
+    and 7, and what rows 9 and 11 run in); and one exp per (i, j) at the
+    card's exp rate (``<prefix>exp_floor_ms``)."""
+    rec[f"{prefix}bound_3xtf32_ms"] = max(TF32_PASSES * flops / peak[3], nbytes / peak[2]) * 1e3
+    rec[f"{prefix}exp_floor_ms"] = exps / (peak[1] * EXP_PER_FLOP) * 1e3
 
 
 def phase_attn_kernels(peak):
@@ -1327,9 +1338,11 @@ def phase_attn_kernels(peak):
     bound.  Bytes: each input read once, each output written once (the
     block's forward with the activations it saves for the backward).  The
     backwards run three of their five [S, S] products in 3xTF32 on the
-    tensor cores: at the path shapes each gradient is also held against
-    float64 (:func:`_f64_gate`), and :func:`_bwd_tc_bounds` adds their 3xTF32
-    bound and exp floor."""
+    tensor cores, and sa_fwd takes its exps from a lagging reference max in
+    one pass: at the path shapes sa_fwd's o and each gradient are also held
+    against float64 (:func:`_f64_gate`), and :func:`_tc_bounds` adds the
+    3xTF32 bound and the exp floor.  sa_fwd's o, m and inv_z must be
+    bit-equal over two runs, as the backwards' gradients."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
     results = {}
     for label, G, dh, S, prec in SA_SHAPES:
@@ -1342,6 +1355,13 @@ def phase_attn_kernels(peak):
         want_o, want_m, want_z = sa_forward_reference(q, k, v, scale, prec)
         fwd_err = max(_checked(o, want_o, rtol), _checked(m, want_m, 1e-5),
                       _checked(z, want_z, 1e-4))
+        if not all(torch.equal(a, b) for a, b in zip((o, m, z), sa_forward(q, k, v, scale, prec))):
+            raise AssertionError(f"sa_fwd at {label}: two runs differ")
+        fwd_gate = None
+        if label == SA_PATH_SHAPE:
+            exact = sa_forward_reference(q.double(), k.double(), v.double(), scale)[0]
+            fwd_gate = _f64_gate(f"sa_fwd o at {label}", o, want_o, exact)
+            del exact
         del want_o, want_m, want_z
         bwd_err = max(_checked(a, b, rtol) for a, b in zip(
             grads, sa_backward_reference(g, q, k, v, o, m, z, scale, prec)))
@@ -1375,7 +1395,10 @@ def phase_attn_kernels(peak):
         )
         del lib_out, ql, kl, vl
         rec = dict(G=G, dh=dh, S=S, precision=prec, **times, fwd_max_abs_err=fwd_err,
-                   bwd_max_abs_err=bwd_err, bwd_bit_equal=True, gexp=G * S * S / 1e9)
+                   bwd_max_abs_err=bwd_err, fwd_bit_equal=True, bwd_bit_equal=True,
+                   gexp=G * S * S / 1e9)
+        if fwd_gate:
+            rec["fwd_err_vs_float64"], rec["fwd_plain_err_vs_float64"] = fwd_gate
         if gate:
             rec["bwd_err_vs_float64"] = {k: e[0] for k, e in gate.items()}
             rec["bwd_plain_err_vs_float64"] = {k: e[1] for k, e in gate.items()}
@@ -1385,7 +1408,8 @@ def phase_attn_kernels(peak):
             rec[f"{kind}_bound_ms"], rec[f"{kind}_bound_by"] = _bound(flops, nbytes, peak)
             rec[f"{kind}_gflop"] = flops / 1e9
             rec[f"{kind}_tflops"] = flops / rec[f"{kind}_ms"] / 1e9
-        _bwd_tc_bounds(rec, 10 * G * S * S * dh, 4 * (8 * n + 2 * G * S), G * S * S, peak)
+        _tc_bounds(rec, "fwd_", 4 * G * S * S * dh, 4 * (4 * n + 2 * G * S), G * S * S, peak)
+        _tc_bounds(rec, "bwd_", 10 * G * S * S * dh, 4 * (8 * n + 2 * G * S), G * S * S, peak)
         results["sa", label] = rec
         emit(phase="attn_kernel", kernel="small_attention", shape=label, **rec)
         del q, k, v, g, o, m, z
@@ -1450,7 +1474,7 @@ def phase_attn_kernels(peak):
             rec[f"{kind}_bound_ms"], rec[f"{kind}_bound_by"] = _bound(flops, nbytes, peak)
             rec[f"{kind}_gflop"] = flops / 1e9
             rec[f"{kind}_tflops"] = flops / rec[f"{kind}_ms"] / 1e9
-        _bwd_tc_bounds(rec, *bwd, L * B * H * S * S, peak)
+        _tc_bounds(rec, "bwd_", *bwd, L * B * H * S * S, peak)
         results["ab", label] = rec
         emit(phase="attn_kernel", kernel="attn_block", shape=label, **rec)
         del x, ws, g, pooled, saved
@@ -1700,7 +1724,10 @@ def phase_ablate_kernels(peak):
     The FLOPs go against the fp32 rate and the exp2 against the
     special-function rate (EXP_PER_FLOP); the bound is the largest of those
     two times and the bytes' (q, k and v read, o written; soft reads only
-    row 0 of q and k)."""
+    row 0 of q and k).  full and dots run sa_fwd's routine
+    (``attn_fwd_tc.cuh``): at the script's default shape their o is held
+    against float64 (:func:`_f64_gate`), and :func:`_tc_bounds` adds the
+    3xTF32 bound of their products and the exp floor."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
     results = {}
     for label, G, S, dh in ABLATE_SHAPES:
@@ -1715,7 +1742,14 @@ def phase_ablate_kernels(peak):
             if not torch.equal(o, again):
                 raise AssertionError(f"ablate_{variant} at {label}: two runs differ")
             plain = ABLATE_REFERENCES[variant]
-            err = _checked(o, plain(q, k, v, scale), ABLATE_RTOL)
+            want = plain(q, k, v, scale)
+            err = _checked(o, want, ABLATE_RTOL)
+            gate = None
+            if variant != "soft" and label == ABLATE_PATH_SHAPE:
+                exact = plain(q.double(), k.double(), v.double(), scale)
+                gate = _f64_gate(f"ablate_{variant} at {label}", o, want, exact)
+                del exact
+            del want
             rec = dict(G=G, S=S, dh=dh, max_abs_err=err, max_abs_out=float(o.abs().max()),
                        bit_equal=True,
                        ms=cuda_ms(lambda: kernel(q, k, v, scale), iters),
@@ -1738,6 +1772,10 @@ def phase_ablate_kernels(peak):
                        bound_unit=limit, gflop=flops / 1e9, gexp=exps / 1e9,
                        mbytes=nbytes / 1e6, fp32_ms=times["fp32"] * 1e3,
                        exp2_ms=times["exp2"] * 1e3, bytes_ms=times["bytes"] * 1e3)
+            if variant != "soft":
+                _tc_bounds(rec, "", 4 * dh * pairs, nbytes, exps, peak)
+            if gate:
+                rec["err_vs_float64"], rec["plain_err_vs_float64"] = gate
             if variant == "full" and label == "v2_train":
                 o_sa = sa_forward(q, k, v, scale)[0]
                 rec["max_abs_diff_vs_sa_fwd"] = _checked(o, o_sa, ABLATE_RTOL)
@@ -2289,10 +2327,11 @@ def main():
             ms=n * r[f"{kind}_ms"], plain_ms=n * r[f"plain_{kind}_ms"],
             bound_ms=n * r[f"{kind}_bound_ms"], bound_by=r[f"{kind}_bound_by"],
             library_ms=None if lib is None else n * lib,
-            **({"bound_tc_ms": n * r["bwd_bound_3xtf32_ms"],
-                "exp_floor_ms": n * r["bwd_exp_floor_ms"],
-                "err_vs_float64": max(r["bwd_err_vs_float64"].values())}
-               if kind == "bwd" else {}),
+            **({"bound_tc_ms": n * r[f"{kind}_bound_3xtf32_ms"],
+                "exp_floor_ms": n * r[f"{kind}_exp_floor_ms"],
+                "err_vs_float64": (max(r["bwd_err_vs_float64"].values()) if kind == "bwd"
+                                   else r["fwd_err_vs_float64"])}
+               if kname != "ab_fwd" else {}),
             per=(f"V2 train step at batch 4096 ({n} launches, G {r['G']}, dh {r['dh']}, "
                  f"S {r['S']})" if key[0] == "sa" else
                  f"V1 train step at batch 4096 (1 launch, E {r['E']}, S {r['S']}, H {r['H']})"),
@@ -2343,8 +2382,12 @@ def main():
                             if v == variant),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             bound_unit=r["bound_unit"], library_ms=r["library_ms"],
+            **({"bound_tc_ms": r["bound_3xtf32_ms"], "exp_floor_ms": r["exp_floor_ms"],
+                "err_vs_float64": r["err_vs_float64"]} if variant != "soft" else {}),
             per=f"one forward at G {r['G']}, S {r['S']}, dh {r['dh']} (the script's default)",
         ))
+    for rec in kernels:  # each kernel's source and the headers that hold its routine
+        rec["sources"] = [rec["source"], *HEADERS.get(rec["name"], ())]
     emit(kernels=kernels)
     emit(ok=True, device=dict(platform="gpu", kind=name, count=torch.cuda.device_count()))
 

@@ -37,6 +37,7 @@ SHIM = r"""
 #define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
+#define __maxnreg__(n)
 #define __align__(n) __attribute__((aligned(n)))
 #define __shared__
 
@@ -201,4 +202,31 @@ inline void cp_async4(void* dst, const void* src, bool valid) {
 inline void cp_async_commit() {}
 template <int N> inline void cp_async_wait() {}
 }  // namespace tc
+"""
+
+# What the attention sources use beyond SHIM (appended to it where they are
+# compiled): the routines' 8- and 16-byte words, the backward's lane-indexed
+# shuffle of TF32 bits, the forward's warp vote, and the block's rsqrtf.
+ATTN_EXTRA = r"""
+inline float rsqrtf(float x) { return 1.f / std::sqrt(x); }
+struct __attribute__((aligned(8))) float2 { float x, y; };
+struct __attribute__((aligned(8))) uint2 { uint32_t x, y; };
+inline float2 make_float2(float a, float b) { return {a, b}; }
+inline uint32_t __shfl_sync(unsigned, uint32_t v, int src) {
+  const int lane = emu::tidx.x % 32;
+  emu::warp->vals[lane] = __uint_as_float(v);
+  emu::warp->bar.arrive_and_wait();
+  const uint32_t r = __float_as_uint(emu::warp->vals[src % 32]);
+  emu::warp->bar.arrive_and_wait();
+  return r;
+}
+inline int __any_sync(unsigned, int p) {
+  const int lane = emu::tidx.x % 32;
+  emu::warp->vals[lane] = p ? 1.f : 0.f;
+  emu::warp->bar.arrive_and_wait();
+  int r = 0;
+  for (int l = 0; l < 32; ++l) r |= emu::warp->vals[l] != 0.f;
+  emu::warp->bar.arrive_and_wait();
+  return r;
+}
 """

@@ -5,16 +5,19 @@
 ``tests/cuda_emulation.py`` (a block's threads are OS threads,
 barriers and shuffles are emulated, one block runs at a time).  Each
 variant's output is held against its plain PyTorch version in
-``ops/attn_ablate_cuda.py`` at ragged and tiny shapes, at S past one block's
-256 threads (rows shared unevenly by threads and by the soft column sum's
-warps) and at dh 16; each variant runs twice and must be bit-equal.  The
-shared memory is filled with NaN before each launch: a read of a slot the
-kernel did not write spreads NaN into the output, and every slot past the
-launch's shared bytes (``sa_ablate_geometry``) must still be NaN afterwards.
-This checks the kernels' indexing, the soft kernel's chunked column sum and
-its shared-memory layout without a GPU; it says nothing about their speed or
-about the GPU's compiler, which ``chip_smoke.py`` and the ``cuda`` tests
-cover.  Skips where no g++ is installed.
+``ops/attn_ablate_cuda.py`` at ragged and tiny shapes, at S past one
+block's 16 warps of query tiles (a second round of tiles and of the soft
+column sums' per-warp rows), at dh 8, 9 and 16 (two m16 tiles a warp, then
+one); each variant runs twice
+and must be bit-equal.  The shared memory is filled with NaN before each
+launch: a read of a slot the kernel did not write spreads NaN into the
+output, and every slot past the launch's shared bytes
+(``sa_ablate_geometry``) must still be NaN afterwards.  This checks the
+forward routine's (``attn_fwd_tc.cuh``) indexing, lane layout and
+masking, the soft kernel's column sums and the shared-memory layout without
+a GPU; it says nothing about their speed or about the GPU's compiler, which
+``chip_smoke.py`` and the ``cuda`` tests cover.  Skips where no g++ is
+installed.
 
 Tolerance: within 1e-5 of the largest |o| (fp32 sums of S terms, and for
 soft of S exps over the rows, in another order than PyTorch's; exp2 of the
@@ -29,7 +32,7 @@ import subprocess
 import numpy as np
 import pytest
 import torch
-from cuda_emulation import SHIM
+from cuda_emulation import ATTN_EXTRA, SHIM
 
 from xdeepfm_tpu_torch.ops import attn_ablate_cuda as ab
 
@@ -90,7 +93,7 @@ def emulator(tmp_path_factory):
     if cxx is None:
         pytest.skip("needs g++ to compile the CUDA sources for the host emulation")
     d = tmp_path_factory.mktemp("ablate_emu")
-    (d / "cuda_runtime.h").write_text(SHIM)
+    (d / "cuda_runtime.h").write_text(SHIM + ATTN_EXTRA)
     (d / "cuda_bf16.h").write_text('#pragma once\n#include "cuda_runtime.h"\n')
     (d / "main.cpp").write_text(MAIN)
     exe = d / "ablate_emu"
@@ -101,10 +104,24 @@ def emulator(tmp_path_factory):
     return d, exe
 
 
-# (G, dh, S): ragged (S 39 -> 64 threads, 2 soft chunks, the last of 7
-# columns), tiny, S 266 (the script's default width: 256 threads, threads
-# 0-9 own two rows, 9 chunks) and 300 at dh 16
-CASES = [(5, 3, 39), (2, 1, 5), (2, 5, 266), (1, 16, 300)]
+# (G, dh, S): ragged (S 39: two tiles of 32 queries, the last 8-key block
+# of 7), tiny, S 266 (the script's default width: 9 tiles, the last of 10
+# queries), 300 at dh 16 (16-query tiles: 19 over the block's 16 warps, a
+# second round), dh 8 (the widest with two m16 tiles a warp)
+# and dh 9 (the narrowest with one) at ragged S
+CASES = [(5, 3, 39), (2, 1, 5), (2, 5, 266), (1, 16, 300), (3, 8, 37), (2, 9, 70)]
+
+
+def launch_geometry(variant, dh, S):
+    """(threads, shared bytes) of ``csrc/sa_ablate.cu``: a warp per tile of
+    32 queries (16 above dh 8; soft 32), at most 16 warps; full and dots
+    stage k and v [dh][KP], soft k's row 0, the warps' column sums
+    [warps][KP] and the row sums [S], with KP = S rounded up to 8."""
+    kp = -(-S // 8) * 8
+    tile = 32 if variant == "soft" or dh <= 8 else 16
+    warps = min(16, -(-S // tile))
+    floats = kp * (1 + warps) + S if variant == "soft" else 2 * dh * kp
+    return 32 * warps, 4 * floats
 
 
 @pytest.mark.parametrize("variant", ab.VARIANTS)
@@ -124,9 +141,7 @@ def test_emulated_ablation_kernels_match_plain(emulator, variant, G, dh, S):
     raw = np.fromfile(out, np.uint8)
     threads, smem, untouched = raw[:12].view(np.int32)
     o1, o2 = torch.from_numpy(raw[12:].view(np.float32).copy()).reshape(2, G, dh, S)
-    assert threads == min(256, -(-S // 32) * 32)
-    want_smem = 8 * dh * S + (4 * (S * 33 + 4 * S + threads // 32 * 32) if variant == "soft" else 0)
-    assert smem == want_smem and untouched == 1
+    assert (threads, smem) == launch_geometry(variant, dh, S) and untouched == 1
     want = ab.REFERENCES[variant](*(torch.from_numpy(a) for a in (q, k, v)), scale)
     assert torch.isfinite(o1).all()
     torch.testing.assert_close(o1, want, rtol=0, atol=1e-5 * float(want.abs().max()))

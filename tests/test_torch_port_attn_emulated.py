@@ -26,33 +26,18 @@ import subprocess
 import numpy as np
 import pytest
 import torch
-from cuda_emulation import SHIM
+from cuda_emulation import ATTN_EXTRA, SHIM
 
 from xdeepfm_tpu_torch.ops import attention_cuda as sa
 from xdeepfm_tpu_torch.ops import attn_block_cuda as ab
 
 CSRC = pathlib.Path(sa.__file__).resolve().with_name("csrc")
 
-# what the attention sources use beyond the CE kernels' stand-in: the
-# backward routine's 8-byte words and its lane-indexed shuffle of TF32 bits
-EXTRA = r"""
-inline float rsqrtf(float x) { return 1.f / std::sqrt(x); }
-struct __attribute__((aligned(8))) float2 { float x, y; };
-struct __attribute__((aligned(8))) uint2 { uint32_t x, y; };
-inline float2 make_float2(float a, float b) { return {a, b}; }
-inline uint32_t __shfl_sync(unsigned, uint32_t v, int src) {
-  const int lane = emu::tidx.x % 32;
-  emu::warp->vals[lane] = __uint_as_float(v);
-  emu::warp->bar.arrive_and_wait();
-  const uint32_t r = __float_as_uint(emu::warp->vals[src % 32]);
-  emu::warp->bar.arrive_and_wait();
-  return r;
-}
-"""
-
 # Reads one case and writes the kernels' outputs.  Mode 0 (rows 8-9): ints
 # (mode, G, dh, S, bf16), float scale, then q, k, v, g; writes o, m, inv_z,
-# dq, dk, dv.  Mode 1 (rows 10-11): ints (mode, B, E, S, L, H, residual,
+# dq, dk, dv.  Mode 2 (row 8 alone): the same header, then q, k, v; writes
+# o, m, inv_z of two runs, then each row's max recomputed here by fmaf over
+# d from 0 (the backward's order).  Mode 1 (rows 10-11): ints (mode, B, E, S, L, H, residual,
 # layer_norm), floats (scale, eps), then x, wq, wk, wv, wo, gamma, beta, w1,
 # b1, w2, g; writes pooled, then pooled again with no saves, dx and the
 # reduced parameter gradients.
@@ -105,6 +90,33 @@ int main(int argc, char** argv) {
     err |= sa_bwd(q.data(), k.data(), v.data(), g.data(), o.data(), m.data(), z.data(),
                   dq.data(), dk.data(), dv.data(), G, dh, S, scale, bf16, nullptr);
     for (auto* x : {&o, &m, &z, &dq, &dk, &dv}) put(out, *x);
+  } else if (mode == 2) {
+    auto hd = take<int>(in, 4);
+    const int G = hd[0], dh = hd[1], S = hd[2], bf16 = hd[3];
+    const float scale = take<float>(in, 1)[0];
+    const size_t n = (size_t)G * dh * S;
+    auto q = take<float>(in, n), k = take<float>(in, n), v = take<float>(in, n);
+    for (int run = 0; run < 2; ++run) {
+      std::vector<float> o(n), m((size_t)G * S), z((size_t)G * S);
+      poison();
+      err |= sa_fwd(q.data(), k.data(), v.data(), o.data(), m.data(), z.data(), G, dh, S, scale,
+                    bf16, nullptr);
+      for (auto* x : {&o, &m, &z}) put(out, *x);
+    }
+    auto op = [&](float x) { return bf16 ? __bfloat162float(__float2bfloat16_rn(x)) : x; };
+    std::vector<float> mref((size_t)G * S);
+    for (int g = 0; g < G; ++g)
+      for (int i = 0; i < S; ++i) {
+        float mx = -FLT_MAX;
+        for (int j = 0; j < S; ++j) {
+          float s = 0.f;
+          for (int d = 0; d < dh; ++d)
+            s = fmaf(op(q[((size_t)g * dh + d) * S + i]), op(k[((size_t)g * dh + d) * S + j]), s);
+          mx = fmaxf(mx, s);
+        }
+        mref[(size_t)g * S + i] = mx;
+      }
+    put(out, mref);
   } else {
     auto hd = take<int>(in, 7);
     const int B = hd[0], E = hd[1], S = hd[2], L = hd[3], H = hd[4], res = hd[5], ln = hd[6];
@@ -149,7 +161,7 @@ def emulator(tmp_path_factory):
     if cxx is None:
         pytest.skip("needs g++ to compile the CUDA sources for the host emulation")
     d = tmp_path_factory.mktemp("attn_emu")
-    (d / "cuda_runtime.h").write_text(SHIM + EXTRA)
+    (d / "cuda_runtime.h").write_text(SHIM + ATTN_EXTRA)
     (d / "cuda_bf16.h").write_text('#pragma once\n#include "cuda_runtime.h"\n')
     (d / "main.cpp").write_text(MAIN)
     exe = d / "attn_emu"
@@ -191,9 +203,12 @@ def _close_to_max(got, want, rtol):
 # (G, dh, S): ragged S below one warp and above, dh as V2's (5) and others;
 # for the backward's tensor-core routine also dh 16 (two k8 steps) at an S
 # that is not a multiple of 8, S a multiple of 8 but not of 16, and S 150
-# (10 key tiles over 8 warps: two rounds of dQ partials)
+# (10 key tiles over 8 warps: two rounds of dQ partials); for the forward's
+# routine dh 8 (the last width of two m16 tiles a warp) and 9 (the first of
+# one), S 266 (9 tiles of 32 queries, the last ragged) and
+# S 600 at dh 1 (19 tiles over the block's 16 warps: a second round)
 SA_CASES = [(3, 5, 37), (2, 3, 70), (2, 8, 16), (1, 1, 5), (1, 16, 45), (2, 5, 40),
-            (1, 1, 150)]
+            (1, 1, 150), (3, 9, 37), (1, 5, 266), (1, 1, 600)]
 
 
 @pytest.mark.parametrize("precision", ["fp32", "bf16"])
@@ -216,6 +231,67 @@ def test_emulated_small_attention_matches_plain(emulator, G, dh, S, precision):
     rtol = 1e-4 if precision == "fp32" else 1e-2
     for got, w in zip((dq, dk, dv), want):
         _close_to_max(got.view(G, dh, S), w, rtol)
+
+
+# (G, dh, S): ragged S at V2's dh, the ablation's S at dh 8 (two m16 tiles
+# and the last ragged 8-key block), dh 9 and 16 (one m16 tile a
+# warp), dh 1 at S 5
+M_CASES = [(3, 5, 37), (1, 8, 266), (2, 9, 70), (1, 16, 45), (2, 1, 5)]
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("G,dh,S", M_CASES)
+def test_emulated_forward_row_max_is_the_backwards_score_max(emulator, G, dh, S, precision):
+    """The forward's m is bit-equal to each row's max of the scores summed by
+    fmaf over d from 0, the order in which the backward recomputes them (so
+    that the backward's e is the forward's); o, m and inv_z are bit-equal
+    over two runs and o matches the plain version."""
+    rng = np.random.default_rng(7 + G * 100 + dh * 10 + S)
+    q, k, v = (rng.normal(size=(G, dh, S)).astype(np.float32) for _ in range(3))
+    scale = 1.0 / np.sqrt(dh)
+    n, r = G * dh * S, G * S
+    o, m, z, o2, m2, z2, mref = _run(
+        emulator, f"m_{G}_{dh}_{S}_{precision}", [2, G, dh, S, int(precision == "bf16")],
+        [scale], (q, k, v), [n, r, r, n, r, r, r])
+    assert torch.equal(m, mref)
+    for a, b in ((o, o2), (m, m2), (z, z2)):
+        assert torch.equal(a, b)
+    want_o = sa.sa_forward_reference(*(torch.from_numpy(a) for a in (q, k, v)), scale,
+                                     precision)[0]
+    rtol = 1e-4 if precision == "fp32" else 1e-2
+    _close_to_max(o.view(G, dh, S), want_o, rtol)
+
+
+# (G, dh, S): scores that rise along the keys, so that the fp32 walk moves
+# its reference max every few 8-key blocks (at the ragged last block too)
+RISING_CASES = [(2, 5, 37), (1, 8, 100), (1, 9, 45), (1, 1, 70)]
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("G,dh,S", RISING_CASES)
+def test_emulated_forward_rebases_on_rising_scores(emulator, G, dh, S, precision):
+    """The fp32 forward takes e from a reference max that trails the running
+    max by at most 2^8 in e and rebases its sums where a row passes it: with
+    every key's score above the last block's, o, m and inv_z still match the
+    plain version (m bit-equal to the fmaf row max), bit-equal over two runs."""
+    rng = np.random.default_rng(11 + G * 100 + dh * 10 + S)
+    q = (1 + 0.1 * rng.normal(size=(G, dh, S))).astype(np.float32)
+    k = (np.linspace(0, 60 / dh, S)[None, None, :] * (1 + 0.1 * rng.normal(size=(G, dh, S))))
+    k = k.astype(np.float32)
+    v = rng.normal(size=(G, dh, S)).astype(np.float32)
+    scale = 1.0 / np.sqrt(dh)
+    n, r = G * dh * S, G * S
+    o, m, z, o2, m2, z2, mref = _run(
+        emulator, f"rise_{G}_{dh}_{S}_{precision}", [2, G, dh, S, int(precision == "bf16")],
+        [scale], (q, k, v), [n, r, r, n, r, r, r])
+    assert torch.equal(m, mref)
+    for a, b in ((o, o2), (m, m2), (z, z2)):
+        assert torch.equal(a, b)
+    want_o, want_m, want_z = sa.sa_forward_reference(*(torch.from_numpy(a) for a in (q, k, v)),
+                                                     scale, precision)
+    torch.testing.assert_close(o.view(G, dh, S), want_o, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(m.view(G, S), want_m, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(z.view(G, S), want_z, rtol=1e-4, atol=1e-6)
 
 
 # (B, E, S, H, L, residual, layer_norm): V1's block (L 1), L 2, each of the

@@ -575,6 +575,33 @@ def test_attention_backwards_are_fp32_accurate_and_deterministic(card, kernel):
         assert torch.equal(a, a2)
 
 
+# (G, dh, S): V2's pairs cut in number, the ablation's S at dh 9 (one m16
+# tile a warp), dh 16 at a ragged S
+SA_FWD_SHAPES = [(512, 5, 256), (64, 9, 266), (33, 16, 100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,dh,S", SA_FWD_SHAPES)
+def test_small_attention_forward_is_fp32_accurate_and_deterministic(card, G, dh, S):
+    """The one-pass forward: o's error against float64 at most twice the
+    plain fp32 version's, or within 1e-6 of its largest entry; o, m and
+    inv_z bit-equal over two runs; and the backward on the forward's saved
+    tensors matches the plain backward on the same tensors."""
+    gen = torch.Generator().manual_seed(G + dh)
+    q, k, v, g = (torch.randn(G, dh, S, generator=gen).cuda() for _ in range(4))
+    scale = dh ** -0.5
+    o, m, inv_z = sa_forward(q, k, v, scale)
+    again = sa_forward(q, k, v, scale)
+    torch.cuda.synchronize()
+    for a, b in zip((o, m, inv_z), again):
+        assert torch.equal(a, b)
+    want = sa_forward_reference(q, k, v, scale)[0]
+    _f64_gate(o, want, sa_forward_reference(q.double(), k.double(), v.double(), scale)[0])
+    got = sa_backward(g, q, k, v, o, m, inv_z, scale)
+    for a, b in zip(got, sa_backward_reference(g, q, k, v, o, m, inv_z, scale)):
+        _close(a, b)
+
+
 # the parent design's largest S at dh 5 and 16: (5 dh + 3) S floats of
 # shared memory; the 3xTF32 backward needs less and takes them
 @pytest.mark.cuda

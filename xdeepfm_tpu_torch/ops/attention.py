@@ -71,9 +71,9 @@ def small_attention(q, k, v, scale, backend=None):
     (by device) or "torch" (the plain version).
 
     The kernels hold one pair's operands in shared memory, so dh <= 16 and
-    (5 * dh + 3) * S * 4 bytes within a Hopper block's 227 KB (S up to 2066
-    at dh = 5); past that it raises, on every device, unless ``backend`` is
-    "torch"."""
+    the backward's stage (:func:`attention_cuda.sa_smem_bytes`) within a
+    Hopper block's 227 KB (S up to 2422 at dh = 5); past that it raises, on
+    every device, unless ``backend`` is "torch"."""
     if backend not in (None, "torch"):
         raise ValueError(f"unknown small_attention backend {backend!r}")
     G, dh, S = q.shape

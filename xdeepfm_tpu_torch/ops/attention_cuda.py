@@ -8,10 +8,15 @@ tensors only, launches its hand-written CUDA kernel on PyTorch's current
 stream, raises on bad input and on a failed launch, and counts its launches
 in ``<wrapper>.launches``:
 
-* :func:`sa_forward` — ``csrc/sa_fwd.cu`` (replaces ``_sa_fwd`` /
-  ``_fwd_kernel``): (o, m, inv_z);
-* :func:`sa_backward` — ``csrc/sa_bwd.cu`` (replaces ``_sa_bwd`` /
-  ``_bwd_kernel``): (dq, dk, dv) from the saved m and inv_z.
+* :func:`sa_forward` — ``csrc/sa_fwd.cu`` over the forward routine
+  ``csrc/attn_fwd_tc.cuh`` (replaces ``_sa_fwd`` / ``_fwd_kernel``):
+  (o, m, inv_z).  A warp owns 32 queries (16 above dh 8), a lane 4 of them
+  and 2 keys of every 8, register-blocked fp32 FMAs for the scores and for
+  o = e v^T, in one pass whose reference max trails the running max (a max
+  sweep first under bf16);
+* :func:`sa_backward` — ``csrc/sa_bwd.cu`` over the backward routine
+  ``csrc/attn_bwd_tc.cuh`` (replaces ``_sa_bwd`` / ``_bwd_kernel``):
+  (dq, dk, dv) from the saved m and inv_z.
 
 Beside each is the same function in plain PyTorch (``*_reference``), which
 materialises the [G, S, S] scores.  The CPU path and the kernels' checks use
@@ -64,7 +69,9 @@ def sa_smem_bytes(dh: int, S: int) -> int:
 
 
 def check_sa_shape(dh: int, S: int) -> None:
-    """The kernels' shape gate; raises ValueError past it (no fallback)."""
+    """The kernels' shape gate; raises ValueError past it (no fallback).  The
+    backward's shared memory is the larger of the two (the forward stages
+    2 dh KP floats, KP = S rounded up to 8)."""
     if not 1 <= dh <= SA_MAX_DH:
         raise ValueError(f"small_attention: head width dh = {dh} outside 1..{SA_MAX_DH}")
     if S < 1 or sa_smem_bytes(dh, S) > SMEM_BYTES:
@@ -157,7 +164,9 @@ def _check(fn, precision, **named):
 
 def sa_forward(q, k, v, scale, precision="fp32"):
     """The forward kernel: same contract as :func:`sa_forward_reference`,
-    on CUDA fp32 contiguous tensors."""
+    on CUDA fp32 contiguous tensors.  m is bit-equal to the row max of the
+    scores summed by fmaf over d from 0, the backward's order; o is held
+    against float64 by ``chip_smoke.py``; bit-equal from run to run."""
     G, dh, S = _check("sa_forward", precision, q=q, k=k, v=v)
     o = torch.empty_like(q)
     m = torch.empty((G, S), device=q.device, dtype=torch.float32)

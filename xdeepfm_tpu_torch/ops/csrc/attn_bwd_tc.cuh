@@ -114,17 +114,6 @@ __device__ __forceinline__ void mma3_add(float (&acc)[4], const uint32_t (&ab)[4
   for (int r = 0; r < 4; ++r) acc[r] += BF16 ? d2[r] : (d0[r] + d1[r]) + d2[r];
 }
 
-#ifdef TC_TF32_EMULATED
-inline float ex2(float x) { return std::exp2(x); }
-#else
-// 2^x on the special-function units
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-#endif
-
 // Writes dq, dk and dv through out.at(0 = dq, 1 = dk, 2 = dv, d, column), a
 // pointer to the entry; dq is read back there in rounds after the first.
 // `scratch` holds scratch_floats(dh, warps of the block, nbuf, ch) floats,

@@ -1,14 +1,20 @@
 // Shared pieces of the attention kernels (sa_fwd.cu, sa_bwd.cu, ab_fwd.cu,
-// ab_bwd.cu).
+// ab_bwd.cu, sa_ablate.cu) and of their two routines, attn_fwd_tc.cuh (the
+// forward: sa_fwd.cu, sa_ablate.cu) and attn_bwd_tc.cuh (the backward:
+// sa_bwd.cu, ab_bwd.cu).
 //
-// All four walk softmax(scale * q^T k) v for tiny head widths (dh = 5 at
-// the canonical attention-CIN shapes) with one thread per query column and a
-// loop over keys; the head width is a template parameter (1..MAX_DH), so the
-// per-thread q, o and gradient accumulators stay in registers.
+// The head width is a template parameter (1..MAX_DH), so per-lane operands
+// and accumulators stay in registers.  The routines give each (query, key)
+// pair to one lane of a warp, at the positions of the m16n8k8 tensor-core
+// fragments: the backward runs its products over S in 3xTF32 on the tensor
+// cores (tc_tf32.cuh), the forward in fp32 FMAs.  ab_fwd.cu
+// (attn_block.cuh) still walks one thread per query column.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cmath>
 
 // the dynamic shared memory of every attention kernel
 extern __shared__ __align__(16) float attn_smem[];
@@ -62,6 +68,22 @@ __device__ __forceinline__ float block_max(float v, float* red) {
 }
 
 }  // namespace attn
+
+// The exp of both routines.
+namespace attn_tc {
+
+#ifdef TC_TF32_EMULATED
+inline float ex2(float x) { return std::exp2(x); }
+#else
+// 2^x on the special-function units
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+#endif
+
+}  // namespace attn_tc
 
 // `return fn<DH>(args...)` for the runtime head width dh in 1..MAX_DH, else
 // cudaErrorInvalidValue (the wrappers check dh first).

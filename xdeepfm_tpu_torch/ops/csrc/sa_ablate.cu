@@ -14,198 +14,75 @@
 //
 // Replaces: scripts/bench_attn_ablate.py build (pl.pallas_call :97) over
 // full_kernel :51, dots_kernel :66 and soft_kernel :78.  The script splits
-// the small-attention forward's time (row 8, sa_fwd.cu) between the two
-// dot products, which run on the card's FMA pipe, and the softmax passes
-// (max, exp2, sums), whose exp2 runs on the special-function units at an
-// eighth of the FMA pipe's instruction rate (16 against 128 a clock an SM).
+// the small-attention forward's time (row 8, sa_fwd.cu) between its two
+// products and its softmax passes (max, exp2, sums).
 //
 // Bound, at the script's default shape (G 8192, S 266, dh 5): full and dots
 // do 4 G S^2 dh = 11.6 GFLOP of products (0.17 ms at 67 TFLOP/s fp32), full
-// and soft G S^2 = 0.58 G exp2 (0.14 ms at 4.2 T/s), soft G S^2 products
-// and 2 G S^2 sums; the operands are 174 MB (0.05 ms at 3.35 TB/s).
+// and soft G S^2 = 0.58 G exp2 (0.14 ms at 4.2 T/s), soft G S^2 products and
+// 2 G S^2 sums; the operands are 174 MB (0.05 ms at 3.35 TB/s).
 //
-// So that the variants differ in their arithmetic alone, all three keep
-// sa_fwd.cu's structure: one block a pair, k and v staged in shared memory
-// ([dh][S] each), one thread a query column i with its q column and o
-// accumulators in registers (dh a template parameter), a max sweep over the
-// keys, then an exp / sum / product sweep.  The one place soft differs is
-// its column sum: a thread owns a row i, but o[., x] needs e summed over
-// every row for column x.  Shared-memory atomics would make that sum change
-// from run to run, and a second sweep with a thread a column would take
-// every exp twice.  Instead the exp sweep goes in chunks of SOFT_TILE key
-// columns: each thread writes its row's e for the chunk into a shared
-// [S][SOFT_TILE + 1] tile (padded: conflict-free), and after a barrier the
-// block's threads, a warp's lanes on the chunk's columns and its warps on
-// consecutive runs of rows, sum the tile in order, then one thread a column
-// adds the warps' partials in order.  Every e is taken once (G S^2 exp2
-// in all) and every sum is in a fixed order, so the output is bit-equal
-// from run to run.  soft reads only q's row 0 from device memory; the other
-// rows are dead and the compiler drops their loads.
+// So that the variants differ in their arithmetic alone, all three run
+// sa_fwd.cu's routine (attn_fwd_tc.cuh) with its grid (a block a pair), its
+// staging and its tiles (a warp per 32 queries, 16 above dh 8; a lane's 4
+// queries and 2 keys of each 8-key block).  full is that routine with no m
+// or inv_z written, so its o is sa_fwd's bit for bit.  dots is the routine
+// with the softmax an identity: one sweep, s straight into the value FMAs.
+// soft runs the same tiles on the outer product of q's and k's row 0 (one
+// multiply a pair), a max sweep, then the exp2 sweep with the row sums, and
+// takes its column sums by shuffles over each warp's rows into a per-warp
+// row [warps][KP] of shared memory; after one barrier the warps' rows are
+// added in warp order.  Every sum is in a fixed order, so the output is
+// bit-equal from run to run.  soft reads only row 0 of q and k from device
+// memory.
 
-#include <cfloat>
-#include <cmath>
-
-#include "attn_common.cuh"
+#include "attn_fwd_tc.cuh"
 
 namespace {
-
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr int SOFT_TILE = 32;  // key columns in one soft chunk: one per lane
 
 enum Variant { FULL = 0, DOTS = 1, SOFT = 2 };
 
 // Threads and dynamic shared memory of a launch; the kernels carve their
 // shared memory in this order.
 void geometry(int variant, int dh, int S, int* threads, long long* smem) {
-  *threads = attn::threads_for(S);
-  long long floats = 2LL * dh * S;  // k and v
-  if (variant == SOFT)  // tile, q row 0, m c, z, column sums, warp partials
-    floats += static_cast<long long>(S) * (SOFT_TILE + 1) + 4LL * S +
-              static_cast<long long>(*threads / 32) * SOFT_TILE;
-  *smem = floats * static_cast<long long>(sizeof(float));
+  const int floats =
+      variant == SOFT ? attn_fwd::soft_floats(S) : attn_fwd::stage_floats(dh, S);
+  *threads = 32 * attn_fwd::warps_for(variant == SOFT ? 1 : dh, S);
+  *smem = static_cast<long long>(floats) * static_cast<long long>(sizeof(float));
 }
 
-// k and v of this block's pair into shared memory, [DH][S] each.
-template <int DH>
-__device__ __forceinline__ void stage_kv(const float* __restrict__ k, const float* __restrict__ v,
-                                         float* ks, float* vs, long long base, int S) {
-  for (int e = threadIdx.x; e < DH * S; e += blockDim.x) {
-    ks[e] = __ldg(k + base + e);
-    vs[e] = __ldg(v + base + e);
-  }
+// o [dh][S] of one pair in device memory, no statistics
+struct PairOut {
+  float* out;
+  int S;
+  __device__ void o(int d, int i, float x) const { out[d * S + i] = x; }
+  __device__ void max(int, float) const {}
+  __device__ void inv(int, float) const {}
+};
+
+template <int DH, bool SOFTMAX>
+__global__ void __maxnreg__(attn_fwd::MAX_REGS)
+fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, float* __restrict__ o, int S, float scale) {
+  const int KP = attn_fwd::key_pitch(S);
+  float* ks = attn_smem;      // [DH][KP]
+  float* vs = ks + DH * KP;   // [DH][KP]
+  const long long base = static_cast<long long>(blockIdx.x) * DH * S;
+  attn_fwd::stage<DH, false, true>(k + base, v + base, S, ks, vs);
   __syncthreads();
+  attn_fwd::attn_fwd_head<DH, false, SOFTMAX>(q + base, ks, vs, S, scale,
+                                              PairOut{o + base, S});
 }
 
 template <int DH>
-__device__ __forceinline__ float score(const float (&qi)[DH], const float* ks, int S, int j) {
-  float s = 0.f;
-#pragma unroll
-  for (int d = 0; d < DH; ++d) s = fmaf(qi[d], ks[d * S + j], s);
-  return s;
-}
-
-template <int DH>
-__global__ void __launch_bounds__(attn::MAX_THREADS)
-full_kernel(const float* __restrict__ q, const float* __restrict__ k,
-            const float* __restrict__ v, float* __restrict__ o, int S, float c) {
-  float* ks = attn_smem;    // [DH][S]
-  float* vs = ks + DH * S;  // [DH][S]
-  const long long base = static_cast<long long>(blockIdx.x) * DH * S;
-  stage_kv<DH>(k, v, ks, vs, base, S);
-  for (int i = threadIdx.x; i < S; i += blockDim.x) {
-    float qi[DH];
-#pragma unroll
-    for (int d = 0; d < DH; ++d) qi[d] = __ldg(q + base + d * S + i);
-    float mx = -FLT_MAX;
-    for (int j = 0; j < S; ++j) mx = fmaxf(mx, score<DH>(qi, ks, S, j));
-    const float mc = mx * c;
-    float z = 0.f;
-    float acc[DH];
-#pragma unroll
-    for (int d = 0; d < DH; ++d) acc[d] = 0.f;
-    for (int j = 0; j < S; ++j) {
-      const float e = exp2f(score<DH>(qi, ks, S, j) * c - mc);
-      z += e;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) acc[d] = fmaf(vs[d * S + j], e, acc[d]);
-    }
-    const float inv = 1.f / z;
-#pragma unroll
-    for (int d = 0; d < DH; ++d) o[base + d * S + i] = acc[d] * inv;
-  }
-}
-
-template <int DH>
-__global__ void __launch_bounds__(attn::MAX_THREADS)
-dots_kernel(const float* __restrict__ q, const float* __restrict__ k,
-            const float* __restrict__ v, float* __restrict__ o, int S, float) {
-  float* ks = attn_smem;    // [DH][S]
-  float* vs = ks + DH * S;  // [DH][S]
-  const long long base = static_cast<long long>(blockIdx.x) * DH * S;
-  stage_kv<DH>(k, v, ks, vs, base, S);
-  for (int i = threadIdx.x; i < S; i += blockDim.x) {
-    float qi[DH];
-#pragma unroll
-    for (int d = 0; d < DH; ++d) qi[d] = __ldg(q + base + d * S + i);
-    float acc[DH];
-#pragma unroll
-    for (int d = 0; d < DH; ++d) acc[d] = 0.f;
-    for (int j = 0; j < S; ++j) {
-      const float s = score<DH>(qi, ks, S, j);
-#pragma unroll
-      for (int d = 0; d < DH; ++d) acc[d] = fmaf(vs[d * S + j], s, acc[d]);
-    }
-#pragma unroll
-    for (int d = 0; d < DH; ++d) o[base + d * S + i] = acc[d];
-  }
-}
-
-template <int DH>
-__global__ void __launch_bounds__(attn::MAX_THREADS)
+__global__ void __maxnreg__(attn_fwd::MAX_REGS)
 soft_kernel(const float* __restrict__ q, const float* __restrict__ k,
-            const float* __restrict__ v, float* __restrict__ o, int S, float c) {
-  constexpr int J = SOFT_TILE;
-  const int T = blockDim.x;
-  const int warps = T / 32;
-  float* ks = attn_smem;            // [DH][S]
-  float* vs = ks + DH * S;          // [DH][S]
-  float* tile = vs + DH * S;        // [S][J + 1]: one chunk's e
-  float* q0 = tile + S * (J + 1);   // [S]: q[0, i]
-  float* row_mc = q0 + S;           // [S]: m[i] * c
-  float* row_z = row_mc + S;        // [S]: z[i]
-  float* col = row_z + S;           // [S]: sum_i e[i, x]
-  float* part = col + S;            // [warps][J]: each warp's share of a column
+            const float* __restrict__ v, float* __restrict__ o, int S, float scale) {
+  float* ks = attn_smem;  // k's row 0 [KP], then the routine's scratch
   const long long base = static_cast<long long>(blockIdx.x) * DH * S;
-  stage_kv<DH>(k, v, ks, vs, base, S);
-  const float* k0 = ks;  // k's row d = 0
-
-  // the max sweep, a thread a row
-  for (int i = threadIdx.x; i < S; i += T) {
-    const float qi = __ldg(q + base + i);
-    float mx = -FLT_MAX;
-    for (int j = 0; j < S; ++j) mx = fmaxf(mx, qi * k0[j]);
-    q0[i] = qi;
-    row_mc[i] = mx * c;
-    row_z[i] = 0.f;
-  }
-  // rows [lane's warp * rows, + rows) of a chunk's column `lane`
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int rows = (S + warps - 1) / warps;
-  const int lo = warp * rows, hi = min(S, lo + rows);
-  for (int j0 = 0; j0 < S; j0 += J) {
-    const int jn = min(J, S - j0);
-    // the exp sweep over the chunk, a thread a row (each row's own data)
-    for (int i = threadIdx.x; i < S; i += T) {
-      const float qi = q0[i], mc = row_mc[i];
-      float z = row_z[i];
-      for (int t = 0; t < jn; ++t) {
-        const float e = exp2f(qi * k0[j0 + t] * c - mc);
-        z += e;
-        tile[i * (J + 1) + t] = e;
-      }
-      row_z[i] = z;
-    }
-    __syncthreads();
-    if (lane < jn) {
-      float sum = 0.f;
-      for (int i = lo; i < hi; ++i) sum += tile[i * (J + 1) + lane];
-      part[warp * J + lane] = sum;
-    }
-    __syncthreads();
-    // the warps' partials of each column, in order; the next chunk's tile
-    // writes do not touch part, and its partial writes follow a barrier
-    if (threadIdx.x < jn) {
-      float sum = 0.f;
-      for (int w = 0; w < warps; ++w) sum += part[w * J + threadIdx.x];
-      col[j0 + threadIdx.x] = sum;
-    }
-  }
+  attn_fwd::stage<1, false, false>(k + base, nullptr, S, ks, nullptr);
   __syncthreads();
-  for (int x = threadIdx.x; x < S; x += T) {
-    const float out = (1.f / row_z[x]) * col[x];
-#pragma unroll
-    for (int d = 0; d < DH; ++d) o[base + d * S + x] = out;
-  }
+  attn_fwd::attn_fwd_soft<DH>(q + base, ks, S, scale, ks + attn_fwd::key_pitch(S), o + base);
 }
 
 template <int DH>
@@ -213,19 +90,19 @@ int launch(int variant, const float* q, const float* k, const float* v, float* o
            float scale, cudaStream_t st) {
   void (*kern)(const float*, const float*, const float*, float*, int, float);
   switch (variant) {
-    case FULL: kern = full_kernel<DH>; break;
-    case DOTS: kern = dots_kernel<DH>; break;
+    case FULL: kern = fwd_kernel<DH, true>; break;
+    case DOTS: kern = fwd_kernel<DH, false>; break;
     case SOFT: kern = soft_kernel<DH>; break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   int threads;
   long long smem;
   geometry(variant, DH, S, &threads, &smem);
+  if (smem > attn::MAX_SMEM_BYTES) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  float c = scale * LOG2E;
-  void* args[] = {&q, &k, &v, &o, &S, &c};
+  void* args[] = {&q, &k, &v, &o, &S, &scale};
   err = cudaLaunchKernel(kern, dim3(G), dim3(threads), args, static_cast<size_t>(smem), st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

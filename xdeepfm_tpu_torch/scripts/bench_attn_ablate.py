@@ -5,8 +5,9 @@ Times three forwards at the CIN-attention shapes to split the per-pair cost
 of the small-attention forward between its two products (the score dot
 and the output dot, fp32 FMAs on the card's CUDA cores) and its softmax
 passes (max, exp2 on the special-function units, sums, normalisation).  The
-variants (``ops/attn_ablate_cuda.py``, ``ops/csrc/sa_ablate.cu``) change only
-the in-kernel arithmetic: the same operands, one block a pair, the same
+variants (``ops/attn_ablate_cuda.py``, ``ops/csrc/sa_ablate.cu``) run the
+production forward's routine (``ops/csrc/attn_fwd_tc.cuh``) and change only
+its arithmetic: the same operands, one block a pair, the same tiles and
 shared-memory staging, so differences attribute compute.
 
     python -m xdeepfm_tpu_torch.scripts.bench_attn_ablate [G S dh] [--device cuda|cpu]
