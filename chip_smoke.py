@@ -13,9 +13,10 @@ run in order and any failure raises, so the exit code is non-zero:
    paths' shapes (layer 1's h a strided column view, as split-half gives it)
    and at a ragged and a tiny shape, with its time, the plain version's time,
    one ``torch.einsum`` over the three operands (the library yardstick) and
-   the least time the card could take (bound); ``cin_dw`` (3xTF32 on the
-   tensor cores) must also be bit-equal over two runs and, against a float64
-   dW, within twice the plain fp32 version's error (or 1e-6 of the largest
+   the least time the card could take (bound); the backward kernels
+   ``cin_bwd_dx`` and ``cin_dw`` (3xTF32 on the tensor cores) must also be
+   bit-equal over two runs and, against float64 (each of dh and dx0, and
+   dW), within twice the plain fp32 version's error (or 1e-6 of the largest
    entry), with a second bound at the TF32 tensor-core peak;
 4. serving: the canonical xDeepFM (26 sparse fields, vocab 10000, dim 10,
    13 dense, CIN (256, 128) split-half, DNN (256, 256)) with seeded random
@@ -39,12 +40,13 @@ run in order and any failure raises, so the exit code is non-zero:
    canonical Pro step's stacked shape (26 heads, batch 4096, hidden 64,
    vocabulary 10000 padded to 10112) with every row and with a third of the
    rows valid, one head of the same shape, a ragged shape, no valid row and a
-   tiny shape; the backward (3xTF32 on the tensor cores) must be
-   bit-deterministic and, against its plain version in float64, within twice
-   the plain fp32 version's error (or 1e-6 of the largest entry); times
-   beside the plain version's, the library's (``F.linear`` then
-   ``F.cross_entropy``, logits materialised, backward by autograd) and the
-   bounds on the fp32 pipes and the TF32 tensor cores;
+   tiny shape; both kernels (3xTF32 on the tensor cores, the logits through
+   one routine) must be bit-deterministic and, against their plain versions
+   in float64 (ll and logz; dh, dW and db), within twice the plain fp32
+   version's error (or 1e-6 of the largest entry); times beside the plain
+   version's, the library's (``F.linear`` then ``F.cross_entropy``, logits
+   materialised, backward by autograd) and the bounds on the fp32 pipes and
+   the TF32 tensor cores, and the forward's exp floor;
 9. Pro training: the canonical xDeepFMPro (the columns above, SFG decoder
    (128, 64) with label attention, positive-only, dropout 0.1), ``fit`` at
    batch 4096 with Adam for three epochs.  Per step one ``ce_fwd`` and one
@@ -229,7 +231,7 @@ PEAKS = (
     ("H200", 67.0e12, 4.8e12, 495e12),
     ("H100", 67.0e12, 3.35e12, 495e12),
 )
-# 3xTF32 (cin_dw, ce_bwd): three TF32 products for each fp32 one
+# 3xTF32 (the CIN backward, the CE kernels): three TF32 products for each fp32 one
 TF32_PASSES = 3
 # exp2 runs on the special-function units: 16 results a clock an SM against
 # the FMA pipe's 128 fp32 FMAs (2 FLOP each) for compute capability 9.0
@@ -277,8 +279,10 @@ SOURCES = {
 }
 # the headers that hold a kernel's design beyond its source
 HEADERS = {
+    "cin_bwd_dx": ("xdeepfm_tpu_torch/ops/csrc/tc_tf32.cuh",),
     "cin_dw": ("xdeepfm_tpu_torch/ops/csrc/tc_tf32.cuh",),
-    "ce_bwd": ("xdeepfm_tpu_torch/ops/csrc/tc_tf32.cuh",),
+    "ce_fwd": ("xdeepfm_tpu_torch/ops/csrc/ce_tc.cuh", "xdeepfm_tpu_torch/ops/csrc/tc_tf32.cuh"),
+    "ce_bwd": ("xdeepfm_tpu_torch/ops/csrc/ce_tc.cuh", "xdeepfm_tpu_torch/ops/csrc/tc_tf32.cuh"),
     "sa_fwd": ("xdeepfm_tpu_torch/ops/csrc/attn_fwd_tc.cuh",),
     "sa_bwd": ("xdeepfm_tpu_torch/ops/csrc/attn_bwd_tc.cuh",),
     "ab_bwd": ("xdeepfm_tpu_torch/ops/csrc/attn_bwd_tc.cuh",),
@@ -376,8 +380,9 @@ def _kernel_case(name, N, H, M, O, strided, gen):
     """(kernel call, plain call, library call, bytes the function must move)
     on fresh unit-normal inputs; h is a column view of an [N, 2H] tensor if
     ``strided``.  The library call is one ``torch.einsum`` over the three
-    operands per output (dh and dx0 for cin_bwd_dx), timed only.  cin_dw's
-    kernel call carries ``float64()``, its plain version in float64."""
+    operands per output (dh and dx0 for cin_bwd_dx), timed only.  The
+    backward kernels' calls carry ``float64()``, their plain versions in
+    float64."""
     def rand(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
 
@@ -390,11 +395,16 @@ def _kernel_case(name, N, H, M, O, strided, gen):
                 lambda: torch.einsum("nh,nm,ohm->no", h, x0, W3),
                 ins + 4 * (O * H * M + O + N * O))
     if name == "cin_bwd_dx":
-        return (lambda: cin_rows_backward(g, h, x0, W),
-                lambda: cin_rows_backward_reference(g, h, x0, W),
+        def dx():
+            return cin_rows_backward(g, h, x0, W)
+
+        dx.float64 = lambda: cin_rows_backward_reference(g.double(), h.double(), x0.double(),
+                                                         W.double())
+        return (dx, lambda: cin_rows_backward_reference(g, h, x0, W),
                 lambda: (torch.einsum("no,nm,ohm->nh", g, x0, W3),
                          torch.einsum("no,nh,ohm->nm", g, h, W3)),
                 ins + 4 * (N * O + O * H * M) + ins)
+
     def dw():
         return cin_rows_dw(g, h, x0)
 
@@ -420,10 +430,11 @@ def _f64_gate(label, got, want, exact):
 def phase_kernels(peak):
     """Every kernel against its plain version on the same inputs.  FLOPs are
     the contraction's 2*N*H*M*O for each kernel (the N*H*M-sized epilogue
-    terms add under 1% at O >= 128 and are left out of the bound).
-    ``cin_dw`` (3xTF32 on the tensor cores) is also held against a float64
-    dW on the card (:func:`_f64_gate`), must be bit-equal over two runs, and
-    carries a second bound, 3 * FLOPs at the TF32 peak (``bound_tc_ms``)."""
+    terms add under 1% at O >= 128 and are left out of the bound).  The
+    backward kernels ``cin_bwd_dx`` and ``cin_dw`` (3xTF32 on the tensor
+    cores) are also held against float64 on the card (:func:`_f64_gate`, each
+    of dh and dx0, and dW), must be bit-equal over two runs, and carry a
+    second bound, 3 * FLOPs at the TF32 peak (``bound_tc_ms``)."""
     _, peak_flops, peak_bw, peak_tc = peak
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     results = {}
@@ -445,14 +456,22 @@ def phase_kernels(peak):
             torch.testing.assert_close(
                 got, want, rtol=BWD_RTOL, atol=BWD_RTOL * want.abs().max().item() + 1e-6
             )
-        if name == "cin_dw":
+        if name != "cin_fwd":
             exact = kernel.float64()
-            extra["err_vs_float64"], extra["plain_err_vs_float64"] = _f64_gate(
-                f"cin_dw at {label}", got, want, exact)
+            if name == "cin_bwd_dx":  # dh and dx0 each to the gate
+                gates = [_f64_gate(f"{name} {out} at {label}", a, b, e) for out, a, b, e in
+                         zip(("dh", "dx0"), got.split((H, M), 1), want.split((H, M), 1), exact)]
+            else:
+                gates = [_f64_gate(f"{name} at {label}", got, want, exact)]
+            extra["err_vs_float64"] = max(e for e, _ in gates)
+            extra["plain_err_vs_float64"] = max(p for _, p in gates)
             del exact
-            extra["bit_equal"] = bool(torch.equal(got, kernel()))
+            again = kernel()
+            again = torch.cat(again, 1) if name == "cin_bwd_dx" else again
+            extra["bit_equal"] = bool(torch.equal(got, again))
+            del again
             if not extra["bit_equal"]:
-                raise AssertionError(f"cin_dw at {label}: two runs differ")
+                raise AssertionError(f"{name} at {label}: two runs differ")
         del got, want
         iters = 20 if N > 10_000 else 200
         kernel_ms = cuda_ms(kernel, iters)
@@ -460,7 +479,7 @@ def phase_kernels(peak):
         library_ms = cuda_ms(library, iters)
         flops = 2 * N * H * M * O
         by_ops = flops / peak_flops >= nbytes / peak_bw
-        if name == "cin_dw":
+        if name != "cin_fwd":
             extra["bound_tc_ms"] = max(TF32_PASSES * flops / peak_tc, nbytes / peak_bw) * 1e3
         results[name, label] = dict(
             N=N, H=H, M=M, O=O, strided_h=strided, max_abs_err=err, kernel_ms=kernel_ms,
@@ -1046,10 +1065,13 @@ def phase_ce_kernels(peak):
     forward's products 2*nv*K*V*F, the backward's least work three times that
     (the logit recompute, dh and dW; the kernels recompute the logits once per
     output, 4x).  Bytes: each input read once (nv rows of h, t, g, logz) and
-    each output written once.  The exps (nv*V*F a pass) are left out.  The
-    backward (3xTF32 on the tensor cores) is also held against its plain
-    version in float64 on the card (:func:`_f64_gate`, each of dh, dW, db)
-    and carries a second bound, 3 * FLOPs at the TF32 peak (``bwd_bound_tc_ms``)."""
+    each output written once.  The exps (nv*V*F a pass) are left out of the
+    fp32 bound.  Both kernels (3xTF32 on the tensor cores) are also held
+    against their plain versions in float64 on the card (:func:`_f64_gate`:
+    ll and logz, and each of dh, dW, db), must be bit-equal over two runs,
+    and carry a second bound, 3 * FLOPs at the TF32 peak, with the bytes
+    (``*_bound_tc_ms``); the forward also its exp floor, nv*V*F exps at the
+    card's exp rate (``fwd_exp_floor_ms``)."""
     _, peak_flops, peak_bw, peak_tc = peak
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
     results = {}
@@ -1062,6 +1084,16 @@ def phase_ce_kernels(peak):
         torch.testing.assert_close(ll, want_ll, **CE_TOL)
         torch.testing.assert_close(logz, want_logz, **CE_TOL)
         fwd_err = max(float((ll - want_ll).abs().max()), float((logz - want_logz).abs().max()))
+        exact = ce_rows_forward_reference(h.double(), W.double(), b.double(), t, nvd)
+        fwd64 = {out: _f64_gate(f"ce_fwd {out} at {label}", got, want, ex)
+                 for out, got, want, ex in zip(("ll", "logz"), (ll, logz),
+                                                (want_ll, want_logz), exact)}
+        del exact
+        torch.cuda.empty_cache()
+        fwd_again = ce_rows_forward(h, W, b, t, nvd)
+        if not (torch.equal(ll, fwd_again[0]) and torch.equal(logz, fwd_again[1])):
+            raise AssertionError(f"ce_fwd at {label}: two runs differ")
+        del fwd_again
         bwd_err = 0.0
         plain = ce_rows_backward_reference(g, h, W, b, t, logz, nvd)
         for got, want in zip(grads, plain):
@@ -1104,9 +1136,14 @@ def phase_ce_kernels(peak):
         bwd_bytes = (4 * (rows * K + F_ * V * K + F_ * V + 2 * F_ * rows) + 8 * F_ * rows
                      + 4 * (B * K + F_ * V * K + F_ * V))
         rec = dict(F=F_, B=B, K=K, V=V, padded_columns=pad, num_valid=nv, **times,
-                   fwd_max_abs_err=fwd_err, bwd_max_abs_err=bwd_err, bwd_bit_equal=deterministic,
+                   fwd_max_abs_err=fwd_err, bwd_max_abs_err=bwd_err, fwd_bit_equal=True,
+                   bwd_bit_equal=deterministic,
+                   fwd_err_vs_float64={k: e[0] for k, e in fwd64.items()},
+                   plain_fwd_err_vs_float64={k: e[1] for k, e in fwd64.items()},
                    bwd_err_vs_float64={k: e[0] for k, e in vs64.items()},
                    plain_bwd_err_vs_float64={k: e[1] for k, e in vs64.items()},
+                   fwd_bound_tc_ms=max(TF32_PASSES * flops / peak_tc, fwd_bytes / peak_bw) * 1e3,
+                   fwd_exp_floor_ms=rows * V * F_ / (peak_flops * EXP_PER_FLOP) * 1e3,
                    bwd_bound_tc_ms=max(TF32_PASSES * 3 * flops / peak_tc,
                                        bwd_bytes / peak_bw) * 1e3)
         for kind, n_flops, n_bytes, ms in (("fwd", flops, fwd_bytes, times["fwd_ms"]),
@@ -2292,7 +2329,9 @@ def main():
             per="train step at batch 4096 (2 launches)",
             **({"bound_tc_ms": sum(r["bound_tc_ms"] for r in path),
                 "err_vs_float64": max(r["err_vs_float64"] for (k, _), r in shapes.items()
-                                      if k == kname)} if kname == "cin_dw" else {}),
+                                      if k == kname),
+                "bit_equal": all(r["bit_equal"] for (k, _), r in shapes.items() if k == kname)}
+               if kname != "cin_fwd" else {}),
         ))
     for kname, kind in (("ce_fwd", "fwd"), ("ce_bwd", "bwd")):
         source, replaces = SOURCES[kname]
@@ -2307,7 +2346,11 @@ def main():
             library_ms=r[f"library_{kind}_ms"],
             per=f"Pro train step at batch 4096, {r['F']} stacked heads, {r['num_valid']} "
                 "valid rows (1 launch)",
-            **({"bound_tc_ms": r["bwd_bound_tc_ms"]} if kind == "bwd" else {}),
+            bound_tc_ms=r[f"{kind}_bound_tc_ms"],
+            **({"exp_floor_ms": r["fwd_exp_floor_ms"]} if kind == "fwd" else {}),
+            err_vs_float64=max(e for x in ce_shapes.values()
+                               for e in x[f"{kind}_err_vs_float64"].values()),
+            bit_equal=all(x[f"{kind}_bit_equal"] for x in ce_shapes.values()),
         ))
     # rows 8-9 on V2's train step (2 launches of each), rows 10-11 on V1's (1)
     for kname, kind, key, path, n in (

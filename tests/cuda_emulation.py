@@ -183,11 +183,9 @@ inline void mma(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
   }
   emu::warp->bar.arrive_and_wait();
 }
-inline void mma3(float (&c)[4], const uint32_t (&ab)[4], const uint32_t (&as)[4],
-                 const uint32_t (&bb)[2], const uint32_t (&bs)[2]) {
-  mma(c, as, bb);
-  mma(c, ab, bs);
-  mma(c, ab, bb);
+inline void mma_z(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  for (int q = 0; q < 4; ++q) d[q] = 0.f;
+  mma(d, a, b);
 }
 // cp.async: a plain copy, zero-filled past the valid bytes; the waits have
 // nothing to wait for

@@ -1,14 +1,16 @@
 """The CIN backward's CUDA source, run on the CPU by a host emulation.
 
-``ops/csrc/cin_bwd.cu`` (``cin_dw`` in 3xTF32 on the tensor cores, and
-``cin_bwd_dx``) is compiled with g++ against the stand-in for the CUDA
+``ops/csrc/cin_bwd.cu`` (``cin_dw`` and ``cin_bwd_dx``, both in 3xTF32 on
+the tensor cores) is compiled with g++ against the stand-in for the CUDA
 runtime and for ``tc_tf32.cuh`` in ``tests/cuda_emulation.py`` (a block's
 threads are OS threads, barriers, shuffles and the m16n8k8 MMA are
 emulated, one block runs at a time).  The outputs are held against the
 plain PyTorch versions in ``ops/cin_cuda.py`` at ragged N, H*M not a
-multiple of 128, O below 128, a strided h, several row slices, x0 rows wider
-than the staged 128 columns, a one-column x0 and operands that are not
-16-byte aligned.  ``cin_dw`` runs twice and must be bit-equal; the shared
+multiple of 128, O below 128 and not a multiple of 4, a strided h, several
+row slices and chunk splits, x0 rows wider than the staged 128 columns, a
+one-column x0, M padded to each of ``cin_bwd_dx``'s group widths 8, 16, 32
+and 64 (a group over two warps), a chunk whose last warps are all padding,
+and operands that are not 16-byte aligned.  ``cin_dw`` runs twice and must be bit-equal; the shared
 memory is filled with NaN before each launch, so a read of a slot the kernel
 did not write spreads NaN into the output, and every slot past the largest
 launch's shared bytes must still be NaN afterwards.  This checks the
@@ -18,9 +20,9 @@ compiler, which ``chip_smoke.py`` and the ``cuda`` tests cover.  Skips where
 no g++ is installed.
 
 Tolerance: each output within 1e-4 of its largest entry of the plain fp32
-version, as the card tests hold the kernels; and dW's error against float64
-at most twice the plain fp32 version's, or within 1e-6 of its largest
-entry, the gate that ``chip_smoke.py`` holds the card to.
+version, as the card tests hold the kernels; and each output's error against
+float64 at most twice the plain fp32 version's, or within 1e-6 of its
+largest entry, the gate that ``chip_smoke.py`` holds the card to.
 """
 
 import pathlib
@@ -51,8 +53,8 @@ alignas(16) float cin_smem[kSmem];
 extern "C" int cin_dw(const void*, const void*, int, const void*, void*, int, int, int, int,
                       int, int, void*);
 extern "C" int cin_sum_slices(const void*, int, long long, void*, int, void*);
-extern "C" int cin_bwd_dx(const void*, const void*, const void*, int, const void*, void*, void*,
-                          int, int, int, int, int, int, int, void*);
+extern "C" int cin_bwd_dx(const void*, const void*, void*, const void*, int, const void*, void*,
+                          void*, int, int, int, int, int, int, int, void*);
 template <class T> std::vector<T> take(FILE* f, size_t n, size_t pad = 0) {
   std::vector<T> v(n + pad);
   if (n && fread(v.data() + pad, sizeof(T), n, f) != n) throw 1;
@@ -87,7 +89,8 @@ int main(int argc, char** argv) {
   }
   if (mp) {  // cin_bwd_dx takes M <= 64 only
     for (int i = 0; i < kSmem; ++i) cin_smem[i] = NAN;
-    err |= cin_bwd_dx(g, w.data(), h.data(), ldh, x0, dh.data(),
+    std::vector<float> wp((size_t)O * H * mp);
+    err |= cin_bwd_dx(g, w.data(), wp.data(), h.data(), ldh, x0, dh.data(),
                       splits > 1 ? dx_part.data() : dx0.data(), N, H, M, O, mp, splits, per,
                       nullptr);
     if (splits > 1)
@@ -123,7 +126,9 @@ def emulator(tmp_path_factory):
 # and O = 7 (4-byte g copies), 4 slices; a strided h (split-half) with two O
 # tiles of 16-byte g copies; x0 rows of 150 columns, staged a tile column at
 # a time; one x0 column, so a tile's h window is 128 wide (H = 140 spans two
-# tiles); tiny; misaligned g and x0
+# tiles); tiny; misaligned g and x0; then cin_bwd_dx's group widths 16 (a
+# strided h, O = 33 over two ring stages) and 64 (M = 40 misaligned with a
+# last chunk of one group, M = 64 with two chunk splits)
 CASES = [
     (300, 13, 26, 7, False, 12, False),
     (200, 5, 26, 256, True, 8, False),
@@ -131,6 +136,9 @@ CASES = [
     (100, 140, 1, 8, True, 4, False),
     (5, 3, 2, 1, False, 1, False),
     (130, 7, 26, 128, False, 4, True),
+    (150, 9, 13, 33, True, 4, False),
+    (129, 5, 40, 64, False, 2, True),
+    (70, 4, 64, 20, False, 8, False),
 ]
 
 
@@ -143,7 +151,8 @@ def test_emulated_cin_backward_matches_plain(emulator, N, H, M, O, strided, slot
     x0 = rng.normal(size=(N, M)).astype(np.float32)
     W = rng.normal(size=(O, H * M)).astype(np.float32)
     slices, rows = cin_cuda._dw_slices(N, H, M, O, slots)
-    mp, splits, per = cin_cuda._dx_split(N, H, M, slots) if M <= cin_cuda.FUSED_MAX_M else (0, 1, 1)
+    mp, splits, per = (cin_cuda._dx_split(N, H, M, O, slots) if M <= cin_cuda.FUSED_MAX_M
+                       else (0, 1, 1))
     case, out = d / f"{N}_{H}_{M}_{O}.bin", d / f"{N}_{H}_{M}_{O}.out"
     with open(case, "wb") as f:
         np.array([N, H, M, O, hw.shape[1], slices, rows, mp, splits, per, misaligned],
@@ -168,7 +177,13 @@ def test_emulated_cin_backward_matches_plain(emulator, N, H, M, O, strided, slot
     assert err <= 2 * plain_err or err <= 1e-6 * top, (err, plain_err, top)
 
     if M <= cin_cuda.FUSED_MAX_M:
-        want_dh, want_dx0 = cin_cuda.cin_rows_backward_reference(gt, ht, xt, torch.from_numpy(W))
-        for got, want in ((dh.reshape(N, H), want_dh), (dx0.reshape(N, M), want_dx0)):
-            torch.testing.assert_close(got, want, rtol=1e-4,
-                                       atol=1e-4 * float(want.abs().max()) + 1e-6)
+        Wt = torch.from_numpy(W)
+        want_dh, want_dx0 = cin_cuda.cin_rows_backward_reference(gt, ht, xt, Wt)
+        exact = cin_cuda.cin_rows_backward_reference(gt.double(), ht.double(), xt.double(),
+                                                     Wt.double())
+        for got, want, ex in zip((dh.reshape(N, H), dx0.reshape(N, M)), (want_dh, want_dx0),
+                                 exact):
+            top = float(want.abs().max())
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * top + 1e-6)
+            err, plain_err = float((got - ex).abs().max()), float((want - ex).abs().max())
+            assert err <= 2 * plain_err or err <= 1e-6 * top, (err, plain_err, top)

@@ -311,6 +311,55 @@ def test_cin_dw_kernel_is_fp32_accurate_and_deterministic(card, N, H, M, O, stri
     assert torch.equal(got, cin_rows_dw(g, h, x0))
 
 
+# (N, H, M, O, strided): layer 1 of a train batch of 1024 (split-half's
+# strided h), layer 0 of it, a ragged shape, and M = 40 (groups padded to
+# 64, each over two warps) with O not a multiple of 4
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,H,M,O,strided", [(10240, 128, 26, 128, True),
+                                             (10240, 26, 26, 256, False),
+                                             (1001, 13, 26, 7, False),
+                                             (700, 9, 40, 33, False)])
+def test_cin_bwd_dx_kernel_is_fp32_accurate_and_deterministic(card, N, H, M, O, strided):
+    h, x0, W, _ = _inputs(N + H + O, N, 2 * H if strided else H, M, O)
+    h = h[:, :H]
+    W = W[:, :H * M].contiguous()
+    g = torch.randn(N, O, generator=torch.Generator().manual_seed(N + 1)).cuda()
+    got = cin_rows_backward(g, h, x0, W)
+    torch.cuda.synchronize()
+    want = cin_rows_backward_reference(g, h, x0, W)
+    exact = cin_rows_backward_reference(g.double(), h.double(), x0.double(), W.double())
+    for a, w, ex in zip(got, want, exact):
+        _close(a, w)
+        _f64_gate(a, w, ex)
+    for a, c in zip(got, cin_rows_backward(g, h, x0, W)):
+        assert torch.equal(a, c)
+
+
+# (F, B, K, V, pad, num_valid): the Pro step's stacked heads cut to 4 with a
+# third of a 4096 batch valid, one head of 10000 columns, ragged, no valid
+# row, num_valid not a multiple of the 64-row items (nor of 128)
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,B,K,V,pad,nv", [(4, 4096, 64, 10112, 112, 1365),
+                                            (1, 4096, 64, 10000, 0, 1365),
+                                            (3, 1001, 13, 1000, 0, 700),
+                                            (2, 512, 64, 1000, 0, 0),
+                                            (2, 777, 64, 3000, 0, 321)])
+def test_ce_forward_kernel_is_fp32_accurate_and_deterministic(card, F, B, K, V, pad, nv):
+    h, W, b, t, _ = _ce_inputs(F * B + V + 1, F, B, K, V, pad)
+    nvd = torch.tensor(nv, device="cuda")
+    got = ce_rows_forward(h, W, b, t, nvd)
+    torch.cuda.synchronize()
+    want = ce_rows_forward_reference(h, W, b, t, nvd)
+    exact = ce_rows_forward_reference(h.double(), W.double(), b.double(), t, nvd)
+    for a, w, ex in zip(got, want, exact):
+        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-4)
+        if nv:
+            _f64_gate(a, w, ex)
+        assert (a[:, nv:] == 0).all()
+    for a, c in zip(got, ce_rows_forward(h, W, b, t, nvd)):
+        assert torch.equal(a, c)
+
+
 # (F, B, K, V, pad, num_valid): the Pro step's stacked heads cut to 4 with a
 # third of a 4096 batch valid; ragged; no valid row; num_valid not a
 # multiple of the 64-row items (nor of 128)

@@ -1,5 +1,4 @@
-"""Import guard: each module of the port that the training CLIs, the data
-pipeline and the attention ablation added imports neither JAX nor anything
+"""Import guard: every module of the port imports neither JAX nor anything
 of ``xdeepfm_tpu``, and none imports pandas when it is imported (the native
 route runs without it).  Each module is imported in a fresh interpreter, so
 no other test's imports count."""
@@ -14,7 +13,17 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = ["cli", "cli.common", "cli.xdftrain", "cli.xdftrain_v1", "cli.xdftrain_attn",
            "cli.xdftrain_pro", "data", "native", "profiling", "utils", "callbacks", "serving",
-           "scripts", "scripts.bench_attn_ablate", "ops.attn_ablate", "ops.attn_ablate_cuda"]
+           "scripts", "scripts.bench_attn_ablate", "ops.attn_ablate", "ops.attn_ablate_cuda",
+           # the rest of the port: the engine, the models, the layers, the kernel
+           # routes and their wrappers, Pro
+           "basemodel", "embeddings", "weights", "features", "metrics", "optimizers",
+           "models", "models.autoint", "models.dien", "models.difm", "models.xdeepfm",
+           "models.xdeepfm_attn", "nn", "nn.activations", "nn.cin_attention", "nn.core",
+           "nn.interaction", "nn.sequence", "ops", "ops._build", "ops.attention",
+           "ops.attention_cuda", "ops.attn_block", "ops.attn_block_cuda", "ops.ce",
+           "ops.ce_cuda", "ops.cin", "ops.cin_cuda", "ops.gru", "ops.gru_cuda",
+           "ops.lane_attention", "ops.lane_attention_cuda", "pro", "pro.autodis", "pro.sfg",
+           "pro.xdeepfm_pro"]
 PROBE = """
 import importlib, json, sys
 importlib.import_module(sys.argv[1])

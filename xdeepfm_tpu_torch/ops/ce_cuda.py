@@ -14,10 +14,14 @@ counts its launches in ``<wrapper>.launches``:
 * :func:`ce_rows_forward` — ``csrc/ce_fwd.cu`` (replaces ``_ce_fwd`` /
   ``_fwd_kernel`` and ``_ces_fwd`` / ``_fwd_kernel_stacked``);
 * :func:`ce_rows_backward` — ``csrc/ce_bwd.cu`` (replaces ``_ce_bwd`` /
-  ``_bwd_kernel`` and ``_ces_bwd`` / ``_bwd_kernel_stacked``), its products
-  on the tensor cores in 3xTF32 (``csrc/tc_tf32.cuh``: each fp32 operand
-  split into two TF32 halves and three products summed, within the plain
-  fp32 version's error of a float64 result; one exact product under "bf16").
+  ``_bwd_kernel`` and ``_ces_bwd`` / ``_bwd_kernel_stacked``).
+
+Every product runs on the tensor cores in 3xTF32 (``csrc/tc_tf32.cuh``: each
+fp32 operand split into two TF32 halves and three products summed, within
+the plain fp32 version's error of a float64 result; one exact product under
+"bf16").  The forward and the backward's dh kernel compute their logits
+through one routine, ``csrc/ce_tc.cuh``'s ``logit_walk``, so the backward's
+exp(S - logz) takes the very logits the forward's logz came from.
 
 Beside each is the same function in plain PyTorch (``*_reference``), which
 materialises the [F, B, V] logits.  The CPU path and the kernels' checks use
@@ -37,16 +41,16 @@ from . import _build
 # memory and registers: the shape gate of the kernel route (ops/ce.py)
 CE_MAX_K = 64
 _ROWS = 128  # rows (and vocabulary columns) of one tile
-# Blocks per SM the work is split into where the shapes allow, with every row
-# valid: the forward runs 2 blocks per SM and aims at several waves, since
-# about a third of a Pro batch is valid; ce_dw_kernel has heads x tiles blocks
-# already.  ce_dh_kernel's persistent blocks (2 a SM) stride over items of 64
-# valid rows x a split of the pairs: ~16 items a SM with every row valid,
-# ~5.5 at a third.
-_FWD_BLOCKS_PER_SM = 16
-_DH_ITEMS_PER_SM = 16
-_DH_RESIDENT = 2
-_DH_ROWS = 64
+# The forward and ce_dh_kernel run persistent blocks (2 a SM) that stride
+# over items of 64 valid rows x a split of the (head, vocabulary tile) pairs:
+# ~32 items a SM with every row valid, ~11 at a third of a Pro batch (the
+# training path's share, where 32 beat 16 and 24 and matched 48 on an NVIDIA
+# H100 80GB HBM3 at 700.00 W; with every row valid 16 to 48 ran alike).
+# ce_dw_kernel has heads x tiles blocks already, cut into row slices to
+# about 4 a SM.
+_ITEMS_PER_SM = 32
+_RESIDENT = 2
+_ITEM_ROWS = 64
 _DW_BLOCKS_PER_SM = 4
 _MAX_PARTIALS = 64
 
@@ -96,7 +100,7 @@ def ce_rows_backward_reference(g, h, W, b, targets, logz, num_valid=None, precis
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "ce_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "ce_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "ce_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I,
                _I, _I, _I, _I, _I, _P],
 }
@@ -153,14 +157,34 @@ def _sms(device):
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def _item_split(B, V, F, sms):
+    """(splits, pairs per split, persistent blocks) of the item walk that
+    the forward and ``ce_dh_kernel`` share: its items are the 64-row tiles
+    of the valid rows times the splits of the F * V / 128 (head, tile)
+    pairs, about ``_ITEMS_PER_SM`` items per SM with every row valid (at most
+    ``_MAX_PARTIALS`` splits), taken by at most ``_RESIDENT`` blocks per SM."""
+    row_tiles = -(-B // _ITEM_ROWS)
+    pairs = F * -(-V // _ROWS)
+    splits = max(1, min(pairs, _MAX_PARTIALS, -(-(_ITEMS_PER_SM * sms) // row_tiles)))
+    per_split = -(-pairs // splits)
+    splits = -(-pairs // per_split)
+    return splits, per_split, min(_RESIDENT * sms, row_tiles * splits)
+
+
 def forward_split(B, V, F, sms):
-    """(ranges, tiles per range) of the forward: its B / 128 row tiles times
-    F heads times the ranges of the V / 128 vocabulary tiles, about
-    ``_FWD_BLOCKS_PER_SM`` blocks per SM, at least 2 tiles per range."""
-    n_vt = -(-V // _ROWS)
-    want = -(-(_FWD_BLOCKS_PER_SM * sms) // (-(-B // _ROWS) * F))
-    per = min(n_vt, max(2, -(-n_vt // want)))
-    return -(-n_vt // per), per
+    """(splits, pairs per split, blocks, slots) of the forward: the item
+    walk of :func:`_item_split`; each split writes two partials (its two
+    column warps) of every head it reaches, and at most ceil(tiles / pairs
+    per split) + 1 splits reach one head, so ``slots`` partials a head."""
+    splits, per_split, blocks = _item_split(B, V, F, sms)
+    return splits, per_split, blocks, forward_slots(V, splits, per_split)
+
+
+def forward_slots(V, splits, per_split):
+    """Partials of one head in the forward: two (the column warps) for each
+    split that reaches it, at most ceil(V / 128 / per_split) + 1 splits."""
+    tiles = -(-V // _ROWS)
+    return 2 * min(splits, -(-tiles // per_split) + 1)
 
 
 def ce_rows_forward(h, W, b, targets, num_valid=None, precision="fp32"):
@@ -172,29 +196,25 @@ def ce_rows_forward(h, W, b, targets, num_valid=None, precision="fp32"):
     logz = torch.empty_like(ll)
     if B == 0 or F == 0:
         return ll, logz
-    ranges, per_range = forward_split(B, V, F, _sms(h.device))
-    part = torch.empty((3, ranges, F, B), device=h.device, dtype=torch.float32)
+    splits, per_split, blocks, slots = forward_split(B, V, F, _sms(h.device))
+    if 3 * slots * F * B >= 2**31:
+        raise ValueError("ce_rows_forward: partials exceed 32-bit indexing")
+    part = torch.empty((3, slots, F, B), device=h.device, dtype=torch.float32)
     _launch("ce_fwd", h.device, h.data_ptr(), W.data_ptr(), b.data_ptr(), targets.data_ptr(),
             None if nv is None else nv.data_ptr(), ll.data_ptr(), logz.data_ptr(),
-            part.data_ptr(), ranges, per_range, B, K, V, F, int(precision == "bf16"))
+            part.data_ptr(), slots, splits, per_split, blocks, B, K, V, F,
+            int(precision == "bf16"))
     ce_rows_forward.launches += 1
     return ll, logz
 
 
 def backward_split(B, V, F, sms):
     """(splits, pairs per split, dh blocks, slices, rows per slice) of the
-    backward: ``ce_dh_kernel``'s items are its 64-row tiles of the valid rows
-    times the splits of the F * V / 128 (head, tile) pairs, about
-    ``_DH_ITEMS_PER_SM`` items per SM with every row valid, taken by at most
-    ``_DH_RESIDENT`` persistent blocks per SM; ``ce_dw_kernel``'s blocks are
-    the F * V / 128 tiles times the row slices, about ``_DW_BLOCKS_PER_SM``
-    per SM; at most ``_MAX_PARTIALS`` partials each."""
-    row_tiles = -(-B // _DH_ROWS)
+    backward: ``ce_dh_kernel`` walks the items of :func:`_item_split`;
+    ``ce_dw_kernel``'s blocks are the F * V / 128 tiles times the row
+    slices, about ``_DW_BLOCKS_PER_SM`` per SM, at most ``_MAX_PARTIALS``."""
+    splits, per_split, blocks = _item_split(B, V, F, sms)
     pairs = F * -(-V // _ROWS)
-    splits = max(1, min(pairs, _MAX_PARTIALS, -(-(_DH_ITEMS_PER_SM * sms) // row_tiles)))
-    per_split = -(-pairs // splits)
-    splits = -(-pairs // per_split)
-    blocks = min(_DH_RESIDENT * sms, row_tiles * splits)
     dw_tiles = -(-B // _ROWS)
     slices = max(1, min(dw_tiles, _MAX_PARTIALS, -(-(_DW_BLOCKS_PER_SM * sms) // pairs)))
     rows = -(-dw_tiles // slices) * _ROWS

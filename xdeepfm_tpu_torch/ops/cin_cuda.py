@@ -10,10 +10,12 @@ launch, and counts its launches in ``<wrapper>.launches``:
 * :func:`cin_rows_backward` — ``cin_bwd_dx`` in ``csrc/cin_bwd.cu``, dh and
   dx0 (the dh/dx0 half of ``_bwd_fused_t`` / ``_bwd_kernel``);
 * :func:`cin_rows_dw` — ``cin_dw`` in ``csrc/cin_bwd.cu``, dW (replaces
-  ``_dw_contract`` / ``_dw_kernel`` and the dW half of ``_bwd_kernel``), on
-  the tensor cores in 3xTF32 (``csrc/tc_tf32.cuh``): each fp32 operand split
-  into two TF32 halves and three products summed, within the plain fp32
-  product's error of a float64 dW.
+  ``_dw_contract`` / ``_dw_kernel`` and the dW half of ``_bwd_kernel``).
+
+Both backward kernels run on the tensor cores in 3xTF32
+(``csrc/tc_tf32.cuh``): each fp32 operand split into two TF32 halves and
+three products summed, within the plain fp32 version's error of a float64
+result.
 
 Beside each is the same function in plain PyTorch (``*_reference``), the
 materialised lowering of ``xdeepfm_tpu/ops/cin.py:114-120`` and of its
@@ -23,6 +25,8 @@ gradient.  The CPU path and the kernels' checks use them.
 from __future__ import annotations
 
 import ctypes
+import functools
+import heapq
 
 import torch
 
@@ -30,8 +34,13 @@ from . import _build
 
 # cin_bwd_dx pads each h group's M columns to a power of two up to this
 FUSED_MAX_M = 64
-_SLOTS_PER_SM = 2  # resident blocks per SM of cin_fwd and cin_bwd_dx (launch bounds)
+_SLOTS_PER_SM = 2  # resident blocks per SM of cin_fwd (launch bounds)
+_DX_SLOTS_PER_SM = 1  # cin_bwd_dx: one block of 8 warps a SM
 _MAX_DX_SPLITS = 8
+# A cin_bwd_dx block's own cost (x0, the ring's fill, dx0 at its end) in
+# 32-channel stages: fitted to the kernel's times under forced splits at
+# the train shapes on an NVIDIA H100 80GB HBM3 at 700.00 W.
+_DX_BLOCK_STAGES = 2
 
 
 def cin_rows_reference(h_rows, x0_rows, W, b):
@@ -64,7 +73,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "cin_fwd": {"cin_fwd": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
     "cin_bwd": {
-        "cin_bwd_dx": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        "cin_bwd_dx": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
         "cin_dw": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         "cin_sum_slices": [_P, _I, ctypes.c_longlong, _P, _I, _P],
     },
@@ -143,24 +152,32 @@ def _sum_slices(part, out):
             n, out.data_ptr(), max(1, min(-(-n // 256), 8 * _slots(out.device))))
 
 
-def _dx_split(N, H, M, slots):
+@functools.lru_cache(maxsize=None)
+def _dx_split(N, H, M, O, slots):
     """(mp, splits, chunks per split) for cin_bwd_dx: each split of the
-    ceil(H / (128 / mp)) chunks gets its own grid row; the fewest waves of
-    ``slots`` resident blocks times chunks per block wins, ties to fewer
-    splits (each split writes an [N, M] partial)."""
+    ceil(H / (128 / mp)) chunks gets its own grid row.  The blocks (128-row
+    tiles x splits, in launch order) are list-scheduled over ``slots``
+    resident blocks, each taking its chunks' 32-channel stages plus
+    ``_DX_BLOCK_STAGES`` of its own; the shortest makespan wins, ties to
+    fewer splits (each split writes an [N, M] partial)."""
     mp = 8
     while mp < M:
         mp *= 2
     n_chunks = -(-H // (128 // mp))
     row_tiles = -(-N // 128)
+    stages = -(-O // 32)
     best = None
     for per in range(n_chunks, 0, -1):
         splits = -(-n_chunks // per)
         if splits > _MAX_DX_SPLITS:
             break
-        cost = -(-row_tiles * splits // slots) * per
-        if best is None or cost < best[0]:
-            best = (cost, splits, per)
+        ends = [0] * min(slots, row_tiles * splits)
+        for s in range(splits):
+            busy = (min(n_chunks, (s + 1) * per) - s * per) * stages + _DX_BLOCK_STAGES
+            for _ in range(row_tiles):
+                heapq.heapreplace(ends, ends[0] + busy)
+        if best is None or max(ends) < best[0]:
+            best = (max(ends), splits, per)
     return mp, best[1], best[2]
 
 
@@ -188,8 +205,9 @@ def _dw_slices(N, H, M, O, slots, bm=128, bn=128, kc=32):
 
 def cin_rows_backward(g, h_rows, x0_rows, W):
     """The ``cin_bwd_dx`` kernel: same contract as
-    :func:`cin_rows_backward_reference` on CUDA fp32 tensors; ``g`` must be
-    contiguous and M at most ``FUSED_MAX_M``."""
+    :func:`cin_rows_backward_reference` on CUDA fp32 tensors, in 3xTF32 on
+    the tensor cores; ``g`` must be contiguous and M at most
+    ``FUSED_MAX_M``."""
     if g.ndim != 2 or W.ndim != 2:
         raise ValueError("cin_rows_backward: expects g [N, O] and W [O, H*M]")
     O = W.shape[0]
@@ -205,15 +223,17 @@ def cin_rows_backward(g, h_rows, x0_rows, W):
     dev = h_rows.device
     if N == 0 or O == 0:
         return h_rows.new_zeros((N, H)), h_rows.new_zeros((N, M))
-    mp, splits, per = _dx_split(N, H, M, _slots(dev))
-    if splits * N * M >= 2**31 or N * H >= 2**31:
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    mp, splits, per = _dx_split(N, H, M, O, _DX_SLOTS_PER_SM * sms)
+    if splits * N * M >= 2**31 or N * H >= 2**31 or O * H * mp >= 2**31:
         raise ValueError("cin_rows_backward: operands exceed 32-bit indexing")
     dh = torch.empty((N, H), device=dev, dtype=torch.float32)
     dx0 = torch.empty((N, M), device=dev, dtype=torch.float32)
     part = dx0 if splits == 1 else torch.empty((splits, N, M), device=dev, dtype=torch.float32)
-    _launch("cin_bwd", "cin_bwd_dx", dev, g.data_ptr(), W.data_ptr(), h_rows.data_ptr(),
-            h_rows.stride(0), x0_rows.data_ptr(), dh.data_ptr(), part.data_ptr(),
-            N, H, M, O, mp, splits, per)
+    wp = torch.empty((O, H * mp), device=dev, dtype=torch.float32)  # W, groups padded to mp
+    _launch("cin_bwd", "cin_bwd_dx", dev, g.data_ptr(), W.data_ptr(), wp.data_ptr(),
+            h_rows.data_ptr(), h_rows.stride(0), x0_rows.data_ptr(), dh.data_ptr(),
+            part.data_ptr(), N, H, M, O, mp, splits, per)
     if splits > 1:
         _sum_slices(part, dx0)
     cin_rows_backward.launches += 1

@@ -38,14 +38,15 @@
 //   * ce_dh_kernel: persistent blocks read num_valid and stride over the
 //     items (64-row tile of the valid rows, split of the (head, vocabulary
 //     tile) pairs), so no block is planned for rows that take no part.  An
-//     item keeps its h rows split in shared memory and dh [64, K] in
-//     registers, and walks its pairs 64 columns at a time, each W half-tile
-//     (with its bias and the rows' logz, g and targets for its head) brought
-//     in by cp.async into a ring of two stages: the logit tile S = h W^T,
-//     dS in the fragments, then dh += dS W.  Eight warps own 16 rows x 32
-//     columns; the two column halves' dh are added in order at the item's
-//     end, and each split writes its partial, which ce_dh_sum adds in order
-//     (zero past num_valid).
+//     item keeps dh [64, K] in registers and walks its pairs through
+//     ce_tc.cuh's logit_walk, the forward's own routine (ce_fwd.cu): h rows
+//     split once in shared memory, each W half-tile with its bias and the
+//     rows' logz, g and targets brought in by cp.async into a ring of two
+//     stages, the logit tile S = h W^T; then dS in the fragments and
+//     dh += dS W.  So exp(S - logz) takes the very logits whose logsumexp
+//     the forward took.  Eight warps own 16 rows x 32 columns; the two column
+//     halves' dh are added in order at the item's end, and each split writes
+//     its partial, which ce_dh_sum adds in order (zero past num_valid).
 // dS never goes through shared memory: the m16n8k8 accumulator holds columns
 // (2 tig, 2 tig + 1) of row group, so reading the reduction axis of the next
 // product in the order (0, 2, 4, 6, 1, 3, 5, 7) makes the accumulator
@@ -61,122 +62,27 @@
 #include <cmath>
 #include <stdint.h>
 
-#include "ce_tile.cuh"
-#include "tc_tf32.cuh"
+#include "ce_tc.cuh"
 
 namespace {
 
+using ce::copy_row_values;
+using ce::copy_rows;
+using ce::ITEM_R;
 using ce::KMAX;
+using ce::LDK;
+using ce::split_op;
+using ce::split_rows;
+using ce::split_stage;
+using ce::THREADS;
 
-constexpr int THREADS = 256;       // 8 warps
-constexpr int LDK = KMAX + 4;      // row of a [rows][K] operand tile (68)
 constexpr int DW_V = 128;          // ce_dw_kernel: vocabulary columns of a block
 constexpr int DW_R = 32;           // ce_dw_kernel: rows of a chunk
-constexpr int DH_R = 64;           // ce_dh_kernel: rows of an item
-constexpr int DH_V = 64;           // ce_dh_kernel: vocabulary columns of a step
 constexpr int DW_STAGE = DW_R * KMAX + 3 * DW_R;  // h rows, logz, g, targets
-constexpr int DH_STAGE = DH_V * KMAX + DH_V + 3 * DH_R;  // W rows, bias, row values
 static_assert(THREADS / 32 * 16 == DW_V, "ce_dw: a warp owns 16 columns");
-static_assert(4 * 16 == DH_R && 2 * 32 == DH_V, "ce_dh: 4 x 2 warps of 16 x 32");
 
 constexpr int dw_smem_floats() {
   return 2 * DW_V * LDK + 2 * DW_R * LDK + 2 * DW_STAGE + DW_V + 3 * DW_R;
-}
-constexpr int dh_smem_floats() {
-  return 2 * DH_R * LDK + 2 * DH_V * LDK + 2 * DH_STAGE + DH_V + 3 * DH_R;
-}
-
-// x as TF32 halves (x itself rounded to bf16 and a zero small half under "bf16")
-__device__ __forceinline__ void split_op(float x, int bf16, uint32_t& big, uint32_t& small) {
-  if (bf16) {
-    big = __float_as_uint(ce::operand(x, 1));
-    small = 0u;
-  } else {
-    tc::split(x, big, small);
-  }
-}
-
-// n floats at src (rows of a contiguous [*, K] operand) to dst by cp.async,
-// `valid` of them read, the rest zero; 16-byte copies when src is aligned.
-// slots is n rounded up to 4.
-__device__ __forceinline__ void copy_rows(float* dst, const float* src, int slots, int valid,
-                                          int tid) {
-  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    for (int e = tid * 4; e < slots; e += THREADS * 4) {
-      const int left = valid - e;
-      const int bytes = left <= 0 ? 0 : (left >= 4 ? 16 : 4 * left);
-      tc::cp_async16(dst + e, bytes ? src + e : src, bytes);
-    }
-  } else {
-    for (int e = tid; e < slots; e += THREADS)
-      tc::cp_async4(dst + e, e < valid ? src + e : src, e < valid);
-  }
-}
-
-// One row value per slot: logz and g as floats, the target's low word (a
-// column index below 2^31) as an int; zero past `valid`.
-__device__ __forceinline__ void copy_row_values(float* dst, const float* lz, const float* g,
-                                                const long long* t, int n, int valid, int tid) {
-  for (int e = tid; e < 3 * n; e += THREADS) {
-    const int which = e / n;
-    const int r = e - which * n;
-    const bool ok = r < valid;
-    const void* src = which == 0 ? static_cast<const void*>(lz + (ok ? r : 0))
-                    : which == 1 ? static_cast<const void*>(g + (ok ? r : 0))
-                                 : static_cast<const void*>(t + (ok ? r : 0));
-    tc::cp_async4(dst + e, src, ok);
-  }
-}
-
-// [n][K] packed rows at src -> split big / small [n][LDK], zero for k in
-// [K, KP): a thread's elements go through registers (src and the halves may
-// overlap).  n * KP / THREADS <= CAP.
-template <int CAP>
-__device__ __forceinline__ void split_rows(const float* src, uint32_t* big, uint32_t* small, int n,
-                                           int K, int KP, int bf16, int tid) {
-  float v[CAP];
-#pragma unroll
-  for (int i = 0; i < CAP; ++i) {
-    const int e = tid + i * THREADS;
-    const int r = e / KP;
-    const int k = e - r * KP;
-    v[i] = (r < n && k < K) ? src[r * K + k] : 0.f;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < CAP; ++i) {
-    const int e = tid + i * THREADS;
-    const int r = e / KP;
-    const int k = e - r * KP;
-    if (r < n) split_op(v[i], bf16, big[r * LDK + k], small[r * LDK + k]);
-  }
-}
-
-// n packed rows [n][K] of a ring stage -> split big / small [n][LDK], zero
-// for k in [K, KP): four columns a thread where K is a multiple of 4
-__device__ __forceinline__ void split_stage(const float* st, uint32_t* big, uint32_t* small,
-                                            int n, int K, int KP, int bf16, int tid) {
-  if ((K & 3) == 0) {
-    for (int e = 4 * tid; e < n * KP; e += 4 * THREADS) {
-      const int r = e / KP;
-      const int k = e - r * KP;
-      const float4 v = k < K ? *reinterpret_cast<const float4*>(st + r * K + k)
-                             : make_float4(0.f, 0.f, 0.f, 0.f);
-      uint4 b, sm;
-      split_op(v.x, bf16, b.x, sm.x);
-      split_op(v.y, bf16, b.y, sm.y);
-      split_op(v.z, bf16, b.z, sm.z);
-      split_op(v.w, bf16, b.w, sm.w);
-      *reinterpret_cast<uint4*>(big + r * LDK + k) = b;
-      *reinterpret_cast<uint4*>(small + r * LDK + k) = sm;
-    }
-  } else {
-    for (int e = tid; e < n * KP; e += THREADS) {
-      const int r = e / KP;
-      const int k = e - r * KP;
-      split_op(k < K ? st[r * K + k] : 0.f, bf16, big[r * LDK + k], small[r * LDK + k]);
-    }
-  }
 }
 
 // grid (vocabulary tiles, heads, row slices); dw [slices][F][V][K] and
@@ -347,53 +253,23 @@ ce_dh_kernel(const float* __restrict__ h, const float* __restrict__ w,
              const int* __restrict__ nv_ptr, float* __restrict__ dh_part, int B, int K, int V,
              int F, int splits, int pairs_per_split, int bf16) {
   const int KP = ce::round_up(K, 8);
-  uint32_t* hb = reinterpret_cast<uint32_t*>(ce_smem);  // [DH_R][LDK]: h rows, big
-  uint32_t* hs = hb + DH_R * LDK;                        // small
-  uint32_t* wb = hs + DH_R * LDK;                        // [DH_V][LDK]: W rows, big
-  uint32_t* ws = wb + DH_V * LDK;                        // small
-  float* ring = reinterpret_cast<float*>(ws + DH_V * LDK);  // 2 x DH_STAGE
-  float* bs = ring + 2 * DH_STAGE;                       // [DH_V]: bias
-  float* rv = bs + DH_V;                                 // [3][DH_R]: logz, g, targets
-  float* red = reinterpret_cast<float*>(wb);             // [DH_R][LDK]: the item's end
+  const ce::ItemTiles t = ce::item_tiles();
+  float* red = reinterpret_cast<float*>(t.wb);  // [ITEM_R][LDK]: the item's end
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32, group = lane / 4, tig = lane % 4;
   const int rb = (warp % 4) * 16;  // this warp's rows of the item
   const int vb = (warp / 4) * 32;  // and columns of a step
   const int nv = ce::valid_rows(nv_ptr, B);
-  const int n_vt = (V + 127) / 128;
-  const int pairs = F * n_vt;
-  const int tiles = (nv + DH_R - 1) / DH_R;
+  const int pairs = F * ((V + 127) / 128);
+  const int tiles = (nv + ITEM_R - 1) / ITEM_R;
 
   for (int item = blockIdx.x; item < tiles * splits; item += gridDim.x) {
-    const int row0 = (item % tiles) * DH_R;
+    const int row0 = (item % tiles) * ITEM_R;
     const int split = item / tiles;
-    const int rows = min(nv, row0 + DH_R) - row0;
+    const int rows = min(nv, row0 + ITEM_R) - row0;
     const int p_begin = split * pairs_per_split;
     const int n_steps = 2 * (min(pairs, p_begin + pairs_per_split) - p_begin);
-
-    // the item's h rows: raw into hs's space, then split in place
-    copy_rows(reinterpret_cast<float*>(hs), h + row0 * K, DH_R * K, rows * K, tid);
-    tc::cp_async_commit();
-    auto issue = [&](int j, int s) {
-      float* st = ring + s * DH_STAGE;
-      const int pair = p_begin + j / 2;
-      const int f = pair / n_vt;
-      const int v0 = (pair - f * n_vt) * 128 + (j % 2) * DH_V;
-      const int cols = max(0, min(V, v0 + DH_V) - v0);
-      copy_rows(st, cols ? w + ((long long)f * V + v0) * K : w, DH_V * K, cols * K, tid);
-      const float* bf = bias + (long long)f * V + v0;
-      for (int e = tid; e < DH_V; e += THREADS)
-        tc::cp_async4(st + DH_V * KMAX + e, e < cols ? bf + e : bias, e < cols);
-      const long long off = (long long)f * B + row0;
-      copy_row_values(st + DH_V * KMAX + DH_V, logz + off, g + off, tgt + off, DH_R, rows, tid);
-    };
-    issue(0, 0);
-    tc::cp_async_commit();
-    tc::cp_async_wait<1>();
-    __syncthreads();
-    split_rows<DH_R * KMAX / THREADS>(reinterpret_cast<const float*>(hs), hb, hs, DH_R, K, KP,
-                                      bf16, tid);
 
     float acc[8][4];  // dh [rb + 16][k] over this warp's columns: k tiles of 8
 #pragma unroll
@@ -401,47 +277,13 @@ ce_dh_kernel(const float* __restrict__ h, const float* __restrict__ w,
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc[kt][q] = 0.f;
 
-    for (int j = 0; j < n_steps; ++j) {
-      if (j + 1 < n_steps) {
-        issue(j + 1, (j + 1) % 2);  // that stage's step j - 1 is converted
-        tc::cp_async_commit();
-        tc::cp_async_wait<1>();
-      } else {
-        tc::cp_async_wait<0>();
-      }
-      __syncthreads();  // step j has landed; every warp is done with step j - 1
-      const float* st = ring + (j % 2) * DH_STAGE;
-      split_stage(st, wb, ws, DH_V, K, KP, bf16, tid);
-      for (int e = tid; e < DH_V + 3 * DH_R; e += THREADS) bs[e] = st[DH_V * KMAX + e];
-      __syncthreads();
-
-      const int pair = p_begin + j / 2;
-      const int f = pair / n_vt;
-      const int v0 = (pair - f * n_vt) * 128 + (j % 2) * DH_V;
-      // S [16 rows][32 columns] = h W^T
-      float s[4][4];
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) s[nt][q] = 0.f;
-      for (int k8 = 0; k8 < KP; k8 += 8) {
-        const int a0 = (rb + group) * LDK + k8 + tig;
-        const int a1 = a0 + 8 * LDK;
-        const uint32_t ab[4] = {hb[a0], hb[a1], hb[a0 + 4], hb[a1 + 4]};
-        const uint32_t as[4] = {hs[a0], hs[a1], hs[a0 + 4], hs[a1 + 4]};
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int b0 = (vb + 8 * nt + group) * LDK + k8 + tig;
-          const uint32_t bb[2] = {wb[b0], wb[b0 + 4]};
-          const uint32_t bsm[2] = {ws[b0], ws[b0 + 4]};
-          tc::mma3_add(s[nt], ab, as, bb, bsm, bf16);
-        }
-      }
+    ce::logit_walk(h, w, bias, tgt, logz, g, B, K, V, row0, rows, p_begin, n_steps, bf16, t,
+                   [&](int, int, int v0, float (&s)[4][4]) {
       // dS in the fragments: s[nt][q] is row rb + group + 8 (q / 2), column
       // vb + 8 nt + 2 tig + q % 2
-      const float* lz = rv;
-      const float* gr = rv + DH_R;
-      const int* tt = reinterpret_cast<const int*>(rv + 2 * DH_R);
+      const float* lz = t.rv;
+      const float* gr = t.rv + ITEM_R;
+      const int* tt = reinterpret_cast<const int*>(t.rv + 2 * ITEM_R);
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
@@ -451,7 +293,7 @@ ce_dh_kernel(const float* __restrict__ h, const float* __restrict__ w,
           float d = 0.f;
           if (r < rows && v0 + v < V) {
             const float onehot = tt[r] == v0 + v ? 1.f : 0.f;
-            d = (__expf(s[nt][q] + bs[v] - lz[r]) - onehot) * gr[r];
+            d = (__expf(s[nt][q] + t.bs[v] - lz[r]) - onehot) * gr[r];
           }
           s[nt][q] = d;
         }
@@ -468,12 +310,12 @@ ce_dh_kernel(const float* __restrict__ h, const float* __restrict__ w,
 #pragma unroll
         for (int kt = 0; kt < 8; ++kt) {
           if (8 * kt >= KP) break;
-          const uint32_t bb[2] = {wb[b0 + 8 * kt], wb[b0 + LDK + 8 * kt]};
-          const uint32_t bsm[2] = {ws[b0 + 8 * kt], ws[b0 + LDK + 8 * kt]};
+          const uint32_t bb[2] = {t.wb[b0 + 8 * kt], t.wb[b0 + LDK + 8 * kt]};
+          const uint32_t bsm[2] = {t.ws[b0 + 8 * kt], t.ws[b0 + LDK + 8 * kt]};
           tc::mma3_add(acc[kt], ab, as, bb, bsm, bf16);
         }
       }
-    }
+    });
 
     // the two column halves' dh, added in order: warps 4-7 through shared memory
     __syncthreads();  // every warp is done with wb
@@ -558,7 +400,7 @@ int ce_bwd(const void* h, const void* w, const void* b, const void* t, const voi
            void* db_part, int slices, int rows_per_slice, int B, int K, int V, int F, int bf16,
            void* stream) {
   const int dw_smem = dw_smem_floats() * 4;
-  const int dh_smem = dh_smem_floats() * 4;
+  const int dh_smem = ce::item_smem_floats() * 4;
   cudaError_t err = cudaFuncSetAttribute(
       ce_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dw_smem);
   if (err != cudaSuccess) return static_cast<int>(err);

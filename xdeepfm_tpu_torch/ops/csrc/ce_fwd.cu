@@ -15,209 +15,200 @@
 // Replaces: xdeepfm_tpu/ops/ce_pallas.py _ce_fwd / _fwd_kernel (one head) and
 // _ces_fwd / _fwd_kernel_stacked (F heads in one launch).
 //
-// Bound: operations.  At the canonical Pro step (F = 26 heads, B = 4096,
-// K = 64, V padded to 10112) the products are 2*nv*K*V*F = 33.6 MFLOP per
-// valid row (138 GFLOP at nv = B), while the bytes that must move are W
-// (67 MB) and a few MB more: about 2000 FLOP per byte against the card's fp32
-// ridge of 20.  The [B, V] logits are the one thing that must never reach
-// device memory (4.3 GB a step at these shapes), so:
-//   * one block owns 128 rows of one head and walks a range of the
-//     vocabulary in 128-column tiles; its h tile (all K <= 64) stays in
-//     shared memory.  The vocabulary is cut into as many ranges (gridDim.z)
-//     as fill the card when few row tiles are valid (a third of a batch, or
-//     one head); each block writes its rows' partial max, sum of exp and
-//     target logit, and ce_fwd_combine merges the ranges in order;
-//   * W streams through in 16-deep chunks, double-buffered, with the next
-//     chunk loaded into registers while the current one computes;
-//   * each logit tile lives in registers (8 x 8 per thread) and is folded at
-//     once into the thread's running max and sum of exp for its 8 rows
-//     (online logsumexp); the target's logit is picked up by the one thread
-//     that owns its column;
-//   * only at the end are the 16 threads that share a row combined, by
-//     shuffles in a fixed order, and the ranges by ce_fwd_combine, in order
-//     (deterministic).
+// Bound: operations.  At the canonical Pro step (F = 26 heads, K = 64, V
+// padded to 10112, nv = 1365 valid rows of B = 4096) the product is
+// 2*nv*K*V*F = 45.9 GFLOP against W (67 MB) and a few MB more: 0.279 ms on
+// the tensor cores in 3xTF32 (495 / 3 TFLOP/s), 0.686 ms on the fp32 FMA
+// pipes, and nv*V*F = 359 M exps, 0.086 ms at the exp rate (the fp32 rate
+// / 16), all on an NVIDIA H100 80GB HBM3 at 700.00 W.  The [B, V] logits are
+// the one thing that must never reach device memory (4.3 GB a step), so:
+//   * persistent blocks read num_valid and stride over the items (64-row
+//     tile of the valid rows, split of the F * V/128 (head, vocabulary tile)
+//     pairs), as ce_bwd.cu's ce_dh_kernel does: no block is planned for rows
+//     past num_valid;
+//   * an item walks its pairs through ce_tc.cuh's logit_walk, the routine
+//     that ce_dh_kernel recomputes the logits with: h rows split once into
+//     TF32 halves in shared memory, each 64-column W half-tile and its bias
+//     brought by cp.async through a two-stage ring and split once, the logit
+//     tile S = h W^T summed from zero in k8 steps of 3xTF32 MMAs (one exact
+//     MMA under "bf16"), then the bias added.  So the backward's
+//     exp(S - logz) takes the forward's own logits;
+//   * the logsumexp is taken straight from the accumulator fragments: a lane
+//     holds 8 columns of each of its 2 rows a step and keeps a running max
+//     and sum of exp for each row, the sum taken step by step (8 exps added
+//     first, then the step's sum added to the row's).  The max is exact; a
+//     warp vote skips the rescale when no lane's row max rose, which after
+//     the first steps is most steps, so the rescale exps are rare beside the
+//     logits' one exp each.  The lane that owns a row's target column keeps
+//     its logit;
+//   * when the walk passes to another head, and at the item's end, the four
+//     lanes of a quad (which share rows) are combined by shuffles in a fixed
+//     order, and each of the two column warps of a row writes its
+//     (max, sum, target logit) as one partial of that head; ce_fwd_combine
+//     merges a head's partials in the order of the walk.
 // The TPU kernel carried the running statistics along a sequential vocabulary
 // grid axis in VMEM scratch and primed its software pipeline with a dummy
-// block (_DUMMY); here the vocabulary walk is a loop in the block and neither
-// is needed.  Tiles wholly past num_valid do no work; the tile that straddles
-// it computes all its rows and writes zeros for the invalid ones.  Ragged B,
-// V and K are masked, not padded.  Padded vocabulary columns (bias -1e30, as
-// the decoder pads stacked heads) add exp(...) = 0 to a real row's sum: the
-// running max starts at -FLT_MAX and every row has at least one real column,
-// so the combined max is always a real logit.
+// block (_DUMMY); here the vocabulary walk is a loop in the block and the
+// splits are partials merged in order, so every sum has a fixed order and two
+// runs are bit-equal.  The item that straddles num_valid computes all its
+// rows and writes only the valid ones.  Ragged B, V and K are masked, not
+// padded: columns past V take -inf.  Padded vocabulary columns (bias -1e30,
+// as the decoder pads stacked heads) add exp(...) = 0 to a real row's sum:
+// the running max starts at -FLT_MAX and every row has at least one real
+// column, so the merged max is always a real logit.  Measured at the Pro
+// step (chip_smoke.py, an NVIDIA H100 80GB HBM3 at 700.00 W): 1.635-1.662 ms,
+// against 2.354-2.355 for the fp32-FMA kernel this replaced; ll and logz err
+// 0.9-1.2x as much as the plain fp32 version against float64.
 
 #include <cfloat>
 #include <cmath>
 
-#include "ce_tile.cuh"
+#include "ce_tc.cuh"
 
 namespace {
 
-using ce::BK;
-using ce::BM;
-using ce::BN;
-using ce::LD;
+using ce::ITEM_R;
+using ce::STEP_V;
 using ce::THREADS;
 
-constexpr int WLD = BN + 4;                // padded row of a W chunk
-constexpr int WROWS = THREADS / BK;        // vocabulary rows the W loader covers per pass
-constexpr int WPASS = BN / WROWS;          // W values per thread per chunk (8)
-static_assert(THREADS % BK == 0 && BN % WROWS == 0, "W loader");
-
-int fwd_smem_bytes(int kp) {
-  return (kp * LD + 2 * BK * WLD + 2 * BM) * 4;
+// Split s covers pairs [s * per, (s + 1) * per); head f's pairs are
+// [f * n_vt, (f + 1) * n_vt).  The splits that reach head f are
+// first_split(f) .. last_split(f); split s writes its partials of head f in
+// slots 2 (s - first_split(f)) and 2 (s - first_split(f)) + 1 (the two
+// column warps).
+__host__ __device__ __forceinline__ int first_split(int f, int n_vt, int per) {
+  return f * n_vt / per;
+}
+__host__ __device__ __forceinline__ int last_split(int f, int n_vt, int per) {
+  return ((f + 1) * n_vt - 1) / per;
 }
 
-// grid (row tiles, heads, vocabulary ranges of tiles_per_range tiles);
-// part [3][ranges][F][B]: each row's running max, sum of exp relative to it,
-// and target logit (0 where the target lies in another range)
+// Persistent: block b takes items b, b + gridDim.x, ... of the
+// ceil(num_valid / 64) x splits items (row tile = item % tiles, split =
+// item / tiles).  part [3][slots][F][B]: each valid row's running max, sum
+// of exp relative to it, and target logit (0 where the target lies in
+// another partial's columns).
 __global__ void __launch_bounds__(THREADS, 2)
 ce_fwd_kernel(const float* __restrict__ h, const float* __restrict__ w,
               const float* __restrict__ bias, const long long* __restrict__ tgt,
               const int* __restrict__ nv_ptr, float* __restrict__ part, int B, int K, int V,
-              int F, int tiles_per_range, int bf16) {
-  const int KP = ce::round_up(K, BK);
-  float* hs = ce_smem;                                  // [KP][LD]: h tile, k-major
-  float* ws = hs + KP * LD;                             // [2][BK][WLD]: W chunks, k-major
-  int* tl = reinterpret_cast<int*>(ws + 2 * BK * WLD);  // [BM]: targets
-  float* pk = reinterpret_cast<float*>(tl + BM);        // [BM]: the target's logit
-
+              int F, int splits, int pairs_per_split, int slots, int bf16) {
+  const ce::ItemTiles t = ce::item_tiles();
   const int tid = threadIdx.x;
-  const int tr = tid / 16;
-  const int tc = tid % 16;
-  const int f = blockIdx.y;
-  const int row0 = blockIdx.x * BM;
+  const int warp = tid / 32, lane = tid % 32, group = lane / 4, tig = lane % 4;
+  const int rb = (warp % 4) * 16;  // this warp's rows of the item
+  const int vb = (warp / 4) * 32;  // and columns of a step
   const int nv = ce::valid_rows(nv_ptr, B);
-  if (row0 >= nv) return;  // the whole tile is past the valid prefix: no work
+  const int n_vt = (V + 127) / 128;
+  const int pairs = F * n_vt;
+  const int tiles = (nv + ITEM_R - 1) / ITEM_R;
+  const long long plane = (long long)slots * F * B;
 
-  const float* w_f = w + (long long)f * V * K;
-  const float* b_f = bias + (long long)f * V;
-  // h tile: consecutive threads read consecutive k of one row
-  for (int e = tid; e < BM * KP; e += THREADS) {
-    const int r = e / KP;
-    const int k = e - r * KP;
-    const int row = row0 + r;
-    hs[k * LD + r] = (row < B && k < K) ? ce::operand(__ldg(h + row * K + k), bf16) : 0.f;
-  }
-  for (int r = tid; r < BM; r += THREADS) {
-    const int row = row0 + r;
-    tl[r] = row < B ? static_cast<int>(__ldg(tgt + (long long)f * B + row)) : -1;
-    pk[r] = 0.f;
-  }
+  for (int item = blockIdx.x; item < tiles * splits; item += gridDim.x) {
+    const int row0 = (item % tiles) * ITEM_R;
+    const int split = item / tiles;
+    const int rows = min(nv, row0 + ITEM_R) - row0;
+    const int p_begin = split * pairs_per_split;
+    const int n_steps = 2 * (min(pairs, p_begin + pairs_per_split) - p_begin);
 
-  // W loader: k slot lk, vocabulary rows lv + p * WROWS (a half-warp reads 16
-  // consecutive k of one row)
-  const int lk = tid % BK;
-  const int lv = tid / BK;
-  const int nk = KP / BK;
-  const int vt0 = blockIdx.z * tiles_per_range;
-  const int n_vt = min((V + BN - 1) / BN - vt0, tiles_per_range);
-  const int n_chunks = n_vt * nk;
-  float wreg[WPASS];
-  auto load_chunk = [&](int c) {
-    const int v0 = (vt0 + c / nk) * BN;
-    const int k = (c % nk) * BK + lk;
+    // rows rb + group and rb + group + 8: running max, sum of exp relative
+    // to it, target logit, for head cur
+    float m[2], sum[2], pk[2];
+    int cur = -1;
+    auto flush = [&]() {
 #pragma unroll
-    for (int p = 0; p < WPASS; ++p) {
-      const int v = v0 + lv + p * WROWS;
-      wreg[p] = (v < V && k < K) ? ce::operand(__ldg(w_f + (long long)v * K + k), bf16) : 0.f;
-    }
-  };
-  auto store_chunk = [&](int buf) {
+      for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int p = 0; p < WPASS; ++p) ws[(buf * BK + lk) * WLD + lv + p * WROWS] = wreg[p];
-  };
-
-  float m[8], s[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    m[i] = -FLT_MAX;
-    s[i] = 0.f;
-  }
-  float acc[8][8];
-  ce::zero(acc);
-
-  load_chunk(0);
-  store_chunk(0);
-  __syncthreads();
-  int buf = 0;
-  for (int c = 0; c < n_chunks; ++c) {
-    const bool more = c + 1 < n_chunks;
-    if (more) load_chunk(c + 1);
-    const int kc = c % nk;
-    ce::mma_kk(hs + kc * BK * LD, LD, ws + buf * BK * WLD, WLD, BK, tr, tc, acc);
-    if (kc == nk - 1) {
-      // the logit tile of vocabulary columns [v0, v0 + BN) is complete
-      const int v0 = (vt0 + c / nk) * BN;
-      float bv[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int v = v0 + ce::tile_col(tc, j);
-        bv[j] = v < V ? __ldg(b_f + v) : -INFINITY;  // masked columns: exp = 0
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        float sv[8];
-        float mt = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          sv[j] = acc[i][j] + bv[j];
-          mt = fmaxf(mt, sv[j]);
+        for (int off = 1; off < 4; off <<= 1) {  // the quad, in a fixed order
+          const float mo = __shfl_xor_sync(0xffffffffu, m[i], off);
+          const float so = __shfl_xor_sync(0xffffffffu, sum[i], off);
+          const float po = __shfl_xor_sync(0xffffffffu, pk[i], off);
+          const float mn = fmaxf(m[i], mo);
+          sum[i] = sum[i] * __expf(m[i] - mn) + so * __expf(mo - mn);
+          m[i] = mn;
+          pk[i] += po;
         }
-        const float mn = fmaxf(m[i], mt);
-        float sum = 0.f;
+      if (tig == 0) {
+        const int slot = 2 * (split - first_split(cur, n_vt, pairs_per_split)) + vb / 32;
+        float* out = part + ((long long)slot * F + cur) * B + row0;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) sum += __expf(sv[j] - mn);
-        s[i] = s[i] * __expf(m[i] - mn) + sum;
-        m[i] = mn;
-        const int r = ce::tile_row(tr, i);
-        const int lt = tl[r] - v0;
-        if (lt >= 0 && lt < BN) {  // one thread of the block owns the target
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            if (ce::tile_col(tc, j) == lt) pk[r] = sv[j];
+        for (int i = 0; i < 2; ++i) {
+          const int r = rb + group + 8 * i;
+          if (r >= rows) continue;
+          out[r] = m[i];
+          out[plane + r] = sum[i];
+          out[2 * plane + r] = pk[i];
         }
       }
-      ce::zero(acc);
-    }
-    if (more) store_chunk(buf ^ 1);
-    __syncthreads();
-    buf ^= 1;
-  }
+    };
 
-  // combine the 16 threads (lanes tc = 0..15 of a half-warp) that share rows
+    ce::logit_walk(h, w, bias, tgt, nullptr, nullptr, B, K, V, row0, rows, p_begin, n_steps,
+                   bf16, t, [&](int, int f, int v0, float (&s)[4][4]) {
+      if (f != cur) {  // a new head: the last one's partials out, fresh statistics
+        if (cur >= 0) flush();
+        cur = f;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+        for (int i = 0; i < 2; ++i) {
+          m[i] = -FLT_MAX;
+          sum[i] = 0.f;
+          pk[i] = 0.f;
+        }
+      }
+      // S = s + b; s[nt][q] is row rb + group + 8 (q / 2), column
+      // vb + 8 nt + 2 tig + q % 2; columns past V take -inf (exp 0)
+      const bool full = v0 + STEP_V <= V;
+      float mt[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
-      const float mo = __shfl_xor_sync(0xffffffffu, m[i], off);
-      const float so = __shfl_xor_sync(0xffffffffu, s[i], off);
-      const float mn = fmaxf(m[i], mo);
-      s[i] = s[i] * __expf(m[i] - mn) + so * __expf(mo - mn);
-      m[i] = mn;
-    }
-  }
-  if (tc == 0) {
-    const long long plane = (long long)gridDim.z * F * B;
-    float* out = part + ((long long)blockIdx.z * F + f) * B;
+      for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = ce::tile_row(tr, i);
-      const int row = row0 + r;
-      if (row >= nv) continue;
-      out[row] = m[i];
-      out[plane + row] = s[i];
-      out[2 * plane + row] = pk[r];
-    }
+        for (int q = 0; q < 4; ++q) {
+          const int v = vb + 8 * nt + 2 * tig + q % 2;
+          const float x = (full || v0 + v < V) ? s[nt][q] + t.bs[v] : -INFINITY;
+          s[nt][q] = x;
+          mt[q / 2] = fmaxf(mt[q / 2], x);
+        }
+      // rescale where a row's max rose; the warp skips it where none did
+      if (__any_sync(0xffffffffu, mt[0] > m[0] || mt[1] > m[1])) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float mn = fmaxf(m[i], mt[i]);
+          sum[i] *= __expf(m[i] - mn);
+          m[i] = mn;
+        }
+      }
+      float ss[2] = {0.f, 0.f};
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) ss[q / 2] += __expf(s[nt][q] - m[q / 2]);
+      sum[0] += ss[0];
+      sum[1] += ss[1];
+      // the target's logit, in the one lane that holds its column
+      const int* tt = reinterpret_cast<const int*>(t.rv + 2 * ITEM_R);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int c = tt[rb + group + 8 * i] - v0 - vb - 2 * tig;
+        if (static_cast<unsigned>(c) < 32u && (c & 6) == 0) {
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int b = 0; b < 2; ++b)
+              if (c == 8 * nt + b) pk[i] = s[nt][2 * i + b];
+        }
+      }
+    });
+    flush();
+    __syncthreads();  // every warp is done with the item's tiles
   }
 }
 
-// ll, logz [F, B] from the ranges' partials, merged in range order; rows at
-// or past num_valid give 0 (their partials are never read)
+// ll, logz [F, B] from each head's partials, merged in slot order; rows at or
+// past num_valid give 0 (their partials are never read)
 __global__ void ce_fwd_combine(const float* __restrict__ part, const int* __restrict__ nv_ptr,
                                float* __restrict__ ll, float* __restrict__ logz, int B, int F,
-                               int ranges) {
+                               int V, int pairs_per_split, int slots) {
   const int nv = ce::valid_rows(nv_ptr, B);
+  const int n_vt = (V + 127) / 128;
   const long long n = (long long)F * B;
   for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < n;
        e += (long long)gridDim.x * blockDim.x) {
@@ -226,15 +217,18 @@ __global__ void ce_fwd_combine(const float* __restrict__ part, const int* __rest
       logz[e] = 0.f;
       continue;
     }
+    const int f = static_cast<int>(e / B);
+    const int used = 2 * (last_split(f, n_vt, pairs_per_split) -
+                          first_split(f, n_vt, pairs_per_split) + 1);
     float m = __ldg(part + e);
-    float s = __ldg(part + ranges * n + e);
-    float p = __ldg(part + 2 * ranges * n + e);
-    for (int q = 1; q < ranges; ++q) {
+    float s = __ldg(part + slots * n + e);
+    float p = __ldg(part + 2 * slots * n + e);
+    for (int q = 1; q < used; ++q) {
       const float mq = __ldg(part + q * n + e);
       const float mn = fmaxf(m, mq);
-      s = s * __expf(m - mn) + __ldg(part + (ranges + q) * n + e) * __expf(mq - mn);
+      s = s * __expf(m - mn) + __ldg(part + (slots + q) * n + e) * __expf(mq - mn);
       m = mn;
-      p += __ldg(part + (2 * ranges + q) * n + e);
+      p += __ldg(part + (2 * slots + q) * n + e);
     }
     const float lz = m + logf(s);
     ll[e] = lz - p;
@@ -249,13 +243,15 @@ extern "C" {
 // Launches on `stream` and returns the first CUDA error (0 on success).  The
 // caller has checked dtypes, shapes, contiguity, 1 <= K <= 64, B, V, F >= 1
 // and 32-bit element offsets, and allocated ll and logz [F, B] and the
-// partials part [3, ranges, F, B]; the vocabulary is cut into `ranges` ranges
-// of tiles_per_range 128-column tiles, none empty; nv may be null (all rows
-// valid).
+// partials part [3, slots, F, B], slots at least twice the most splits that
+// reach one head.  ce_fwd_kernel runs `blocks` persistent blocks over
+// (valid row tile, split) items, split s walking the (head, vocabulary tile)
+// pairs [s * pairs_per_split, (s + 1) * pairs_per_split) in the order
+// f * tiles + t; nv may be null (all rows valid).
 int ce_fwd(const void* h, const void* w, const void* b, const void* t, const void* nv,
-           void* ll, void* logz, void* part, int ranges, int tiles_per_range, int B, int K,
-           int V, int F, int bf16, void* stream) {
-  const int smem = fwd_smem_bytes(ce::round_up(K, BK));
+           void* ll, void* logz, void* part, int slots, int splits, int pairs_per_split,
+           int blocks, int B, int K, int V, int F, int bf16, void* stream) {
+  const int smem = ce::item_smem_floats() * 4;
   cudaError_t err = cudaFuncSetAttribute(
       ce_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -266,17 +262,19 @@ int ce_fwd(const void* h, const void* w, const void* b, const void* t, const voi
   const long long* tp = static_cast<const long long*>(t);
   const int* nvp = static_cast<const int*>(nv);
   float* pp = static_cast<float*>(part);
-  void* args[] = {&hp, &wp, &bp, &tp, &nvp, &pp, &B, &K, &V, &F, &tiles_per_range, &bf16};
-  err = cudaLaunchKernel(ce_fwd_kernel, dim3((B + BM - 1) / BM, F, ranges), dim3(THREADS),
-                         args, static_cast<size_t>(smem), st);
+  void* args[] = {&hp, &wp, &bp, &tp, &nvp, &pp, &B, &K, &V, &F,
+                  &splits, &pairs_per_split, &slots, &bf16};
+  err = cudaLaunchKernel(ce_fwd_kernel, dim3(blocks), dim3(THREADS), args,
+                         static_cast<size_t>(smem), st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const float* cp = pp;
   float* llp = static_cast<float*>(ll);
   float* lzp = static_cast<float*>(logz);
-  void* cargs[] = {&cp, &nvp, &llp, &lzp, &B, &F, &ranges};
-  const long long blocks = ((long long)F * B + 255) / 256;
-  err = cudaLaunchKernel(ce_fwd_combine, dim3(static_cast<unsigned>(blocks < 1024 ? blocks : 1024)),
-                         dim3(256), cargs, 0, st);
+  void* cargs[] = {&cp, &nvp, &llp, &lzp, &B, &F, &V, &pairs_per_split, &slots};
+  const long long cblocks = ((long long)F * B + 255) / 256;
+  err = cudaLaunchKernel(ce_fwd_combine,
+                         dim3(static_cast<unsigned>(cblocks < 1024 ? cblocks : 1024)), dim3(256),
+                         cargs, 0, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,24 +20,40 @@
 // forward's 2*N*H*M*O FLOPs (14.2 GFLOP at layer 0, 34.9 at layer 1) on a few
 // MB of operands: hundreds of FLOPs per byte, far above the card's ridge.
 // So neither [N, H*M] intermediate (Z or the outer product z = h x x0) ever
-// reaches device memory.  The two kernels take the work two ways:
-//   * cin_bwd_dx, fp32 FMAs on the CUDA cores (bound 0.732 ms a train step
-//     at 67 TFLOP/s), with the 8 x 8 register tiles of cin_tile.cuh: one
-//     block owns 128 rows and walks the K = H*M columns in chunks of whole h
-//     groups, each group's M columns padded to MP (a power of two: 32 at
-//     M = 26), so that a chunk is 128 / MP groups.  The chunk's Z tile (a GEMM
-//     over O: g rows times W columns, W from L2) stays in registers and is
-//     reduced at once: dh by a shuffle over the MP / 4 lanes that hold one
-//     group's columns, dx0 by a shuffle over the lanes that hold one m,
-//     summed over chunks in shared memory and written at the end.  The padded
-//     columns cost (MP - M) / M more FLOPs (23% at M = 26); the measured
-//     TFLOP/s count only the unpadded work.  A block holds too little work
-//     for 132 SMs when N is small, so the chunks are split over gridDim.y:
-//     each split writes its own dx0 partial, summed in a fixed order
-//     afterwards (deterministic).
-//   * cin_dw, 3xTF32 on the tensor cores (tc_tf32.cuh; bound 0.298 ms a
-//     train step at 495 / 3 TFLOP/s, against 0.732 on the FMA pipes): the
-//     GEMM dW[O, K] = g^T z reduces over N rows while the output has only 12
+// reaches device memory.  Both kernels run on the tensor cores in 3xTF32
+// (tc_tf32.cuh; bound 0.297 ms a train step at 495 / 3 TFLOP/s, against
+// 0.732 on the fp32 FMA pipes, an NVIDIA H100 80GB HBM3 at 700.00 W):
+//   * cin_bwd_dx: the GEMM Z = g W over O, each h group's M columns padded
+//     to MP (a power of two, 8..64: 32 at M = 26, as the TPU kernel's Mp);
+//     a first small kernel writes W with its groups so padded (zeros), so
+//     that a stage's W columns come by 16-byte copies.  A block of 8 warps
+//     owns 128 rows and walks chunks of 128 padded columns (128 / MP whole
+//     groups); g rows [128 x 32 channels] and W columns [32 x 128] come by
+//     cp.async through a ring of three stages, one barrier a stage.  A warp
+//     owns 64 rows x 32 columns: 16 m16n8k8 tiles, each operand split into
+//     its TF32 halves as it is loaded into fragments, each k8 step's product
+//     added in fp32 (tc::mma3_add: O is a long sum).  When a chunk's Z is
+//     complete, the epilogue works on the accumulator fragments:
+//     dh[r, h] = sum_m Z x0[r, m] in the lane and then across the quad in a
+//     fixed order (at MP = 64 a group spans two warps: their halves are
+//     added in order through shared memory); dx0[r, m] += Z h[r, h] in
+//     registers kept over every group and chunk the block walks, a lane's
+//     slots of one m added in column order and the four column warps in
+//     order at the block's end.  x0 is staged once a block, each chunk's h
+//     columns with its last stage.  The two accumulators take 128 registers,
+//     so one block of 8 warps a SM (up to 255 registers a thread); with 16
+//     warps at 128 registers it spilled and ran slower.  The padded columns
+//     cost (MP - M) / M more products (23% at M = 26); a warp whose columns
+//     are all past H skips its products.  When 128-row tiles x chunks fill
+//     the card too thinly, the chunks are split over gridDim.y, each split
+//     writing a dx0 partial that cin_sum_slices adds in order.  Measured
+//     (chip_smoke.py, an NVIDIA H100 80GB HBM3 at 700.00 W): 1.641-1.660 ms a
+//     train step, against 1.752-1.757 for the fp32-FMA kernel this replaced;
+//     dh and dx0 err 0.4-0.8x as much as the plain fp32 version against
+//     float64.  Splits, copies and the fp32 adds of the products, not the
+//     MMAs, take most of the time (throwaway variant builds without each);
+
+//   * cin_dw: the GEMM dW[O, K] = g^T z reduces over N rows while the output has only 12
 //     (layer 0) or 26 (layer 1) 128 x 128 tiles, too few for 132 SMs.  So
 //     the rows are cut into slices over gridDim.z, and cin_sum_slices adds
 //     the slices' partial tiles in a fixed order: deterministic, no atomics.
@@ -54,17 +70,17 @@
 //     whose rows or columns are all padding (layer 0's last column tile)
 //     skips its MMAs.  Two barriers a chunk; two blocks of 113 KB a SM at
 //     M = 26, with no register spills.  Against a float64 dW at batch 4096
-//     it errs 0.3-0.4x as much as the plain fp32 product (chip_smoke.py).
+//     it errs 0.3-0.4x as much as the plain fp32 product (chip_smoke.py, an
+//     NVIDIA H100 80GB HBM3 at 700.00 W).
 // The TPU kernels summed over rows (dW) and over H chunks along a sequential
 // grid axis in their output block (cin_pallas.py:134-144, 209-215) and kept
 // dW as [M, O, H]; blocks here run in no order, so the sums are split into
 // partials instead and dW keeps the parameter's own [O, H*M] layout.  Ragged
-// N, H, M and O edges are masked, not padded.  cin_dw's error against a
-// float64 dW is held to the plain fp32 product's in chip_smoke.py.
+// N, H, M and O edges are masked, not padded.  Each kernel's error against
+// float64 is held to twice the plain fp32 version's in chip_smoke.py.
 
 #include <stdint.h>
 
-#include "cin_tile.cuh"
 #include "tc_tf32.cuh"
 
 // the dynamic shared memory of every kernel here
@@ -72,166 +88,278 @@ extern __shared__ __align__(16) float cin_smem[];
 
 namespace {
 
-using cin::ALD;
-using cin::BK;
-using cin::BM;
-using cin::BN;
-using cin::THREADS;
-using cin::TM;
-using cin::TN;
-
 // ------------------------------------------------------------- cin_bwd_dx
 
-constexpr int GSTEP = THREADS / BK;  // rows the g loader covers per pass (16)
-constexpr int GPASS = BM / GSTEP;    // g values per thread per O step (8)
-constexpr int WSTEP = THREADS / BN;  // o slots the W loader covers per pass (2)
-constexpr int WPASS = BK / WSTEP;    // W values per thread per O step (8)
-static_assert(THREADS % BK == 0 && BM % GSTEP == 0, "g loader");
-static_assert(THREADS % BN == 0 && BK % WSTEP == 0, "W loader");
+namespace dx {
+constexpr int WARPS_R = 2, WARPS_C = 4;  // warps over the block's rows and a chunk's columns
+constexpr int THREADS = 32 * WARPS_R * WARPS_C;
+constexpr int MT = 4;             // m16 tiles of a warp's rows
+constexpr int BR = WARPS_R * 16 * MT;  // rows of a block (128): a warp owns 64
+constexpr int BC = WARPS_C * 32;  // padded columns of a chunk (128): a warp owns 32 (4 n8 tiles)
+constexpr int OC = 32;            // channels o of one ring stage: four k8 steps
+constexpr int STAGES = 3;
+constexpr int LDG = OC + 4;       // g rows [BR][LDG]: lanes (group, tig) hit banks 4 group + tig
+constexpr int LDW = BC + 8;       // W rows [OC][LDW]: lanes hit banks 8 tig + group
+// a stage: g, W and the chunk's h columns [BR][BC / MP]
+__host__ __device__ constexpr int stage_floats(int mp) {
+  return BR * LDG + OC * LDW + BR * (BC / mp);
+}
+}  // namespace dx
 
-constexpr int dx_smem_bytes(int mp) {
-  return (2 * BK * ALD + 2 * BK * BN + BM * mp) * 4;
+// the ring (at the block's end the column warps' dx0 [WARPS_C][BR][32]),
+// x0 [BR][MP + 4], the upper dh halves [BR][2]
+template <int MP>
+constexpr int dx_smem_floats() {
+  return dx::STAGES * dx::stage_floats(MP) + dx::BR * (MP + 4) + dx::BR * 2;
+}
+static_assert(dx::WARPS_C * dx::BR * 32 <= dx::STAGES * dx::stage_floats(64), "dx0 in the ring");
+
+// x = big + small: big rounded to TF32, small the exact rest, whose low 13
+// bits the tensor cores ignore
+__device__ __forceinline__ void split_raw(float x, uint32_t& big, uint32_t& small) {
+  big = tc::tf32(x);
+  small = __float_as_uint(x - __uint_as_float(big));
 }
 
-template <int MP>
-__global__ void __launch_bounds__(THREADS, 2)
-cin_bwd_dx_kernel(const float* __restrict__ g, const float* __restrict__ w,
-                  const float* __restrict__ h, int ldh,
-                  const float* __restrict__ x0, float* __restrict__ dh,
-                  float* __restrict__ dx0, int N, int H, int M, int O,
-                  int chunks_per_split) {
-  static_assert(MP >= 4 && MP <= BN / 2 && (BN / 2) % MP == 0, "MP");
-  constexpr int HC = BN / MP;  // h groups per chunk
-  constexpr int GL = MP / 4;   // lanes holding one group's columns in a half
-  float* smem = cin_smem;
-  auto gs = reinterpret_cast<float (*)[BK][ALD]>(smem);  // [2][o][row]: g^T
-  auto ws = reinterpret_cast<float (*)[BK][BN]>(smem + 2 * BK * ALD);  // [2][o][col]
-  auto dxs = reinterpret_cast<float (*)[MP]>(smem + 2 * BK * ALD + 2 * BK * BN);
+// wp [O][H * MP] = W [O][H * M] with each group's columns padded to MP by zeros
+__global__ void cin_pad_w_kernel(const float* __restrict__ w, float* __restrict__ wp, int H,
+                                 int M, int MP, long long n) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < n; e += stride) {
+    const long long o = e / ((long long)H * MP);
+    const int k = static_cast<int>(e - o * H * MP);
+    const int m = k % MP;
+    wp[e] = m < M ? __ldg(w + o * H * M + k / MP * M + m) : 0.f;
+  }
+}
 
-  const int K = H * M;
+// grid (row tiles of 128, splits of the chunks); wp from cin_pad_w_kernel;
+// dx0 [splits][N][M]
+template <int MP>
+__global__ void __launch_bounds__(dx::THREADS, 1)
+cin_bwd_dx_kernel(const float* __restrict__ g, const float* __restrict__ wp,
+                  const float* __restrict__ h, int ldh, const float* __restrict__ x0,
+                  float* __restrict__ dh, float* __restrict__ dx0, int N, int H, int M, int O,
+                  int chunks_per_split) {
+  using namespace dx;
+  static_assert(MP == 8 || MP == 16 || MP == 32 || MP == 64, "MP");
+  constexpr int GPC = BC / MP;          // h groups of a chunk
+  constexpr int LDX = MP + 4;           // x0 rows [BR][LDX]
+  constexpr int GPW = MP <= 32 ? 32 / MP : 1;  // groups a warp's 32 columns touch
+  constexpr int STAGE = stage_floats(MP);
+  float* ring = cin_smem;
+  float* xs = ring + STAGES * STAGE;    // [BR][LDX]: the block's x0 rows, zero past M
+  float* dhx = xs + BR * LDX;           // [BR][2]: the upper halves of dh (MP 64)
+
+  const int KP = H * MP;  // padded columns
   const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * BM;
-  const int tr = tid / (BN / TN);
-  const int tc = tid % (BN / TN);
-  const int n_chunks = (H + HC - 1) / HC;
+  const int warp = tid / 32, lane = tid % 32, group = lane / 4, tig = lane % 4;
+  const int wr = (warp / WARPS_C) * 16 * MT;  // this warp's rows of the block
+  const int wc = (warp % WARPS_C) * 32;       // and columns of a chunk
+  const int row0 = blockIdx.x * BR;
+  const int n_chunks = (H + GPC - 1) / GPC;
   const int q_begin = blockIdx.y * chunks_per_split;
   const int q_end = min(n_chunks, q_begin + chunks_per_split);
+  const int so = (O + OC - 1) / OC;  // stages a chunk
+  const int n_steps = q_end > q_begin ? (q_end - q_begin) * so : 0;
+  const bool g_vec = (O & 3) == 0 && (reinterpret_cast<uintptr_t>(g) & 15) == 0;
 
-  for (int e = tid; e < BM * MP; e += THREADS) (&dxs[0][0])[e] = 0.f;
-  __syncthreads();
-
-  // g loader: o slot gk, rows gr + p * GSTEP (a half-warp reads 16
-  // consecutive o of one row).
-  const int gk = tid % BK;
-  const int gr = tid / BK;
-  const int rows_left = N - row0 - gr;
-  const float* gz = g + (row0 + gr) * O + gk;
-  // W loader: chunk column wc, o slots wo + p * WSTEP (coalesced across wc).
-  const int wc = tid % BN;
-  const int wo = tid / BN;
-
-  // this thread's tile columns, as (group, m): both halves share m because
-  // MP divides BN / 2
-  const int m_base = cin::tile_col(tc, 0) % MP;
-  const int grp0 = cin::tile_col(tc, 0) / MP;
-  const int grp1 = cin::tile_col(tc, TN / 2) / MP;
-
-  float greg[GPASS];
-  float wreg[WPASS];
-  float acc[TM][TN];
-
-  for (int q = q_begin; q < q_end; ++q) {
-    const int w_h = q * HC + wc / MP;
-    const int w_m = wc % MP;
-    const bool wcol_ok = w_m < M && w_h < H;
-    const float* wz = w + w_h * M + w_m;
-    auto load_chunk = [&](int o0) {
-      const bool o_ok = o0 + gk < O;
-#pragma unroll
-      for (int p = 0; p < GPASS; ++p)
-        greg[p] = (o_ok && p * GSTEP < rows_left) ? __ldg(gz + p * GSTEP * O + o0) : 0.f;
-#pragma unroll
-      for (int p = 0; p < WPASS; ++p) {
-        const int o = o0 + wo + p * WSTEP;
-        wreg[p] = (wcol_ok && o < O) ? __ldg(wz + o * K) : 0.f;
+  // step j: chunk q_begin + j / so, channels o0 = (j % so) * OC..; every slot
+  // of the stage is written (zero past N, O and H); the chunk's h columns
+  // come with its last stage
+  auto issue = [&](int j, int s) {
+    float* gs = ring + s * STAGE;
+    float* ws = gs + BR * LDG;
+    float* hs = ws + OC * LDW;
+    const int q = q_begin + j / so;
+    const int o0 = (j % so) * OC;
+    if (g_vec) {
+      for (int e = tid; e < BR * (OC / 4); e += THREADS) {
+        const int r = e / (OC / 4);
+        const int c = (e - r * (OC / 4)) * 4;
+        const int left = row0 + r < N ? O - (o0 + c) : 0;
+        const int bytes = left <= 0 ? 0 : (left >= 4 ? 16 : 4 * left);
+        tc::cp_async16(gs + r * LDG + c, bytes ? g + (row0 + r) * O + o0 + c : g, bytes);
       }
-    };
-    auto store_chunk = [&](int buf) {
-#pragma unroll
-      for (int p = 0; p < GPASS; ++p) gs[buf][gk][gr + p * GSTEP] = greg[p];
-#pragma unroll
-      for (int p = 0; p < WPASS; ++p) ws[buf][wo + p * WSTEP][wc] = wreg[p];
-    };
-
-    cin::tile_zero(acc);
-    load_chunk(0);
-    store_chunk(0);
-    __syncthreads();
-    int buf = 0;
-    for (int o0 = 0; o0 < O; o0 += BK) {
-      const bool more = o0 + BK < O;
-      if (more) load_chunk(o0 + BK);
-      cin::tile_fma(gs[buf], ws[buf], tr, tc, acc);
-      if (more) store_chunk(buf ^ 1);
-      __syncthreads();
-      buf ^= 1;
+    } else {
+      for (int e = tid; e < BR * OC; e += THREADS) {
+        const int r = e / OC;
+        const int c = e - r * OC;
+        const bool ok = row0 + r < N && o0 + c < O;
+        tc::cp_async4(gs + r * LDG + c, ok ? g + (row0 + r) * O + o0 + c : g, ok);
+      }
     }
+    // W rows: the chunk's 128 padded columns, 16 bytes a copy (KP is a
+    // multiple of 8, wp 16-byte aligned)
+    for (int e = tid; e < OC * (BC / 4); e += THREADS) {
+      const int o = e / (BC / 4);
+      const int c = (e - o * (BC / 4)) * 4;
+      const bool ok = o0 + o < O && q * BC + c < KP;
+      tc::cp_async16(ws + o * LDW + c, ok ? wp + (o0 + o) * KP + q * BC + c : wp, ok ? 16 : 0);
+    }
+    if (j % so == so - 1) {
+      for (int e = tid; e < BR * GPC; e += THREADS) {
+        const int r = e / GPC;
+        const int gi = e - r * GPC;
+        const bool ok = row0 + r < N && q * GPC + gi < H;
+        tc::cp_async4(hs + e, ok ? h + (row0 + r) * ldh + q * GPC + gi : h, ok);
+      }
+    }
+  };
 
-    // acc[i][j] is Z[row i, group q*HC + (j < 4 ? grp0 : grp1), m_base + j % 4]
-    const int h0 = q * HC + grp0;
-    const int h1 = q * HC + grp1;
+  for (int e = tid; e < BR * LDX; e += THREADS) {
+    const int r = e / LDX;
+    const int m = e - r * LDX;
+    const bool ok = row0 + r < N && m < M;
+    tc::cp_async4(xs + e, ok ? x0 + (row0 + r) * M + m : x0, ok);
+  }
+  if (n_steps > 0) issue(0, 0);
+  tc::cp_async_commit();
+  if (n_steps > 1) issue(1, 1);
+  tc::cp_async_commit();
+
+  // Z [rows wr + 16 i ..][columns wc + 8 nt ..] as m16n8 fragments, and
+  // dx0 in the same slots: Z h summed over the groups and chunks walked
+  float acc[MT][4][4], dacc[MT][4][4];
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int rl = cin::tile_row(tr, i);
-      const int r = row0 + rl;
-      const bool r_ok = r < N;
-      float xv[4];
+  for (int i = 0; i < MT; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        xv[j] = (r_ok && m_base + j < M) ? __ldg(x0 + r * M + m_base + j) : 0.f;
-      const float hv0 = (r_ok && h0 < H) ? __ldg(h + r * ldh + h0) : 0.f;
-      const float hv1 = (r_ok && h1 < H) ? __ldg(h + r * ldh + h1) : 0.f;
-      float p0 = 0.f, p1 = 0.f;
+    for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        p0 = fmaf(acc[i][j], xv[j], p0);
-        p1 = fmaf(acc[i][j + 4], xv[j], p1);
+      for (int qq = 0; qq < 4; ++qq) dacc[i][nt][qq] = 0.f;
+
+  for (int j = 0; j < n_steps; ++j) {
+    tc::cp_async_wait<1>();
+    __syncthreads();  // step j has landed; every warp is done with step j - 1's stage
+    if (j + 2 < n_steps) issue(j + 2, (j + 2) % STAGES);
+    tc::cp_async_commit();
+
+    const int q = q_begin + j / so;
+    if (j % so == 0) {
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int qq = 0; qq < 4; ++qq) acc[i][nt][qq] = 0.f;
+    }
+    const float* gs = ring + (j % STAGES) * STAGE;
+    const float* ws = gs + BR * LDG;
+    // a warp whose columns are all padding (past H) skips its products
+    if (q * GPC + wc / MP < H) {
+#pragma unroll
+      for (int kk = 0; kk < OC; kk += 8) {
+        uint32_t ab[MT][4], as[MT][4];
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          const int a0 = (wr + 16 * i + group) * LDG + kk + tig;
+          const int a1 = a0 + 8 * LDG;
+          split_raw(gs[a0], ab[i][0], as[i][0]);
+          split_raw(gs[a1], ab[i][1], as[i][1]);
+          split_raw(gs[a0 + 4], ab[i][2], as[i][2]);
+          split_raw(gs[a1 + 4], ab[i][3], as[i][3]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int b0 = (kk + tig) * LDW + wc + 8 * nt + group;
+          uint32_t bb[2], bs[2];
+          split_raw(ws[b0], bb[0], bs[0]);
+          split_raw(ws[b0 + 4 * LDW], bb[1], bs[1]);
+#pragma unroll
+          for (int i = 0; i < MT; ++i) tc::mma3_add(acc[i][nt], ab[i], as[i], bb, bs);
+        }
       }
+    }
+    if (j % so != so - 1) continue;
+
+    // The chunk's Z is complete.  acc[i][nt][qq] is row wr + 16 i + group +
+    // 8 (qq / 2), chunk column c = wc + 8 nt + 2 tig + qq % 2: group
+    // q * GPC + c / MP, m = c % MP.  dh: this lane's m of each group, then
+    // the quad, in a fixed order; dx0: Z h added to the lane's slots.
+    const float* hs = ws + OC * LDW;
+    const bool upper = MP == 64 && (wc / 32) % 2 == 1;  // a group's upper m half (MP 64)
+    float lower[MT][2];  // a group's lower half of dh (MP 64)
 #pragma unroll
-      for (int off = GL / 2; off > 0; off >>= 1) {
-        p0 += __shfl_xor_sync(0xffffffffu, p0, off);
-        p1 += __shfl_xor_sync(0xffffffffu, p1, off);
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int rl = wr + 16 * i + group + 8 * half;
+        float p[GPW];
+#pragma unroll
+        for (int gw = 0; gw < GPW; ++gw) p[gw] = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int b = 0; b < 2; ++b) {
+            const int c = wc + 8 * nt + 2 * tig + b;
+            const float z = acc[i][nt][2 * half + b];
+            p[(8 * nt / MP) % GPW] = fmaf(z, xs[rl * LDX + c % MP], p[(8 * nt / MP) % GPW]);
+            dacc[i][nt][2 * half + b] =
+                fmaf(z, hs[rl * GPC + c / MP], dacc[i][nt][2 * half + b]);
+          }
+        const int r = row0 + rl;
+#pragma unroll
+        for (int gw = 0; gw < GPW; ++gw) {
+          p[gw] += __shfl_xor_sync(0xffffffffu, p[gw], 1);
+          p[gw] += __shfl_xor_sync(0xffffffffu, p[gw], 2);
+          const int hh = q * GPC + wc / MP + gw;
+          if (MP < 64 && tig == 0 && r < N && hh < H) dh[r * H + hh] = p[gw];
+        }
+        if (MP == 64) {
+          lower[i][half] = p[0];
+          if (upper && tig == 0) dhx[rl * 2 + wc / 64] = p[0];
+        }
       }
-      if (r_ok && tc % GL == 0) {
-        if (h0 < H) dh[r * H + h0] = p0;
-        if (h1 < H) dh[r * H + h1] = p1;
-      }
-      float d[4];
+    if (MP == 64) {
+      __syncthreads();
+      if (!upper && tig == 0) {
+        const int hh = q * GPC + wc / 64;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) d[j] = fmaf(acc[i][j], hv0, acc[i][j + 4] * hv1);
+        for (int i = 0; i < MT; ++i)
 #pragma unroll
-      for (int off = GL; off < BN / TN; off <<= 1)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) d[j] += __shfl_xor_sync(0xffffffffu, d[j], off);
-      if (tc < GL) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) dxs[rl][m_base + j] += d[j];
+          for (int half = 0; half < 2; ++half) {
+            const int rl = wr + 16 * i + group + 8 * half;
+            if (row0 + rl < N && hh < H)
+              dh[(row0 + rl) * H + hh] = lower[i][half] + dhx[rl * 2 + wc / 64];
+          }
       }
     }
   }
 
-  // each (row, m) of dxs has one owner, the thread that wrote it above
-  if (tc < GL) {
-    float* out = dx0 + (long long)blockIdx.y * N * M;
+  // dx0: a lane's slots of one m (the groups of its 32 columns) in column
+  // order, then the column warps in order (at MP = 64 the two that hold each
+  // m) through the ring, free once every copy has landed and every warp is
+  // past its last step
+  constexpr int MW = MP < 32 ? MP : 32;  // the m of a warp's 32 columns
+  tc::cp_async_wait<0>();
+  __syncthreads();
+  float* red = ring;  // [WARPS_C][BR][32]
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int rl = cin::tile_row(tr, i);
-      const int r = row0 + rl;
-      if (r >= N) continue;
+  for (int i = 0; i < MT; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (m_base + j < M) out[r * M + m_base + j] = dxs[rl][m_base + j];
+    for (int half = 0; half < 2; ++half) {
+      const int rl = wr + 16 * i + group + 8 * half;
+#pragma unroll
+      for (int nt = 0; nt < MW / 8; ++nt)
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          float d = dacc[i][nt][2 * half + b];
+#pragma unroll
+          for (int nn = nt + MW / 8; nn < 4; nn += MW / 8) d += dacc[i][nn][2 * half + b];
+          red[((wc / 32) * BR + rl) * 32 + 8 * nt + 2 * tig + b] = d;
+        }
     }
+  __syncthreads();
+  float* out = dx0 + (long long)blockIdx.y * N * M;
+  for (int e = tid; e < BR * M; e += THREADS) {
+    const int rl = e / M;
+    const int m = e - rl * M;
+    if (row0 + rl >= N) break;
+    float d = 0.f;
+#pragma unroll
+    for (int c = 0; c < WARPS_C; ++c)
+      if (MP < 64 || c % 2 == m / 32) d += red[(c * BR + rl) * 32 + m % 32];
+    out[(row0 + rl) * M + m] = d;
   }
 }
 
@@ -478,16 +606,24 @@ __global__ void cin_sum_slices_kernel(const float* __restrict__ part, int slices
 }
 
 template <int MP>
-int launch_dx(const float* g, const float* w, const float* h, int ldh,
-              const float* x0, float* dh, float* dx0, int N, int H, int M,
-              int O, int splits, int chunks_per_split, cudaStream_t stream) {
-  constexpr int smem = dx_smem_bytes(MP);
+int launch_dx(const float* g, const float* w, float* wp, const float* h, int ldh,
+              const float* x0, float* dh, float* dx0, int N, int H, int M, int O, int splits,
+              int chunks_per_split, cudaStream_t stream) {
+  constexpr int smem = dx_smem_floats<MP>() * 4;
   cudaError_t err = cudaFuncSetAttribute(
       cin_bwd_dx_kernel<MP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((N + BM - 1) / BM, splits);
-  void* args[] = {&g, &w, &h, &ldh, &x0, &dh, &dx0, &N, &H, &M, &O, &chunks_per_split};
-  err = cudaLaunchKernel(cin_bwd_dx_kernel<MP>, grid, dim3(THREADS), args,
+  int mp = MP;
+  long long n = (long long)O * H * MP;
+  void* pargs[] = {&w, &wp, &H, &M, &mp, &n};
+  const long long pblocks = (n + 255) / 256;
+  err = cudaLaunchKernel(cin_pad_w_kernel, dim3(static_cast<unsigned>(pblocks < 1024 ? pblocks : 1024)),
+                         dim3(256), pargs, 0, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float* wpc = wp;
+  const dim3 grid((N + dx::BR - 1) / dx::BR, splits);
+  void* args[] = {&g, &wpc, &h, &ldh, &x0, &dh, &dx0, &N, &H, &M, &O, &chunks_per_split};
+  err = cudaLaunchKernel(cin_bwd_dx_kernel<MP>, grid, dim3(dx::THREADS), args,
                          static_cast<size_t>(smem), stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
@@ -502,14 +638,17 @@ extern "C" {
 // and that every element offset fits in 32 bits; it allocates every output
 // and partial buffer.
 
-// dh [N, H]; dx0 [splits, N, M] partials (the final dx0 when splits == 1).
-// mp is M rounded up to a power of two in 8..64; split s walks chunks
-// [s * chunks_per_split, (s + 1) * chunks_per_split) of 128 / mp h groups.
-int cin_bwd_dx(const void* g, const void* w, const void* h, int ldh,
+// dh [N, H]; dx0 [splits, N, M] partials (the final dx0 when splits == 1);
+// wp [O, H * mp], 16-byte aligned: scratch for W with each group padded to mp
+// columns.  mp is M rounded up to a power of two in 8..64; the grid is
+// 128-row tiles by splits, split s walking chunks [s * chunks_per_split,
+// (s + 1) * chunks_per_split) of 128 / mp h groups; one block a SM.
+int cin_bwd_dx(const void* g, const void* w, void* wp, const void* h, int ldh,
                const void* x0, void* dh, void* dx0, int N, int H, int M,
                int O, int mp, int splits, int chunks_per_split, void* stream) {
   auto G = static_cast<const float*>(g);
   auto W = static_cast<const float*>(w);
+  auto WP = static_cast<float*>(wp);
   auto Hr = static_cast<const float*>(h);
   auto X0 = static_cast<const float*>(x0);
   auto DH = static_cast<float*>(dh);
@@ -517,13 +656,17 @@ int cin_bwd_dx(const void* g, const void* w, const void* h, int ldh,
   auto st = static_cast<cudaStream_t>(stream);
   switch (mp) {
     case 8:
-      return launch_dx<8>(G, W, Hr, ldh, X0, DH, DX0, N, H, M, O, splits, chunks_per_split, st);
+      return launch_dx<8>(G, W, WP, Hr, ldh, X0, DH, DX0, N, H, M, O, splits, chunks_per_split,
+                          st);
     case 16:
-      return launch_dx<16>(G, W, Hr, ldh, X0, DH, DX0, N, H, M, O, splits, chunks_per_split, st);
+      return launch_dx<16>(G, W, WP, Hr, ldh, X0, DH, DX0, N, H, M, O, splits, chunks_per_split,
+                           st);
     case 32:
-      return launch_dx<32>(G, W, Hr, ldh, X0, DH, DX0, N, H, M, O, splits, chunks_per_split, st);
+      return launch_dx<32>(G, W, WP, Hr, ldh, X0, DH, DX0, N, H, M, O, splits, chunks_per_split,
+                           st);
     case 64:
-      return launch_dx<64>(G, W, Hr, ldh, X0, DH, DX0, N, H, M, O, splits, chunks_per_split, st);
+      return launch_dx<64>(G, W, WP, Hr, ldh, X0, DH, DX0, N, H, M, O, splits, chunks_per_split,
+                           st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,9 +1,9 @@
-// Shared pieces of the fp32 CIN kernels (cin_fwd.cu, cin_bwd.cu's
-// cin_bwd_dx): the 128 x 128 output tile that 256 threads compute as 8 x 8
-// register tiles from two k-major shared-memory operands, and the element of
-// the outer product z[r, h*M + m] = h[r, h] * x0[r, m] that the forward
-// builds in shared memory instead of reading it from device memory.  cin_dw
-// runs on the tensor cores (tc_tf32.cuh).
+// The fp32 tile of the CIN forward (cin_fwd.cu): the 128 x 128 output tile
+// that 256 threads compute as 8 x 8 register tiles from two k-major
+// shared-memory operands, and the element of the outer product
+// z[r, h*M + m] = h[r, h] * x0[r, m] that the forward builds in shared memory
+// instead of reading it from device memory.  The backward kernels
+// (cin_bwd.cu) run on the tensor cores (tc_tf32.cuh).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,5 +1,6 @@
-// Tensor-core building blocks of the 3xTF32 kernels (cin_bwd.cu cin_dw,
-// ce_bwd.cu): every piece of inline PTX they use, as small device functions.
+// Tensor-core building blocks of the 3xTF32 kernels (cin_bwd.cu, ce_fwd.cu
+// and ce_bwd.cu through ce_tc.cuh, attn_bwd_tc.cuh): every piece of inline
+// PTX they use, as small device functions.
 //
 // 3xTF32 keeps near-fp32 accuracy on the TF32 tensor cores.  Each fp32
 // operand x is split into big = tf32(x) (round to nearest, ties away, to
@@ -19,8 +20,9 @@
 //   B (8 x 8, [k][col]):  b0 (tig, group), b1 (tig + 4, group);
 //   C (16 x 8):           c0 (group, 2 tig), c1 (group, 2 tig + 1),
 //                         c2 (group + 8, 2 tig), c3 (group + 8, 2 tig + 1).
-// Each k8 step's product is summed from zero and added to the running sum in
-// fp32 (mma3_add, below).  Operand tiles come from device memory by cp.async
+// Each k8 step's product is summed from zero (the first MMA takes a zero
+// accumulator operand, mma_z) and added to the running sum in fp32 (mma3_add,
+// below).  Operand tiles come from device memory by cp.async
 // into shared memory (16-byte .cg copies where the source is aligned, 4-byte
 // .ca ones elsewhere), zero-filled past the source's valid bytes.
 #pragma once
@@ -56,13 +58,15 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], const
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// c += a * b in 3xTF32: the small terms first, the big product last
-__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ab)[4],
-                                     const uint32_t (&as)[4], const uint32_t (&bb)[2],
-                                     const uint32_t (&bs)[2]) {
-  mma(c, as, bb);
-  mma(c, ab, bs);
-  mma(c, ab, bb);
+// d = a * b over one m16n8k8 tile, summed from zero: the accumulator input
+// is a zero operand, so d needs no registers zeroed first
+__device__ __forceinline__ void mma_z(float (&d)[4], const uint32_t (&a)[4],
+                                      const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f));
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -103,14 +107,19 @@ namespace tc {
 // 40960 rows then failed chip_smoke.py's float64 gate (twice the plain fp32
 // product's error); with one fp32 add a k8 step it errs 0.3-0.4x as much as
 // the plain product (an NVIDIA H100 80GB HBM3 at 700 W).
+// The three products are summed in the tensor core, the small terms first,
+// the big product last.
 __device__ __forceinline__ void mma3_add(float (&acc)[4], const uint32_t (&ab)[4],
                                          const uint32_t (&as)[4], const uint32_t (&bb)[2],
                                          const uint32_t (&bs)[2], bool one = false) {
-  float d[4] = {0.f, 0.f, 0.f, 0.f};
-  if (one)
+  float d[4];
+  if (one) {
+    mma_z(d, ab, bb);
+  } else {
+    mma_z(d, as, bb);
+    mma(d, ab, bs);
     mma(d, ab, bb);
-  else
-    mma3(d, ab, as, bb, bs);
+  }
 #pragma unroll
   for (int q = 0; q < 4; ++q) acc[q] += d[q];
 }
