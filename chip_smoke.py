@@ -13,11 +13,11 @@ run in order and any failure raises, so the exit code is non-zero:
    paths' shapes (layer 1's h a strided column view, as split-half gives it)
    and at a ragged and a tiny shape, with its time, the plain version's time,
    one ``torch.einsum`` over the three operands (the library yardstick) and
-   the least time the card could take (bound); the backward kernels
-   ``cin_bwd_dx`` and ``cin_dw`` (3xTF32 on the tensor cores) must also be
-   bit-equal over two runs and, against float64 (each of dh and dx0, and
-   dW), within twice the plain fp32 version's error (or 1e-6 of the largest
-   entry), with a second bound at the TF32 tensor-core peak;
+   the least time the card could take (bound); all three (3xTF32 on the
+   tensor cores) must also be bit-equal over two runs and, against float64
+   (out, each of dh and dx0, and dW), within twice the plain fp32 version's
+   error (or 1e-6 of the largest entry), with a second bound at the TF32
+   tensor-core peak;
 4. serving: the canonical xDeepFM (26 sparse fields, vocab 10000, dim 10,
    13 dense, CIN (256, 128) split-half, DNN (256, 256)) with seeded random
    weights scores four requests through ``Scorer(batch_size=8192)``; the CIN
@@ -29,8 +29,10 @@ run in order and any failure raises, so the exit code is non-zero:
    metrics=["auc"])``, ``fit`` at batch 4096 for three epochs on seeded
    Criteo-like data labelled by a seeded logistic teacher.  Per step the CIN
    kernels must launch 2 + 2 + 2 times (forward, cin_bwd_dx, cin_dw), and
-   6 + 0 + 2 under the legacy backward; one step's gradients must match the
-   plain CIN's on the card under both backward implementations, and one SGD
+   8 + 0 + 2 under the legacy backward (dh and dx0 of each layer through the
+   forward kernel, one launch for each 128 of the layer's O); one step's
+   gradients must match the plain CIN's on the card under both backward
+   implementations, and one SGD
    step on the card must match the CPU model's; loss and AUC must be finite
    and the epoch loss must fall.  Examples/s trained with the kernels and
    with the plain CIN, from CUDA events over train steps;
@@ -66,6 +68,8 @@ run in order and any failure raises, so the exit code is non-zero:
    autograd); ``ab_fwd`` / ``ab_bwd`` (the fused block) at V1's train shape
    (B 4096, E 10, S 256, 2 heads, L 1), at L = 2, without the residual,
    without the LayerNorm and ragged; every backward bit-equal over two runs;
+   at the train shapes ``sa_fwd``'s o, ``ab_fwd``'s pooled and every
+   gradient also against float64;
 12. attention training, for xDeepFMAttention (V1) and xDeepFMAttentionV2
    (V2, 2 layers) at the canonical widths: ``fit`` at batch 4096 with Adam
    for three epochs; per step the CIN's 2 + 2 + 2 launches and V1's
@@ -201,6 +205,7 @@ from xdeepfm_tpu_torch.ops.lane_attention_cuda import (
     la_forward_reference,
 )
 from xdeepfm_tpu_torch.ops.cin_cuda import (
+    FWD_H_BLOCK,
     cin_rows_backward,
     cin_rows_backward_reference,
     cin_rows_dw,
@@ -279,12 +284,15 @@ SOURCES = {
 }
 # the headers that hold a kernel's design beyond its source
 HEADERS = {
+    "cin_fwd": ("xdeepfm_tpu_torch/ops/csrc/tc_tf32.cuh",),
     "cin_bwd_dx": ("xdeepfm_tpu_torch/ops/csrc/tc_tf32.cuh",),
     "cin_dw": ("xdeepfm_tpu_torch/ops/csrc/tc_tf32.cuh",),
     "ce_fwd": ("xdeepfm_tpu_torch/ops/csrc/ce_tc.cuh", "xdeepfm_tpu_torch/ops/csrc/tc_tf32.cuh"),
     "ce_bwd": ("xdeepfm_tpu_torch/ops/csrc/ce_tc.cuh", "xdeepfm_tpu_torch/ops/csrc/tc_tf32.cuh"),
     "sa_fwd": ("xdeepfm_tpu_torch/ops/csrc/attn_fwd_tc.cuh",),
     "sa_bwd": ("xdeepfm_tpu_torch/ops/csrc/attn_bwd_tc.cuh",),
+    "ab_fwd": ("xdeepfm_tpu_torch/ops/csrc/attn_fwd_tc.cuh",
+               "xdeepfm_tpu_torch/ops/csrc/attn_block.cuh"),
     "ab_bwd": ("xdeepfm_tpu_torch/ops/csrc/attn_bwd_tc.cuh",),
     **{f"ablate_{v}": ("xdeepfm_tpu_torch/ops/csrc/attn_fwd_tc.cuh",)
        for v in ("full", "dots", "soft")},
@@ -391,7 +399,11 @@ def _kernel_case(name, N, H, M, O, strided, gen):
     W3 = W.view(O, H, M)
     ins = 4 * (N * H + N * M)
     if name == "cin_fwd":
-        return (lambda: cin_rows_forward(h, x0, W, b), lambda: cin_rows_reference(h, x0, W, b),
+        def fwd():
+            return cin_rows_forward(h, x0, W, b)
+
+        fwd.float64 = lambda: cin_rows_reference(h.double(), x0.double(), W.double(), b.double())
+        return (fwd, lambda: cin_rows_reference(h, x0, W, b),
                 lambda: torch.einsum("nh,nm,ohm->no", h, x0, W3),
                 ins + 4 * (O * H * M + O + N * O))
     if name == "cin_bwd_dx":
@@ -430,11 +442,11 @@ def _f64_gate(label, got, want, exact):
 def phase_kernels(peak):
     """Every kernel against its plain version on the same inputs.  FLOPs are
     the contraction's 2*N*H*M*O for each kernel (the N*H*M-sized epilogue
-    terms add under 1% at O >= 128 and are left out of the bound).  The
-    backward kernels ``cin_bwd_dx`` and ``cin_dw`` (3xTF32 on the tensor
-    cores) are also held against float64 on the card (:func:`_f64_gate`, each
-    of dh and dx0, and dW), must be bit-equal over two runs, and carry a
-    second bound, 3 * FLOPs at the TF32 peak (``bound_tc_ms``)."""
+    terms add under 1% at O >= 128 and are left out of the bound).  All
+    three kernels (3xTF32 on the tensor cores) are also held against float64
+    on the card (:func:`_f64_gate`: out, each of dh and dx0, and dW), must
+    be bit-equal over two runs, and carry a second bound, 3 * FLOPs at the
+    TF32 peak (``bound_tc_ms``)."""
     _, peak_flops, peak_bw, peak_tc = peak
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     results = {}
@@ -456,22 +468,21 @@ def phase_kernels(peak):
             torch.testing.assert_close(
                 got, want, rtol=BWD_RTOL, atol=BWD_RTOL * want.abs().max().item() + 1e-6
             )
-        if name != "cin_fwd":
-            exact = kernel.float64()
-            if name == "cin_bwd_dx":  # dh and dx0 each to the gate
-                gates = [_f64_gate(f"{name} {out} at {label}", a, b, e) for out, a, b, e in
-                         zip(("dh", "dx0"), got.split((H, M), 1), want.split((H, M), 1), exact)]
-            else:
-                gates = [_f64_gate(f"{name} at {label}", got, want, exact)]
-            extra["err_vs_float64"] = max(e for e, _ in gates)
-            extra["plain_err_vs_float64"] = max(p for _, p in gates)
-            del exact
-            again = kernel()
-            again = torch.cat(again, 1) if name == "cin_bwd_dx" else again
-            extra["bit_equal"] = bool(torch.equal(got, again))
-            del again
-            if not extra["bit_equal"]:
-                raise AssertionError(f"{name} at {label}: two runs differ")
+        exact = kernel.float64()
+        if name == "cin_bwd_dx":  # dh and dx0 each to the gate
+            gates = [_f64_gate(f"{name} {out} at {label}", a, b, e) for out, a, b, e in
+                     zip(("dh", "dx0"), got.split((H, M), 1), want.split((H, M), 1), exact)]
+        else:
+            gates = [_f64_gate(f"{name} at {label}", got, want, exact)]
+        extra["err_vs_float64"] = max(e for e, _ in gates)
+        extra["plain_err_vs_float64"] = max(p for _, p in gates)
+        del exact
+        again = kernel()
+        again = torch.cat(again, 1) if name == "cin_bwd_dx" else again
+        extra["bit_equal"] = bool(torch.equal(got, again))
+        del again
+        if not extra["bit_equal"]:
+            raise AssertionError(f"{name} at {label}: two runs differ")
         del got, want
         iters = 20 if N > 10_000 else 200
         kernel_ms = cuda_ms(kernel, iters)
@@ -479,8 +490,7 @@ def phase_kernels(peak):
         library_ms = cuda_ms(library, iters)
         flops = 2 * N * H * M * O
         by_ops = flops / peak_flops >= nbytes / peak_bw
-        if name != "cin_fwd":
-            extra["bound_tc_ms"] = max(TF32_PASSES * flops / peak_tc, nbytes / peak_bw) * 1e3
+        extra["bound_tc_ms"] = max(TF32_PASSES * flops / peak_tc, nbytes / peak_bw) * 1e3
         results[name, label] = dict(
             N=N, H=H, M=M, O=O, strided_h=strided, max_abs_err=err, kernel_ms=kernel_ms,
             plain_ms=plain_ms, library_ms=library_ms, library="torch.einsum over h, x0 and W",
@@ -977,7 +987,10 @@ def phase_training():
         relu_flips[impl] = held.stats()
         if impl == "legacy":
             legacy_launches = counts
-            if counts != expected(cin_fwd=6, cin_dw=2):
+            # the forwards, then each layer's dh and dx0 contractions over
+            # the O columns of g in h blocks of FWD_H_BLOCK
+            legacy_fwd = len(CIN_LAYERS) + sum(2 * -(-o // FWD_H_BLOCK) for o in CIN_LAYERS)
+            if counts != expected(cin_fwd=legacy_fwd, cin_dw=2):
                 raise AssertionError(f"legacy backward launched {counts} in one step")
         elif counts != expected(cin_fwd=2, cin_bwd_dx=2, cin_dw=2):
             raise AssertionError(f"fused backward launched {counts} in one step")
@@ -1376,7 +1389,8 @@ def phase_attn_kernels(peak):
     block's forward with the activations it saves for the backward).  The
     backwards run three of their five [S, S] products in 3xTF32 on the
     tensor cores, and sa_fwd takes its exps from a lagging reference max in
-    one pass: at the path shapes sa_fwd's o and each gradient are also held
+    one pass (as ab_fwd's attention, through the same routine): at the path
+    shapes sa_fwd's o, ab_fwd's pooled and each gradient are also held
     against float64 (:func:`_f64_gate`), and :func:`_tc_bounds` adds the
     3xTF32 bound and the exp floor.  sa_fwd's o, m and inv_z must be
     bit-equal over two runs, as the backwards' gradients."""
@@ -1473,8 +1487,11 @@ def phase_attn_kernels(peak):
             grads, ab_backward_reference(cfg, g, x, *ws)))
         if not all(torch.equal(a, b) for a, b in zip(grads, ab_backward(cfg, g, x, *ws, saved))):
             raise AssertionError(f"ab_bwd at {label}: two runs differ")
-        gate = {}
+        fwd_gate, gate = None, {}
         if label == AB_PATH_SHAPE:
+            fwd_gate = _f64_gate(f"ab_fwd pooled at {label}", pooled,
+                                 ab_forward_reference(cfg, x, *ws),
+                                 ab_forward_reference(cfg, x.double(), *(t.double() for t in ws)))
             want = ab_backward_reference(cfg, g, x, *ws)
             exact = ab_backward_reference(cfg, g.double(), x.double(), *(t.double() for t in ws))
             names = ("dx", "dwq", "dwk", "dwv", "dwo", "dgamma", "dbeta", "dw1", "db1", "dw2")
@@ -1495,6 +1512,8 @@ def phase_attn_kernels(peak):
                    library_ms=None, library="no single PyTorch call",
                    fwd_max_abs_err=fwd_err, bwd_max_abs_err=bwd_err, bwd_bit_equal=True,
                    gexp=L * B * H * S * S / 1e9)
+        if fwd_gate:
+            rec["fwd_err_vs_float64"], rec["fwd_plain_err_vs_float64"] = fwd_gate
         if gate:
             rec["bwd_err_vs_float64"] = {k: e[0] for k, e in gate.items()}
             rec["bwd_plain_err_vs_float64"] = {k: e[1] for k, e in gate.items()}
@@ -1504,13 +1523,13 @@ def phase_attn_kernels(peak):
         saves = 4 * (2 * B * L * H * S + 2 * B * L * E * S)
         bwd = (L * (10 * B * H * S * S * dh + 16 * glue) + 4 * glue,
                2 * act + 2 * wbytes + 4 * B * E + saves)
-        for kind, flops, nbytes in (
-                ("fwd", L * (4 * B * H * S * S * dh + 8 * glue) + 2 * glue,
-                 act + wbytes + 4 * B * E + saves),
-                ("bwd", *bwd)):
+        fwd = (L * (4 * B * H * S * S * dh + 8 * glue) + 2 * glue,
+               act + wbytes + 4 * B * E + saves)
+        for kind, flops, nbytes in (("fwd", *fwd), ("bwd", *bwd)):
             rec[f"{kind}_bound_ms"], rec[f"{kind}_bound_by"] = _bound(flops, nbytes, peak)
             rec[f"{kind}_gflop"] = flops / 1e9
             rec[f"{kind}_tflops"] = flops / rec[f"{kind}_ms"] / 1e9
+        _tc_bounds(rec, "fwd_", *fwd, L * B * H * S * S, peak)
         _tc_bounds(rec, "bwd_", *bwd, L * B * H * S * S, peak)
         results["ab", label] = rec
         emit(phase="attn_kernel", kernel="attn_block", shape=label, **rec)
@@ -2327,11 +2346,10 @@ def main():
             bound_by="operations" if ops_s >= bytes_s else "bytes",
             library_ms=sum(r["library_ms"] for r in path),
             per="train step at batch 4096 (2 launches)",
-            **({"bound_tc_ms": sum(r["bound_tc_ms"] for r in path),
-                "err_vs_float64": max(r["err_vs_float64"] for (k, _), r in shapes.items()
-                                      if k == kname),
-                "bit_equal": all(r["bit_equal"] for (k, _), r in shapes.items() if k == kname)}
-               if kname != "cin_fwd" else {}),
+            bound_tc_ms=sum(r["bound_tc_ms"] for r in path),
+            err_vs_float64=max(r["err_vs_float64"] for (k, _), r in shapes.items()
+                               if k == kname),
+            bit_equal=all(r["bit_equal"] for (k, _), r in shapes.items() if k == kname),
         ))
     for kname, kind in (("ce_fwd", "fwd"), ("ce_bwd", "bwd")):
         source, replaces = SOURCES[kname]
@@ -2370,11 +2388,10 @@ def main():
             ms=n * r[f"{kind}_ms"], plain_ms=n * r[f"plain_{kind}_ms"],
             bound_ms=n * r[f"{kind}_bound_ms"], bound_by=r[f"{kind}_bound_by"],
             library_ms=None if lib is None else n * lib,
-            **({"bound_tc_ms": n * r[f"{kind}_bound_3xtf32_ms"],
-                "exp_floor_ms": n * r[f"{kind}_exp_floor_ms"],
-                "err_vs_float64": (max(r["bwd_err_vs_float64"].values()) if kind == "bwd"
-                                   else r["fwd_err_vs_float64"])}
-               if kname != "ab_fwd" else {}),
+            bound_tc_ms=n * r[f"{kind}_bound_3xtf32_ms"],
+            exp_floor_ms=n * r[f"{kind}_exp_floor_ms"],
+            err_vs_float64=(max(r["bwd_err_vs_float64"].values()) if kind == "bwd"
+                            else r["fwd_err_vs_float64"]),
             per=(f"V2 train step at batch 4096 ({n} launches, G {r['G']}, dh {r['dh']}, "
                  f"S {r['S']})" if key[0] == "sa" else
                  f"V1 train step at batch 4096 (1 launch, E {r['E']}, S {r['S']}, H {r['H']})"),

@@ -11,10 +11,19 @@ memory a launch asked for in ``emu::smem_high``.  It also stands in for
 ``mma.sync`` m16n8k8 is computed by the warp's 32 lanes from the PTX ISA's
 fragment layout through the warp barrier (reading its operands as TF32,
 the low 13 bits ignored), and ``cp.async`` is a plain copy
-whose waits are no-ops.  This checks a kernel's indexing, masking, tiling,
-fragment layouts and partial sums without a GPU; it says nothing about its
-speed, about the GPU's compiler or about the order of asynchronous copies,
-which ``chip_smoke.py`` and the ``cuda`` tests cover.
+whose waits are no-ops.  For Hopper's pieces (``cin_fwd.cu``): the
+``wgmma`` m64nNk8 tf32 with A from registers is computed by the
+warpgroup's 128 threads through a 128-thread barrier, B read through its
+descriptor's layout (start address, LBO, SBO; unswizzled); ``mbarrier``s
+keep their phase, arrivals and transaction count beside the barrier, so a
+producer and its consumers, separate threads, wait on real phases; the
+bulk copy is a plain copy that then completes its transactions; a named
+barrier is the warpgroup's; ``setmaxnreg`` and the wgmma fences, commits
+and waits are no-ops (the emulated MMA is synchronous).  This checks a
+kernel's indexing, masking, tiling, fragment layouts, barrier phases and
+partial sums without a GPU; it says nothing about its speed, about the
+GPU's compiler or about the order of asynchronous copies and MMAs, which
+``chip_smoke.py`` and the ``cuda`` tests cover.
 """
 
 SHIM = r"""
@@ -22,9 +31,12 @@ SHIM = r"""
 #include <barrier>
 #include <cfloat>
 #include <cmath>
+#include <condition_variable>
 #include <cstdint>
 #include <cstring>
+#include <map>
 #include <memory>
+#include <mutex>
 #include <thread>
 #include <tuple>
 #include <type_traits>
@@ -60,9 +72,20 @@ struct Warp {
   float vals[32];
   uint32_t frag[32][6];  // each lane's A and B fragments of one mma
 };
+// a warpgroup's 128 threads: the barrier of its wgmma and its named
+// barrier, and each thread's A fragment of one wgmma
+struct WarpGroup {
+  std::barrier<> bar;
+  uint32_t a[128][4];
+  explicit WarpGroup(std::ptrdiff_t n) : bar(n) {}
+};
 inline thread_local dim3 tidx, bidx;
 inline thread_local std::barrier<>* block_bar = nullptr;
 inline thread_local Warp* warp = nullptr;
+inline thread_local WarpGroup* group = nullptr;
+// the emulated shared memory, which the test's main file defines: shared
+// addresses (tc::smem_addr, wgmma descriptors) are offsets into it
+inline const void* smem_base = nullptr;
 
 inline dim3 grid_dim, block_dim;
 inline size_t smem_high = 0;  // the most dynamic shared memory a launch asked for
@@ -124,6 +147,9 @@ cudaError_t launch(void (*f)(A...), dim3 grid, dim3 block, void** args, std::ind
       for (unsigned x = 0; x < grid.x; ++x) {
         std::barrier<> bar(n);
         std::unique_ptr<Warp[]> warps(new Warp[n / 32]);
+        std::vector<std::unique_ptr<WarpGroup>> groups;
+        for (unsigned i = 0; i < n; i += 128)
+          groups.emplace_back(new WarpGroup(std::min(128u, n - i)));
         std::vector<std::thread> threads;
         for (unsigned t = 0; t < n; ++t)
           threads.emplace_back([&, t] {
@@ -131,6 +157,7 @@ cudaError_t launch(void (*f)(A...), dim3 grid, dim3 block, void** args, std::ind
             bidx = dim3(x, y, z);
             block_bar = &bar;
             warp = &warps[t / 32];
+            group = groups[t / 128].get();
             std::apply(f, vals);
           });
         for (auto& th : threads) th.join();
@@ -199,6 +226,100 @@ inline void cp_async4(void* dst, const void* src, bool valid) {
 }
 inline void cp_async_commit() {}
 template <int N> inline void cp_async_wait() {}
+
+// Hopper's pieces (cin_fwd.cu).  A shared address is an offset into the
+// emulated shared memory.
+inline uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(static_cast<const char*>(p) -
+                               static_cast<const char*>(emu::smem_base));
+}
+// mbarriers with their phase, pending arrivals and transaction count,
+// kept beside the barrier's word (the producer and consumers are separate
+// threads): a phase completes when its arrivals and transactions are all
+// in, and wait(parity) returns once the phase of that parity has completed
+struct Mbar {
+  int expected = 0, pending = 0;
+  long long tx = 0;
+  uint32_t phase = 0;
+};
+inline std::mutex mbar_mu;
+inline std::condition_variable mbar_cv;
+inline std::map<const void*, Mbar> mbars;
+inline void mbar_settle(Mbar& b) {
+  if (b.pending == 0 && b.tx == 0) {
+    b.phase ^= 1;
+    b.pending = b.expected;
+    mbar_cv.notify_all();
+  }
+}
+inline void mbar_init(uint64_t* bar, int count) {
+  std::lock_guard<std::mutex> lk(mbar_mu);
+  mbars[bar] = Mbar{count, count, 0, 0};
+}
+inline void mbar_fence_init() {}
+inline void mbar_arrive(uint64_t* bar) {
+  std::lock_guard<std::mutex> lk(mbar_mu);
+  Mbar& b = mbars.at(bar);
+  --b.pending;
+  mbar_settle(b);
+}
+inline void mbar_arrive_tx(uint64_t* bar, int bytes) {
+  std::lock_guard<std::mutex> lk(mbar_mu);
+  Mbar& b = mbars.at(bar);
+  b.tx += bytes;
+  --b.pending;
+  mbar_settle(b);
+}
+inline void mbar_wait(uint64_t* bar, uint32_t parity) {
+  std::unique_lock<std::mutex> lk(mbar_mu);
+  mbar_cv.wait(lk, [&] { return mbars.at(bar).phase != parity; });
+}
+// the bulk copy: a plain copy that then completes its transactions
+inline void bulk_copy(void* dst, const void* src, int bytes, uint64_t* bar) {
+  std::memcpy(dst, src, bytes);
+  std::lock_guard<std::mutex> lk(mbar_mu);
+  Mbar& b = mbars.at(bar);
+  b.tx -= bytes;
+  mbar_settle(b);
+}
+// the kernels name one barrier a warpgroup
+inline void named_sync(int, int) { emu::group->bar.arrive_and_wait(); }
+template <int R> inline void regs_inc() {}
+template <int R> inline void regs_dec() {}
+inline void wgmma_fence() {}
+inline void wgmma_commit() {}
+template <int N> inline void wgmma_wait() {}
+template <int R> inline void fence_regs(float (&)[R]) {}
+// wgmma m64nNk8 tf32, A from registers: the warpgroup's 128 threads post
+// their A fragments (warp w rows 16 w.., the m16n8k8 A layout), then each
+// sums its own D entries (warp w rows, one m16n8k8 C fragment an 8-column
+// group), B read through the descriptor: start address, LBO along K and
+// SBO along N, unswizzled 8 x 16-byte core matrices; operands as TF32
+template <int N>
+inline void wgmma(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc, int acc) {
+  const int t = emu::tidx.x % 128;
+  emu::WarpGroup* G = emu::group;
+  for (int q = 0; q < 4; ++q) G->a[t][q] = a[q];
+  G->bar.arrive_and_wait();
+  const char* b = static_cast<const char*>(emu::smem_base) + ((desc & 0x3fff) << 4);
+  const size_t lbo = ((desc >> 16) & 0x3fff) << 4, sbo = ((desc >> 32) & 0x3fff) << 4;
+  const int w = t / 32, grp = (t % 32) / 4, tig = t % 4;
+  for (int j = 0; j < N / 8; ++j) {
+    for (int q = 0; q < 4; ++q) {
+      const int row = 16 * w + grp + 8 * (q / 2), col = 8 * j + 2 * tig + q % 2;
+      float s = acc ? d[4 * j + q] : 0.f;
+      for (int k = 0; k < 8; ++k) {
+        const uint32_t av =
+            G->a[32 * (row / 16) + 4 * (row % 8) + k % 4][(row % 16 >= 8) + 2 * (k >= 4)];
+        uint32_t bv;
+        std::memcpy(&bv, b + (col / 8) * sbo + (col % 8) * 16 + (k / 4) * lbo + (k % 4) * 4, 4);
+        s += __uint_as_float(av & 0xffffe000u) * __uint_as_float(bv & 0xffffe000u);
+      }
+      d[4 * j + q] = s;
+    }
+  }
+  G->bar.arrive_and_wait();
+}
 }  // namespace tc
 """
 

@@ -40,7 +40,11 @@ CSRC = pathlib.Path(sa.__file__).resolve().with_name("csrc")
 # d from 0 (the backward's order).  Mode 1 (rows 10-11): ints (mode, B, E, S, L, H, residual,
 # layer_norm), floats (scale, eps), then x, wq, wk, wv, wo, gamma, beta, w1,
 # b1, w2, g; writes pooled, then pooled again with no saves, dx and the
-# reduced parameter gradients.
+# reduced parameter gradients.  Mode 3 (row 10 alone): mode 1's header and
+# inputs but g; writes pooled, m, inv_z, osave and ysave of two runs, pooled
+# with no saves, then layer 0's score max of each (row, head, query)
+# recomputed here by fmaf in the kernel's orders (the projections over e
+# from 0, the scores over d from 0).
 MAIN = r"""
 #include <cmath>
 #include <cstdio>
@@ -115,6 +119,54 @@ int main(int argc, char** argv) {
           mx = fmaxf(mx, s);
         }
         mref[(size_t)g * S + i] = mx;
+      }
+    put(out, mref);
+  } else if (mode == 3) {
+    auto hd = take<int>(in, 7);
+    const int B = hd[0], E = hd[1], S = hd[2], L = hd[3], H = hd[4], res = hd[5], ln = hd[6];
+    auto fl = take<float>(in, 2);
+    const int dh = E / H;
+    auto x = take<float>(in, (size_t)B * E * S);
+    auto wq = take<float>(in, (size_t)L * H * E * dh), wk = take<float>(in, (size_t)L * H * E * dh),
+         wv = take<float>(in, (size_t)L * H * E * dh), wo = take<float>(in, (size_t)L * H * dh * E);
+    auto gam = take<float>(in, (size_t)L * E), bet = take<float>(in, (size_t)L * E);
+    auto w1 = take<float>(in, (size_t)E * E), b1 = take<float>(in, E), w2 = take<float>(in, E);
+    for (int run = 0; run < 3; ++run) {
+      std::vector<float> pooled((size_t)B * E), m((size_t)B * L * H * S), z(m.size()),
+          os((size_t)B * L * E * S), ys(os.size());
+      const bool save = run < 2;
+      poison();
+      err |= ab_fwd(x.data(), wq.data(), wk.data(), wv.data(), wo.data(), gam.data(), bet.data(),
+                    w1.data(), b1.data(), w2.data(), pooled.data(), save ? m.data() : nullptr,
+                    save ? z.data() : nullptr, save ? os.data() : nullptr,
+                    save ? ys.data() : nullptr, B, E, S, L, H, fl[0], fl[1], res, ln, nullptr);
+      put(out, pooled);
+      if (save)
+        for (auto* v : {&m, &z, &os, &ys}) put(out, *v);
+    }
+    std::vector<float> mref((size_t)B * H * S), q((size_t)dh * S), k((size_t)dh * S);
+    for (int b = 0; b < B; ++b)
+      for (int h = 0; h < H; ++h) {
+        for (int d = 0; d < dh; ++d)
+          for (int s = 0; s < S; ++s) {
+            float aq = 0.f, ak = 0.f;
+            for (int e = 0; e < E; ++e) {
+              const float xv = x[((size_t)b * E + e) * S + s];
+              aq = fmaf(wq[((size_t)h * E + e) * dh + d], xv, aq);
+              ak = fmaf(wk[((size_t)h * E + e) * dh + d], xv, ak);
+            }
+            q[d * S + s] = aq;
+            k[d * S + s] = ak;
+          }
+        for (int i = 0; i < S; ++i) {
+          float mx = -FLT_MAX;
+          for (int j = 0; j < S; ++j) {
+            float sc = 0.f;
+            for (int d = 0; d < dh; ++d) sc = fmaf(q[d * S + i], k[d * S + j], sc);
+            mx = fmaxf(mx, sc);
+          }
+          mref[((size_t)b * H + h) * S + i] = mx;
+        }
       }
     put(out, mref);
   } else {
@@ -298,7 +350,8 @@ def test_emulated_forward_rebases_on_rising_scores(emulator, G, dh, S, precision
 # residual and the LayerNorm off, a ragged S; then eight heads of dh 1 with
 # neither the residual nor the LayerNorm, whose backward keeps the attention
 # routine's scratch in a borrowed gradient row (the others past the
-# statistics).  Wider E costs the emulation a block of 256 threads per
+# statistics); one head of dh 9, whose forward routine takes one m16 tile a
+# warp and walks 5 query tiles over 3 warps.  Wider E costs the emulation a block of 256 threads per
 # parameter entry in the reduce, so dh 16 and the routine's one-buffer mode
 # are the card tests' cases.
 AB_CASES = [
@@ -308,6 +361,7 @@ AB_CASES = [
     (2, 10, 16, 2, 1, True, False),
     (2, 6, 37, 3, 1, True, True),
     (1, 8, 21, 8, 1, False, False),
+    (1, 9, 70, 1, 1, True, True),
 ]
 
 
@@ -351,3 +405,76 @@ def test_emulated_attn_block_matches_plain(emulator, B, E, S, H, L, residual, la
     if not layer_norm:
         assert (grads[5] == 0).all() and (grads[6] == 0).all()
 
+
+
+def block_statistics(cfg, x, wq, wk, wv, wo, gamma, beta):
+    """m, inv_z [B, L*H, S], osave and ysave [B, L, E, S] by the plain
+    composition of :func:`ab.ab_forward_reference`."""
+    B, E, S = x.shape
+    H = cfg.heads
+    y, ms, zs, os, ys = x, [], [], [], []
+    for l in range(cfg.layers):
+        sl = slice(l * H, (l + 1) * H)
+        q, k, v = (torch.einsum("hed,bes->bhds", w[sl], y) for w in (wq, wk, wv))
+        s = torch.einsum("bhds,bhdt->bhst", q, k)
+        m = s.amax(-1)
+        e = torch.exp((s - m[..., None]) * cfg.scale)
+        inv = 1.0 / e.sum(-1)
+        o = torch.einsum("bhdt,bhst->bhds", v, e) * inv[:, :, None, :]
+        r = torch.einsum("hdf,bhds->bfs", wo[sl], o)
+        if cfg.use_residual:
+            r = r + y
+        if cfg.use_layer_norm:
+            mu = r.mean(1, keepdim=True)
+            var = (r * r).mean(1, keepdim=True) - mu * mu
+            y = gamma[l][None] * ((r - mu) * torch.rsqrt(var + cfg.eps)) + beta[l][None]
+        else:
+            y = r
+        ms.append(m)
+        zs.append(inv)
+        os.append(o.reshape(B, E, S))
+        ys.append(y)
+    return torch.cat(ms, 1), torch.cat(zs, 1), torch.stack(os, 1), torch.stack(ys, 1)
+
+
+# (B, E, S, H, L, residual, layer_norm): V1's block at a ragged S over two
+# layers, dh 9 (one m16 tile a warp, 5 query tiles over 3 warps) without
+# the LayerNorm, eight heads of dh 1
+AB_FWD_CASES = [
+    (2, 10, 37, 2, 2, True, True),
+    (1, 9, 70, 1, 1, True, False),
+    (1, 8, 21, 8, 1, False, False),
+]
+
+
+@pytest.mark.parametrize("B,E,S,H,L,residual,layer_norm", AB_FWD_CASES)
+def test_emulated_attn_block_forward_statistics(emulator, B, E, S, H, L, residual, layer_norm):
+    """ab_fwd's attention runs through the forward routine: layer 0's m is
+    bit-equal to the score max recomputed in the kernel's fmaf orders (what
+    ab_bwd recomputes); pooled, m, inv_z, osave and ysave are bit-equal over
+    two runs, pooled bit-equal without the saves, and each matches the plain
+    composition."""
+    rng = np.random.default_rng(3 + B + E + S + H + L)
+    x, weights, _ = block_inputs(rng, B, E, S, H, L)
+    cfg = ab.BlockCfg(layers=L, heads=H, scale=1.0 / np.sqrt(E // H), use_residual=residual,
+                      use_layer_norm=layer_norm, eps=1e-5)
+    st, big = B * L * H * S, B * L * E * S
+    sizes = [B * E, st, st, big, big] * 2 + [B * E, B * H * S]
+    outs = _run(emulator, f"abf_{B}_{E}_{S}_{H}_{L}_{residual}_{layer_norm}",
+                [3, B, E, S, L, H, int(residual), int(layer_norm)], [cfg.scale, cfg.eps],
+                (x, *weights), sizes)
+    first, second, pooled_nosave, mref = outs[:5], outs[5:10], outs[10], outs[11]
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    pooled, m, z, osave, ysave = first
+    assert torch.equal(pooled, pooled_nosave)
+    assert torch.equal(m.view(B, L * H, S)[:, :H], mref.view(B, H, S))
+    xt = torch.from_numpy(x)
+    wt = [torch.from_numpy(w) for w in weights]
+    torch.testing.assert_close(pooled.view(B, E), ab.ab_forward_reference(cfg, xt, *wt),
+                               rtol=1e-4, atol=1e-5)
+    want_m, want_z, want_o, want_y = block_statistics(cfg, xt, *wt[:6])
+    torch.testing.assert_close(m.view(B, L * H, S), want_m, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(z.view(B, L * H, S), want_z, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(osave.view(B, L, E, S), want_o, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(ysave.view(B, L, E, S), want_y, rtol=1e-4, atol=1e-5)

@@ -19,6 +19,7 @@ from xdeepfm_tpu.ops.cin import set_cin_backend
 from xdeepfm_tpu_torch.nn.interaction import CIN
 from xdeepfm_tpu_torch.ops.cin import cin_rows_contract
 from xdeepfm_tpu_torch.ops.cin_cuda import cin_rows_forward, cin_rows_reference
+from xdeepfm_tpu_torch.scripts import bench_cin_fwd
 
 # (N, H, M, O): tests/test_cin_pallas.py's (B, H, M, D, O) shapes as rows
 # N = B * D, plus a layer-0 shape of the canonical model, narrowed.
@@ -127,4 +128,13 @@ def test_kernel_wrapper_rejects_what_it_cannot_run(rng, make):
     t = [torch.from_numpy(a) for a in _inputs(rng, 8, 3, 2, 1)]
     with pytest.raises(ValueError):
         cin_rows_forward(*make(t))
+    assert cin_rows_forward.launches == 0
+
+
+def test_bench_script_times_the_plain_version_on_cpu(capsys):
+    outs = bench_cin_fwd.main(["--batches", "2", "--repeats", "1", "--device", "cpu"])
+    assert [(o["layer"], o["N"], o["H"], o["O"], o["strided_h"]) for o in outs] == [
+        ("layer0", 20, 26, 256, False), ("layer1", 20, 128, 128, True)]
+    assert all(o["max_abs_err_vs_plain"] == 0.0 and len(o["ms"]) == 1 for o in outs)
+    assert len(capsys.readouterr().out.splitlines()) == 2
     assert cin_rows_forward.launches == 0

@@ -1,10 +1,20 @@
-"""The CIN backward's CUDA source, run on the CPU by a host emulation.
+"""The CIN's CUDA sources, run on the CPU by a host emulation.
 
 ``ops/csrc/cin_bwd.cu`` (``cin_dw`` and ``cin_bwd_dx``, both in 3xTF32 on
 the tensor cores) is compiled with g++ against the stand-in for the CUDA
 runtime and for ``tc_tf32.cuh`` in ``tests/cuda_emulation.py`` (a block's
 threads are OS threads, barriers, shuffles and the m16n8k8 MMA are
-emulated, one block runs at a time).  The outputs are held against the
+emulated, one block runs at a time).  So is ``ops/csrc/cin_fwd.cu``
+(3xTF32 on the warpgroup MMA, its W ring fed by bulk copies on mbarriers
+between a producer thread and two consumer warpgroups, all emulated) in
+the ``test_emulated_cin_forward_*`` cases: K = 26 * 26 = 676 (not a
+multiple of 8, H padded to 32), layer 1's strided h, ragged N and O, the
+tiny shape, h wider than one launch's 128
+columns (two h blocks added in order), a misaligned h, persistent blocks
+that walk several row tiles, and tail tiles split along K whose parts a
+second kernel adds; each held to the
+plain version and the float64 gate, bit-equal over two runs, with shared
+memory NaN-filled before each run.  The outputs are held against the
 plain PyTorch versions in ``ops/cin_cuda.py`` at ragged N, H*M not a
 multiple of 128, O below 128 and not a multiple of 4, a strided h, several
 row slices and chunk splits, x0 rows wider than the staged 128 columns, a
@@ -187,3 +197,134 @@ def test_emulated_cin_backward_matches_plain(emulator, N, H, M, O, strided, slot
             torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * top + 1e-6)
             err, plain_err = float((got - ex).abs().max()), float((want - ex).abs().max())
             assert err <= 2 * plain_err or err <= 1e-6 * top, (err, plain_err, top)
+
+
+# Reads ints (N, H, M, O, ldh, grid, misaligned), then h
+# [N, ldh], x0 [N, M], W [O, H*M], b [O]; runs cin_fwd twice over h blocks
+# of FWD_H_BLOCK columns as ops/cin_cuda.py does, shared memory NaN-filled
+# before each run; writes ints (smem high-water bytes, untouched-past-it
+# flag), then out of the two runs.  Misaligned: h starts one float past a
+# 16-byte boundary.
+FWD_MAIN = r"""
+#include <cmath>
+#include <cstdio>
+#include <vector>
+#include "cuda_runtime.h"
+constexpr int kSmem = %d, kBlock = %d;
+alignas(128) float cin_smem[kSmem];
+extern "C" int cin_fwd_scratch_floats(int, int, int, int, int);
+extern "C" int cin_fwd(const void*, int, const void*, const void*, int, int, const void*, void*,
+                       void*, int, int, int, int, int, int, void*);
+template <class T> std::vector<T> take(FILE* f, size_t n) {
+  std::vector<T> v(n);
+  if (n && fread(v.data(), sizeof(T), n, f) != n) throw 1;
+  return v;
+}
+int main(int argc, char** argv) {
+  emu::smem_base = cin_smem;
+  FILE* in = fopen(argv[1], "rb");
+  auto hd = take<int>(in, 7);
+  const int N = hd[0], H = hd[1], M = hd[2], O = hd[3], ldh = hd[4], grid = hd[5];
+  const int off = hd[6] ? 1 : 0;
+  auto hv = take<float>(in, (size_t)N * ldh);
+  auto x0 = take<float>(in, (size_t)N * M);
+  auto w = take<float>(in, (size_t)O * H * M);
+  auto b = take<float>(in, O);
+  fclose(in);
+  alignas(16) static float pad_h[1 << 20];
+  float* h = pad_h + 4 + off;
+  std::copy(hv.begin(), hv.end(), h);
+  std::vector<float> out(2 * (size_t)N * O);
+  int err = 0, untouched = 1;
+  for (int run = 0; run < 2; ++run) {
+    for (int h0 = 0; h0 < H; h0 += kBlock) {
+      const int hb = std::min(kBlock, H - h0);
+      const int n = cin_fwd_scratch_floats(N, hb, M, O, grid);
+      if (n < 0) return 3;
+      std::vector<float> wsp(n);
+      for (int i = 0; i < kSmem; ++i) cin_smem[i] = NAN;
+      err |= cin_fwd(h + h0, ldh, x0.data(), w.data(), H * M, h0, b.data(), wsp.data(),
+                     out.data() + run * (size_t)N * O, N, hb, M, O, h0 > 0, grid, nullptr);
+      for (size_t i = emu::smem_high / 4; i < kSmem; ++i) untouched &= std::isnan(cin_smem[i]);
+    }
+  }
+  FILE* o = fopen(argv[2], "wb");
+  int head[2] = {(int)emu::smem_high, untouched};
+  fwrite(head, 4, 2, o);
+  fwrite(out.data(), 4, out.size(), o);
+  fclose(o);
+  return err;
+}
+""" % (SMEM_FLOATS, cin_cuda.FWD_H_BLOCK)
+
+
+@pytest.fixture(scope="module")
+def fwd_emulator(tmp_path_factory):
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("needs g++ to compile the CUDA sources for the host emulation")
+    d = tmp_path_factory.mktemp("cin_fwd_emu")
+    (d / "cuda_runtime.h").write_text(SHIM)
+    (d / "main.cpp").write_text(FWD_MAIN)
+    exe = d / "cin_fwd_emu"
+    cmd = [cxx, "-std=c++20", "-O1", "-pthread", "-fno-strict-aliasing", "-Wno-unknown-pragmas",
+           f"-I{d}", f"-I{CSRC}", "-x", "c++", str(CSRC / "cin_fwd.cu"), str(d / "main.cpp"),
+           "-o", str(exe)]
+    subprocess.run(cmd, check=True, capture_output=True, text=True, timeout=600)
+    return d, exe
+
+
+def run_forward(emu, N, H, M, O, strided, grid, misaligned, seed):
+    """cin_fwd's two runs under the emulation and the inputs, as torch."""
+    d, exe = emu
+    rng = np.random.default_rng(seed)
+    hw = rng.normal(size=(N, 2 * H if strided else H)).astype(np.float32)
+    x0 = rng.normal(size=(N, M)).astype(np.float32)
+    W = rng.normal(size=(O, H * M)).astype(np.float32)
+    b = rng.normal(size=O).astype(np.float32)
+    tag = f"{N}_{H}_{M}_{O}_{grid}_{misaligned}"
+    case, out = d / f"{tag}.bin", d / f"{tag}.out"
+    with open(case, "wb") as f:
+        np.array([N, H, M, O, hw.shape[1], grid, misaligned], np.int32).tofile(f)
+        for a in (hw, x0, W, b):
+            a.tofile(f)
+    subprocess.run([str(exe), str(case), str(out)], check=True, timeout=600)
+    raw = np.fromfile(out, np.uint8)
+    smem, untouched = raw[:8].view(np.int32)
+    assert untouched == 1 and 0 < smem <= 4 * SMEM_FLOATS
+    got1, got2 = torch.from_numpy(raw[8:].view(np.float32).copy()).view(2, N, O)
+    ins = [torch.from_numpy(a) for a in (hw[:, :H], x0, W, b)]
+    return got1, got2, ins
+
+
+# (N, H, M, O, strided h, persistent blocks, misaligned h): layer 0's
+# K 676 (H = 26 padded to 32) over two 128-column tiles, 3 row tiles on 2
+# blocks, so the last is split in two along K; layer 1's strided h (16-byte
+# copies), 2 row tiles walked by one block; ragged N and O = 7, 8 row tiles
+# on 6 blocks, the last two split in three; tiny; O = 20 with K 676; O =
+# 130 over two tiles and a strided h of 20; h of 140 columns (two
+# launches, the second adding into the first's output) on one row tile cut
+# in three; a misaligned h
+FWD_CASES = [
+    (300, 26, 26, 256, False, 2, False),
+    (200, 128, 26, 128, True, 1, False),
+    (1001, 13, 26, 7, False, 6, False),
+    (5, 3, 2, 1, False, 1, False),
+    (130, 26, 26, 20, False, 1, False),
+    (150, 20, 7, 130, True, 1, False),
+    (70, 140, 3, 20, True, 3, False),
+    (129, 32, 5, 64, False, 1, True),
+]
+
+
+@pytest.mark.parametrize("N,H,M,O,strided,grid,misaligned", FWD_CASES)
+def test_emulated_cin_forward_matches_plain(fwd_emulator, N, H, M, O, strided, grid, misaligned):
+    got, again, (h, x0, W, b) = run_forward(fwd_emulator, N, H, M, O, strided, grid, misaligned,
+                                            N * 7 + H * 5 + M * 3 + O)
+    assert torch.equal(got, again)  # bit-equal from run to run
+    want = cin_cuda.cin_rows_reference(h, x0, W, b)
+    top = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * top + 1e-6)
+    exact = cin_cuda.cin_rows_reference(h.double(), x0.double(), W.double(), b.double())
+    err, plain_err = float((got - exact).abs().max()), float((want - exact).abs().max())
+    assert err <= 2 * plain_err or err <= 1e-6 * top, (err, plain_err, top)

@@ -294,6 +294,35 @@ def _f64_gate(got, want, exact):
     assert err <= 2 * plain or err <= 1e-6 * float(exact.abs().max()), (err, plain)
 
 
+# (N, H, M, O, strided): the canonical scoring batch's two layers (8192 x 10
+# rows), the train batch's (4096 x 10, layer 1's h split-half's strided
+# view), a ragged shape, and h of 200 columns (two launches of the kernel,
+# the second adding into the first's output)
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,H,M,O,strided", [(81920, 26, 26, 256, False),
+                                             (81920, 128, 26, 128, False),
+                                             (40960, 26, 26, 256, False),
+                                             (40960, 128, 26, 128, True),
+                                             (1001, 13, 26, 7, False),
+                                             (2000, 200, 26, 64, True)])
+def test_cin_fwd_kernel_is_fp32_accurate_and_deterministic(card, N, H, M, O, strided):
+    """The warpgroup-MMA forward in 3xTF32: within the plain fp32 version's
+    tolerance, its error against float64 at most twice the plain version's
+    (or within 1e-6 of the largest entry), and bit-equal over two runs; one
+    launch counted for each h block of up to 128 columns."""
+    h, x0, W, b = _inputs(N + H + O, N, 2 * H if strided else H, M, O)
+    h = h[:, :H]
+    W = W[:, :H * M].contiguous()
+    before = cin_rows_forward.launches
+    got = cin_rows_forward(h, x0, W, b)
+    torch.cuda.synchronize()
+    assert cin_rows_forward.launches == before + -(-H // 128)
+    want = cin_rows_reference(h, x0, W, b)
+    torch.testing.assert_close(got, want, **CIN_TOL)
+    _f64_gate(got, want, cin_rows_reference(h.double(), x0.double(), W.double(), b.double()))
+    assert torch.equal(got, cin_rows_forward(h, x0, W, b))
+
+
 # (N, H, M, O, strided): layer 1 of a train batch of 1024 (split-half's
 # strided h), and a ragged shape
 @pytest.mark.cuda
@@ -648,6 +677,44 @@ def test_small_attention_forward_is_fp32_accurate_and_deterministic(card, G, dh,
     _f64_gate(o, want, sa_forward_reference(q.double(), k.double(), v.double(), scale)[0])
     got = sa_backward(g, q, k, v, o, m, inv_z, scale)
     for a, b in zip(got, sa_backward_reference(g, q, k, v, o, m, inv_z, scale)):
+        _close(a, b)
+
+
+# (B, E, S, H, L): V1's block cut to 512 rows, two layers at a ragged S, one
+# head of dh 9 (the routine's one m16 tile a warp)
+AB_FWD_SHAPES = [(512, 10, 256, 2, 1), (64, 10, 101, 2, 2), (32, 9, 70, 1, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,E,S,H,L", AB_FWD_SHAPES)
+def test_attn_block_forward_is_fp32_accurate_and_deterministic(card, B, E, S, H, L):
+    """ab_fwd's attention through the forward routine: pooled's error against
+    float64 at most twice the plain fp32 version's (or within 1e-6 of its
+    largest entry); pooled and every saved tensor bit-equal over two runs,
+    pooled bit-equal without the saves; m the plain row max of the unscaled
+    scores and inv_z its normaliser, to fp32 rounding (the emulated tests
+    hold m bit-equal to the fmaf row max); and the backward on the saves
+    matches the plain backward."""
+    x, ws, g = _block_inputs(B + E + S, B, E, S, H, L)
+    cfg = BlockCfg(L, H, (E // H) ** -0.5, True, True, 1e-5)
+    pooled, saved = ab_forward(cfg, x, *ws)
+    again, saved2 = ab_forward(cfg, x, *ws)
+    torch.cuda.synchronize()
+    assert torch.equal(pooled, again)
+    for a, b in zip(saved, saved2):
+        assert torch.equal(a, b)
+    assert torch.equal(ab_forward(cfg, x, *ws, save=False)[0], pooled)
+    want = ab_forward_reference(cfg, x, *ws)
+    _f64_gate(pooled, want, ab_forward_reference(cfg, x.double(), *(t.double() for t in ws)))
+    # layer 0's statistics from the plain projections of x
+    dh = E // H
+    q, k = (torch.einsum("hed,bes->bhds", w[:H], x) for w in ws[:2])
+    s = torch.einsum("bhds,bhdt->bhst", q, k)
+    m0 = s.amax(-1)
+    torch.testing.assert_close(saved[0][:, :H], m0, rtol=1e-5, atol=1e-5)
+    inv0 = 1.0 / torch.exp((s - m0[..., None]) * dh ** -0.5).sum(-1)
+    torch.testing.assert_close(saved[1][:, :H], inv0, rtol=1e-4, atol=1e-6)
+    for a, b in zip(ab_backward(cfg, g, x, *ws, saved), ab_backward_reference(cfg, g, x, *ws)):
         _close(a, b)
 
 

@@ -13,7 +13,9 @@ launches in ``<wrapper>.launches``:
 
 * :func:`ab_forward` — ``csrc/ab_fwd.cu`` (replaces ``_ab_fwd`` /
   ``_fwd_kernel``): pooled and, for the backward, the softmax statistics,
-  the per-head attention outputs and each layer's output;
+  the per-head attention outputs and each layer's output; its attention
+  runs through ``csrc/attn_fwd_tc.cuh``, the forward routine of
+  ``sa_fwd``;
 * :func:`ab_backward` — ``csrc/ab_bwd.cu`` (replaces ``_ab_bwd`` /
   ``_bwd_kernel``): dx and the nine parameter gradients, each summed over
   the batch in a fixed order.
@@ -67,15 +69,16 @@ def _bwd_layout(E, S, H):
 
 def ab_smem_bytes(E: int, S: int, H: int, backward: bool = True) -> int:
     """Shared memory of a block of ``ab_fwd`` / ``ab_bwd`` (the formulas of
-    ``csrc/attn_block.cuh`` and ``csrc/ab_bwd.cu``).  The forward holds 5
-    [E, S] rows at an odd pitch plus the weights and an [S] row.  The
+    ``csrc/attn_block.cuh`` and ``csrc/ab_bwd.cu``).  The forward holds 3
+    [E, S] rows at an odd pitch, k and v at S rounded up to 8, the weights
+    and an [S] row.  The
     backward holds 10 rows at the attention routine's pitch, three [H, S]
     statistics, the layer weights (the pooling MLP's share their space) and
     the routine's scratch where it does not fit in the rows of X and DY
     (:func:`_bwd_layout`)."""
     if backward:
         return 4 * _bwd_layout(E, S, H)[2]
-    return 4 * (5 * E * _pitch(S) + 5 * E * E + 4 * E + S + 32)
+    return 4 * (2 * E * (-(-S // 8) * 8) + 3 * E * _pitch(S) + 5 * E * E + 4 * E + S + 32)
 
 
 def num_params(E: int, L: int) -> int:

@@ -6,13 +6,13 @@ kernel on PyTorch's current stream, raises on bad input and on a failed
 launch, and counts its launches in ``<wrapper>.launches``:
 
 * :func:`cin_rows_forward` — ``csrc/cin_fwd.cu`` (replaces
-  ``_fused_contract`` / ``_fwd_kernel``);
+  ``_fused_contract`` / ``_fwd_kernel``), on the warpgroup MMA (``wgmma``);
 * :func:`cin_rows_backward` — ``cin_bwd_dx`` in ``csrc/cin_bwd.cu``, dh and
   dx0 (the dh/dx0 half of ``_bwd_fused_t`` / ``_bwd_kernel``);
 * :func:`cin_rows_dw` — ``cin_dw`` in ``csrc/cin_bwd.cu``, dW (replaces
   ``_dw_contract`` / ``_dw_kernel`` and the dW half of ``_bwd_kernel``).
 
-Both backward kernels run on the tensor cores in 3xTF32
+All three kernels run on the tensor cores in 3xTF32
 (``csrc/tc_tf32.cuh``): each fp32 operand split into two TF32 halves and
 three products summed, within the plain fp32 version's error of a float64
 result.
@@ -34,7 +34,10 @@ from . import _build
 
 # cin_bwd_dx pads each h group's M columns to a power of two up to this
 FUSED_MAX_M = 64
-_SLOTS_PER_SM = 2  # resident blocks per SM of cin_fwd (launch bounds)
+# cin_fwd takes h blocks of up to this many columns a launch; a wider h is
+# cut into blocks whose outputs are added in order
+FWD_H_BLOCK = 128
+_SLOTS_PER_SM = 2  # cin_sum_slices' grid: up to 8 blocks for each of two slots a SM
 _DX_SLOTS_PER_SM = 1  # cin_bwd_dx: one block of 8 warps a SM
 _MAX_DX_SPLITS = 8
 # A cin_bwd_dx block's own cost (x0, the ring's fill, dx0 at its end) in
@@ -71,7 +74,9 @@ def cin_rows_dw_reference(g, h_rows, x0_rows):
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "cin_fwd": {"cin_fwd": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
+    "cin_fwd": {
+        "cin_fwd": [_P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    },
     "cin_bwd": {
         "cin_bwd_dx": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
         "cin_dw": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -121,7 +126,8 @@ def _check(fn, named, h_rows, x0_rows, O):
 
 def cin_rows_forward(h_rows, x0_rows, W, b):
     """The forward kernel: same contract as :func:`cin_rows_reference`, on
-    CUDA fp32 tensors."""
+    CUDA fp32 tensors, in 3xTF32 on the tensor cores; one launch for each
+    h block of up to ``FWD_H_BLOCK`` columns."""
     if W.ndim != 2 or b.ndim != 1:
         raise ValueError("cin_rows_forward: expects W [O, H*M] and b [O]")
     O = W.shape[0]
@@ -132,13 +138,23 @@ def cin_rows_forward(h_rows, x0_rows, W, b):
             f"cin_rows_forward: shape mismatch h {tuple(h_rows.shape)}, "
             f"x0 {tuple(x0_rows.shape)}, W {tuple(W.shape)}, b {tuple(b.shape)}"
         )
-    out = torch.empty((N, O), device=h_rows.device, dtype=torch.float32)
+    dev = h_rows.device
+    out = torch.empty((N, O), device=dev, dtype=torch.float32)
     if N == 0 or O == 0:
         return out
-    wt = W.t().contiguous()  # [H*M, O]: coalesced channel loads in the kernel
-    _launch("cin_fwd", "cin_fwd", h_rows.device, h_rows.data_ptr(), h_rows.stride(0),
-            x0_rows.data_ptr(), wt.data_ptr(), b.data_ptr(), out.data_ptr(), N, H, M, O)
-    cin_rows_forward.launches += 1
+    grid = torch.cuda.get_device_properties(dev).multi_processor_count
+    floats = _build.function("cin_fwd", "cin_fwd_scratch_floats", [_I] * 5)
+    for h0 in range(0, H, FWD_H_BLOCK):
+        hb = min(FWD_H_BLOCK, H - h0)
+        n = floats(N, hb, M, O, grid)
+        if n < 0:
+            raise ValueError(f"cin_rows_forward: M = {M} does not fit the kernel's shared memory")
+        # W split stage by stage, then the split tail tiles' partial sums
+        scratch = torch.empty(n, device=dev, dtype=torch.float32)
+        _launch("cin_fwd", "cin_fwd", dev, h_rows.data_ptr() + 4 * h0, h_rows.stride(0),
+                x0_rows.data_ptr(), W.data_ptr(), H * M, h0, b.data_ptr(), scratch.data_ptr(),
+                out.data_ptr(), N, hb, M, O, int(h0 > 0), grid)
+        cin_rows_forward.launches += 1
     return out
 
 

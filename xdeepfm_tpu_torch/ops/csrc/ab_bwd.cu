@@ -178,7 +178,7 @@ __global__ void __launch_bounds__(attn::MAX_THREADS, 2) ab_bwd_kernel(Params p, 
         }
         DL[h * S + s] = delta;
       }
-      project<DH>(W, X, Q, K, V, s, E, H, P);
+      project<DH>(W, X, Q, K, V, s, E, H, P, P);
     }
     __syncthreads();
     if (p.layer_norm) {

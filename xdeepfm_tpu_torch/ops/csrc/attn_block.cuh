@@ -15,7 +15,9 @@
 // All fp32.  One block owns one batch row: x [E, S], the per-head q / k / v
 // and (in the backward) every gradient of the row sit in shared memory, rows
 // padded to a pitch: odd in the forward, so that column walks and row walks
-// are both free of bank conflicts; in the backward the attention routine's
+// are both free of bank conflicts, except k and v, which the forward writes
+// in the forward routine's key order (attn_fwd_tc.cuh, attn::key_slot, rows
+// of S rounded up to 8); in the backward the attention routine's
 // (attn_bwd_tc.cuh: even, 2 mod 4), which keeps the row walks of up to 16
 // rows free of conflicts too.  The layer's weights (4 E^2 + 2 E floats) and
 // the pooling MLP's are loaded into shared memory once per layer.  One
@@ -70,8 +72,10 @@ __host__ __device__ inline int pitch(int S) { return S % 2 == 0 ? S + 1 : S; }
 // shared-memory floats of the forward kernel (the wrapper repeats this; the
 // backward's formula is in ab_bwd.cu)
 __host__ __device__ inline int weight_floats(int E) { return 5 * E * E + 4 * E; }
+// the forward's k and v rows: S rounded up to 8 (attn_fwd::key_pitch)
+__host__ __device__ inline int kv_pitch(int S) { return (S + 7) / 8 * 8; }
 __host__ __device__ inline int fwd_floats(int E, int S) {
-  return 5 * E * pitch(S) + weight_floats(E) + S + 32;
+  return 2 * E * kv_pitch(S) + 3 * E * pitch(S) + weight_floats(E) + S + 32;
 }
 
 // Layer l's weights into W: wq, wk, wv [H][E][dh] (E*E each), wo [H][dh][E],
@@ -109,10 +113,13 @@ __device__ void load_rows(float* dst, const float* src, int E, int S, int P) {
   }
 }
 
-// q, k, v of column s from the layer input X: channel c = h*dh + d.
-template <int DH>
+// q, k, v of column s from the layer input X: channel c = h*dh + d, q at
+// Q[c P + s]; k and v at K[c KVP + key] with key = s, or its slot in the
+// forward routine's order where SLOTS.
+template <int DH, bool SLOTS = false>
 __device__ void project(const float* W, const float* X, float* Q, float* K, float* V, int s,
-                        int E, int H, int P) {
+                        int E, int H, int P, int KVP) {
+  const int key = SLOTS ? attn::key_slot(s) : s;
   const int EE = E * E;
   for (int h = 0; h < H; ++h) {
 #pragma unroll
@@ -127,8 +134,8 @@ __device__ void project(const float* W, const float* X, float* Q, float* K, floa
       }
       const int c = h * DH + d;
       Q[c * P + s] = aq;
-      K[c * P + s] = ak;
-      V[c * P + s] = av;
+      K[c * KVP + key] = ak;
+      V[c * KVP + key] = av;
     }
   }
 }

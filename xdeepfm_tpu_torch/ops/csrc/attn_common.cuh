@@ -1,14 +1,14 @@
 // Shared pieces of the attention kernels (sa_fwd.cu, sa_bwd.cu, ab_fwd.cu,
 // ab_bwd.cu, sa_ablate.cu) and of their two routines, attn_fwd_tc.cuh (the
-// forward: sa_fwd.cu, sa_ablate.cu) and attn_bwd_tc.cuh (the backward:
-// sa_bwd.cu, ab_bwd.cu).
+// forward: sa_fwd.cu, sa_ablate.cu, ab_fwd.cu) and attn_bwd_tc.cuh (the
+// backward: sa_bwd.cu, ab_bwd.cu).
 //
 // The head width is a template parameter (1..MAX_DH), so per-lane operands
 // and accumulators stay in registers.  The routines give each (query, key)
 // pair to one lane of a warp, at the positions of the m16n8k8 tensor-core
 // fragments: the backward runs its products over S in 3xTF32 on the tensor
-// cores (tc_tf32.cuh), the forward in fp32 FMAs.  ab_fwd.cu
-// (attn_block.cuh) still walks one thread per query column.
+// cores (tc_tf32.cuh), the forward in fp32 FMAs.  ab_fwd.cu runs its
+// attention through the forward routine, ab_bwd.cu through the backward's.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -65,6 +65,14 @@ __device__ __forceinline__ float block_max(float v, float* red) {
   for (int w = 1; w < static_cast<int>(blockDim.x) / 32; ++w) total = fmaxf(total, red[w]);
   __syncthreads();
   return total;
+}
+
+// The forward routine's key order in shared memory: key j = 8 b + r of
+// block b at slot 8 b + 2 (r % 4) + r / 4, so that a lane's keys tig and
+// tig + 4 are one 8-byte word (attn_fwd_tc.cuh).
+__host__ __device__ inline int key_slot(int j) {
+  const int r = j & 7;
+  return (j - r) + 2 * (r & 3) + (r >> 2);
 }
 
 }  // namespace attn

@@ -1,5 +1,6 @@
 // The small-attention forward of one head on Hopper: the routine that
-// sa_fwd.cu (row 8) and sa_ablate.cu (row 16: full, dots, soft) share.
+// sa_fwd.cu (row 8), ab_fwd.cu (row 10, the attention of each layer and
+// head of its block) and sa_ablate.cu (row 16: full, dots, soft) share.
 // With s = q^T k (unscaled) over dh-major operands q, k, v [dh][S] of one
 // pair and c = scale * log2(e):
 //
@@ -12,9 +13,12 @@
 // dh 8, else one) and walks the keys 8 at a time; a lane holds 2 MT
 // queries, rows grp + 8 h of each m16 tile (grp = lane / 4), and keys tig
 // and tig + 4 (tig = lane % 4) of every 8-key block, the tensor cores'
-// m16n8k8 A-fragment positions: the quad of lanes tig 0-3 shares a row.  Its q columns sit in registers (dh a template parameter), and k and
-// v are staged in shared memory with keys tig and tig + 4 of a block side by
-// side, so one 8-byte load (a broadcast over the lanes of one tig) feeds
+// m16n8k8 A-fragment positions: the quad of lanes tig 0-3 shares a row.  Its
+// q columns sit in registers (dh a template parameter; q in device or
+// shared memory, rows of any pitch), and k and v are staged in shared
+// memory with keys tig and tig + 4 of a block side by side
+// (attn::key_slot; ab_fwd.cu's projections write them so), so one 8-byte
+// load (a broadcast over the lanes of one tig) feeds
 // 4 MT score FMAs, and another 4 MT value FMAs.  The scores are fp32 FMAs
 // summed over d from 0 (fmaf(q[d], k[d], s)), the order in which the
 // backward (attn_bwd_tc.cuh) recomputes them.
@@ -104,8 +108,8 @@ __device__ __forceinline__ void stage(const float* __restrict__ k, const float* 
                                       int S, float* ks, float* vs) {
   const int KP = key_pitch(S);
   for (int e = threadIdx.x; e < DH * KP; e += blockDim.x) {
-    const int d = e / KP, j = e - d * KP, r = j & 7;
-    const int slot = d * KP + (j - r) + 2 * (r & 3) + (r >> 2);
+    const int d = e / KP, j = e - d * KP;
+    const int slot = d * KP + attn::key_slot(j);
     const bool in = j < S;
     const float kx = in ? __ldg(k + d * S + j) : 0.f;
     ks[slot] = BF16 ? attn::operand(kx, 1) : kx;
@@ -116,9 +120,24 @@ __device__ __forceinline__ void stage(const float* __restrict__ k, const float* 
   }
 }
 
+// Where the routine reads q[d][i]: one pair's [DH][S] in device memory,
+// through the read-only cache (sa_fwd.cu, sa_ablate.cu) ...
+struct DeviceQ {
+  const float* __restrict__ q;
+  int S;
+  __device__ __forceinline__ float operator()(int d, int i) const { return __ldg(q + d * S + i); }
+};
+// ... or [DH] rows of pitch P in shared memory, a plain load: ab_fwd.cu
+// writes each tile's o over its q
+struct SharedQ {
+  const float* q;
+  int P;
+  __device__ __forceinline__ float operator()(int d, int i) const { return q[d * P + i]; }
+};
+
 // the lane's q columns: qf[mt][h] is query q0 + 16 mt + 8 h + grp, zero past S
-template <int DH, int MT, bool BF16>
-__device__ __forceinline__ void load_q(const float* __restrict__ q, int S, int q0, int grp,
+template <int DH, int MT, bool BF16, class Q>
+__device__ __forceinline__ void load_q(const Q& q, int S, int q0, int grp,
                                        float (&qf)[MT][2][DH]) {
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
@@ -127,7 +146,7 @@ __device__ __forceinline__ void load_q(const float* __restrict__ q, int S, int q
       const int i = q0 + 16 * mt + 8 * h + grp;
 #pragma unroll
       for (int d = 0; d < DH; ++d) {
-        const float x = i < S ? __ldg(q + d * S + i) : 0.f;
+        const float x = i < S ? q(d, i) : 0.f;
         qf[mt][h][d] = BF16 ? attn::operand(x, 1) : x;
       }
     }
@@ -297,14 +316,14 @@ __device__ __forceinline__ void value_step(const float (&qf)[MT][2][DH], const f
   }
 }
 
-// The forward of one head over the stage (ks, vs of stage(); q in device
-// memory, [DH][S]).  SOFTMAX: o, m and inv_z as above, through out.o(d, i, x),
+// The forward of one head over the stage (ks, vs in stage()'s order; q
+// through a DeviceQ or SharedQ).  SOFTMAX: o, m and inv_z as above, through out.o(d, i, x),
 // out.max(i, m) and out.inv(i, inv_z); else dots: o[d, i] =
 // sum_j v[d, j] s[i, j] through out.o.  Every warp of the block calls it,
 // with the block's warps from warps_for(DH, S).
-template <int DH, bool BF16, bool SOFTMAX, class Out>
-__device__ void attn_fwd_head(const float* __restrict__ q, const float* ks, const float* vs,
-                              int S, float scale, Out out) {
+template <int DH, bool BF16, bool SOFTMAX, class Q, class Out>
+__device__ void attn_fwd_head(Q q, const float* ks, const float* vs, int S, float scale,
+                              Out out) {
   constexpr int MT = m_tiles(DH);
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int nw = static_cast<int>(blockDim.x) / 32;
@@ -427,7 +446,7 @@ __device__ void attn_fwd_soft(const float* __restrict__ q, const float* ks, int 
     const int q0 = 32 * tile;
     const bool first = tile == warp;
     float qf[2][2][1], mx[2][2], mc[2][2], sum[2][2];
-    load_q<1, 2, false>(q, S, q0, grp, qf);
+    load_q<1, 2, false>(DeviceQ{q, S}, S, q0, grp, qf);
     row_max<1, 2>(qf, ks, KP, S, tig, mx);
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt) {

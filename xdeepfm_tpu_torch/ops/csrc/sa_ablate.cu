@@ -70,7 +70,7 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const long long base = static_cast<long long>(blockIdx.x) * DH * S;
   attn_fwd::stage<DH, false, true>(k + base, v + base, S, ks, vs);
   __syncthreads();
-  attn_fwd::attn_fwd_head<DH, false, SOFTMAX>(q + base, ks, vs, S, scale,
+  attn_fwd::attn_fwd_head<DH, false, SOFTMAX>(attn_fwd::DeviceQ{q + base, S}, ks, vs, S, scale,
                                               PairOut{o + base, S});
 }
 

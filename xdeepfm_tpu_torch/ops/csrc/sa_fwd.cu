@@ -54,7 +54,7 @@ sa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const long long row = static_cast<long long>(blockIdx.x) * S;
   attn_fwd::stage<DH, BF16, true>(k + base, v + base, S, ks, vs);
   __syncthreads();
-  attn_fwd::attn_fwd_head<DH, BF16, true>(q + base, ks, vs, S, scale,
+  attn_fwd::attn_fwd_head<DH, BF16, true>(attn_fwd::DeviceQ{q + base, S}, ks, vs, S, scale,
                                           PairOut{o + base, m_out + row, z_out + row, S});
 }
 

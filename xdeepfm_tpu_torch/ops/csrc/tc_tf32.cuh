@@ -1,6 +1,6 @@
-// Tensor-core building blocks of the 3xTF32 kernels (cin_bwd.cu, ce_fwd.cu
-// and ce_bwd.cu through ce_tc.cuh, attn_bwd_tc.cuh): every piece of inline
-// PTX they use, as small device functions.
+// Tensor-core building blocks of the 3xTF32 kernels (cin_fwd.cu, cin_bwd.cu,
+// ce_fwd.cu and ce_bwd.cu through ce_tc.cuh, attn_bwd_tc.cuh): every piece
+// of inline PTX they use, as small device functions.
 //
 // 3xTF32 keeps near-fp32 accuracy on the TF32 tensor cores.  Each fp32
 // operand x is split into big = tf32(x) (round to nearest, ties away, to
@@ -12,19 +12,34 @@
 // already bf16 (set_precision("bf16")), TF32 holds it exactly, its small
 // part is 0, and one MMA is exact.
 //
-// The MMA is the warp-level mma.sync m16n8k8 (row.col, f32 += tf32 * tf32)
-// with the PTX ISA's fragment layout: lane = 4 * group + tig (group 0..7,
-// thread in group 0..3) holds
+// Two MMAs.  The warp-level mma.sync m16n8k8 (row.col, f32 += tf32 * tf32;
+// cin_bwd.cu, the CE and attention-backward kernels) with the PTX ISA's
+// fragment layout: lane = 4 * group + tig (group 0..7, thread in group
+// 0..3) holds
 //   A (16 x 8, [row][k]): a0 (group, tig), a1 (group + 8, tig),
 //                         a2 (group, tig + 4), a3 (group + 8, tig + 4);
 //   B (8 x 8, [k][col]):  b0 (tig, group), b1 (tig + 4, group);
 //   C (16 x 8):           c0 (group, 2 tig), c1 (group, 2 tig + 1),
 //                         c2 (group + 8, 2 tig), c3 (group + 8, 2 tig + 1).
+// And the warpgroup MMA wgmma.mma_async m64nNk8 (cin_fwd.cu): the four
+// warps of a warpgroup together multiply a 64 x 8 A, which they hold in
+// registers, warp w rows 16 w .. 16 w + 15 in the m16n8k8 A layout above, by
+// an 8 x N B read from shared memory through a descriptor (K-major, the
+// only layout tf32 takes), into a 64 x N fp32 D that warp w holds as the
+// m16n8k8 C layout of its 16 rows, one C fragment for each 8 columns:
+// d[4 j + q] is column 8 j + the C fragment's column of q.  The MMA runs
+// asynchronously: its A and D registers may be touched only after a
+// wait_group that covers it.  B's descriptor (wgmma_desc) gives a tile of
+// 8-row x 16-byte core matrices, each 128 contiguous bytes (rows 16 bytes
+// apart, no swizzle): LBO the bytes from a core matrix to the next along K,
+// SBO to the next 8 rows along N.
 // Each k8 step's product is summed from zero (the first MMA takes a zero
 // accumulator operand, mma_z) and added to the running sum in fp32 (mma3_add,
 // below).  Operand tiles come from device memory by cp.async
 // into shared memory (16-byte .cg copies where the source is aligned, 4-byte
-// .ca ones elsewhere), zero-filled past the source's valid bytes.
+// .ca ones elsewhere), zero-filled past the source's valid bytes, or, for
+// the wgmma kernel, by bulk copies (cp.async.bulk) that complete a
+// transaction count on an mbarrier in shared memory.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -94,11 +109,129 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+
+// ---- Hopper: the warpgroup MMA, mbarriers and bulk copies (cin_fwd.cu) ----
+
+// mbarrier.init: `count` arrivals complete each phase
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// makes the initialised barriers visible to the async proxy (the copies)
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// one arrival that also expects `bytes` more of the phase's transactions
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// waits until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from device
+// memory to shared memory; completes that many transactions on `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// bar.sync on named barrier `id` (1..15) for the `threads` threads that use it
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// setmaxnreg: a warpgroup's registers a thread raised or lowered to R
+template <int R>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accesses of an MMA's registers across it
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define TC_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define TC_D16(i) TC_D4(i), TC_D4(i + 4), TC_D4(i + 8), TC_D4(i + 12)
+
+// d (= or +=, as acc) a * B over one m64nNk8 tile: A from the four
+// registers a (TF32 bits) of each thread, B through its descriptor
+template <int N>
+__device__ __forceinline__ void wgmma(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
+                                      int acc);
+
+template <>
+__device__ __forceinline__ void wgmma<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                           int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : TC_D16(0), TC_D16(16), TC_D16(32), TC_D16(48)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+#undef TC_D16
+#undef TC_D4
+
 }  // namespace tc
 
 #endif  // TC_TF32_EMULATED
 
 namespace tc {
+
+// The descriptor of a K-major, unswizzled wgmma operand tile at p in shared
+// memory: core matrices lbo bytes apart along K, sbo bytes apart along N.
+__host__ __device__ inline uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3ffff) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32);
+}
 
 // acc += a * b in 3xTF32 (one MMA under "bf16", where the small halves are
 // 0), the product summed from zero and added to acc in fp32, rounded to
