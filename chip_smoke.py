@@ -88,7 +88,11 @@ run in order and any failure raises, so the exit code is non-zero:
    serving shape (B 8192), DIFM's scale, the train shape contiguous
    [H, dh, S, B], S 64, ragged (B 1001, S 39), tiny and dh 16, beside
    ``F.scaled_dot_product_attention`` on the [B, H, S, dh] views (backward
-   by autograd); every backward bit-equal over two runs;
+   by autograd); every backward bit-equal over two runs; at every shape o
+   and each gradient against float64 within twice the plain fp32 version's
+   error (or 1e-6 of the largest entry); each kernel's device time a launch
+   from torch.profiler's kernel durations beside its CUDA-event time, and
+   its exp floor;
 14. AutoInt (3 layers of 2 heads, DNN (256, 128)) and DIFM (2 heads, DNN
    (256, 128)) at the canonical columns, trained, profiled and scored as the
    attention models are in 12: per step 3 ``la_fwd`` + 3 ``la_bwd``
@@ -215,6 +219,7 @@ from xdeepfm_tpu_torch.ops.cin_cuda import (
 )
 from xdeepfm_tpu_torch.pro import xDeepFMPro
 from xdeepfm_tpu_torch.scripts import bench_attn_ablate
+from xdeepfm_tpu_torch.scripts.bench_lane import device_ms
 from xdeepfm_tpu_torch.serving import Scorer, load_scorer
 from xdeepfm_tpu_torch.weights import flatten_tree, unflatten_tree
 
@@ -294,6 +299,8 @@ HEADERS = {
     "ab_fwd": ("xdeepfm_tpu_torch/ops/csrc/attn_fwd_tc.cuh",
                "xdeepfm_tpu_torch/ops/csrc/attn_block.cuh"),
     "ab_bwd": ("xdeepfm_tpu_torch/ops/csrc/attn_bwd_tc.cuh",),
+    "la_fwd": ("xdeepfm_tpu_torch/ops/csrc/la_common.cuh",),
+    "la_bwd": ("xdeepfm_tpu_torch/ops/csrc/la_common.cuh",),
     **{f"ablate_{v}": ("xdeepfm_tpu_torch/ops/csrc/attn_fwd_tc.cuh",)
        for v in ("full", "dots", "soft")},
 }
@@ -1568,8 +1575,12 @@ def phase_lane_kernels(peak):
     backward bit-equal over two runs, with times, the library's (SDPA on the
     [B, H, S, dh] views, backward by autograd) and bounds.  FLOPs: the two
     [S, S] products forward (4 S^2 dh a pair), five backward (10 S^2 dh);
-    the exps (S^2 a pair and sweep) are reported, not in the bound.  Bytes:
-    q, k, v and o forward, q, k, v, g, dq, dk and dv backward, once each."""
+    the exps (S^2 a pair, one per (i, j) in each kernel) give the exp floor,
+    not the bound.  Bytes: q, k, v and o forward, q, k, v, g, dq, dk and dv
+    backward, once each.  At every shape o and each gradient go through the
+    float64 gate (:func:`_f64_gate`); each kernel's time a launch comes from
+    CUDA events (``fwd_ms``) and from the profiler's kernel durations
+    (``fwd_device_ms``)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
     results = {}
     for label, B, H, dh, S, scale, layout in LA_SHAPES:
@@ -1581,12 +1592,19 @@ def phase_lane_kernels(peak):
         o = la_forward(q, k, v, scale)
         grads = la_backward(g, q, k, v, scale)
         torch.cuda.synchronize()
-        fwd_err = _checked(o, la_forward_reference(q, k, v, scale), LA_RTOL)
-        bwd_err = max(_checked(a, b, LA_RTOL) for a, b in zip(
-            grads, la_backward_reference(g, q, k, v, scale)))
+        want_o = la_forward_reference(q, k, v, scale)
+        want = la_backward_reference(g, q, k, v, scale)
+        fwd_err = _checked(o, want_o, LA_RTOL)
+        bwd_err = max(_checked(a, b, LA_RTOL) for a, b in zip(grads, want))
         if not all(torch.equal(a, b) for a, b in zip(grads, la_backward(g, q, k, v, scale))):
             raise AssertionError(f"la_bwd at {label}: two runs differ")
-        del grads
+        q64, k64, v64, g64 = (t.double() for t in (q, k, v, g))
+        fwd_gate = _f64_gate(f"la_fwd o at {label}", o, want_o,
+                             la_forward_reference(q64, k64, v64, scale))
+        bwd_gate = {name: _f64_gate(f"la_bwd {name} at {label}", a, b, e)
+                    for name, a, b, e in zip(("dq", "dk", "dv"), grads, want,
+                                             la_backward_reference(g64, q64, k64, v64, scale))}
+        del grads, want_o, want, q64, k64, v64, g64
         # the library yardstick: SDPA on the [B, H, S, dh] views, fp32
         ql, kl, vl = (t.permute(3, 0, 2, 1).detach().requires_grad_(True) for t in (q, k, v))
         lib_out = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
@@ -1602,8 +1620,14 @@ def phase_lane_kernels(peak):
                 lib_out, (ql, kl, vl), gl, retain_graph=True), 20),
         )
         del lib_out, ql, kl, vl
+        times.update(
+            fwd_device_ms=device_ms(lambda: la_forward(q, k, v, scale), "la_fwd_kernel"),
+            bwd_device_ms=device_ms(lambda: la_backward(g, q, k, v, scale), "la_bwd_kernel"))
         rec = dict(B=B, H=H, dh=dh, S=S, scale=scale, layout=layout, strides=list(q.stride()),
                    **times, fwd_max_abs_err=fwd_err, bwd_max_abs_err=bwd_err, bwd_bit_equal=True,
+                   fwd_err_vs_float64=fwd_gate[0], fwd_plain_err_vs_float64=fwd_gate[1],
+                   bwd_err_vs_float64={k_: e[0] for k_, e in bwd_gate.items()},
+                   bwd_plain_err_vs_float64={k_: e[1] for k_, e in bwd_gate.items()},
                    gexp=B * H * S * S / 1e9)
         n = B * H * S * dh
         for kind, flops, nbytes in (("fwd", 4 * B * H * S * S * dh, 4 * 4 * n),
@@ -1612,6 +1636,7 @@ def phase_lane_kernels(peak):
             rec[f"{kind}_gflop"] = flops / 1e9
             rec[f"{kind}_mbytes"] = nbytes / 1e6
             rec[f"{kind}_gbytes_per_s"] = nbytes / rec[f"{kind}_ms"] / 1e6
+            rec[f"{kind}_exp_floor_ms"] = B * H * S * S / (peak[1] * EXP_PER_FLOP) * 1e3
         results[label] = rec
         emit(phase="lane_kernel", shape=label, **rec)
         del q, k, v, g, o
@@ -2409,6 +2434,10 @@ def main():
             ms=n * r[f"{kind}_ms"], plain_ms=n * r[f"plain_{kind}_ms"],
             bound_ms=n * r[f"{kind}_bound_ms"], bound_by=r[f"{kind}_bound_by"],
             library_ms=n * r[f"library_{kind}_ms"],
+            device_ms=n * r[f"{kind}_device_ms"], exp_floor_ms=n * r[f"{kind}_exp_floor_ms"],
+            err_vs_float64=max(
+                x["fwd_err_vs_float64"] if kind == "fwd" else max(x["bwd_err_vs_float64"].values())
+                for x in la_shapes.values()),
             per=(f"AutoInt train step at batch 4096 ({n} launches, H {r['H']}, dh {r['dh']}, "
                  f"S {r['S']}, [B, S, E] strides)"),
         ))

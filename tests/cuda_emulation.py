@@ -3,7 +3,8 @@ sources (``xdeepfm_tpu_torch/ops/csrc/*.cu``) with g++ and running them on
 the CPU.
 
 ``SHIM`` is written out as ``cuda_runtime.h``: a block's threads are OS
-threads, ``__syncthreads`` and the warp shuffles are barriers, shared memory
+threads, ``__syncthreads``, ``__syncwarp`` and the warp shuffles are
+barriers, shared memory
 is one buffer that the test's main file defines (one block runs at a time),
 and ``cudaLaunchKernel`` walks the grid, recording the most dynamic shared
 memory a launch asked for in ``emu::smem_high``.  It also stands in for
@@ -104,6 +105,8 @@ inline float __shfl_xor_sync(unsigned, float v, int off) {
   emu::warp->bar.arrive_and_wait();
   return r;
 }
+// the warp's barrier (the lane-attention kernels' row and column phases)
+inline void __syncwarp(unsigned = 0xffffffffu) { emu::warp->bar.arrive_and_wait(); }
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline float __uint_as_float(uint32_t u) {
   float f;
@@ -133,6 +136,10 @@ inline float __bfloat162float(__nv_bfloat16 b) {
 
 template <class T> cudaError_t cudaFuncSetAttribute(T*, cudaFuncAttribute, int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaGetDevice(int* d) {
+  *d = 0;
+  return cudaSuccess;
+}
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 
 namespace emu {

@@ -143,6 +143,21 @@ def test_lane_routing_and_limits():
     assert lac.dense_strides(view) and not lac.dense_strides(view[:, :, ::2])
 
 
+def test_bench_lane_runs_the_plain_versions_on_cpu(capsys):
+    """``scripts/bench_lane.py`` on the CPU times the plain versions: a line
+    for each kernel at each scale, packed at every batch, then lanes."""
+    from xdeepfm_tpu_torch.scripts import bench_lane
+
+    outs = bench_lane.main(["--device", "cpu", "--batches", "3", "2", "--repeats", "1"])
+    assert [(o["kernel"], o["batch"], o["layout"], o["scale"]) for o in outs] == [
+        (k, b, layout, scale) for b, layout in ((3, "packed"), (2, "packed"), (3, "lanes"))
+        for scale in (1.0, 5 ** -0.5) for k in ("la_fwd", "la_bwd")]
+    for o in outs:
+        assert o["device"] == "cpu" and len(o["ms"]) == 1 and "device_ms" not in o
+        assert o["max_abs_err_vs_plain"] == 0.0 and (o["H"], o["dh"], o["S"]) == (2, 5, 26)
+    assert len(capsys.readouterr().out.splitlines()) == len(outs)
+
+
 # -------------------------------------------------------------------- layers
 
 

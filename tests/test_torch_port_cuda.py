@@ -842,6 +842,30 @@ def test_lane_attention_kernels_match_plain(card, B, H, S, dh, layout):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["lanes", "packed"])
+@pytest.mark.parametrize("B,H,S,dh", LA_SHAPES)
+def test_lane_attention_kernels_float64_gate(card, B, H, S, dh, layout):
+    """o and each gradient against float64: within twice the plain fp32
+    version's error, or 1e-6 of the largest entry."""
+    from xdeepfm_tpu_torch.ops.lane_attention_cuda import (
+        la_backward, la_backward_reference, la_forward, la_forward_reference)
+
+    q, k, v, g = _la_operands(B + S + dh + 1, B, H, S, dh, layout)
+    scale = 1.0 if dh == 5 else dh ** -0.5
+    ops64 = [t.double() for t in (q, k, v, g)]
+    cases = [("o", la_forward(q, k, v, scale), la_forward_reference(q, k, v, scale),
+              la_forward_reference(*ops64[:3], scale))]
+    cases += zip(("dq", "dk", "dv"), la_backward(g, q, k, v, scale),
+                 la_backward_reference(g, q, k, v, scale),
+                 la_backward_reference(ops64[3], *ops64[:3], scale))
+    for name, got, plain, exact in cases:
+        err = float((got.double() - exact).abs().max())
+        plain_err = float((plain.double() - exact).abs().max())
+        assert err <= 2 * plain_err or err <= 1e-6 * float(exact.abs().max()), (
+            f"{name}: {err} against the plain version's {plain_err}")
+
+
+@pytest.mark.cuda
 def test_lane_attention_kernels_reject_bad_input(card):
     from xdeepfm_tpu_torch.ops.lane_attention_cuda import la_backward, la_forward
 

@@ -13,7 +13,8 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = ["cli", "cli.common", "cli.xdftrain", "cli.xdftrain_v1", "cli.xdftrain_attn",
            "cli.xdftrain_pro", "data", "native", "profiling", "utils", "callbacks", "serving",
-           "scripts", "scripts.bench_attn_ablate", "scripts.bench_cin_fwd", "ops.attn_ablate",
+           "scripts", "scripts.bench_attn_ablate", "scripts.bench_cin_fwd", "scripts.bench_lane",
+           "ops.attn_ablate",
            "ops.attn_ablate_cuda",
            # the rest of the port: the engine, the models, the layers, the kernel
            # routes and their wrappers, Pro

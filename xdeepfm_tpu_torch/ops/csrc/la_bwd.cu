@@ -3,7 +3,7 @@
 // with ctypes.  The exact gradients of la_fwd.cu for an upstream g, from q, k
 // and v alone (p recomputed), per (head, sample), with dp[i, j] =
 // sum_d g[d, i] v[d, j], delta[i] = sum_j dp[i, j] p[i, j] and
-// ds[i, j] = (dp[i, j] - delta[i]) * p[i, j] * scale:
+// ds[i, j] = p[i, j] (dp[i, j] - delta[i]) * scale:
 //
 //   dv[d, j] = sum_i p[i, j] g[d, i]
 //   dq[d, i] = sum_j ds[i, j] k[d, j]      dk[d, j] = sum_i ds[i, j] q[d, i]
@@ -12,18 +12,48 @@
 //
 // Bound: bytes.  At the AutoInt train shape (B = 4096, H = 2, dh = 5,
 // S = 26) the function reads q, k, v and g and writes dq, dk and dv once,
-// 30 MB, against 0.28 GFLOP (10 * S^2 * dh per pair).  Design: the block
-// stages the P samples' q, k, v and g tiles in shared memory.  A first sweep
-// has a thread per query row: the row max, then the normaliser and delta,
-// then dq, each a walk over the keys, leaving dq and the row statistics
-// (max, 1 / sum, delta) in shared memory.  A second sweep has a thread per
-// key column: it recomputes p[i, j] from the statistics (the scores with the
-// same products in the same order as the first sweep) and sums dk and dv
-// over the queries, writing them over its own k and v columns.  Every sum is
-// one thread's loop in a fixed order and every (head, sample) pair is
-// independent, so there are no partial sums and no atomics, and the
-// gradients are bit-equal from run to run.
-
+// 29.8 MB, 8.9 us at 3.35 TB/s, against 0.28 GFLOP (10 S^2 dh a pair,
+// 4.1 us at the fp32 rate) and 5.5 M exps (1.3 us).
+//
+// Design (la_common.cuh): a warp per (sample, head) pair, a lane per query
+// row, the pair's q, k, v and g tiles in shared memory.  Lane i computes
+// each score, dp and exp of its row once:
+//  1. t[i, j] = scale q_i . k_j and dp[i, j] = g_i . v_j, with the row max;
+//  2. e[i, j] = exp(t[i, j] - max), the sum z and sum_j e dp;
+//  3. p = e / z, delta = sum_j e dp / z, ds = p (dp - delta) scale, and
+//     dq_i = sum_j ds[i, j] k_j in registers;
+// the rows live in registers (S <= 32: the key loops are unrolled to 32
+// and leave at S) or in the warp's scratch (S <= 64, two rows a lane).
+// Step 3 writes the p and ds rows into the warp's [S][S | 1] scratch (an
+// odd row pitch, so the rows' writes and the columns' reads are free of
+// bank conflicts); after __syncwarp, lane j sums its columns, dv_j = sum_i
+// p[i, j] g_i and dk_j = sum_i ds[i, j] q_i, in the order i = 0, 1, ...,
+// with q_i and g_i read as broadcasts, and writes them over its own k and v
+// rows; after another __syncwarp, dq over the lane's q row; the block's copy
+// takes the three out.  Every sum is one lane's loop in a fixed order and
+// every pair is one warp's, so there are no atomics and the gradients are
+// bit-equal from run to run.  What the earlier kernel (a thread a row, then
+// a thread a column, over [dh][S][P] tiles of one head) lost its time to,
+// and what this does about it:
+//  - each score computed four times, each dp and exp three: once here;
+//  - tile copies with two divisions and two modulos by runtime values an
+//    element: coordinates stepped with carries (la_common.cuh);
+//  - dh 5 run as 8 with masked steps: an exact dh-5 build;
+//  - a block of one head, reading 20 of every 40 bytes of a [B, S, E] row:
+//    all heads of W samples a block, one contiguous run;
+//  - cudaFuncSetAttribute at every launch: once a device (allow_smem).
+//
+// Occupancy (ptxas -v; 4 pairs a block, 4 tiles and 2 S x (S | 1) scratch a
+// pair): dh 5 at S <= 32 takes 94 registers, so 20 warps (5 blocks of
+// 30.9 KB at S 26) an SM; at S 64 the scratch is 33 KB a pair and one block
+// of 154 KB fits an SM (4 warps): the limit shape runs, slowly.  dh 16 takes
+// 142 (S <= 32) and 140 (S 64) registers.  No build spills.
+//
+// Measured (bench_lane.py and chip_smoke.py, torch.profiler's kernel time
+// a launch, NVIDIA H100 80GB HBM3 at 700 W): 0.029-0.030 ms at the AutoInt
+// train shape (3.3x the byte bound; the earlier kernel 0.107 in the same
+// call), 0.056 ms at B 8192, 0.040 ms on the contiguous [H, dh, S, B]
+// layout.  Blocks of 4 pairs ran faster than 8 (more of them an SM).
 #include <cfloat>
 #include <cmath>
 
@@ -31,122 +61,164 @@
 
 namespace {
 
-template <int DMAX>
-__global__ void __launch_bounds__(la::MAX_THREADS)
+constexpr int BWD_WARPS = 4;  // pairs a block
+
+template <int DMAX, bool EXACT, int R>
+__global__ void __launch_bounds__(32 * BWD_WARPS)
 la_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const float* __restrict__ g, float* __restrict__ dq,
-              float* __restrict__ dk, float* __restrict__ dv, int B, int S, int dh, int P,
+              const float* __restrict__ v, const float* __restrict__ g_,
+              float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv, la::Geom g,
               la::Strides st, float scale) {
-  const int h = blockIdx.y, b0 = blockIdx.x * P, n = S * P;
-  float* qs = la_smem;       // [dh][S][P] q
-  float* ks = qs + dh * n;   // [dh][S][P] k, then dk
-  float* vs = ks + dh * n;   // [dh][S][P] v, then dv
-  float* gs = vs + dh * n;   // [dh][S][P] g
-  float* dqs = gs + dh * n;  // [dh][S][P] dq
-  float* ms = dqs + dh * n;  // [S][P] row max of the scaled scores
-  float* zs = ms + n;        // [S][P] 1 / row sum
-  float* dl = zs + n;        // [S][P] delta
-  la::load_tile(q, qs, st, h, b0, B, dh, S, P);
-  la::load_tile(k, ks, st, h, b0, B, dh, S, P);
-  la::load_tile(v, vs, st, h, b0, B, dh, S, P);
-  la::load_tile(g, gs, st, h, b0, B, dh, S, P);
-  __syncthreads();
-  const int t = threadIdx.x, p = t % P;
-  const bool live = t < n && b0 + p < B;
-
-  // a thread per query row i (t = i * P + p), walking the keys
-  if (live) {
-    float qi[DMAX], gi[DMAX], acc[DMAX];
-#pragma unroll
-    for (int d = 0; d < DMAX; ++d) {
-      qi[d] = d < dh ? qs[d * n + t] : 0.f;
-      gi[d] = d < dh ? gs[d * n + t] : 0.f;
-      acc[d] = 0.f;
-    }
-    float mx = -FLT_MAX;
-    for (int j = 0; j < S; ++j) mx = fmaxf(mx, la::dot(qi, ks, j * P + p, n, dh) * scale);
-    float z = 0.f, edp = 0.f;
-    for (int j = 0; j < S; ++j) {
-      const int c = j * P + p;
-      const float e = expf(la::dot(qi, ks, c, n, dh) * scale - mx);
-      z += e;
-      edp = fmaf(e, la::dot(gi, vs, c, n, dh), edp);
-    }
-    const float inv = 1.f / z, delta = edp * inv;
-    for (int j = 0; j < S; ++j) {
-      const int c = j * P + p;
-      const float pij = expf(la::dot(qi, ks, c, n, dh) * scale - mx) * inv;
-      const float ds = pij * (la::dot(gi, vs, c, n, dh) - delta) * scale;
-#pragma unroll
-      for (int d = 0; d < DMAX; ++d)
-        if (d < dh) acc[d] = fmaf(ds, ks[d * n + c], acc[d]);
-    }
-#pragma unroll
-    for (int d = 0; d < DMAX; ++d)
-      if (d < dh) dqs[d * n + t] = acc[d];
-    ms[t] = mx;
-    zs[t] = inv;
-    dl[t] = delta;
-  }
+  const int S = g.S, dh = g.dh, np = g.W * g.HB;
+  const int b0 = blockIdx.x * g.W, nw = min(g.W, g.B - b0);
+  const int lane = threadIdx.x % 32, pair = threadIdx.x / 32;
+  const int w = pair / g.HB, hh = pair - w * g.HB;
+  const int b = b0 + w, h = blockIdx.y * g.HB + hh;
+  const bool live = w < nw && h < g.H;
+  const int ostride = np * g.tile;
+  float* tiles = la_smem;  // [4][np][tile]: q (then dq), k (then dk), v (then dv), g
+  float* qt = tiles + pair * g.tile;
+  float* kt = qt + ostride;
+  float* vt = kt + ostride;
+  const float* gt = vt + ostride;
+  float* ps = tiles + 4 * ostride + pair * 2 * S * g.pitch;  // [S][pitch] p, then [S][pitch] ds
+  float* dss = ps + S * g.pitch;
+  const float* const in[4] = {q, k, v, g_};
+  la::copy<DMAX, EXACT, R, true>(g, st, tiles, ostride, in, b0, nw, pair, live, h, b, lane);
   __syncthreads();
 
-  // a thread per key column j (t = j * P + p), walking the queries; it alone
-  // reads its k and v columns, so it may overwrite them with dk and dv
   if (live) {
-    float kj[DMAX], vj[DMAX], ak[DMAX], av[DMAX];
+    // a lane past the last row computes a copy of row S - 1 and stores nothing
+    float qi[R][DMAX], gi[R][DMAX], dqi[R][DMAX], m[R], z[R], edp[R];
+    bool own[R];
+    // the scores, then the exps, then p; dp, then ds (R = 2: in place in the
+    // p and ds scratch rows)
+    la::Rows<R> t, dp;
 #pragma unroll
-    for (int d = 0; d < DMAX; ++d) {
-      kj[d] = d < dh ? ks[d * n + t] : 0.f;
-      vj[d] = d < dh ? vs[d * n + t] : 0.f;
-      ak[d] = 0.f;
-      av[d] = 0.f;
+    for (int r = 0; r < R; ++r) {
+      own[r] = lane + 32 * r < S;
+      const int i = own[r] ? lane + 32 * r : S - 1;
+      la::Tile<DMAX>::load(qt, S, i, qi[r]);
+      la::Tile<DMAX>::load(gt, S, i, gi[r]);
+#pragma unroll
+      for (int d = 0; d < DMAX; ++d) dqi[r][d] = 0.f;
+      m[r] = -FLT_MAX;
+      z[r] = 0.f;
+      edp[r] = 0.f;
+      if constexpr (R > 1) {
+        (r == 0 ? t.r0 : t.r1) = ps + i * g.pitch;
+        (r == 0 ? dp.r0 : dp.r1) = dss + i * g.pitch;
+      }
     }
+    // The key loops run to 32 over the register rows (R = 1), unrolled in
+    // full so that every index into them is a constant, and to S over the
+    // scratch rows (R = 2), not unrolled, which keeps the wider builds from
+    // spilling.
+    const int keys = R == 1 ? 32 : S;
+    // 1. scores and dp, the row max
+#pragma unroll
+    for (int j = 0; j < keys; ++j) {
+      if (j >= S) break;
+      float kj[DMAX], vj[DMAX];
+      la::Tile<DMAX>::load(kt, S, j, kj);
+      la::Tile<DMAX>::load(vt, S, j, vj);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float s = la::dot<DMAX, EXACT>(qi[r], kj, dh) * scale;
+        t.set(r, j, s, own[r]);
+        dp.set(r, j, la::dot<DMAX, EXACT>(gi[r], vj, dh), own[r]);
+        m[r] = fmaxf(m[r], s);
+      }
+    }
+    // 2. one exp per (i, j), the sum and sum_j e dp
+#pragma unroll
+    for (int j = 0; j < keys; ++j) {
+      if (j >= S) break;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float e = expf(t.get(r, j) - m[r]);
+        z[r] += e;
+        edp[r] = fmaf(e, dp.get(r, j), edp[r]);
+        t.set(r, j, e, own[r]);
+      }
+    }
+    float inv[R], delta[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      inv[r] = 1.f / z[r];
+      delta[r] = edp[r] * inv[r];
+    }
+    // 3. p and ds into the scratch rows, dq in registers
+#pragma unroll
+    for (int j = 0; j < keys; ++j) {
+      if (j >= S) break;
+      float kj[DMAX];
+      la::Tile<DMAX>::load(kt, S, j, kj);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float p = t.get(r, j) * inv[r];
+        const float ds = p * (dp.get(r, j) - delta[r]) * scale;
+        la::axpy<DMAX, EXACT>(dqi[r], ds, kj, dh);
+        t.set(r, j, p, own[r]);
+        dp.set(r, j, ds, own[r]);
+        if (R == 1 && own[r]) {  // the register rows into the scratch
+          ps[lane * g.pitch + j] = p;
+          dss[lane * g.pitch + j] = ds;
+        }
+      }
+    }
+    __syncwarp();
+    // columns: lane j sums dv_j and dk_j over the queries in order
+    float dkj[R][DMAX], dvj[R][DMAX];
+    int col[R];
+#pragma unroll
+    for (int c = 0; c < R; ++c) {
+      col[c] = lane + 32 * c < S ? lane + 32 * c : S - 1;
+#pragma unroll
+      for (int d = 0; d < DMAX; ++d) dkj[c][d] = dvj[c][d] = 0.f;
+    }
+#pragma unroll 2
     for (int i = 0; i < S; ++i) {
-      const int c = i * P + p;
-      float s = 0.f, dp = 0.f;
+      float qr[DMAX], gr[DMAX];
+      la::Tile<DMAX>::load(qt, S, i, qr);
+      la::Tile<DMAX>::load(gt, S, i, gr);
 #pragma unroll
-      for (int d = 0; d < DMAX; ++d) {
-        if (d < dh) {
-          s = fmaf(qs[d * n + c], kj[d], s);
-          dp = fmaf(gs[d * n + c], vj[d], dp);
-        }
-      }
-      const float pij = expf(s * scale - ms[c]) * zs[c];
-      const float ds = pij * (dp - dl[c]) * scale;
-#pragma unroll
-      for (int d = 0; d < DMAX; ++d) {
-        if (d < dh) {
-          av[d] = fmaf(pij, gs[d * n + c], av[d]);
-          ak[d] = fmaf(ds, qs[d * n + c], ak[d]);
-        }
+      for (int c = 0; c < R; ++c) {
+        la::axpy<DMAX, EXACT>(dvj[c], ps[i * g.pitch + col[c]], gr, dh);
+        la::axpy<DMAX, EXACT>(dkj[c], dss[i * g.pitch + col[c]], qr, dh);
       }
     }
 #pragma unroll
-    for (int d = 0; d < DMAX; ++d) {
-      if (d < dh) {
-        ks[d * n + t] = ak[d];
-        vs[d * n + t] = av[d];
-      }
+    for (int c = 0; c < R; ++c) {
+      if (lane + 32 * c >= S) continue;
+      la::Tile<DMAX>::store(kt, S, lane + 32 * c, dkj[c]);  // no lane reads k or v now
+      la::Tile<DMAX>::store(vt, S, lane + 32 * c, dvj[c]);
     }
+    __syncwarp();  // every lane is done with q
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (own[r]) la::Tile<DMAX>::store(qt, S, lane + 32 * r, dqi[r]);
   }
   __syncthreads();
-  la::store_tile(dq, dqs, st, h, b0, B, dh, S, P);
-  la::store_tile(dk, ks, st, h, b0, B, dh, S, P);
-  la::store_tile(dv, vs, st, h, b0, B, dh, S, P);
+  float* const out[3] = {dq, dk, dv};
+  la::copy<DMAX, EXACT, R, false>(g, st, tiles, ostride, out, b0, nw, pair, live, h, b, lane);
 }
 
-template <int DMAX>
-int launch_bwd(const float* q, const float* k, const float* v, const float* g, float* dq,
+template <int DMAX, bool EXACT, int R>
+int launch_bwd(const float* q, const float* k, const float* v, const float* g_, float* dq,
                float* dk, float* dv, int B, int H, int S, int dh, la::Strides st, float scale,
                cudaStream_t stream) {
-  auto kern = la_bwd_kernel<DMAX>;
-  int P = la::pairs_per_block(S, B);
-  const int smem = (5 * dh + 3) * S * P * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  auto kern = la_bwd_kernel<DMAX, EXACT, R>;
+  la::Geom g{B, H, S, dh, 0, 0, la::round4(S * DMAX), la::odd_pitch(S), 0};
+  const int per_pair = (4 * g.tile + 2 * S * g.pitch) * static_cast<int>(sizeof(float));
+  la::cut(g, BWD_WARPS, per_pair, st);
+  const int smem = g.W * g.HB * per_pair;
+  static bool smem_set[la::MAX_DEVICES] = {};
+  cudaError_t err = la::allow_smem(kern, smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
-  void* args[] = {&q, &k, &v, &g, &dq, &dk, &dv, &B, &S, &dh, &P, &st, &scale};
-  err = cudaLaunchKernel(kern, dim3((B + P - 1) / P, H), dim3(la::threads_for(S * P)), args,
-                         static_cast<size_t>(smem), stream);
+  void* args[] = {&q, &k, &v, &g_, &dq, &dk, &dv, &g, &st, &scale};
+  err = cudaLaunchKernel(kern, dim3((B + g.W - 1) / g.W, (H + g.HB - 1) / g.HB),
+                         dim3(32 * g.W * g.HB), args, static_cast<size_t>(smem), stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -158,16 +230,15 @@ extern "C" {
 // Launches on `stream` and returns the first CUDA error (0 on success).  The
 // caller has checked dtypes, shapes, that q, k, v, g, dq, dk and dv share the
 // element strides (sh, sd, ss, sb), B >= 1, 1 <= H <= 65535, 1 <= dh <= 16 and
-// 1 <= S <= 64 (at most (5 * 16 + 3) * 256 floats, 85 KB, of shared memory),
-// and allocated dq, dk, dv.
+// 1 <= S <= 64, and allocated dq, dk, dv.
 int la_bwd(const void* q, const void* k, const void* v, const void* g, void* dq, void* dk,
            void* dv, int B, int H, int S, int dh, long long sh, long long sd, long long ss,
            long long sb, float scale, void* stream) {
   const la::Strides st{sh, sd, ss, sb};
-  LA_DISPATCH_DH(dh, launch_bwd, static_cast<const float*>(q), static_cast<const float*>(k),
-                 static_cast<const float*>(v), static_cast<const float*>(g),
-                 static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), B, H,
-                 S, dh, st, scale, static_cast<cudaStream_t>(stream))
+  LA_DISPATCH(dh, S, launch_bwd, static_cast<const float*>(q), static_cast<const float*>(k),
+              static_cast<const float*>(v), static_cast<const float*>(g),
+              static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), B, H, S,
+              dh, st, scale, static_cast<cudaStream_t>(stream))
 }
 
 const char* la_bwd_error_string(int err) {

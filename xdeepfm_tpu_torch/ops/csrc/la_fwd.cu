@@ -13,16 +13,42 @@
 // Replaces: xdeepfm_tpu/ops/lane_attention.py _la_fwd / _fwd_kernel.
 //
 // Bound: bytes.  At the AutoInt train shape (B = 4096, H = 2, dh = 5,
-// S = 26) the function moves q, k, v and o once, 17 MB, against 0.11 GFLOP
-// (4 * S^2 * dh per pair) and 5.5 M exps.  Design: the block stages the P
-// samples' q, k and v tiles in shared memory (coalesced: the copy walks the
-// operand's unit stride), one thread per query row keeps its q row and o
-// accumulators in registers and walks the keys twice (the row max, then exp,
-// sum and the v product), then o goes back through the q tile (each thread
-// overwrites only its own row) and out in one coalesced copy.  The TPU kernel
-// put 128 samples on the lanes and padded B to a multiple of 128; here the
-// ragged last block masks its missing samples, so any B.
-
+// S = 26) the function moves q, k, v and o once, 17.0 MB, 5.1 us at
+// 3.35 TB/s, against 0.11 GFLOP (4 S^2 dh a pair, 1.7 us at the fp32 rate)
+// and 5.5 M exps (1.3 us).
+//
+// Design (la_common.cuh): a warp per (sample, head) pair, a lane per query
+// row, the pair's q, k, v tiles in shared memory.  Lane i computes each
+// score t[i, j] once (its dh FMAs against the broadcast k row) and keeps
+// the row in registers (the key loop unrolled to 32 R and left at S) with
+// its max; then one exp per (i, j), as exp2 with log2(e) folded into the
+// scale, the sum and the v product.  For S > 32 a lane takes its two rows
+// one after the other.  o goes over the lane's own q row and out with the
+// block's copy.  What the earlier kernel (a thread a row over a [dh][S][P]
+// tile of P = 256 / S samples of one head) lost its time to, and what this
+// does about it:
+//  - each score computed twice (a max walk, then an exp walk): once here;
+//  - tile copies with two divisions and two modulos by runtime values an
+//    element: coordinates stepped with carries (la_common.cuh);
+//  - dh 5 run as 8 with masked steps: an exact dh-5 build;
+//  - a block of one head, reading 20 of every 40 bytes of a [B, S, E] row:
+//    all heads of W samples a block, one contiguous run;
+//  - cudaFuncSetAttribute at every launch: once a device (allow_smem).
+//
+// Occupancy (ptxas -v; 8 pairs a block, 3 tiles a pair): dh 5 at S <= 32
+// takes 64 registers, so 32 warps (4 blocks of 12.7 KB at S 26) an SM; at
+// S 64, 94 registers, 2 blocks; dh 16 80 (S <= 32) and 126 (S 64).  No
+// build spills.  At B 4096 and H 2 the 1024 blocks fill 528 slots in two
+// rounds.
+//
+// Measured (bench_lane.py and chip_smoke.py, torch.profiler's kernel time
+// a launch, NVIDIA H100 80GB HBM3 at 700 W): 0.0139-0.0140 ms at the
+// AutoInt train shape (2.7x the byte bound; the earlier kernel
+// 0.0492-0.0496 in the same call), 0.026 ms at B 8192, 0.0157 ms on the
+// contiguous [H, dh, S, B] layout.  Alone, the copies run near the memory
+// rate and the compute takes about two thirds of the time; within a block
+// they add up.  A persistent loop that copied the next samples by cp.async
+// while computing measured slower at the train shape (more registers).
 #include <cfloat>
 #include <cmath>
 
@@ -30,58 +56,87 @@
 
 namespace {
 
-template <int DMAX>
-__global__ void __launch_bounds__(la::MAX_THREADS)
+constexpr int FWD_WARPS = 8;  // pairs a block
+
+template <int DMAX, bool EXACT, int R>
+__global__ void __launch_bounds__(32 * FWD_WARPS)
 la_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, int B, int S, int dh, int P,
-              la::Strides st, float scale) {
-  const int h = blockIdx.y, b0 = blockIdx.x * P, n = S * P;
-  float* qs = la_smem;      // [dh][S][P] q, then o
-  float* ks = qs + dh * n;  // [dh][S][P]
-  float* vs = ks + dh * n;  // [dh][S][P]
-  la::load_tile(q, qs, st, h, b0, B, dh, S, P);
-  la::load_tile(k, ks, st, h, b0, B, dh, S, P);
-  la::load_tile(v, vs, st, h, b0, B, dh, S, P);
+              const float* __restrict__ v, float* __restrict__ o, la::Geom g, la::Strides st,
+              float scale) {
+  const int S = g.S, dh = g.dh, np = g.W * g.HB;
+  const int b0 = blockIdx.x * g.W, nw = min(g.W, g.B - b0);
+  const int lane = threadIdx.x % 32, pair = threadIdx.x / 32;
+  const int w = pair / g.HB, hh = pair - w * g.HB;
+  const int b = b0 + w, h = blockIdx.y * g.HB + hh;
+  const bool live = w < nw && h < g.H;
+  const int ostride = np * g.tile;
+  float* tiles = la_smem;  // [3][np][tile]: q (then o), k, v
+  float* qt = tiles + pair * g.tile;
+  const float* kt = qt + ostride;
+  const float* vt = kt + ostride;
+  const float* const in[3] = {q, k, v};
+  la::copy<DMAX, EXACT, R, true>(g, st, tiles, ostride, in, b0, nw, pair, live, h, b, lane);
   __syncthreads();
-  const int t = threadIdx.x, p = t % P;
-  if (t < n && b0 + p < B) {
-    float qi[DMAX], acc[DMAX];
+
+  // the scores in base 2: exp(x) = exp2(x log2(e)), the factor folded into the scale
+  const float scale2 = scale * 1.4426950408889634f;
+  if (live) {
+    // row lane + 32 r, one after the other, its scores in registers; a lane
+    // past the last row computes a copy of row S - 1 and stores nothing
+#pragma unroll 1
+    for (int r = 0; r < R; ++r) {
+      const bool own = lane + 32 * r < S;
+      const int i = own ? lane + 32 * r : S - 1;
+      float qi[DMAX], acc[DMAX], t[32 * R];
+      la::Tile<DMAX>::load(qt, S, i, qi);
+      float m = -FLT_MAX;
 #pragma unroll
-    for (int d = 0; d < DMAX; ++d) {
-      qi[d] = d < dh ? qs[d * n + t] : 0.f;  // t = i * P + p: this thread's row
-      acc[d] = 0.f;
+      for (int j = 0; j < 32 * R; ++j) {
+        if (j >= S) break;
+        float kj[DMAX];
+        la::Tile<DMAX>::load(kt, S, j, kj);
+        t[j] = la::dot<DMAX, EXACT>(qi, kj, dh) * scale2;
+        m = fmaxf(m, t[j]);
+      }
+#pragma unroll
+      for (int d = 0; d < DMAX; ++d) acc[d] = 0.f;
+      float z = 0.f;
+#pragma unroll
+      for (int j = 0; j < 32 * R; ++j) {
+        if (j >= S) break;
+        float vj[DMAX];
+        la::Tile<DMAX>::load(vt, S, j, vj);
+        const float e = exp2f(t[j] - m);
+        z += e;
+        la::axpy<DMAX, EXACT>(acc, e, vj, dh);
+      }
+      if (own) {
+        const float inv = 1.f / z;
+#pragma unroll
+        for (int d = 0; d < DMAX; ++d) acc[d] *= inv;
+        la::Tile<DMAX>::store(qt, S, i, acc);  // only this lane reads row i of q
+      }
     }
-    float mx = -FLT_MAX;
-    for (int j = 0; j < S; ++j) mx = fmaxf(mx, la::dot(qi, ks, j * P + p, n, dh) * scale);
-    float z = 0.f;
-    for (int j = 0; j < S; ++j) {
-      const int c = j * P + p;
-      const float e = expf(la::dot(qi, ks, c, n, dh) * scale - mx);
-      z += e;
-#pragma unroll
-      for (int d = 0; d < DMAX; ++d)
-        if (d < dh) acc[d] = fmaf(e, vs[d * n + c], acc[d]);
-    }
-    const float inv = 1.f / z;
-#pragma unroll
-    for (int d = 0; d < DMAX; ++d)
-      if (d < dh) qs[d * n + t] = acc[d] * inv;
   }
   __syncthreads();
-  la::store_tile(o, qs, st, h, b0, B, dh, S, P);
+  float* const out[1] = {o};
+  la::copy<DMAX, EXACT, R, false>(g, st, tiles, ostride, out, b0, nw, pair, live, h, b, lane);
 }
 
-template <int DMAX>
+template <int DMAX, bool EXACT, int R>
 int launch_fwd(const float* q, const float* k, const float* v, float* o, int B, int H, int S,
                int dh, la::Strides st, float scale, cudaStream_t stream) {
-  auto kern = la_fwd_kernel<DMAX>;
-  int P = la::pairs_per_block(S, B);
-  const int smem = 3 * dh * S * P * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  auto kern = la_fwd_kernel<DMAX, EXACT, R>;
+  la::Geom g{B, H, S, dh, 0, 0, la::round4(S * DMAX), la::odd_pitch(S), 0};
+  const int per_pair = 3 * g.tile * static_cast<int>(sizeof(float));
+  la::cut(g, FWD_WARPS, per_pair, st);
+  const int smem = g.W * g.HB * per_pair;
+  static bool smem_set[la::MAX_DEVICES] = {};
+  cudaError_t err = la::allow_smem(kern, smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
-  void* args[] = {&q, &k, &v, &o, &B, &S, &dh, &P, &st, &scale};
-  err = cudaLaunchKernel(kern, dim3((B + P - 1) / P, H), dim3(la::threads_for(S * P)), args,
-                         static_cast<size_t>(smem), stream);
+  void* args[] = {&q, &k, &v, &o, &g, &st, &scale};
+  err = cudaLaunchKernel(kern, dim3((B + g.W - 1) / g.W, (H + g.HB - 1) / g.HB),
+                         dim3(32 * g.W * g.HB), args, static_cast<size_t>(smem), stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -97,9 +152,9 @@ extern "C" {
 int la_fwd(const void* q, const void* k, const void* v, void* o, int B, int H, int S, int dh,
            long long sh, long long sd, long long ss, long long sb, float scale, void* stream) {
   const la::Strides st{sh, sd, ss, sb};
-  LA_DISPATCH_DH(dh, launch_fwd, static_cast<const float*>(q), static_cast<const float*>(k),
-                 static_cast<const float*>(v), static_cast<float*>(o), B, H, S, dh, st, scale,
-                 static_cast<cudaStream_t>(stream))
+  LA_DISPATCH(dh, S, launch_fwd, static_cast<const float*>(q), static_cast<const float*>(k),
+              static_cast<const float*>(v), static_cast<float*>(o), B, H, S, dh, st, scale,
+              static_cast<cudaStream_t>(stream))
 }
 
 const char* la_fwd_error_string(int err) {

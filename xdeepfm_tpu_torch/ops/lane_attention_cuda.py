@@ -30,7 +30,7 @@ import torch
 from . import _build
 
 LA_MAX_DH = 16  # the kernels' register rows: head widths 1..16
-LA_MAX_S = 64  # one thread per query row, P samples * S rows <= 256 threads
+LA_MAX_S = 64  # a warp per (sample, head), a lane per query row: at most two rows a lane
 MAX_HEADS = 65535  # the grid's second dimension
 
 
