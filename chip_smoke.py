@@ -100,8 +100,11 @@ run in order and any failure raises, so the exit code is non-zero:
 15. GRU-scan kernels vs plain (run right after the lane kernels):
    ``gru_fwd`` / ``gru_bwd`` for each cell (gru, agru, augru) at DIEN's train
    shape (B 4096, T 50, H 10, lengths uniform in 1..50), its serving shape
-   (B 8192), ragged (B 1001, T 37, some lengths 0), tiny and H 16; every
-   backward bit-equal over two runs; beside them for cell gru cuDNN's
+   (B 8192), ragged (B 1001, T 37, some lengths 0), tiny, H 16, H 11,
+   lengths 1..8 of T 50 and T 130; every backward bit-equal over two runs,
+   outs and each gradient against float64 within twice the plain fp32
+   version's error (or 1e-6 of the largest entry), each kernel's device
+   time a launch from the profiler; beside them for cell gru cuDNN's
    ``torch.nn.GRU`` over ``pack_padded_sequence`` (backward by autograd)
    and the kernel plus the hoisted input projection, which cuDNN includes;
 16. DIEN (``bench.py``'s ``dien`` row: AUGRU, negative sampling, user and
@@ -219,6 +222,8 @@ from xdeepfm_tpu_torch.ops.cin_cuda import (
 )
 from xdeepfm_tpu_torch.pro import xDeepFMPro
 from xdeepfm_tpu_torch.scripts import bench_attn_ablate
+from xdeepfm_tpu_torch.scripts.bench_gru import KERNELS as GRU_KERNELS
+from xdeepfm_tpu_torch.scripts.bench_gru import device_ms as gru_device_ms
 from xdeepfm_tpu_torch.scripts.bench_lane import device_ms
 from xdeepfm_tpu_torch.serving import Scorer, load_scorer
 from xdeepfm_tpu_torch.weights import flatten_tree, unflatten_tree
@@ -301,6 +306,9 @@ HEADERS = {
     "ab_bwd": ("xdeepfm_tpu_torch/ops/csrc/attn_bwd_tc.cuh",),
     "la_fwd": ("xdeepfm_tpu_torch/ops/csrc/la_common.cuh",),
     "la_bwd": ("xdeepfm_tpu_torch/ops/csrc/la_common.cuh",),
+    "gru_fwd": ("xdeepfm_tpu_torch/ops/csrc/gru_common.cuh",),
+    "gru_bwd": ("xdeepfm_tpu_torch/ops/csrc/gru_common.cuh",
+                "xdeepfm_tpu_torch/ops/csrc/tc_tf32.cuh"),
     **{f"ablate_{v}": ("xdeepfm_tpu_torch/ops/csrc/attn_fwd_tc.cuh",)
        for v in ("full", "dots", "soft")},
 }
@@ -1648,16 +1656,22 @@ def phase_lane_kernels(peak):
 # the GRU / AGRU / AUGRU recurrence of DIEN: TPU kernel rows 14-15
 # ---------------------------------------------------------------------------
 
-# (label, B, T, H, shortest length): DIEN's train step runs the extractor's
-# gru and the augru once each at B 4096, T 50, H 10 with lengths uniform in
-# 1..50; scoring at B 8192; a ragged batch and a tiny one with length-0 rows;
-# H 16, the kernels' gate
+# (label, B, T, H, shortest length, longest length): DIEN's train step runs
+# the extractor's gru and the augru once each at B 4096, T 50, H 10 with
+# lengths uniform in 1..50; scoring at B 8192; a ragged batch (B no multiple
+# of the 3 samples a warp holds at H 10) and a tiny one with length-0 rows;
+# H 16, the kernels' gate; lengths 1..8 of 50, so every warp stops well
+# before T; H 11 (2 samples a warp); T 130, the staging ring (2 chunks of 8
+# steps) walked round many times
 GRU_SHAPES = (
-    ("dien_train", TRAIN_BATCH, DIEN_MAXLEN, DIM, 1),
-    ("dien_serve", BATCH, DIEN_MAXLEN, DIM, 1),
-    ("ragged", 1001, 37, DIM, 0),
-    ("tiny", 5, 3, 2, 0),
-    ("h16", TRAIN_BATCH, DIEN_MAXLEN, 16, 1),
+    ("dien_train", TRAIN_BATCH, DIEN_MAXLEN, DIM, 1, DIEN_MAXLEN),
+    ("dien_serve", BATCH, DIEN_MAXLEN, DIM, 1, DIEN_MAXLEN),
+    ("ragged", 1001, 37, DIM, 0, 37),
+    ("tiny", 5, 3, 2, 0, 3),
+    ("h16", TRAIN_BATCH, DIEN_MAXLEN, 16, 1, DIEN_MAXLEN),
+    ("short", TRAIN_BATCH, DIEN_MAXLEN, DIM, 1, 8),
+    ("h11", TRAIN_BATCH, DIEN_MAXLEN, 11, 1, DIEN_MAXLEN),
+    ("long", 512, 130, DIM, 0, 130),
 )
 GRU_PATH_SHAPE = "dien_train"
 # fp32 recurrences over up to 50 steps, the plain version's gate products in
@@ -1666,13 +1680,13 @@ GRU_PATH_SHAPE = "dien_train"
 GRU_RTOL = 1e-5
 
 
-def _gru_case(cell, B, T, H, shortest, gen):
+def _gru_case(cell, B, T, H, shortest, longest, gen):
     """Fresh operands of one GRU-scan shape on the card."""
     def rand(*shape, scale=1.0):
         return scale * torch.randn(*shape, generator=gen, device="cuda")
 
     att = None if cell == "gru" else torch.rand(B, T, generator=gen, device="cuda")
-    lengths = torch.randint(shortest, T + 1, (B,), generator=gen, device="cuda",
+    lengths = torch.randint(shortest, longest + 1, (B,), generator=gen, device="cuda",
                             dtype=torch.int32)
     return (rand(B, T, 3, H), rand(3, H, H, scale=H ** -0.5), rand(3, H, scale=0.3), att,
             lengths, rand(B, H, scale=0.5), rand(B, T, H))
@@ -1705,23 +1719,37 @@ def phase_gru_kernels(peak):
     read, and the gate products done, only at the N_valid valid steps; g,
     outs, dgi and datt are every step's.  FLOPs a valid step: forward the
     three [H, H] products and the gates (6 H^2 + 12 H), backward the
-    recompute, dW and dh products (18 H^2 + 30 H)."""
+    recompute, dW and dh products (18 H^2 + 30 H).  At every shape outs and
+    each gradient go through the float64 gate (:func:`_f64_gate`, the
+    backward on the kernel's outs); each kernel's time a launch comes from
+    CUDA events (``fwd_ms``) and from the profiler's kernel durations
+    (``fwd_device_ms``; the backward's two kernels summed)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
     results = {}
     for cell in ("gru", "agru", "augru"):
-        for label, B, T, H, shortest in GRU_SHAPES:
-            gi, w, b, att, lengths, h0, g = _gru_case(cell, B, T, H, shortest, gen)
+        for label, B, T, H, shortest, longest in GRU_SHAPES:
+            gi, w, b, att, lengths, h0, g = _gru_case(cell, B, T, H, shortest, longest, gen)
             args = (cell, gi, w, b, att, lengths, h0)
             outs = gru_forward(*args)
             grads = gru_backward(cell, g, *args[1:], outs)
             torch.cuda.synchronize()
-            fwd_err = _checked(outs, gru_forward_reference(*args), GRU_RTOL)
-            bwd_err = max(_checked(a, e, BWD_RTOL) for a, e in zip(
-                grads, gru_backward_reference(cell, g, *args[1:], outs)))
+            want_outs = gru_forward_reference(*args)
+            want = gru_backward_reference(cell, g, *args[1:], outs)
+            fwd_err = _checked(outs, want_outs, GRU_RTOL)
+            bwd_err = max(_checked(a, e, BWD_RTOL) for a, e in zip(grads, want))
             if not all(torch.equal(a, c) for a, c in zip(grads, gru_backward(cell, g, *args[1:],
                                                                               outs))):
                 raise AssertionError(f"gru_bwd {cell} at {label}: two runs differ")
-            del grads
+            g64, gi64, w64, b64, att64, h064, outs64 = (
+                None if t is None else t.double() for t in (g, gi, w, b, att, h0, outs))
+            fwd_gate = _f64_gate(f"gru_fwd {cell} outs at {label}", outs, want_outs,
+                                 gru_forward_reference(cell, gi64, w64, b64, att64, lengths, h064))
+            bwd_gate = {name: _f64_gate(f"gru_bwd {cell} {name} at {label}", a, e, x)
+                        for name, a, e, x in zip(
+                            ("dgi", "dw", "db", "datt", "dh0"), grads, want,
+                            gru_backward_reference(cell, g64, gi64, w64, b64, att64, lengths,
+                                                   h064, outs64))}
+            del grads, want_outs, want, g64, gi64, w64, b64, att64, h064, outs64
             iters = 50 if B > 100 else 200
             times = dict(
                 fwd_ms=cuda_ms(lambda: gru_forward(*args), iters),
@@ -1743,11 +1771,18 @@ def phase_gru_kernels(peak):
                 lib_fwd, lib_fwd_bwd = _cudnn_gru(lengths, T, H, gen)
                 times["library_fwd_ms"] = cuda_ms(lib_fwd, 20)
                 times["library_bwd_ms"] = cuda_ms(lib_fwd_bwd, 20) - times["library_fwd_ms"]
+            times.update(
+                fwd_device_ms=gru_device_ms(lambda: gru_forward(*args), GRU_KERNELS["gru_fwd"]),
+                bwd_device_ms=gru_device_ms(lambda: gru_backward(cell, g, *args[1:], outs),
+                                            GRU_KERNELS["gru_bwd"]))
             nv = int(lengths.sum())
             att_in = 0 if cell == "gru" else 1
             small = B + B * H + 3 * H * H + 3 * H  # lengths, h0 (or dh0), w and b
-            rec = dict(cell=cell, B=B, T=T, H=H, valid_steps=nv, **times, fwd_max_abs_err=fwd_err,
-                       bwd_max_abs_err=bwd_err, bwd_bit_equal=True,
+            rec = dict(cell=cell, B=B, T=T, H=H, longest=longest, valid_steps=nv, **times,
+                       fwd_max_abs_err=fwd_err, bwd_max_abs_err=bwd_err, bwd_bit_equal=True,
+                       fwd_err_vs_float64=fwd_gate[0], fwd_plain_err_vs_float64=fwd_gate[1],
+                       bwd_err_vs_float64={k_: e[0] for k_, e in bwd_gate.items()},
+                       bwd_plain_err_vs_float64={k_: e[1] for k_, e in bwd_gate.items()},
                        library="torch.nn.GRU (cuDNN) over pack_padded_sequence, fwd + autograd bwd "
                                "less fwd" if cell == "gru" else "none computes this cell")
             for kind, flops, nbytes in (
@@ -1759,6 +1794,8 @@ def phase_gru_kernels(peak):
                 rec[f"{kind}_gflop"] = flops / 1e9
                 rec[f"{kind}_mbytes"] = nbytes / 1e6
                 rec[f"{kind}_gbytes_per_s"] = nbytes / rec[f"{kind}_ms"] / 1e6
+                rec[f"{kind}_device_share_of_bound"] = (rec[f"{kind}_bound_ms"]
+                                                        / rec[f"{kind}_device_ms"])
             results[cell, label] = rec
             emit(phase="gru_kernel", shape=label, **rec)
             del gi, w, b, att, lengths, h0, g, outs
@@ -2455,6 +2492,10 @@ def main():
             bound_ms=sum(r[f"{kind}_bound_ms"] for r in rs),
             bound_by=max(rs, key=lambda r: r[f"{kind}_bound_ms"])[f"{kind}_bound_by"],
             library_ms=None, library_gru_cell_ms=rs[0][f"library_{kind}_ms"],
+            device_ms=sum(r[f"{kind}_device_ms"] for r in rs),
+            err_vs_float64=max(
+                x["fwd_err_vs_float64"] if kind == "fwd" else max(x["bwd_err_vs_float64"].values())
+                for x in gru_shapes.values()),
             per=f"DIEN train step at batch 4096 (1 gru + 1 augru launch, T {rs[0]['T']}, "
                 f"H {rs[0]['H']}); no library call computes the augru",
         ))

@@ -942,17 +942,22 @@ def test_autoint_and_difm_on_card_match_cpu(card):
 # ------------------------------------------------- GRU scan (rows 14-15)
 
 # (B, T, H, shortest length): DIEN's train shape, a ragged batch with
-# length-0 rows, each shuffle group (H 3, 8, 16), tiny
+# length-0 rows (B no multiple of the 3 samples a warp holds at H 10), H 3,
+# 8 and 16, tiny; H 11 (2 samples a warp); every length at most 8 of 50 (all
+# warps stop early); T past the staging ring several times over
 GRU_SHAPES = [(4096, 50, 10, 1), (1001, 37, 10, 0), (33, 5, 3, 0), (300, 20, 8, 0),
-              (257, 12, 16, 1), (5, 3, 2, 0)]
+              (257, 12, 16, 1), (5, 3, 2, 0), (1001, 50, 11, 0), (4095, 50, 10, 1),
+              (512, 130, 10, 0)]
+GRU_LONGEST = {(4095, 50, 10, 1): 8}  # shapes whose lengths stop at this many steps
 
 
 def _gru_operands(seed, cell, B, T, H, shortest):
     gen = torch.Generator().manual_seed(seed)
+    longest = GRU_LONGEST.get((B, T, H, shortest), T)
     ops = [torch.randn(B, T, 3, H, generator=gen), torch.randn(3, H, H, generator=gen) / H**0.5,
            0.3 * torch.randn(3, H, generator=gen),
            None if cell == "gru" else torch.rand(B, T, generator=gen),
-           torch.randint(shortest, T + 1, (B,), generator=gen, dtype=torch.int32),
+           torch.randint(shortest, longest + 1, (B,), generator=gen, dtype=torch.int32),
            0.5 * torch.randn(B, H, generator=gen), torch.randn(B, T, H, generator=gen)]
     return [None if t is None else t.cuda() for t in ops]
 

@@ -110,14 +110,28 @@ def function(lib: str, name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     return _FNS[lib, name]
 
 
+def _stream(index: int) -> int:
+    """The cudaStream_t of device ``index``'s current PyTorch stream: by
+    ``torch._C._cuda_getCurrentRawStream`` where the build has it (a fraction
+    of a microsecond), else by ``torch.cuda.current_stream``."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    return raw(index) if raw is not None else torch.cuda.current_stream(index).cuda_stream
+
+
 def launch(lib: str, name: str, argtypes: Sequence, device, *args) -> None:
     """Call the kernel launcher ``name`` of ``csrc/<lib>.cu`` with ``args``
     and, last, ``device``'s current PyTorch stream (``argtypes`` include the
-    stream's pointer); raise RuntimeError with the CUDA error's text when it
-    returns one."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = function(lib, name, argtypes)(*args, stream)
+    stream's pointer), with ``device`` the current CUDA device (switched to
+    and back only where it is not); raise RuntimeError with the CUDA error's
+    text when it returns one."""
+    fn = function(lib, name, argtypes)
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        err = fn(*args, _stream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, _stream(index))
     if err != 0:
         err_fn = getattr(load(lib), f"{lib}_error_string")
         err_fn.argtypes = [ctypes.c_int]

@@ -7,22 +7,27 @@
 //   u = 1 - sigmoid(gi_z + W_z h + b_z)   (gru)
 //       att[t]                            (agru)
 //       att[t] sigmoid(gi_z + W_z h + b_z) (augru)
-//   h = h + valid u (n - h),  valid = t < length,  outs[t] = h
+//   h = h + u (n - h) where t < length, else h unchanged;  outs[t] = h
 //
 // so the state freezes past each row's length and a length-0 row keeps h0.
 //
 // Replaces: xdeepfm_tpu/ops/gru_pallas.py _gs_fwd / _fwd_kernel (step
 // _step_fwd).
 //
-// Bound: bytes.  At DIEN's train shape (B 4096, T 50, H 10) it reads gi
-// (24.6 MB), att, lengths and h0 and writes outs (8.2 MB), ~34 MB, against
-// ~0.13 GFLOP.  But the 50 steps depend on each other, so what sets the time
-// is one step's latency times T.  Design: a thread per (sample, unit), 16
-// lanes a sample at H 10 (B H = 40 960 live lanes, 16 warps an SM at B 4096);
-// the unit's three weight rows live in registers and h is exchanged by H
-// shuffles a step, so a step touches no shared memory and no barrier; step
-// t + 1's gi and att are loaded before step t computes, so the loads' latency
-// hides behind a step's math instead of adding up over the 50 steps.
+// Bound: bytes.  At DIEN's train shape (B 4096, T 50, H 10, lengths uniform
+// in 1..50, about half the (sample, step) pairs valid) it reads gi and att
+// at the valid steps (~12.6 MB) and writes outs (8.2 MB), ~21 MB, against
+// ~0.07 GFLOP.  But the steps of a row depend on each other: one step's
+// latency times the longest row's steps sets the time (a lone warp runs
+// about as fast as a full card), and the issue slots of the warps that
+// share a scheduler come next.  Design (gru_common.cuh): a sample on
+// exactly H lanes, the unit's three weight rows in registers, h exchanged
+// through a double-buffered shared-memory row a step (one store, one
+// __syncwarp, HP / 4 broadcast loads), each lane's gi and att loaded into
+// registers AHEAD steps ahead (the loop over a chunk's steps is unrolled,
+// so each step's slot is a register of its own), and each warp's steps
+// stopped at its longest row: past it the lanes only store the frozen
+// state.
 
 #include <cmath>
 
@@ -30,65 +35,106 @@
 
 namespace {
 
-template <int CELL, int G>
-__global__ void __launch_bounds__(gru::THREADS)
+constexpr int WARPS = 1;  // warps a block: the warps spread evenly over the SMs
+constexpr int AHEAD = 6;  // steps a lane's gi and att are loaded ahead
+
+// A warp's shared memory: the two exchange rows [2][SPW][HP].
+template <int H>
+struct FwdSmem {
+  using L = gru::Lanes<H, WARPS>;
+  static constexpr int XCH = L::SPW * L::HP;
+  static constexpr size_t BYTES = sizeof(float) * WARPS * 2 * XCH;
+};
+
+template <int CELL, int H>
+__global__ void __launch_bounds__(32 * WARPS)
 gru_fwd_kernel(const float* __restrict__ gi, const float* __restrict__ w,
                const float* __restrict__ bias, const float* __restrict__ att,
                const int* __restrict__ lengths, const float* __restrict__ h0,
-               float* __restrict__ outs, int B, int T, int H) {
-  const int i = threadIdx.x % G;
-  const long long s = static_cast<long long>(blockIdx.x) * (gru::THREADS / G) + threadIdx.x / G;
-  const bool in_batch = s < B;
-  const bool live = in_batch && i < H;
-  float wr[G], wz[G], wn[G], hp[G], br, bz, bn;
-  gru::load_rows<G>(w, bias, H, i, live, wr, wz, wn, br, bz, bn);
-  const int len = in_batch ? lengths[s] : 0;
-  float h = live ? h0[s * H + i] : 0.f;
-  const long long step = 3LL * H;
-  const float* x = gi + (live ? s * T * step + i : 0);
-  const float* a_row = CELL == gru::CELL_GRU ? nullptr : att + (in_batch ? s * T : 0);
-  float* o = outs + (live ? s * T * H + i : 0);
+               float* __restrict__ outs, int B, int T) {
+  using L = gru::Lanes<H, WARPS>;
+  using M = FwdSmem<H>;
+  constexpr int C = AHEAD, HP = L::HP, STEP = L::STEP;
+  constexpr bool HAS_Z = CELL != gru::CELL_AGRU, HAS_ATT = CELL != gru::CELL_GRU;
+  const L ln(B);
+  const int i = ln.i;
+  float wr[H], wz[H], wn[H], br, bz, bn;
+  gru::load_rows<H>(w, bias, i, ln.active, wr, wz, wn, br, bz, bn);
+  int longest;
+  const int len = gru::row_length(lengths, ln.s, ln.live, T, longest);
+  float h = ln.live ? h0[ln.s * H + i] : 0.f;
+  float* o = outs + (ln.live ? ln.s * T * H + i : 0);
+  float* row0 = gru_smem + ln.warp * 2 * M::XCH + ln.slot * HP;  // even steps' exchange row
+  float* row1 = row0 + M::XCH;                                    // odd steps'
 
-  float xr = 0.f, xz = 0.f, xn = 0.f, xa = 0.f;
-  auto load = [&](int t) {
-    if (live) {
-      const float* xt = x + t * step;
-      xr = xt[0];
-      if (CELL != gru::CELL_AGRU) xz = xt[H];
-      xn = xt[2 * H];
+  // slot u holds step t0 + u's gi (r, z, n) and att, loaded C steps ahead
+  const float* x = gi + (ln.live ? ln.s * T * STEP + i : 0);
+  const float* a = att + (HAS_ATT && ln.live ? ln.s * T : 0);
+  float xr[C], xz[C], xn[C], xa[C];
+#pragma unroll
+  for (int u = 0; u < C; ++u) {
+    xr[u] = xz[u] = xn[u] = xa[u] = 0.f;
+    if (u < len) {
+      xr[u] = x[u * STEP];
+      if (HAS_Z) xz[u] = x[u * STEP + H];
+      xn[u] = x[u * STEP + 2 * H];
+      if (HAS_ATT) xa[u] = a[u];
     }
-    if (CELL != gru::CELL_GRU && in_batch) xa = a_row[t];
-  };
-  load(0);
-  for (int t = 0; t < T; ++t) {
-    const float ir = xr, iz = xz, in = xn, a = xa;
-    if (t + 1 < T) load(t + 1);  // in flight while this step computes
-    float ar = br, az = bz, an = bn;
-    gru::recurrent<G>(wr, wz, wn, h, hp, ar, az, an);
-    const float r = gru::sigmoid(ir + ar);
-    const float n = tanhf(in + r * an);
-    float u;
-    if (CELL == gru::CELL_AGRU) {
-      u = a;
-    } else {
-      const float z = gru::sigmoid(iz + az);
-      u = CELL == gru::CELL_GRU ? 1.f - z : a * z;
+  }
+  for (int t0 = 0; t0 < longest; t0 += C) {
+#pragma unroll
+    for (int u = 0; u < C; ++u) {
+      const int t = t0 + u;
+      if (t < longest) {  // the same for the whole warp
+        float* row = (u & 1) ? row1 : row0;  // AHEAD is even: t's parity is u's
+        if (ln.active) row[i] = h;
+        __syncwarp();
+        const float gr = xr[u], gz = xz[u], gn = xn[u], at = xa[u];
+        if (t + C < len) {  // step t + C into the slot just read
+          const float* xt = x + (t + C) * STEP;
+          xr[u] = xt[0];
+          if (HAS_Z) xz[u] = xt[H];
+          xn[u] = xt[2 * H];
+          if (HAS_ATT) xa[u] = a[t + C];
+        }
+        // every lane runs the step (an idle lane or one past B on its
+        // zeros) and only a live lane stores: no branch a step
+        float hv[H];
+        gru::read_row<H>(row, hv);
+        float ar = br, az = bz, an = bn;
+        gru::recurrent<H, HAS_Z>(wr, wz, wn, hv, ar, az, an);
+        const float r = gru::sigmoid(gr + ar);
+        const float n = tanhf(gn + r * an);
+        float uu;
+        if (CELL == gru::CELL_AGRU) {
+          uu = at;
+        } else {
+          const float z = gru::sigmoid(gz + az);
+          uu = CELL == gru::CELL_GRU ? 1.f - z : at * z;
+        }
+        if (t < len) h = h + uu * (n - h);
+        if (ln.live) o[static_cast<long long>(t) * H] = h;
+      }
     }
-    const float v = t < len ? 1.f : 0.f;
-    h = h + (v * u) * (n - h);
-    if (live) o[static_cast<long long>(t) * H] = h;
+  }
+  // past the warp's longest row: the frozen state
+  if (ln.live) {
+    for (int t = longest; t < T; ++t) o[static_cast<long long>(t) * H] = h;
   }
 }
 
-template <int CELL, int G>
+template <int CELL, int H>
 int launch_fwd(const float* gi, const float* w, const float* b, const float* att,
-               const int* lengths, const float* h0, float* outs, int B, int T, int H,
+               const int* lengths, const float* h0, float* outs, int B, int T,
                cudaStream_t stream) {
-  auto kern = gru_fwd_kernel<CELL, G>;
-  constexpr int per = gru::THREADS / G;
-  void* args[] = {&gi, &w, &b, &att, &lengths, &h0, &outs, &B, &T, &H};
+  auto kern = gru_fwd_kernel<CELL, H>;
+  static_assert(AHEAD % 2 == 0, "a step's exchange row follows its slot's parity");
+  constexpr int per = WARPS * gru::Lanes<H, WARPS>::SPW;
+  constexpr size_t smem = FwdSmem<H>::BYTES;
+  static_assert(smem <= 48 * 1024, "the forward's shared memory fits the default limit");
+  void* args[] = {&gi, &w, &b, &att, &lengths, &h0, &outs, &B, &T};
   cudaError_t err =
-      cudaLaunchKernel(kern, dim3((B + per - 1) / per), dim3(gru::THREADS), args, 0, stream);
+      cudaLaunchKernel(kern, dim3((B + per - 1) / per), dim3(32 * WARPS), args, smem, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -106,7 +152,7 @@ int gru_fwd(int cell, const void* gi, const void* w, const void* b, const void* 
   GRU_DISPATCH(cell, H, launch_fwd, static_cast<const float*>(gi), static_cast<const float*>(w),
                static_cast<const float*>(b), static_cast<const float*>(att),
                static_cast<const int*>(lengths), static_cast<const float*>(h0),
-               static_cast<float*>(outs), B, T, H, static_cast<cudaStream_t>(stream))
+               static_cast<float*>(outs), B, T, static_cast<cudaStream_t>(stream))
 }
 
 const char* gru_fwd_error_string(int err) {

@@ -43,24 +43,29 @@ import torch
 from . import _build
 
 CELLS = {"gru": 0, "agru": 1, "augru": 2}
-GRU_MAX_H = 16  # lanes per sample: the shuffle group of 4, 8 or 16 lanes
-THREADS = 256  # threads per block of both kernels (csrc/gru_common.cuh)
+GRU_MAX_H = 16  # the widest sample the kernels are built for (a lane a unit)
+WARPS = 4  # warps per block of the backward kernel (csrc/gru_bwd.cu)
 
 
 def lanes_per_sample(H: int) -> int:
-    """The shuffle group of the kernels: the smallest of 4, 8, 16 >= H."""
-    return 4 if H <= 4 else 8 if H <= 8 else 16
+    """A sample's lanes in the kernels: exactly one a hidden unit."""
+    return H
+
+
+def samples_per_warp(H: int) -> int:
+    """The samples a warp holds: as many H-lane groups as fit 32 lanes."""
+    return 32 // lanes_per_sample(H)
 
 
 def backward_blocks(B: int, H: int) -> int:
     """Blocks of the backward kernel, hence its per-block dW / db partials."""
-    per = THREADS // lanes_per_sample(H)
+    per = WARPS * samples_per_warp(H)
     return (B + per - 1) // per
 
 
 def fits_kernel(T: int, H: int, B: int) -> bool:
     """The kernels' shape gate: a hidden width of 1..16 (one sample's units
-    are the lanes of one shuffle group); any T >= 1 and B >= 1."""
+    are H lanes of one warp); any T >= 1 and B >= 1."""
     return 1 <= H <= GRU_MAX_H and T >= 1 and B >= 1
 
 
@@ -142,7 +147,7 @@ def gru_backward_reference(cell, g, gi, w, b, att, lengths, h0, outs):
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "gru_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "gru_bwd": [_I] + [_P] * 13 + [_I, _I, _I, _I, _P],
+    "gru_bwd": [_I] + [_P] * 14 + [_I, _I, _I, _I, _P],
 }
 
 
@@ -151,9 +156,11 @@ def _launch(name, device, *args):
     _build.launch(name, name, _SIGNATURES[name], device, *args)
 
 
-def _check(fn, cell, gi, w, b, att, lengths, h0, **per_step):
-    """Shared input checks (``per_step``: more [B, T, H] tensors); returns
-    (B, T, H)."""
+def _check(fn, cell, gi, w, b, att, lengths, h0, *per_step):
+    """Shared input checks (``per_step``: (name, tensor) pairs of more
+    [B, T, H] tensors); returns (B, T, H).  The common case, every input
+    right, takes one pass of cheap tests; any failure is named by the
+    second, detailed pass."""
     if cell not in CELLS:
         raise ValueError(f"{fn}: unknown cell {cell!r}; expected one of {sorted(CELLS)}")
     if not isinstance(gi, torch.Tensor) or gi.ndim != 4 or gi.shape[2] != 3:
@@ -162,32 +169,34 @@ def _check(fn, cell, gi, w, b, att, lengths, h0, **per_step):
     if not fits_kernel(T, H, B):
         raise ValueError(f"{fn}: B {B}, T {T}, H {H} outside the kernels' gate "
                          f"(1 <= H <= {GRU_MAX_H}); use backend='torch'")
-    tensors = dict(gi=(gi, (B, T, 3, H)), w=(w, (3, H, H)), b=(b, (3, H)), h0=(h0, (B, H)))
+    if cell != "gru" and att is None:
+        raise ValueError(f"{fn}: cell {cell!r} needs att")
+    tensors = [("gi", gi, (B, T, 3, H)), ("w", w, (3, H, H)), ("b", b, (3, H)),
+               ("h0", h0, (B, H))]
     if cell != "gru":
-        if att is None:
-            raise ValueError(f"{fn}: cell {cell!r} needs att")
-        tensors["att"] = (att, (B, T))
-    tensors.update({name: (t, (B, T, H)) for name, t in per_step.items()})
-    for name, (t, shape) in tensors.items():
+        tensors.append(("att", att, (B, T)))
+    tensors += [(name, t, (B, T, H)) for name, t in per_step]
+    dev = gi.get_device() if gi.is_cuda else None
+    if dev is not None and all(
+            isinstance(t, torch.Tensor) and t.is_cuda and t.get_device() == dev
+            and t.dtype == torch.float32 and t.shape == shape and t.is_contiguous()
+            for _, t, shape in tensors) and (
+            isinstance(lengths, torch.Tensor) and lengths.is_cuda
+            and lengths.get_device() == dev and lengths.dtype == torch.int32
+            and lengths.shape == (B,) and lengths.is_contiguous()):
+        return B, T, H
+    for name, t, shape in tensors:
         if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
             raise ValueError(f"{fn}: {name} must be a CUDA tensor")
         if t.device != gi.device:
             raise ValueError(f"{fn}: all inputs must be on one device")
         if t.dtype != torch.float32:
             raise ValueError(f"{fn}: {name} must be float32, got {t.dtype}")
-        if tuple(t.shape) != shape:
+        if t.shape != shape:
             raise ValueError(f"{fn}: {name} must be {shape}, got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{fn}: {name} must be contiguous")
-    if (not isinstance(lengths, torch.Tensor) or lengths.device != gi.device
-            or lengths.dtype != torch.int32 or tuple(lengths.shape) != (B,)
-            or not lengths.is_contiguous()):
-        raise ValueError(f"{fn}: lengths must be a contiguous int32 [B] tensor on gi's device")
-    return B, T, H
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
+    raise ValueError(f"{fn}: lengths must be a contiguous int32 [B] tensor on gi's device")
 
 
 def gru_forward(cell, gi, w, b, att, lengths, h0):
@@ -196,7 +205,7 @@ def gru_forward(cell, gi, w, b, att, lengths, h0):
     B, T, H = _check("gru_forward", cell, gi, w, b, att, lengths, h0)
     outs = torch.empty(B, T, H, device=gi.device)
     _launch("gru_fwd", gi.device, CELLS[cell], gi.data_ptr(), w.data_ptr(), b.data_ptr(),
-            _ptr(att if cell != "gru" else None), lengths.data_ptr(), h0.data_ptr(),
+            att.data_ptr() if cell != "gru" else None, lengths.data_ptr(), h0.data_ptr(),
             outs.data_ptr(), B, T, H)
     gru_forward.launches += 1
     return outs
@@ -205,20 +214,22 @@ def gru_forward(cell, gi, w, b, att, lengths, h0):
 def gru_backward(cell, g, gi, w, b, att, lengths, h0, outs):
     """The backward kernel: same contract as :func:`gru_backward_reference`
     (datt is zero for cell "gru").  dw and db are summed from per-block
-    partials in a fixed order, so two calls give bit-equal results."""
-    B, T, H = _check("gru_backward", cell, gi, w, b, att, lengths, h0, outs=outs, g=g)
+    partials in a fixed order, so two calls give bit-equal results.  Every
+    output is an allocation of its own (a view of a shared buffer costs the
+    host more than an allocation)."""
+    B, T, H = _check("gru_backward", cell, gi, w, b, att, lengths, h0, ("outs", outs), ("g", g))
     dev = gi.device
+    nblk = backward_blocks(B, H)
     dgi = torch.empty_like(gi)
     datt = torch.empty(B, T, device=dev)
     dh0 = torch.empty(B, H, device=dev)
-    nblk = backward_blocks(B, H)
-    part = torch.empty(nblk, 3 * H * (H + 1), device=dev)
-    sums = torch.empty(3 * H * (H + 1), device=dev)
+    part = torch.empty(nblk, 3 * H * (H + 1), device=dev)  # dW [3, H, H], db [3, H] a block
+    dw = torch.empty(3, H, H, device=dev)
+    db = torch.empty(3, H, device=dev)
     _launch("gru_bwd", dev, CELLS[cell], g.data_ptr(), gi.data_ptr(), w.data_ptr(), b.data_ptr(),
-            _ptr(att if cell != "gru" else None), lengths.data_ptr(), h0.data_ptr(),
+            att.data_ptr() if cell != "gru" else None, lengths.data_ptr(), h0.data_ptr(),
             outs.data_ptr(), dgi.data_ptr(), datt.data_ptr(), dh0.data_ptr(), part.data_ptr(),
-            sums.data_ptr(), nblk, B, T, H)
-    dw, db = sums[: 3 * H * H].view(3, H, H), sums[3 * H * H :].view(3, H)
+            dw.data_ptr(), db.data_ptr(), nblk, B, T, H)
     gru_backward.launches += 1
     return dgi, dw, db, datt, dh0
 
