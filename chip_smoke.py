@@ -116,8 +116,28 @@ run in order and any failure raises, so the exit code is non-zero:
    deterministic ``fused_gather`` beside ``F.embedding``'s and
    ``index_select``'s, bit-equality over two calls, error against float64
    and time, at DIEN's and xDeepFM's step;
-18. a ``{"kernels": [...]}`` line, one entry per hand-written kernel;
-19. the last line: ``{"ok": true, "device": {...}}``.
+18. the training CLIs over the native parser (``cli`` lines, among them
+   ``cli_lazy``: ``xdftrain --embedding_optimizer lazy``, split and packed)
+   and ``load_scorer`` over their artifacts (``cli_summary``);
+19. the lazy row-sparse embedding optimizer (``compile(embedding_optimizer=
+   "lazy")``; its sort, run sums and row writes are PyTorch ops, the CIN's
+   and the GRU's kernels run on its steps): ``lazy_checks`` at 26 x 100 000
+   rows (Adam and Adagrad in every mode: split flat, split packed, dense
+   cotangent, packed bf16; packed against flat and split against dense
+   cotangent within the lazy tolerances, bit-equal where ``bit_equal``
+   says; the rows no batch touched and their state bit-unchanged; a second
+   identical run bit-equal; one step against the CPU model; a packed
+   checkpoint loaded into a flat model and stepped); ``lazy_dien`` (DIEN,
+   one singleton packed group, 2 ``gru_fwd`` + 2 ``gru_bwd`` a step, its
+   untouched rows unchanged); then ``lazy`` lines at ``bench.py``'s
+   ``lazy104`` shape (26 x 4 000 000 rows, batch 4096): lazy Adagrad split
+   packed, lazy Adam in bf16 state and dense Adam, each with ms a step (CUDA
+   events), examples/s, busy ms, idle share and kernels (profiler), memory,
+   2 + 2 + 2 CIN launches a step, and for the lazy runs one step's
+   transient allocation below a tenth of the group array's bytes;
+20. a ``{"kernels": [...]}`` line, one entry per hand-written kernel, its
+   ``launches_by_path`` with the CLI and lazy paths;
+21. the last line: ``{"ok": true, "device": {...}}``.
 
 Every model's training record lists the gradients that a second identical
 step does not reproduce bit for bit (``grads_not_reproduced``); the run fails
@@ -154,7 +174,7 @@ from torch.overrides import TorchFunctionMode
 from xdeepfm_tpu_torch import native
 from xdeepfm_tpu_torch.basemodel import _loss_fn_single
 from xdeepfm_tpu_torch.cli import xdftrain, xdftrain_attn, xdftrain_pro
-from xdeepfm_tpu_torch.embeddings import fused_gather
+from xdeepfm_tpu_torch.embeddings import fused_gather, touched_ids
 from xdeepfm_tpu_torch.features import DenseFeat, SparseFeat, VarLenSparseFeat
 from xdeepfm_tpu_torch.models import (
     DIEN,
@@ -165,6 +185,7 @@ from xdeepfm_tpu_torch.models import (
     xDeepFMAttentionV2,
 )
 from xdeepfm_tpu_torch.models.dien import DIENModule
+from xdeepfm_tpu_torch.optimizers import LAZY_OPTIMIZERS
 from xdeepfm_tpu_torch.nn import (
     CIN,
     CINAttention,
@@ -221,7 +242,7 @@ from xdeepfm_tpu_torch.ops.cin_cuda import (
     cin_rows_reference,
 )
 from xdeepfm_tpu_torch.pro import xDeepFMPro
-from xdeepfm_tpu_torch.scripts import bench_attn_ablate
+from xdeepfm_tpu_torch.scripts import bench_attn_ablate, bench_lazy
 from xdeepfm_tpu_torch.scripts.bench_gru import KERNELS as GRU_KERNELS
 from xdeepfm_tpu_torch.scripts.bench_gru import device_ms as gru_device_ms
 from xdeepfm_tpu_torch.scripts.bench_lane import device_ms
@@ -1937,6 +1958,8 @@ CLI_RUNS = (  # (path, CLI module, arguments beyond the common ones)
                                  "--eval_path", "{eval}"]),
     ("cli_pro", xdftrain_pro, ["--mode", "eval", "--epochs", "1", "--use_sfg"]),
     ("cli_attn_v1", xdftrain_attn, ["--mode", "eval", "--epochs", "1", "--model_version", "v1"]),
+    # the lazy optimizer (split gradient, packed layout: "auto" for both)
+    ("cli_lazy", xdftrain, ["--mode", "eval", "--epochs", "2", "--embedding_optimizer", "lazy"]),
 )
 # kernel launches a train step and a predicted batch, by CLI module
 CLI_STEP = {xdftrain: dict(cin_fwd=2, cin_bwd_dx=2, cin_dw=2),
@@ -2335,6 +2358,300 @@ def phase_model_scoring(model, version):
     return record
 
 
+# ---------------------------------------------------------------------------
+# the lazy row-sparse embedding optimizer.  It has no TPU kernel of its own
+# (its sort, run sums and row writes are XLA in the JAX package and PyTorch
+# ops here); the CIN kernels (rows 1-3) run on its xDeepFM steps and the GRU
+# kernels (rows 14-15) on its DIEN steps.
+# ---------------------------------------------------------------------------
+
+# bench.py's lazy104 row (bench.py:438-467 -> scripts/bench_lazy.py:25-36):
+# 26 fields of vocabulary 4 000 000 (104M rows), dim 10, 13 dense, CIN
+# (256, 128) split-half, DNN (256, 256), batch 4096, L2 1e-5 on the tables,
+# seed 1024, ids uniform over each field's vocabulary
+LAZY_VOCAB = 4_000_000
+LAZY_STEPS = 20  # timed steps a mode, after 2 warm-up steps
+# (path, optimizer, bench_lazy mode): lazy104's own mode, Adam in bf16 row
+# state (the same [104M, 22] array), dense Adam at the same table
+LAZY_RUNS = (("lazy104_adagrad", "adagrad", "lazy_split"),
+             ("lazy104_adam_bf16", "adam", "lazy_split_bf16"),
+             ("dense104_adam", "adam", "dense"))
+# a lazy split step may allocate at most this share of its group arrays'
+# bytes on top of what it holds (a [rows, 11] gradient alone would be half)
+LAZY_TRANSIENT_SHARE = 0.1
+# the correctness checks at 26 x 100 000 = 2.6M rows, LAZY_CHECK_STEPS steps
+# of batch 4096 each, in every mode of the lazy optimizer
+LAZY_CHECK_VOCAB, LAZY_CHECK_STEPS = 100_000, 3
+LAZY_MODES = ("lazy_split_flat", "lazy_split", "lazy", "lazy_split_bf16")
+# Adam's and Adagrad's first steps move an entry by about lr whatever its
+# gradient's size, so fp32 noise in a near-zero gradient can move it by up to
+# lr: weights within 1e-4 relative and 2e-5 absolute (the CPU tests'
+# tolerance at weights of scale 0.1), row states within 1e-4 of their
+# largest entry, 2^-7 relative under bf16 (one bf16 step)
+LAZY_W_RTOL, LAZY_W_ATOL, LAZY_STATE_ATOL = 1e-4, 2e-5, 1e-4
+# bf16 row state against fp32: the moments round to bf16 (2^-9 relative)
+# after every step, so step s reads s - 1 roundings.  A rounding of Adam's m
+# moves m / sqrt(v) by 2^-9 and one of v by 2^-10 (through the root), one of
+# Adagrad's accumulator moves g / sqrt(acc) by 2^-10; each is a share of an
+# update of lr * (a ratio at most about 1 over the first steps).  So after S
+# steps a lazy table's weights lie within lr * 2^-10 * c * S (S - 1) / 2 of
+# the fp32 run's, c = 3 (Adam) or 1 (Adagrad): 8.8e-6 and 2.9e-5 at 3 steps.
+LAZY_BF16_C = {"adam": 3, "adagrad": 1}
+
+
+def lazy_bf16_bound(optimizer, steps=LAZY_CHECK_STEPS):
+    lr = LAZY_OPTIMIZERS[optimizer][2]["lr"]
+    return lr * 2 ** -10 * LAZY_BF16_C[optimizer] * steps * (steps - 1) / 2
+
+
+def lazy_model(device, mode, optimizer):
+    model = bench_lazy.build_model(LAZY_CHECK_VOCAB, device)
+    bench_lazy.compile_mode(model, mode, optimizer)
+    model._dropout_gen = torch.Generator(device=model.device).manual_seed(model.seed + 1)
+    return model
+
+
+def lazy_snapshot(model):
+    """(every parameter, the lazy row states), cloned, on the host."""
+    return ({k: v.detach().cpu().clone() for k, v in model.module.state_dict().items()},
+            {k: v.cpu().clone() for k, v in model._lazy_state().items()})
+
+
+def lazy_diff(a, b):
+    """The largest absolute difference of each side of two snapshots."""
+    return [max(float((x[k] - y[k]).abs().max()) for k in x) for x, y in zip(a, b)]
+
+
+def lazy_close(label, got, want, bf16=False):
+    """Raise unless ``got`` is within the lazy tolerances of ``want``."""
+    for k, w in want[0].items():
+        torch.testing.assert_close(got[0][k], w, rtol=LAZY_W_RTOL, atol=LAZY_W_ATOL,
+                                   msg=lambda m: f"{label}: {k}: {m}")
+    for k, w in want[1].items():
+        torch.testing.assert_close(got[1][k], w, rtol=2 ** -7 if bf16 else 1e-3,
+                                   atol=LAZY_STATE_ATOL * float(w.abs().max()),
+                                   msg=lambda m: f"{label}: state {k}: {m}")
+
+
+def lazy_bf16_close(label, got, want, optimizer, steps=LAZY_CHECK_STEPS):
+    """Raise unless the snapshot ``got`` of a bf16-state run lies within the
+    bf16 bound of ``want``, the fp32 run's: the lazy tables' weights within
+    :func:`lazy_bf16_bound`, the other weights within the lazy tolerances,
+    and each entry of a row state within ``steps`` bf16 roundings of itself
+    (2^-7 relative covers 3) plus ``steps`` roundings of its moment's
+    largest entry in the table: a moment that cancels to near 0 keeps the
+    roundings of its earlier, larger values (Adam's m).  Returns the
+    tables' largest absolute difference."""
+    bound = lazy_bf16_bound(optimizer, steps)
+    tables = {path.replace("/", ".") for path in want[1]}
+    worst = max(float((got[0][k] - want[0][k]).abs().max()) for k in tables)
+    if not worst <= bound:
+        raise AssertionError(f"{label}: the lazy tables' weights differ by {worst}, "
+                             f"above the bf16 bound {bound}")
+    lazy_close(label, *[({k: v for k, v in snap[0].items() if k not in tables}, {})
+                        for snap in (got, want)])
+    for path, st in want[1].items():
+        blocks = st.reshape(st.shape[0], -1, want[0][path.replace("/", ".")].shape[1])
+        err = (got[1][path].reshape(blocks.shape) - blocks).abs()
+        atol = steps * 2 ** -9 * blocks.abs().amax(dim=(0, 2))
+        over = err > 2 ** -7 * blocks.abs() + atol[None, :, None]
+        if over.any():
+            raise AssertionError(f"{label}: {int(over.sum())} entries of {path}'s row state "
+                                 f"past the bf16 bound, the largest difference {float(err.max())}")
+    return worst
+
+
+def phase_lazy104():
+    """bench.py's lazy104 configuration on the card: the model built once on
+    the host (1.14e9 normal draws) and compiled anew per run of LAZY_RUNS;
+    each run's ms a step (CUDA events over LAZY_STEPS steps), examples/s,
+    busy ms, idle share and kernels (profiler, 5 steps), memory, and its CIN
+    launches (2 + 2 + 2 a step, counted over every step it ran), each line
+    with the card's name and power limit (``card``).  After a
+    lazy run one more step's transient allocation must stay below
+    LAZY_TRANSIENT_SHARE of its group arrays' bytes."""
+    records = {}
+    card = subprocess.run(  # beside every number of the lines
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+    model = bench_lazy.build_model(LAZY_VOCAB, "cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 40)
+    for path, optimizer, mode in LAZY_RUNS:
+        t0 = time.perf_counter()
+        reset_launches()
+        rec = bench_lazy.bench(model, LAZY_VOCAB, mode, optimizer, steps=LAZY_STEPS)
+        counts = read_launches()
+        steps = 2 + LAZY_STEPS + bench_lazy.PROFILE_STEPS
+        want = expected(cin_fwd=2 * steps, cin_bwd_dx=2 * steps, cin_dw=2 * steps)
+        if counts != want:
+            raise AssertionError(f"{path}: launches {counts} over {steps} steps, expected {want}")
+        batch = bench_lazy.draw_batch(model, LAZY_VOCAB, rng)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        total, _ = model._train_step(*batch, with_metrics=False)
+        torch.cuda.synchronize()
+        transient = torch.cuda.max_memory_allocated() - before
+        if not np.isfinite(total.item()):
+            raise AssertionError(f"{path}: the step's loss is {total.item()}")
+        rec.update(path=path, card=card, build_seconds=build_s, seconds=time.perf_counter() - t0,
+                   launches=counts,
+                   launches_per_step={k: v / steps for k, v in counts.items() if v},
+                   one_step_transient_bytes=transient, one_step_loss=total.item())
+        if model._lazy is not None:
+            arrays = sum(g["array"].numel() * g["array"].element_size()
+                         for g in model._lazy["groups"])
+            rec.update(group_array_bytes=arrays, group_array_shapes=[
+                list(g["array"].shape) for g in model._lazy["groups"]],
+                transient_share_of_arrays=transient / arrays)
+            if transient >= LAZY_TRANSIENT_SHARE * arrays:
+                raise AssertionError(f"{path}: a lazy step allocated {transient} bytes, "
+                                     f"{transient / arrays:.3f} of its arrays' {arrays}")
+        records[path] = rec
+        emit(phase="lazy", **rec)
+    del model
+    torch.cuda.empty_cache()
+    return records
+
+
+def phase_lazy_checks():
+    """The lazy optimizer's correctness on the card at 2.6M rows, for Adam
+    and Adagrad in every mode (split flat, split packed, dense cotangent,
+    packed bf16), LAZY_CHECK_STEPS steps from the seeded weights on the same
+    batches: split packed against split flat and split against dense
+    cotangent (bit-equal where ``bit_equal`` says so, else within the lazy
+    tolerances), bf16 against fp32 state (:func:`lazy_bf16_close`); the
+    rows no batch touched, and their state, bit-unchanged; a second identical run bit-equal; one step on
+    the card against the CPU model's; a checkpoint of the packed model
+    loaded into a flat one and the next step on both."""
+    rng = np.random.default_rng(SEED + 41)
+    cpu_model = lazy_model("cpu", "lazy_split", "adam")  # also the CPU side of one step
+    init = lazy_snapshot(cpu_model)[0]
+    cpu_batches = [bench_lazy.draw_batch(cpu_model, LAZY_CHECK_VOCAB, rng)
+                   for _ in range(LAZY_CHECK_STEPS)]
+    batches = [({k: v.cuda() for k, v in xb.items()}, yb.cuda(), mb.cuda())
+               for xb, yb, mb in cpu_batches]
+    sp = torch.cat([b[0]["sparse"].long() for b in cpu_batches])
+    touched = torch.zeros(N_SPARSE * LAZY_CHECK_VOCAB, dtype=torch.bool)
+    touched[(sp + torch.arange(N_SPARSE) * LAZY_CHECK_VOCAB).reshape(-1)] = True
+    record = dict(rows=N_SPARSE * LAZY_CHECK_VOCAB, steps=LAZY_CHECK_STEPS,
+                  touched_rows=int(touched.sum()))
+    for optimizer in ("adam", "adagrad"):
+        runs, losses = {}, {}
+        for mode in LAZY_MODES + ("lazy_split",):
+            m = lazy_model("cuda", mode, optimizer)
+            totals = [m._train_step(*b, with_metrics=False)[0].item() for b in batches]
+            if not np.isfinite(totals).all():
+                raise AssertionError(f"lazy {optimizer} {mode}: loss {totals}")
+            snap = lazy_snapshot(m)
+            if mode in runs:  # the second identical run
+                again = lazy_diff(snap, runs[mode])
+                if any(again):
+                    raise AssertionError(f"lazy {optimizer} {mode}: a second identical run "
+                                         f"differs by {again}")
+                record[f"{optimizer}_rerun_bit_equal"] = True
+                continue
+            runs[mode], losses[mode] = snap, totals
+            for path, st in snap[1].items():
+                w = path.replace("/", ".")
+                frozen = torch.equal(snap[0][w][~touched], init[w][~touched])
+                zero = not st[~touched].any()
+                if not (frozen and zero):
+                    raise AssertionError(f"lazy {optimizer} {mode}: {path}'s untouched rows "
+                                         f"changed (weights {not frozen}, state {not zero})")
+        for a, b in (("lazy_split", "lazy_split_flat"), ("lazy_split", "lazy"),
+                     ("lazy_split_bf16", "lazy_split")):
+            diff = lazy_diff(runs[a], runs[b])
+            rec = record[f"{optimizer}_{a}_vs_{b}"] = dict(
+                max_abs_diff_weights=diff[0], max_abs_diff_state=diff[1],
+                bit_equal=not any(diff))
+            if "bf16" in a:  # bf16 moments round: held to the bound they allow
+                rec.update(max_abs_diff_lazy_tables=lazy_bf16_close(
+                    f"lazy {optimizer} {a} vs {b}", runs[a], runs[b], optimizer),
+                    lazy_tables_bound=lazy_bf16_bound(optimizer))
+            else:
+                lazy_close(f"lazy {optimizer} {a} vs {b}", runs[a], runs[b])
+        record[f"{optimizer}_losses"] = losses
+
+    # one step on the card against the CPU model's, 256 rows, Adam split packed
+    xb, yb, mb = cpu_batches[0]
+    small = ({k: v[:256] for k, v in xb.items()}, yb[:256], mb[:256])
+    pair = [lazy_model("cuda", "lazy_split", "adam"), cpu_model]
+    for m in pair:
+        m._train_step({k: v.to(m.device) for k, v in small[0].items()}, small[1].to(m.device),
+                      small[2].to(m.device), with_metrics=False)
+    card, cpu = (lazy_snapshot(m) for m in pair)
+    lazy_close("lazy card vs CPU", card, cpu)
+    record["card_vs_cpu_one_step"] = dict(zip(("max_abs_diff_weights", "max_abs_diff_state"),
+                                              lazy_diff(card, cpu)))
+    del pair, cpu_model
+
+    # a checkpoint of the packed Adam model into a flat one, then a step on both
+    src = lazy_model("cuda", "lazy_split", "adam")
+    dst = lazy_model("cuda", "lazy_split_flat", "adam")
+    for b in batches[:2]:
+        src._train_step(*b, with_metrics=False)
+    with tempfile.TemporaryDirectory() as d:
+        src.save_checkpoint(os.path.join(d, "c.npz"), epoch=1)
+        dst.load_checkpoint(os.path.join(d, "c.npz"))
+    loaded = lazy_diff(lazy_snapshot(dst), lazy_snapshot(src))
+    for m in (src, dst):
+        m._lazy["t"] = 2  # the step count goes on in this comparison, as no fit restarts it
+        m._train_step(*batches[2], with_metrics=False)
+    stepped = lazy_diff(lazy_snapshot(dst), lazy_snapshot(src))
+    lazy_close("lazy checkpoint packed -> flat", *(lazy_snapshot(m) for m in (dst, src)))
+    record["checkpoint_packed_to_flat"] = dict(
+        loaded_max_abs_diff=loaded, next_step_max_abs_diff=stepped,
+        bit_equal=not any(loaded + stepped))
+    emit(phase="lazy_checks", **record)
+    return record
+
+
+def phase_lazy_dien():
+    """DIEN (bench.py's dien row width, seeded weights) under the lazy
+    optimizer, split and packed (one singleton group: user, item and both
+    histories index one table): ``fit`` for LAZY_CHECK_STEPS steps of batch
+    4096, 2 ``gru_fwd`` + 2 ``gru_bwd`` and no CIN launch a step, the loss
+    finite, the rows no batch touched bit-unchanged."""
+    model = canonical_model("cuda", version="dien")
+    model.compile("adam", "binary_crossentropy", embedding_optimizer="lazy")
+    (g,) = model._lazy["groups"]
+    if not (model._lazy["packed"] and len(g["members"]) == 1):
+        raise AssertionError(f"DIEN's lazy groups: {model._lazy['groups']}")
+    x, y = train_data(np.random.default_rng(SEED + 42), LAZY_CHECK_STEPS * TRAIN_BATCH, "dien")
+    before = model.module.embedding_dict.table_d10.detach().clone()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    history = model.fit(x, y, batch_size=TRAIN_BATCH, epochs=1, verbose=0, shuffle=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = read_launches()
+    want = expected(**{k: LAZY_CHECK_STEPS * v for k, v in ATTN_STEP["dien"].items()})
+    if counts != want:
+        raise AssertionError(f"lazy DIEN: launches {counts}, expected {want}")
+    loss = history.history["loss"]
+    if not np.isfinite(loss).all():
+        raise AssertionError(f"lazy DIEN: loss {loss}")
+    after = model.module.embedding_dict.table_d10.detach()
+    touched = torch.zeros(after.shape[0], dtype=torch.bool, device="cuda")
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in model.schema.pack(x).items()}
+    touched[touched_ids(batch, g["entries"])] = True
+    if not torch.equal(after[~touched], before[~touched]):
+        raise AssertionError("lazy DIEN: untouched rows changed")
+    if not (after[touched] != before[touched]).any(dim=1).all():
+        raise AssertionError("lazy DIEN: a touched row did not move")
+    record = dict(steps=LAZY_CHECK_STEPS, batch=TRAIN_BATCH, launches=counts, loss=loss,
+                  fit_seconds=fit_s, rows=after.shape[0], touched_rows=int(touched.sum()),
+                  group_array_shape=list(g["array"].shape))
+    emit(phase="lazy_dien", **record)
+    return record
+
+
 def device_breakdown(prof, wall_ms, calls):
     """Device ms by kernel, busy and idle share.  User-annotation ranges on
     the device (``Optimizer.step#Adam.step``) span kernels already counted,
@@ -2382,6 +2699,9 @@ def main():
         torch.cuda.empty_cache()
     phase_gather()
     cli = phase_cli()
+    phase_lazy_checks()
+    lazy_dien = phase_lazy_dien()
+    lazy = phase_lazy104()
     paths = {"training": training["launches"], "pro_training": pro["launches"],
              "pro_scoring": pro_scoring["launches"]}
     for version, (rec, scoring) in attn.items():
@@ -2389,6 +2709,8 @@ def main():
         paths[f"{PHASE[version]}_scoring"] = scoring["launches"]
     paths["ablation"] = ablation["launches"]
     paths.update({path: rec["launches"] for path, rec in cli.items()})
+    paths.update({path: rec["launches"] for path, rec in lazy.items()})
+    paths["lazy_dien_training"] = lazy_dien["launches"]
     kernels = []
     for kname in ("cin_fwd", "cin_bwd_dx", "cin_dw"):
         source, replaces = SOURCES[kname]

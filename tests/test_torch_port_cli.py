@@ -227,9 +227,46 @@ def test_native_route_runs_without_pandas_and_scores_back(streaming, criteo_file
 
 
 def test_lazy_embedding_optimizer_raises(criteo_file, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tx.main(_common_args(criteo_file, str(tmp_path / "o"))
-                + ["--device", "cpu", "--embedding_optimizer", "lazy"])
+    """Named for what it pinned before the lazy optimizer was ported, a
+    raise.  Now: ``xdftrain --embedding_optimizer lazy`` (split gradient,
+    packed layout) trains, its ``training_log`` has the JAX CLI's keys and
+    configs on the same file, and from the JAX model's initial weights it
+    reproduces the JAX CLI's per-epoch history and eval metrics within Adam's
+    tolerance (``RTOL``)."""
+    # the gradient named: the JAX CLI's "auto" is "split" only on one device
+    lazy = ["--embedding_optimizer", "lazy", "--embedding_gradient", "split"]
+    init = {}
+
+    def jbuild(args, lin, dnn, final_mode=False):
+        model = jx.build_model(args, lin, dnn, final_mode)
+        assert model._packed_tables
+        init["weights"] = jax.tree.map(np.asarray, model.get_weights())
+        return model
+
+    def tbuild(args, lin, dnn, final_mode=False):
+        model = tx.build_model(args, lin, dnn, final_mode)
+        assert model._lazy["split"] and model._lazy["packed"]
+        model.set_weights(init["weights"])
+        return model
+
+    outs = [str(tmp_path / "jax"), str(tmp_path / "port")]
+    want = jcommon.run_eval(jx.parse_args(_common_args(criteo_file, outs[0]) + lazy), jbuild,
+                            model_name="xdeepfm")
+    got = tcommon.run_eval(
+        tx.parse_args(_common_args(criteo_file, outs[1]) + lazy + ["--device", "cpu"]), tbuild,
+        model_name="xdeepfm")
+    saved, jsaved = (_read_log(out, "eval") for out in outs[::-1])
+    assert sorted(saved) == sorted(jsaved)
+    for key in ("data_info", "training_config"):
+        assert saved[key] == jsaved[key], key
+    assert {k: v for k, v in saved["model_config"].items() if k != "device"} == {
+        k: v for k, v in jsaved["model_config"].items() if k != "device"}
+    hist, jhist = (json.load(open(os.path.join(out, "history.json"))) for out in outs[::-1])
+    assert sorted(hist) == sorted(jhist)
+    for k in jhist:
+        np.testing.assert_allclose(hist[k], jhist[k], rtol=RTOL, atol=1e-6, err_msg=k)
+    for k in ("eval_auc", "eval_logloss", "best_val_auc"):
+        np.testing.assert_allclose(got["results"][k], want["results"][k], rtol=RTOL, err_msg=k)
 
 
 def test_streaming_eval_requires_eval_path(criteo_file, tmp_path):

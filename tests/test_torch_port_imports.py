@@ -14,7 +14,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = ["cli", "cli.common", "cli.xdftrain", "cli.xdftrain_v1", "cli.xdftrain_attn",
            "cli.xdftrain_pro", "data", "native", "profiling", "utils", "callbacks", "serving",
            "scripts", "scripts.bench_attn_ablate", "scripts.bench_cin_fwd", "scripts.bench_gru",
-           "scripts.bench_lane",
+           "scripts.bench_lane", "scripts.bench_lazy",
            "ops.attn_ablate",
            "ops.attn_ablate_cuda",
            # the rest of the port: the engine, the models, the layers, the kernel

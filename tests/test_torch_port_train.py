@@ -148,8 +148,12 @@ def test_fit_with_validation_data_initial_epoch_and_steps_per_dispatch():
 
 def test_compile_options():
     _, pm = _pair("adam")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        pm.compile("adam", "binary_crossentropy", embedding_optimizer="lazy")
+    pm.compile("adam", "binary_crossentropy", embedding_optimizer="lazy")  # split, packed
+    assert pm._lazy["split"] and pm._lazy["packed"]
+    assert all(id(p) != id(pm.module.embedding_dict.table_d8)
+               for group in pm.optimizer.param_groups for p in group["params"])
+    pm.compile("adam", "binary_crossentropy")
+    assert pm._lazy is None
     with pytest.raises(ValueError):
         pm.compile("adam", "binary_crossentropy", embedding_layout="packed")
     pm.compile("adam", "binary_crossentropy", embedding_optimizer="auto")  # dense here

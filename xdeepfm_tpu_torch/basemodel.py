@@ -27,27 +27,36 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from .callbacks import CallbackList, History
+from .embeddings import EmbeddingCollection, run_first, table_touched_spec, touched_ids
 from .features import FeatureSchema, SparseFeat, VarLenSparseFeat
 from .metrics import DEVICE_METRICS, HOST_METRICS
-from .optimizers import get_optimizer
+from .optimizers import (
+    LAZY_OPTIMIZERS,
+    LAZY_ROW_MATH,
+    decode_state,
+    encode_state,
+    _row_set,
+    get_optimizer,
+    segment_run_sums,
+    state_slots,
+)
 from .weights import (
     canonical_paths,
     flatten_tree,
+    from_jax_lazy_state,
     from_jax_weights,
     to_jax_weights,
     unflatten_tree,
 )
 
 # embedding_optimizer="auto" picks the lazy row-sparse optimizer for stacked
-# tables of at least this many rows (the JAX package's measured crossover,
-# xdeepfm_tpu/basemodel.py:47); the port has only the dense one so far.
+# tables of at least this many rows: the JAX package's crossover
+# (xdeepfm_tpu/basemodel.py:39-47), kept until the card's own is measured.
+# Module-level so that tests and deployments can tune it.
 AUTO_LAZY_MIN_ROWS = 6_000_000
-_LAZY_NOT_PORTED = (
-    "the lazy row-sparse embedding optimizer is not ported yet "
-    "(ROADMAP.md, queue 1, item 11); use embedding_optimizer='dense'"
-)
 
 
 def _loss_fn_single(name):
@@ -66,6 +75,16 @@ def _loss_fn_single(name):
     if name == "mae":
         return lambda y_pred, y_true, mask: (mask * (y_pred - y_true).abs()).sum()
     raise NotImplementedError(name)
+
+
+def _sum_squares(table, chunk=1 << 22) -> torch.Tensor:
+    """sum(table^2), a 0-dim fp32 tensor on the table's device, summed a few
+    million rows at a time: no table-sized temporary."""
+    with torch.no_grad():
+        total = torch.zeros((), dtype=torch.float64, device=table.device)
+        for i in range(0, table.shape[0], chunk):
+            total += table[i : i + chunk].square().sum(dtype=torch.float64)
+    return total.float()
 
 
 def resolve_device(device=None) -> torch.device:
@@ -115,11 +134,18 @@ class BaseModel:
         self.metrics_names = ["loss"]
         self.optimizer = None
         self.module = None
+        self._reg_terms = []
+        self._lazy = None  # the lazy embedding optimizer's groups, see compile
 
     def _finalize(self):
         """Build the module on the CPU from the seed, then move it to the
-        device.  Called at the end of each subclass ``__init__``."""
+        device.  Called at the end of each subclass ``__init__``.  Each
+        embedding collection learns its parameter path, under which a lazy
+        gradient-split step hands it its occurrence blocks."""
         self.module = self._build_module().to(self.device).eval()
+        for name, m in self.module.named_modules():
+            if isinstance(m, EmbeddingCollection):
+                m.path = name.replace(".", "/")
 
     def _build_module(self):
         raise NotImplementedError
@@ -143,19 +169,24 @@ class BaseModel:
 
     # ------------------------------------------------------ regularization
 
+    def _reg_coeffs(self, path):
+        """(l1, l2) of one canonical path: every matching pattern's added
+        (``basemodel.py:247-253``)."""
+        l1 = l2 = 0.0
+        for pattern, a, b in self.regularization_weight:
+            if all(s in path for s in pattern):
+                l1, l2 = l1 + a, l2 + b
+        return l1, l2
+
     def _regularization_terms(self):
         """(parameter, l1, l2) per parameter that a registered pattern
-        matches, by its canonical path, with the coefficients of every
-        matching pattern added (``basemodel.py:247-253``): the linear table
+        matches, by its canonical path: the linear table
         ``linear_model/embedding_dict/table_d1`` matches both
         ``embedding_dict/`` and ``linear_model/``."""
         paths = canonical_paths(self.module)
         terms = []
         for name, param in self.module.named_parameters():
-            l1 = l2 = 0.0
-            for pattern, a, b in self.regularization_weight:
-                if all(s in paths[name] for s in pattern):
-                    l1, l2 = l1 + a, l2 + b
+            l1, l2 = self._reg_coeffs(paths[name])
             if l1 > 0 or l2 > 0:
                 terms.append((param, l1, l2))
         return terms
@@ -163,13 +194,17 @@ class BaseModel:
     def _regularization_loss(self):
         """sum(l1*|w|) + sum(l2*w^2) over the registered parameters
         (``basemodel.py:221-245``): part of the loss, so its gradient is
-        2*l2*w, not the optimizer's weight decay."""
+        2*l2*w, not the optimizer's weight decay.  A lazy table adds its
+        value only (:meth:`_lazy_reg_value`): the lazy step applies its
+        gradient row by row."""
         total = torch.zeros((), device=self.device)
         for param, l1, l2 in self._reg_terms:
             if l1 > 0:
                 total = total + l1 * param.abs().sum()
             if l2 > 0:
                 total = total + l2 * param.square().sum()
+        if self._lazy is not None:
+            total = total + self._lazy_reg_value()
         return total
 
     # ------------------------------------------------------------- compile
@@ -179,9 +214,34 @@ class BaseModel:
                 embedding_layout="auto", embedding_state_dtype="float32"):
         """Optimizer (a name, or a factory of ``torch.optim.Optimizer`` in
         place of an optax transformation), loss name(s) and host metric names
-        (``basemodel.py:257-440``).  The embedding-optimizer options are the
-        JAX package's; only their dense settings are ported, and any that
-        resolves to the lazy row-sparse optimizer raises."""
+        (``basemodel.py:257-440``).
+
+        ``embedding_optimizer="lazy"`` trains the stacked embedding tables
+        with a row-sparse optimizer: only the rows a batch touched get moment
+        and weight updates, their L2 gradient included (``optimizer`` must be
+        "adam" or "adagrad"; the other parameters take that optimizer
+        densely).  "auto" picks lazy for a stacked table of at least
+        ``AUTO_LAZY_MIN_ROWS`` rows and a lazy-capable name, else dense.
+
+        ``embedding_gradient`` (lazy only): "split" gathers the batch's rows
+        of each table into a per-occurrence block outside autograd, the model
+        reads its lookups from that block, and the step sums each row's
+        gradient over its occurrences and writes each touched row once: no
+        table-sized tensor is made.  The L2 value of an l2-only table is
+        tracked as a running sum(w^2).  "dense" takes the table's full
+        gradient from autograd and updates its touched rows.  "auto" is
+        "split" (one device).
+
+        A lazy table lives in one [rows, dims + state] array with its
+        optimizer's row state in the columns past its own, and its parameter
+        is a column view of that array.  ``embedding_layout`` (lazy + split
+        only): "packed" puts the tables indexed by the same ids (the main
+        ``table_d{dim}`` and the linear ``table_d1``) into one such array, so
+        one gather and one row write a step serve the whole group; "flat"
+        gives each table its own.  "auto" is "packed" under lazy + split.
+        ``embedding_state_dtype="bfloat16"`` (packed only) stores the row
+        state as bf16 pairs in fp32 columns.  Weights, checkpoints and
+        predict speak the canonical tables and state under every layout."""
         if embedding_optimizer not in ("dense", "auto", "lazy"):
             raise ValueError(embedding_optimizer)
         if embedding_gradient not in ("auto", "dense", "split"):
@@ -190,25 +250,274 @@ class BaseModel:
             raise ValueError(embedding_layout)
         if embedding_state_dtype not in ("float32", "bfloat16"):
             raise ValueError(embedding_state_dtype)
+        if embedding_state_dtype == "bfloat16" and embedding_layout == "flat":
+            raise ValueError("embedding_state_dtype='bfloat16' requires the packed "
+                             "embedding_layout")
+        # one device: "auto" is the split gradient (the JAX engine's choice
+        # on a single device)
+        split = embedding_gradient in ("auto", "split")
+        lazy_capable = isinstance(optimizer, str) and optimizer in LAZY_OPTIMIZERS
         if embedding_optimizer == "auto":
             max_rows = max(
                 (p.shape[0] for n, p in self.module.named_parameters() if "table_d" in n),
                 default=0,
             )
-            lazy = max_rows >= AUTO_LAZY_MIN_ROWS and optimizer in ("adam", "adagrad")
+            lazy = max_rows >= AUTO_LAZY_MIN_ROWS and lazy_capable
             embedding_optimizer = "lazy" if lazy else "dense"
+        specs = {}
         if embedding_optimizer == "lazy":
-            raise NotImplementedError(_LAZY_NOT_PORTED)
-        if embedding_layout == "packed" or embedding_state_dtype == "bfloat16":
-            raise ValueError(
-                "embedding_layout='packed' and embedding_state_dtype='bfloat16' "
-                "need embedding_optimizer='lazy'"
-            )
+            if not lazy_capable:
+                raise ValueError("embedding_optimizer='lazy' requires optimizer in "
+                                 f"{sorted(LAZY_OPTIMIZERS)}")
+            specs = self._build_lazy_specs()
+        packed = bool(specs) and split and embedding_layout in ("auto", "packed")
+        if embedding_layout == "packed" and not packed:
+            raise ValueError("embedding_layout='packed' requires embedding_optimizer='lazy' "
+                             "with embedding_gradient='split'")
+        if embedding_state_dtype == "bfloat16" and not packed:
+            raise ValueError("embedding_state_dtype='bfloat16' requires lazy+split (packed "
+                             "layout): nothing was packed under this config")
         self.loss_names = list(loss) if isinstance(loss, list) else loss
         self.metrics_names = ["loss"]
         self.metrics = self._get_metrics(metrics)
-        self.optimizer = get_optimizer(optimizer, self.module.parameters(), lr)
-        self._reg_terms = self._regularization_terms()
+        # drop every reference to the tables before they move
+        self.optimizer, self._reg_terms = None, []
+        self._unpack_lazy()
+        if specs:
+            self._lazy = self._pack_lazy(specs, optimizer, lr, split, packed,
+                                         embedding_state_dtype)
+        lazy_ids = {id(m["param"]) for m in self._lazy_members()}
+        self.optimizer = get_optimizer(
+            optimizer, [p for p in self.module.parameters() if id(p) not in lazy_ids], lr)
+        self._reg_terms = [t for t in self._regularization_terms() if id(t[0]) not in lazy_ids]
+
+    # ------------------------------------------------- lazy embedding tables
+
+    def _build_lazy_specs(self):
+        """{table path: (entries, l1, l2)} for the tables whose touched rows
+        the batch enumerates (``basemodel.py:689-713``): the main
+        ``embedding_dict`` and the linear ``linear_model/embedding_dict``."""
+        specs = {}
+        for prefix in ("embedding_dict", "linear_model/embedding_dict"):
+            try:
+                coll = self.module.get_submodule(prefix.replace("/", "."))
+            except AttributeError:
+                continue
+            if not isinstance(coll, EmbeddingCollection):
+                continue
+            try:
+                spec = table_touched_spec(coll.feature_columns, coll.schema, coll.linear)
+            except KeyError:
+                continue
+            for dim, entries in spec.items():
+                path = f"{prefix}/table_d{dim}"
+                specs[path] = (tuple(entries), *self._reg_coeffs(path))
+        return specs
+
+    def _lazy_members(self):
+        return [m for g in self._lazy["groups"] for m in g["members"]] if self._lazy else []
+
+    def _pack_lazy(self, specs, kind, lr, split, packed, state_dtype):
+        """Move every lazy table into its group's array.  A group is the
+        tables with identical (entries, rows) (``basemodel.py:443-535``)
+        when packed, else one table; its [rows, dsum + slots] array holds
+        the members' columns side by side (largest first), then the group's
+        row state (k blocks of dsum columns, Adam's m | v, bf16 pairs under
+        ``state_dtype``).  Each member's parameter becomes a column view of
+        the array, so predict, ``get_weights`` and ``set_weights`` see the
+        canonical tables with no copy.  Groups are filled one member at a
+        time and each old table is freed as it is copied: the peak is the
+        old tables plus one new array."""
+        row_math, k = LAZY_ROW_MATH[kind]
+        owners = {}
+        for path in specs:
+            mod_path, attr = path.rsplit("/", 1)
+            mod = self.module.get_submodule(mod_path.replace("/", "."))
+            owners[path] = (mod, attr, tuple(getattr(mod, attr).shape))
+        by_key = {}
+        for path, (entries, l1, l2) in specs.items():
+            key = (entries, owners[path][2][0]) if packed else (path,)
+            by_key.setdefault(key, []).append(path)
+        groups = []
+        for _, paths in sorted(by_key.items(), key=str):
+            paths = sorted(paths, key=lambda p: -owners[p][2][0] * owners[p][2][1])
+            members, off = [], 0
+            for path in paths:
+                mod, attr, (rows, dim) = owners[path]
+                _, l1, l2 = specs[path]
+                members.append(dict(path=path, module=mod, attr=attr, dim=dim, off=off,
+                                    l1=l1, l2=l2))
+                off += dim
+            l1vec, l2vec = torch.zeros(off), torch.zeros(off)
+            for m in members:
+                l1vec[m["off"] : m["off"] + m["dim"]] = m["l1"]
+                l2vec[m["off"] : m["off"] + m["dim"]] = m["l2"]
+            groups.append(dict(
+                members=members, entries=specs[paths[0]][0], rows=owners[paths[0]][2][0],
+                dsum=off, k=k, slots=state_slots(k * off, state_dtype),
+                l1vec=l1vec.to(self.device) if l1vec.any() else None,
+                l2vec=l2vec.to(self.device) if l2vec.any() else None,
+            ))
+        del owners
+        # the tallest array first: its transient peak is the largest
+        for g in sorted(groups, key=lambda g: -g["rows"] * g["dsum"]):
+            arr = torch.zeros(g["rows"], g["dsum"] + g["slots"], device=self.device)
+            for m in g["members"]:
+                view = arr[:, m["off"] : m["off"] + m["dim"]]
+                with torch.no_grad():
+                    view.copy_(getattr(m["module"], m["attr"]))
+                # the old table is freed here: nothing else holds it
+                setattr(m["module"], m["attr"], nn.Parameter(view))
+                m["param"] = getattr(m["module"], m["attr"])
+            g["array"] = arr
+        lazy = dict(groups=groups, kind=kind, row_math=row_math, split=split, packed=packed,
+                    state_dtype=state_dtype,
+                    lr=LAZY_OPTIMIZERS[kind][2]["lr"] if lr is None else lr, t=0, reg={})
+        if split:
+            # sum(w^2) of each l2-only table, kept up to date by the steps
+            # from their touched rows: the L2 value costs no table read
+            # (``basemodel.py:734-774``); an l1 table is scanned each step
+            for m in (m for g in groups for m in g["members"]):
+                if m["l2"] > 0 and m["l1"] == 0:
+                    lazy["reg"][m["path"]] = _sum_squares(m["param"])
+        return lazy
+
+    def _unpack_lazy(self):
+        """Give every lazy table back its own [rows, dim] parameter (a
+        recompile; ``basemodel.py:549-570``).  The row states are dropped,
+        as a recompile of the JAX engine re-initialises them."""
+        if self._lazy is None:
+            return
+        for g in self._lazy.pop("groups"):
+            for m in g["members"]:
+                table = m.pop("param").detach().clone(memory_format=torch.contiguous_format)
+                setattr(m["module"], m["attr"], nn.Parameter(table))
+            g.clear()  # frees the array once its last view is gone
+        self._lazy = None
+
+    @torch.no_grad()
+    def _lazy_reg_value(self):
+        """The lazy tables' regularization value, a constant: the tracked
+        l2 * sum(w^2), or a scan of the table (an l1 table, or the
+        dense-cotangent mode)."""
+        total = torch.zeros((), device=self.device)
+        reg = self._lazy["reg"]
+        for m in self._lazy_members():
+            if m["path"] in reg:
+                total += m["l2"] * reg[m["path"]]
+                continue
+            w = m["param"]
+            if m["l1"] > 0:
+                total += m["l1"] * w.abs().sum()
+            if m["l2"] > 0:
+                total += m["l2"] * w.square().sum()
+        return total
+
+    def _lazy_blocks(self, batch):
+        """The split step's per-occurrence blocks: per group one gather of
+        its touched rows (param and state columns), outside autograd; the
+        param columns become a leaf whose gradient the model's lookups fill.
+        Returns (``batch["_compact"]``, per group (ids, rows, leaf))."""
+        compact, saved = {}, []
+        for g in self._lazy["groups"]:
+            ids = touched_ids(batch, g["entries"])
+            rows = g["array"].index_select(0, ids)
+            leaf = rows[:, : g["dsum"]].clone().requires_grad_()
+            for m in g["members"]:
+                compact[m["path"]] = (leaf if len(g["members"]) == 1
+                                      else leaf[:, m["off"] : m["off"] + m["dim"]])
+            saved.append((ids, rows, leaf))
+        return compact, saved
+
+    @torch.no_grad()
+    def _lazy_update(self, batch, saved):
+        """The lazy row update of every group (``basemodel.py:1008-1183``),
+        :func:`~xdeepfm_tpu_torch.optimizers.lazy_adam_rows` on the group's
+        array: sort the touched ids, give every occurrence its id's gradient
+        summed over the run (``segment_run_sums``), add the L2 / L1 gradient
+        of the rows, run the row math and write the rows, each occurrence of
+        an id with the same values (``_row_set``).  Split: the gradient is
+        the occurrence leaf's; dense: the table's autograd gradient at the
+        touched rows."""
+        lz = self._lazy
+        lz["t"] += 1
+        for i, g in enumerate(lz["groups"]):
+            dsum, k = g["dsum"], g["k"]
+            if lz["split"]:
+                ids, rows, leaf = saved[i]
+                for m in g["members"]:
+                    if m["param"].grad is not None:
+                        raise RuntimeError(f"a lookup of {m['path']} bypassed the occurrence "
+                                           "block of the split step")
+                sids, order = torch.sort(ids, stable=True)
+                first = run_first(sids)
+                grad = leaf.grad if leaf.grad is not None else torch.zeros_like(leaf)
+                g_rows = segment_run_sums(grad.index_select(0, order), first)
+                rows = rows.index_select(0, order)
+            else:
+                sids, _ = torch.sort(touched_ids(batch, g["entries"]))
+                first = run_first(sids)
+                parts = []
+                for m in g["members"]:
+                    table_grad, m["param"].grad = m["param"].grad, None
+                    parts.append(table_grad.index_select(0, sids) if table_grad is not None
+                                 else g["array"].new_zeros(sids.shape[0], m["dim"]))
+                g_rows = torch.cat(parts, 1) if len(parts) > 1 else parts[0]
+                rows = g["array"].index_select(0, sids)
+            p = rows[:, :dsum]
+            st = decode_state(rows[:, dsum:], k * dsum, lz["state_dtype"])
+            if g["l2vec"] is not None:
+                g_rows = g_rows + 2.0 * g["l2vec"] * p
+            if g["l1vec"] is not None:
+                g_rows = g_rows + g["l1vec"] * torch.sign(p)
+            p_new, st_new = lz["row_math"](p, st, g_rows, lz["t"], lr=lz["lr"])
+            _row_set(g["array"], sids,
+                     torch.cat([p_new, encode_state(st_new, lz["state_dtype"])], 1))
+            for m in g["members"]:
+                if m["path"] in lz["reg"]:
+                    sl = slice(m["off"], m["off"] + m["dim"])
+                    delta = p_new[:, sl].square().sum(1) - p[:, sl].square().sum(1)
+                    lz["reg"][m["path"]] += torch.where(first, delta, 0.0).sum()
+
+    def _lazy_state(self):
+        """{table path: [rows, k * dim] fp32 row state} in the JAX layout
+        (``_canonical_opt_state``, ``basemodel.py:1838-1858``): each group's
+        state decoded and sliced per member."""
+        out = {}
+        for g in self._lazy["groups"] if self._lazy else ():
+            R, k, dsum = g["rows"], g["k"], g["dsum"]
+            st = decode_state(g["array"][:, dsum:], k * dsum, self._lazy["state_dtype"])
+            st = st.reshape(R, k, dsum)
+            for m in g["members"]:
+                out[m["path"]] = st[:, :, m["off"] : m["off"] + m["dim"]].reshape(R, k * m["dim"])
+        return out
+
+    @torch.no_grad()
+    def _set_lazy_state(self, lazy, reg):
+        """Load canonical row states ({path: [rows, k * dim]}) and tracked
+        sum(w^2) values ({path: scalar}) into this model's layout.  The
+        states must name exactly the lazy tables; a tracked value the source
+        lacks is recomputed from the table."""
+        if set(lazy) != {m["path"] for m in self._lazy_members()}:
+            raise ValueError(f"the row states {sorted(lazy)} do not match this model's lazy "
+                             f"tables {sorted(m['path'] for m in self._lazy_members())}")
+        for g in self._lazy["groups"] if self._lazy else ():
+            R, k = g["rows"], g["k"]
+            parts = []
+            for m in g["members"]:
+                st = torch.tensor(np.asarray(lazy[m["path"]], np.float32), device=self.device)
+                if tuple(st.shape) != (R, k * m["dim"]):
+                    raise ValueError(f"row state of {m['path']}: shape {tuple(st.shape)}, "
+                                     f"expected {(R, k * m['dim'])}")
+                parts.append(st.reshape(R, k, m["dim"]))
+            st = torch.cat(parts, 2).reshape(R, k * g["dsum"])
+            g["array"][:, g["dsum"] :] = encode_state(st, self._lazy["state_dtype"])
+        for path in self._lazy["reg"] if self._lazy else ():
+            value = reg.get(path)
+            param = next(m["param"] for m in self._lazy_members() if m["path"] == path)
+            self._lazy["reg"][path] = (
+                torch.tensor(float(value), device=self.device) if value is not None
+                else _sum_squares(param))
 
     def _get_metrics(self, metrics):
         metrics_ = {}
@@ -227,8 +536,12 @@ class BaseModel:
         Returns (total loss, {metric or module log: value}) as device
         scalars.  The batch gains ``labels`` and ``sample_mask``, as the JAX
         engine's does (``basemodel.py:904-905``), for modules whose loss needs
-        them (the SFG decoder)."""
+        them (the SFG decoder).  Under the lazy optimizer the tables' rows
+        are updated after the dense optimizer's step (:meth:`_lazy_update`)."""
         xb = dict(xb, labels=y[:, :1] if y.ndim > 1 else y[:, None], sample_mask=mask.reshape(-1))
+        saved = None
+        if self._lazy is not None and self._lazy["split"]:
+            xb["_compact"], saved = self._lazy_blocks(xb)
         out = self.module(xb, training=True, generator=self._dropout_gen)
         pred = out["pred"]
         loss = _loss_fn_single(self.loss_names)(pred.reshape(-1), y.reshape(-1), mask)
@@ -236,6 +549,8 @@ class BaseModel:
         self.optimizer.zero_grad(set_to_none=True)
         total.backward()
         self.optimizer.step()
+        if self._lazy is not None:
+            self._lazy_update(xb, saved)
         mvals = {}
         if with_metrics:
             with torch.no_grad():
@@ -309,6 +624,7 @@ class BaseModel:
         # dropout masks: one stream per fit, as the JAX engine folds the step
         # number into a key seeded with seed + 1
         self._dropout_gen = torch.Generator(device=self.device).manual_seed(self.seed + 1)
+        self._restart_lazy_steps()
 
         print(
             "Train on {0} samples, validate on {1} samples, {2} steps per "
@@ -360,6 +676,15 @@ class BaseModel:
                 break
         callbacks.on_train_end()
         return self.history
+
+    def _restart_lazy_steps(self):
+        """The lazy optimizer's step count starts again at 1 with each
+        ``fit`` / ``fit_stream`` call, so its bias correction restarts too:
+        the JAX engine counts the lazy step from its ``global_step``, which
+        each of those calls sets to 0 (``basemodel.py:1353``, :1562), while
+        the dense optimizer's count goes on."""
+        if self._lazy is not None:
+            self._lazy["t"] = 0
 
     @staticmethod
     def _prefetch_iter(it, depth=3):
@@ -445,6 +770,7 @@ class BaseModel:
         callbacks.on_train_begin()
         self.stop_training = False
         self._dropout_gen = torch.Generator(device=self.device).manual_seed(self.seed + 1)
+        self._restart_lazy_steps()
         if verbose > 0:
             print("Train on stream, validate on {0} samples".format(
                 len(val_y) if do_validation else 0))
@@ -603,8 +929,22 @@ class BaseModel:
         return to_jax_weights(self.module)
 
     def set_weights(self, weights):
-        """Load a canonical tree; names and shapes must match exactly."""
+        """Load a canonical tree; names and shapes must match exactly.  The
+        tables are written in place, so a lazy model's group arrays take
+        them and keep their row states.  A tree with ``opt_state`` (the JAX
+        package's ``_canonical_opt_state()``) also carries its lazy row
+        states and tracked L2 values (:func:`from_jax_lazy_state`); without it
+        a lazy model's tracked L2 values are recomputed from the new tables.
+        The row states are kept."""
         self.module.load_state_dict(from_jax_weights(weights), strict=True)
+        if weights.get("opt_state") is not None:
+            self._set_lazy_state(*from_jax_lazy_state(weights["opt_state"]))
+        elif self._lazy is not None:
+            # the tracked sum(w^2) follows the new tables (the JAX engine's
+            # set_weights leaves it as it was)
+            for m in self._lazy_members():
+                if m["path"] in self._lazy["reg"]:
+                    self._lazy["reg"][m["path"]] = _sum_squares(m["param"])
 
     def save_weights(self, path):
         """``.npz`` keyed by canonical path (``params/cin/conv_w_0``...)."""
@@ -631,8 +971,12 @@ class BaseModel:
         (``params/...``, as ``save_weights``), the optimizer state keyed by
         canonical parameter path (``opt_state/<path>/<slot>``, e.g.
         ``opt_state/dnn/linear_0/kernel/exp_avg``; each slot in the
-        parameter's own layout) and ``epoch``.  The JAX package's msgpack
-        checkpoints are not read (ROADMAP.md, D1)."""
+        parameter's own layout) and ``epoch``.  Under the lazy optimizer,
+        each table's canonical [rows, k * dim] row state
+        (``opt_state/lazy/<path>``, Adam's m then v, fp32 whatever the layout
+        and state dtype) and its tracked sum(w^2) (``opt_state/reg/<path>``):
+        a checkpoint of any layout loads under any other.  The JAX package's
+        msgpack checkpoints are not read (ROADMAP.md, D1)."""
         if self.optimizer is None:
             raise RuntimeError("compile() before save_checkpoint()")
         flat = dict(flatten_tree(self.get_weights()["params"], "params"))
@@ -642,6 +986,10 @@ class BaseModel:
                 if value is not None:
                     value = value.detach().cpu() if torch.is_tensor(value) else value
                     flat[f"opt_state/{path_of[id(param)]}/{slot}"] = np.asarray(value)
+        for where, st in self._lazy_state().items():
+            flat[f"opt_state/lazy/{where}"] = st.cpu().numpy()
+        for where, value in (self._lazy["reg"] if self._lazy else {}).items():
+            flat[f"opt_state/reg/{where}"] = np.asarray(value.item(), np.float32)
         flat["epoch"] = np.asarray(epoch, np.int64)
         with open(path, "wb") as f:
             np.savez(f, **flat)
@@ -658,11 +1006,19 @@ class BaseModel:
         _, param_at = self._parameter_paths()
         index = {id(p): i for i, p in enumerate(
             p for group in self.optimizer.param_groups for p in group["params"])}
-        state = {}
+        state, lazy, reg = {}, {}, {}
         for key, value in flat.items():
-            if key.startswith("opt_state/"):
+            if key.startswith(("opt_state/lazy/", "opt_state/reg/")):
+                kind, where = key[len("opt_state/"):].split("/", 1)
+                (lazy if kind == "lazy" else reg)[where] = value
+            elif key.startswith("opt_state/"):
                 where, slot = key[len("opt_state/"):].rsplit("/", 1)
+                if id(param_at[where]) not in index:
+                    raise ValueError(f"the checkpoint holds dense optimizer state for {where}, "
+                                     "which this model trains lazily")
                 state.setdefault(index[id(param_at[where])], {})[slot] = torch.from_numpy(value)
         sd = self.optimizer.state_dict()
         self.optimizer.load_state_dict({"state": state, "param_groups": sd["param_groups"]})
+        if lazy or self._lazy is not None:
+            self._set_lazy_state(lazy, reg)
         return int(flat["epoch"])

@@ -21,9 +21,8 @@ are the JAX CLIs': ``preprocess.pkl``, ``native_vocab.bin``,
 * final mode honours ``--use_native_parser`` and ``--test_path`` (the JAX
   CLI accepts both there and ignores them): the native route, and
   ``test_predictions.csv`` from the model trained on all the data;
-* ``--embedding_optimizer lazy`` (or an ``auto`` that resolves to it) raises
-  ``NotImplementedError`` at ``compile``: the row-sparse optimizer is not
-  ported yet.
+* ``--embedding_gradient auto`` is ``split`` (one device), where the JAX
+  CLI's is ``split`` only when JAX sees one device.
 """
 
 from __future__ import annotations
@@ -103,23 +102,29 @@ def base_arg_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--embedding_optimizer", type=str, default="dense",
         choices=["dense", "lazy", "auto"],
-        help="'lazy' = row-sparse table updates (not ported yet: raises); "
-        "'auto' picks by table size (>=6M rows -> lazy)",
+        help="'lazy' = row-sparse table updates (SparseAdam-style, --optimizer "
+        "adam or adagrad) for large vocabularies; 'auto' picks by table size "
+        "(>=6M rows -> lazy)",
     )
     p.add_argument(
         "--embedding_gradient", type=str, default="auto",
         choices=["auto", "dense", "split"],
-        help="lazy mode's gradient cut (accepted; the lazy mode is not ported)",
+        help="lazy mode: 'split' gathers the batch's rows outside autograd, so no "
+        "table-sized gradient is made; 'dense' takes the table's full gradient; "
+        "'auto' = split",
     )
     p.add_argument(
         "--embedding_layout", type=str, default="auto",
         choices=["auto", "packed", "flat"],
-        help="lazy mode's table storage (accepted; 'packed' needs the lazy mode)",
+        help="lazy+split table storage: 'packed' = the main and linear tables and "
+        "their row state in one [rows, dims + state] array (one gather and one "
+        "row write a step); 'auto' = packed whenever lazy+split",
     )
     p.add_argument(
         "--embedding_state_dtype", type=str, default="float32",
         choices=["float32", "bfloat16"],
-        help="lazy mode's optimizer-state dtype ('bfloat16' needs the lazy mode)",
+        help="packed layout: store the optimizer's row state as bf16 pairs in "
+        "fp32 columns (half the state's bytes)",
     )
     p.add_argument(
         "--streaming", action="store_true",

@@ -15,7 +15,9 @@ Every gather from a table goes through :func:`fused_gather`, whose backward is
 a fixed-order segment sum over the sorted ids (:func:`sorted_segment_sum`),
 not ``index_select``'s atomic scatter-add: two identical steps give
 bit-equal table gradients on the card, as the JAX ``.at[].add`` does on its
-chip.
+chip.  Under the lazy optimizer's split gradient no lookup reads a table:
+each reads its slice of the step's per-occurrence block (see
+:class:`EmbeddingCollection`, :func:`touched_ids`).
 """
 
 from __future__ import annotations
@@ -52,33 +54,60 @@ def _table_layout(feature_columns, linear: bool):
     return offsets, table_rows
 
 
+# ---------------------------------------------------------------------------
+# Run sums over sorted ids, in an order fixed by the ids alone (no atomics):
+# the gather's backward and the lazy optimizer's step give bit-equal sums
+# between identical calls on the card.
+# ---------------------------------------------------------------------------
+
+
+def run_prefix_sums(sorted_vals: torch.Tensor, run: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sums within runs: ``run`` [N] is nondecreasing and
+    equal exactly along a run (the sorted ids themselves, or a count of run
+    starts).  A segmented Hillis-Steele scan: step k adds the row k places
+    back where it lies in the same run (k = 1, 2, 4, ...), so a run of any
+    length (a padding id's ~10^5 rows) takes log2 N whole-tensor steps,
+    never a walk by one thread.  A run's last row holds its total, summed
+    exactly in fp32 along a fixed tree."""
+    x, n, k = sorted_vals, sorted_vals.shape[0], 1
+    run = run.reshape(-1, *([1] * (sorted_vals.dim() - 1)))
+    while k < n:
+        y = x.clone()
+        y[k:].addcmul_(x[:-k], run[k:] == run[:-k])
+        x, k = y, 2 * k
+    return x
+
+
+def run_first(sorted_ids: torch.Tensor) -> torch.Tensor:
+    """[N] bool: the first row of each run of equal sorted ids."""
+    first = torch.ones_like(sorted_ids, dtype=torch.bool)
+    first[1:] = sorted_ids[1:] != sorted_ids[:-1]
+    return first
+
+
+def run_last(sorted_ids: torch.Tensor) -> torch.Tensor:
+    """[N] bool: the last row of each run of equal sorted ids."""
+    last = torch.ones_like(sorted_ids, dtype=torch.bool)
+    last[:-1] = sorted_ids[1:] != sorted_ids[:-1]
+    return last
+
+
 def sorted_segment_sum(values: torch.Tensor, ids: torch.Tensor, num_rows: int) -> torch.Tensor:
     """[num_rows, D] zeros with each ``values[k]`` added at row ``ids[k]``,
     summed in an order fixed by the ids alone.  The ids are sorted (stable),
-    the rows of each id's run summed by a segmented Hillis-Steele scan (step
-    k adds the row k places back within the run, k = 1, 2, 4, ...), and each
-    run's last row written once.  A run as long as a padding id's (~10^5
-    rows) takes log2 steps of whole-tensor ops, never a walk by one thread;
-    no atomics, so the result is bit-equal between calls on the card."""
+    the rows of each id's run summed by a segmented scan
+    (:func:`run_prefix_sums`), and each run's
+    last row written once.  No atomics, so the result is bit-equal between
+    calls on the card."""
     n, D = values.shape
     out = values.new_zeros(num_rows + 1, D)
     if n == 0:
         return out[:num_rows]
     sorted_ids, order = torch.sort(ids, stable=True)
-    x = values.index_select(0, order)
-    # each row's place within its run: its position less its run's first
-    rank = torch.arange(n, device=ids.device) - torch.searchsorted(sorted_ids, sorted_ids)
-    rank = rank.unsqueeze(1)  # [n, 1]
-    k = 1
-    while k < n:
-        y = x.clone()
-        y[k:].addcmul_(x[:-k], rank[k:] >= k)
-        x, k = y, 2 * k
-    last = torch.ones(n, dtype=torch.bool, device=ids.device)
-    last[:-1] = sorted_ids[1:] != sorted_ids[:-1]
+    x = run_prefix_sums(values.index_select(0, order), sorted_ids)
     # each run's total lands on its id once; every other row on the spare
     # row num_rows, which is dropped
-    out.index_put_((torch.where(last, sorted_ids, num_rows),), x)
+    out.index_put_((torch.where(run_last(sorted_ids), sorted_ids, num_rows),), x)
     return out[:num_rows]
 
 
@@ -87,8 +116,9 @@ class _GatherRows(torch.autograd.Function):
     def forward(ctx, ids, *tables):
         ctx.save_for_backward(ids)
         ctx.rows, ctx.dims = tables[0].shape[0], [t.shape[1] for t in tables]
-        table = tables[0] if len(tables) == 1 else torch.cat(tables, dim=1)
-        return table.index_select(0, ids)
+        # each table's rows, then their concat: never a copy of whole tables
+        rows = [t.index_select(0, ids) for t in tables]
+        return rows[0] if len(rows) == 1 else torch.cat(rows, dim=1)
 
     @staticmethod
     @once_differentiable
@@ -108,9 +138,119 @@ def fused_gather(tables: Sequence[torch.Tensor], ids: torch.Tensor) -> torch.Ten
     return _GatherRows.apply(ids.reshape(-1).long(), *tables)
 
 
+def table_touched_spec(feature_columns, schema: FeatureSchema, linear: bool):
+    """Which batch entries index which stacked table:
+    ``{dim: [(kind, key, row offset)]}``, kind "sparse" (key: the column of
+    ``batch["sparse"]``) or "varlen" (key: the batch key ``vl_<name>``).  The
+    lazy optimizer enumerates a step's touched rows from it without running
+    the model.  A feature listed twice maps to one batch column (the schema
+    dedups names) and so yields one entry: :func:`touched_ids` and the
+    occurrence layout both follow this list."""
+    offsets, _ = _table_layout(feature_columns, linear)
+    sp, _, vl = split_columns(feature_columns)
+    spec: Dict[int, list] = {}
+    seen = set()
+    for f in sp:
+        dim, off = offsets[f.embedding_name]
+        key = ("sparse", schema.sparse_index(f.name))
+        if (dim,) + key not in seen:
+            seen.add((dim,) + key)
+            spec.setdefault(dim, []).append(key + (off,))
+    for f in vl:
+        dim, off = offsets[f.embedding_name]
+        key = ("varlen", "vl_" + f.name)
+        if (dim,) + key not in seen:
+            seen.add((dim,) + key)
+            spec.setdefault(dim, []).append(key + (off,))
+    return spec
+
+
+_DEVICE_LISTS: Dict[Tuple[tuple, str], torch.Tensor] = {}
+
+
+def _device_list(values, device) -> torch.Tensor:
+    """An int64 tensor of ``values`` on ``device``, made once: a tensor
+    built from a list each step is a host-to-device copy and a sync."""
+    key = (tuple(values), str(device))
+    t = _DEVICE_LISTS.get(key)
+    if t is None:
+        t = _DEVICE_LISTS[key] = torch.tensor(values, dtype=torch.int64, device=device)
+    return t
+
+
+def touched_ids(batch, entries) -> torch.Tensor:
+    """The [N] int64 table rows one stacked table's lookups touch in
+    ``batch``, for the entry list of :func:`table_touched_spec`.  Batch-major:
+    first the plain sparse entries as one [B, F_t] block flattened row by
+    row, then each varlen entry's [B, maxlen] block, so the occurrence block
+    of a lazy gradient-split step is a reshape away from the [B, F, D] the
+    towers read (the layout of ``_occ_layout``)."""
+    sp_cols, sp_offs, parts = [], [], []
+    for kind, key, off in entries:
+        if kind == "sparse":
+            sp_cols.append(key)
+            sp_offs.append(off)
+        else:
+            parts.append(batch[key].reshape(-1).long() + off)
+    if sp_cols:
+        dev = batch["sparse"].device
+        ids = batch["sparse"].index_select(1, _device_list(sp_cols, dev)).long()
+        parts.insert(0, (ids + _device_list(sp_offs, dev)[None, :]).reshape(-1))
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def _occ_layout(feature_columns, schema: FeatureSchema, linear: bool):
+    """Per table dim, where each lookup's rows lie in the occurrence block
+    that :func:`touched_ids` lays out: ``sparse`` maps a batch column to its
+    place on the F_t axis, ``varlen`` a batch key to its offset in units of B
+    rows past the block's start, ``n_sparse`` is F_t."""
+    vl_maxlen = {"vl_" + f.name: f.maxlen for f in schema.varlen}
+    layout = {}
+    for dim, entries in table_touched_spec(feature_columns, schema, linear).items():
+        sparse = {key: i for i, key in enumerate(k for kind, k, _ in entries if kind == "sparse")}
+        units, varlen = len(sparse), {}
+        for kind, key, _ in entries:
+            if kind == "varlen":
+                varlen[key] = units
+                units += vl_maxlen[key]
+        layout[dim] = {"sparse": sparse, "varlen": varlen, "n_sparse": len(sparse)}
+    return layout
+
+
+class _TakeFields(torch.autograd.Function):
+    """``x[:, pos]`` over the field axis of [B, F, D], whose backward adds
+    a repeated field's gradients in the order of ``pos`` (an index's own
+    backward would be an atomic scatter-add, whose order varies on the
+    card)."""
+
+    @staticmethod
+    def forward(ctx, x, pos_t, pos):
+        ctx.n, ctx.pos_t, ctx.pos = x.shape[1], pos_t, pos
+        return x.index_select(1, pos_t)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        gx = g.new_zeros(g.shape[0], ctx.n, g.shape[2])
+        if len(set(ctx.pos)) == len(ctx.pos):
+            gx.index_copy_(1, ctx.pos_t, g)  # each field taken once: a copy
+        else:
+            for f, p in enumerate(ctx.pos):
+                gx[:, p] += g[:, f]
+        return gx, None, None
+
+
 class EmbeddingCollection(nn.Module):
     """Stacked embedding tables over a feature-column list; parameters are
-    ``table_d{dim}`` as in the JAX parameter paths."""
+    ``table_d{dim}`` as in the JAX parameter paths.
+
+    Every lookup honours a per-occurrence block: where ``batch["_compact"]``
+    holds ``f"{self.path}/table_d{dim}"`` (the lazy optimizer's
+    gradient-split step), that [N, dim] block, laid out by
+    :func:`touched_ids`, stands in for the table, and each lookup is a slice
+    of it (the JAX engine's ``_compact`` contract).  ``path`` is the
+    collection's parameter path (``embedding_dict``,
+    ``linear_model/embedding_dict``), set by the model that owns it."""
 
     def __init__(
         self,
@@ -123,7 +263,10 @@ class EmbeddingCollection(nn.Module):
         super().__init__()
         self.feature_columns = tuple(feature_columns)
         self.schema = schema
+        self.linear = linear
+        self.path = None
         self._offsets, table_rows = _table_layout(feature_columns, linear)
+        self._occ_layout = _occ_layout(feature_columns, schema, linear)
         for dim, rows in sorted(table_rows.items()):
             t = torch.empty(rows, dim).normal_(0.0, init_std, generator=generator)
             self.register_parameter(f"table_d{dim}", nn.Parameter(t))
@@ -131,23 +274,48 @@ class EmbeddingCollection(nn.Module):
     def table(self, dim: int) -> torch.Tensor:
         return getattr(self, f"table_d{dim}")
 
-    def sparse_ids(self, batch, feats: Sequence[SparseFeat]):
-        """(dim, ids [B, F]) for a set of equal-dim SparseFeats: each
-        feature's batch column plus its table's row offset."""
+    def _block(self, batch, dim: int):
+        """This table's per-occurrence block in ``batch``, else None."""
+        compact = batch.get("_compact")
+        if not compact or self.path is None:
+            return None
+        return compact.get(f"{self.path}/table_d{dim}")
+
+    def _block_sparse(self, batch, occ, dim):
+        """The block's plain sparse part as [B, F_t, dim]."""
+        n = self._occ_layout[dim]["n_sparse"]
+        return occ[: batch["sparse"].shape[0] * n].reshape(-1, n, dim)
+
+    def _uniform_dim(self, feats) -> int:
         dims = {self._offsets[f.embedding_name][0] for f in feats}
         if len(dims) != 1:
             raise ValueError("stacked lookups require a uniform embedding dim")
+        return dims.pop()
+
+    def sparse_ids(self, batch, feats: Sequence[SparseFeat]):
+        """(dim, ids [B, F]) for a set of equal-dim SparseFeats: each
+        feature's batch column plus its table's row offset."""
+        dim = self._uniform_dim(feats)
         cols = [self.schema.sparse_index(f.name) for f in feats]
         offs = torch.tensor(
             [self._offsets[f.embedding_name][1] for f in feats],
             dtype=torch.int64, device=batch["sparse"].device,
         )
-        return dims.pop(), batch["sparse"][:, cols].long() + offs[None, :]
+        return dim, batch["sparse"][:, cols].long() + offs[None, :]
 
     def stacked_sparse(self, batch, feats: Sequence[SparseFeat], rows=None):
         """One gather for a set of equal-dim SparseFeats -> [B, F, dim].
         ``rows``: this lookup's [B*F, dim] rows when a fused gather over
         several tables already fetched them."""
+        dim = self._uniform_dim(feats)
+        occ = self._block(batch, dim)
+        if occ is not None:
+            occ_sp = self._block_sparse(batch, occ, dim)
+            where = self._occ_layout[dim]["sparse"]
+            pos = [where[self.schema.sparse_index(f.name)] for f in feats]
+            if pos == list(range(occ_sp.shape[1])):
+                return occ_sp  # every sparse column in order: a reshape
+            return _TakeFields.apply(occ_sp, _device_list(pos, occ.device), tuple(pos))
         dim, ids = self.sparse_ids(batch, feats)
         B, F = ids.shape
         if rows is None:
@@ -165,6 +333,17 @@ class EmbeddingCollection(nn.Module):
             ids = batch["sparse"][:, i : i + 1]
         return ids.long() + off
 
+    def _block_field(self, batch, occ, dim, feat):
+        """One field's [B, width, dim] slice of the occurrence block."""
+        lay = self._occ_layout[dim]
+        if isinstance(feat, VarLenSparseFeat):
+            ids = batch["vl_" + feat.name]
+            B, maxlen = ids.shape
+            u = lay["varlen"]["vl_" + feat.name]
+            return occ[u * B : (u + maxlen) * B].reshape(B, maxlen, dim)
+        p = lay["sparse"][self.schema.sparse_index(feat.name)]
+        return self._block_sparse(batch, occ, dim)[:, p : p + 1]
+
     def lookup_fields(self, batch, feats):
         """[B, width, dim] per field of ``feats`` (SparseFeat width 1,
         VarLenSparseFeat width maxlen), in order, with one gather per table."""
@@ -173,6 +352,10 @@ class EmbeddingCollection(nn.Module):
             by_dim.setdefault(self._offsets[f.embedding_name][0], []).append(f)
         found = {}
         for dim, fs in by_dim.items():
+            occ = self._block(batch, dim)
+            if occ is not None:
+                found.update((f.name, self._block_field(batch, occ, dim, f)) for f in fs)
+                continue
             ids = [self.field_ids(batch, f) for f in fs]
             widths = [t.shape[1] for t in ids]
             rows = fused_gather((self.table(dim),), torch.cat(ids, dim=1))
@@ -249,7 +432,7 @@ def lookup_inputs(main: EmbeddingCollection, linear: "LinearModel", batch, featu
     linear rows, else the main lookup gathers alone and the linear model
     gathers its own."""
     main_rows = lin_rows = None
-    if fused:
+    if fused and "_compact" not in batch:  # a lazy split step's blocks serve both
         dim, ids = main.sparse_ids(batch, split_columns(feature_columns)[0])
         rows = fused_gather((main.table(dim), linear.embedding_dict.table_d1), ids.reshape(-1))
         main_rows, lin_rows = rows[:, :dim], rows[:, dim:]
@@ -323,6 +506,6 @@ class LinearModel(nn.Module):
             d = dense_vals @ self.weight
             out = d if out is None else out + d
         if out is None:
-            v = next(iter(batch.values()))
+            v = next(v for v in batch.values() if torch.is_tensor(v))
             return torch.zeros((v.shape[0], 1), device=v.device)
         return out

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..basemodel import resolve_device
+from .bench_gru import device_ms as gru_device_ms
 from ..ops.lane_attention_cuda import (
     la_backward,
     la_backward_reference,
@@ -69,22 +70,13 @@ def _event_ms(fn, cuda):
 
 
 def device_ms(fn, kernel, iters=ITERS):
-    """Mean device ms a call of the kernels whose name holds ``kernel``, from
+    """Mean device ms a call of the kernel whose name holds ``kernel``, from
     torch.profiler's kernel durations over ``iters`` calls after one warm-up
     call: the kernel's own time, which back-to-back launches from Python do
-    not pace as they pace CUDA events around short kernels."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    times = [e.device_time_total for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
-    if len(times) != iters:
-        raise RuntimeError(f"profiler saw {len(times)} launches of {kernel}, expected {iters}")
-    return sum(times) / 1e3 / iters
+    not pace as they pace CUDA events around short kernels.  It is
+    :func:`~xdeepfm_tpu_torch.scripts.bench_gru.device_ms` for one kernel,
+    which profiles a window again when the profiler dropped its records."""
+    return gru_device_ms(fn, (kernel,), iters)
 
 
 def main(argv=None):

@@ -85,3 +85,15 @@ def to_jax_weights(module: nn.Module) -> dict:
             arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
         flat[paths[key]] = np.ascontiguousarray(arr)
     return {"params": unflatten_tree(flat), "batch_stats": {}}
+
+
+def from_jax_lazy_state(opt_state) -> Tuple[Dict[str, np.ndarray], Dict[str, float]]:
+    """The JAX package's canonical optimizer state
+    (``BaseModel._canonical_opt_state()``) -> (lazy row states
+    ``{table path: [rows, k * dim] fp32}``, tracked L2 values
+    ``{table path: float}``), for ``set_weights``.  Its ``optax`` part, the
+    dense optimizer's, is not carried."""
+    lazy = {path: np.asarray(st, np.float32)
+            for path, st in flatten_tree(opt_state.get("lazy") or {})}
+    reg = {path: float(np.asarray(v)) for path, v in flatten_tree(opt_state.get("reg") or {})}
+    return lazy, reg
