@@ -112,14 +112,24 @@ run in order and any failure raises, so the exit code is non-zero:
    trained, profiled and scored as the models in 12: per step 2 ``gru_fwd``
    + 2 ``gru_bwd`` (the extractor's GRU and the AUGRU), per scored batch 2
    ``gru_fwd``;
-17. the embedding tables' backward (``gather`` lines): the port's
+17. the FM family (``zoo`` lines; no kernel of its own): DeepFM, WDL, NFM,
+   AFM (325 pairs), IFM, DCN and DCN-Mix with their constructors' defaults on
+   the canonical columns, each ``fit`` at batch 4096 with Adam for two
+   epochs of 8 steps (every logged value finite, the epoch loss falling),
+   none of the hand-written kernels launched in training or scoring, one
+   SGD step on the card against the CPU model, examples/s trained, a
+   training profile, and ``Scorer(batch_size=8192)`` over the serving
+   requests agreeing with the CPU model on a small input; then a DCN with
+   the last 13 sparse fields at dim 4 (``table_d10`` and ``table_d4``,
+   ``fast_inputs`` on the per-feature route, one SGD step against the CPU);
+18. the embedding tables' backward (``gather`` lines): the port's
    deterministic ``fused_gather`` beside ``F.embedding``'s and
    ``index_select``'s, bit-equality over two calls, error against float64
    and time, at DIEN's and xDeepFM's step;
-18. the training CLIs over the native parser (``cli`` lines, among them
+19. the training CLIs over the native parser (``cli`` lines, among them
    ``cli_lazy``: ``xdftrain --embedding_optimizer lazy``, split and packed)
    and ``load_scorer`` over their artifacts (``cli_summary``);
-19. the lazy row-sparse embedding optimizer (``compile(embedding_optimizer=
+20. the lazy row-sparse embedding optimizer (``compile(embedding_optimizer=
    "lazy")``; its sort, run sums and row writes are PyTorch ops, the CIN's
    and the GRU's kernels run on its steps): ``lazy_checks`` at 26 x 100 000
    rows (Adam and Adagrad in every mode: split flat, split packed, dense
@@ -135,9 +145,9 @@ run in order and any failure raises, so the exit code is non-zero:
    events), examples/s, busy ms, idle share and kernels (profiler), memory,
    2 + 2 + 2 CIN launches a step, and for the lazy runs one step's
    transient allocation below a tenth of the group array's bytes;
-20. a ``{"kernels": [...]}`` line, one entry per hand-written kernel, its
+21. a ``{"kernels": [...]}`` line, one entry per hand-written kernel, its
    ``launches_by_path`` with the CLI and lazy paths;
-21. the last line: ``{"ok": true, "device": {...}}``.
+22. the last line: ``{"ok": true, "device": {...}}``.
 
 Every model's training record lists the gradients that a second identical
 step does not reproduce bit for bit (``grads_not_reproduced``); the run fails
@@ -174,12 +184,19 @@ from torch.overrides import TorchFunctionMode
 from xdeepfm_tpu_torch import native
 from xdeepfm_tpu_torch.basemodel import _loss_fn_single
 from xdeepfm_tpu_torch.cli import xdftrain, xdftrain_attn, xdftrain_pro
-from xdeepfm_tpu_torch.embeddings import fused_gather, touched_ids
+from xdeepfm_tpu_torch.embeddings import MixedEmbeddingDims, fused_gather, touched_ids
 from xdeepfm_tpu_torch.features import DenseFeat, SparseFeat, VarLenSparseFeat
 from xdeepfm_tpu_torch.models import (
+    AFM,
+    DCN,
     DIEN,
     DIFM,
+    IFM,
+    NFM,
+    WDL,
     AutoInt,
+    DCNMix,
+    DeepFM,
     xDeepFM,
     xDeepFMAttention,
     xDeepFMAttentionV2,
@@ -603,17 +620,17 @@ def canonical_model(device, weights=None, seeded=True, version="xdeepfm"):
     model = MODELS[version](model_columns(version), device)
     if weights is None and not seeded:
         return model
-    if weights is None:
-        # random weights at scale 0.1 so that every tower, the CIN included,
-        # moves the scores
-        rng = np.random.default_rng(SEED)
-        flat = {
-            k: (0.1 * rng.standard_normal(v.shape)).astype(np.float32)
-            for k, v in flatten_tree(model.get_weights()["params"])
-        }
-        weights = {"params": unflatten_tree(flat), "batch_stats": {}}
-    model.set_weights(weights)
+    model.set_weights(seeded_weights(model) if weights is None else weights)
     return model
+
+
+def seeded_weights(model):
+    """Random weights for ``model``'s tree from SEED, at scale 0.1 so that
+    every tower, the CIN included, moves the scores."""
+    rng = np.random.default_rng(SEED)
+    flat = {k: (0.1 * rng.standard_normal(v.shape)).astype(np.float32)
+            for k, v in flatten_tree(model.get_weights()["params"])}
+    return {"params": unflatten_tree(flat), "batch_stats": {}}
 
 
 def requests(rng, sizes, version="xdeepfm"):
@@ -895,8 +912,13 @@ def relu_step_grads(model, xb, yb, ref=None):
 # the MLP's gradient is such a shift.  So DIEN's gradients are each held
 # relative to their largest entry or to GRAD_FLOOR of the largest entry of
 # all the gradients compared, whichever is larger; every other model's
-# relative to their own largest entry alone.
-GRAD_FLOOR = {"dien": 1e-3}
+# relative to their own largest entry alone.  AFM's attention_b is another:
+# a few steps from init_std 1e-4 the pair products are far below it, so
+# each attention unit's pre-activation has one sign over all pairs and the
+# softmax over the pairs cancels b's share of the score, whose gradient is
+# then rounding noise (on an H100 both fp32 sides' errors read ~3e8 times
+# float64's gradient).
+GRAD_FLOOR = {"dien": 1e-3, "afm": 1e-3}
 
 
 def per_grad_err(got, want, floor=0.0):
@@ -2359,6 +2381,159 @@ def phase_model_scoring(model, version):
 
 
 # ---------------------------------------------------------------------------
+# the FM family (ROADMAP item 12a).  No TPU kernel is on its path (the JAX
+# models import nothing of xdeepfm_tpu/ops/ and their gather is XLA), so it is
+# PyTorch ops; the phase checks that it trains and scores at full width, agrees
+# with the CPU and launches none of the hand-written kernels.
+# ---------------------------------------------------------------------------
+
+# as scripts/bench_zoo.py:38-48 builds them: each constructor's defaults on
+# the canonical columns (DeepFM DNN (256, 128), WDL (256, 128), NFM (128, 128),
+# AFM over the 26 sparse fields (325 pairs, attention factor 8), IFM (256,
+# 128), DCN vector with 2 cross layers over d = 273, DCN-Mix low rank 32 and
+# 4 experts)
+ZOO = {
+    "deepfm": lambda cols, device: DeepFM(cols, cols, device=device),
+    "wdl": lambda cols, device: WDL(cols, cols, device=device),
+    "nfm": lambda cols, device: NFM(cols, cols, device=device),
+    "afm": lambda cols, device: AFM(cols, [f for f in cols if isinstance(f, SparseFeat)],
+                                    use_attention=True, device=device),
+    "ifm": lambda cols, device: IFM(cols, cols, device=device),
+    "dcn": lambda cols, device: DCN(cols, cols, device=device),
+    "dcnmix": lambda cols, device: DCNMix(cols, cols, device=device),
+}
+ZOO_EPOCHS = 2  # of TRAIN_STEPS_PER_EPOCH steps: the epoch loss must fall once
+# the mixed-dim input path: the canonical columns with the last 13 sparse
+# fields (C13-C25) at dim 4
+ZOO_MIXED_DIM = 4
+
+
+def zoo_model(name, device, weights=None, cols=None):
+    model = ZOO[name](canonical_columns() if cols is None else cols, device)
+    if weights is not None:
+        model.set_weights(weights)
+    return model
+
+
+def phase_zoo_training(name):
+    """FM-family model ``name`` at full width: ``fit`` at batch 4096, Adam,
+    ZOO_EPOCHS epochs of 8 steps with the validation half batch, every
+    logged value finite and the epoch loss falling; no hand-written kernel
+    launched; one SGD step on the card against the CPU model; examples/s
+    trained (CUDA events)."""
+    model = zoo_model(name, "cuda")
+    model.compile("adam", "binary_crossentropy", metrics=["auc"])
+    rng = np.random.default_rng(SEED + 3)
+    x, y = train_data(rng, TRAIN_STEPS_PER_EPOCH * TRAIN_BATCH + TRAIN_BATCH // 2)
+    x, y, val = (  # the last half batch validates
+        {k: v[: -TRAIN_BATCH // 2] for k, v in x.items()}, y[: -TRAIN_BATCH // 2],
+        ({k: v[-TRAIN_BATCH // 2 :] for k, v in x.items()}, y[-TRAIN_BATCH // 2 :]),
+    )
+    reset_launches()
+    t0 = time.perf_counter()
+    history = model.fit(x, y, batch_size=TRAIN_BATCH, epochs=ZOO_EPOCHS, verbose=0,
+                        validation_data=val)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = read_launches()
+    if launches != expected():
+        raise AssertionError(f"zoo {name}: hand-written kernels launched: {launches}")
+    logs = history.history
+    for k, v in logs.items():
+        if not np.isfinite(v).all():
+            raise AssertionError(f"zoo {name}: {k} is not finite: {v}")
+    if not logs["loss"][0] > logs["loss"][-1]:
+        raise AssertionError(f"zoo {name}: the epoch loss did not fall: {logs['loss']}")
+    cpu_errs = sgd_step_vs_cpu(
+        [zoo_model(name, dev, model.get_weights()) for dev in ("cuda", "cpu")], x, y,
+        f"zoo {name}: ", GRAD_FLOOR.get(name, 0.0))
+    trained = model.get_weights()
+    batches = [device_batch(model, {k: v[i * TRAIN_BATCH:] for k, v in x.items()},
+                            y[i * TRAIN_BATCH:], TRAIN_BATCH) for i in range(4)]
+    ms = [train_steps_ms(model, batches, 10) for _ in range(2)]
+    model.set_weights(trained)
+    record = dict(
+        model=name, batch=TRAIN_BATCH, steps=TRAIN_STEPS_PER_EPOCH * ZOO_EPOCHS,
+        epochs=ZOO_EPOCHS, fit_seconds=fit_s, launches=launches, history=logs,
+        rel_err_vs_cpu_one_sgd_step=cpu_errs, ms_per_step=ms,
+        examples_per_s=[TRAIN_BATCH / t * 1e3 for t in ms],
+        parameters=sum(p.numel() for p in model.module.parameters()),
+    )
+    emit(phase=f"zoo_{name}_training", **record)
+    return record, model, batches
+
+
+def phase_zoo_scoring(model, name):
+    """The trained FM-family model through ``Scorer(batch_size=8192)`` over
+    the serving requests: no hand-written kernel launched, finite
+    probabilities, examples/s, and the scores within 1e-5 of the CPU
+    model's on a small input."""
+    scorer = Scorer(model, batch_size=BATCH).warmup()
+    reqs = requests(np.random.default_rng(SEED + 1), REQUESTS)
+    reset_launches()
+    preds, eps, ms = score_all(scorer, reqs)
+    counts = read_launches()
+    if counts != expected():
+        raise AssertionError(f"zoo {name} scoring launched {counts}")
+    for n, p in zip(REQUESTS, preds):
+        if p.shape != (n, 1) or not (np.isfinite(p).all() and (p > 0).all() and (p < 1).all()):
+            raise AssertionError(f"bad zoo {name} scores: shape {p.shape}, "
+                                 f"range [{p.min()}, {p.max()}]")
+    runs = [score_all(scorer, reqs) for _ in range(2)]
+    cpu_model = zoo_model(name, "cpu", model.get_weights())
+    small = requests(np.random.default_rng(SEED + 2), (64,))[0]
+    cpu_err = float(np.abs(model.predict(small, 64) - cpu_model.predict(small, 64)).max())
+    if cpu_err > 1e-5:
+        raise AssertionError(f"zoo {name}: card and CPU scores differ by {cpu_err}")
+    record = dict(model=name, requests=list(REQUESTS),
+                  batches=sum(-(-n // BATCH) for n in REQUESTS), launches=counts,
+                  examples_per_s=[eps] + [r[1] for r in runs], ms=[ms] + [r[2] for r in runs],
+                  max_abs_diff_vs_cpu=cpu_err, score_std=float(np.concatenate(preds).std()))
+    emit(phase=f"zoo_{name}_scoring", **record)
+    return record
+
+
+def phase_zoo_mixed_dims():
+    """DCN on the canonical columns with the last 13 sparse fields at
+    ZOO_MIXED_DIM: two main tables, ``fast_inputs`` on the per-feature route
+    (the stacked lookup raises ``MixedEmbeddingDims``), no fused gather, one
+    SGD step on the card against the CPU, no hand-written kernel launched."""
+    cols = [SparseFeat(f"C{i}", VOCAB, DIM if i < 13 else ZOO_MIXED_DIM)
+            for i in range(N_SPARSE)] + [DenseFeat(f"I{i}") for i in range(N_DENSE)]
+    model = zoo_model("dcn", "cuda", cols=cols)
+    tables = sorted(n for n, _ in model.module.embedding_dict.named_parameters())
+    if tables != [f"table_d{DIM}", f"table_d{ZOO_MIXED_DIM}"]:
+        raise AssertionError(f"zoo mixed dims: main tables {tables}")
+    if model.module._fused:
+        raise AssertionError("zoo mixed dims: the lookup fused a mixed-dim set")
+    rng = np.random.default_rng(SEED + 3)
+    x, y = train_data(rng, 512)
+    xb, _ = device_batch(model, x, y, 512)
+    emb = model.module.embedding_dict
+    try:
+        emb.stacked_inputs(xb, model.dnn_feature_columns)
+        raise AssertionError("zoo mixed dims: the stacked lookup took mixed dims")
+    except MixedEmbeddingDims:
+        pass
+    sparse_list, dense_list = emb.fast_inputs(xb, model.dnn_feature_columns)
+    widths = [t.shape[-1] for t in sparse_list]
+    if widths != [DIM] * 13 + [ZOO_MIXED_DIM] * (N_SPARSE - 13) or len(dense_list) != N_DENSE:
+        raise AssertionError(f"zoo mixed dims: fast_inputs gave widths {widths}")
+    weights = seeded_weights(model)
+    reset_launches()
+    cpu_errs = sgd_step_vs_cpu([zoo_model("dcn", dev, weights, cols) for dev in ("cuda", "cpu")],
+                               x, y, "zoo mixed dims: ")
+    launches = read_launches()
+    if launches != expected():
+        raise AssertionError(f"zoo mixed dims: hand-written kernels launched: {launches}")
+    record = dict(model="dcn", tables=tables, fast_inputs_route="per_feature",
+                  fast_inputs_widths=widths, launches=launches,
+                  rel_err_vs_cpu_one_sgd_step=cpu_errs)
+    emit(phase="zoo_dcn_mixed_dims", **record)
+    return record
+
+
+# ---------------------------------------------------------------------------
 # the lazy row-sparse embedding optimizer.  It has no TPU kernel of its own
 # (its sort, run sums and row writes are XLA in the JAX package and PyTorch
 # ops here); the CIN kernels (rows 1-3) run on its xDeepFM steps and the GRU
@@ -2697,6 +2872,14 @@ def main():
         attn[version] = rec, phase_model_scoring(attn_m, version)
         del attn_m, attn_batches
         torch.cuda.empty_cache()
+    zoo = {}
+    for model_name in ZOO:
+        rec, zoo_m, zoo_batches = phase_zoo_training(model_name)
+        phase_train_profile(zoo_m, zoo_batches, phase=f"zoo_{model_name}_train_profile")
+        zoo[model_name] = rec, phase_zoo_scoring(zoo_m, model_name)
+        del zoo_m, zoo_batches
+        torch.cuda.empty_cache()
+    phase_zoo_mixed_dims()
     phase_gather()
     cli = phase_cli()
     phase_lazy_checks()
@@ -2707,6 +2890,9 @@ def main():
     for version, (rec, scoring) in attn.items():
         paths[f"{PHASE[version]}_training"] = rec["launches"]
         paths[f"{PHASE[version]}_scoring"] = scoring["launches"]
+    for model_name, (rec, scoring) in zoo.items():
+        paths[f"zoo_{model_name}_training"] = rec["launches"]
+        paths[f"zoo_{model_name}_scoring"] = scoring["launches"]
     paths["ablation"] = ablation["launches"]
     paths.update({path: rec["launches"] for path, rec in cli.items()})
     paths.update({path: rec["launches"] for path, rec in lazy.items()})

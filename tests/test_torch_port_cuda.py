@@ -1160,3 +1160,73 @@ def test_cli_eval_trains_on_card(card, tmp_path):
         saved = json.load(f)
     assert saved["model_config"]["device"] == "cuda" and saved["data_info"]["train_samples"] == 900
     assert 0.0 <= log["results"]["eval_auc"] <= 1.0
+
+
+# ------------------------------------------- the FM family (no kernel of its own)
+
+def _fm_family():
+    from xdeepfm_tpu_torch import models as M
+
+    def sparse(c):
+        return [f for f in c if isinstance(f, SparseFeat)]
+
+    return {
+        "deepfm": lambda c, d: M.DeepFM(c, c, dnn_hidden_units=(32,), device=d),
+        "wdl": lambda c, d: M.WDL(c, c, dnn_hidden_units=(32,), device=d),
+        "nfm": lambda c, d: M.NFM(c, c, dnn_hidden_units=(32,), device=d),
+        "afm": lambda c, d: M.AFM(c, sparse(c), attention_factor=4, device=d),
+        "ifm": lambda c, d: M.IFM(c, c, dnn_hidden_units=(32,), device=d),
+        "dcn": lambda c, d: M.DCN(c, c, dnn_hidden_units=(32,), device=d),
+        "dcnmix": lambda c, d: M.DCNMix(c, c, dnn_hidden_units=(32,), low_rank=4,
+                                        num_experts=2, device=d),
+        "dcn_mixed_dims": lambda c, d: M.DCN(c, c, dnn_hidden_units=(32,), device=d),
+    }
+
+
+def _all_launches():
+    from xdeepfm_tpu_torch.ops.attn_ablate_cuda import ablate_dots, ablate_full, ablate_soft
+    from xdeepfm_tpu_torch.ops.gru_cuda import gru_backward, gru_forward
+    from xdeepfm_tpu_torch.ops.lane_attention_cuda import la_backward, la_forward
+
+    return [fn.launches for fn in (
+        cin_rows_forward, cin_rows_backward, cin_rows_dw, ce_rows_forward,
+        ce_rows_backward, sa_forward, sa_backward, ab_forward, ab_backward, la_forward,
+        la_backward, gru_forward, gru_backward, ablate_full, ablate_dots, ablate_soft)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_fm_family()))
+def test_fm_family_step_on_card_matches_cpu(card, name):
+    """One SGD step of each FM-family model on the card against the CPU
+    model from the same weights (each weight change within 1e-4 of its
+    largest), the predictions after it within 1e-5, and no hand-written
+    kernel launched; ``dcn_mixed_dims`` has C3-C5 at dim 4."""
+    dims = [10, 10, 10, 4, 4, 4] if name == "dcn_mixed_dims" else [10] * 6
+    cols = [SparseFeat(f"C{i}", 100, d) for i, d in enumerate(dims)] + [
+        DenseFeat(f"I{i}") for i in range(3)
+    ]
+    make = _fm_family()[name]
+    gpu, cpu = make(cols, "cuda"), make(cols, "cpu")
+    rng = np.random.default_rng(7)
+    flat = {k: (0.1 * rng.standard_normal(v.shape)).astype(np.float32)
+            for k, v in flatten_tree(cpu.get_weights()["params"])}
+    weights = {"params": unflatten_tree(flat), "batch_stats": {}}
+    n = 256
+    x = {f"C{i}": rng.integers(0, 100, n) for i in range(6)}
+    x.update({f"I{i}": rng.uniform(0, 1, n).astype(np.float32) for i in range(3)})
+    y = (rng.uniform(size=n) < 0.4).astype(np.float32)
+    before = _all_launches()
+    deltas, preds = [], []
+    for m in (gpu, cpu):
+        m.set_weights(weights)
+        m.compile("sgd", "binary_crossentropy")
+        m.fit(x, y, batch_size=n, epochs=1, verbose=0, shuffle=False)
+        after = dict(flatten_tree(m.get_weights()["params"]))
+        deltas.append({k: np.asarray(after[k]) - v for k, v in flat.items()})
+        preds.append(m.predict(x, 128))
+    assert _all_launches() == before
+    for k, want in deltas[1].items():
+        np.testing.assert_allclose(deltas[0][k], want, rtol=1e-4,
+                                   atol=1e-4 * np.abs(want).max() + 1e-8, err_msg=k)
+    assert preds[1].std() > 1e-3
+    np.testing.assert_allclose(preds[0], preds[1], rtol=0, atol=1e-5)

@@ -3,9 +3,10 @@
 Each case of ``tests/test_stream.py`` (``matches_fit`` :35,
 ``multi_dispatch_and_validation`` :63, ``steps_per_epoch_cap`` :78 and
 ``callbacks_early_stopping`` :92) runs on both packages: a small xDeepFM
-(the port has no DeepFM yet) is compiled in JAX, its weights go to the port
-through ``from_jax_weights``, and both train from there on the same numpy
-batches.  Their histories and final weights must agree within
+(the early stop, as there, on a small DeepFM at Adam's default rate, and
+once more on the xDeepFM at Adam 0.01) is compiled in JAX, its weights go to
+the port through ``from_jax_weights``, and both train from there on the same
+numpy batches.  Their histories and final weights must agree within
 ``tests/test_torch_port_train.py``'s Adam tolerance (``OPT_TOL``: fp32 sums in
 another order, magnified by Adam's division by small second moments), and
 each must keep its own case's property (the trajectory of ``fit``, falling
@@ -22,12 +23,16 @@ import xdeepfm_tpu.callbacks as jcb
 import xdeepfm_tpu.features as jf
 import xdeepfm_tpu_torch.callbacks as tcb
 import xdeepfm_tpu_torch.features as tf
+from xdeepfm_tpu.models import DeepFM as JaxDeepFM
 from xdeepfm_tpu.models import xDeepFM as JaxXDeepFM
-from xdeepfm_tpu_torch.models import xDeepFM
+from xdeepfm_tpu_torch.models import DeepFM, xDeepFM
 from xdeepfm_tpu_torch.weights import flatten_tree
 
 RTOL, ATOL = 1e-4, 2e-5  # OPT_TOL["adam"] of tests/test_torch_port_train.py
 ARCH = dict(dnn_hidden_units=(8,), cin_layer_size=(4,), seed=5)
+# (JAX class, port class, architecture): tests/test_stream.py:28's DeepFM
+MODELS = {"xdeepfm": (JaxXDeepFM, xDeepFM, ARCH),
+          "deepfm": (JaxDeepFM, DeepFM, dict(dnn_hidden_units=(8,), seed=5))}
 
 
 def _data(n=300, vocab=40, seed=0):
@@ -49,10 +54,11 @@ def _batches(x, y, bs, seen=None):
         yield {k: v[i:i + bs] for k, v in x.items()}, y[i:i + bs]
 
 
-def _pair(lr=None):
-    jm = JaxXDeepFM(_cols(jf), _cols(jf), **ARCH)
+def _pair(lr=None, model="xdeepfm"):
+    jcls, tcls, arch = MODELS[model]
+    jm = jcls(_cols(jf), _cols(jf), **arch)
     jm.compile("adam", "binary_crossentropy", metrics=["auc"], lr=lr)
-    pm = xDeepFM(_cols(tf), _cols(tf), device="cpu", **ARCH)
+    pm = tcls(_cols(tf), _cols(tf), device="cpu", **arch)
     pm.set_weights(jax.tree.map(np.asarray, jm.get_weights()))
     pm.compile("adam", "binary_crossentropy", metrics=["auc"], lr=lr)
     return jm, pm
@@ -90,12 +96,17 @@ def _case(name, model, cb_mod, x, y, seen):
 
 
 @pytest.mark.parametrize("case", ["matches_fit", "multi_dispatch_and_validation",
-                                  "steps_per_epoch_cap", "callbacks_early_stopping"])
+                                  "steps_per_epoch_cap", "callbacks_early_stopping",
+                                  "callbacks_early_stopping_xdeepfm"])
 def test_fit_stream_matches_jax(case):
     x, y = _data()
-    # the early stop needs val_auc to stop rising within 20 epochs: at Adam's
-    # 0.01 this xDeepFM learns y = C0 % 2 to an AUC of 1 within a few
-    jm, pm = _pair(lr=0.01 if case == "callbacks_early_stopping" else None)
+    # the early stop needs val_auc to stop rising within 20 epochs: the
+    # DeepFM of tests/test_stream.py:92 does so at Adam's default rate; at
+    # Adam's 0.01 the xDeepFM learns y = C0 % 2 to an AUC of 1 within a few
+    if case == "callbacks_early_stopping":
+        jm, pm = _pair(model="deepfm")
+    else:
+        jm, pm = _pair(lr=0.01 if case == "callbacks_early_stopping_xdeepfm" else None)
     seen_j, seen_p = [], []
     hj = _case(case, jm, jcb, x, y, seen_j)
     hp = _case(case, pm, tcb, x, y, seen_p)

@@ -210,7 +210,8 @@ class BaseModel:
     # ------------------------------------------------------------- compile
 
     def compile(self, optimizer, loss=None, metrics=None, lr=None,
-                embedding_optimizer="dense", embedding_gradient="auto",
+                embedding_optimizer="dense", matmul_precision=None,
+                embedding_gradient="auto", fused_lookup="auto",
                 embedding_layout="auto", embedding_state_dtype="float32"):
         """Optimizer (a name, or a factory of ``torch.optim.Optimizer`` in
         place of an optax transformation), loss name(s) and host metric names
@@ -241,7 +242,26 @@ class BaseModel:
         gives each table its own.  "auto" is "packed" under lazy + split.
         ``embedding_state_dtype="bfloat16"`` (packed only) stores the row
         state as bf16 pairs in fp32 columns.  Weights, checkpoints and
-        predict speak the canonical tables and state under every layout."""
+        predict speak the canonical tables and state under every layout.
+
+        ``matmul_precision``: None runs every product in fp32, TF32 off.  The
+        JAX package's opt-in "bfloat16" (tower matmuls in one bf16 pass,
+        ``basemodel.py:283-284``) raises ``NotImplementedError`` here.
+
+        ``fused_lookup`` (``basemodel.py:286-292``, :419-423): "auto" and True
+        let a model fetch its main and linear tables' rows in one gather where
+        their layouts agree (``embeddings.can_fuse_lookup``); False makes it
+        gather them separately.  The same rows either way.  A lazy compile
+        ignores it, as the JAX engine does."""
+        if matmul_precision == "bfloat16":
+            raise NotImplementedError(
+                "matmul_precision='bfloat16' is not ported yet: ROADMAP.md section 3, "
+                "'matmul_precision=\"bfloat16\"' (bf16 tower matmuls wait for the bench)")
+        if matmul_precision is not None:
+            raise ValueError(f"matmul_precision must be None or 'bfloat16', not "
+                             f"{matmul_precision!r}")
+        if fused_lookup not in ("auto", True, False):
+            raise ValueError(fused_lookup)
         if embedding_optimizer not in ("dense", "auto", "lazy"):
             raise ValueError(embedding_optimizer)
         if embedding_gradient not in ("auto", "dense", "split"):
@@ -290,6 +310,9 @@ class BaseModel:
         self.optimizer = get_optimizer(
             optimizer, [p for p in self.module.parameters() if id(p) not in lazy_ids], lr)
         self._reg_terms = [t for t in self._regularization_terms() if id(t[0]) not in lazy_ids]
+        for m in self.module.modules():
+            if isinstance(m, EmbeddingCollection):
+                m.fused_lookup = bool(specs) or fused_lookup in ("auto", True)
 
     # ------------------------------------------------- lazy embedding tables
 

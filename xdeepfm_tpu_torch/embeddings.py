@@ -32,6 +32,12 @@ from .features import FeatureSchema, SparseFeat, VarLenSparseFeat, split_columns
 from .nn.sequence import sequence_pool
 
 
+class MixedEmbeddingDims(ValueError):
+    """Raised by the stacked lookups when the feature set spans more than one
+    table dim (``embeddings.py:38``); :meth:`EmbeddingCollection.fast_inputs`
+    catches exactly this to fall back to the per-feature lists."""
+
+
 def _table_layout(feature_columns, linear: bool):
     """Static layout: embedding_name -> (table_dim, row_offset); plus per-dim
     table total rows.  Offsets follow each embedding_name's first
@@ -250,7 +256,10 @@ class EmbeddingCollection(nn.Module):
     :func:`touched_ids`, stands in for the table, and each lookup is a slice
     of it (the JAX engine's ``_compact`` contract).  ``path`` is the
     collection's parameter path (``embedding_dict``,
-    ``linear_model/embedding_dict``), set by the model that owns it."""
+    ``linear_model/embedding_dict``), set by the model that owns it.
+    ``fused_lookup``: whether the models' lookups may fetch this table's rows
+    and the linear table's in one gather (:func:`lookup_inputs`), set by
+    ``compile``."""
 
     def __init__(
         self,
@@ -265,6 +274,9 @@ class EmbeddingCollection(nn.Module):
         self.schema = schema
         self.linear = linear
         self.path = None
+        # one gather for this main table and the linear one where they allow
+        # it (:func:`can_fuse_lookup`); ``compile(fused_lookup=False)`` clears it
+        self.fused_lookup = True
         self._offsets, table_rows = _table_layout(feature_columns, linear)
         self._occ_layout = _occ_layout(feature_columns, schema, linear)
         for dim, rows in sorted(table_rows.items()):
@@ -286,16 +298,23 @@ class EmbeddingCollection(nn.Module):
         n = self._occ_layout[dim]["n_sparse"]
         return occ[: batch["sparse"].shape[0] * n].reshape(-1, n, dim)
 
-    def _uniform_dim(self, feats) -> int:
-        dims = {self._offsets[f.embedding_name][0] for f in feats}
-        if len(dims) != 1:
-            raise ValueError("stacked lookups require a uniform embedding dim")
-        return dims.pop()
+    def uniform_dim(self, feature_columns=None):
+        """The one table dim of the sparse and varlen features among
+        ``feature_columns`` (all of the collection's by default; None if there
+        are none).  Raises :class:`MixedEmbeddingDims` where they span more
+        than one: the stacked lookups need one."""
+        cols = self.feature_columns if feature_columns is None else feature_columns
+        sp, _, vl = split_columns(cols)
+        dims = {self._offsets[f.embedding_name][0] for f in list(sp) + list(vl)}
+        if len(dims) > 1:
+            raise MixedEmbeddingDims("stacked lookups require a uniform embedding dim; use "
+                                     "embed_inputs for mixed-dim feature sets")
+        return dims.pop() if dims else None
 
     def sparse_ids(self, batch, feats: Sequence[SparseFeat]):
         """(dim, ids [B, F]) for a set of equal-dim SparseFeats: each
         feature's batch column plus its table's row offset."""
-        dim = self._uniform_dim(feats)
+        dim = self.uniform_dim(feats)
         cols = [self.schema.sparse_index(f.name) for f in feats]
         offs = torch.tensor(
             [self._offsets[f.embedding_name][1] for f in feats],
@@ -307,7 +326,7 @@ class EmbeddingCollection(nn.Module):
         """One gather for a set of equal-dim SparseFeats -> [B, F, dim].
         ``rows``: this lookup's [B*F, dim] rows when a fused gather over
         several tables already fetched them."""
-        dim = self._uniform_dim(feats)
+        dim = self.uniform_dim(feats)
         occ = self._block(batch, dim)
         if occ is not None:
             occ_sp = self._block_sparse(batch, occ, dim)
@@ -368,37 +387,69 @@ class EmbeddingCollection(nn.Module):
         return self.lookup_fields(batch, [feat])[0]
 
     def lookup_varlen_pooled(self, batch, feat: VarLenSparseFeat) -> torch.Tensor:
-        """[B, 1, dim] pooled by the feature's combiner (``inputs.py:141-155``):
-        over the positions below ``len_<length_name>``, or over the nonzero
-        ids when the feature has no length column."""
-        seq_emb = self.lookup_varlen_seq(batch, feat)
+        """[B, 1, dim] pooled by the feature's combiner (``inputs.py:141-155``)."""
+        return self._pool(batch, feat, self.lookup_varlen_seq(batch, feat))
+
+    def _pool(self, batch, feat: VarLenSparseFeat, seq_emb) -> torch.Tensor:
+        """``seq_emb`` [B, maxlen, dim] pooled over the positions below
+        ``len_<length_name>``, or over the nonzero ids when the feature has
+        no length column."""
         if feat.length_name is None:
             mask = batch["vl_" + feat.name] != 0
             return sequence_pool((seq_emb, mask), mode=feat.combiner, supports_masking=True)
         length = batch["len_" + feat.length_name]
         return sequence_pool((seq_emb, length), mode=feat.combiner, supports_masking=False)
 
-    def stacked_inputs(self, batch, feature_columns=None, support_dense=True,
-                       rows=None):
-        """(sparse_stack [B, F, D] | None, dense [B, Dd] | None) with ONE
-        gather for all sparse features (``stacked_sparse``'s ``rows`` may
-        carry it in), then each varlen feature pooled, as one more field."""
+    def _dense_values(self, batch, dense_feats):
+        return [batch["dense"][:, slice(*self.schema.dense_slice(f.name))] for f in dense_feats]
+
+    def embed_inputs(self, batch, feature_columns=None, support_dense=True):
+        """(sparse_embedding_list, dense_value_list), the reference's
+        ``input_from_feature_columns`` (``embeddings.py:226-249``): each
+        sparse feature's [B, 1, dim] in column order, then each varlen
+        feature pooled to [B, 1, dim], and each dense feature's [B, dimension].
+        Any mix of dims; one gather per table (:meth:`lookup_fields`)."""
         cols = self.feature_columns if feature_columns is None else feature_columns
         sp, de, vl = split_columns(cols)
         if not support_dense and len(de) > 0:
             raise ValueError("DenseFeat is not supported in dnn_feature_columns")
+        fields = self.lookup_fields(batch, list(sp) + list(vl))
+        pooled = [self._pool(batch, f, seq) for f, seq in zip(vl, fields[len(sp):])]
+        return fields[: len(sp)] + pooled, self._dense_values(batch, de)
+
+    def stacked_inputs(self, batch, feature_columns=None, support_dense=True,
+                       rows=None):
+        """(sparse_stack [B, F, D] | None, dense [B, Dd] | None) with ONE
+        gather for all sparse features (``stacked_sparse``'s ``rows`` may
+        carry it in), then each varlen feature pooled, as one more field.
+        Raises :class:`MixedEmbeddingDims` unless the sparse and varlen
+        features share one table dim (``embeddings.py:267-275``)."""
+        cols = self.feature_columns if feature_columns is None else feature_columns
+        sp, de, vl = split_columns(cols)
+        if not support_dense and len(de) > 0:
+            raise ValueError("DenseFeat is not supported in dnn_feature_columns")
+        self.uniform_dim(cols)
         parts = [self.stacked_sparse(batch, sp, rows)] if sp else []
         # each varlen field pooled to [B, 1, dim] after the sparse fields
         # (``embeddings.py:280-281``)
         parts += [self.lookup_varlen_pooled(batch, f) for f in vl]
         sparse_stack = torch.cat(parts, dim=1) if parts else None
-        dense = None
-        if de:
-            dense = torch.cat(
-                [batch["dense"][:, slice(*self.schema.dense_slice(f.name))] for f in de],
-                dim=-1,
-            )
+        dense = torch.cat(self._dense_values(batch, de), dim=-1) if de else None
         return sparse_stack, dense
+
+    def fast_inputs(self, batch, feature_columns=None, support_dense=True, rows=None):
+        """(sparse_embedding_list, dense_value_list) as :meth:`embed_inputs`
+        gives them, through :meth:`stacked_inputs` (one list entry each)
+        when every dim is equal, else :meth:`embed_inputs`
+        (``embeddings.py:294-318``).  Only :class:`MixedEmbeddingDims` routes
+        to the per-feature lists."""
+        try:
+            sparse_stack, dense = self.stacked_inputs(batch, feature_columns, support_dense,
+                                                      rows)
+        except MixedEmbeddingDims:
+            return self.embed_inputs(batch, feature_columns, support_dense)
+        return ([] if sparse_stack is None else [sparse_stack],
+                [] if dense is None else [dense])
 
 
 def _id_layout(collection: EmbeddingCollection, feats):
@@ -424,20 +475,40 @@ def can_fuse_lookup(main: EmbeddingCollection, linear: "LinearModel", feats) -> 
     return layout is not None and layout == _id_layout(linear.embedding_dict, lin_sp)
 
 
+def _fused_rows(main: EmbeddingCollection, linear: "LinearModel", batch, feature_columns,
+                fused: bool):
+    """(the main table's [B*F, dim] rows, the linear table's [B*F, 1] rows)
+    of the sparse features from one :func:`fused_gather`, or (None, None):
+    without ``fused`` (see :func:`can_fuse_lookup`), under
+    ``compile(fused_lookup=False)`` (``main.fused_lookup``), and in a lazy
+    split step, whose occurrence blocks serve both tables."""
+    if not (fused and main.fused_lookup) or "_compact" in batch:
+        return None, None
+    dim, ids = main.sparse_ids(batch, split_columns(feature_columns)[0])
+    rows = fused_gather((main.table(dim), linear.embedding_dict.table_d1), ids.reshape(-1))
+    return rows[:, :dim], rows[:, dim:]
+
+
 def lookup_inputs(main: EmbeddingCollection, linear: "LinearModel", batch, feature_columns,
-                  fused: bool):
+                  fused: bool, support_dense: bool = True):
     """(sparse_stack [B, F, D] | None, dense [B, Dd] | None, the linear
-    table's [B*F, 1] rows | None): with ``fused`` (see
-    :func:`can_fuse_lookup`) one :func:`fused_gather` fetches the main and
-    linear rows, else the main lookup gathers alone and the linear model
-    gathers its own."""
-    main_rows = lin_rows = None
-    if fused and "_compact" not in batch:  # a lazy split step's blocks serve both
-        dim, ids = main.sparse_ids(batch, split_columns(feature_columns)[0])
-        rows = fused_gather((main.table(dim), linear.embedding_dict.table_d1), ids.reshape(-1))
-        main_rows, lin_rows = rows[:, :dim], rows[:, dim:]
-    sparse_stack, dense = main.stacked_inputs(batch, feature_columns, rows=main_rows)
+    table's [B*F, 1] rows | None): one gather for the main and linear rows
+    where :func:`_fused_rows` gives them, else the main lookup gathers alone
+    and the linear model gathers its own."""
+    main_rows, lin_rows = _fused_rows(main, linear, batch, feature_columns, fused)
+    sparse_stack, dense = main.stacked_inputs(batch, feature_columns, support_dense,
+                                              rows=main_rows)
     return sparse_stack, dense, lin_rows
+
+
+def lookup_fast_inputs(main: EmbeddingCollection, linear: "LinearModel", batch,
+                       feature_columns, fused: bool):
+    """(sparse_embedding_list, dense_value_list, the linear table's rows |
+    None): :meth:`EmbeddingCollection.fast_inputs` with the rows of
+    :func:`_fused_rows` (a mixed-dim set never fuses)."""
+    main_rows, lin_rows = _fused_rows(main, linear, batch, feature_columns, fused)
+    sparse_list, dense_list = main.fast_inputs(batch, feature_columns, rows=main_rows)
+    return sparse_list, dense_list, lin_rows
 
 
 def combined_dnn_input(sparse_embedding_list, dense_value_list):

@@ -1,7 +1,15 @@
 from .activations import PReLU, activation_fn, make_activation
 from .core import DNN, LocalActivationUnit, PredictionLayer, torch_linear_init
 from .cin_attention import CINAttention, CINAttentionV2
-from .interaction import CIN, FM, InteractingLayer
+from .interaction import (
+    CIN,
+    FM,
+    AFMLayer,
+    BiInteractionPooling,
+    CrossNet,
+    CrossNetMix,
+    InteractingLayer,
+)
 from .sequence import (
     AGRUCell,
     AUGRUCell,

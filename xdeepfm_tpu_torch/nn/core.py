@@ -73,7 +73,7 @@ class DNN(nn.Module):
             raise ValueError("hidden_units is empty!!")
         if use_bn:
             raise NotImplementedError(
-                "use_bn (BatchNorm) is not ported yet: ROADMAP.md, deferred item D3"
+                "use_bn (BatchNorm) is not ported yet: ROADMAP.md item 12b (deferred item D3)"
             )
         if generator is None:
             generator = torch.Generator().manual_seed(seed)

@@ -1,6 +1,10 @@
 """Feature-interaction layers (port of ``xdeepfm_tpu/nn/interaction.py``;
-reference ``deepctr/layers/interaction.py``): the CIN, FM and AutoInt's
-``InteractingLayer`` so far; the rest of the zoo follows.
+reference ``deepctr/layers/interaction.py``): the CIN, FM, AutoInt's
+``InteractingLayer``, and the FM family's ``BiInteractionPooling``,
+``AFMLayer``, ``CrossNet`` and ``CrossNetMix``; the rest of the zoo follows.
+Parameters that the JAX package creates with ``self.param`` stay raw
+``nn.Parameter``s in its names and layouts, so ``weights.py`` carries them
+unchanged.
 
 Modules take stacked ``[B, F, E]`` field-embedding tensors.
 """
@@ -16,6 +20,27 @@ from torch import nn
 from ..ops import lane_attention as _lane
 from ..ops.cin import cin_rows_contract
 from .activations import apply_activation, make_activation
+from .core import dropout
+
+
+def _pair_indices(num_fields: int):
+    """(row, col) of every field pair i < j, row-major (``interaction.py:24``)."""
+    row, col = [], []
+    for i in range(num_fields - 1):
+        for j in range(i + 1, num_fields):
+            row.append(i)
+            col.append(j)
+    return row, col
+
+
+def glorot_normal_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """flax's ``glorot_normal`` on a 2-D ``[in, out]`` parameter, in place:
+    a normal truncated at two standard deviations, of variance
+    2 / (in + out) after the truncation."""
+    fan_in, fan_out = t.shape[-2], t.shape[-1]
+    std = math.sqrt(2.0 / (fan_in + fan_out)) / 0.87962566103423978
+    with torch.no_grad():
+        return nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
 
 def make_cin_params(module, field_size, layer_size, split_half, generator):
@@ -214,3 +239,166 @@ class InteractingLayer(nn.Module):
         if self.use_res:
             result = result + inputs @ self.W_Res
         return torch.relu(result)
+
+
+class BiInteractionPooling(nn.Module):
+    """NFM's pooling: the FM identity kept per embedding entry
+    (reference ``interaction.py:37-61``). [B, F, E] -> [B, 1, E]."""
+
+    def forward(self, inputs):
+        square_of_sum = inputs.sum(dim=1, keepdim=True).square()
+        sum_of_square = (inputs * inputs).sum(dim=1, keepdim=True)
+        return 0.5 * (square_of_sum - sum_of_square)
+
+
+class AFMLayer(nn.Module):
+    """Attention over the pairwise products of the fields (reference
+    ``interaction.py:251-325``). [B, F, E] -> [B, 1].
+
+    Raw parameters as in the JAX paths: ``attention_W`` [E, A],
+    ``attention_b`` [A] (zeros), ``projection_h`` [A, 1] and
+    ``projection_p`` [E, 1], the three matrices drawn by
+    :func:`glorot_normal_`.  The pairs follow :func:`_pair_indices` and are
+    taken by a one-hot product, as the JAX layer takes them: the backward is
+    a product too, not a scatter-add.  The layout is the natural [B, P, E]
+    (the JAX layer's [E, P, B] is a TPU lane choice; the math is the same).
+    Dropout on the attention output draws its mask from ``generator``."""
+
+    def __init__(
+        self,
+        in_features: int,
+        attention_factor: int = 4,
+        l2_reg_w: float = 0.0,
+        dropout_rate: float = 0.0,
+        seed: int = 1024,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        if generator is None:
+            generator = torch.Generator().manual_seed(seed)
+        E, A = in_features, attention_factor
+        self.dropout_rate = dropout_rate
+        self.attention_W = nn.Parameter(glorot_normal_(torch.empty(E, A), generator))
+        self.attention_b = nn.Parameter(torch.zeros(A))
+        self.projection_h = nn.Parameter(glorot_normal_(torch.empty(A, 1), generator))
+        self.projection_p = nn.Parameter(glorot_normal_(torch.empty(E, 1), generator))
+        self._select = {}
+
+    def _pair_select(self, x):
+        """([P, F] one-hot of each pair's first field, of its second), made
+        once for each field count, device and dtype."""
+        num_fields = x.shape[1]
+        key = (num_fields, str(x.device), x.dtype)
+        if key not in self._select:
+            row, col = _pair_indices(num_fields)
+            eye = torch.eye(num_fields, device=x.device, dtype=x.dtype)
+            self._select[key] = (eye[row], eye[col])
+        return self._select[key]
+
+    def forward(self, inputs, training: bool = False, generator=None):
+        p_row, p_col = self._pair_select(inputs)
+        bi = (torch.einsum("bfe,pf->bpe", inputs, p_row)
+              * torch.einsum("bfe,pf->bpe", inputs, p_col))  # [B, P, E]
+        attention_temp = torch.relu(bi @ self.attention_W + self.attention_b)  # [B, P, A]
+        att_score = torch.softmax((attention_temp @ self.projection_h)[:, :, 0], dim=1)
+        attention_output = torch.einsum("bp,bpe->be", att_score, bi)
+        if training:
+            attention_output = dropout(attention_output, self.dropout_rate, generator)
+        return attention_output @ self.projection_p
+
+
+class CrossNet(nn.Module):
+    """DCN's cross layers (reference ``interaction.py:397-453``).
+    [B, d] -> [B, d]; "vector": x_{l+1} = x_0 (x_l . w_l) + b_l + x_l,
+    "matrix": x_{l+1} = x_0 * (W_l x_l + b_l) + x_l.
+
+    ``kernels`` [L, d, 1] or [L, d, d] (each layer's slice drawn by
+    :func:`glorot_normal_`) and ``bias`` [L, d, 1] (zeros) are raw
+    parameters in the JAX layout: ``kernels`` is not a flax ``kernel``, so
+    ``weights.py`` carries it untransposed."""
+
+    def __init__(
+        self,
+        in_features: int,
+        layer_num: int = 2,
+        parameterization: str = "vector",
+        seed: int = 1024,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        if parameterization == "vector":
+            kshape = (in_features, 1)
+        elif parameterization == "matrix":
+            kshape = (in_features, in_features)
+        else:
+            raise ValueError("parameterization should be 'vector' or 'matrix'")
+        if generator is None:
+            generator = torch.Generator().manual_seed(seed)
+        self.layer_num = layer_num
+        self.parameterization = parameterization
+        self.kernels = nn.Parameter(torch.stack(
+            [glorot_normal_(torch.empty(kshape), generator) for _ in range(layer_num)]))
+        self.bias = nn.Parameter(torch.zeros(layer_num, in_features, 1))
+
+    def forward(self, inputs, training: bool = False):
+        x_0 = x_l = inputs
+        for i in range(self.layer_num):
+            b = self.bias[i, :, 0]
+            if self.parameterization == "vector":
+                x_l = x_0 * (x_l @ self.kernels[i]) + b + x_l
+            else:
+                x_l = x_0 * (x_l @ self.kernels[i].T + b) + x_l
+        return x_l
+
+
+class CrossNetMix(nn.Module):
+    """DCN-Mix's low-rank mixture-of-experts cross layers (reference
+    ``interaction.py:456-534``). [B, d] -> [B, d].
+
+    Raw parameters in the JAX layout: ``U_list`` and ``V_list``
+    [L, K, d, r], ``C_list`` [L, K, r, r], ``gating`` [K, d, 1] and ``bias``
+    [L, d, 1] (zeros).  Each layer's [K, a, b] slice of U, V and C is drawn
+    normal with torch ``xavier_normal_``'s 3-D fans, std
+    sqrt(2 / (a*b + K*b)), as one tensor and not K per-expert draws
+    (``interaction.py:482-490``); each expert's gate like an ``nn.Linear``
+    weight, U(+-1/sqrt(d))."""
+
+    def __init__(
+        self,
+        in_features: int,
+        low_rank: int = 32,
+        num_experts: int = 4,
+        layer_num: int = 2,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        if generator is None:
+            generator = torch.Generator().manual_seed(1024)
+        d, r, K, L = in_features, low_rank, num_experts, layer_num
+        self.layer_num = layer_num
+
+        def layers(a, b):
+            std = math.sqrt(2.0 / (a * b + K * b))
+            return torch.stack([torch.empty(K, a, b).normal_(0.0, std, generator=generator)
+                                for _ in range(L)])
+
+        self.U_list = nn.Parameter(layers(d, r))
+        self.V_list = nn.Parameter(layers(d, r))
+        self.C_list = nn.Parameter(layers(r, r))
+        bound = 1.0 / math.sqrt(d)
+        self.gating = nn.Parameter(torch.stack(
+            [torch.empty(d, 1).uniform_(-bound, bound, generator=generator) for _ in range(K)]))
+        self.bias = nn.Parameter(torch.zeros(L, d, 1))
+
+    def forward(self, inputs, training: bool = False):
+        x_0 = x_l = inputs  # [B, d]
+        gate_w = self.gating[:, :, 0]  # [K, d]
+        for i in range(self.layer_num):
+            gate = torch.softmax(x_l @ gate_w.T, dim=1)  # [B, K]
+            # each expert: V^T x -> tanh -> C -> tanh -> U
+            v_x = torch.tanh(torch.einsum("kdr,bd->bkr", self.V_list[i], x_l))
+            v_x = torch.tanh(torch.einsum("krs,bks->bkr", self.C_list[i], v_x))
+            uv_x = torch.einsum("kdr,bkr->bkd", self.U_list[i], v_x)
+            dot_ = x_0[:, None, :] * (uv_x + self.bias[i, :, 0])  # [B, K, d]
+            x_l = torch.einsum("bkd,bk->bd", dot_, gate) + x_l
+        return x_l
