@@ -112,16 +112,29 @@ run in order and any failure raises, so the exit code is non-zero:
    trained, profiled and scored as the models in 12: per step 2 ``gru_fwd``
    + 2 ``gru_bwd`` (the extractor's GRU and the AUGRU), per scored batch 2
    ``gru_fwd``;
-17. the FM family (``zoo`` lines; no kernel of its own): DeepFM, WDL, NFM,
+17. the FM family and the BatchNorm slice (``zoo`` lines; no kernel of
+   their own): DeepFM, WDL, NFM,
    AFM (325 pairs), IFM, DCN and DCN-Mix with their constructors' defaults on
    the canonical columns, each ``fit`` at batch 4096 with Adam for two
    epochs of 8 steps (every logged value finite, the epoch loss falling),
    none of the hand-written kernels launched in training or scoring, one
    SGD step on the card against the CPU model, examples/s trained, a
    training profile, and ``Scorer(batch_size=8192)`` over the serving
-   requests agreeing with the CPU model on a small input; then a DCN with
+   requests agreeing with the CPU model on a small input; AFN (LTL 256 and
+   a BatchNorm DNN (256, 128)) and DIN (Dice attention (64, 16), DNN (256,
+   128), on DIEN's columns less the negatives and DIEN's rows) likewise, the
+   SGD step also holding the BatchNorm running statistics, the fit's peak
+   memory recorded; then a DCN with
    the last 13 sparse fields at dim 4 (``table_d10`` and ``table_d4``,
    ``fast_inputs`` on the per-feature route, one SGD step against the CPU);
+   ``dien_dice``: DIEN with a Dice attention MLP and a BatchNorm DNN, one
+   SGD step on the card against the CPU (weights, gradients, running
+   statistics) with 2 ``gru_fwd`` + 2 ``gru_bwd`` as on DIEN's path;
+   ``bf16``: the canonical xDeepFM compiled with
+   ``matmul_precision="bfloat16"``, its first step's loss within 1e-2 of the
+   fp32 step's from the same weights, ``fit`` for two epochs of 8 steps with
+   the fp32 path's CIN launches, the loss falling, bf16 GEMM kernels in its
+   training profile and its busy ms beside the fp32 step's;
 18. the embedding tables' backward (``gather`` lines): the port's
    deterministic ``fused_gather`` beside ``F.embedding``'s and
    ``index_select``'s, bit-equality over two calls, error against float64
@@ -146,7 +159,8 @@ run in order and any failure raises, so the exit code is non-zero:
    2 + 2 + 2 CIN launches a step, and for the lazy runs one step's
    transient allocation below a tenth of the group array's bytes;
 21. a ``{"kernels": [...]}`` line, one entry per hand-written kernel, its
-   ``launches_by_path`` with the CLI and lazy paths;
+   ``launches_by_path`` with the CLI, lazy, ``dien_dice`` and ``bf16``
+   paths;
 22. the last line: ``{"ok": true, "device": {...}}``.
 
 Every model's training record lists the gradients that a second identical
@@ -188,9 +202,11 @@ from xdeepfm_tpu_torch.embeddings import MixedEmbeddingDims, fused_gather, touch
 from xdeepfm_tpu_torch.features import DenseFeat, SparseFeat, VarLenSparseFeat
 from xdeepfm_tpu_torch.models import (
     AFM,
+    AFN,
     DCN,
     DIEN,
     DIFM,
+    DIN,
     IFM,
     NFM,
     WDL,
@@ -626,11 +642,13 @@ def canonical_model(device, weights=None, seeded=True, version="xdeepfm"):
 
 def seeded_weights(model):
     """Random weights for ``model``'s tree from SEED, at scale 0.1 so that
-    every tower, the CIN included, moves the scores."""
+    every tower, the CIN included, moves the scores; its BatchNorm running
+    statistics as they are."""
     rng = np.random.default_rng(SEED)
+    weights = model.get_weights()
     flat = {k: (0.1 * rng.standard_normal(v.shape)).astype(np.float32)
-            for k, v in flatten_tree(model.get_weights()["params"])}
-    return {"params": unflatten_tree(flat), "batch_stats": {}}
+            for k, v in flatten_tree(weights["params"])}
+    return {"params": unflatten_tree(flat), "batch_stats": weights["batch_stats"]}
 
 
 def requests(rng, sizes, version="xdeepfm"):
@@ -796,14 +814,15 @@ RELU_BAND = 1e-5
 MAX_HELD_FLIPS = 32
 _RELUS = (torch.relu, F.relu, torch.Tensor.relu)
 # the modules whose relus follow a kernel: the CIN's layers, InteractingLayer,
-# DIEN's attention MLP (on the extractor's states) and its DNN (on the
-# evolution's last state)
-_KERNEL_FED = (CIN, CINAttention, CINAttentionV2, InteractingLayer, LocalActivationUnit)
+# and in DIEN its attention MLP (on the extractor's states) and its DNN (on
+# the evolution's last state); DIN's attention MLP follows no kernel
+_KERNEL_FED = (CIN, CINAttention, CINAttentionV2, InteractingLayer)
 
 
 def kernel_fed_sites(model):
     sites = [m for m in model.module.modules() if isinstance(m, _KERNEL_FED)]
     if isinstance(model.module, DIENModule):
+        sites += [m for m in model.module.modules() if isinstance(m, LocalActivationUnit)]
         sites.append(model.module.dnn)
     return sites
 
@@ -918,7 +937,10 @@ def relu_step_grads(model, xb, yb, ref=None):
 # softmax over the pairs cancels b's share of the score, whose gradient is
 # then rounding noise (on an H100 both fp32 sides' errors read ~3e8 times
 # float64's gradient).
-GRAD_FLOOR = {"dien": 1e-3, "afm": 1e-3}
+# A DNN bias under a BatchNorm is a third: the batch mean cancels its
+# gradient (AFN's DNN, DIEN's under use_bn), which leaves rounding noise on
+# every side.
+GRAD_FLOOR = {"dien": 1e-3, "afm": 1e-3, "afn": 1e-3, "dien_dice": 1e-3}
 
 
 def per_grad_err(got, want, floor=0.0):
@@ -946,10 +968,13 @@ def sgd_step_vs_cpu(pair, x, y, label, floor=0.0):
     card's (:class:`ReluRecord`).  Errors by :func:`per_grad_err` with
     ``floor``: the weights after it within GRAD_RTOL; the gradients within
     GRAD_RTOL, or, for a gradient that rounding moves further, as close to a
-    float64 copy's gradients as the CPU's own fp32 ones, up to FP32_SLACK.
-    Returns the errors and the relu flips."""
-    small, recs = 256, []
+    float64 copy's gradients as the CPU's own fp32 ones, up to FP32_SLACK,
+    and then each weight's change likewise as close to lr times the float64
+    gradient as the CPU's change; the BatchNorm running statistics within
+    GRAD_RTOL.  Returns the errors and the relu flips."""
+    small, recs, ref = 256, [], None
     m64 = copy.deepcopy(pair[1])  # the CPU model before its step
+    before = {k: p.detach().cpu().clone() for k, p in pair[1].module.named_parameters()}
     for m in pair:
         m.compile("sgd", "binary_crossentropy")
         with ReluRecord(m, recs[0] if recs else None) as rec:
@@ -975,10 +1000,29 @@ def sgd_step_vs_cpu(pair, x, y, label, floor=0.0):
         errs["grad_vs_float64_worst"] = {k: {"card": e[0], "cpu": e[1]} for k, e in sorted(
             vs64.items(), key=lambda kv: -kv[1][0])[:3]}
     weights = [{k: p.detach().cpu() for k, p in m.module.named_parameters()} for m in pair]
-    errs["weights"] = grad_err(*weights, floor)
-    if errs["weights"] > GRAD_RTOL:
+    per = per_grad_err(*weights, floor)
+    errs["weights"] = max(per.values())
+    if errs["weights"] > GRAD_RTOL and ref is not None:
+        # the changes, held as the gradients are: as close to the float64
+        # step's as the CPU's own
+        lr = pair[1].optimizer.param_groups[0]["lr"]
+        want = {k: -lr * g for k, g in ref.items()}
+        card64, cpu64 = ({k: w[k] - before[k] for k in w} for w in weights)
+        card64, cpu64 = per_grad_err(card64, want, floor), per_grad_err(cpu64, want, floor)
+        per = {k: card64[k] if card64[k] > max(GRAD_RTOL, FP32_SLACK * cpu64[k]) else 0.0
+               for k in want}
+        errs["weights_change_vs_float64_worst"] = {k: {"card": card64[k], "cpu": cpu64[k]}
+                                                   for k in sorted(want, key=card64.get)[-3:]}
+    if max(per.values()) > GRAD_RTOL:
+        worst = sorted(per.items(), key=lambda kv: -kv[1])[:3]
         raise AssertionError(f"{label}card and CPU weights after one step differ by "
-                             f"{errs['weights']}")
+                             f"{errs['weights']} (worst {worst})")
+    stats = [{k: b.detach().cpu() for k, b in m.module.named_buffers()} for m in pair]
+    if stats[1]:  # the BatchNorm and Dice running statistics the step updated
+        errs["batch_stats"] = grad_err(*stats)
+        if errs["batch_stats"] > GRAD_RTOL:
+            raise AssertionError(f"{label}card and CPU running statistics after one step "
+                                 f"differ by {errs['batch_stats']}")
     return errs
 
 
@@ -1099,6 +1143,10 @@ def phase_train_profile(model, batches, steps=3, phase="train_profile"):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     record = dict(steps=steps, batch=TRAIN_BATCH, **device_breakdown(prof, wall_ms, steps))
+    # the bf16 mode's products (cuBLAS names its kernels by their types)
+    record["bf16_kernels"] = sorted({e.name[:80] for e in prof.events()
+                                     if e.device_type == torch.autograd.DeviceType.CUDA
+                                     and "bf16" in e.name.lower()})
     emit(phase=phase, **record)
     return record
 
@@ -2401,6 +2449,12 @@ ZOO = {
     "ifm": lambda cols, device: IFM(cols, cols, device=device),
     "dcn": lambda cols, device: DCN(cols, cols, device=device),
     "dcnmix": lambda cols, device: DCNMix(cols, cols, device=device),
+    # ROADMAP item 12b (BatchNorm and Dice): AFN as scripts/bench_zoo.py:43
+    # builds it (LTL 256, a BatchNorm DNN (256, 128)); DIN as :133-138 (DNN
+    # (256, 128), attention MLP (64, 16) with Dice) on DIEN's columns less
+    # the negatives (din_columns) and DIEN's rows
+    "afn": lambda cols, device: AFN(cols, cols, device=device),
+    "din": lambda cols, device: DIN(cols, ["item"], device=device),
 }
 ZOO_EPOCHS = 2  # of TRAIN_STEPS_PER_EPOCH steps: the epoch loss must fall once
 # the mixed-dim input path: the canonical columns with the last 13 sparse
@@ -2408,8 +2462,20 @@ ZOO_EPOCHS = 2  # of TRAIN_STEPS_PER_EPOCH steps: the epoch loss must fall once
 ZOO_MIXED_DIM = 4
 
 
+def din_columns():
+    return [f for f in dien_columns() if f.name != "neg_hist_item"]
+
+
+def zoo_version(name):
+    """The rows a zoo model reads: DIN DIEN's (``dien_rows``), the rest the
+    canonical columns'."""
+    return "dien" if name == "din" else "xdeepfm"
+
+
 def zoo_model(name, device, weights=None, cols=None):
-    model = ZOO[name](canonical_columns() if cols is None else cols, device)
+    if cols is None:
+        cols = din_columns() if name == "din" else canonical_columns()
+    model = ZOO[name](cols, device)
     if weights is not None:
         model.set_weights(weights)
     return model
@@ -2419,23 +2485,27 @@ def phase_zoo_training(name):
     """FM-family model ``name`` at full width: ``fit`` at batch 4096, Adam,
     ZOO_EPOCHS epochs of 8 steps with the validation half batch, every
     logged value finite and the epoch loss falling; no hand-written kernel
-    launched; one SGD step on the card against the CPU model; examples/s
-    trained (CUDA events)."""
+    launched; one SGD step on the card against the CPU model (weights and
+    BatchNorm running statistics); examples/s trained (CUDA events); the
+    peak memory of the fit."""
     model = zoo_model(name, "cuda")
     model.compile("adam", "binary_crossentropy", metrics=["auc"])
     rng = np.random.default_rng(SEED + 3)
-    x, y = train_data(rng, TRAIN_STEPS_PER_EPOCH * TRAIN_BATCH + TRAIN_BATCH // 2)
+    x, y = train_data(rng, TRAIN_STEPS_PER_EPOCH * TRAIN_BATCH + TRAIN_BATCH // 2,
+                      zoo_version(name))
     x, y, val = (  # the last half batch validates
         {k: v[: -TRAIN_BATCH // 2] for k, v in x.items()}, y[: -TRAIN_BATCH // 2],
         ({k: v[-TRAIN_BATCH // 2 :] for k, v in x.items()}, y[-TRAIN_BATCH // 2 :]),
     )
     reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     history = model.fit(x, y, batch_size=TRAIN_BATCH, epochs=ZOO_EPOCHS, verbose=0,
                         validation_data=val)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
     if launches != expected():
         raise AssertionError(f"zoo {name}: hand-written kernels launched: {launches}")
     logs = history.history
@@ -2458,6 +2528,8 @@ def phase_zoo_training(name):
         rel_err_vs_cpu_one_sgd_step=cpu_errs, ms_per_step=ms,
         examples_per_s=[TRAIN_BATCH / t * 1e3 for t in ms],
         parameters=sum(p.numel() for p in model.module.parameters()),
+        batch_stats=sum(b.numel() for b in model.module.buffers()),
+        max_memory_allocated=peak,
     )
     emit(phase=f"zoo_{name}_training", **record)
     return record, model, batches
@@ -2469,7 +2541,7 @@ def phase_zoo_scoring(model, name):
     probabilities, examples/s, and the scores within 1e-5 of the CPU
     model's on a small input."""
     scorer = Scorer(model, batch_size=BATCH).warmup()
-    reqs = requests(np.random.default_rng(SEED + 1), REQUESTS)
+    reqs = requests(np.random.default_rng(SEED + 1), REQUESTS, zoo_version(name))
     reset_launches()
     preds, eps, ms = score_all(scorer, reqs)
     counts = read_launches()
@@ -2481,7 +2553,7 @@ def phase_zoo_scoring(model, name):
                                  f"range [{p.min()}, {p.max()}]")
     runs = [score_all(scorer, reqs) for _ in range(2)]
     cpu_model = zoo_model(name, "cpu", model.get_weights())
-    small = requests(np.random.default_rng(SEED + 2), (64,))[0]
+    small = requests(np.random.default_rng(SEED + 2), (64,), zoo_version(name))[0]
     cpu_err = float(np.abs(model.predict(small, 64) - cpu_model.predict(small, 64)).max())
     if cpu_err > 1e-5:
         raise AssertionError(f"zoo {name}: card and CPU scores differ by {cpu_err}")
@@ -2530,6 +2602,125 @@ def phase_zoo_mixed_dims():
                   fast_inputs_widths=widths, launches=launches,
                   rel_err_vs_cpu_one_sgd_step=cpu_errs)
     emit(phase="zoo_dcn_mixed_dims", **record)
+    return record
+
+
+# ---------------------------------------------------------------------------
+# BatchNorm and Dice on a kernel path, and compile's bf16 mode (ROADMAP item
+# 12b).  Neither has a TPU kernel of its own: Dice attention and a BatchNorm
+# DNN reach DIEN's GRU kernels (rows 14-15), the bf16 mode the CIN's (rows
+# 1-3), which keep fp32 inputs (``ops._build.fp32_forward``).
+# ---------------------------------------------------------------------------
+
+# the first bf16 step's loss against the fp32 step's from the same weights:
+# a few bf16 roundings (2^-8 each) of the towers' products
+BF16_LOSS_RTOL = 1e-2
+
+
+def dien_dice_model(device):
+    """DIEN as MODELS["dien"], with a Dice attention MLP and a BatchNorm
+    DNN."""
+    return DIEN(dien_columns(), ["item"], gru_type="AUGRU", use_negsampling=True,
+                att_activation="Dice", use_bn=True, device=device)
+
+
+def phase_dien_dice():
+    """DIEN with ``att_activation="Dice"`` (batch-major attention, its
+    statistics over every (sample, step), padded steps included) and
+    ``use_bn=True``: one SGD step on the card against the CPU model from
+    seeded weights (gradients, weights and running statistics), the GRU
+    kernels launched as on DIEN's path (2 gru_fwd + 2 gru_bwd)."""
+    pair = [dien_dice_model(dev) for dev in ("cuda", "cpu")]
+    weights = seeded_weights(pair[0])
+    for m in pair:
+        m.set_weights(weights)
+    x, y = train_data(np.random.default_rng(SEED + 3), 512, "dien")
+    reset_launches()
+    errs = sgd_step_vs_cpu(pair, x, y, "dien_dice: ", GRAD_FLOOR["dien_dice"])
+    launches = read_launches()
+    if launches != expected(**ATTN_STEP["dien"]):
+        raise AssertionError(f"dien_dice: one step launched {launches}, DIEN's path "
+                             f"{ATTN_STEP['dien']}")
+    stats = sorted(k for k, _ in flatten_tree(pair[0].get_weights()["batch_stats"]))
+    record = dict(model="dien", gru_type="AUGRU", att_activation="Dice", use_bn=True,
+                  launches=launches, batch_stats=stats, rel_err_vs_cpu_one_sgd_step=errs)
+    emit(phase="dien_dice_sgd_step", **record)
+    return record
+
+
+def phase_bf16():
+    """The canonical xDeepFM compiled with ``matmul_precision="bfloat16"``:
+    its first step's loss within BF16_LOSS_RTOL of the fp32 step's from the
+    same weights; ``fit`` at batch 4096 with Adam for ZOO_EPOCHS epochs of 8
+    steps (validation half batch), the loss finite and falling, the CIN
+    kernels launched as on the fp32 path (2 + 2 + 2 a step, 2 a validation
+    batch); a training profile of each mode, bf16 GEMM kernels in the
+    bf16 step's, and its busy ms beside the fp32 step's (no claim)."""
+    weights = canonical_model("cpu", seeded=False).get_weights()
+    rng = np.random.default_rng(SEED + 3)
+    x, y = train_data(rng, TRAIN_STEPS_PER_EPOCH * TRAIN_BATCH + TRAIN_BATCH // 2)
+    x, y, val = (  # the last half batch validates
+        {k: v[: -TRAIN_BATCH // 2] for k, v in x.items()}, y[: -TRAIN_BATCH // 2],
+        ({k: v[-TRAIN_BATCH // 2 :] for k, v in x.items()}, y[-TRAIN_BATCH // 2 :]),
+    )
+    first = {}
+    for mode, precision in (("fp32", None), ("bf16", "bfloat16")):
+        m = canonical_model("cuda", weights)
+        m.compile("adam", "binary_crossentropy", matmul_precision=precision)
+        first[mode] = m.fit({k: v[:TRAIN_BATCH] for k, v in x.items()}, y[:TRAIN_BATCH],
+                            batch_size=TRAIN_BATCH, epochs=1, verbose=0,
+                            shuffle=False).history["loss"][0]
+    del m
+    first_rel = abs(first["bf16"] - first["fp32"]) / abs(first["fp32"])
+    if not first_rel <= BF16_LOSS_RTOL:
+        raise AssertionError(f"bf16: first step's loss {first['bf16']} against fp32's "
+                             f"{first['fp32']}, {first_rel} apart")
+
+    model = canonical_model("cuda", weights)
+    model.compile("adam", "binary_crossentropy", metrics=["auc"], matmul_precision="bfloat16")
+    steps = TRAIN_STEPS_PER_EPOCH * ZOO_EPOCHS
+    reset_launches()
+    t0 = time.perf_counter()
+    history = model.fit(x, y, batch_size=TRAIN_BATCH, epochs=ZOO_EPOCHS, verbose=0,
+                        validation_data=val)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = read_launches()
+    want = expected(cin_fwd=2 * (steps + ZOO_EPOCHS), cin_bwd_dx=2 * steps, cin_dw=2 * steps)
+    if launches != want:
+        raise AssertionError(f"bf16: launches {launches} over {steps} steps, expected {want}")
+    logs = history.history
+    for k, v in logs.items():
+        if not np.isfinite(v).all():
+            raise AssertionError(f"bf16: {k} is not finite: {v}")
+    if not logs["loss"][0] > logs["loss"][-1]:
+        raise AssertionError(f"bf16: the epoch loss did not fall: {logs['loss']}")
+    batches = [device_batch(model, {k: v[i * TRAIN_BATCH:] for k, v in x.items()},
+                            y[i * TRAIN_BATCH:], TRAIN_BATCH) for i in range(4)]
+    ref = canonical_model("cuda", model.get_weights())
+    ref.compile("adam", "binary_crossentropy")
+    ref.fit({k: v[:TRAIN_BATCH] for k, v in x.items()}, y[:TRAIN_BATCH],
+            batch_size=TRAIN_BATCH, epochs=1, verbose=0)  # builds its step state
+    profiles = {"fp32": phase_train_profile(ref, batches, phase="bf16_fp32_train_profile"),
+                "bf16": phase_train_profile(model, batches, phase="bf16_train_profile")}
+    gemms = [n for n in profiles["bf16"]["bf16_kernels"] if "gemm" in n.lower()]
+    if not gemms:
+        raise AssertionError(f"bf16: no bf16 GEMM kernel in the step; bf16 kernels "
+                             f"{profiles['bf16']['bf16_kernels']}")
+    if profiles["fp32"]["bf16_kernels"]:
+        raise AssertionError(f"bf16: the fp32 step ran {profiles['fp32']['bf16_kernels']}")
+    ms = {mode: [train_steps_ms(mm, batches, 10) for _ in range(2)]
+          for mode, mm in (("fp32", ref), ("bf16", model))}
+    record = dict(
+        batch=TRAIN_BATCH, steps=steps, epochs=ZOO_EPOCHS, fit_seconds=fit_s,
+        launches=launches, history=logs, first_step_loss=first,
+        first_step_loss_rel_diff=first_rel, bf16_gemm_kernels=gemms,
+        device_busy_ms_per_step={k: v["device_busy_ms_per_call"] for k, v in profiles.items()},
+        device_idle_share={k: v["device_idle_share"] for k, v in profiles.items()},
+        ms_per_step=ms, examples_per_s={k: [TRAIN_BATCH / t * 1e3 for t in v]
+                                        for k, v in ms.items()},
+    )
+    emit(phase="bf16_training", **record)
     return record
 
 
@@ -2880,6 +3071,8 @@ def main():
         del zoo_m, zoo_batches
         torch.cuda.empty_cache()
     phase_zoo_mixed_dims()
+    dien_dice = phase_dien_dice()
+    bf16 = phase_bf16()
     phase_gather()
     cli = phase_cli()
     phase_lazy_checks()
@@ -2893,6 +3086,8 @@ def main():
     for model_name, (rec, scoring) in zoo.items():
         paths[f"zoo_{model_name}_training"] = rec["launches"]
         paths[f"zoo_{model_name}_scoring"] = scoring["launches"]
+    paths["dien_dice_sgd_step"] = dien_dice["launches"]
+    paths["bf16_training"] = bf16["launches"]
     paths["ablation"] = ablation["launches"]
     paths.update({path: rec["launches"] for path, rec in cli.items()})
     paths.update({path: rec["launches"] for path, rec in lazy.items()})

@@ -42,7 +42,7 @@ from xdeepfm_tpu_torch.nn.sequence import (
 )
 from xdeepfm_tpu_torch.ops import gru as tgru
 from xdeepfm_tpu_torch.ops import gru_cuda
-from xdeepfm_tpu_torch.weights import from_jax_weights
+from xdeepfm_tpu_torch.weights import flatten_tree, from_jax_weights
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 GRAD_TOL = dict(rtol=2e-4, atol=2e-5)
@@ -165,21 +165,34 @@ def test_linear_model_pools_varlen_fields_like_jax(length_name):
 # -------------------------------------------------------------- attention
 
 
-@pytest.mark.parametrize("activation", ["relu", "sigmoid"])
+@pytest.mark.parametrize("activation", ["relu", "sigmoid", "dice"])
 def test_local_activation_unit_matches_jax(activation):
+    """The attention MLP; with Dice (dim 3, the statistics over every
+    (sample, step)) also in training mode, with its updated statistics."""
     rng = np.random.default_rng(5)
     q = rng.normal(size=(4, 1, 5)).astype(np.float32)
     k = rng.normal(size=(4, 6, 5)).astype(np.float32)
     jm = JaxLAU(hidden_units=(8, 4), embedding_dim=5, activation=activation)
-    variables = _randomize(jm.init(jax.random.PRNGKey(1), jnp.asarray(q), jnp.asarray(k)), 5)
-    tm = _load(LocalActivationUnit(hidden_units=(8, 4), embedding_dim=5, activation=activation),
-               variables)
+    init = jm.init(jax.random.PRNGKey(1), jnp.asarray(q), jnp.asarray(k))
+    variables = dict(_randomize(init, 5), batch_stats=init.get("batch_stats", {}))
+    tm = LocalActivationUnit(hidden_units=(8, 4), embedding_dim=5, activation=activation)
+    tm.load_state_dict(from_jax_weights(variables), strict=True)
     want = jm.apply(variables, jnp.asarray(q), jnp.asarray(k))
     got = tm(torch.from_numpy(q), torch.from_numpy(k))
     assert got.shape == (4, 6, 1)
     np.testing.assert_allclose(_np(got), _np(want), **TOL)
-    with pytest.raises(NotImplementedError, match="D3"):
-        LocalActivationUnit(activation="dice")
+    if activation == "dice":
+        want, mutated = jm.apply(variables, jnp.asarray(q), jnp.asarray(k), training=True,
+                                 mutable=["batch_stats"])
+        got = tm(torch.from_numpy(q), torch.from_numpy(k), training=True)
+        np.testing.assert_allclose(_np(got), _np(want), **TOL)
+        stats = dict(flatten_tree(jax.tree.map(np.asarray, mutated["batch_stats"])))
+        assert sorted(stats) == ["dnn/act_0/bn/mean", "dnn/act_0/bn/var", "dnn/act_1/bn/mean",
+                                 "dnn/act_1/bn/var"]
+        buffers = dict(tm.named_buffers())
+        for path, v in stats.items():
+            np.testing.assert_allclose(_np(buffers[path.replace("/", ".")]), v, **TOL,
+                                       err_msg=path)
 
 
 @pytest.mark.parametrize("weight_normalization", [False, True])

@@ -188,13 +188,13 @@ def test_dien_weights_round_trip(gru_type):
 
 def test_dien_scores_through_the_scorer_and_checks_its_inputs():
     """``Scorer.warmup`` builds a batch with the varlen fields; the errors
-    match the JAX model's; no GPU means ``device=None`` raises."""
+    match the JAX model's; no GPU means ``device=None`` raises.  (Dice
+    attention, which raised here before, is in
+    ``test_dien_dice_attention_and_bn_dnn_match_jax``.)"""
     _, pm = _pair("AUGRU")
     x, _ = _data(37, seed=6)
     scorer = Scorer(pm, batch_size=16).warmup()
     np.testing.assert_allclose(scorer.score(x), pm.predict(x, 16), rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="D3"):
-        DIEN(_cols(tf), ["item"], att_activation="dice", device="cpu")
     with pytest.raises(ValueError, match="max length column"):
         DIEN(_cols(tf, length_name=None), ["item"], device="cpu")
     with pytest.raises(NotImplementedError, match="gru_type"):
@@ -202,3 +202,42 @@ def test_dien_scores_through_the_scorer_and_checks_its_inputs():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             DIEN(_cols(tf), ["item"])
+
+
+@pytest.mark.parametrize("gru_type", GRU_TYPES)
+def test_dien_dice_attention_and_bn_dnn_match_jax(interpret, gru_type):
+    """DIEN with ``att_activation="Dice"`` (the JAX model's batch-major
+    fallback, ``dien.py:167-190``) and ``use_bn=True``, negative sampling
+    on: the predictions with random running statistics; one SGD step's
+    weight and statistics changes (``tests/test_torch_port_bn_models.py``'s
+    step check); the statistics and weights after a ``fit`` ending on a
+    partial batch (SGD, rtol 1e-4, atol 1e-5)."""
+    from test_torch_port_bn_models import _leaves, assert_sgd_step_matches
+
+    jm, pm = _pair(gru_type, True, "sgd", att_activation="Dice", use_bn=True, l2_reg_dnn=1e-3)
+    rng = np.random.default_rng(9)
+    w = jm.get_weights()
+    w["batch_stats"] = jax.tree_util.tree_map_with_path(
+        lambda path, v: (rng.uniform(0.5, 1.5, np.shape(v)) if "var" in jax.tree_util.keystr(path)
+                         else 0.3 * rng.standard_normal(np.shape(v))).astype(np.float32),
+        w["batch_stats"])
+    stats = sorted(k for k, _ in flatten_tree(w["batch_stats"]))
+    assert "interest_evolution/attention/local_att/dnn/act_0/bn/mean" in stats
+    assert "dnn/bn_1/var" in stats
+    for m in (jm, pm):
+        m.set_weights(w)
+    x, y = _data(40, seed=10)
+    want = jm.predict(x, 16)
+    np.testing.assert_allclose(pm.predict(x, 16), want, rtol=1e-5, atol=1e-6)
+    assert want.std() > 1e-3
+    x, y = _data(80, seed=11)  # 64 train rows: 3 batches of 20 and a tail of 4
+    delta = assert_sgd_step_matches(jm, pm, x, y, 20)
+    assert all(np.abs(delta[f"batch_stats/{k}"]).max() > 0 for k in stats)
+    fit = dict(batch_size=20, epochs=2, verbose=0, validation_split=0.2, shuffle=True)
+    want, got = jm.fit(x, y, **fit).history, pm.fit(x, y, **fit).history
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-6, err_msg=k)
+    want, got = _leaves(jm), _leaves(pm)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-5, err_msg=k)
+    _assert_no_launches()

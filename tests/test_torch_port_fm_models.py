@@ -17,6 +17,7 @@ within 1e-4 of each parameter's largest change; the ``fit`` histories rtol
 import jax
 import numpy as np
 import pytest
+import torch
 
 import xdeepfm_tpu.features as jf
 import xdeepfm_tpu.models as jmodels
@@ -238,8 +239,40 @@ def test_model_constructor_errors_match_jax():
 
 @pytest.mark.parametrize("cls", ["DeepFM", "WDL", "IFM", "DCN", "DCNMix"])
 def test_dnn_use_bn_names_its_roadmap_item(cls):
-    with pytest.raises(NotImplementedError, match="12b"):
-        getattr(tmodels, cls)(_cols(tf), _cols(tf), dnn_use_bn=True, device="cpu")
+    """``dnn_use_bn=True`` (ROADMAP item 12b; the name is kept from when it
+    raised): each DNN layer gains ``bn_{i}`` after ``linear_{i}``.  With
+    random running statistics, the predictions, one SGD step (weights and
+    statistics, ``tests/test_torch_port_bn_models.py``'s step check) and the
+    statistics after a ``fit`` ending on a partial batch (SGD, within rtol /
+    atol 1e-4) match the JAX model's."""
+    from test_torch_port_bn_models import _leaves, assert_sgd_step_matches
+
+    name = {"DCN": "DCN_vec"}.get(cls, cls)
+    jm, pm = _pair(name, "sgd", dnn_use_bn=True, l2_reg_dnn=1e-3)
+    rng = np.random.default_rng(11)
+    w = jm.get_weights()
+    w["batch_stats"] = jax.tree_util.tree_map_with_path(
+        lambda path, v: (rng.uniform(0.5, 1.5, np.shape(v)) if "var" in jax.tree_util.keystr(path)
+                         else 0.3 * rng.standard_normal(np.shape(v))).astype(np.float32),
+        w["batch_stats"])
+    stats = [k for k, _ in flatten_tree(w["batch_stats"])]
+    # IFM's BatchNorms sit in its factor-estimating net
+    assert stats and all(k.rsplit("/", 2)[-2].startswith("bn_") for k in stats)
+    for m in (jm, pm):
+        m.set_weights(w)
+    x, y = _data(150, seed=12)
+    want = jm.predict(x, 64)
+    np.testing.assert_allclose(pm.predict(x, 64), want, rtol=1e-5, atol=1e-6)
+    assert want.std() > 1e-3
+    delta = assert_sgd_step_matches(jm, pm, x, y, 96)
+    assert all(np.abs(v).max() > 0 for k, v in delta.items() if k.startswith("batch_stats/"))
+    x, y = _data(240, seed=13)  # 3 batches of 64 and a tail of 48
+    fit = dict(batch_size=64, epochs=2, verbose=0, shuffle=True)
+    np.testing.assert_allclose(pm.fit(x, y, **fit).history["loss"],
+                               jm.fit(x, y, **fit).history["loss"], rtol=1e-4)
+    want, got = _leaves(jm), _leaves(pm)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-4, err_msg=k)
 
 
 @pytest.mark.parametrize("towers", ["dnn_only", "cross_only", "neither"])
@@ -274,10 +307,41 @@ def test_compile_takes_the_jax_parameters_in_the_jax_order():
     assert [p.default for p in got.values()] == [p.default for p in want.values()]
 
 
+# bf16 keeps 8 significant bits: one rounding is 2^-8 relative at most
+BF16_ROUNDING = 2.0**-8
+
+
 def test_compile_rejects_bf16_matmuls_and_unknown_values():
-    _, pm = _pair("DeepFM")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md section 3"):
-        pm.compile("adam", "binary_crossentropy", matmul_precision="bfloat16")
+    """``matmul_precision="bfloat16"`` (the name is kept from when it
+    raised) trains: the module's forward runs under bf16 autocast in the
+    train step only.  XLA:CPU ignores the JAX mode, so the JAX model trains
+    in fp32 here, and the port is held to it at bf16's tolerance: one SGD
+    step's changes within 5e-2 of each leaf's largest change (a few bf16
+    roundings through the forward's products; DeepFM reads 1.1e-2) and the
+    ``fit`` histories within one bf16 rounding.  The mode is live: a
+    ``Linear``'s product is bf16 in a train step and fp32 in ``predict``,
+    and the step's changes differ from the fp32 step's beyond the fp32
+    tolerance.  Unknown values still raise."""
+    jm, pm = _pair("DeepFM", "sgd")
+    x, y = _data(300, seed=9)
+    fp32 = _first_batch_delta(pm, x, y, 96)
+    _, pm = _pair("DeepFM", "sgd")
+    for m in (jm, pm):
+        m.compile("sgd", "binary_crossentropy", metrics=METRICS, matmul_precision="bfloat16")
+    seen = []
+    hook = pm.module.dnn.linear_0.register_forward_hook(lambda m, i, o: seen.append(o.dtype))
+    want, got = _first_batch_delta(jm, x, y, 96), _first_batch_delta(pm, x, y, 96)
+    pm.predict({k: v[:96] for k, v in x.items()}, 96)
+    hook.remove()
+    assert seen == [torch.bfloat16, torch.float32]
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=5e-2 * np.abs(want[k]).max(),
+                                   err_msg=k)
+    assert max(np.abs(got[k] - fp32[k]).max() / np.abs(fp32[k]).max() for k in fp32) > 1e-4
+    fit = dict(batch_size=64, epochs=2, verbose=0, shuffle=True)
+    want, got = jm.fit(x, y, **fit).history, pm.fit(x, y, **fit).history
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=BF16_ROUNDING, err_msg=k)
     with pytest.raises(ValueError, match="matmul_precision"):
         pm.compile("adam", "binary_crossentropy", matmul_precision="tf32")
     with pytest.raises(ValueError):

@@ -20,7 +20,7 @@ from xdeepfm_tpu.nn.core import PredictionLayer as JaxPredictionLayer
 from xdeepfm_tpu_torch.embeddings import _table_layout
 from xdeepfm_tpu_torch.nn import activations as ta
 from xdeepfm_tpu_torch.nn.core import DNN, PredictionLayer
-from xdeepfm_tpu_torch.weights import from_jax_weights
+from xdeepfm_tpu_torch.weights import flatten_tree, from_jax_weights
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 
@@ -71,8 +71,38 @@ def test_dnn_train_mode_dropout_draws_from_the_generator(rng):
     live = ref != 0
     dropped = (live & ~kept).sum().item() / live.sum().item()
     assert 0.35 < dropped < 0.65
-    with pytest.raises(NotImplementedError):
-        DNN(6, (32,), use_bn=True)
+
+
+@pytest.mark.parametrize("activation", ["relu", "dice"])
+def test_dnn_use_bn_matches_flax(rng, activation):
+    """``DNN(use_bn=True)`` (ROADMAP item 12b; it raised before): ``bn_{i}``
+    after each ``linear_{i}``, Dice at dim 2 with its own ``bn``.  Random
+    weights and running statistics from the JAX tree; the evaluation
+    forward (the running values), then the training forward (the batch
+    statistics) and its updated ``batch_stats``, within 1e-5 (sums over the
+    batch in two orders)."""
+    x = rng.normal(size=(9, 6)).astype(np.float32)
+    jdnn = JaxDNN(6, (8, 4), activation=activation, use_bn=True, dice_dim=2)
+    variables = jdnn.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    params = _scaled_like(rng, dict(variables["params"]))
+    stats = jax.tree.map(lambda v: rng.uniform(0.5, 1.5, np.shape(v)).astype(np.float32),
+                         dict(variables["batch_stats"]))
+    port = DNN(6, (8, 4), activation=activation, use_bn=True, dice_dim=2)
+    port.load_state_dict(from_jax_weights({"params": params, "batch_stats": stats}))
+    want = jdnn.apply({"params": params, "batch_stats": stats}, jnp.asarray(x))
+    with torch.no_grad():
+        np.testing.assert_allclose(port(torch.from_numpy(x)).numpy(), np.asarray(want),
+                                   rtol=1e-5, atol=1e-5)
+        got = port(torch.from_numpy(x), training=True)
+    want, mutated = jdnn.apply({"params": params, "batch_stats": stats}, jnp.asarray(x),
+                               training=True, mutable=["batch_stats"])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    buffers = dict(port.named_buffers())
+    leaves = list(flatten_tree(jax.tree.map(np.asarray, mutated["batch_stats"])))
+    assert sorted(buffers) == sorted(p.replace("/", ".") for p, _ in leaves)
+    for path, v in leaves:
+        np.testing.assert_allclose(buffers[path.replace("/", ".")].numpy(), v, rtol=1e-5,
+                                   atol=1e-5, err_msg=path)
 
 
 @pytest.mark.parametrize("task", ["binary", "regression"])

@@ -415,8 +415,12 @@ def test_pro_options_that_raise():
     cols = [tf.SparseFeat("C0", 10, 4), tf.DenseFeat("I0", 2)]
     with pytest.raises(ValueError, match="AutoDis"):
         xDeepFMPro(cols, cols, use_autodis=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="D3"):
-        xDeepFMPro(_cols(tf), _cols(tf), dnn_use_bn=True, device="cpu")
+    # dnn_use_bn=True, refused here before BatchNorm was ported, predicts as
+    # the JAX model does
+    jm, pm = _pair(dnn_use_bn=True)
+    assert "dnn/bn_0/mean" in dict(flatten_tree(pm.get_weights()["batch_stats"]))
+    x, _ = _data(64, seed=5)
+    np.testing.assert_allclose(pm.predict(x, 64), jm.predict(x, 64), **TOL)
     with pytest.raises(ValueError, match="sparse"):
         xDeepFMPro([tf.DenseFeat("I0")], [tf.DenseFeat("I0")], device="cpu")
     with pytest.raises(ValueError, match="sfg_fused_ce"):

@@ -136,6 +136,7 @@ class BaseModel:
         self.module = None
         self._reg_terms = []
         self._lazy = None  # the lazy embedding optimizer's groups, see compile
+        self._matmul_precision = None
 
     def _finalize(self):
         """Build the module on the CPU from the seed, then move it to the
@@ -244,20 +245,25 @@ class BaseModel:
         state as bf16 pairs in fp32 columns.  Weights, checkpoints and
         predict speak the canonical tables and state under every layout.
 
-        ``matmul_precision``: None runs every product in fp32, TF32 off.  The
-        JAX package's opt-in "bfloat16" (tower matmuls in one bf16 pass,
-        ``basemodel.py:283-284``) raises ``NotImplementedError`` here.
+        ``matmul_precision``: None runs every product in fp32, TF32 off.
+        "bfloat16" (the JAX package's opt-in one bf16 pass for every XLA
+        product of the train step's forward, ``basemodel.py:283-284``,
+        :836-862) runs the module's forward in ``_train_step`` under bf16
+        autocast; its prediction is cast back to fp32 for the loss, and the
+        loss, the regularisation and the optimizer stay fp32.  ``predict``,
+        ``evaluate`` and the ``Scorer`` stay fp32, as in the JAX engine, and
+        every hand-written kernel takes fp32 inputs with autocast off
+        (``ops._build.fp32_forward``), as the Pallas kernels keep their own
+        precision.  Autocast returns bf16 products, so elementwise work
+        between two products runs in bf16 where XLA's bf16-pass dot returns
+        fp32 (``ROADMAP.md`` section 3, deliberate deviations).
 
         ``fused_lookup`` (``basemodel.py:286-292``, :419-423): "auto" and True
         let a model fetch its main and linear tables' rows in one gather where
         their layouts agree (``embeddings.can_fuse_lookup``); False makes it
         gather them separately.  The same rows either way.  A lazy compile
         ignores it, as the JAX engine does."""
-        if matmul_precision == "bfloat16":
-            raise NotImplementedError(
-                "matmul_precision='bfloat16' is not ported yet: ROADMAP.md section 3, "
-                "'matmul_precision=\"bfloat16\"' (bf16 tower matmuls wait for the bench)")
-        if matmul_precision is not None:
+        if matmul_precision not in (None, "bfloat16"):
             raise ValueError(f"matmul_precision must be None or 'bfloat16', not "
                              f"{matmul_precision!r}")
         if fused_lookup not in ("auto", True, False):
@@ -297,6 +303,7 @@ class BaseModel:
         if embedding_state_dtype == "bfloat16" and not packed:
             raise ValueError("embedding_state_dtype='bfloat16' requires lazy+split (packed "
                              "layout): nothing was packed under this config")
+        self._matmul_precision = matmul_precision
         self.loss_names = list(loss) if isinstance(loss, list) else loss
         self.metrics_names = ["loss"]
         self.metrics = self._get_metrics(metrics)
@@ -560,15 +567,21 @@ class BaseModel:
         scalars.  The batch gains ``labels`` and ``sample_mask``, as the JAX
         engine's does (``basemodel.py:904-905``), for modules whose loss needs
         them (the SFG decoder).  Under the lazy optimizer the tables' rows
-        are updated after the dense optimizer's step (:meth:`_lazy_update`)."""
+        are updated after the dense optimizer's step (:meth:`_lazy_update`).
+        The BatchNorm and Dice statistics update in the forward.  Under
+        ``matmul_precision="bfloat16"`` the forward runs under bf16 autocast
+        and its outputs are cast back to fp32."""
         xb = dict(xb, labels=y[:, :1] if y.ndim > 1 else y[:, None], sample_mask=mask.reshape(-1))
         saved = None
         if self._lazy is not None and self._lazy["split"]:
             xb["_compact"], saved = self._lazy_blocks(xb)
-        out = self.module(xb, training=True, generator=self._dropout_gen)
-        pred = out["pred"]
+        with torch.autocast(self.device.type, dtype=torch.bfloat16,
+                            enabled=self._matmul_precision == "bfloat16"):
+            out = self.module(xb, training=True, generator=self._dropout_gen)
+        pred = out["pred"].float()
+        aux = out.get("aux_loss")
         loss = _loss_fn_single(self.loss_names)(pred.reshape(-1), y.reshape(-1), mask)
-        total = loss + self._regularization_loss() + out.get("aux_loss", 0.0)
+        total = loss + self._regularization_loss() + (0.0 if aux is None else aux.float())
         self.optimizer.zero_grad(set_to_none=True)
         total.backward()
         self.optimizer.step()
@@ -583,7 +596,7 @@ class BaseModel:
         # scalars a module publishes (sfg_loss) reach the epoch logs even at
         # verbose=0 (basemodel_sfg.py:366-367)
         for name, value in out.get("logs", {}).items():
-            mvals[name] = value.detach()
+            mvals[name] = value.detach().float()
         return total.detach(), mvals
 
     def fit(self, x=None, y=None, batch_size=None, epochs=1, verbose=1,
@@ -948,17 +961,20 @@ class BaseModel:
 
     def get_weights(self):
         """The canonical tree of the JAX package's ``get_weights``
-        (``basemodel.py:1765-1773``), as numpy."""
+        (``basemodel.py:1765-1773``), as numpy: ``params`` and the BatchNorm
+        running statistics, ``batch_stats``."""
         return to_jax_weights(self.module)
 
     def set_weights(self, weights):
-        """Load a canonical tree; names and shapes must match exactly.  The
-        tables are written in place, so a lazy model's group arrays take
-        them and keep their row states.  A tree with ``opt_state`` (the JAX
-        package's ``_canonical_opt_state()``) also carries its lazy row
-        states and tracked L2 values (:func:`from_jax_lazy_state`); without it
-        a lazy model's tracked L2 values are recomputed from the new tables.
-        The row states are kept."""
+        """Load a canonical tree, ``params`` and ``batch_stats``; names and
+        shapes must match exactly (a model with BatchNorm needs its
+        statistics).  The tables are written in place, so a lazy model's
+        group arrays take them and keep their row states.  A tree with
+        ``opt_state`` (the JAX package's ``_canonical_opt_state()``) also
+        carries its lazy row states and tracked L2 values
+        (:func:`from_jax_lazy_state`); without it a lazy model's tracked L2
+        values are recomputed from the new tables.  The row states are
+        kept."""
         self.module.load_state_dict(from_jax_weights(weights), strict=True)
         if weights.get("opt_state") is not None:
             self._set_lazy_state(*from_jax_lazy_state(weights["opt_state"]))
@@ -969,18 +985,31 @@ class BaseModel:
                 if m["path"] in self._lazy["reg"]:
                     self._lazy["reg"][m["path"]] = _sum_squares(m["param"])
 
+    def _weights_flat(self):
+        """{canonical key: array} of ``get_weights``: ``params/<path>`` and
+        ``batch_stats/<path>``."""
+        tree = self.get_weights()
+        return {**dict(flatten_tree(tree["params"], "params")),
+                **dict(flatten_tree(tree["batch_stats"], "batch_stats"))}
+
+    @staticmethod
+    def _weights_tree(flat):
+        """The canonical tree of ``params/...`` and ``batch_stats/...`` keys."""
+        tree = unflatten_tree({k: v for k, v in flat.items()
+                               if k.startswith(("params/", "batch_stats/"))})
+        return {"params": tree["params"], "batch_stats": tree.get("batch_stats", {})}
+
     def save_weights(self, path):
-        """``.npz`` keyed by canonical path (``params/cin/conv_w_0``...)."""
-        flat = dict(flatten_tree(self.get_weights()["params"], "params"))
+        """``.npz`` keyed by canonical path (``params/cin/conv_w_0``...,
+        ``batch_stats/dnn/bn_0/mean``...)."""
         with open(path, "wb") as f:
-            np.savez(f, **flat)
+            np.savez(f, **self._weights_flat())
 
     def load_weights(self, path):
         """Reads ``save_weights``' file, or the weights of
         ``save_checkpoint``'s."""
         with np.load(path, allow_pickle=False) as data:
-            tree = unflatten_tree({k: data[k] for k in data.files if k.startswith("params/")})
-        self.set_weights({"params": tree["params"], "batch_stats": {}})
+            self.set_weights(self._weights_tree({k: data[k] for k in data.files}))
 
     def _parameter_paths(self):
         """(canonical path by parameter id, parameter by canonical path)."""
@@ -998,11 +1027,13 @@ class BaseModel:
         each table's canonical [rows, k * dim] row state
         (``opt_state/lazy/<path>``, Adam's m then v, fp32 whatever the layout
         and state dtype) and its tracked sum(w^2) (``opt_state/reg/<path>``):
-        a checkpoint of any layout loads under any other.  The JAX package's
-        msgpack checkpoints are not read (ROADMAP.md, D1)."""
+        a checkpoint of any layout loads under any other.  The BatchNorm
+        statistics as ``save_weights`` writes them (``batch_stats/...``).
+        The JAX package's msgpack checkpoints are not read (ROADMAP.md,
+        D1)."""
         if self.optimizer is None:
             raise RuntimeError("compile() before save_checkpoint()")
-        flat = dict(flatten_tree(self.get_weights()["params"], "params"))
+        flat = self._weights_flat()
         path_of, _ = self._parameter_paths()
         for param, state in self.optimizer.state.items():
             for slot, value in state.items():
@@ -1024,8 +1055,7 @@ class BaseModel:
             raise RuntimeError("compile() before load_checkpoint()")
         with np.load(path, allow_pickle=False) as data:
             flat = {k: data[k] for k in data.files}
-        params = {k: v for k, v in flat.items() if k.startswith("params/")}
-        self.set_weights({"params": unflatten_tree(params)["params"], "batch_stats": {}})
+        self.set_weights(self._weights_tree(flat))
         _, param_at = self._parameter_paths()
         index = {id(p): i for i, p in enumerate(
             p for group in self.optimizer.param_groups for p in group["params"])}

@@ -28,8 +28,6 @@ from ..features import FeatureSchema, SparseFeat, split_columns
 from ..nn.core import DNN, PredictionLayer
 from ..nn.sequence import GRU, AttentionSequencePoolingLayer, DynamicGRU, sequence_mask
 
-_DICE = "Dice is not ported yet: ROADMAP.md, deferred item D3"
-
 
 class InterestExtractor(nn.Module):
     """GRU over the behaviour sequence + the auxiliary loss
@@ -100,7 +98,11 @@ class InterestEvolving(nn.Module):
         keys_length [B] -> [B, H], zero for a length-0 row."""
         valid_row = (keys_length > 0).to(query.dtype)[:, None]
         if self.gru_type == "GRU":
-            states = self.interest_evolution.run(keys, keys_length)
+            # zero past each row's length, as the JAX GRU's batch-major
+            # outputs: a Dice attention's statistics read the padded steps
+            # (masked scores make them inert otherwise)
+            valid = sequence_mask(keys_length, keys.shape[1]).to(keys.dtype)
+            states = self.interest_evolution.run(keys, keys_length) * valid[:, :, None]
             scores = self.attention.scores(query, states, keys_length, training=training)
             outputs = (scores[:, :, None] * states).sum(1)
         else:
@@ -139,8 +141,6 @@ class DIENModule(nn.Module):
         task: str = "binary",
     ):
         super().__init__()
-        if isinstance(att_activation, str) and att_activation.lower() == "dice":
-            raise NotImplementedError(_DICE)
         gen = torch.Generator().manual_seed(seed)
         self.dnn_cols = tuple(dnn_cols)
         self.schema = schema

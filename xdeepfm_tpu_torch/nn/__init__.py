@@ -1,5 +1,5 @@
-from .activations import PReLU, activation_fn, make_activation
-from .core import DNN, LocalActivationUnit, PredictionLayer, torch_linear_init
+from .activations import Dice, PReLU, activation_fn, make_activation
+from .core import DNN, BatchNorm, LocalActivationUnit, PredictionLayer, torch_linear_init
 from .cin_attention import CINAttention, CINAttentionV2
 from .interaction import (
     CIN,
@@ -9,6 +9,7 @@ from .interaction import (
     CrossNet,
     CrossNetMix,
     InteractingLayer,
+    LogTransformLayer,
 )
 from .sequence import (
     AGRUCell,

@@ -1,5 +1,6 @@
 """Core layers (port of ``xdeepfm_tpu/nn/core.py``; reference
-``deepctr/layers/core.py``): DNN, PredictionLayer and LocalActivationUnit.
+``deepctr/layers/core.py``): BatchNorm, DNN, PredictionLayer and
+LocalActivationUnit.
 
 Parameters are created on the CPU from a ``torch.Generator`` seeded by the
 model, so a seed gives the same weights on every device; the model moves them
@@ -46,13 +47,58 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]):
     return x * keep / (1.0 - rate)
 
 
+class BatchNorm(nn.Module):
+    """flax's ``nn.BatchNorm`` (flax 0.12.3, ``use_fast_variance=True``) over
+    the feature axis ``axis`` of its input.
+
+    When ``training``: the batch statistics over every other axis, the mean
+    E[x] and the biased variance max(E[x^2] - E[x]^2, 0), normalise the
+    input, and the running values become ``momentum * running + (1 -
+    momentum) * batch``.  Otherwise the running values normalise.  The output
+    is (x - mean) * (rsqrt(var + eps) * scale) + bias, in fp32 at least.
+    Leaves: the parameters ``scale`` (1) and ``bias`` (0), the buffers
+    ``mean`` (0) and ``var`` (1), the JAX ``batch_stats`` of the same path
+    (``weights.py``).  There is no batch counter.
+    """
+
+    def __init__(self, num_features: int, axis: int = -1, momentum: float = 0.9,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.axis, self.momentum, self.eps = axis, momentum, eps
+        self.scale = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("mean", torch.zeros(num_features))
+        self.register_buffer("var", torch.ones(num_features))
+
+    def forward(self, x, training: bool = False):
+        # at least fp32, as flax promotes: a bf16 product's statistics too
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
+        axis = self.axis % x.ndim
+        shape = [1] * x.ndim
+        shape[axis] = x.shape[axis]
+        if training:
+            dims = tuple(i for i in range(x.ndim) if i != axis)
+            mean = x.mean(dims)
+            # torch.maximum splits the gradient at a tie, as jnp.maximum does
+            var = torch.maximum((x * x).mean(dims) - mean * mean, mean.new_zeros(()))
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        return (x - mean.reshape(shape)) * mul.reshape(shape) + self.bias.reshape(shape)
+
+
 class DNN(nn.Module):
-    """MLP: Linear -> activation -> dropout per layer (reference:
-    ``core.py:67-134``).
+    """MLP: Linear -> BatchNorm (``use_bn``) -> activation -> dropout per
+    layer (reference: ``core.py:67-134``).
 
     Weight init: normal(std=init_std) as in ``core.py:114-116``; biases keep the
     torch Linear default U(±1/sqrt(fan_in)), which the reference does not
-    re-init.  Layers are ``linear_{i}`` as in the JAX parameter paths.
+    re-init.  Layers are ``linear_{i}``, ``bn_{i}`` (eps 1e-5, momentum 0.9)
+    and ``act_{i}`` as in the JAX parameter paths.
     """
 
     def __init__(
@@ -71,13 +117,10 @@ class DNN(nn.Module):
         super().__init__()
         if len(hidden_units) == 0:
             raise ValueError("hidden_units is empty!!")
-        if use_bn:
-            raise NotImplementedError(
-                "use_bn (BatchNorm) is not ported yet: ROADMAP.md item 12b (deferred item D3)"
-            )
         if generator is None:
             generator = torch.Generator().manual_seed(seed)
         self.dropout_rate = dropout_rate
+        self.use_bn = use_bn
         units = [inputs_dim] + list(hidden_units)
         self.n_layers = len(units) - 1
         self.acts = []
@@ -87,16 +130,21 @@ class DNN(nn.Module):
                 lin.weight.normal_(0.0, init_std, generator=generator)
             torch_bias_init(lin.bias, units[i], generator)
             self.add_module(f"linear_{i}", lin)
+            if use_bn:
+                self.add_module(f"bn_{i}", BatchNorm(units[i + 1]))
             act = make_activation(activation, units[i + 1], dice_dim)
             if isinstance(act, nn.Module):
                 self.add_module(f"act_{i}", act)
             self.acts.append(act)
 
     def forward(self, x, training: bool = False, generator=None):
-        """``generator`` draws the dropout masks when ``training``."""
+        """``generator`` draws the dropout masks when ``training``; the
+        BatchNorm and Dice statistics update when ``training``."""
         h = x
         for i in range(self.n_layers):
             h = getattr(self, f"linear_{i}")(h)
+            if self.use_bn:
+                h = getattr(self, f"bn_{i}")(h, training=training)
             h = apply_activation(self.acts[i], h, training=training)
             if training:
                 h = dropout(h, self.dropout_rate, generator)

@@ -1,7 +1,8 @@
 """Feature-interaction layers (port of ``xdeepfm_tpu/nn/interaction.py``;
 reference ``deepctr/layers/interaction.py``): the CIN, FM, AutoInt's
 ``InteractingLayer``, and the FM family's ``BiInteractionPooling``,
-``AFMLayer``, ``CrossNet`` and ``CrossNetMix``; the rest of the zoo follows.
+``AFMLayer``, ``CrossNet`` and ``CrossNetMix``, and AFN's
+``LogTransformLayer``; the rest of the zoo follows.
 Parameters that the JAX package creates with ``self.param`` stay raw
 ``nn.Parameter``s in its names and layouts, so ``weights.py`` carries them
 unchanged.
@@ -20,7 +21,7 @@ from torch import nn
 from ..ops import lane_attention as _lane
 from ..ops.cin import cin_rows_contract
 from .activations import apply_activation, make_activation
-from .core import dropout
+from .core import BatchNorm, dropout
 
 
 def _pair_indices(num_fields: int):
@@ -402,3 +403,31 @@ class CrossNetMix(nn.Module):
             dot_ = x_0[:, None, :] * (uv_x + self.bias[i, :, 0])  # [B, K, d]
             x_l = torch.einsum("bkd,bk->bd", dot_, gate) + x_l
         return x_l
+
+
+class LogTransformLayer(nn.Module):
+    """AFN's logarithmic neurons (reference ``interaction.py:720-757``;
+    ``xdeepfm_tpu/nn/interaction.py:636-672``). [B, F, E] -> [B, E * H].
+
+    log(max(|x|, 1e-7)), ``bn0`` per embedding channel over (B, F), the
+    weighted field sum ``ltl_weights`` [F, H] plus ``ltl_biases`` [H], exp,
+    ``bn1`` per channel of [B, E, H]'s axis 1, flattened.  ``ltl_weights`` is
+    drawn N(0, 0.1), ``ltl_biases`` zeros; both BatchNorms eps 1e-5,
+    momentum 0.9 (:class:`~xdeepfm_tpu_torch.nn.core.BatchNorm`)."""
+
+    def __init__(self, field_size: int, embedding_size: int, ltl_hidden_size: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        w = torch.empty(field_size, ltl_hidden_size).normal_(0.0, 0.1, generator=generator)
+        self.ltl_weights = nn.Parameter(w)
+        self.ltl_biases = nn.Parameter(torch.zeros(ltl_hidden_size))
+        self.bn0 = BatchNorm(embedding_size, eps=1e-5)
+        self.bn1 = BatchNorm(embedding_size, axis=1, eps=1e-5)
+
+    def forward(self, inputs, training: bool = False):
+        # jnp.clip's maximum: at a tie the gradient splits, as torch.maximum's
+        x = torch.log(torch.maximum(inputs.abs(), inputs.new_tensor(1e-7)))
+        x = self.bn0(x, training=training)
+        x = torch.exp(torch.einsum("bfe,fh->beh", x, self.ltl_weights) + self.ltl_biases)
+        x = self.bn1(x, training=training)
+        return x.reshape(x.shape[0], -1)

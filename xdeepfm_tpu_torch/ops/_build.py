@@ -4,12 +4,15 @@ Each source has a plain C interface and is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into ``xdeepfm_tpu_torch/_build/lib<name>-<hash>.so`` at first
 use, then loaded with ``ctypes``.  The hash covers the sources and the flags,
 so an edited kernel rebuilds and a checkout builds from its own sources alone.
-Nothing here runs when the package is imported.
+Nothing here runs when the package is imported.  :func:`fp32_forward` is the
+kernels' precision boundary, which every ``autograd.Function`` of ``ops/``
+shares.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -26,6 +29,26 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas=-v",  # registers, shared memory and spills go to the build log
 )
+
+def fp32_forward(forward):
+    """Decorate an ``autograd.Function``'s ``forward``: under autocast, on
+    the card or on the CPU, its bf16 and fp16 tensor arguments arrive in
+    fp32 and it runs with autocast off, as the Pallas kernels keep their own
+    precision under the JAX package's bf16 mode.  Outside autocast it
+    changes nothing.  (``torch.amp.custom_fwd`` would rebuild a NamedTuple
+    argument such as ``attn_block_cuda.BlockCfg`` from a generator.)"""
+
+    @functools.wraps(forward)
+    def run(ctx, *args):
+        if not (torch.is_autocast_enabled("cuda") or torch.is_autocast_enabled("cpu")):
+            return forward(ctx, *args)
+        args = [a.float() if torch.is_tensor(a) and a.dtype in (torch.bfloat16, torch.float16)
+                else a for a in args]
+        with torch.autocast("cuda", enabled=False), torch.autocast("cpu", enabled=False):
+            return forward(ctx, *args)
+
+    return run
+
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _FNS: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}

@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
+from ._build import fp32_forward
 from .attention_cuda import (
     check_sa_shape,
     sa_backward,
@@ -47,6 +48,7 @@ def set_precision(name: str):
 
 class _SmallAttention(torch.autograd.Function):
     @staticmethod
+    @fp32_forward
     def forward(ctx, q, k, v, scale, backend):
         ctx.kernel = backend is None and q.device.type == "cuda"
         ctx.scale = scale

@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
+from ._build import fp32_forward
 from .attn_block_cuda import (
     BlockCfg,
     ab_backward,
@@ -32,6 +33,7 @@ from .attn_block_cuda import (
 
 class _AttnBlock(torch.autograd.Function):
     @staticmethod
+    @fp32_forward
     def forward(ctx, cfg, backend, save, *inputs):
         ctx.cfg = cfg
         ctx.kernel = backend is None and inputs[0].device.type == "cuda"

@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
+from ._build import fp32_forward
 from .ce_cuda import (
     CE_MAX_K,
     ce_rows_backward,
@@ -71,6 +72,7 @@ def fits_kernel(B: int, K: int) -> bool:
 
 class _CERows(torch.autograd.Function):
     @staticmethod
+    @fp32_forward
     def forward(ctx, h, W, b, targets, num_valid, backend):
         ctx.kernel = backend is None and h.device.type == "cuda"
         ctx.precision = _PRECISION

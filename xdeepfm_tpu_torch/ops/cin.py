@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
+from ._build import fp32_forward
 from .cin_cuda import (
     FUSED_MAX_M,
     cin_rows_backward,
@@ -75,6 +76,7 @@ def _backward(g, h_rows, x0_rows, W, kernel: bool):
 
 class _CinRows(torch.autograd.Function):
     @staticmethod
+    @fp32_forward
     def forward(ctx, h_rows, x0_rows, W, b, backend):
         ctx.save_for_backward(h_rows, x0_rows, W)
         ctx.kernel = backend is None and h_rows.device.type == "cuda"

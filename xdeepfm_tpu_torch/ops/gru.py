@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
+from ._build import fp32_forward
 from .gru_cuda import (
     fits_kernel,
     gru_backward,
@@ -37,6 +38,7 @@ __all__ = ["fits_kernel", "gru_scan", "set_backend", "use_kernel"]
 
 class _GRUScan(torch.autograd.Function):
     @staticmethod
+    @fp32_forward
     def forward(ctx, cell, gi, w, b, att, lengths, h0, backend):
         ctx.kernel = backend is None and gi.device.type == "cuda"
         ctx.cell = cell
@@ -55,18 +57,21 @@ class _GRUScan(torch.autograd.Function):
 
 
 def gru_scan(cell, gi, w, b, att, lengths, h0, backend=None):
-    """The whole recurrence: outs [B, T, H] fp32 (frozen past each row's
-    length, a length-0 row keeps h0), differentiable in gi, w, b, att and
-    h0.  ``cell`` in ("gru", "agru", "augru"); ``att`` [B, T] is ignored for
-    "gru" (pass None); ``lengths`` [B] or [B, 1] ints.  ``backend``: None (by
-    device) or "torch" (the plain versions).  On the kernel route the shape
+    """The whole recurrence: outs [B, T, H] (frozen past each row's
+    length, a length-0 row keeps h0; fp32, float64 for float64 inputs),
+    differentiable in gi, w, b, att and h0.  ``cell`` in ("gru", "agru",
+    "augru"); ``att`` [B, T] is ignored for "gru" (pass None); ``lengths``
+    [B] or [B, 1] ints.  ``backend``: None (by device) or "torch" (the plain
+    versions).  On the kernel route the shape
     must pass :func:`fits_kernel`, else it raises."""
     if backend not in (None, "torch"):
         raise ValueError(f"unknown gru_scan backend {backend!r}")
     if cell not in ("gru", "agru", "augru"):
         raise ValueError(f"unknown cell {cell!r}")
     B, T, _, H = gi.shape
-    dt = gi.dtype
+    # at least fp32: a bf16 gi (a product under autocast) scans in fp32 and
+    # its outs stay fp32, as the TPU kernel keeps its own precision
+    out_dt = dt = torch.promote_types(gi.dtype, torch.float32)
     if backend is None and gi.device.type == "cuda":
         if not fits_kernel(T, H, B):
             raise ValueError(f"gru_scan: B {B}, T {T}, H {H} outside the kernels' gate")
@@ -76,7 +81,7 @@ def gru_scan(cell, gi, w, b, att, lengths, h0, backend=None):
                           b.to(dt).contiguous(), att,
                           lengths.reshape(-1).to(torch.int32).contiguous(),
                           h0.to(dt).contiguous(), backend)
-    return outs.to(gi.dtype)
+    return outs.to(out_dt)
 
 
 _BACKEND = "auto"

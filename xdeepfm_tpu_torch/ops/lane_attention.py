@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
+from ._build import fp32_forward
 from .lane_attention_cuda import (
     check_la_shape,
     dense_strides,
@@ -43,6 +44,7 @@ MAX_S = 64  # the routing gate, as the JAX package's (lane_attention.py:44)
 
 class _LaneAttention(torch.autograd.Function):
     @staticmethod
+    @fp32_forward
     def forward(ctx, q, k, v, scale, backend):
         ctx.kernel = backend is None and q.device.type == "cuda"
         ctx.scale = scale

@@ -7,7 +7,10 @@ parameter's name is its JAX path with ``.`` for ``/``, except that a flax
 ``Dense`` ``kernel`` [in, out] is an ``nn.Linear`` ``weight`` [out, in]
 (its transpose) and a flax ``Conv`` ``kernel`` [kh, kw, in, out] an
 ``nn.Conv2d`` ``weight`` [out, in, kh, kw].  ``conv_w_i`` keeps its
-[O, H*M] layout, channel h*M + m.
+[O, H*M] layout, channel h*M + m.  A BatchNorm's running ``mean`` and
+``var`` are buffers of the port (``nn.core.BatchNorm``) and leaves of
+``batch_stats`` in the tree, under the same path; its ``scale`` and
+``bias`` are parameters, untransposed.
 """
 
 from __future__ import annotations
@@ -42,32 +45,34 @@ def unflatten_tree(flat: Dict[str, np.ndarray]) -> dict:
 
 
 def from_jax_weights(tree) -> Dict[str, torch.Tensor]:
-    """Canonical JAX weight tree -> port ``state_dict`` (CPU fp32 tensors)."""
-    if tree.get("batch_stats"):
-        raise NotImplementedError(
-            "BatchNorm statistics are not ported yet: ROADMAP.md, deferred item D3"
-        )
+    """Canonical JAX weight tree -> port ``state_dict`` (CPU fp32 tensors):
+    its ``params`` and its ``batch_stats`` (absent or empty: none)."""
     state = {}
-    for path, leaf in flatten_tree(tree["params"]):
-        segs = path.split("/")
-        arr = np.asarray(leaf, dtype=np.float32)
-        if segs[-1] == "kernel":
-            segs[-1] = "weight"
-            arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
-        state[".".join(segs)] = torch.from_numpy(np.array(arr, order="C"))  # a copy
+    for collection in ("params", "batch_stats"):
+        for path, leaf in flatten_tree(tree.get(collection) or {}):
+            segs = path.split("/")
+            arr = np.asarray(leaf, dtype=np.float32)
+            if collection == "params" and segs[-1] == "kernel":
+                segs[-1] = "weight"
+                arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+            state[".".join(segs)] = torch.from_numpy(np.array(arr, order="C"))  # a copy
     return state
 
 
 def canonical_paths(module: nn.Module) -> Dict[str, str]:
-    """Port state-dict key -> its JAX parameter path (``cin/conv_w_0``,
+    """Port parameter key -> its JAX parameter path (``cin/conv_w_0``,
     ``dnn/linear_0/kernel``...): ``.`` becomes ``/`` and an ``nn.Linear`` or
-    ``nn.Conv2d`` ``weight`` is the flax ``kernel``."""
+    ``nn.Conv2d`` ``weight`` is the flax ``kernel``.  Buffers (the
+    ``batch_stats``) are left out."""
     linear_weights = {
         f"{name}.weight" for name, m in module.named_modules()
         if isinstance(m, (nn.Linear, nn.Conv2d))
     }
+    stats = {name for name, _ in module.named_buffers()}
     paths = {}
     for key in module.state_dict():
+        if key in stats:
+            continue
         segs = key.split(".")
         if key in linear_weights:
             segs[-1] = "kernel"
@@ -76,15 +81,19 @@ def canonical_paths(module: nn.Module) -> Dict[str, str]:
 
 
 def to_jax_weights(module: nn.Module) -> dict:
-    """A port model's module -> the canonical JAX weight tree (numpy)."""
+    """A port model's module -> the canonical JAX weight tree (numpy): the
+    parameters under ``params``, the buffers under ``batch_stats``."""
     paths = canonical_paths(module)
-    flat = {}
+    flat, stats = {}, {}
     for key, t in module.state_dict().items():
         arr = t.detach().cpu().numpy()
+        if key not in paths:
+            stats[key.replace(".", "/")] = np.ascontiguousarray(arr)
+            continue
         if paths[key].endswith("/kernel"):
             arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
         flat[paths[key]] = np.ascontiguousarray(arr)
-    return {"params": unflatten_tree(flat), "batch_stats": {}}
+    return {"params": unflatten_tree(flat), "batch_stats": unflatten_tree(stats)}
 
 
 def from_jax_lazy_state(opt_state) -> Tuple[Dict[str, np.ndarray], Dict[str, float]]:
