@@ -127,6 +127,16 @@ run in order and any failure raises, so the exit code is non-zero:
    memory recorded; then a DCN with
    the last 13 sparse fields at dim 4 (``table_d10`` and ``table_d4``,
    ``fast_inputs`` on the per-feature route, one SGD step against the CPU);
+   FiBiNET, PNN, CCPM, MLR and ONN (ROADMAP item 12c) trained and scored as
+   the FM family, the fit's peak memory recorded;
+   ``zoo_variants_sgd_step``: PNN's outer "mat" product, FiBiNET's "each"
+   bilinear and MLR with bias columns, one SGD step each against the CPU;
+   ``zoo_ccpm_tf32_default``: CCPM with ``cudnn.allow_tf32 = True``, no
+   convolution or TF32 kernel in its step, each conv layer's kernel
+   gradient against float64 within FP32_SLACK times the CPU's error (cuDNN's
+   TF32 conv beside it), one SGD step against the CPU;
+   ``zoo_determinism``: the five at batch 4096, two identical steps
+   bit-equal;
    ``dien_dice``: DIEN with a Dice attention MLP and a BatchNorm DNN, one
    SGD step on the card against the CPU (weights, gradients, running
    statistics) with 2 ``gru_fwd`` + 2 ``gru_bwd`` as on DIEN's path;
@@ -203,16 +213,21 @@ from xdeepfm_tpu_torch.features import DenseFeat, SparseFeat, VarLenSparseFeat
 from xdeepfm_tpu_torch.models import (
     AFM,
     AFN,
+    CCPM,
     DCN,
     DIEN,
     DIFM,
     DIN,
     IFM,
+    MLR,
     NFM,
+    ONN,
+    PNN,
     WDL,
     AutoInt,
     DCNMix,
     DeepFM,
+    FiBiNET,
     xDeepFM,
     xDeepFMAttention,
     xDeepFMAttentionV2,
@@ -2455,7 +2470,34 @@ ZOO = {
     # the negatives (din_columns) and DIEN's rows
     "afn": lambda cols, device: AFN(cols, cols, device=device),
     "din": lambda cols, device: DIN(cols, ["item"], device=device),
+    # ROADMAP item 12c, the rest of the zoo, as scripts/bench_zoo.py:47-53
+    # builds it (each constructor's defaults): FiBiNET's interaction bilinear
+    # over 325 pairs, a DNN (128, 128) over 6513 inputs; PNN's inner products,
+    # DNN (128, 128); CCPM over the 26 sparse fields, widths (6, 5), filters
+    # (4, 4), fields 26 -> 13 -> 3, DNN (256,); MLR's 4 regions, one
+    # [260 000, 4] table; ONN's 50 pair tables, 2 x 325 x 10 x 10 000 =
+    # 65.0 M parameters
+    "fibinet": lambda cols, device: FiBiNET(cols, cols, device=device),
+    "pnn": lambda cols, device: PNN(cols, device=device),
+    "ccpm": lambda cols, device: CCPM(cols, [f for f in cols if isinstance(f, SparseFeat)],
+                                      device=device),
+    "mlr": lambda cols, device: MLR(cols, device=device),
+    "onn": lambda cols, device: ONN(cols, cols, device=device),
 }
+# the paths of item 12c that the constructors' defaults miss, each one SGD
+# step against the CPU: PNN's outer products with the "mat" kernel (a raw
+# parameter named ``kernel``, carried untransposed), FiBiNET's "each"
+# bilinear, MLR with bias columns (C0-C3 and I0)
+ZOO_VARIANTS = {
+    "pnn_outer_mat": lambda cols, device: PNN(cols, use_outter=True, kernel_type="mat",
+                                              device=device),
+    "fibinet_each": lambda cols, device: FiBiNET(cols, cols, bilinear_type="each",
+                                                 device=device),
+    "mlr_bias": lambda cols, device: MLR(cols, bias_feature_columns=cols[:4] + [cols[N_SPARSE]],
+                                         device=device),
+}
+# item 12c's models, whose two identical steps must give bit-equal gradients
+ZOO_12C = ("fibinet", "pnn", "ccpm", "mlr", "onn")
 ZOO_EPOCHS = 2  # of TRAIN_STEPS_PER_EPOCH steps: the epoch loss must fall once
 # the mixed-dim input path: the canonical columns with the last 13 sparse
 # fields (C13-C25) at dim 4
@@ -2482,7 +2524,8 @@ def zoo_model(name, device, weights=None, cols=None):
 
 
 def phase_zoo_training(name):
-    """FM-family model ``name`` at full width: ``fit`` at batch 4096, Adam,
+    """Zoo model ``name`` (no kernel of its own) at full width: ``fit`` at
+    batch 4096, Adam,
     ZOO_EPOCHS epochs of 8 steps with the validation half batch, every
     logged value finite and the epoch loss falling; no hand-written kernel
     launched; one SGD step on the card against the CPU model (weights and
@@ -2536,7 +2579,7 @@ def phase_zoo_training(name):
 
 
 def phase_zoo_scoring(model, name):
-    """The trained FM-family model through ``Scorer(batch_size=8192)`` over
+    """The trained zoo model through ``Scorer(batch_size=8192)`` over
     the serving requests: no hand-written kernel launched, finite
     probabilities, examples/s, and the scores within 1e-5 of the CPU
     model's on a small input."""
@@ -2603,6 +2646,129 @@ def phase_zoo_mixed_dims():
                   rel_err_vs_cpu_one_sgd_step=cpu_errs)
     emit(phase="zoo_dcn_mixed_dims", **record)
     return record
+
+
+def phase_zoo_variants():
+    """One SGD step on the card against the CPU model for each of
+    ZOO_VARIANTS from seeded weights; no hand-written kernel launched."""
+    cols = canonical_columns()
+    x, y = train_data(np.random.default_rng(SEED + 3), 512)
+    reset_launches()
+    records = {}
+    for label, build in ZOO_VARIANTS.items():
+        pair = [build(cols, dev) for dev in ("cuda", "cpu")]
+        weights = seeded_weights(pair[0])
+        for m in pair:
+            m.set_weights(weights)
+        records[label] = sgd_step_vs_cpu(pair, x, y, f"zoo variant {label}: ")
+        records[label]["parameters"] = sorted(k for k, _ in flatten_tree(weights["params"]))
+        del pair
+    launches = read_launches()
+    if launches != expected():
+        raise AssertionError(f"zoo variants: hand-written kernels launched: {launches}")
+    kernel = records["pnn_outer_mat"]["parameters"]
+    if "outterproduct/kernel" not in kernel:
+        raise AssertionError(f"zoo variants: PNN's outer-product kernel is missing: {kernel}")
+    emit(phase="zoo_variants_sgd_step", launches=launches, variants=records)
+    return dict(launches=launches)
+
+
+# the kernels of a step that would mean a cuDNN convolution or a TF32 product
+TF32_OR_CONV = ("tf32", "cudnn", "fprop", "dgrad", "wgrad", "implicit_gemm", "conv2d",
+                "convolution")
+
+
+def phase_ccpm_tf32():
+    """CCPM under ``torch.backends.cudnn.allow_tf32 = True`` (torch's
+    default; this script turns it off), set for this phase and restored
+    after.  (1) A profiled step runs no cuDNN convolution and no TF32
+    kernel.  (2) At the train batch, each conv layer's kernel gradient for
+    the inputs the model gives it and a seeded cotangent, against float64:
+    within FP32_SLACK times the CPU's fp32 error (or 1e-6 of its largest
+    entry); beside it, as a control, the same gradient from cuDNN's
+    ``F.conv2d`` with TF32 on, reported.  (3) One SGD step against the CPU
+    model, the step of every zoo phase."""
+    pair = [zoo_model("ccpm", dev) for dev in ("cuda", "cpu")]
+    weights = seeded_weights(pair[0])
+    for m in pair:
+        m.set_weights(weights)
+    x, y = train_data(np.random.default_rng(SEED + 3), TRAIN_BATCH)
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        xb, yb = device_batch(pair[0], x, y, TRAIN_BATCH)
+        seen = {}
+        convs = {n: m for n, m in pair[0].module.conv_layer.named_children()
+                 if n.startswith("conv_")}
+        def keep_input(name):
+            def hook(module, args, out):
+                seen.setdefault(name, args[0].detach())
+            return hook
+
+        hooks = [m.register_forward_hook(keep_input(n)) for n, m in convs.items()]
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            step_grads(pair[0], xb, yb)
+            torch.cuda.synchronize()
+        for h in hooks:
+            h.remove()
+        names = sorted({e.name for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA})
+        bad = [n for n in names if any(s in n.lower() for s in TF32_OR_CONV)]
+        if bad:
+            raise AssertionError(f"ccpm tf32: the step ran convolution or TF32 kernels {bad}")
+        layers = {}
+        gen = torch.Generator(device="cpu").manual_seed(SEED)
+        for n, conv in convs.items():
+            inp = seen[n]
+            g = torch.randn(tuple(conv(inp).shape), generator=gen)
+            ref = copy.deepcopy(conv).cpu().double()
+            exact = torch.autograd.grad(ref(inp.cpu().double()), ref.kernel, g.double())[0]
+            cpu = copy.deepcopy(conv).cpu()
+            cpu_g = torch.autograd.grad(cpu(inp.cpu()), cpu.kernel, g)[0]
+            card_g = torch.autograd.grad(conv(inp), conv.kernel, g.cuda())[0].cpu()
+            # the control: the same function through cuDNN, NCHW, TF32 on
+            w = conv.kernel.detach().permute(3, 2, 0, 1).contiguous().requires_grad_()
+            out = F.conv2d(inp.permute(0, 3, 1, 2), w, conv.bias.detach(), padding="same")
+            ctl_g = torch.autograd.grad(out, w, g.cuda().permute(0, 3, 1, 2))[0]
+            ctl_g = ctl_g.permute(2, 3, 1, 0).cpu()
+            top = float(exact.abs().max())
+            errs = {k: float((v.double() - exact).abs().max()) / top
+                    for k, v in (("card", card_g), ("cpu", cpu_g), ("cudnn_tf32", ctl_g))}
+            if errs["card"] > max(FP32_SLACK * errs["cpu"], 1e-6):
+                raise AssertionError(f"ccpm tf32: {n}'s kernel gradient is {errs['card']} off "
+                                     f"float64, beyond {FP32_SLACK} times the CPU's "
+                                     f"{errs['cpu']}")
+            layers[n] = dict(input=list(inp.shape), rel_err_vs_float64=errs)
+        reset_launches()
+        step = sgd_step_vs_cpu(pair, x, y, "ccpm tf32: ")
+        launches = read_launches()
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    if launches != expected():
+        raise AssertionError(f"ccpm tf32: hand-written kernels launched: {launches}")
+    record = dict(model="ccpm", cudnn_allow_tf32=True, launches=launches, conv_layers=layers,
+                  step_kernels=len(names), rel_err_vs_cpu_one_sgd_step=step)
+    emit(phase="zoo_ccpm_tf32_default", **record)
+    return record
+
+
+def phase_zoo_determinism():
+    """Each of ZOO_12C from seeded weights at the train batch: two identical
+    steps (as :func:`step_grads`) give every gradient bit for bit."""
+    x, y = train_data(np.random.default_rng(SEED + 4), TRAIN_BATCH)
+    records = {}
+    for name in ZOO_12C:
+        model = zoo_model(name, "cuda")
+        model.set_weights(seeded_weights(model))
+        xb, yb = device_batch(model, x, y, TRAIN_BATCH)
+        first = step_grads(model, xb, yb)
+        records[name] = dict(gradients=len(first), grads_not_reproduced=reproduced(
+            f"zoo {name}: ", first, step_grads(model, xb, yb)))
+        del model, first
+        torch.cuda.empty_cache()
+    emit(phase="zoo_determinism", batch=TRAIN_BATCH, models=records)
+    return records
 
 
 # ---------------------------------------------------------------------------
@@ -3071,6 +3237,9 @@ def main():
         del zoo_m, zoo_batches
         torch.cuda.empty_cache()
     phase_zoo_mixed_dims()
+    variants = phase_zoo_variants()
+    ccpm_tf32 = phase_ccpm_tf32()
+    phase_zoo_determinism()
     dien_dice = phase_dien_dice()
     bf16 = phase_bf16()
     phase_gather()
@@ -3086,6 +3255,8 @@ def main():
     for model_name, (rec, scoring) in zoo.items():
         paths[f"zoo_{model_name}_training"] = rec["launches"]
         paths[f"zoo_{model_name}_scoring"] = scoring["launches"]
+    paths["zoo_variants_sgd_step"] = variants["launches"]
+    paths["zoo_ccpm_tf32_default"] = ccpm_tf32["launches"]
     paths["dien_dice_sgd_step"] = dien_dice["launches"]
     paths["bf16_training"] = bf16["launches"]
     paths["ablation"] = ablation["launches"]

@@ -20,8 +20,9 @@ MODULES = ["cli", "cli.common", "cli.xdftrain", "cli.xdftrain_v1", "cli.xdftrain
            # the rest of the port: the engine, the models, the layers, the kernel
            # routes and their wrappers, Pro
            "basemodel", "embeddings", "weights", "features", "metrics", "optimizers",
-           "models", "models.afm", "models.afn", "models.autoint", "models.dcn", "models.dcnmix",
-           "models.deepfm", "models.dien", "models.difm", "models.din", "models.ifm", "models.nfm",
+           "models", "models.afm", "models.afn", "models.autoint", "models.ccpm", "models.dcn",
+           "models.dcnmix", "models.deepfm", "models.dien", "models.difm", "models.din",
+           "models.fibinet", "models.ifm", "models.mlr", "models.nfm", "models.onn", "models.pnn",
            "models.wdl", "models.xdeepfm", "models.xdeepfm_attn", "nn", "nn.activations", "nn.cin_attention", "nn.core",
            "nn.interaction", "nn.sequence", "ops", "ops._build", "ops.attention",
            "ops.attention_cuda", "ops.attn_block", "ops.attn_block_cuda", "ops.ce",

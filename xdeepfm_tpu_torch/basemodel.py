@@ -31,7 +31,7 @@ from torch import nn
 
 from .callbacks import CallbackList, History
 from .embeddings import EmbeddingCollection, run_first, table_touched_spec, touched_ids
-from .features import FeatureSchema, SparseFeat, VarLenSparseFeat
+from .features import FeatureSchema, SparseFeat, VarLenSparseFeat, compute_input_dim
 from .metrics import DEVICE_METRICS, HOST_METRICS
 from .optimizers import (
     LAZY_OPTIMIZERS,
@@ -162,6 +162,13 @@ class BaseModel:
                 "embedding_dim of SparseFeat and VarlenSparseFeat must be same in this model!"
             )
         return sizes.pop()
+
+    def compute_input_dim(self, feature_columns, include_sparse=True, include_dense=True,
+                          feature_group=False):
+        """The DNN input width of ``feature_columns``
+        (``basemodel.py:2095-2106``): the sparse and varlen fields' embedding
+        dims (or their count, ``feature_group``) and the dense dims."""
+        return compute_input_dim(feature_columns, include_sparse, include_dense, feature_group)
 
     def add_regularization_weight(self, pattern, l1=0.0, l2=0.0):
         if isinstance(pattern, str):
@@ -336,7 +343,8 @@ class BaseModel:
             if not isinstance(coll, EmbeddingCollection):
                 continue
             try:
-                spec = table_touched_spec(coll.feature_columns, coll.schema, coll.linear)
+                spec = table_touched_spec(coll.feature_columns, coll.schema, coll.linear,
+                                          coll.force_dim)
             except KeyError:
                 continue
             for dim, entries in spec.items():
@@ -975,7 +983,7 @@ class BaseModel:
         (:func:`from_jax_lazy_state`); without it a lazy model's tracked L2
         values are recomputed from the new tables.  The row states are
         kept."""
-        self.module.load_state_dict(from_jax_weights(weights), strict=True)
+        self.module.load_state_dict(from_jax_weights(weights, self.module), strict=True)
         if weights.get("opt_state") is not None:
             self._set_lazy_state(*from_jax_lazy_state(weights["opt_state"]))
         elif self._lazy is not None:

@@ -38,15 +38,16 @@ class MixedEmbeddingDims(ValueError):
     catches exactly this to fall back to the per-feature lists."""
 
 
-def _table_layout(feature_columns, linear: bool):
+def _table_layout(feature_columns, linear: bool, force_dim: Optional[int] = None):
     """Static layout: embedding_name -> (table_dim, row_offset); plus per-dim
     table total rows.  Offsets follow each embedding_name's first
-    appearance."""
+    appearance.  ``force_dim`` overrides every table's dim
+    (``embeddings.py:57-66``)."""
     sp, _, vl = split_columns(feature_columns)
     name_specs = {}  # embedding_name -> (vocab, dim), first occurrence wins
     order = []
     for f in list(sp) + list(vl):
-        dim = 1 if linear else f.embedding_dim
+        dim = force_dim if force_dim else (1 if linear else f.embedding_dim)
         if f.embedding_name not in name_specs:
             name_specs[f.embedding_name] = (f.vocabulary_size, dim)
             order.append(f.embedding_name)
@@ -144,7 +145,8 @@ def fused_gather(tables: Sequence[torch.Tensor], ids: torch.Tensor) -> torch.Ten
     return _GatherRows.apply(ids.reshape(-1).long(), *tables)
 
 
-def table_touched_spec(feature_columns, schema: FeatureSchema, linear: bool):
+def table_touched_spec(feature_columns, schema: FeatureSchema, linear: bool,
+                       force_dim: Optional[int] = None):
     """Which batch entries index which stacked table:
     ``{dim: [(kind, key, row offset)]}``, kind "sparse" (key: the column of
     ``batch["sparse"]``) or "varlen" (key: the batch key ``vl_<name>``).  The
@@ -152,7 +154,7 @@ def table_touched_spec(feature_columns, schema: FeatureSchema, linear: bool):
     the model.  A feature listed twice maps to one batch column (the schema
     dedups names) and so yields one entry: :func:`touched_ids` and the
     occurrence layout both follow this list."""
-    offsets, _ = _table_layout(feature_columns, linear)
+    offsets, _ = _table_layout(feature_columns, linear, force_dim)
     sp, _, vl = split_columns(feature_columns)
     spec: Dict[int, list] = {}
     seen = set()
@@ -205,14 +207,15 @@ def touched_ids(batch, entries) -> torch.Tensor:
     return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
-def _occ_layout(feature_columns, schema: FeatureSchema, linear: bool):
+def _occ_layout(feature_columns, schema: FeatureSchema, linear: bool,
+                force_dim: Optional[int] = None):
     """Per table dim, where each lookup's rows lie in the occurrence block
     that :func:`touched_ids` lays out: ``sparse`` maps a batch column to its
     place on the F_t axis, ``varlen`` a batch key to its offset in units of B
     rows past the block's start, ``n_sparse`` is F_t."""
     vl_maxlen = {"vl_" + f.name: f.maxlen for f in schema.varlen}
     layout = {}
-    for dim, entries in table_touched_spec(feature_columns, schema, linear).items():
+    for dim, entries in table_touched_spec(feature_columns, schema, linear, force_dim).items():
         sparse = {key: i for i, key in enumerate(k for kind, k, _ in entries if kind == "sparse")}
         units, varlen = len(sparse), {}
         for kind, key, _ in entries:
@@ -259,7 +262,8 @@ class EmbeddingCollection(nn.Module):
     ``linear_model/embedding_dict``), set by the model that owns it.
     ``fused_lookup``: whether the models' lookups may fetch this table's rows
     and the linear table's in one gather (:func:`lookup_inputs`), set by
-    ``compile``."""
+    ``compile``.  ``force_dim`` overrides every table's dim
+    (:class:`MultiLinearModel`)."""
 
     def __init__(
         self,
@@ -268,17 +272,19 @@ class EmbeddingCollection(nn.Module):
         linear: bool = False,
         init_std: float = 1e-4,
         generator: Optional[torch.Generator] = None,
+        force_dim: Optional[int] = None,
     ):
         super().__init__()
         self.feature_columns = tuple(feature_columns)
         self.schema = schema
         self.linear = linear
+        self.force_dim = force_dim
         self.path = None
         # one gather for this main table and the linear one where they allow
         # it (:func:`can_fuse_lookup`); ``compile(fused_lookup=False)`` clears it
         self.fused_lookup = True
-        self._offsets, table_rows = _table_layout(feature_columns, linear)
-        self._occ_layout = _occ_layout(feature_columns, schema, linear)
+        self._offsets, table_rows = _table_layout(feature_columns, linear, force_dim)
+        self._occ_layout = _occ_layout(feature_columns, schema, linear, force_dim)
         for dim, rows in sorted(table_rows.items()):
             t = torch.empty(rows, dim).normal_(0.0, init_std, generator=generator)
             self.register_parameter(f"table_d{dim}", nn.Parameter(t))
@@ -579,4 +585,51 @@ class LinearModel(nn.Module):
         if out is None:
             v = next(v for v in batch.values() if torch.is_tensor(v))
             return torch.zeros((v.shape[0], 1), device=v.device)
+        return out
+
+
+class MultiLinearModel(nn.Module):
+    """N first-order models over one column-stacked table
+    (``embeddings.py:502-560``): the [B, N] logits that N independent
+    :class:`LinearModel` instances would give, from one gather of [B, F, N]
+    rows, the varlen features' pooled rows and ``dense @ weight``.  Used by
+    MLR, whose
+    reference builds N ``Linear`` modules (``deepctr/models/mlr.py:60-75``).
+    Parameters ``embedding_dict.table_d{N}`` (every table at dim N) and
+    ``weight`` [dense_dim, N], normal(init_std).  Returns [B, N]."""
+
+    def __init__(
+        self,
+        feature_columns,
+        schema: FeatureSchema,
+        n_outputs: int,
+        init_std: float = 1e-4,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.feature_columns = tuple(feature_columns)
+        self.schema = schema
+        self.n_outputs = n_outputs
+        self.embedding_dict = EmbeddingCollection(
+            feature_columns, schema, init_std=init_std, generator=generator,
+            force_dim=n_outputs,
+        )
+        _, de, _ = split_columns(self.feature_columns)
+        dense_dim = sum(f.dimension for f in de)
+        if dense_dim > 0:
+            w = torch.empty(dense_dim, n_outputs).normal_(0.0, init_std, generator=generator)
+            self.weight = nn.Parameter(w)
+
+    def forward(self, batch):
+        sp, de, vl = split_columns(self.feature_columns)
+        parts = [self.embedding_dict.stacked_sparse(batch, sp)] if sp else []
+        parts += [self.embedding_dict.lookup_varlen_pooled(batch, f) for f in vl]
+        out = torch.cat(parts, dim=1).sum(dim=1) if parts else None  # [B, N]
+        if de:
+            dense_vals = torch.cat(self.embedding_dict._dense_values(batch, de), dim=-1)
+            d = dense_vals @ self.weight
+            out = d if out is None else out + d
+        if out is None:
+            v = next(v for v in batch.values() if torch.is_tensor(v))
+            return torch.zeros((v.shape[0], self.n_outputs), device=v.device)
         return out

@@ -1,15 +1,29 @@
 from .activations import Dice, PReLU, activation_fn, make_activation
-from .core import DNN, BatchNorm, LocalActivationUnit, PredictionLayer, torch_linear_init
+from .core import (
+    DNN,
+    BatchNorm,
+    Conv2dSame,
+    ConvSame,
+    LocalActivationUnit,
+    PredictionLayer,
+    glorot_uniform_,
+    torch_linear_init,
+)
 from .cin_attention import CINAttention, CINAttentionV2
 from .interaction import (
     CIN,
     FM,
     AFMLayer,
     BiInteractionPooling,
+    BilinearInteraction,
+    ConvLayer,
     CrossNet,
     CrossNetMix,
+    InnerProductLayer,
     InteractingLayer,
     LogTransformLayer,
+    OutterProductLayer,
+    SENETLayer,
 )
 from .sequence import (
     AGRUCell,
@@ -17,6 +31,8 @@ from .sequence import (
     AttentionSequencePoolingLayer,
     DynamicGRU,
     GRU,
+    KMaxPooling,
     SequencePoolingLayer,
+    kmax_lastaxis,
     sequence_pool,
 )

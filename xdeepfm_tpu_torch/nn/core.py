@@ -1,6 +1,6 @@
 """Core layers (port of ``xdeepfm_tpu/nn/core.py``; reference
-``deepctr/layers/core.py``): BatchNorm, DNN, PredictionLayer and
-LocalActivationUnit.
+``deepctr/layers/core.py``): BatchNorm, DNN, PredictionLayer,
+LocalActivationUnit, ConvSame and Conv2dSame.
 
 Parameters are created on the CPU from a ``torch.Generator`` seeded by the
 model, so a seed gives the same weights on every device; the model moves them
@@ -15,6 +15,7 @@ import math
 from typing import Callable, Optional, Sequence, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .activations import apply_activation, make_activation
@@ -37,6 +38,17 @@ def torch_bias_init(
     bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
     with torch.no_grad():
         bias.uniform_(-bound, bound, generator=generator)
+
+
+def glorot_uniform_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """flax's ``glorot_uniform`` in place: U(±sqrt(6 / (fan_in + fan_out)))
+    with the fans of flax's ``variance_scaling`` (in axis -2, out axis -1,
+    each times the product of the other axes, the receptive field)."""
+    receptive = math.prod(t.shape[:-2])
+    fan_in, fan_out = t.shape[-2] * receptive, t.shape[-1] * receptive
+    bound = math.sqrt(6.0 / (fan_in + fan_out))
+    with torch.no_grad():
+        return t.uniform_(-bound, bound, generator=generator)
 
 
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]):
@@ -203,3 +215,62 @@ class LocalActivationUnit(nn.Module):
         q = query.expand(-1, user_behavior.shape[1], -1)
         att_input = torch.cat([q, user_behavior, q - user_behavior, q * user_behavior], dim=-1)
         return self.dense(self.dnn(att_input, training=training, generator=generator))
+
+
+class ConvSame(nn.Module):
+    """flax's ``nn.Conv`` with ``padding="SAME"`` and the reference's init,
+    NHWC in and out: [B, H, W, C] -> [B, ceil(H / sh), ceil(W / sw),
+    features].  CCPM's ``conv_{i}`` (``interaction.py:614-625``) and the
+    inside of :class:`Conv2dSame`.
+
+    Raw parameters in the flax layout: ``kernel`` [kh, kw, C, features]
+    (:func:`glorot_uniform_`, the reference's ``xavier_uniform_``) and
+    ``bias`` [features] (torch Conv2d's U(±1/sqrt(C * kh * kw))); the weights
+    map carries them untransposed.  The padding is XLA's SAME: the total
+    pad of an axis is max((out - 1) * stride + k - in, 0), the smaller half
+    before.
+
+    The convolution is one matmul of the kh * kw shifted windows, stacked
+    along the channels in the kernel's (i, j, c) order, with the kernel
+    reshaped to [kh * kw * C, features]: its products are an fp32 GEMM on
+    the card, as every ``nn.Linear`` of the port, and cuDNN's TF32 default
+    (``torch.backends.cudnn.allow_tf32``) never reaches them, forward or
+    backward; the windows' backward is slices and adds, no atomics."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size, strides=(1, 1),
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if generator is None:
+            generator = torch.Generator().manual_seed(1024)
+        kh, kw = kernel_size
+        self.kernel_size, self.strides = (kh, kw), tuple(strides)
+        self.kernel = nn.Parameter(glorot_uniform_(torch.empty(kh, kw, in_channels, features),
+                                                   generator))
+        self.bias = nn.Parameter(torch.empty(features))
+        torch_bias_init(self.bias, in_channels * kh * kw, generator)
+
+    def forward(self, x):
+        (kh, kw), (sh, sw) = self.kernel_size, self.strides
+        _, H, W, C = x.shape
+        oh, ow = -(-H // sh), -(-W // sw)
+        ph, pw = max((oh - 1) * sh + kh - H, 0), max((ow - 1) * sw + kw - W, 0)
+        x = F.pad(x, (0, 0, pw // 2, pw - pw // 2, ph // 2, ph - ph // 2))
+        windows = torch.cat([x[:, i : i + (oh - 1) * sh + 1 : sh, j : j + (ow - 1) * sw + 1 : sw]
+                             for i in range(kh) for j in range(kw)], dim=-1)
+        return windows @ self.kernel.reshape(kh * kw * C, -1) + self.bias
+
+
+class Conv2dSame(nn.Module):
+    """TF-style SAME-padding 2-D convolution, NHWC in and out (reference
+    ``core.py:163-185``, a torch shim for what flax's NHWC ``Conv`` does;
+    ``xdeepfm_tpu/nn/core.py:216-235``): one :class:`ConvSame` under the
+    flax name ``Conv_0``, so its parameters are ``Conv_0/kernel`` and
+    ``Conv_0/bias`` as in the JAX module."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size, strides=(1, 1),
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.Conv_0 = ConvSame(in_channels, features, kernel_size, strides, generator)
+
+    def forward(self, x):
+        return self.Conv_0(x)

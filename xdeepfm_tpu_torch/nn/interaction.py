@@ -1,8 +1,10 @@
 """Feature-interaction layers (port of ``xdeepfm_tpu/nn/interaction.py``;
 reference ``deepctr/layers/interaction.py``): the CIN, FM, AutoInt's
-``InteractingLayer``, and the FM family's ``BiInteractionPooling``,
-``AFMLayer``, ``CrossNet`` and ``CrossNetMix``, and AFN's
-``LogTransformLayer``; the rest of the zoo follows.
+``InteractingLayer``, the FM family's ``BiInteractionPooling``,
+``AFMLayer``, ``CrossNet`` and ``CrossNetMix``, AFN's
+``LogTransformLayer``, FiBiNET's ``SENETLayer`` and
+``BilinearInteraction``, PNN's ``InnerProductLayer`` and
+``OutterProductLayer`` and CCPM's ``ConvLayer``.
 Parameters that the JAX package creates with ``self.param`` stay raw
 ``nn.Parameter``s in its names and layouts, so ``weights.py`` carries them
 unchanged.
@@ -21,7 +23,8 @@ from torch import nn
 from ..ops import lane_attention as _lane
 from ..ops.cin import cin_rows_contract
 from .activations import apply_activation, make_activation
-from .core import BatchNorm, dropout
+from .core import BatchNorm, ConvSame, dropout, glorot_uniform_, torch_linear_init
+from .sequence import KMaxPooling
 
 
 def _pair_indices(num_fields: int):
@@ -32,6 +35,35 @@ def _pair_indices(num_fields: int):
             row.append(i)
             col.append(j)
     return row, col
+
+
+_PAIR_SELECT = {}
+
+
+def _pair_onehots(x: torch.Tensor):
+    """([P, F] one-hot of each pair's first field, of its second) for
+    [B, F, E] ``x`` in :func:`_pair_indices` order, made once for each field
+    count, device and dtype, outside inference mode: a pair made by
+    ``predict`` serves a later training step too."""
+    num_fields = x.shape[1]
+    key = (num_fields, str(x.device), x.dtype)
+    if key not in _PAIR_SELECT:
+        row, col = _pair_indices(num_fields)
+        with torch.inference_mode(False):
+            eye = torch.eye(num_fields, device=x.device, dtype=x.dtype)
+            _PAIR_SELECT[key] = (eye[row], eye[col])
+    return _PAIR_SELECT[key]
+
+
+def pair_fields(x: torch.Tensor, y: Optional[torch.Tensor] = None):
+    """([B, P, E] each pair's first field, taken from ``x``; [B, P, E] its
+    second field, taken from ``y``, by default ``x``), pairs in
+    :func:`_pair_indices` order.  Taken by one-hot products as the JAX
+    layers take them (``interaction.py:146-153``): exact in fp32, and their
+    backward is a product too, with no atomic scatter-add."""
+    p_row, p_col = _pair_onehots(x)
+    return (torch.einsum("bfe,pf->bpe", x, p_row),
+            torch.einsum("bfe,pf->bpe", x if y is None else y, p_col))
 
 
 def glorot_normal_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
@@ -259,9 +291,8 @@ class AFMLayer(nn.Module):
     Raw parameters as in the JAX paths: ``attention_W`` [E, A],
     ``attention_b`` [A] (zeros), ``projection_h`` [A, 1] and
     ``projection_p`` [E, 1], the three matrices drawn by
-    :func:`glorot_normal_`.  The pairs follow :func:`_pair_indices` and are
-    taken by a one-hot product, as the JAX layer takes them: the backward is
-    a product too, not a scatter-add.  The layout is the natural [B, P, E]
+    :func:`glorot_normal_`.  The pairs are taken by :func:`pair_fields`.
+    The layout is the natural [B, P, E]
     (the JAX layer's [E, P, B] is a TPU lane choice; the math is the same).
     Dropout on the attention output draws its mask from ``generator``."""
 
@@ -283,23 +314,10 @@ class AFMLayer(nn.Module):
         self.attention_b = nn.Parameter(torch.zeros(A))
         self.projection_h = nn.Parameter(glorot_normal_(torch.empty(A, 1), generator))
         self.projection_p = nn.Parameter(glorot_normal_(torch.empty(E, 1), generator))
-        self._select = {}
-
-    def _pair_select(self, x):
-        """([P, F] one-hot of each pair's first field, of its second), made
-        once for each field count, device and dtype."""
-        num_fields = x.shape[1]
-        key = (num_fields, str(x.device), x.dtype)
-        if key not in self._select:
-            row, col = _pair_indices(num_fields)
-            eye = torch.eye(num_fields, device=x.device, dtype=x.dtype)
-            self._select[key] = (eye[row], eye[col])
-        return self._select[key]
 
     def forward(self, inputs, training: bool = False, generator=None):
-        p_row, p_col = self._pair_select(inputs)
-        bi = (torch.einsum("bfe,pf->bpe", inputs, p_row)
-              * torch.einsum("bfe,pf->bpe", inputs, p_col))  # [B, P, E]
+        p, q = pair_fields(inputs)
+        bi = p * q  # [B, P, E]
         attention_temp = torch.relu(bi @ self.attention_W + self.attention_b)  # [B, P, A]
         att_score = torch.softmax((attention_temp @ self.projection_h)[:, :, 0], dim=1)
         attention_output = torch.einsum("bp,bpe->be", att_score, bi)
@@ -431,3 +449,176 @@ class LogTransformLayer(nn.Module):
         x = torch.exp(torch.einsum("bfe,fh->beh", x, self.ltl_weights) + self.ltl_biases)
         x = self.bn1(x, training=training)
         return x.reshape(x.shape[0], -1)
+
+
+class SENETLayer(nn.Module):
+    """FiBiNET's squeeze-excitation over the fields (reference
+    ``interaction.py:64-101``; ``xdeepfm_tpu/nn/interaction.py:55-79``).
+    [B, F, E] -> [B, F, E]: each field scaled by relu(fc2(relu(fc1(mean over
+    E)))), ``fc1`` [F -> max(1, F // reduction_ratio)] and ``fc2`` back to F,
+    both ``nn.Linear`` without bias, drawn as torch's Linear."""
+
+    def __init__(self, filed_size: int, reduction_ratio: int = 3, seed: int = 1024,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if generator is None:
+            generator = torch.Generator().manual_seed(seed)
+        reduction_size = max(1, filed_size // reduction_ratio)
+        self.fc1 = nn.Linear(filed_size, reduction_size, bias=False)
+        self.fc2 = nn.Linear(reduction_size, filed_size, bias=False)
+        for fc in (self.fc1, self.fc2):
+            torch_linear_init(fc.weight, generator)
+
+    def forward(self, inputs, training: bool = False):
+        if inputs.dim() != 3:
+            raise ValueError(
+                "Unexpected inputs dimensions %d, expect to be 3 dimensions" % inputs.dim())
+        a = torch.relu(self.fc2(torch.relu(self.fc1(inputs.mean(dim=-1)))))
+        return inputs * a[:, :, None]
+
+
+def _linear_slices(n: int, e: int, generator) -> torch.Tensor:
+    """[n, e, e]: n independent draws of a torch-Linear [e, e] weight, as
+    the JAX ``_stacked_init(torch_linear_init, n)``."""
+    out = torch.empty(n, e, e)
+    for w in out:
+        torch_linear_init(w, generator)
+    return out
+
+
+class BilinearInteraction(nn.Module):
+    """FiBiNET's pairwise (v_i W) * v_j (reference ``interaction.py:104-156``;
+    ``xdeepfm_tpu/nn/interaction.py:82-143``). [B, F, E] -> [B, P, E], or
+    [B, P * E] in (p, e) order with ``flatten_output``.
+
+    ``bilinear_type``: "all" one ``bilinear_all`` [E, E]; "each" one
+    ``bilinear_each`` [F, E, E] slice for each first field; "interaction"
+    one ``bilinear_inter`` [P, E, E] slice for each pair.  Raw parameters in
+    the JAX layout [in, out] (untransposed), each [E, E] slice drawn as a
+    torch Linear.  Pairs in :func:`_pair_indices` order through
+    :func:`pair_fields`, in the natural [B, P, E] layout (the JAX layer's
+    [E, P, B] is a TPU lane choice)."""
+
+    def __init__(self, filed_size: int, embedding_size: int, bilinear_type: str = "interaction",
+                 seed: int = 1024, flatten_output: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if generator is None:
+            generator = torch.Generator().manual_seed(seed)
+        F_, E = filed_size, embedding_size
+        self.bilinear_type, self.flatten_output = bilinear_type, flatten_output
+        if bilinear_type == "all":
+            self.bilinear_all = nn.Parameter(_linear_slices(1, E, generator)[0])
+        elif bilinear_type == "each":
+            self.bilinear_each = nn.Parameter(_linear_slices(F_, E, generator))
+        elif bilinear_type == "interaction":
+            self.bilinear_inter = nn.Parameter(
+                _linear_slices(F_ * (F_ - 1) // 2, E, generator))
+        else:
+            raise NotImplementedError
+
+    def forward(self, inputs, training: bool = False):
+        if inputs.dim() != 3:
+            raise ValueError(
+                "Unexpected inputs dimensions %d, expect to be 3 dimensions" % inputs.dim())
+        if self.bilinear_type == "each":
+            # each field projected once, then the pairs taken
+            vi, vj = pair_fields(torch.einsum("bfe,fen->bfn", inputs, self.bilinear_each),
+                                 inputs)
+            out = vi * vj
+        else:
+            vi, vj = pair_fields(inputs)
+            if self.bilinear_type == "all":
+                out = (vi @ self.bilinear_all) * vj
+            else:
+                out = torch.einsum("bpe,pen->bpn", vi, self.bilinear_inter) * vj
+        return out.flatten(1) if self.flatten_output else out
+
+
+class InnerProductLayer(nn.Module):
+    """PNN's pairwise inner products (reference ``interaction.py:537-577``;
+    ``xdeepfm_tpu/nn/interaction.py:517-538``). [B, F, E] -> [B, P, 1], or
+    the products [B, P, E] without ``reduce_sum``."""
+
+    def __init__(self, reduce_sum: bool = True):
+        super().__init__()
+        self.reduce_sum = reduce_sum
+
+    def forward(self, inputs):
+        p, q = pair_fields(inputs)
+        return (p * q).sum(dim=-1, keepdim=True) if self.reduce_sum else p * q
+
+
+class OutterProductLayer(nn.Module):
+    """PNN's kernel-weighted outer products (reference
+    ``interaction.py:580-672``; ``xdeepfm_tpu/nn/interaction.py:541-582``).
+    [B, F, E] -> [B, P].
+
+    One raw parameter ``kernel`` in the JAX layout, drawn by
+    :func:`glorot_uniform_`: "mat" [E, P, E], out[b, p] = sum over e1, e2
+    of q[b, p, e1] k[e1, p, e2] p[b, p, e2]; "vec" [P, E]; "num" [P, 1].
+    It is no flax ``Dense`` kernel: the weights map carries it untransposed
+    under its own name."""
+
+    def __init__(self, field_size: int, embedding_size: int, kernel_type: str = "mat",
+                 seed: int = 1024, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if generator is None:
+            generator = torch.Generator().manual_seed(seed)
+        P, E = field_size * (field_size - 1) // 2, embedding_size
+        shapes = {"mat": (E, P, E), "vec": (P, E), "num": (P, 1)}
+        if kernel_type not in shapes:
+            raise ValueError(kernel_type)
+        self.kernel_type = kernel_type
+        self.kernel = nn.Parameter(glorot_uniform_(torch.empty(shapes[kernel_type]), generator))
+
+    def forward(self, inputs):
+        p, q = pair_fields(inputs)
+        if self.kernel_type == "mat":
+            # tmp[b, p, e1] = sum_e2 p[b, p, e2] k[e1, p, e2]
+            return (torch.einsum("bpe,fpe->bpf", p, self.kernel) * q).sum(dim=-1)
+        if self.kernel_type == "vec":
+            return (p * q * self.kernel).sum(dim=-1)
+        return (p * q).sum(dim=-1) * self.kernel[:, 0]
+
+
+class ConvLayer(nn.Module):
+    """CCPM's convolution stack (reference ``interaction.py:675-717``;
+    ``xdeepfm_tpu/nn/interaction.py:585-633``): per layer i a SAME
+    (width_i, 1) convolution ``conv_{i}`` (:class:`~.core.ConvSame`), tanh, and
+    k-max pooling over the field axis down to
+    :meth:`output_field_size`'s schedule.  NHWC [B, F, E, 1] ->
+    [B, F', E, filters[-1]], the JAX layout, so a flatten gives the JAX
+    (f, e, c) order."""
+
+    def __init__(self, field_size: int, conv_kernel_width: Sequence[int],
+                 conv_filters: Sequence[int], generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if generator is None:
+            generator = torch.Generator().manual_seed(1024)
+        n, l = field_size, len(conv_filters)
+        self.n_layers = l
+        filed_shape, in_ch = n, 1
+        for i in range(1, l + 1):
+            k = max(1, int((1 - pow(i / l, l - i)) * n)) if i < l else 3
+            self.add_module(f"conv_{i}", ConvSame(in_ch, conv_filters[i - 1],
+                                                  (conv_kernel_width[i - 1], 1),
+                                                  generator=generator))
+            self.add_module(f"pool_{i}", KMaxPooling(k=min(k, filed_shape), axis=1))
+            filed_shape, in_ch = min(k, filed_shape), conv_filters[i - 1]
+
+    @staticmethod
+    def output_field_size(field_size: int, n_layers: int) -> int:
+        """F' after ``n_layers`` layers (``interaction.py:597-607``)."""
+        filed_shape = field_size
+        for i in range(1, n_layers + 1):
+            k = (max(1, int((1 - pow(i / n_layers, n_layers - i)) * field_size))
+                 if i < n_layers else 3)
+            filed_shape = min(k, filed_shape)
+        return filed_shape
+
+    def forward(self, inputs):
+        x = inputs
+        for i in range(1, self.n_layers + 1):
+            x = getattr(self, f"pool_{i}")(torch.tanh(getattr(self, f"conv_{i}")(x)))
+        return x

@@ -1,6 +1,7 @@
 """Sequence ops (port of ``xdeepfm_tpu/nn/sequence.py``; reference
-``deepctr/layers/sequence.py``): masked pooling, DIN attention pooling and
-the GRU / AGRU / AUGRU recurrences over padded sequences.
+``deepctr/layers/sequence.py``): masked pooling, DIN attention pooling,
+CCPM's k-max pooling and the GRU / AGRU / AUGRU recurrences over padded
+sequences.
 
 The recurrences keep the JAX semantics: the hidden state freezes past each
 row's length (packed-sequence behaviour, ``sequence.py:296-320``), the input
@@ -20,6 +21,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.autograd.function import once_differentiable
 
 from ..ops import gru as gru_ops
 from ..ops.gru_cuda import valid_mask
@@ -111,6 +113,56 @@ class AttentionSequencePoolingLayer(nn.Module):
         valid = sequence_mask(lengths, keys.shape[1])
         s = self.local_att(query[:, None, :], keys, training=training)[:, :, 0]
         return self._normalize(s, valid, -1)
+
+
+class _KMax(torch.autograd.Function):
+    """The k largest entries of the last axis, sorted descending; each
+    cotangent goes back to its entry's index, written once (the indices of a
+    row are distinct), so the backward has no atomics."""
+
+    @staticmethod
+    def forward(ctx, x, k):
+        # a stable descending sort keeps tied entries in index order: the
+        # first occurrence first, as the JAX max-and-mask passes pick it
+        idx = torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]
+        ctx.save_for_backward(idx)
+        ctx.n = x.shape[-1]
+        return x.gather(-1, idx)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return g.new_zeros(*g.shape[:-1], ctx.n).scatter_(-1, idx, g), None
+
+
+def kmax_lastaxis(x: torch.Tensor, k: int) -> torch.Tensor:
+    """The top ``k`` values of the last axis, sorted descending
+    (``sequence.py:145-192``).  On a tie the entry of the lower index comes
+    first and takes the gradient, as in the JAX function's k max-and-mask
+    passes (``torch.topk`` orders ties otherwise).  One path for every k:
+    the JAX ``KMaxPooling`` switches to ``lax.top_k`` above k = 32, for the
+    TPU's sort; a stable sort serves every k here.  Inputs must be finite,
+    as the JAX function requires."""
+    return _KMax.apply(x, k)
+
+
+class KMaxPooling(nn.Module):
+    """Top-k along ``axis``, sorted descending (reference
+    ``sequence.py:157-189``)."""
+
+    def __init__(self, k: int, axis: int):
+        super().__init__()
+        self.k, self.axis = k, axis
+
+    def forward(self, inputs):
+        if self.axis < 0 or self.axis >= inputs.dim():
+            raise ValueError("axis must be 0~%d,now is %d" % (inputs.dim() - 1, self.axis))
+        if self.k < 1 or self.k > inputs.shape[self.axis]:
+            raise ValueError(
+                "k must be in 1 ~ %d,now k is %d" % (inputs.shape[self.axis], self.k))
+        top = kmax_lastaxis(inputs.movedim(self.axis, -1), self.k)
+        return top.movedim(-1, self.axis)
 
 
 def _uniform_(t: torch.Tensor, bound: float, generator) -> torch.Tensor:

@@ -6,7 +6,10 @@ The canonical tree is what the JAX ``BaseModel.get_weights()`` returns:
 parameter's name is its JAX path with ``.`` for ``/``, except that a flax
 ``Dense`` ``kernel`` [in, out] is an ``nn.Linear`` ``weight`` [out, in]
 (its transpose) and a flax ``Conv`` ``kernel`` [kh, kw, in, out] an
-``nn.Conv2d`` ``weight`` [out, in, kh, kw].  ``conv_w_i`` keeps its
+``nn.Conv2d`` ``weight`` [out, in, kh, kw].  The module decides which
+leaves those are (:func:`canonical_paths`): a raw parameter that the JAX
+layer names ``kernel`` (PNN's outer-product ``kernel``, a ``ConvSame``
+``kernel``) keeps its name and layout.  ``conv_w_i`` keeps its
 [O, H*M] layout, channel h*M + m.  A BatchNorm's running ``mean`` and
 ``var`` are buffers of the port (``nn.core.BatchNorm``) and leaves of
 ``batch_stats`` in the tree, under the same path; its ``scale`` and
@@ -44,18 +47,54 @@ def unflatten_tree(flat: Dict[str, np.ndarray]) -> dict:
     return tree
 
 
-def from_jax_weights(tree) -> Dict[str, torch.Tensor]:
-    """Canonical JAX weight tree -> port ``state_dict`` (CPU fp32 tensors):
-    its ``params`` and its ``batch_stats`` (absent or empty: none)."""
+def _dense_weights(module: nn.Module):
+    """Keys of the ``nn.Linear`` and ``nn.Conv2d`` weights of ``module``:
+    the flax ``Dense`` and ``Conv`` kernels, transposed."""
+    return {f"{name}.weight" if name else "weight" for name, m in module.named_modules()
+            if isinstance(m, (nn.Linear, nn.Conv2d))}
+
+
+def _transpose_in(arr: np.ndarray) -> np.ndarray:
+    """A flax kernel ([in, out] or [kh, kw, in, out]) in the torch layout."""
+    return arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+
+
+def _transpose_out(arr: np.ndarray) -> np.ndarray:
+    """A torch weight ([out, in] or [out, in, kh, kw]) in the flax layout."""
+    return arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+
+
+def from_jax_weights(tree, module: nn.Module = None) -> Dict[str, torch.Tensor]:
+    """Canonical JAX weight tree -> ``module``'s ``state_dict`` (CPU fp32
+    tensors): its ``params`` and its ``batch_stats`` (absent or empty:
+    none).  Each leaf goes to the parameter whose :func:`canonical_paths`
+    path it is; only an ``nn.Linear`` or ``nn.Conv2d`` weight is renamed
+    from ``kernel`` and transposed.  A leaf the module lacks keeps its path
+    with ``.`` for ``/``, so ``load_state_dict(strict=True)`` names it.
+    Without ``module`` every leaf named ``kernel`` is taken for a flax
+    ``Dense`` or ``Conv`` kernel, which holds for layers with no raw
+    ``kernel`` parameter."""
+    if module is None:
+        port_key, dense = {}, None
+    else:
+        port_key = {path: key for key, path in canonical_paths(module).items()}
+        dense = _dense_weights(module)
     state = {}
     for collection in ("params", "batch_stats"):
         for path, leaf in flatten_tree(tree.get(collection) or {}):
-            segs = path.split("/")
             arr = np.asarray(leaf, dtype=np.float32)
-            if collection == "params" and segs[-1] == "kernel":
-                segs[-1] = "weight"
-                arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
-            state[".".join(segs)] = torch.from_numpy(np.array(arr, order="C"))  # a copy
+            key = port_key.get(path) if collection == "params" else None
+            if key is not None:
+                flax_kernel = key in dense
+            else:
+                segs = path.split("/")
+                flax_kernel = dense is None and collection == "params" and segs[-1] == "kernel"
+                if flax_kernel:
+                    segs[-1] = "weight"
+                key = ".".join(segs)
+            if flax_kernel:
+                arr = _transpose_in(arr)
+            state[key] = torch.from_numpy(np.array(arr, order="C"))  # a copy
     return state
 
 
@@ -64,17 +103,14 @@ def canonical_paths(module: nn.Module) -> Dict[str, str]:
     ``dnn/linear_0/kernel``...): ``.`` becomes ``/`` and an ``nn.Linear`` or
     ``nn.Conv2d`` ``weight`` is the flax ``kernel``.  Buffers (the
     ``batch_stats``) are left out."""
-    linear_weights = {
-        f"{name}.weight" for name, m in module.named_modules()
-        if isinstance(m, (nn.Linear, nn.Conv2d))
-    }
+    dense = _dense_weights(module)
     stats = {name for name, _ in module.named_buffers()}
     paths = {}
     for key in module.state_dict():
         if key in stats:
             continue
         segs = key.split(".")
-        if key in linear_weights:
+        if key in dense:
             segs[-1] = "kernel"
         paths[key] = "/".join(segs)
     return paths
@@ -82,16 +118,18 @@ def canonical_paths(module: nn.Module) -> Dict[str, str]:
 
 def to_jax_weights(module: nn.Module) -> dict:
     """A port model's module -> the canonical JAX weight tree (numpy): the
-    parameters under ``params``, the buffers under ``batch_stats``."""
+    parameters under ``params`` (only the ``nn.Linear`` and ``nn.Conv2d``
+    weights transposed), the buffers under ``batch_stats``."""
     paths = canonical_paths(module)
+    dense = _dense_weights(module)
     flat, stats = {}, {}
     for key, t in module.state_dict().items():
         arr = t.detach().cpu().numpy()
         if key not in paths:
             stats[key.replace(".", "/")] = np.ascontiguousarray(arr)
             continue
-        if paths[key].endswith("/kernel"):
-            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+        if key in dense:
+            arr = _transpose_out(arr)
         flat[paths[key]] = np.ascontiguousarray(arr)
     return {"params": unflatten_tree(flat), "batch_stats": unflatten_tree(stats)}
 
