@@ -129,8 +129,19 @@ run in order and any failure raises, so the exit code is non-zero:
    ``fast_inputs`` on the per-feature route, one SGD step against the CPU);
    FiBiNET, PNN, CCPM, MLR and ONN (ROADMAP item 12c) trained and scored as
    the FM family, the fit's peak memory recorded;
+   SharedBottom, ESMM, MMOE and PLE (ROADMAP item 15) at their defaults
+   likewise, under the loss list ``["binary_crossentropy",
+   "binary_crossentropy"]`` on two nested labels a row (the click and a
+   click converted with probability MT_CVR), their scores [n, 2];
    ``zoo_variants_sgd_step``: PNN's outer "mat" product, FiBiNET's "each"
    bilinear and MLR with bias columns, one SGD step each against the CPU;
+   ``mt_variants_sgd_step``: SharedBottom without towers on a binary and a
+   regression task (``["binary_crossentropy", "mse"]``), MMOE without gate
+   DNNs, PLE with 2 specific experts and 1 shared and ``l2_reg_dnn=1e-3``,
+   one SGD step each against the CPU; ``mt_lazy``: MMOE under the lazy
+   optimizer (Adam, split, packed), MT_LAZY_STEPS steps of batch 4096, the
+   weights and row states after each step against the CPU model's within
+   the lazy tolerances;
    ``zoo_ccpm_tf32_default``: CCPM with ``cudnn.allow_tf32 = True``, no
    convolution or TF32 kernel in its step, each conv layer's kernel
    gradient against float64 within FP32_SLACK times the CPU's error (cuDNN's
@@ -169,8 +180,8 @@ run in order and any failure raises, so the exit code is non-zero:
    2 + 2 + 2 CIN launches a step, and for the lazy runs one step's
    transient allocation below a tenth of the group array's bytes;
 21. a ``{"kernels": [...]}`` line, one entry per hand-written kernel, its
-   ``launches_by_path`` with the CLI, lazy, ``dien_dice`` and ``bf16``
-   paths;
+   ``launches_by_path`` with the CLI, lazy, ``dien_dice``, ``bf16`` and
+   multitask paths;
 22. the last line: ``{"ok": true, "device": {...}}``.
 
 Every model's training record lists the gradients that a second identical
@@ -206,7 +217,7 @@ import torch.nn.functional as F
 from torch.overrides import TorchFunctionMode
 
 from xdeepfm_tpu_torch import native
-from xdeepfm_tpu_torch.basemodel import _loss_fn_single
+from xdeepfm_tpu_torch.basemodel import sum_loss
 from xdeepfm_tpu_torch.cli import xdftrain, xdftrain_attn, xdftrain_pro
 from xdeepfm_tpu_torch.embeddings import MixedEmbeddingDims, fused_gather, touched_ids
 from xdeepfm_tpu_torch.features import DenseFeat, SparseFeat, VarLenSparseFeat
@@ -218,16 +229,20 @@ from xdeepfm_tpu_torch.models import (
     DIEN,
     DIFM,
     DIN,
+    ESMM,
     IFM,
     MLR,
+    MMOE,
     NFM,
     ONN,
+    PLE,
     PNN,
     WDL,
     AutoInt,
     DCNMix,
     DeepFM,
     FiBiNET,
+    SharedBottom,
     xDeepFM,
     xDeepFMAttention,
     xDeepFMAttentionV2,
@@ -805,20 +820,26 @@ def expected(**counts):
 
 
 def device_batch(model, x, y, n):
+    """The first ``n`` rows on the model's device: labels [n, 1], or [n, T]
+    for T tasks."""
     packed = model.schema.pack({k: v[:n] for k, v in x.items()})
     xb = {k: torch.as_tensor(v, device=model.device) for k, v in packed.items()}
-    return xb, torch.as_tensor(y[:n, None], device=model.device)
+    return xb, torch.as_tensor(y[:n, None] if y.ndim == 1 else y[:n], device=model.device)
 
 
-def step_grads(model, xb, yb):
-    """Gradients of one step's loss (sum-BCE + L2 registry + a module's
-    aux loss, as ``_train_step``), no update."""
+def step_grads(model, xb, yb, loss="binary_crossentropy"):
+    """Gradients of one step's loss (the sum-loss of ``loss``, a name or a
+    multitask model's list, + L2 registry + a module's aux loss, as
+    ``_train_step``), no update.  A parameter that no term reaches has no
+    gradient (the last PLE level's shared gate without L2) and is left
+    out."""
     model.module.zero_grad(set_to_none=True)
     out = model.module(xb, training=True)
     mask = torch.ones(yb.shape[0], device=yb.device)
-    loss = _loss_fn_single("binary_crossentropy")(out["pred"].reshape(-1), yb.reshape(-1), mask)
+    loss = sum_loss(loss, out["pred"], yb, mask, model.num_tasks)
     (loss + model._regularization_loss() + out.get("aux_loss", 0.0)).backward()
-    return {k: p.grad.clone() for k, p in model.module.named_parameters()}
+    return {k: p.grad.clone() for k, p in model.module.named_parameters()
+            if p.grad is not None}
 
 
 # A relu input that two routes put on opposite sides of 0 is held only where
@@ -931,11 +952,11 @@ def reproduced(label, got, again):
     return unsteady
 
 
-def relu_step_grads(model, xb, yb, ref=None):
+def relu_step_grads(model, xb, yb, ref=None, loss="binary_crossentropy"):
     """(:func:`step_grads`, the :class:`ReluRecord` of its kernel-fed
     relus, compared with ``ref`` where given)."""
     with ReluRecord(model, ref) as rec:
-        grads = step_grads(model, xb, yb)
+        grads = step_grads(model, xb, yb, loss)
     return grads, rec
 
 
@@ -977,10 +998,11 @@ def grad_err(got, want, floor=0.0):
 GRAD_RTOL = 1e-4
 
 
-def sgd_step_vs_cpu(pair, x, y, label, floor=0.0):
+def sgd_step_vs_cpu(pair, x, y, label, floor=0.0, loss="binary_crossentropy"):
     """One SGD step on 256 rows from the same weights by the card's and the
-    CPU's model (``pair``), the CPU's kernel-fed relus compared with the
-    card's (:class:`ReluRecord`).  Errors by :func:`per_grad_err` with
+    CPU's model (``pair``) under ``loss`` (a name, or a multitask model's
+    list over the [n, T] labels ``y``), the CPU's kernel-fed relus compared
+    with the card's (:class:`ReluRecord`).  Errors by :func:`per_grad_err` with
     ``floor``: the weights after it within GRAD_RTOL; the gradients within
     GRAD_RTOL, or, for a gradient that rounding moves further, as close to a
     float64 copy's gradients as the CPU's own fp32 ones, up to FP32_SLACK,
@@ -991,20 +1013,24 @@ def sgd_step_vs_cpu(pair, x, y, label, floor=0.0):
     m64 = copy.deepcopy(pair[1])  # the CPU model before its step
     before = {k: p.detach().cpu().clone() for k, p in pair[1].module.named_parameters()}
     for m in pair:
-        m.compile("sgd", "binary_crossentropy")
+        m.compile("sgd", loss)
         with ReluRecord(m, recs[0] if recs else None) as rec:
             m.fit({k: v[:small] for k, v in x.items()}, y[:small], batch_size=small, epochs=1,
                   verbose=0, shuffle=False)
         recs.append(rec)
     errs = {"relus": recs[1].stats()}
-    card, cpu = ({k: p.grad.detach().cpu() for k, p in m.module.named_parameters()} for m in pair)
+    card, cpu = ({k: p.grad.detach().cpu() for k, p in m.module.named_parameters()
+                  if p.grad is not None} for m in pair)
+    if card.keys() != cpu.keys():
+        raise AssertionError(f"{label}card and CPU gave gradients to different parameters: "
+                             f"{sorted(card.keys() ^ cpu.keys())}")
     errs["grad"] = grad_err(card, cpu, floor)
     if errs["grad"] > GRAD_RTOL:
         m64.module = m64.module.double()
-        m64.compile("sgd", "binary_crossentropy")
+        m64.compile("sgd", loss)
         xb, yb = device_batch(m64, x, y, small)
         xb = {k: v.double() if v.is_floating_point() else v for k, v in xb.items()}
-        ref, held = relu_step_grads(m64, xb, yb.double(), recs[0])
+        ref, held = relu_step_grads(m64, xb, yb.double(), recs[0], loss)
         card64, cpu64 = per_grad_err(card, ref, floor), per_grad_err(cpu, ref, floor)
         vs64 = {k: (card64[k], cpu64[k]) for k in ref}
         bad = {k: e for k, e in vs64.items() if e[0] > max(GRAD_RTOL, FP32_SLACK * e[1])}
@@ -1315,7 +1341,7 @@ def pro_step_grads(model, batch, yb):
     model.module.zero_grad(set_to_none=True)
     out = model.module(batch, training=True)
     mask = torch.ones(yb.shape[0], device=yb.device)
-    loss = _loss_fn_single("binary_crossentropy")(out["pred"].reshape(-1), yb.reshape(-1), mask)
+    loss = sum_loss("binary_crossentropy", out["pred"], yb, mask)
     (loss + model._regularization_loss() + out["aux_loss"]).backward()
     return {k: p.grad.clone() for k, p in model.module.named_parameters()}
 
@@ -2483,7 +2509,23 @@ ZOO = {
                                       device=device),
     "mlr": lambda cols, device: MLR(cols, device=device),
     "onn": lambda cols, device: ONN(cols, cols, device=device),
+    # ROADMAP item 15, the multitask family, as scripts/bench_zoo.py:146-150
+    # builds it (each constructor's defaults, two binary tasks): SharedBottom's
+    # bottom DNN (256, 128) over 273 inputs and towers (64,); ESMM's CTR and
+    # CVR towers (256, 128) and the one shared prediction layer; MMOE's 3
+    # experts (256, 128), gates (64,), towers (64,); PLE's 2 levels of 1
+    # specific expert a task and 1 shared (256, 128), gates (64,), towers (64,)
+    "sharedbottom": lambda cols, device: SharedBottom(cols, device=device),
+    "esmm": lambda cols, device: ESMM(cols, device=device),
+    "mmoe": lambda cols, device: MMOE(cols, device=device),
+    "ple": lambda cols, device: PLE(cols, device=device),
 }
+# the multitask models train under a loss list, one BCE a task, on two
+# nested labels a row (mt_labels)
+ZOO_MULTITASK = ("sharedbottom", "esmm", "mmoe", "ple")
+MT_LOSS = ["binary_crossentropy", "binary_crossentropy"]
+# a converted row is a clicked row converted with this probability
+MT_CVR = 0.3
 # the paths of item 12c that the constructors' defaults miss, each one SGD
 # step against the CPU: PNN's outer products with the "mat" kernel (a raw
 # parameter named ``kernel``, carried untransposed), FiBiNET's "each"
@@ -2496,6 +2538,23 @@ ZOO_VARIANTS = {
     "mlr_bias": lambda cols, device: MLR(cols, bias_feature_columns=cols[:4] + [cols[N_SPARSE]],
                                          device=device),
 }
+# the multitask paths that the defaults miss, each one SGD step against the
+# CPU under its loss list: SharedBottom without towers on a binary and a
+# regression task, MMOE without gate DNNs (its gates read the 273 inputs),
+# PLE with 2 specific experts and 1 shared (the JAX tree's one shared expert
+# a level) and the L2 registry that counts its gate finals twice
+MT_VARIANTS = {
+    "sharedbottom_regression": (
+        lambda cols, device: SharedBottom(cols, tower_dnn_hidden_units=(),
+                                          task_types=("binary", "regression"), device=device),
+        ["binary_crossentropy", "mse"]),
+    "mmoe_no_gate_dnn": (lambda cols, device: MMOE(cols, gate_dnn_hidden_units=(),
+                                                   device=device), MT_LOSS),
+    "ple_2_specific_1_shared_l2": (
+        lambda cols, device: PLE(cols, specific_expert_num=2, shared_expert_num=1,
+                                 l2_reg_dnn=1e-3, device=device), MT_LOSS),
+}
+MT_LAZY_STEPS = 3  # MMOE's lazy split packed steps, each against the CPU model
 # item 12c's models, whose two identical steps must give bit-equal gradients
 ZOO_12C = ("fibinet", "pnn", "ccpm", "mlr", "onn")
 ZOO_EPOCHS = 2  # of TRAIN_STEPS_PER_EPOCH steps: the epoch loss must fall once
@@ -2514,6 +2573,26 @@ def zoo_version(name):
     return "dien" if name == "din" else "xdeepfm"
 
 
+def zoo_loss(name):
+    """A zoo model's loss: a list of one BCE a task for the multitask models."""
+    return MT_LOSS if name in ZOO_MULTITASK else "binary_crossentropy"
+
+
+def mt_labels(rng, click):
+    """[n, 2] labels of the multitask models: the click of ``train_data``'s
+    teacher and the CTCVR, a click converted with probability MT_CVR, so that
+    ESMM's product of the two towers has a target."""
+    return np.stack([click, click * (rng.uniform(size=len(click)) < MT_CVR)],
+                    1).astype(np.float32)
+
+
+def zoo_data(rng, n, name):
+    """``train_data``'s rows for zoo model ``name``, with [n, 2] nested
+    labels for a multitask model."""
+    x, y = train_data(rng, n, zoo_version(name))
+    return x, (mt_labels(rng, y) if name in ZOO_MULTITASK else y)
+
+
 def zoo_model(name, device, weights=None, cols=None):
     if cols is None:
         cols = din_columns() if name == "din" else canonical_columns()
@@ -2525,17 +2604,17 @@ def zoo_model(name, device, weights=None, cols=None):
 
 def phase_zoo_training(name):
     """Zoo model ``name`` (no kernel of its own) at full width: ``fit`` at
-    batch 4096, Adam,
+    batch 4096, Adam, under :func:`zoo_loss` (a multitask model's list on
+    :func:`mt_labels`),
     ZOO_EPOCHS epochs of 8 steps with the validation half batch, every
     logged value finite and the epoch loss falling; no hand-written kernel
     launched; one SGD step on the card against the CPU model (weights and
     BatchNorm running statistics); examples/s trained (CUDA events); the
     peak memory of the fit."""
     model = zoo_model(name, "cuda")
-    model.compile("adam", "binary_crossentropy", metrics=["auc"])
+    model.compile("adam", zoo_loss(name), metrics=["auc"])
     rng = np.random.default_rng(SEED + 3)
-    x, y = train_data(rng, TRAIN_STEPS_PER_EPOCH * TRAIN_BATCH + TRAIN_BATCH // 2,
-                      zoo_version(name))
+    x, y = zoo_data(rng, TRAIN_STEPS_PER_EPOCH * TRAIN_BATCH + TRAIN_BATCH // 2, name)
     x, y, val = (  # the last half batch validates
         {k: v[: -TRAIN_BATCH // 2] for k, v in x.items()}, y[: -TRAIN_BATCH // 2],
         ({k: v[-TRAIN_BATCH // 2 :] for k, v in x.items()}, y[-TRAIN_BATCH // 2 :]),
@@ -2559,7 +2638,7 @@ def phase_zoo_training(name):
         raise AssertionError(f"zoo {name}: the epoch loss did not fall: {logs['loss']}")
     cpu_errs = sgd_step_vs_cpu(
         [zoo_model(name, dev, model.get_weights()) for dev in ("cuda", "cpu")], x, y,
-        f"zoo {name}: ", GRAD_FLOOR.get(name, 0.0))
+        f"zoo {name}: ", GRAD_FLOOR.get(name, 0.0), zoo_loss(name))
     trained = model.get_weights()
     batches = [device_batch(model, {k: v[i * TRAIN_BATCH:] for k, v in x.items()},
                             y[i * TRAIN_BATCH:], TRAIN_BATCH) for i in range(4)]
@@ -2567,7 +2646,8 @@ def phase_zoo_training(name):
     model.set_weights(trained)
     record = dict(
         model=name, batch=TRAIN_BATCH, steps=TRAIN_STEPS_PER_EPOCH * ZOO_EPOCHS,
-        epochs=ZOO_EPOCHS, fit_seconds=fit_s, launches=launches, history=logs,
+        epochs=ZOO_EPOCHS, loss=zoo_loss(name), fit_seconds=fit_s, launches=launches,
+        history=logs,
         rel_err_vs_cpu_one_sgd_step=cpu_errs, ms_per_step=ms,
         examples_per_s=[TRAIN_BATCH / t * 1e3 for t in ms],
         parameters=sum(p.numel() for p in model.module.parameters()),
@@ -2581,8 +2661,9 @@ def phase_zoo_training(name):
 def phase_zoo_scoring(model, name):
     """The trained zoo model through ``Scorer(batch_size=8192)`` over
     the serving requests: no hand-written kernel launched, finite
-    probabilities, examples/s, and the scores within 1e-5 of the CPU
-    model's on a small input."""
+    probabilities of shape [n, 1] ([n, 2] for a multitask model),
+    examples/s, and the scores within 1e-5 of the CPU model's on a small
+    input."""
     scorer = Scorer(model, batch_size=BATCH).warmup()
     reqs = requests(np.random.default_rng(SEED + 1), REQUESTS, zoo_version(name))
     reset_launches()
@@ -2590,8 +2671,10 @@ def phase_zoo_scoring(model, name):
     counts = read_launches()
     if counts != expected():
         raise AssertionError(f"zoo {name} scoring launched {counts}")
+    tasks = len(MT_LOSS) if name in ZOO_MULTITASK else 1
     for n, p in zip(REQUESTS, preds):
-        if p.shape != (n, 1) or not (np.isfinite(p).all() and (p > 0).all() and (p < 1).all()):
+        if p.shape != (n, tasks) or not (np.isfinite(p).all() and (p > 0).all()
+                                         and (p < 1).all()):
             raise AssertionError(f"bad zoo {name} scores: shape {p.shape}, "
                                  f"range [{p.min()}, {p.max()}]")
     runs = [score_all(scorer, reqs) for _ in range(2)]
@@ -2603,7 +2686,8 @@ def phase_zoo_scoring(model, name):
     record = dict(model=name, requests=list(REQUESTS),
                   batches=sum(-(-n // BATCH) for n in REQUESTS), launches=counts,
                   examples_per_s=[eps] + [r[1] for r in runs], ms=[ms] + [r[2] for r in runs],
-                  max_abs_diff_vs_cpu=cpu_err, score_std=float(np.concatenate(preds).std()))
+                  max_abs_diff_vs_cpu=cpu_err,
+                  score_std=np.concatenate(preds).std(axis=0).tolist())
     emit(phase=f"zoo_{name}_scoring", **record)
     return record
 
@@ -2648,29 +2732,98 @@ def phase_zoo_mixed_dims():
     return record
 
 
-def phase_zoo_variants():
+def sgd_variants(variants, phase):
     """One SGD step on the card against the CPU model for each of
-    ZOO_VARIANTS from seeded weights; no hand-written kernel launched."""
+    ``variants`` ({label: (model of (cols, device), loss)}; a loss list steps on
+    :func:`mt_labels`) from seeded weights; no hand-written kernel launched.
+    Returns the launches and each variant's record."""
     cols = canonical_columns()
-    x, y = train_data(np.random.default_rng(SEED + 3), 512)
+    rng = np.random.default_rng(SEED + 3)
+    x, click = train_data(rng, 512)
+    y2 = mt_labels(rng, click)
     reset_launches()
     records = {}
-    for label, build in ZOO_VARIANTS.items():
+    for label, (build, loss) in variants.items():
         pair = [build(cols, dev) for dev in ("cuda", "cpu")]
         weights = seeded_weights(pair[0])
         for m in pair:
             m.set_weights(weights)
-        records[label] = sgd_step_vs_cpu(pair, x, y, f"zoo variant {label}: ")
+        records[label] = sgd_step_vs_cpu(pair, x, y2 if isinstance(loss, list) else click,
+                                         f"{phase} {label}: ", loss=loss)
         records[label]["parameters"] = sorted(k for k, _ in flatten_tree(weights["params"]))
         del pair
     launches = read_launches()
     if launches != expected():
-        raise AssertionError(f"zoo variants: hand-written kernels launched: {launches}")
-    kernel = records["pnn_outer_mat"]["parameters"]
+        raise AssertionError(f"{phase}: hand-written kernels launched: {launches}")
+    emit(phase=phase, launches=launches, variants=records)
+    return dict(launches=launches, variants=records)
+
+
+def phase_zoo_variants():
+    """:func:`sgd_variants` over ZOO_VARIANTS; PNN's outer-product kernel
+    keeps its raw name."""
+    rec = sgd_variants({k: (build, "binary_crossentropy") for k, build in ZOO_VARIANTS.items()},
+                       "zoo_variants_sgd_step")
+    kernel = rec["variants"]["pnn_outer_mat"]["parameters"]
     if "outterproduct/kernel" not in kernel:
         raise AssertionError(f"zoo variants: PNN's outer-product kernel is missing: {kernel}")
-    emit(phase="zoo_variants_sgd_step", launches=launches, variants=records)
-    return dict(launches=launches)
+    return rec
+
+
+def phase_mt_variants():
+    """:func:`sgd_variants` over MT_VARIANTS; PLE's tree holds one shared
+    expert a level, as the JAX one."""
+    rec = sgd_variants(MT_VARIANTS, "mt_variants_sgd_step")
+    shared = sorted({k.split("/")[0] for k in rec["variants"]["ple_2_specific_1_shared_l2"]
+                     ["parameters"] if k.startswith("shared_expert_")})
+    if shared != ["shared_expert_0_0_0", "shared_expert_1_0_0"]:
+        raise AssertionError(f"mt variants: PLE's shared experts {shared}")
+    return rec
+
+
+def phase_mt_lazy():
+    """MMOE at its defaults on the canonical columns under the lazy
+    optimizer, Adam, split gradient, packed layout (one group: the main
+    table alone), from seeded weights: MT_LAZY_STEPS train steps of batch
+    4096 under the loss list on the card and on the CPU from the same
+    weights, the weights and row states after each step within the lazy
+    tolerances, rounding-noise entries held (:func:`lazy_adam_close`); no
+    hand-written kernel launched; the loss finite."""
+    pair = [zoo_model("mmoe", dev) for dev in ("cuda", "cpu")]
+    weights = seeded_weights(pair[0])
+    for m in pair:
+        m.set_weights(weights)
+        m.compile("adam", MT_LOSS, embedding_optimizer="lazy", embedding_gradient="split",
+                  embedding_layout="packed")
+        m._dropout_gen = torch.Generator(device=m.device).manual_seed(m.seed + 1)
+    (g,) = pair[0]._lazy["groups"]
+    if [m["path"] for m in g["members"]] != ["embedding_dict/table_d10"]:
+        raise AssertionError(f"mt lazy: groups {pair[0]._lazy['groups']}")
+    rng = np.random.default_rng(SEED + 43)
+    x, y = zoo_data(rng, MT_LAZY_STEPS * TRAIN_BATCH, "mmoe")
+    reset_launches()
+    losses, diffs, held = [], [], []
+    for i in range(MT_LAZY_STEPS):
+        rows = {k: v[i * TRAIN_BATCH :] for k, v in x.items()}
+        totals = []
+        for m in pair:
+            xb, yb = device_batch(m, rows, y[i * TRAIN_BATCH :], TRAIN_BATCH)
+            totals.append(m._train_step(xb, yb, torch.ones(TRAIN_BATCH, device=m.device),
+                                        with_metrics=False)[0].item())
+        card, cpu = (lazy_snapshot(m) for m in pair)
+        held.append(lazy_adam_close(f"mt lazy step {i + 1}", card, cpu, i + 1))
+        losses.append(totals)
+        diffs.append(lazy_diff(card, cpu))
+    launches = read_launches()
+    if launches != expected():
+        raise AssertionError(f"mt lazy: hand-written kernels launched: {launches}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"mt lazy: losses {losses}")
+    record = dict(model="mmoe", steps=MT_LAZY_STEPS, batch=TRAIN_BATCH, launches=launches,
+                  loss_card_cpu=losses, max_abs_diff_weights_state=diffs, held=held,
+                  group_array_shape=list(g["array"].shape))
+    emit(phase="mt_lazy", **record)
+    return record
 
 
 # the kernels of a step that would mean a cuDNN convolution or a TF32 product
@@ -2965,6 +3118,45 @@ def lazy_close(label, got, want, bf16=False):
                                    msg=lambda m: f"{label}: state {k}: {m}")
 
 
+# Lazy Adam moves an entry by about lr whatever its gradient's size (its first
+# step is lr * g / (|g| + eps)), so an entry whose gradient is itself rounding
+# noise, |g| near eps, moves by what that noise says: MMOE's first lazy step
+# at batch 4096 parted card and CPU by 2.1e-4 at one of 2.6M table entries.
+# Such an entry is held where the CPU's first moment is below ADAM_NOISE of
+# its table's largest, at most MAX_HELD_FLIPS in one comparison, each within
+# lr a step.
+ADAM_NOISE = 1e-5
+
+
+def lazy_adam_close(label, got, want, steps):
+    """:func:`lazy_close` for lazy Adam snapshots after ``steps`` steps, with
+    the table entries whose gradient is rounding noise held (ADAM_NOISE):
+    those take ``want``'s value before the comparison.  Returns the held
+    entries' count and their largest difference and first-moment share."""
+    lr = LAZY_OPTIMIZERS["adam"][2]["lr"]
+    params = dict(got[0])
+    held, worst, share = 0, 0.0, 0.0
+    for path, st in want[1].items():
+        k = path.replace("/", ".")
+        w, g = want[0][k], got[0][k]
+        m = st[:, : w.shape[1]].abs()  # Adam's row state is m, then v
+        off = (g - w).abs() > LAZY_W_ATOL + LAZY_W_RTOL * w.abs()
+        noise = m <= ADAM_NOISE * m.max()
+        if (off & ~noise).any() or int(off.sum()) > MAX_HELD_FLIPS:
+            return lazy_close(label, got, want)  # raises with the lazy tolerances
+        diff = (g - w).abs()[off]
+        if off.any():
+            held += int(off.sum())
+            worst = max(worst, float(diff.max()))
+            share = max(share, float((m[off] / m.max()).max()))
+            if worst > steps * lr:
+                raise AssertionError(f"{label}: {k} held entries differ by {worst}, "
+                                     f"above {steps} Adam steps of lr {lr}")
+        params[k] = torch.where(off, w, g)
+    lazy_close(label, (params, got[1]), want)
+    return dict(held=held, held_max_abs_diff=worst, held_max_first_moment_share=share)
+
+
 def lazy_bf16_close(label, got, want, optimizer, steps=LAZY_CHECK_STEPS):
     """Raise unless the snapshot ``got`` of a bf16-state run lies within the
     bf16 bound of ``want``, the fp32 run's: the lazy tables' weights within
@@ -3238,6 +3430,8 @@ def main():
         torch.cuda.empty_cache()
     phase_zoo_mixed_dims()
     variants = phase_zoo_variants()
+    mt_variants = phase_mt_variants()
+    mt_lazy = phase_mt_lazy()
     ccpm_tf32 = phase_ccpm_tf32()
     phase_zoo_determinism()
     dien_dice = phase_dien_dice()
@@ -3256,6 +3450,8 @@ def main():
         paths[f"zoo_{model_name}_training"] = rec["launches"]
         paths[f"zoo_{model_name}_scoring"] = scoring["launches"]
     paths["zoo_variants_sgd_step"] = variants["launches"]
+    paths["mt_variants_sgd_step"] = mt_variants["launches"]
+    paths["mt_lazy"] = mt_lazy["launches"]
     paths["zoo_ccpm_tf32_default"] = ccpm_tf32["launches"]
     paths["dien_dice_sgd_step"] = dien_dice["launches"]
     paths["bf16_training"] = bf16["launches"]

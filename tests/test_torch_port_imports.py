@@ -22,7 +22,9 @@ MODULES = ["cli", "cli.common", "cli.xdftrain", "cli.xdftrain_v1", "cli.xdftrain
            "basemodel", "embeddings", "weights", "features", "metrics", "optimizers",
            "models", "models.afm", "models.afn", "models.autoint", "models.ccpm", "models.dcn",
            "models.dcnmix", "models.deepfm", "models.dien", "models.difm", "models.din",
-           "models.fibinet", "models.ifm", "models.mlr", "models.nfm", "models.onn", "models.pnn",
+           "models.fibinet", "models.ifm", "models.mlr", "models.multitask",
+           "models.multitask.esmm", "models.multitask.mmoe", "models.multitask.ple",
+           "models.multitask.sharedbottom", "models.nfm", "models.onn", "models.pnn",
            "models.wdl", "models.xdeepfm", "models.xdeepfm_attn", "nn", "nn.activations", "nn.cin_attention", "nn.core",
            "nn.interaction", "nn.sequence", "ops", "ops._build", "ops.attention",
            "ops.attention_cuda", "ops.attn_block", "ops.attn_block_cuda", "ops.ce",

@@ -12,6 +12,7 @@ from .features import (
     FeatureSchema,
     SparseFeat,
     VarLenSparseFeat,
+    build_input_features,
     get_feature_names,
 )
 
@@ -20,5 +21,6 @@ __all__ = [
     "FeatureSchema",
     "SparseFeat",
     "VarLenSparseFeat",
+    "build_input_features",
     "get_feature_names",
 ]

@@ -12,7 +12,8 @@ under a zero mask, per-batch metrics on the device, one host sync per epoch.
 
 Model classes subclass :class:`BaseModel` and implement ``_build_module()``
 returning an ``nn.Module`` with signature
-``module(batch, training, generator) -> dict`` whose ``pred`` is [B, 1]
+``module(batch, training, generator) -> dict`` whose ``pred`` is [B, 1], or
+[B, num_tasks] for a multitask model compiled with a list of losses
 (optional ``aux_loss``: a scalar added to the loss; optional ``logs``: named
 scalars averaged into the epoch logs).
 """
@@ -77,6 +78,19 @@ def _loss_fn_single(name):
     raise NotImplementedError(name)
 
 
+def sum_loss(loss_names, pred, y, mask, num_tasks=None):
+    """The sum-reduced masked loss (``basemodel.py:883-899``): one loss name
+    over the flattened prediction, or a list of them, one per task
+    (``num_tasks`` of them), each over its column of the [B, T] prediction
+    and labels, summed."""
+    if not isinstance(loss_names, list):
+        return _loss_fn_single(loss_names)(pred.reshape(-1), y.reshape(-1), mask)
+    if num_tasks is None or len(loss_names) != num_tasks:
+        raise AssertionError("the length of `loss_func` should be equal with `self.num_tasks`")
+    return sum(_loss_fn_single(name)(pred[:, i], y[:, i], mask)
+               for i, name in enumerate(loss_names))
+
+
 def _sum_squares(table, chunk=1 << 22) -> torch.Tensor:
     """sum(table^2), a 0-dim fp32 tensor on the table's device, summed a few
     million rows at a time: no table-sized temporary."""
@@ -121,6 +135,7 @@ class BaseModel:
         self.init_std = init_std
         self.seed = seed
         self.task = task
+        self.num_tasks = None  # set by the multitask models
 
         # (path-substring pattern, l1, l2) over the canonical parameter paths
         # (``basemodel.py:213-219``); recorded now, applied by training.
@@ -570,9 +585,9 @@ class BaseModel:
 
     def _train_step(self, xb, y, mask, with_metrics=True):
         """One step on device tensors (``basemodel.py:901-1210``): forward,
-        sum-loss + regularisation + aux loss, backward, optimizer update.
-        Returns (total loss, {metric or module log: value}) as device
-        scalars.  The batch gains ``labels`` and ``sample_mask``, as the JAX
+        the sum-loss (:func:`sum_loss`) + regularisation + aux loss, backward,
+        optimizer update.  Returns (total loss, {metric or module log:
+        value}) as device scalars.  The batch gains ``labels`` and ``sample_mask``, as the JAX
         engine's does (``basemodel.py:904-905``), for modules whose loss needs
         them (the SFG decoder).  Under the lazy optimizer the tables' rows
         are updated after the dense optimizer's step (:meth:`_lazy_update`).
@@ -588,7 +603,7 @@ class BaseModel:
             out = self.module(xb, training=True, generator=self._dropout_gen)
         pred = out["pred"].float()
         aux = out.get("aux_loss")
-        loss = _loss_fn_single(self.loss_names)(pred.reshape(-1), y.reshape(-1), mask)
+        loss = sum_loss(self.loss_names, pred, y, mask, self.num_tasks)
         total = loss + self._regularization_loss() + (0.0 if aux is None else aux.float())
         self.optimizer.zero_grad(set_to_none=True)
         total.backward()
@@ -598,9 +613,15 @@ class BaseModel:
         mvals = {}
         if with_metrics:
             with torch.no_grad():
-                y0 = y.reshape(y.shape[0], -1)[:, 0]
-                p0 = pred.detach().reshape(pred.shape[0], -1)[:, 0]
-                mvals = {name: DEVICE_METRICS[name](y0, p0, mask) for name in self.metrics}
+                if isinstance(self.loss_names, list):
+                    # multitask: over the flattened [B, T] outputs, each row's
+                    # mask repeated T times (``basemodel.py:1199-1205``)
+                    yt, pt = y.reshape(-1), pred.detach().reshape(-1)
+                    mt = mask.repeat_interleave(pred.shape[-1])
+                else:
+                    yt = y.reshape(y.shape[0], -1)[:, 0]
+                    pt, mt = pred.detach().reshape(pred.shape[0], -1)[:, 0], mask
+                mvals = {name: DEVICE_METRICS[name](yt, pt, mt) for name in self.metrics}
         # scalars a module publishes (sfg_loss) reach the epoch logs even at
         # verbose=0 (basemodel_sfg.py:366-367)
         for name, value in out.get("logs", {}).items():
@@ -617,8 +638,6 @@ class BaseModel:
         work), so it changes no result."""
         if self.optimizer is None:
             raise RuntimeError("call compile() before fit()")
-        if isinstance(self.loss_names, list):
-            raise NotImplementedError("loss lists arrive with the multitask models")
         if steps_per_dispatch < 1:
             raise ValueError("steps_per_dispatch must be >= 1")
         batch = self._pack_x(x)
@@ -793,8 +812,6 @@ class BaseModel:
         changes no result, as in :meth:`fit`."""
         if self.optimizer is None:
             raise RuntimeError("call compile() before fit_stream()")
-        if isinstance(self.loss_names, list):
-            raise NotImplementedError("loss lists arrive with the multitask models")
         if steps_per_dispatch < 1:
             raise ValueError("steps_per_dispatch must be >= 1")
         do_validation = bool(validation_data)
@@ -926,7 +943,8 @@ class BaseModel:
         return batch
 
     def _predict_step(self, batch):
-        """Typed numpy batch -> predictions [B, 1] on the device."""
+        """Typed numpy batch -> predictions [B, 1] ([B, T] for T tasks) on
+        the device."""
         xb = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
         with torch.inference_mode():
             return self.module(xb, training=False)["pred"]

@@ -388,6 +388,20 @@ class EmbeddingCollection(nn.Module):
                 found[f.name] = part
         return [found[f.name] for f in feats]
 
+    def lookup_sparse(self, batch, feat: SparseFeat) -> torch.Tensor:
+        """[B, 1, dim] for one SparseFeat (reference ``inputs.py:183-210``)."""
+        return self.lookup_fields(batch, [feat])[0]
+
+    def grouped_sparse(self, batch, feats, return_feat_list=()):
+        """{group_name: [[B, 1, dim] per feature]} over ``feats`` (those named
+        in ``return_feat_list``, when it is not empty), the reference's
+        group-keyed lookup (``inputs.py:183-210``), one gather per table."""
+        feats = [f for f in feats if len(return_feat_list) == 0 or f.name in return_feat_list]
+        groups: Dict[str, list] = {}
+        for f, emb in zip(feats, self.lookup_fields(batch, feats)):
+            groups.setdefault(f.group_name, []).append(emb)
+        return groups
+
     def lookup_varlen_seq(self, batch, feat: VarLenSparseFeat) -> torch.Tensor:
         """[B, maxlen, dim] sequence embeddings (``inputs.py:213-227``)."""
         return self.lookup_fields(batch, [feat])[0]
@@ -633,3 +647,66 @@ class MultiLinearModel(nn.Module):
             v = next(v for v in batch.values() if torch.is_tensor(v))
             return torch.zeros((v.shape[0], self.n_outputs), device=v.device)
         return out
+
+
+# ---------------------------------------------------------------------------
+# The reference's functional helpers (``deepctr/inputs.py``) under its names
+# and signatures, for code carried over from it (``xdeepfm_tpu/embeddings.py:
+# 570-626``).  The port's own code calls the EmbeddingCollection methods;
+# ``batch`` is the typed batch of tensors, not the reference's flat matrix.
+# ---------------------------------------------------------------------------
+
+
+def create_embedding_matrix(feature_columns, init_std=1e-4, linear=False, sparse=False,
+                            device=None):
+    """Reference ``inputs.py:158-180``: the embedding tables of a column list,
+    here one :class:`EmbeddingCollection` of stacked per-dim tables
+    (``linear=True`` makes every dim 1), built on ``device`` (None means
+    "cuda").  ``sparse`` is taken for the signature and ignored, as in the
+    JAX package: the stacked tables are no ``nn.Embedding``."""
+    from .basemodel import resolve_device  # basemodel imports this module
+
+    del sparse
+    return EmbeddingCollection(
+        tuple(feature_columns), FeatureSchema.build(list(feature_columns)), linear=linear,
+        init_std=init_std,
+    ).to(resolve_device(device))
+
+
+def embedding_lookup(batch, embedding_collection, sparse_feature_columns, return_feat_list=(),
+                     to_list=False):
+    """Reference ``inputs.py:183-210``: {group_name: [[B, 1, dim] ...]}, or
+    the flat list of the groups' embeddings with ``to_list``."""
+    groups = embedding_collection.grouped_sparse(batch, sparse_feature_columns,
+                                                 return_feat_list)
+    if to_list:
+        return [e for group in groups.values() for e in group]
+    return groups
+
+
+def varlen_embedding_lookup(batch, embedding_collection, varlen_sparse_feature_columns):
+    """Reference ``inputs.py:213-227``: {name: [B, maxlen, dim]}."""
+    return {f.name: embedding_collection.lookup_varlen_seq(batch, f)
+            for f in varlen_sparse_feature_columns}
+
+
+def get_varlen_pooling_list(batch, embedding_collection, varlen_sparse_feature_columns):
+    """Reference ``inputs.py:141-155``: each varlen feature pooled to
+    [B, 1, dim] by its combiner."""
+    return [embedding_collection.lookup_varlen_pooled(batch, f)
+            for f in varlen_sparse_feature_columns]
+
+
+def get_dense_input(batch, schema: FeatureSchema, feature_columns):
+    """Reference ``inputs.py:230-238``: each dense feature's [B, dimension]
+    slice of ``batch["dense"]``."""
+    return [batch["dense"][:, slice(*schema.dense_slice(f.name))]
+            for f in split_columns(feature_columns)[1]]
+
+
+def maxlen_lookup(batch, maxlen_column):
+    """Reference ``inputs.py:241-245``: the [B, 1] lengths of the first
+    column of ``maxlen_column``."""
+    if maxlen_column is None or len(maxlen_column) == 0:
+        raise ValueError("please add max length column for VarLenSparseFeat of DIN/DIEN input")
+    return batch["len_" + maxlen_column[0]]

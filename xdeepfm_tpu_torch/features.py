@@ -16,6 +16,7 @@ tables via ``embedding_name``, ``embedding_dim="auto"`` -> ``6 * vocab**0.25``.
 from __future__ import annotations
 
 import dataclasses
+from collections import OrderedDict
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -251,3 +252,35 @@ def compute_input_dim(
     if include_dense:
         dim += dense_dim
     return dim
+
+
+def build_input_features(feature_columns: Sequence[FeatureColumn]):
+    """The reference's column-slice map (``inputs.py:99-123``,
+    ``xdeepfm_tpu/features.py:275-306``): an ``OrderedDict {feature_name:
+    (start, end)}`` over the reference's flat fp32 input matrix.  A sparse
+    feature takes 1 column, a dense one ``dimension``, a varlen one ``maxlen``
+    and then 1 for its length column, if it names one; a name seen before is
+    skipped.  Batches here are typed (:class:`FeatureSchema`), so nothing of
+    the port reads these slices; they serve code carried over from the
+    reference, e.g. to slice a legacy ``[B, sum(widths)]`` array before
+    :meth:`FeatureSchema.pack`."""
+    features = OrderedDict()
+    start = 0
+    for feat in feature_columns:
+        if feat.name in features:
+            continue
+        if isinstance(feat, SparseFeat):
+            features[feat.name] = (start, start + 1)
+            start += 1
+        elif isinstance(feat, DenseFeat):
+            features[feat.name] = (start, start + feat.dimension)
+            start += feat.dimension
+        elif isinstance(feat, VarLenSparseFeat):
+            features[feat.name] = (start, start + feat.maxlen)
+            start += feat.maxlen
+            if feat.length_name is not None and feat.length_name not in features:
+                features[feat.length_name] = (start, start + 1)
+                start += 1
+        else:
+            raise TypeError("Invalid feature column type,got", type(feat))
+    return features

@@ -11,6 +11,7 @@ from .din import DIN
 from .fibinet import FiBiNET
 from .ifm import IFM
 from .mlr import MLR
+from .multitask import ESMM, MMOE, PLE, SharedBottom
 from .nfm import NFM
 from .onn import ONN
 from .pnn import PNN
@@ -20,6 +21,6 @@ from .xdeepfm_attn import xDeepFMAttention, xDeepFMAttentionV2
 
 __all__ = [
     "AFM", "AFN", "AutoInt", "CCPM", "DCN", "DCNMix", "DeepFM", "DIEN", "DIFM", "DIN",
-    "FiBiNET", "IFM", "MLR", "NFM", "ONN", "PNN", "WDL", "xDeepFM", "xDeepFMAttention",
-    "xDeepFMAttentionV2",
+    "ESMM", "FiBiNET", "IFM", "MLR", "MMOE", "NFM", "ONN", "PLE", "PNN", "SharedBottom",
+    "WDL", "xDeepFM", "xDeepFMAttention", "xDeepFMAttentionV2",
 ]

@@ -1,4 +1,11 @@
-from .activations import Dice, PReLU, activation_fn, make_activation
+from .activations import (
+    Dice,
+    Identity,
+    PReLU,
+    activation_fn,
+    activation_layer,
+    make_activation,
+)
 from .core import (
     DNN,
     BatchNorm,
@@ -9,7 +16,12 @@ from .core import (
     glorot_uniform_,
     torch_linear_init,
 )
-from .cin_attention import CINAttention, CINAttentionV2
+from .cin_attention import (
+    AttentionPooling,
+    CINAttention,
+    CINAttentionV2,
+    MultiHeadSelfAttention,
+)
 from .interaction import (
     CIN,
     FM,

@@ -3,6 +3,7 @@
 
 Stateless activations are plain functions on tensors; ``PReLU`` carries one
 learnable slope and ``Dice`` a slope per channel and a BatchNorm.
+``Identity`` and ``activation_layer`` carry the reference's names.
 """
 
 from __future__ import annotations
@@ -101,3 +102,14 @@ def apply_activation(act, x, training: bool = False):
     if isinstance(act, (Dice, PReLU)):
         return act(x, training=training)
     return act(x)
+
+
+class Identity(nn.Module):
+    """Pass-through activation (reference ``activation.py:48-54``)."""
+
+    def forward(self, x):
+        return x
+
+
+# the reference's name for the str -> activation factory (``activation.py:57-84``)
+activation_layer = make_activation
