@@ -179,10 +179,25 @@ run in order and any failure raises, so the exit code is non-zero:
    events), examples/s, busy ms, idle share and kernels (profiler), memory,
    2 + 2 + 2 CIN launches a step, and for the lazy runs one step's
    transient allocation below a tenth of the group array's bytes;
-21. a ``{"kernels": [...]}`` line, one entry per hand-written kernel, its
-   ``launches_by_path`` with the CLI, lazy, ``dien_dice``, ``bf16`` and
-   multitask paths;
-22. the last line: ``{"ok": true, "device": {...}}``.
+21. the rank grid (``sharded`` lines, ``parallel/``): 4 ranks on a (data 2,
+   embed 2) grid and 2 on a (1, 2) grid, co-located on the one card over
+   gloo on CUDA tensors (NCCL refuses two ranks on one GPU), and a one-rank
+   NCCL group; each rank is this script again (``--grid-rank``).  The
+   canonical xDeepFM at full width, global batch 4096, 3 steps: dense Adam
+   under the ``shard_map`` and ``all_to_all`` lookups (fp32 and bf16 rows on
+   the wire), one SGD step, lazy Adam split packed and with the dense
+   cotangent, Pro under ``all_to_all`` (2 steps); every rank's gathered
+   parameters against the one-process run on the card (the NCCL rank bit
+   for bit), replicas bit-equal, the CIN (and CE) kernels launched on every
+   rank, step ms per rank (co-located ranks on one card, not a scaling
+   figure); ``Scorer(8192)`` on the sharded model against the one-process
+   scorer; ``save_checkpoint_sharded(block=False)``, a step during the
+   write, the resumed step bit-equal.  ``--sharded-only`` runs the device,
+   build and sharded phases alone;
+22. a ``{"kernels": [...]}`` line, one entry per hand-written kernel, its
+   ``launches_by_path`` with the CLI, lazy, ``dien_dice``, ``bf16``,
+   multitask and grid paths (a grid path's launches summed over its ranks);
+23. the last line: ``{"ok": true, "device": {...}}``.
 
 Every model's training record lists the gradients that a second identical
 step does not reproduce bit for bit (``grads_not_reproduced``); the run fails
@@ -206,6 +221,7 @@ import copy
 import json
 import os
 import pickle
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1926,8 +1942,9 @@ def phase_gru_kernels(peak):
                 rec[f"{kind}_gflop"] = flops / 1e9
                 rec[f"{kind}_mbytes"] = nbytes / 1e6
                 rec[f"{kind}_gbytes_per_s"] = nbytes / rec[f"{kind}_ms"] / 1e6
-                rec[f"{kind}_device_share_of_bound"] = (rec[f"{kind}_bound_ms"]
-                                                        / rec[f"{kind}_device_ms"])
+                rec[f"{kind}_device_share_of_bound"] = (
+                    None if rec[f"{kind}_device_ms"] is None  # not measured
+                    else rec[f"{kind}_bound_ms"] / rec[f"{kind}_device_ms"])
             results[cell, label] = rec
             emit(phase="gru_kernel", shape=label, **rec)
             del gi, w, b, att, lengths, h0, g, outs
@@ -3376,6 +3393,504 @@ def phase_lazy_dien():
     return record
 
 
+# --------------------------------------------------------------------------
+# The rank grid (parallel/): co-located ranks on one card.  NCCL refuses two
+# ranks on one GPU, so the multi-rank worlds run over gloo on CUDA tensors;
+# a one-rank NCCL world runs the same code.  Each rank is this script run
+# again with --grid-rank; the kernels were built by phase_build, so a rank
+# only loads them.
+# --------------------------------------------------------------------------
+
+GRID_STEPS = 3
+GRID_LAZY_SPLIT = dict(embedding_optimizer="lazy", embedding_gradient="split")
+GRID_LAZY_DENSE = dict(embedding_optimizer="lazy", embedding_gradient="dense")
+# label -> (world, model, optimizer, compile kwargs, embedding mode, comm
+# dtype, steps); the reference is the one-process run of (model, optimizer,
+# compile kwargs, steps) on the card
+GRID_CASES = {
+    "grid_dense_shard_map": (4, "xdeepfm", "adam", {}, "shard_map", None, GRID_STEPS),
+    "grid_dense_all_to_all": (4, "xdeepfm", "adam", {}, "all_to_all", None, GRID_STEPS),
+    "grid_dense_all_to_all_bf16": (4, "xdeepfm", "adam", {}, "all_to_all", "bfloat16",
+                                   GRID_STEPS),
+    "grid_sgd_shard_map": (4, "xdeepfm", "sgd", {}, "shard_map", None, 1),
+    "grid_lazy_split_packed": (4, "xdeepfm", "adam", GRID_LAZY_SPLIT, "shard_map", None,
+                               GRID_STEPS),
+    "grid_lazy_dense": (4, "xdeepfm", "adam", GRID_LAZY_DENSE, "all_to_all", None, GRID_STEPS),
+    "grid_pro_all_to_all": (4, "pro", "adam", {}, "all_to_all", None, 2),
+    "grid_dense_shard_map_1x2": (2, "xdeepfm", "adam", {}, "shard_map", None, GRID_STEPS),
+    "grid_nccl_one_rank": (1, "xdeepfm", "adam", {}, "shard_map", None, GRID_STEPS),
+}
+# per train step of each model: the CIN's 2 + 2 + 2, Pro's CE 1 + 1 beside them
+GRID_STEP_LAUNCHES = {"xdeepfm": dict(cin_fwd=2, cin_bwd_dx=2, cin_dw=2),
+                      "pro": dict(cin_fwd=2, cin_bwd_dx=2, cin_dw=2, ce_fwd=1, ce_bwd=1)}
+GRID_TIMEOUT = 420
+
+
+def grid_model(name, device, weights):
+    """The canonical xDeepFM, or xDeepFMPro with its SFG dropout off (the
+    ranks draw their own masks), with ``weights``."""
+    if name == "pro":
+        return pro_model(device, weights, sfg_dropout=0.0)
+    return canonical_model(device, weights)
+
+
+def grid_inputs(tmp):
+    """Seeded weights of both models and GRID_STEPS global batches of 4096,
+    written for the ranks; returns them."""
+    weights = {name: seeded_weights(grid_model(name, "cpu", None) if name == "pro"
+                                    else canonical_model("cpu", seeded=False))
+               for name in ("xdeepfm", "pro")}
+    x, y = train_data(np.random.default_rng(SEED + 50), GRID_STEPS * TRAIN_BATCH)
+    flat = {f"{name}/{k}": v for name, w in weights.items() for k, v in flatten_tree(w)}
+    np.savez(os.path.join(tmp, "weights.npz"), **flat)
+    np.savez(os.path.join(tmp, "batches.npz"), y=y, **{f"x/{k}": v for k, v in x.items()})
+    return weights, x, y
+
+
+def grid_read_inputs(tmp):
+    with np.load(os.path.join(tmp, "weights.npz")) as f:
+        flat = {k: f[k] for k in f.files}
+    weights = {}
+    for name in ("xdeepfm", "pro"):
+        tree = unflatten_tree({k[len(name) + 1:]: v for k, v in flat.items()
+                               if k.startswith(name + "/")})
+        weights[name] = {"params": tree["params"], "batch_stats": tree.get("batch_stats", {})}
+    with np.load(os.path.join(tmp, "batches.npz")) as f:
+        x = {k[2:]: f[k] for k in f.files if k.startswith("x/")}
+        y = f["y"]
+    return weights, x, y
+
+
+def grid_compile(model, optimizer, kw):
+    model.compile(optimizer, "binary_crossentropy", **kw)
+    model._dropout_gen = model._dropout_generator()
+    return model
+
+
+def grid_state(model):
+    """(the module's state, its tables gathered over ``embed``; the lazy row
+    states, gathered) on the host: collective, every rank calls it."""
+    from xdeepfm_tpu_torch.parallel.mesh import all_gather_rows
+
+    state = dict(model.module.state_dict())
+    for key in model._shards:
+        state[key] = all_gather_rows(state[key], model._grid, "embed")
+    return ({k: v.detach().cpu().clone() for k, v in state.items()},
+            {k: v.cpu().clone() for k, v in model._lazy_state().items()})
+
+
+def grid_moments(model):
+    """{state key: Adam's first moment} of a one-process model: the dense
+    optimizer's and the lazy row states' m."""
+    named = {id(p): k for k, p in model.module.named_parameters()}
+    out = {named[id(p)]: st["exp_avg"].detach().cpu() for p, st in model.optimizer.state.items()
+           if "exp_avg" in st}
+    for path, st in model._lazy_state().items():
+        key = path.replace("/", ".")
+        out[key] = st[:, : model.module.get_parameter(key).shape[1]].cpu()
+    return out
+
+
+def grid_local_hashes(model):
+    """sha1 of every array this rank holds: its replicated parameters, its
+    shards and lazy arrays."""
+    import hashlib
+
+    arrays = dict(model.module.named_parameters())
+    for i, g in enumerate(model._lazy["groups"] if model._lazy else ()):
+        arrays[f"lazy_array_{i}"] = g["array"]
+    return {k: hashlib.sha1(v.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+            for k, v in arrays.items()}
+
+
+def grid_close(label, got, want, moments, steps, lr):
+    """Raise unless ``got`` matches ``want`` (host state dicts) within the
+    lazy tolerances, but for at most MAX_HELD_FLIPS held entries, each within
+    ``steps`` Adam steps of lr: a sum over ranks rounds otherwise than one
+    process's, and Adam moves an entry by about lr whatever its gradient's
+    size, so an entry whose gradient is rounding noise, or sits behind a
+    relu input that the two runs' rounding puts on opposite sides of 0, may
+    part the runs by up to lr a step.  SGD (``moments`` empty) holds none.
+    Returns (largest difference, held entries, of them with a first moment
+    (the one process's) above ADAM_NOISE of its tensor's largest)."""
+    worst, held, firm = 0.0, 0, 0
+    for k, w in want.items():
+        diff = (got[k].float() - w.float()).abs()
+        worst = max(worst, float(diff.max()))
+        off = diff > LAZY_W_ATOL + LAZY_W_RTOL * w.abs()
+        if not off.any():
+            continue
+        m = moments.get(k)
+        if m is None or float(diff[off].max()) > steps * lr:
+            raise AssertionError(f"{label}: {k}: {int(off.sum())} entries off the one-process "
+                                 f"step by up to {float(diff[off].max())}")
+        held += int(off.sum())
+        firm += int((off & (m.abs() > ADAM_NOISE * m.abs().max())).sum())
+    if held > MAX_HELD_FLIPS:
+        raise AssertionError(f"{label}: {held} entries held, above {MAX_HELD_FLIPS}")
+    return worst, held, firm
+
+
+# A relu input within rounding of 0 that the grid's and the one process's
+# sums put on opposite sides moves its sample's table gradients by ~1e-2 of
+# their largest (the CIN's relus, see RELU_BAND), and Adam's m keeps a tenth
+# of that: at most this share of a lazy row state may leave the lazy
+# tolerances, each entry within a tenth of the state's largest.
+GRID_STATE_OFF_SHARE = 1e-4
+
+
+def grid_states_close(label, got, want):
+    """The lazy row states against the one process's: entries past the lazy
+    state tolerances at most GRID_STATE_OFF_SHARE of each state, each within
+    a tenth of its largest.  Returns {path: (entries off, largest
+    difference)}."""
+    out = {}
+    for path, w in want.items():
+        diff = (got[path] - w).abs()
+        off = diff > 1e-3 * w.abs() + LAZY_STATE_ATOL * float(w.abs().max())
+        out[path] = (int(off.sum()), float(diff.max()))
+        if off.sum() > GRID_STATE_OFF_SHARE * w.numel() or \
+                float(diff.max()) > 0.1 * float(w.abs().max()):
+            raise AssertionError(f"{label}: row state {path}: {out[path][0]} entries off the "
+                                 f"one-process run, up to {out[path][1]}")
+    return out
+
+
+def grid_rank_main(world, rank, port, tmp, backend):
+    """One rank of a grid world: the collectives on CUDA tensors, then every
+    case of GRID_CASES of this world size (the steps, launches, step ms,
+    local hashes; rank 0 the gathered state), and on the 4-rank world the
+    Scorer and the asynchronous checkpoint round trip."""
+    import torch.distributed as dist
+
+    from xdeepfm_tpu_torch.parallel import make_mesh, shard_batch, shard_model_state
+    from xdeepfm_tpu_torch.parallel.distributed import initialize
+    from xdeepfm_tpu_torch.parallel.mesh import set_active_mesh
+    from xdeepfm_tpu_torch.parallel.sharded_embedding import set_embedding_mode
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # gloo ranks share card 0; NCCL ranks take a card each
+    dev = torch.device("cuda", rank % torch.cuda.device_count() if backend == "nccl" else 0)
+    if world > 1:
+        initialize(f"localhost:{port}", world, rank, backend=backend, device=dev)
+    else:  # initialize is a no-op for one process: the one-rank NCCL group by hand
+        torch.cuda.set_device(dev)
+        dist.init_process_group(backend, init_method=f"tcp://localhost:{port}", world_size=1,
+                                rank=0)
+    out = {"world": world, "rank": rank, "backend": dist.get_backend()}
+    # which collectives the backend takes on CUDA tensors
+    checks = {}
+    n = world
+    for name, fn in (
+            ("all_reduce", lambda t: dist.all_reduce(t)),
+            ("broadcast", lambda t: dist.broadcast(t, 0)),
+            ("all_gather", lambda t: dist.all_gather([torch.empty_like(t) for _ in range(n)], t)),
+            ("all_to_all_single_split_sizes", lambda t: dist.all_to_all_single(
+                t.new_empty(sum(range(1, n + 1))), t.new_ones(n * (rank + 1)),
+                output_split_sizes=list(range(1, n + 1)),
+                input_split_sizes=[rank + 1] * n))):
+        try:
+            fn(torch.arange(4, dtype=torch.float32, device=dev) + rank)
+            torch.cuda.synchronize()
+            checks[name] = "ok"
+        except Exception as e:  # reported, and the phase fails
+            checks[name] = f"{type(e).__name__}: {e}"[:300]
+    out["collectives"] = checks
+    mesh = make_mesh(device=dev)
+    out["grid"] = [mesh.shape["data"], mesh.shape["embed"]]
+    weights, x, y = grid_read_inputs(tmp)
+
+    def rank_batches(model):
+        packed = model.schema.pack(x)
+        yy = y[:, None]
+        batches = []
+        for i in range(GRID_STEPS):
+            sl = slice(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH)
+            b = shard_batch(dict({k: v[sl] for k, v in packed.items()}, _y=yy[sl],
+                                 _m=np.ones(TRAIN_BATCH, np.float32)), mesh)
+            batches.append((b, b.pop("_y"), b.pop("_m")))
+        return batches
+
+    def on_grid(name, optimizer, kw, mode, comm):
+        model = grid_compile(grid_model(name, dev, weights[name]), optimizer, kw)
+        shard_model_state(model, mesh)
+        set_embedding_mode(mode, mesh, comm_dtype=comm)
+        model._dropout_gen = model._dropout_generator()
+        return model
+
+    for label, (w, name, optimizer, kw, mode, comm, steps) in GRID_CASES.items():
+        if w != world:
+            continue
+        model = on_grid(name, optimizer, kw, mode, comm)
+        batches = rank_batches(model)
+        reset_launches()
+        totals, step_ms = [], []
+        for xb, yb, mb in batches[:steps]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            total, _ = model._train_step(xb, yb, mb, with_metrics=False)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            totals.append(float(total))
+        launches = read_launches()
+        state = grid_state(model)
+        out[label] = dict(totals=totals, step_ms=step_ms, launches=launches,
+                          rows_per_rank=int(batches[0][1].shape[0]),
+                          hashes=grid_local_hashes(model),
+                          shards=sorted(model._shards))
+        if rank == 0:
+            torch.save(state, os.path.join(tmp, f"{label}.pt"))
+        del model
+        set_embedding_mode("gspmd", None)
+        set_active_mesh(None)
+
+    if world == 4:
+        # Scorer(8192) on the sharded model (all_to_all: 2048 rows a rank)
+        model = on_grid("xdeepfm", "adam", {}, "all_to_all", None)
+        reqs = requests(np.random.default_rng(SEED + 51), REQUESTS)
+        scorer = Scorer(model, batch_size=BATCH).warmup()
+        reset_launches()
+        preds, eps, ms = score_all(scorer, reqs)
+        out["grid_scoring"] = dict(examples_per_s=eps, ms=ms, launches=read_launches(),
+                                   rows_per_rank=BATCH // 4)
+        if rank == 0:
+            np.savez(os.path.join(tmp, "grid_scoring.npz"), *preds)
+        set_embedding_mode("gspmd", None)
+        # save_checkpoint_sharded(block=False), a step during the write,
+        # load_checkpoint_sharded into a fresh grid model, the same step
+        model = on_grid("xdeepfm", "adam", GRID_LAZY_SPLIT, "shard_map", None)
+        (b0, y0, m0), (b1, y1, m1) = rank_batches(model)[:2]
+        model._train_step(b0, y0, m0, with_metrics=False)
+        ckpt = os.path.join(tmp, "grid_ckpt")
+        t0 = time.perf_counter()
+        model.save_checkpoint_sharded(ckpt, epoch=1, block=False)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        straight = float(model._train_step(b1, y1, m1, with_metrics=False)[0])
+        model.wait_for_checkpoints()
+        fresh = on_grid("xdeepfm", "adam", GRID_LAZY_SPLIT, "shard_map", None)
+        epoch = fresh.load_checkpoint_sharded(ckpt)
+        resumed = float(fresh._train_step(b1, y1, m1, with_metrics=False)[0])
+        out["grid_checkpoint"] = dict(
+            epoch=epoch, straight_total=straight, resumed_total=resumed,
+            save_call_ms=save_ms, straight_hashes=grid_local_hashes(model),
+            resumed_hashes=grid_local_hashes(fresh))
+        set_embedding_mode("gspmd", None)
+        set_active_mesh(None)
+    with open(os.path.join(tmp, f"rank_w{world}_r{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def grid_spawn(tmp, worlds):
+    """Run the ranks of ``worlds`` ({world size: backend}) at once; every
+    process is waited for or killed; raises with a failed rank's log."""
+    procs = []
+    for world, backend in worlds.items():
+        port = _free_port()
+        for rank in range(world):
+            log = open(os.path.join(tmp, f"log_w{world}_r{rank}.txt"), "w")
+            procs.append((world, rank, log, subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--grid-rank", str(world), str(rank),
+                 str(port), tmp, backend], stdout=log, stderr=subprocess.STDOUT)))
+    deadline = time.time() + GRID_TIMEOUT
+    try:
+        for _, _, _, p in procs:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+    finally:
+        for _, _, log, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    for world, rank, _, p in procs:
+        if p.returncode != 0:
+            with open(os.path.join(tmp, f"log_w{world}_r{rank}.txt")) as f:
+                raise AssertionError(f"grid rank {rank} of {world} failed "
+                                     f"(rc {p.returncode}):\n{f.read()[-4000:]}")
+    ranks = {}
+    for world in worlds:
+        ranks[world] = []
+        for rank in range(world):
+            with open(os.path.join(tmp, f"rank_w{world}_r{rank}.json")) as f:
+                ranks[world].append(json.load(f))
+    return ranks
+
+
+def phase_sharded(per_gpu=False):
+    """The rank grid on the card: 4 ranks on a (data 2, embed 2) grid and 2
+    on a (1, 2) grid, co-located on one card over gloo on CUDA tensors, and
+    a one-rank NCCL group; the canonical xDeepFM at full width (26 x 10 000
+    rows, dim 10, CIN (256, 128), DNN (256, 256), global batch 4096) trained
+    GRID_STEPS steps per case of GRID_CASES (Pro at 2): every rank's
+    parameters after ``get_weights``-style gathering against the one-process
+    run on the card (:func:`grid_close`; the one-rank NCCL group bit for
+    bit), replicated arrays bit-equal on every rank and each shard on its
+    data replicas, the kernels launched on every rank; the Scorer against
+    the one-process scorer; an asynchronous sharded checkpoint, a step
+    during its write, and the resumed step bit-equal to the un-interrupted
+    one.  Step ms are co-located ranks on one card, not a scaling figure.
+    ``per_gpu``: every world over NCCL, a rank a card (needs 4 cards)."""
+    tmp = tempfile.mkdtemp(prefix="xdeepfm-grid-")
+    weights, x, y = grid_inputs(tmp)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         check=True, capture_output=True, text=True,
+                         timeout=60).stdout.strip().splitlines()[0]
+    # the one-process references on the card
+    refs = {}
+    for label, (_, name, optimizer, kw, _, _, steps) in GRID_CASES.items():
+        key = (name, optimizer, tuple(sorted(kw.items())), steps)
+        if key in refs:
+            continue
+        model = grid_compile(grid_model(name, "cuda", weights[name]), optimizer, kw)
+        mask = torch.ones(TRAIN_BATCH, device="cuda")
+        totals = []
+        for i in range(steps):
+            xb, yb = device_batch(model, {k: v[i * TRAIN_BATCH :] for k, v in x.items()},
+                                  y[i * TRAIN_BATCH :], TRAIN_BATCH)
+            totals.append(float(model._train_step(xb, yb, mask, with_metrics=False)[0]))
+        refs[key] = (totals, grid_state(model), grid_moments(model),
+                     model.optimizer.param_groups[0]["lr"] if not model._lazy
+                     else model._lazy["lr"])
+        del model
+    one = Scorer(canonical_model("cuda", weights["xdeepfm"]), batch_size=BATCH)
+    want_scores = [one.score(r) for r in requests(np.random.default_rng(SEED + 51), REQUESTS)]
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    multi = "nccl" if per_gpu else "gloo"
+    timing = ("one rank a card over NCCL, not a scaling figure" if per_gpu else
+              "co-located ranks on one card, not a scaling figure")
+    ranks = grid_spawn(tmp, {4: multi})
+    t4 = time.time() - t0
+    ranks.update(grid_spawn(tmp, {2: multi, 1: "nccl"}))
+    t21 = time.time() - t0 - t4
+    records = {}
+    for label, (world, name, optimizer, kw, mode, comm, steps) in GRID_CASES.items():
+        rs = ranks[world]
+        totals, want, moments, lr = refs[(name, optimizer, tuple(sorted(kw.items())), steps)]
+        got = torch.load(os.path.join(tmp, f"{label}.pt"))
+        for r in rs:
+            if r["collectives"] != {k: "ok" for k in r["collectives"]}:
+                raise AssertionError(f"{label}: rank {r['rank']}: collectives {r['collectives']}")
+            if r[label]["totals"] != rs[0][label]["totals"]:
+                raise AssertionError(f"{label}: the ranks' totals differ")
+            want_launches = expected(**{k: v * steps for k, v in
+                                        GRID_STEP_LAUNCHES[name].items()})
+            if r[label]["launches"] != want_launches:
+                raise AssertionError(f"{label}: rank {r['rank']} launched {r[label]['launches']}, "
+                                     f"expected {want_launches}")
+        # replicas: a replicated array on every rank, a shard on its data
+        # replicas (the ranks of one embed index)
+        shards = set(rs[0][label]["shards"]) | {k for k in rs[0][label]["hashes"]
+                                                if k.startswith("lazy_array")}
+        E = 1 if world == 1 else 2
+        for k in rs[0][label]["hashes"]:
+            for r in rs:
+                peer = rs[r["rank"] % E] if k in shards else rs[0]
+                if r[label]["hashes"][k] != peer[label]["hashes"][k]:
+                    raise AssertionError(f"{label}: {k} differs between ranks {r['rank']} and "
+                                         f"{peer['rank']}")
+        got_total = rs[0][label]["totals"]
+        rec = dict(world=world, grid=rs[0]["grid"], backend=rs[0]["backend"],
+                   ranks_per_card=1 if per_gpu else world, model=name, optimizer=optimizer,
+                   mode=mode,
+                   comm_dtype=comm, steps=steps, lazy=dict(kw),
+                   rows_per_rank=rs[0][label]["rows_per_rank"],
+                   totals=got_total, one_process_totals=totals,
+                   launches_per_rank=[{k: v for k, v in r[label]["launches"].items() if v}
+                                      for r in rs],
+                   step_ms_per_rank=[r[label]["step_ms"] for r in rs],
+                   examples_per_s_global=TRAIN_BATCH / (max(
+                       float(np.mean(r[label]["step_ms"][1:] or r[label]["step_ms"]))
+                       for r in rs) / 1e3),
+                   timing=timing, card=smi, replicas_bit_equal=True,
+                   sharded=rs[0][label]["shards"])
+        if world == 1:
+            equal = all(torch.equal(got[0][k], want[0][k]) for k in want[0])
+            if got_total != totals or not equal:
+                raise AssertionError(f"{label}: the one-rank NCCL step is not the one-process "
+                                     f"step bit for bit (totals {got_total} vs {totals})")
+            rec["bit_equal_to_one_process"] = True
+        elif comm is not None:
+            # bf16 rows on the wire: the lookups round to bf16, so the step
+            # is held against the fp32 one loosely: the loss within 1e-2, no
+            # entry past steps Adam steps of lr
+            diff = max(float((got[0][k] - want[0][k]).abs().max()) for k in want[0])
+            rel = max(abs(a - b) / abs(b) for a, b in zip(got_total, totals))
+            if rel > 1e-2 or diff > 2 * steps * lr:
+                raise AssertionError(f"{label}: bf16 wire: loss {rel} relative, weights {diff}")
+            rec.update(max_abs_diff_vs_fp32_one_process=diff, loss_rel_diff_vs_fp32=rel)
+        else:
+            np.testing.assert_allclose(got_total, totals, rtol=1e-5, err_msg=label)
+            worst, held, firm = grid_close(label, got[0], want[0], moments, steps, lr)
+            rec.update(max_abs_diff_vs_one_process=worst, held_entries=held,
+                       held_entries_not_noise=firm, row_states_off=grid_states_close(
+                           label, got[1], want[1]))
+        records[label] = rec
+        emit(phase="sharded", path=label, **rec)
+    # the Scorer
+    rs = ranks[4]
+    with np.load(os.path.join(tmp, "grid_scoring.npz")) as f:
+        got_scores = [f[f"arr_{i}"] for i in range(len(REQUESTS))]
+    score_err = max(float(np.abs(a - b).max()) for a, b in zip(got_scores, want_scores))
+    if score_err > 1e-5:
+        raise AssertionError(f"grid scores differ from the one-process scorer's by {score_err}")
+    n_batches = sum(-(-n // BATCH) for n in REQUESTS)
+    for r in rs:
+        if r["grid_scoring"]["launches"] != expected(cin_fwd=2 * n_batches):
+            raise AssertionError(f"grid scoring: rank {r['rank']} launched "
+                                 f"{r['grid_scoring']['launches']}")
+    scoring = dict(world=4, grid=rs[0]["grid"], backend=rs[0]["backend"],
+                   ranks_per_card=1 if per_gpu else 4,
+                   mode="all_to_all", max_abs_diff_vs_one_process=score_err,
+                   launches_per_rank=[{k: v for k, v in r["grid_scoring"]["launches"].items()
+                                       if v} for r in rs],
+                   examples_per_s=[r["grid_scoring"]["examples_per_s"] for r in rs],
+                   rows_per_rank=rs[0]["grid_scoring"]["rows_per_rank"], timing=timing,
+                   card=smi)
+    emit(phase="sharded", path="grid_scoring", **scoring)
+    # the asynchronous checkpoint
+    ck = [r["grid_checkpoint"] for r in rs]
+    for c in ck:
+        if c["epoch"] != 1 or c["resumed_total"] != c["straight_total"] or \
+                c["resumed_hashes"] != c["straight_hashes"]:
+            raise AssertionError(f"grid checkpoint: the resumed step is not the un-interrupted "
+                                 f"one: {c['resumed_total']} vs {c['straight_total']}")
+    emit(phase="sharded", path="grid_checkpoint", world=4, grid=rs[0]["grid"],
+         resumed_bit_equal=True, total=ck[0]["straight_total"],
+         save_call_ms_per_rank=[c["save_call_ms"] for c in ck], card=smi)
+    emit(phase="sharded_summary", backend_world4=multi,
+         collectives_on_cuda_world4=ranks[4][0]["collectives"],
+         collectives_on_cuda_nccl_one_rank=ranks[1][0]["collectives"], seconds_world4=t4,
+         seconds_world2_and_nccl=t21, card=smi)
+    shutil.rmtree(tmp, ignore_errors=True)
+    paths = {label: {k: sum(r[label]["launches"][k] for r in ranks[rec["world"]])
+                     for k in WRAPPERS} for label, rec in records.items()}
+    paths["grid_scoring"] = {k: sum(r["grid_scoring"]["launches"][k] for r in rs)
+                             for k in WRAPPERS}
+    return records, paths
+
+
+def _times(n, ms):
+    """``n`` launches' device ms, None where the profiler did not measure it."""
+    return None if ms is None else n * ms
+
+
+def _sum_measured(values):
+    """The sum of device ms, None where one of them was not measured."""
+    values = list(values)
+    return None if None in values else sum(values)
+
+
 def device_breakdown(prof, wall_ms, calls):
     """Device ms by kernel, busy and idle share.  User-annotation ranges on
     the device (``Optimizer.step#Adam.step``) span kernels already counted,
@@ -3441,6 +3956,7 @@ def main():
     phase_lazy_checks()
     lazy_dien = phase_lazy_dien()
     lazy = phase_lazy104()
+    _, grid_paths = phase_sharded()
     paths = {"training": training["launches"], "pro_training": pro["launches"],
              "pro_scoring": pro_scoring["launches"]}
     for version, (rec, scoring) in attn.items():
@@ -3459,6 +3975,7 @@ def main():
     paths.update({path: rec["launches"] for path, rec in cli.items()})
     paths.update({path: rec["launches"] for path, rec in lazy.items()})
     paths["lazy_dien_training"] = lazy_dien["launches"]
+    paths.update(grid_paths)  # each summed over the path's ranks
     kernels = []
     for kname in ("cin_fwd", "cin_bwd_dx", "cin_dw"):
         source, replaces = SOURCES[kname]
@@ -3541,7 +4058,8 @@ def main():
             ms=n * r[f"{kind}_ms"], plain_ms=n * r[f"plain_{kind}_ms"],
             bound_ms=n * r[f"{kind}_bound_ms"], bound_by=r[f"{kind}_bound_by"],
             library_ms=n * r[f"library_{kind}_ms"],
-            device_ms=n * r[f"{kind}_device_ms"], exp_floor_ms=n * r[f"{kind}_exp_floor_ms"],
+            device_ms=_times(n, r[f"{kind}_device_ms"]),
+            exp_floor_ms=n * r[f"{kind}_exp_floor_ms"],
             err_vs_float64=max(
                 x["fwd_err_vs_float64"] if kind == "fwd" else max(x["bwd_err_vs_float64"].values())
                 for x in la_shapes.values()),
@@ -3562,7 +4080,7 @@ def main():
             bound_ms=sum(r[f"{kind}_bound_ms"] for r in rs),
             bound_by=max(rs, key=lambda r: r[f"{kind}_bound_ms"])[f"{kind}_bound_by"],
             library_ms=None, library_gru_cell_ms=rs[0][f"library_{kind}_ms"],
-            device_ms=sum(r[f"{kind}_device_ms"] for r in rs),
+            device_ms=_sum_measured(r[f"{kind}_device_ms"] for r in rs),
             err_vs_float64=max(
                 x["fwd_err_vs_float64"] if kind == "fwd" else max(x["bwd_err_vs_float64"].values())
                 for x in gru_shapes.values()),
@@ -3592,5 +4110,21 @@ def main():
     emit(ok=True, device=dict(platform="gpu", kind=name, count=torch.cuda.device_count()))
 
 
+def main_sharded_only(per_gpu=False):
+    """``--sharded-only [--per-gpu]``: the device, build and sharded phases
+    alone (a quick run of the rank grid on the card; ``--per-gpu`` puts a
+    rank on each of 4 cards over NCCL; the full run takes no arguments)."""
+    name, _ = phase_device()
+    phase_build()
+    phase_sharded(per_gpu)
+    emit(ok=True, device=dict(platform="gpu", kind=name, count=torch.cuda.device_count()))
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--grid-rank"]:
+        world, rank, port = (int(a) for a in sys.argv[2:5])
+        grid_rank_main(world, rank, port, *sys.argv[5:7])
+    elif sys.argv[1:2] == ["--sharded-only"]:
+        main_sharded_only(per_gpu="--per-gpu" in sys.argv)
+    else:
+        main()

@@ -1230,3 +1230,103 @@ def test_fm_family_step_on_card_matches_cpu(card, name):
                                    atol=1e-4 * np.abs(want).max() + 1e-8, err_msg=k)
     assert preds[1].std() > 1e-3
     np.testing.assert_allclose(preds[0], preds[1], rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The rank grid (parallel/) on the card: co-located ranks over gloo on CUDA
+# tensors (NCCL refuses two ranks on one GPU) and a one-rank NCCL group.
+# ---------------------------------------------------------------------------
+
+_GRID_RANK = r'''
+import json, sys
+import torch
+import torch.distributed as dist
+world, rank, port, backend, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5]
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+dist.init_process_group(backend, init_method=f"tcp://localhost:{port}", world_size=world, rank=rank)
+res = {}
+t = torch.arange(4, dtype=torch.float32, device=dev) + rank
+dist.all_reduce(t)
+res["all_reduce"] = t.tolist()
+t = torch.full((3,), float(rank + 1), device=dev)
+dist.broadcast(t, 0)
+res["broadcast"] = t.tolist()
+parts = [torch.empty(2, device=dev) for _ in range(world)]
+dist.all_gather(parts, torch.full((2,), float(rank), device=dev))
+res["all_gather"] = torch.cat(parts).tolist()
+# rank r sends r + 1 rows of value r to every rank: ragged receives
+recv = torch.empty(sum(range(1, world + 1)), device=dev)
+dist.all_to_all_single(recv, torch.full((world * (rank + 1),), float(rank), device=dev),
+                       output_split_sizes=list(range(1, world + 1)),
+                       input_split_sizes=[rank + 1] * world)
+res["all_to_all_single"] = recv.tolist()
+if world > 1:
+    from xdeepfm_tpu_torch.parallel import make_mesh
+    from xdeepfm_tpu_torch.parallel.mesh import all_gather_rows
+    from xdeepfm_tpu_torch.parallel.sharded_embedding import sharded_lookup, sharded_lookup_a2a
+    mesh = make_mesh(device=dev)
+    gen = torch.Generator().manual_seed(0)
+    table = torch.randn(64, 8, generator=gen).to(dev)
+    ids = torch.randint(0, 64, (16, 5), generator=gen).to(dev)
+    w = torch.randn(16, 5, 8, generator=gen).to(dev)
+    E, D = mesh.shape["embed"], mesh.shape["data"]
+    for name, fn in (("psum", sharded_lookup), ("a2a", sharded_lookup_a2a)):
+        S = 64 // E
+        shard = table[mesh.embed_index * S : (mesh.embed_index + 1) * S].clone().requires_grad_()
+        # psum: the batch split over data; a2a: over both axes
+        b = 16 // (world if name == "a2a" else D)
+        lo = (rank if name == "a2a" else mesh.data_index) * b
+        vals = fn(shard, ids[lo : lo + b], mesh)
+        (w[lo : lo + b] * vals.square()).sum().backward()
+        res[name + "_vals_equal"] = bool(torch.equal(vals, table[ids[lo : lo + b]]))
+        full = table.clone().requires_grad_()
+        (w * full[ids].square()).sum().backward()
+        got = all_gather_rows(shard.grad, mesh, "embed")
+        res[name + "_grad_err"] = float((got - full.grad).abs().max() / full.grad.abs().max())
+json.dump(res, open(f"{out}/rank{rank}.json", "w"))
+dist.destroy_process_group()
+'''
+
+
+def _grid_ranks(tmp_path, world, backend):
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    procs = [subprocess.Popen([sys.executable, "-c", _GRID_RANK, str(world), str(r), str(port),
+                               backend, str(tmp_path)], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=180)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+    return [json.load(open(tmp_path / f"rank{r}.json")) for r in range(world)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,world", [("gloo", 2), ("gloo", 4), ("nccl", 1)])
+def test_collectives_on_cuda_tensors(card, tmp_path, backend, world):
+    """The collectives the grid runs, on CUDA tensors: all_reduce,
+    broadcast, all_gather and all_to_all_single with ragged split sizes;
+    with more than one rank, the psum and a2a lookups of a row-sharded table
+    bit-equal to the take and their gradients within 1e-6 of its largest."""
+    for rank, res in enumerate(_grid_ranks(tmp_path, world, backend)):
+        assert res["all_reduce"] == [world * (world - 1) / 2 + i * world for i in range(4)]
+        assert res["broadcast"] == [1.0] * 3
+        assert res["all_gather"] == [float(r) for r in range(world) for _ in range(2)]
+        assert res["all_to_all_single"] == [float(j) for j in range(world) for _ in range(j + 1)]
+        if world > 1:
+            assert res["psum_vals_equal"] and res["a2a_vals_equal"]
+            assert res["psum_grad_err"] < 1e-6 and res["a2a_grad_err"] < 1e-6

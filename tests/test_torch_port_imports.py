@@ -30,7 +30,9 @@ MODULES = ["cli", "cli.common", "cli.xdftrain", "cli.xdftrain_v1", "cli.xdftrain
            "ops.attention_cuda", "ops.attn_block", "ops.attn_block_cuda", "ops.ce",
            "ops.ce_cuda", "ops.cin", "ops.cin_cuda", "ops.gru", "ops.gru_cuda",
            "ops.lane_attention", "ops.lane_attention_cuda", "pro", "pro.autodis", "pro.sfg",
-           "pro.xdeepfm_pro"]
+           "pro.xdeepfm_pro",
+           # the rank grid: mesh, the sharded lookups, the bootstrap
+           "parallel", "parallel.mesh", "parallel.sharded_embedding", "parallel.distributed"]
 PROBE = """
 import importlib, json, sys
 importlib.import_module(sys.argv[1])

@@ -10,6 +10,13 @@ registry over canonical parameter paths, the tail batch padded with row 0
 under a zero mask, per-batch metrics on the device, one host sync per epoch.
 ``fit`` copies its data to the device once and gathers each batch there.
 
+On a rank grid (``parallel.shard_model_state``) the model runs as one
+process per rank, each given the same data and seed: every rank takes its
+slice of each global batch, row-sharded tables are looked up collectively,
+the gradient of every replicated parameter is summed over the ranks that
+split the batch, and the loss, metrics, predictions and weights are those of
+the global batch on every rank (:meth:`BaseModel._train_step_grid`).
+
 Model classes subclass :class:`BaseModel` and implement ``_build_module()``
 returning an ``nn.Module`` with signature
 ``module(batch, training, generator) -> dict`` whose ``pred`` is [B, 1], or
@@ -34,6 +41,16 @@ from .callbacks import CallbackList, History
 from .embeddings import EmbeddingCollection, run_first, table_touched_spec, touched_ids
 from .features import FeatureSchema, SparseFeat, VarLenSparseFeat, compute_input_dim
 from .metrics import DEVICE_METRICS, HOST_METRICS
+from .parallel.mesh import (
+    REPLICATED,
+    all_gather_rows,
+    all_reduce_,
+    batch_axis,
+    batch_statistics,
+    get_active_mesh,
+    param_sharding_rule,
+    shard_rows,
+)
 from .optimizers import (
     LAZY_OPTIMIZERS,
     LAZY_ROW_MATH,
@@ -101,6 +118,16 @@ def _sum_squares(table, chunk=1 << 22) -> torch.Tensor:
     return total.float()
 
 
+def _multi_rank() -> bool:
+    """Whether the active rank grid, or else the ``torch.distributed``
+    world, holds more than one rank."""
+    grid = get_active_mesh()
+    if grid is not None:
+        return grid.size > 1
+    return (torch.distributed.is_available() and torch.distributed.is_initialized()
+            and torch.distributed.get_world_size() > 1)
+
+
 def resolve_device(device=None) -> torch.device:
     """``None`` means "cuda"; a CUDA device with no GPU present raises."""
     dev = torch.device("cuda" if device is None else device)
@@ -124,8 +151,9 @@ class BaseModel:
         device=None,
         gpus=None,
     ):
-        if gpus is not None and len(gpus) > 1:
-            raise NotImplementedError("multi-GPU models arrive with a later port slice")
+        # gpus is taken for the reference's signature and ignored, as in the
+        # JAX engine: placement comes from the rank grid (parallel/)
+        del gpus
         self.device = resolve_device(device)
         self.linear_feature_columns = tuple(linear_feature_columns)
         self.dnn_feature_columns = tuple(dnn_feature_columns)
@@ -152,6 +180,13 @@ class BaseModel:
         self._reg_terms = []
         self._lazy = None  # the lazy embedding optimizer's groups, see compile
         self._matmul_precision = None
+        self._opt_spec = None  # (optimizer, lr) of compile, to rebuild it on shards
+        # the rank grid (parallel.shard_model_state), the row-sharded
+        # parameters' keys -> their tables' rows, and their ids
+        self._grid = None
+        self._shards: Dict[str, int] = {}
+        self._shard_ids = frozenset()
+        self._checkpoints = []  # save_checkpoint_sharded(block=False) in flight
 
     def _finalize(self):
         """Build the module on the CPU from the seed, then move it to the
@@ -254,7 +289,9 @@ class BaseModel:
         table-sized tensor is made.  The L2 value of an l2-only table is
         tracked as a running sum(w^2).  "dense" takes the table's full
         gradient from autograd and updates its touched rows.  "auto" is
-        "split" (one device).
+        "split" on one rank and "dense" where the active rank grid, or the
+        ``torch.distributed`` world, holds more than one
+        (``basemodel.py:337-340``).
 
         A lazy table lives in one [rows, dims + state] array with its
         optimizer's row state in the columns past its own, and its parameter
@@ -301,9 +338,13 @@ class BaseModel:
         if embedding_state_dtype == "bfloat16" and embedding_layout == "flat":
             raise ValueError("embedding_state_dtype='bfloat16' requires the packed "
                              "embedding_layout")
-        # one device: "auto" is the split gradient (the JAX engine's choice
-        # on a single device)
-        split = embedding_gradient in ("auto", "split")
+        if self._shards:
+            raise RuntimeError("compile() a model before shard_model_state(), not after")
+        if embedding_gradient == "auto":
+            # the JAX engine's rule: split on one device, dense on more (a
+            # global sort over sharded ids would ride collectives)
+            embedding_gradient = "dense" if _multi_rank() else "split"
+        split = embedding_gradient == "split"
         lazy_capable = isinstance(optimizer, str) and optimizer in LAZY_OPTIMIZERS
         if embedding_optimizer == "auto":
             max_rows = max(
@@ -326,6 +367,7 @@ class BaseModel:
             raise ValueError("embedding_state_dtype='bfloat16' requires lazy+split (packed "
                              "layout): nothing was packed under this config")
         self._matmul_precision = matmul_precision
+        self._opt_spec = (optimizer, lr)
         self.loss_names = list(loss) if isinstance(loss, list) else loss
         self.metrics_names = ["loss"]
         self.metrics = self._get_metrics(metrics)
@@ -451,19 +493,26 @@ class BaseModel:
     @torch.no_grad()
     def _lazy_reg_value(self):
         """The lazy tables' regularization value, a constant: the tracked
-        l2 * sum(w^2), or a scan of the table (an l1 table, or the
-        dense-cotangent mode)."""
+        l2 * sum(w^2), or a scan of the table (an l1 table, the
+        dense-cotangent mode, and a row-sharded table, whose shards' sums
+        are added over ``embed``: its shard-local update surfaces no
+        before / after rows, ``basemodel.py:747-771``)."""
         total = torch.zeros((), device=self.device)
         reg = self._lazy["reg"]
-        for m in self._lazy_members():
-            if m["path"] in reg:
-                total += m["l2"] * reg[m["path"]]
-                continue
-            w = m["param"]
-            if m["l1"] > 0:
-                total += m["l1"] * w.abs().sum()
-            if m["l2"] > 0:
-                total += m["l2"] * w.square().sum()
+        for g in self._lazy["groups"]:
+            for m in g["members"]:
+                if m["path"] in reg:
+                    total += m["l2"] * reg[m["path"]]
+                    continue
+                w = m["param"]
+                part = torch.zeros((), device=self.device)
+                if m["l1"] > 0:
+                    part += m["l1"] * w.abs().sum()
+                if m["l2"] > 0:
+                    part += m["l2"] * w.square().sum()
+                if g.get("sharded"):
+                    all_reduce_(part, self._grid, "embed")
+                total += part
         return total
 
     def _lazy_blocks(self, batch):
@@ -474,8 +523,16 @@ class BaseModel:
         compact, saved = {}, []
         for g in self._lazy["groups"]:
             ids = touched_ids(batch, g["entries"])
-            rows = g["array"].index_select(0, ids)
-            leaf = rows[:, : g["dsum"]].clone().requires_grad_()
+            if g.get("sharded"):
+                # a row-sharded group: its parameter columns through the
+                # collective lookup; the update gathers the rows it writes
+                from .parallel.sharded_embedding import maybe_sharded_take
+
+                rows = None
+                leaf = maybe_sharded_take(g["array"], ids, width=g["dsum"]).requires_grad_()
+            else:
+                rows = g["array"].index_select(0, ids)
+                leaf = rows[:, : g["dsum"]].clone().requires_grad_()
             for m in g["members"]:
                 compact[m["path"]] = (leaf if len(g["members"]) == 1
                                       else leaf[:, m["off"] : m["off"] + m["dim"]])
@@ -483,7 +540,7 @@ class BaseModel:
         return compact, saved
 
     @torch.no_grad()
-    def _lazy_update(self, batch, saved):
+    def _lazy_update(self, batch, saved, axis=None):
         """The lazy row update of every group (``basemodel.py:1008-1183``),
         :func:`~xdeepfm_tpu_torch.optimizers.lazy_adam_rows` on the group's
         array: sort the touched ids, give every occurrence its id's gradient
@@ -491,9 +548,16 @@ class BaseModel:
         of the rows, run the row math and write the rows, each occurrence of
         an id with the same values (``_row_set``).  Split: the gradient is
         the occurrence leaf's; dense: the table's autograd gradient at the
-        touched rows."""
+        touched rows.
+
+        On a rank grid (``axis``: the ranks that split the batch) every
+        rank takes the global batch's touched ids (and, split, their
+        gradients) by an all_gather over ``axis``, so replicas write the
+        same bits; a row-sharded group keeps the ids of its rows, and under
+        the split gradient it runs ``sharded_lazy_row_update``."""
         lz = self._lazy
         lz["t"] += 1
+        grid = self._grid if axis is not None else None
         for i, g in enumerate(lz["groups"]):
             dsum, k = g["dsum"], g["k"]
             if lz["split"]:
@@ -502,13 +566,27 @@ class BaseModel:
                     if m["param"].grad is not None:
                         raise RuntimeError(f"a lookup of {m['path']} bypassed the occurrence "
                                            "block of the split step")
+                grad = leaf.grad if leaf.grad is not None else torch.zeros_like(leaf)
+                if g.get("sharded"):
+                    self._sharded_group_update(g, ids, grad, axis)
+                    continue
+                if grid is not None:
+                    ids = all_gather_rows(ids, grid, axis)
+                    grad = all_gather_rows(grad, grid, axis)
                 sids, order = torch.sort(ids, stable=True)
                 first = run_first(sids)
-                grad = leaf.grad if leaf.grad is not None else torch.zeros_like(leaf)
                 g_rows = segment_run_sums(grad.index_select(0, order), first)
-                rows = rows.index_select(0, order)
+                rows = (g["array"].index_select(0, sids) if grid is not None
+                        else rows.index_select(0, order))
             else:
-                sids, _ = torch.sort(touched_ids(batch, g["entries"]))
+                ids = touched_ids(batch, g["entries"])
+                if grid is not None:
+                    ids = all_gather_rows(ids, grid, axis)
+                    if g.get("sharded"):  # this shard's rows, as local ids
+                        S = g["array"].shape[0]
+                        lo = grid.embed_index * S
+                        ids = ids[(ids >= lo) & (ids < lo + S)] - lo
+                sids, _ = torch.sort(ids)
                 first = run_first(sids)
                 parts = []
                 for m in g["members"]:
@@ -532,14 +610,36 @@ class BaseModel:
                     delta = p_new[:, sl].square().sum(1) - p[:, sl].square().sum(1)
                     lz["reg"][m["path"]] += torch.where(first, delta, 0.0).sum()
 
+    def _sharded_group_update(self, g, ids, grad, axis):
+        """A row-sharded group's split-gradient update:
+        ``sharded_lazy_row_update`` of this rank's block of the global
+        occurrence stream.  Under the psum lookup the members of an embed
+        group hold the same rows, so each passes its own E-th of them."""
+        from .parallel.sharded_embedding import sharded_lazy_row_update
+
+        lz, grid = self._lazy, self._grid
+        if axis == "data":
+            E, e = grid.shape["embed"], grid.embed_index
+            ids, grad = ids.tensor_split(E)[e], grad.tensor_split(E)[e]
+        sharded_lazy_row_update(
+            g["array"], None, ids, grad, lz["t"], None, grid, lr=lz["lr"],
+            l1=0.0 if g["l1vec"] is None else g["l1vec"],
+            l2=0.0 if g["l2vec"] is None else g["l2vec"],
+            packed_dim=g["dsum"], row_math=lz["row_math"], state_mult=g["k"],
+            state_dtype=lz["state_dtype"])
+
     def _lazy_state(self):
         """{table path: [rows, k * dim] fp32 row state} in the JAX layout
         (``_canonical_opt_state``, ``basemodel.py:1838-1858``): each group's
-        state decoded and sliced per member."""
+        state decoded and sliced per member; a row-sharded group's gathered
+        over ``embed``."""
         out = {}
         for g in self._lazy["groups"] if self._lazy else ():
             R, k, dsum = g["rows"], g["k"], g["dsum"]
-            st = decode_state(g["array"][:, dsum:], k * dsum, self._lazy["state_dtype"])
+            cols = g["array"][:, dsum:]
+            if g.get("sharded"):
+                cols = all_gather_rows(cols, self._grid, "embed")
+            st = decode_state(cols, k * dsum, self._lazy["state_dtype"])
             st = st.reshape(R, k, dsum)
             for m in g["members"]:
                 out[m["path"]] = st[:, :, m["off"] : m["off"] + m["dim"]].reshape(R, k * m["dim"])
@@ -564,6 +664,8 @@ class BaseModel:
                                      f"expected {(R, k * m['dim'])}")
                 parts.append(st.reshape(R, k, m["dim"]))
             st = torch.cat(parts, 2).reshape(R, k * g["dsum"])
+            if g.get("sharded"):
+                st = shard_rows(st, self._grid)
             g["array"][:, g["dsum"] :] = encode_state(st, self._lazy["state_dtype"])
         for path in self._lazy["reg"] if self._lazy else ():
             value = reg.get(path)
@@ -571,6 +673,147 @@ class BaseModel:
             self._lazy["reg"][path] = (
                 torch.tensor(float(value), device=self.device) if value is not None
                 else _sum_squares(param))
+
+    # ------------------------------------------------------------ rank grid
+
+    def _shard_state(self, grid):
+        """Row-shard the tables in place (``parallel.shard_model_state``).
+        A lazy group's [rows, dims + state] array whose rows divide by E keeps
+        this rank's rows and its members become column views of them (their
+        row state shards with them and their tracked sum(w^2) is dropped);
+        every other parameter that ``param_sharding_rule`` row-shards is
+        replaced by its rows.  The dense optimizer is rebuilt over the new
+        parameters with fresh state, as the JAX engine's
+        ``_init_opt_state``."""
+        if self.optimizer is None:
+            raise RuntimeError("compile() before shard_model_state()")
+        if self._shards:
+            raise RuntimeError("the model is sharded already")
+        if grid.device != self.device:
+            raise ValueError(f"the grid's device {grid.device} is not the model's {self.device}")
+        E = grid.shape["embed"]
+        shards = {}
+        with torch.no_grad():
+            for g in self._lazy["groups"] if self._lazy else ():
+                g["sharded"] = E > 1 and g["rows"] % E == 0
+                if not g["sharded"]:
+                    continue
+                g["array"] = arr = shard_rows(g["array"], grid).clone()
+                for m in g["members"]:
+                    setattr(m["module"], m["attr"],
+                            nn.Parameter(arr[:, m["off"] : m["off"] + m["dim"]]))
+                    m["param"] = getattr(m["module"], m["attr"])
+                    self._lazy["reg"].pop(m["path"], None)
+                    shards[m["path"].replace("/", ".")] = g["rows"]
+            lazy_ids = {id(m["param"]) for m in self._lazy_members()}
+            paths = canonical_paths(self.module)
+            for key, p in list(self.module.named_parameters()):
+                if E == 1 or id(p) in lazy_ids or \
+                        param_sharding_rule(paths[key], p, grid) == REPLICATED:
+                    continue
+                owner, _, attr = key.rpartition(".")
+                mod = self.module.get_submodule(owner) if owner else self.module
+                setattr(mod, attr, nn.Parameter(shard_rows(p.detach(), grid).clone()))
+                shards[key] = p.shape[0]
+        self._grid, self._shards = grid, shards
+        named = dict(self.module.named_parameters())
+        self._shard_ids = frozenset(id(named[k]) for k in shards)
+        optimizer, lr = self._opt_spec
+        self.optimizer = get_optimizer(
+            optimizer, [p for p in self.module.parameters() if id(p) not in lazy_ids], lr)
+        self._reg_terms = [t for t in self._regularization_terms() if id(t[0]) not in lazy_ids]
+
+    def _batch_part(self):
+        """(this rank's index, the rank count) of the ranks that split the
+        batch on a grid of more than one rank, else None."""
+        if self._grid is None or self._grid.size == 1:
+            return None
+        ax = self._grid.axis(batch_axis())
+        return ax.index, ax.size
+
+    def _reduce_grads(self, axis):
+        """The gradient of every replicated parameter summed over ``axis``
+        in one flat all_reduce (the loss is a sum over the global batch, so
+        a sum, not DDP's mean).  A row shard's gradient was summed by its
+        lookup's backward."""
+        grads = [p.grad for p in self.module.parameters()
+                 if p.grad is not None and id(p) not in self._shard_ids]
+        if not grads:
+            return
+        flat = all_reduce_(torch._utils._flatten_dense_tensors(grads), self._grid, axis)
+        for g, r in zip(grads, torch._utils._unflatten_dense_tensors(flat, grads)):
+            g.copy_(r)
+
+    def _train_step_grid(self, xb, y, mask, with_metrics=True):
+        """:meth:`_train_step` on a rank grid; ``xb``, ``y``, ``mask`` are
+        this rank's slice of the global batch (``basemodel.py:586-629``
+        under GSPMD).  The sum-loss (and an aux loss, whose normaliser the
+        module sums over the ranks, ``mesh.batch_sum``) is differentiated
+        alone; the replicated parameters' gradients are summed over the ranks
+        that split the batch (:meth:`_reduce_grads`); the L2 / L1 registry
+        is differentiated after that, so it counts once.  Returns the global
+        batch's total loss and metrics, the same on every rank.
+
+        Why one flat all_reduce and not DDP: DDP averages (a comm hook would
+        undo it), reduces every parameter over one group, and overlaps the
+        reduce with a backward whose collective lookups run on the same
+        group; here the group depends on the lookup (``data``, or the world
+        under ``all_to_all``), row shards are left out, and one reduce after
+        the backward keeps every rank's order fixed."""
+        grid, axis = self._grid, batch_axis()
+        xb = dict(xb, labels=y[:, :1] if y.ndim > 1 else y[:, None], sample_mask=mask.reshape(-1))
+        saved = None
+        if self._lazy is not None and self._lazy["split"]:
+            xb["_compact"], saved = self._lazy_blocks(xb)
+        with batch_statistics(grid, axis), torch.autocast(
+                self.device.type, dtype=torch.bfloat16,
+                enabled=self._matmul_precision == "bfloat16"):
+            out = self.module(xb, training=True, generator=self._dropout_gen)
+        pred = out["pred"].float()
+        aux = out.get("aux_loss")
+        loss = sum_loss(self.loss_names, pred, y, mask, self.num_tasks)
+        if aux is not None:
+            loss = loss + aux.float()
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        self._reduce_grads(axis)
+        reg = torch.zeros((), device=self.device)
+        shard_reg = torch.zeros((), device=self.device)
+        for param, l1, l2 in self._reg_terms:
+            term = (l1 * param.abs().sum() if l1 > 0 else 0.0) + (
+                l2 * param.square().sum() if l2 > 0 else 0.0)
+            if id(param) in self._shard_ids:
+                shard_reg = shard_reg + term
+            else:
+                reg = reg + term
+        if (reg + shard_reg).requires_grad:
+            (reg + shard_reg).backward()
+        self.optimizer.step()
+        if self._lazy is not None:
+            self._lazy_update(xb, saved, axis)
+        with torch.no_grad():
+            total = all_reduce_(loss.detach().clone(), grid, axis) + reg.detach()
+            total = total + all_reduce_(shard_reg.detach().clone(), grid, "embed")
+            if self._lazy is not None:
+                total = total + self._lazy_reg_value()
+        mvals = {}
+        if with_metrics:
+            with torch.no_grad():
+                y_all = all_gather_rows(y, grid, axis)
+                p_all = all_gather_rows(pred.detach(), grid, axis)
+                m_all = all_gather_rows(mask, grid, axis)
+                if isinstance(self.loss_names, list):
+                    yt, pt = y_all.reshape(-1), p_all.reshape(-1)
+                    mt = m_all.repeat_interleave(p_all.shape[-1])
+                else:
+                    yt = y_all.reshape(y_all.shape[0], -1)[:, 0]
+                    pt, mt = p_all.reshape(p_all.shape[0], -1)[:, 0], m_all
+                mvals = {name: DEVICE_METRICS[name](yt, pt, mt) for name in self.metrics}
+        # a module's logs (sfg_loss) are sums of the ranks' parts, as its
+        # loss terms are
+        for name, value in out.get("logs", {}).items():
+            mvals[name] = all_reduce_(value.detach().float().clone(), grid, axis)
+        return total, mvals
 
     def _get_metrics(self, metrics):
         metrics_ = {}
@@ -593,7 +836,10 @@ class BaseModel:
         are updated after the dense optimizer's step (:meth:`_lazy_update`).
         The BatchNorm and Dice statistics update in the forward.  Under
         ``matmul_precision="bfloat16"`` the forward runs under bf16 autocast
-        and its outputs are cast back to fp32."""
+        and its outputs are cast back to fp32.  On a rank grid of more than
+        one rank: :meth:`_train_step_grid`."""
+        if self._batch_part() is not None:
+            return self._train_step_grid(xb, y, mask, with_metrics)
         xb = dict(xb, labels=y[:, :1] if y.ndim > 1 else y[:, None], sample_mask=mask.reshape(-1))
         saved = None
         if self._lazy is not None and self._lazy["split"]:
@@ -670,6 +916,10 @@ class BaseModel:
 
         if batch_size is None:
             batch_size = 256
+        part = self._batch_part()
+        if part is not None and batch_size % part[1]:
+            raise ValueError(f"batch_size {batch_size} does not split over the {part[1]} ranks "
+                             "that split the batch")
         steps_per_epoch = (n - 1) // batch_size + 1
         # the training data lives on the device; batches are gathered there
         x_dev = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
@@ -684,9 +934,7 @@ class BaseModel:
         })
         callbacks.on_train_begin()
         self.stop_training = False
-        # dropout masks: one stream per fit, as the JAX engine folds the step
-        # number into a key seeded with seed + 1
-        self._dropout_gen = torch.Generator(device=self.device).manual_seed(self.seed + 1)
+        self._dropout_gen = self._dropout_generator()
         self._restart_lazy_steps()
 
         print(
@@ -707,11 +955,15 @@ class BaseModel:
             mask = torch.as_tensor(mask, device=self.device)
             totals, mvals = [], []
             for i in range(steps_per_epoch):
-                take = idx[i * batch_size : (i + 1) * batch_size]
+                lo, hi = i * batch_size, (i + 1) * batch_size
+                if part is not None:  # this rank's slice of the global batch
+                    b = batch_size // part[1]
+                    lo, hi = lo + part[0] * b, lo + (part[0] + 1) * b
+                take = idx[lo:hi]
                 total, mv = self._train_step(
                     {k: v.index_select(0, take) for k, v in x_dev.items()},
                     y_dev.index_select(0, take),
-                    mask[i * batch_size : (i + 1) * batch_size],
+                    mask[lo:hi],
                     with_metrics=verbose > 0,
                 )
                 totals.append(total)
@@ -739,6 +991,15 @@ class BaseModel:
                 break
         callbacks.on_train_end()
         return self.history
+
+    def _dropout_generator(self):
+        """Dropout masks: one stream per fit, as the JAX engine folds the step
+        number into a key seeded with seed + 1.  On a grid each slice of the
+        batch draws its own stream (the members of an embed group, which hold
+        the same rows under the psum lookup, the same one)."""
+        part = self._batch_part()
+        offset = 0 if part is None else 7919 * part[0]
+        return torch.Generator(device=self.device).manual_seed(self.seed + 1 + offset)
 
     def _restart_lazy_steps(self):
         """The lazy optimizer's step count starts again at 1 with each
@@ -830,8 +1091,9 @@ class BaseModel:
         })
         callbacks.on_train_begin()
         self.stop_training = False
-        self._dropout_gen = torch.Generator(device=self.device).manual_seed(self.seed + 1)
+        self._dropout_gen = self._dropout_generator()
         self._restart_lazy_steps()
+        part = self._batch_part()
         if verbose > 0:
             print("Train on stream, validate on {0} samples".format(
                 len(val_y) if do_validation else 0))
@@ -868,6 +1130,13 @@ class BaseModel:
                         xb = {k: np.concatenate([v, np.repeat(v[-1:], pad, axis=0)])
                               for k, v in xb.items()}
                         yb = np.concatenate([yb, np.zeros((pad,) + yb.shape[1:], yb.dtype)])
+                    if part is not None:  # this rank's slice of the global batch
+                        if batch_size % part[1]:
+                            raise ValueError(f"stream batch size {batch_size} does not split "
+                                             f"over the {part[1]} ranks that split the batch")
+                        b = batch_size // part[1]
+                        cut = slice(part[0] * b, (part[0] + 1) * b)
+                        xb, yb, mask = {k: v[cut] for k, v in xb.items()}, yb[cut], mask[cut]
                     total, mv = self._train_step(
                         {k: torch.as_tensor(v, device=self.device) for k, v in xb.items()},
                         torch.as_tensor(yb, device=self.device),
@@ -944,10 +1213,23 @@ class BaseModel:
 
     def _predict_step(self, batch):
         """Typed numpy batch -> predictions [B, 1] ([B, T] for T tasks) on
-        the device."""
+        the device.  On a rank grid every rank passes the same batch, scores
+        its slice (padded by repeating the last row) and returns the whole
+        batch's predictions."""
+        part = self._batch_part()
+        if part is not None:
+            n = len(next(iter(batch.values())))
+            b = -(-n // part[1])
+            if b * part[1] > n:
+                batch = {k: np.concatenate([v, np.repeat(v[-1:], b * part[1] - n, axis=0)])
+                         for k, v in batch.items()}
+            batch = {k: v[part[0] * b : (part[0] + 1) * b] for k, v in batch.items()}
         xb = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
         with torch.inference_mode():
-            return self.module(xb, training=False)["pred"]
+            pred = self.module(xb, training=False)["pred"]
+            if part is not None:
+                pred = all_gather_rows(pred, self._grid, batch_axis())[:n]
+            return pred
 
     def evaluate(self, x, y, batch_size=256):
         return self._evaluate_packed(self._pack_x(x), y, batch_size)
@@ -988,8 +1270,15 @@ class BaseModel:
     def get_weights(self):
         """The canonical tree of the JAX package's ``get_weights``
         (``basemodel.py:1765-1773``), as numpy: ``params`` and the BatchNorm
-        running statistics, ``batch_stats``."""
-        return to_jax_weights(self.module)
+        running statistics, ``batch_stats``.  A row-sharded model gathers
+        its tables over ``embed`` (every rank gets the whole tree, as the
+        JAX ``device_get`` does)."""
+        if not self._shards:
+            return to_jax_weights(self.module)
+        state = self.module.state_dict()
+        for key in self._shards:
+            state[key] = all_gather_rows(state[key], self._grid, "embed")
+        return to_jax_weights(self.module, state)
 
     def set_weights(self, weights):
         """Load a canonical tree, ``params`` and ``batch_stats``; names and
@@ -1000,8 +1289,12 @@ class BaseModel:
         carries its lazy row states and tracked L2 values
         (:func:`from_jax_lazy_state`); without it a lazy model's tracked L2
         values are recomputed from the new tables.  The row states are
-        kept."""
-        self.module.load_state_dict(from_jax_weights(weights, self.module), strict=True)
+        kept.  A row-sharded model keeps each table's rows of this rank."""
+        state = from_jax_weights(weights, self.module)
+        for key in self._shards:
+            if key in state:
+                state[key] = shard_rows(state[key], self._grid)
+        self.module.load_state_dict(state, strict=True)
         if weights.get("opt_state") is not None:
             self._set_lazy_state(*from_jax_lazy_state(weights["opt_state"]))
         elif self._lazy is not None:
@@ -1056,7 +1349,8 @@ class BaseModel:
         a checkpoint of any layout loads under any other.  The BatchNorm
         statistics as ``save_weights`` writes them (``batch_stats/...``).
         The JAX package's msgpack checkpoints are not read (ROADMAP.md,
-        D1)."""
+        D1).  A row-sharded model gathers its tables and their state over
+        ``embed`` and rank 0 writes the file; every rank calls it."""
         if self.optimizer is None:
             raise RuntimeError("compile() before save_checkpoint()")
         flat = self._weights_flat()
@@ -1064,6 +1358,8 @@ class BaseModel:
         for param, state in self.optimizer.state.items():
             for slot, value in state.items():
                 if value is not None:
+                    if torch.is_tensor(value) and self._row_state(param, value):
+                        value = all_gather_rows(value.detach(), self._grid, "embed")
                     value = value.detach().cpu() if torch.is_tensor(value) else value
                     flat[f"opt_state/{path_of[id(param)]}/{slot}"] = np.asarray(value)
         for where, st in self._lazy_state().items():
@@ -1071,8 +1367,17 @@ class BaseModel:
         for where, value in (self._lazy["reg"] if self._lazy else {}).items():
             flat[f"opt_state/reg/{where}"] = np.asarray(value.item(), np.float32)
         flat["epoch"] = np.asarray(epoch, np.int64)
-        with open(path, "wb") as f:
-            np.savez(f, **flat)
+        if self._grid is None or self._grid.rank == 0:
+            with open(path, "wb") as f:
+                np.savez(f, **flat)
+        if self._grid is not None and self._grid.size > 1:
+            torch.distributed.barrier()  # the file is whole before any rank reads it
+
+    def _row_state(self, param, value) -> bool:
+        """Whether an optimizer state tensor of ``param`` is laid out by the
+        rows of a row-sharded table (Adam's moments; not its step)."""
+        return (id(param) in self._shard_ids and value.ndim == param.ndim
+                and value.shape[0] == param.shape[0])
 
     def load_checkpoint(self, path) -> int:
         """Restore ``save_checkpoint``'s params and optimizer state; returns
@@ -1092,12 +1397,147 @@ class BaseModel:
                 (lazy if kind == "lazy" else reg)[where] = value
             elif key.startswith("opt_state/"):
                 where, slot = key[len("opt_state/"):].rsplit("/", 1)
-                if id(param_at[where]) not in index:
+                param = param_at[where]
+                if id(param) not in index:
                     raise ValueError(f"the checkpoint holds dense optimizer state for {where}, "
                                      "which this model trains lazily")
-                state.setdefault(index[id(param_at[where])], {})[slot] = torch.from_numpy(value)
+                value = torch.from_numpy(value)
+                if id(param) in self._shard_ids and value.ndim == param.ndim and \
+                        value.shape[0] != param.shape[0]:
+                    value = shard_rows(value, self._grid)
+                state.setdefault(index[id(param)], {})[slot] = value
         sd = self.optimizer.state_dict()
         self.optimizer.load_state_dict({"state": state, "param_groups": sd["param_groups"]})
         if lazy or self._lazy is not None:
             self._set_lazy_state(lazy, reg)
         return int(flat["epoch"])
+
+    # ------------------------------------------------- sharded checkpoints
+
+    def _shard_key(self, key: str) -> str:
+        """``key`` marked with this rank's shard index: ``...@shard{e}``."""
+        return f"{key}@shard{self._grid.embed_index}"
+
+    def _checkpoint_tensors(self, epoch):
+        """{key: CPU copy} of the live training state, each rank's own:
+        ``params/<path>``, ``batch_stats/<path>``,
+        ``opt_state/<path>/<slot>``, a lazy group's state columns
+        ``lazy/<first member's path>``, tracked sum(w^2) ``lazy_reg/<path>``
+        and step ``lazy_t``, ``epoch``; a row shard's path ends in
+        ``@shard{e}``.  The copies are taken now, so training may go on
+        while they are written."""
+        paths = canonical_paths(self.module)
+        out = {}
+
+        def put(key, t, sharded):
+            out[self._shard_key(key) if sharded else key] = t.detach().to("cpu", copy=True)
+
+        for key, p in self.module.named_parameters():
+            put(f"params/{paths[key]}", p, key in self._shards)
+        for key, b in self.module.named_buffers():
+            put(f"batch_stats/{key.replace('.', '/')}", b, False)
+        path_of, _ = self._parameter_paths()
+        for param, state in self.optimizer.state.items():
+            for slot, value in state.items():
+                if torch.is_tensor(value):
+                    where = path_of[id(param)]
+                    if id(param) in self._shard_ids:
+                        where = self._shard_key(where)
+                    out[f"opt_state/{where}/{slot}"] = value.detach().to("cpu", copy=True)
+        for g in self._lazy["groups"] if self._lazy else ():
+            put(f"lazy/{g['members'][0]['path']}", g["array"][:, g["dsum"] :], g.get("sharded"))
+        for where, value in (self._lazy["reg"] if self._lazy else {}).items():
+            put(f"lazy_reg/{where}", value, False)
+        if self._lazy is not None:
+            out["lazy_t"] = torch.tensor(self._lazy["t"], dtype=torch.int64)
+        out["epoch"] = torch.tensor(epoch, dtype=torch.int64)
+        return out
+
+    def _dcp_group(self):
+        """(process group, no_dist) for ``torch.distributed.checkpoint``."""
+        if self._grid is None or self._grid.size == 1:
+            return None, True
+        return self._grid.checkpoint_group, False
+
+    def save_checkpoint_sharded(self, path, epoch=0, block=True):
+        """A checkpoint written through ``torch.distributed.checkpoint``
+        (``basemodel.py:1977-2017``): each rank writes its own shards (a
+        replicated array once, from one rank) and no rank gathers a table.
+        It holds the live state of :meth:`_checkpoint_tensors`, the lazy
+        arrays' state columns as stored, and restores into an identically
+        configured and identically sharded model
+        (:meth:`load_checkpoint_sharded`).  The format is the port's own and
+        does not read orbax's (``ROADMAP.md``, deliberate deviations).
+
+        ``block=False``: the state is copied to the host now and written in
+        the background (``async_save``); training may go on, the snapshot
+        stays that of this call.  :meth:`wait_for_checkpoints` (or another
+        save) joins it.  Every rank calls it."""
+        import torch.distributed.checkpoint as dcp
+
+        if self.optimizer is None:
+            raise RuntimeError("compile() before save_checkpoint_sharded()")
+        self.wait_for_checkpoints()
+        state = self._checkpoint_tensors(epoch)
+        group, no_dist = self._dcp_group()
+        if block:
+            dcp.save(state, checkpoint_id=str(path), process_group=group, no_dist=no_dist)
+        elif no_dist:
+            # one process: async_save would look for a process group
+            import concurrent.futures
+
+            pool = concurrent.futures.ThreadPoolExecutor(1)
+            self._checkpoints.append(pool.submit(dcp.save, state, checkpoint_id=str(path),
+                                                 no_dist=True))
+            pool.shutdown(wait=False)
+        else:
+            self._checkpoints.append(dcp.async_save(state, checkpoint_id=str(path),
+                                                    process_group=group))
+
+    def wait_for_checkpoints(self):
+        """Join any in-flight ``save_checkpoint_sharded(block=False)``."""
+        while self._checkpoints:
+            self._checkpoints.pop(0).result()
+
+    def load_checkpoint_sharded(self, path) -> int:
+        """Restore a :meth:`save_checkpoint_sharded` checkpoint into the live
+        model: each rank reads only its own shards and the replicated
+        arrays.  Returns the saved epoch."""
+        import torch.distributed.checkpoint as dcp
+
+        if self.optimizer is None:
+            raise RuntimeError("compile() before load_checkpoint_sharded()")
+        self.wait_for_checkpoints()
+        meta = dcp.FileSystemReader(str(path)).read_metadata().state_dict_metadata
+        mine = "" if self._grid is None else "@shard%d" % self._grid.embed_index
+        state = {}
+        for key, md in meta.items():
+            if "@shard" in key and not (mine and (key.endswith(mine) or mine + "/" in key)):
+                continue
+            state[key] = torch.empty(tuple(md.size), dtype=md.properties.dtype)
+        group, no_dist = self._dcp_group()
+        dcp.load(state, checkpoint_id=str(path), process_group=group, no_dist=no_dist)
+        state = {key.replace(mine, "") if mine else key: t for key, t in state.items()}
+        paths = canonical_paths(self.module)
+        with torch.no_grad():
+            for key, p in self.module.named_parameters():
+                p.copy_(state[f"params/{paths[key]}"])
+            for key, b in self.module.named_buffers():
+                b.copy_(state[f"batch_stats/{key.replace('.', '/')}"])
+            for g in self._lazy["groups"] if self._lazy else ():
+                g["array"][:, g["dsum"] :] = state[f"lazy/{g['members'][0]['path']}"]
+            for where in self._lazy["reg"] if self._lazy else ():
+                self._lazy["reg"][where] = state[f"lazy_reg/{where}"].to(self.device)
+        if self._lazy is not None:
+            self._lazy["t"] = int(state["lazy_t"])
+        _, param_at = self._parameter_paths()
+        index = {id(p): i for i, p in enumerate(
+            p for group_ in self.optimizer.param_groups for p in group_["params"])}
+        opt = {}
+        for key, value in state.items():
+            if key.startswith("opt_state/"):
+                where, slot = key[len("opt_state/"):].rsplit("/", 1)
+                opt.setdefault(index[id(param_at[where])], {})[slot] = value
+        sd = self.optimizer.state_dict()
+        self.optimizer.load_state_dict({"state": opt, "param_groups": sd["param_groups"]})
+        return int(state["epoch"])

@@ -11,7 +11,9 @@ same name index the same rows), init normal(std=init_std)
 varlen (sequence) fields looked up per position and pooled by their combiner
 (``inputs.py:141-155, 213-227``).
 
-Every gather from a table goes through :func:`fused_gather`, whose backward is
+Every gather from a table goes through :func:`fused_gather` (or, for a
+rank's row shard, the collective lookup of ``parallel.sharded_embedding``),
+whose backward is
 a fixed-order segment sum over the sorted ids (:func:`sorted_segment_sum`),
 not ``index_select``'s atomic scatter-add: two identical steps give
 bit-equal table gradients on the card, as the JAX ``.at[].add`` does on its
@@ -143,6 +145,19 @@ def fused_gather(tables: Sequence[torch.Tensor], ids: torch.Tensor) -> torch.Ten
     one segment sum into the concat (:func:`sorted_segment_sum`), split per
     table, as the JAX ``custom_vjp``'s one scatter-add."""
     return _GatherRows.apply(ids.reshape(-1).long(), *tables)
+
+
+def _take(tables: Sequence[torch.Tensor], ids: torch.Tensor, rows: int) -> torch.Tensor:
+    """:func:`fused_gather` of ``tables``, whose full row count is
+    ``rows``; where they hold fewer, they are a rank's row shards
+    (``parallel.shard_model_state``) and the lookup is the collective
+    ``parallel.sharded_embedding.maybe_sharded_take`` (the JAX
+    ``lookup_ids`` dispatch, ``embeddings.py:143-148``)."""
+    if tables[0].shape[0] != rows:
+        from .parallel.sharded_embedding import maybe_sharded_take
+
+        return maybe_sharded_take(tuple(tables), ids.reshape(-1))
+    return fused_gather(tables, ids)
 
 
 def table_touched_spec(feature_columns, schema: FeatureSchema, linear: bool,
@@ -284,6 +299,7 @@ class EmbeddingCollection(nn.Module):
         # it (:func:`can_fuse_lookup`); ``compile(fused_lookup=False)`` clears it
         self.fused_lookup = True
         self._offsets, table_rows = _table_layout(feature_columns, linear, force_dim)
+        self._rows = dict(table_rows)  # each table's full row count (a shard holds fewer)
         self._occ_layout = _occ_layout(feature_columns, schema, linear, force_dim)
         for dim, rows in sorted(table_rows.items()):
             t = torch.empty(rows, dim).normal_(0.0, init_std, generator=generator)
@@ -344,7 +360,7 @@ class EmbeddingCollection(nn.Module):
         dim, ids = self.sparse_ids(batch, feats)
         B, F = ids.shape
         if rows is None:
-            rows = fused_gather((self.table(dim),), ids)
+            rows = _take((self.table(dim),), ids, self._rows[dim])
         return rows.reshape(B, F, dim)
 
     def field_ids(self, batch, feat) -> torch.Tensor:
@@ -383,7 +399,7 @@ class EmbeddingCollection(nn.Module):
                 continue
             ids = [self.field_ids(batch, f) for f in fs]
             widths = [t.shape[1] for t in ids]
-            rows = fused_gather((self.table(dim),), torch.cat(ids, dim=1))
+            rows = _take((self.table(dim),), torch.cat(ids, dim=1), self._rows[dim])
             for f, part in zip(fs, rows.reshape(ids[0].shape[0], sum(widths), dim).split(widths, 1)):
                 found[f.name] = part
         return [found[f.name] for f in feats]
@@ -505,7 +521,8 @@ def _fused_rows(main: EmbeddingCollection, linear: "LinearModel", batch, feature
     if not (fused and main.fused_lookup) or "_compact" in batch:
         return None, None
     dim, ids = main.sparse_ids(batch, split_columns(feature_columns)[0])
-    rows = fused_gather((main.table(dim), linear.embedding_dict.table_d1), ids.reshape(-1))
+    rows = _take((main.table(dim), linear.embedding_dict.table_d1), ids.reshape(-1),
+                 main._rows[dim])
     return rows[:, :dim], rows[:, dim:]
 
 

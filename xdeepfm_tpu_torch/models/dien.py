@@ -27,6 +27,7 @@ from ..embeddings import EmbeddingCollection, combined_dnn_input
 from ..features import FeatureSchema, SparseFeat, split_columns
 from ..nn.core import DNN, PredictionLayer
 from ..nn.sequence import GRU, AttentionSequencePoolingLayer, DynamicGRU, sequence_mask
+from ..parallel.mesh import batch_sum
 
 
 class InterestExtractor(nn.Module):
@@ -63,7 +64,8 @@ class InterestExtractor(nn.Module):
         eps = 1e-7
         click_ll = -torch.log(p[0].clamp(eps, 1 - eps))
         noclick_ll = -torch.log((1 - p[1]).clamp(eps, 1 - eps))
-        n_valid = mask.sum().clamp(min=1.0)
+        # on a rank grid the global batch's count (mesh.batch_sum)
+        n_valid = batch_sum(mask.sum()).clamp(min=1.0)
         return ((click_ll * mask).sum() + (noclick_ll * mask).sum()) / (2.0 * n_valid)
 
 

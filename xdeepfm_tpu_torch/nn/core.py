@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import batch_ranks, batch_sum
 from .activations import apply_activation, make_activation
 
 
@@ -90,9 +91,16 @@ class BatchNorm(nn.Module):
         shape[axis] = x.shape[axis]
         if training:
             dims = tuple(i for i in range(x.ndim) if i != axis)
-            mean = x.mean(dims)
+            if batch_ranks() > 1:
+                # on a rank grid: the moments of the global batch, as GSPMD
+                # computes flax's mean over the sharded batch
+                count = x.numel() // x.shape[axis] * batch_ranks()
+                sums = batch_sum(torch.stack([x.sum(dims), (x * x).sum(dims)])) / count
+                mean, mean_sq = sums[0], sums[1]
+            else:
+                mean, mean_sq = x.mean(dims), (x * x).mean(dims)
             # torch.maximum splits the gradient at a tie, as jnp.maximum does
-            var = torch.maximum((x * x).mean(dims) - mean * mean, mean.new_zeros(()))
+            var = torch.maximum(mean_sq - mean * mean, mean.new_zeros(()))
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1 - m) * mean)

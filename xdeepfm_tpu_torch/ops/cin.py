@@ -13,6 +13,11 @@ Hopper kernels (``cin_cuda.cin_rows_forward``, ``cin_rows_backward``,
 ``backend="torch"`` runs the plain versions on any device, which is how the
 kernels are held against them on the card.  db = sum_r g[r] is taken outside
 the kernels, as ``cin_pallas.py:392`` does.
+
+On a rank grid (``parallel/``) each rank launches these kernels on the rows
+of its own slice of the batch: the JAX kernel wraps itself in ``shard_map``
+over the data axis on a mesh (``xdeepfm_tpu/ops/cin.py:36-51``), which one
+process per device makes unnecessary.
 """
 
 from __future__ import annotations

@@ -18,6 +18,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..nn.core import dropout, torch_bias_init, torch_linear_init
 from ..ops import ce
+from ..parallel.mesh import batch_ranks, batch_sum
 
 
 def _linear(n_in, n_out, generator):
@@ -218,9 +219,12 @@ def _positive_mask(labels, sample_mask, positive_only):
         pos_mask = torch.ones_like(labels, dtype=torch.float32)
     if sample_mask is not None:
         pos_mask = pos_mask * sample_mask.reshape(-1)
+    # on a rank grid the normaliser is the global batch's (mesh.batch_sum)
     if positive_only:
-        return pos_mask, pos_mask.sum() + 1e-8
-    return pos_mask, sample_mask.sum() if sample_mask is not None else labels.shape[0]
+        return pos_mask, batch_sum(pos_mask.sum()) + 1e-8
+    if sample_mask is not None:
+        return pos_mask, batch_sum(sample_mask.sum())
+    return pos_mask, labels.shape[0] * batch_ranks()
 
 
 def _dense_term(dense_preds, dense_targets, pos_mask, num_positive):

@@ -107,16 +107,18 @@ def host_us(fn, iters=HOST_ITERS):
     return elapsed * 1e6 / iters
 
 
-def device_ms(fn, kernels, iters=ITERS, attempts=3):
+def device_ms(fn, kernels, iters=ITERS, attempts=5):
     """Mean device ms a call of ``fn`` that launches each of ``kernels`` (name
     substrings) once: torch.profiler's kernel durations over ``iters`` calls
     after one warm-up call (the device's activity alone, no host events),
     each kernel's mean over the launches the profiler recorded, summed over
-    the kernels.  The profiler can drop the records of
-    a window (seen on the card: 36 of 50, and once none), so a window in
-    which it kept fewer than half of some kernel's launches is profiled
-    again, up to ``attempts`` windows; raises if none kept enough, or if one
-    recorded more than a launch a call."""
+    the kernels.  The profiler can drop the records of a window (seen on the
+    card: 36 of 50, once none, and once too few in three windows in a row),
+    so a window in which it kept fewer than half of some kernel's launches is
+    profiled again, up to ``attempts`` windows.  If none kept enough, the
+    time is not measured and the result is None: the caller's CUDA-event
+    time stands alone.  Raises if a window recorded more than a launch a
+    call."""
     fn()
     torch.cuda.synchronize()
     for _ in range(attempts):
@@ -135,8 +137,10 @@ def device_ms(fn, kernels, iters=ITERS, attempts=3):
             means.append(sum(times) / len(times))
         else:
             return sum(means) / 1e3
-    raise RuntimeError(f"profiler kept fewer than {iters // 2} of {iters} launches of one of "
-                       f"{kernels} in each of {attempts} windows")
+    print(json.dumps({"device_ms_not_measured": list(kernels), "windows": attempts,
+                      "why": f"the profiler kept fewer than {iters // 2} of {iters} launches "
+                             "in every window"}), flush=True)
+    return None
 
 
 def registers(logs):

@@ -75,7 +75,8 @@ def device_ms(fn, kernel, iters=ITERS):
     call: the kernel's own time, which back-to-back launches from Python do
     not pace as they pace CUDA events around short kernels.  It is
     :func:`~xdeepfm_tpu_torch.scripts.bench_gru.device_ms` for one kernel,
-    which profiles a window again when the profiler dropped its records."""
+    which profiles a window again when the profiler dropped its records and
+    gives None (not measured) when every window dropped too many."""
     return gru_device_ms(fn, (kernel,), iters)
 
 

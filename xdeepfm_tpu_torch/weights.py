@@ -116,14 +116,16 @@ def canonical_paths(module: nn.Module) -> Dict[str, str]:
     return paths
 
 
-def to_jax_weights(module: nn.Module) -> dict:
+def to_jax_weights(module: nn.Module, state: Dict[str, torch.Tensor] = None) -> dict:
     """A port model's module -> the canonical JAX weight tree (numpy): the
     parameters under ``params`` (only the ``nn.Linear`` and ``nn.Conv2d``
-    weights transposed), the buffers under ``batch_stats``."""
+    weights transposed), the buffers under ``batch_stats``.  ``state``, if
+    given, stands for ``module.state_dict()`` (a row-sharded model's with
+    its tables gathered)."""
     paths = canonical_paths(module)
     dense = _dense_weights(module)
     flat, stats = {}, {}
-    for key, t in module.state_dict().items():
+    for key, t in (module.state_dict() if state is None else state).items():
         arr = t.detach().cpu().numpy()
         if key not in paths:
             stats[key.replace(".", "/")] = np.ascontiguousarray(arr)
