@@ -107,7 +107,20 @@ run in order and any failure raises, so the exit code is non-zero:
    time a launch from the profiler; beside them for cell gru cuDNN's
    ``torch.nn.GRU`` over ``pack_padded_sequence`` (backward by autograd)
    and the kernel plus the hoisted input projection, which cuDNN includes;
-16. DIEN (``bench.py``'s ``dien`` row: AUGRU, negative sampling, user and
+16. ``pro_autodis`` (run right after Pro's scoring): xDeepFMPro with
+   ``use_autodis=True`` (the 13 dense fields through 16 buckets each), SFG
+   on, ``fit`` at batch 4096 with Adam for two epochs, the CIN's 2 + 2 + 2
+   and 1 ``ce_fwd`` + 1 ``ce_bwd`` a step, gradients with the CE kernels
+   against the plain CE, the encoder's gradients non-zero, one SGD step
+   against the CPU, a training profile and ``Scorer(8192)`` (2 ``cin_fwd``
+   a batch) against the CPU model; ``flax_io``: the JAX package's file
+   format (``serialization``): the canonical xDeepFM's weights out and back
+   through ``load_weights`` with bit-equal scores, a lazy checkpoint out
+   through ``to_jax_checkpoint`` and back through ``load_checkpoint`` with
+   every weight, row state and the next step bit-equal, and a 28M x 10
+   fp32 table (1.12 GB) through flax's chunked form with its write and
+   read seconds;
+   DIEN (``bench.py``'s ``dien`` row: AUGRU, negative sampling, user and
    item of vocab 10 000 and dim 10, one dense field, histories of maxlen 50)
    trained, profiled and scored as the models in 12: per step 2 ``gru_fwd``
    + 2 ``gru_bwd`` (the extractor's GRU and the AUGRU), per scored batch 2
@@ -161,8 +174,11 @@ run in order and any failure raises, so the exit code is non-zero:
    ``index_select``'s, bit-equality over two calls, error against float64
    and time, at DIEN's and xDeepFM's step;
 19. the training CLIs over the native parser (``cli`` lines, among them
-   ``cli_lazy``: ``xdftrain --embedding_optimizer lazy``, split and packed)
-   and ``load_scorer`` over their artifacts (``cli_summary``);
+   ``cli_lazy``: ``xdftrain --embedding_optimizer lazy``, split and packed;
+   ``cli_v1``: ``xdftrain_v1`` final; ``cli_attn_v2``: ``xdftrain_attn
+   --model_version v2 --num_attn_layers 2``; ``cli_pro_autodis``: ``xdftrain_pro --use_sfg
+   --use_autodis``) and ``load_scorer`` over their artifacts
+   (``cli_summary``);
 20. the lazy row-sparse embedding optimizer (``compile(embedding_optimizer=
    "lazy")``; its sort, run sums and row writes are PyTorch ops, the CIN's
    and the GRU's kernels run on its steps): ``lazy_checks`` at 26 x 100 000
@@ -192,8 +208,13 @@ run in order and any failure raises, so the exit code is non-zero:
    rank, step ms per rank (co-located ranks on one card, not a scaling
    figure); ``Scorer(8192)`` on the sharded model against the one-process
    scorer; ``save_checkpoint_sharded(block=False)``, a step during the
-   write, the resumed step bit-equal.  ``--sharded-only`` runs the device,
-   build and sharded phases alone;
+   write, the resumed step bit-equal; V1 (``shard_map``), V2, DIEN
+   (``all_to_all``) and AutoInt (``shard_map``) at their training phases'
+   widths, 2 steps each, their attention, lane and GRU kernels launched on
+   every rank as their one-process steps launch them; ``fit`` and
+   ``fit_stream`` of xDeepFM under ``all_to_all`` (``grid_fit``), every
+   rank's History against the one process's.  ``--sharded-only`` runs the
+   device, build and sharded phases alone;
 22. a ``{"kernels": [...]}`` line, one entry per hand-written kernel, its
    ``launches_by_path`` with the CLI, lazy, ``dien_dice``, ``bf16``,
    multitask and grid paths (a grid path's launches summed over its ranks);
@@ -234,7 +255,8 @@ from torch.overrides import TorchFunctionMode
 
 from xdeepfm_tpu_torch import native
 from xdeepfm_tpu_torch.basemodel import sum_loss
-from xdeepfm_tpu_torch.cli import xdftrain, xdftrain_attn, xdftrain_pro
+from xdeepfm_tpu_torch import serialization
+from xdeepfm_tpu_torch.cli import xdftrain, xdftrain_attn, xdftrain_pro, xdftrain_v1
 from xdeepfm_tpu_torch.embeddings import MixedEmbeddingDims, fused_gather, touched_ids
 from xdeepfm_tpu_torch.features import DenseFeat, SparseFeat, VarLenSparseFeat
 from xdeepfm_tpu_torch.models import (
@@ -326,7 +348,7 @@ from xdeepfm_tpu_torch.scripts.bench_gru import KERNELS as GRU_KERNELS
 from xdeepfm_tpu_torch.scripts.bench_gru import device_ms as gru_device_ms
 from xdeepfm_tpu_torch.scripts.bench_lane import device_ms
 from xdeepfm_tpu_torch.serving import Scorer, load_scorer
-from xdeepfm_tpu_torch.weights import flatten_tree, unflatten_tree
+from xdeepfm_tpu_torch.weights import flatten_tree, to_jax_checkpoint, unflatten_tree
 
 SEED = 0
 BATCH = 8192
@@ -1474,6 +1496,190 @@ def phase_pro_scoring(model):
     return record
 
 
+AUTODIS_EPOCHS = 2  # of TRAIN_STEPS_PER_EPOCH steps
+
+
+def phase_pro_autodis():
+    """xDeepFMPro(use_autodis=True) at the pro row's widths (its dense fields
+    through AutoDis's 16 buckets), SFG on: ``fit`` at batch 4096 with Adam
+    for AUTODIS_EPOCHS epochs, each step launching the CIN's 2 + 2 + 2 and
+    one ``ce_fwd`` and one ``ce_bwd``, the epoch loss falling; one step's
+    gradients with the CE kernels against the plain CE (as
+    ``phase_pro_training``); one SGD step against the CPU model; the Scorer
+    (2 ``cin_fwd`` a batch) and its scores against the CPU model's; busy ms a
+    step from the profiler."""
+    model = pro_model("cuda", use_autodis=True)
+    model.compile("adam", "binary_crossentropy", metrics=["auc"])
+    if getattr(model.module, "autodis_encoder", None) is None:
+        raise AssertionError("use_autodis=True built no AutoDis encoder")
+    # Pro's rows (phase_pro_training's seed): the positive-only decoder's CE
+    # works on the positive rows, so its cost follows their share
+    rng = np.random.default_rng(SEED + 3)
+    x, y = train_data(rng, TRAIN_STEPS_PER_EPOCH * TRAIN_BATCH + TRAIN_BATCH // 2)
+    x, y, val = (
+        {k: v[: -TRAIN_BATCH // 2] for k, v in x.items()}, y[: -TRAIN_BATCH // 2],
+        ({k: v[-TRAIN_BATCH // 2 :] for k, v in x.items()}, y[-TRAIN_BATCH // 2 :]),
+    )
+    positive_share = float(y.mean())
+    reset_launches()
+    t0 = time.perf_counter()
+    history = model.fit(x, y, batch_size=TRAIN_BATCH, epochs=AUTODIS_EPOCHS, verbose=1,
+                        validation_data=val)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = read_launches()
+    steps = TRAIN_STEPS_PER_EPOCH * AUTODIS_EPOCHS
+    want = expected(cin_fwd=2 * (steps + AUTODIS_EPOCHS), cin_bwd_dx=2 * steps,
+                    cin_dw=2 * steps, ce_fwd=steps, ce_bwd=steps)
+    if launches != want:
+        raise AssertionError(f"Pro AutoDis launches {launches} over {steps} steps, "
+                             f"expected {want}")
+    logs = history.history
+    for k, v in logs.items():
+        if not np.isfinite(v).all():
+            raise AssertionError(f"Pro AutoDis: {k} is not finite: {v}")
+    if not logs["loss"][-1] < logs["loss"][0]:
+        raise AssertionError(f"Pro AutoDis: the epoch loss did not fall: {logs['loss']}")
+
+    batch, yb = pro_batch(model, x, y, TRAIN_BATCH)
+    dec = model.module.sfg_decoder
+    dec.dropout_rate = 0.0
+    dec.ce_backend = "torch"
+    want_g = pro_step_grads(model, batch, yb)
+    dec.ce_backend = None
+    reset_launches()
+    got_g = pro_step_grads(model, batch, yb)
+    step_launches = read_launches()
+    if step_launches != expected(cin_fwd=2, cin_bwd_dx=2, cin_dw=2, ce_fwd=1, ce_bwd=1):
+        raise AssertionError(f"Pro AutoDis: one step launched {step_launches}")
+    err = grad_err(got_g, want_g)
+    if err > GRAD_RTOL:
+        raise AssertionError(f"Pro AutoDis: CE kernel gradients off by {err}")
+    autodis_grads = sorted(k for k in got_g if k.startswith("autodis_encoder."))
+    if not autodis_grads or not all(float(got_g[k].abs().max()) > 0 for k in autodis_grads):
+        raise AssertionError(f"Pro AutoDis: the encoder takes no gradient: {autodis_grads}")
+    unsteady = reproduced("Pro AutoDis: ", pro_step_grads(model, batch, yb),
+                          pro_step_grads(model, batch, yb))
+    del want_g, got_g
+    cpu_errs = sgd_step_vs_cpu(
+        [pro_model(dev, model.get_weights(), sfg_dropout=0.0, use_autodis=True)
+         for dev in ("cuda", "cpu")], x, y, "Pro AutoDis: ")
+    dec.dropout_rate = model.sfg_dropout
+
+    batches = [device_batch(model, {k: v[i * TRAIN_BATCH:] for k, v in x.items()},
+                            y[i * TRAIN_BATCH:], TRAIN_BATCH) for i in range(3)]
+    ms = train_steps_ms(model, batches, 10)
+    scorer = Scorer(model, batch_size=BATCH).warmup()
+    reqs = requests(np.random.default_rng(SEED + 1), REQUESTS)
+    n_batches = sum(-(-n // BATCH) for n in REQUESTS)
+    reset_launches()
+    preds, eps, score_ms = score_all(scorer, reqs)
+    score_launches = read_launches()
+    if score_launches != expected(cin_fwd=2 * n_batches):
+        raise AssertionError(f"Pro AutoDis scoring launched {score_launches}")
+    for n, p in zip(REQUESTS, preds):
+        if p.shape != (n, 1) or not (np.isfinite(p).all() and (p > 0).all() and (p < 1).all()):
+            raise AssertionError(f"bad Pro AutoDis scores: shape {p.shape}")
+    cpu_model = pro_model("cpu", model.get_weights(), use_autodis=True)
+    small = requests(np.random.default_rng(SEED + 2), (64,))[0]
+    cpu_err = float(np.abs(model.predict(small, 64) - cpu_model.predict(small, 64)).max())
+    if cpu_err > 1e-5:
+        raise AssertionError(f"Pro AutoDis: card and CPU scores differ by {cpu_err}")
+    record = dict(
+        batch=TRAIN_BATCH, steps=steps, epochs=AUTODIS_EPOCHS, fit_seconds=fit_s,
+        positive_share=positive_share, autodis_buckets=model.autodis_buckets,
+        launches=launches, step_launches=step_launches,
+        history=logs, grad_rel_err_vs_plain_ce=err, grads_not_reproduced=unsteady,
+        rel_err_vs_cpu_one_sgd_step=cpu_errs, ms_per_step=ms,
+        examples_per_s_trained=TRAIN_BATCH / ms * 1e3, scoring_launches=score_launches,
+        scoring_examples_per_s=eps, scoring_ms=score_ms, max_abs_diff_vs_cpu=cpu_err)
+    emit(phase="pro_autodis", **record)
+    return record, model, batches
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's flax msgpack files
+# ---------------------------------------------------------------------------
+
+# one table just over flax's chunk size: 28M rows x dim 10 fp32, 1.12 GB
+FLAX_BIG_ROWS, FLAX_BIG_DIM = 28_000_000, 10
+
+
+def phase_flax_io():
+    """The JAX package's file format on the card's host: the canonical
+    xDeepFM's weights out through ``serialization.save_file`` (the bytes of
+    ``flax.serialization.to_bytes``) and back through ``load_weights`` into
+    a fresh model, its scores bit-equal; a lazy (split, packed) model after
+    two steps out through ``to_jax_checkpoint`` and back through
+    ``load_checkpoint``: every weight and row state bit-equal and the next
+    step's loss bit-equal; one table of FLAX_BIG_ROWS x FLAX_BIG_DIM fp32
+    through flax's chunked form, written and read back with the seconds of
+    each (the read a warm one: the file was just written)."""
+    d = tempfile.mkdtemp(prefix="xdeepfm-flax-")
+    try:
+        model = canonical_model("cuda")
+        path = os.path.join(d, "xdeepfm.weights")
+        serialization.save_file(path, model.get_weights())
+        fresh = canonical_model("cuda", seeded=False)
+        fresh.load_weights(path)
+        req = requests(np.random.default_rng(SEED + 70), (BATCH,))[0]
+        scores_equal = bool(np.array_equal(Scorer(model, BATCH).score(req),
+                                           Scorer(fresh, BATCH).score(req)))
+        if not scores_equal:
+            raise AssertionError("flax weights: the reloaded model's scores differ")
+        weights_bytes = os.path.getsize(path)
+
+        lazy = dict(embedding_optimizer="lazy", embedding_gradient="split")
+        x, y = train_data(np.random.default_rng(SEED + 71), 3 * TRAIN_BATCH)
+        batches = [device_batch(model, {k: v[i * TRAIN_BATCH:] for k, v in x.items()},
+                                y[i * TRAIN_BATCH:], TRAIN_BATCH) for i in range(3)]
+        mask = torch.ones(TRAIN_BATCH, device="cuda")
+        grid_compile(model, "adam", lazy)
+        for xb, yb in batches[:2]:
+            model._train_step(xb, yb, mask, with_metrics=False)
+        ckpt = os.path.join(d, "xdeepfm_lazy.ckpt")
+        serialization.save_file(ckpt, to_jax_checkpoint(model, epoch=2))
+        back = grid_compile(canonical_model("cuda", seeded=False), "adam", lazy)
+        epoch = back.load_checkpoint(ckpt)
+        model._restart_lazy_steps()  # as load_checkpoint restarts the loaded one's
+        same = all(torch.equal(a, b) for a, b in zip(
+            model.module.state_dict().values(), back.module.state_dict().values()))
+        same_state = all(torch.equal(v, back._lazy_state()[k])
+                         for k, v in model._lazy_state().items())
+        t_model = float(model._train_step(*batches[2], mask, with_metrics=False)[0])
+        t_back = float(back._train_step(*batches[2], mask, with_metrics=False)[0])
+        if epoch != 2 or not (same and same_state) or t_model != t_back:
+            raise AssertionError(f"flax checkpoint: epoch {epoch}, weights equal {same}, row "
+                                 f"states equal {same_state}, next step {t_back} vs {t_model}")
+        del model, fresh, back, batches
+        torch.cuda.empty_cache()
+
+        big = np.random.default_rng(SEED + 72).standard_normal(
+            (FLAX_BIG_ROWS, FLAX_BIG_DIM), dtype=np.float32)
+        tree = {"params": {"embedding_dict": {f"table_d{FLAX_BIG_DIM}": big}}}
+        path = os.path.join(d, "big.weights")
+        t0 = time.perf_counter()
+        serialization.save_file(path, tree)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = serialization.restore_file(path)["params"]["embedding_dict"][
+            f"table_d{FLAX_BIG_DIM}"]
+        read_s = time.perf_counter() - t0
+        n_chunks = -(-big.nbytes // serialization.MAX_CHUNK_SIZE)
+        if got.shape != big.shape or not np.array_equal(got, big):
+            raise AssertionError("flax chunked table: the read table differs")
+        record = dict(weights_file_bytes=weights_bytes, scores_bit_equal=scores_equal,
+                      lazy_checkpoint_epoch=epoch, lazy_checkpoint_bit_equal=True,
+                      next_step_total=t_back, big_table_shape=list(big.shape),
+                      big_table_bytes=big.nbytes, big_file_bytes=os.path.getsize(path),
+                      chunks=n_chunks, write_seconds=write_s, read_seconds=read_s,
+                      read="warm (the file was just written)")
+        emit(phase="flax_io", **record)
+        return record
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
 # ---------------------------------------------------------------------------
 # the attention CIN: TPU kernel rows 8-11
 # ---------------------------------------------------------------------------
@@ -2088,13 +2294,26 @@ CLI_RUNS = (  # (path, CLI module, arguments beyond the common ones)
     ("cli_attn_v1", xdftrain_attn, ["--mode", "eval", "--epochs", "1", "--model_version", "v1"]),
     # the lazy optimizer (split gradient, packed layout: "auto" for both)
     ("cli_lazy", xdftrain, ["--mode", "eval", "--epochs", "2", "--embedding_optimizer", "lazy"]),
+    # xdftrain_v1 (its Adagrad default; its eval mode's in-file split runs
+    # on pandas only, so final with --test_path), V2, Pro with AutoDis
+    ("cli_v1", xdftrain_v1, ["--mode", "final", "--epochs", "1", "--test_path", "{test}"]),
+    # V2 at bench.py's attn2 depth: 2 attention layers, small_attention's
+    # kernels (one layer would take the fused block, as V1)
+    ("cli_attn_v2", xdftrain_attn, ["--mode", "eval", "--epochs", "1", "--model_version", "v2",
+                                    "--num_attn_layers", "2"]),
+    ("cli_pro_autodis", xdftrain_pro, ["--mode", "eval", "--epochs", "1", "--use_sfg",
+                                       "--use_autodis"]),
 )
-# kernel launches a train step and a predicted batch, by CLI module
-CLI_STEP = {xdftrain: dict(cin_fwd=2, cin_bwd_dx=2, cin_dw=2),
-            xdftrain_pro: dict(cin_fwd=2, cin_bwd_dx=2, cin_dw=2, ce_fwd=1, ce_bwd=1),
-            xdftrain_attn: ATTN_STEP["v1"]}
-CLI_EVAL = {xdftrain: dict(cin_fwd=2), xdftrain_pro: dict(cin_fwd=2),
-            xdftrain_attn: ATTN_EVAL["v1"]}
+# kernel launches a train step and a predicted batch, by path
+_XDEEPFM_STEP = dict(cin_fwd=2, cin_bwd_dx=2, cin_dw=2)
+_PRO_STEP = dict(cin_fwd=2, cin_bwd_dx=2, cin_dw=2, ce_fwd=1, ce_bwd=1)
+CLI_STEP = {"cli_eval": _XDEEPFM_STEP, "cli_final": _XDEEPFM_STEP,
+            "cli_streaming": _XDEEPFM_STEP, "cli_lazy": _XDEEPFM_STEP, "cli_v1": _XDEEPFM_STEP,
+            "cli_pro": _PRO_STEP, "cli_pro_autodis": _PRO_STEP,
+            "cli_attn_v1": ATTN_STEP["v1"], "cli_attn_v2": ATTN_STEP["v2"]}
+CLI_EVAL = {path: dict(cin_fwd=2) for path in CLI_STEP}
+CLI_EVAL.update(cli_attn_v1=ATTN_EVAL["v1"], cli_attn_v2=ATTN_EVAL["v2"])
+CLI_STEM = {xdftrain: "xdeepfm", xdftrain_v1: "xdeepfm_v1", xdftrain_pro: "xdeepfm_pro"}
 
 
 def cli_corpus(d):
@@ -2154,13 +2373,13 @@ def _timed_build(module, rec):
     return timed
 
 
-def _cli_launches(module, n_train, n_eval, n_test, epochs):
+def _cli_launches(path, n_train, n_eval, n_test, epochs):
     """The kernel launches a CLI run makes: its train steps, and its
     predicted batches (validation each epoch at the train batch, the eval
     set again at 8192 in eval mode, the test file at 8192)."""
     steps = epochs * -(-n_train // TRAIN_BATCH)
     batches = epochs * -(-n_eval // TRAIN_BATCH) + -(-n_eval // BATCH) + -(-n_test // BATCH)
-    return expected(**{k: steps * CLI_STEP[module].get(k, 0) + batches * CLI_EVAL[module].get(k, 0)
+    return expected(**{k: steps * CLI_STEP[path].get(k, 0) + batches * CLI_EVAL[path].get(k, 0)
                        for k in WRAPPERS}), steps
 
 
@@ -2170,9 +2389,12 @@ def phase_cli():
     dim 10, the CLIs' default models), all through the native parser on the
     card at batch 4096: xdftrain eval (2 epochs, a 10% validation split),
     final (with --test_path), --streaming (fit_stream, with --eval_path),
-    xdftrain_pro --use_sfg and xdftrain_attn --model_version v1 (1 epoch
-    each).  Each run's counts are set to 0 just before it and read just
-    after; every artifact must exist, preprocess.pkl must say native, no
+    xdftrain_pro --use_sfg, xdftrain_attn --model_version v1, lazy
+    (2 epochs), xdftrain_v1 final (Adagrad, with --test_path),
+    xdftrain_attn --model_version v2 --num_attn_layers 2 and xdftrain_pro
+    --use_sfg --use_autodis (1 epoch each).  Each run's counts are set to
+    0 just before it and read just after; every artifact must exist,
+    preprocess.pkl must say native, no
     pandas may be imported, eval AUC must be finite and above 0.5, the
     2-epoch loss must fall, and load_scorer over the final run's artifacts
     must reproduce test_predictions.csv within 1e-6."""
@@ -2200,14 +2422,13 @@ def phase_cli():
             info = log["data_info"]
             n_train = info.get("train_samples", info.get("total_samples"))
             n_test = CLI_TEST_ROWS if args.test_path else 0
-            want, steps = _cli_launches(module, n_train, info.get("eval_samples", 0), n_test,
+            want, steps = _cli_launches(path, n_train, info.get("eval_samples", 0), n_test,
                                         args.epochs)
             if counts != want:
                 raise AssertionError(f"{path}: launches {counts} over {steps} steps, "
                                      f"expected {want}")
             name = log.get("model_config", {}).get("model_version")
-            stem = {xdftrain: "xdeepfm", xdftrain_pro: "xdeepfm_pro",
-                    xdftrain_attn: f"xdeepfm_attn_{name}"}[module]
+            stem = CLI_STEM.get(module, f"xdeepfm_attn_{name}")
             if args.mode == "final":
                 artifacts = [f"{stem}_full_weights.bin", "history_full.json",
                              "training_log_full.json", "test_predictions.csv"]
@@ -3419,46 +3640,88 @@ GRID_CASES = {
     "grid_pro_all_to_all": (4, "pro", "adam", {}, "all_to_all", None, 2),
     "grid_dense_shard_map_1x2": (2, "xdeepfm", "adam", {}, "shard_map", None, GRID_STEPS),
     "grid_nccl_one_rank": (1, "xdeepfm", "adam", {}, "shard_map", None, GRID_STEPS),
+    # the attention, lane and GRU kernels on the ranks: V1 and V2 at bench.py's
+    # attn and attn2 rows, DIEN at its dien row, AutoInt as its smoke phase
+    # builds it
+    "grid_v1": (4, "v1", "adam", {}, "shard_map", None, 2),
+    "grid_v2": (4, "v2", "adam", {}, "all_to_all", None, 2),
+    "grid_dien": (4, "dien", "adam", {}, "all_to_all", None, 2),
+    "grid_autoint": (4, "autoint", "adam", {}, "shard_map", None, 2),
 }
-# per train step of each model: the CIN's 2 + 2 + 2, Pro's CE 1 + 1 beside them
+# per train step of each model: the CIN's 2 + 2 + 2, Pro's CE 1 + 1 beside
+# them; the attention models' as their one-process training phases count them
 GRID_STEP_LAUNCHES = {"xdeepfm": dict(cin_fwd=2, cin_bwd_dx=2, cin_dw=2),
-                      "pro": dict(cin_fwd=2, cin_bwd_dx=2, cin_dw=2, ce_fwd=1, ce_bwd=1)}
-GRID_TIMEOUT = 420
+                      "pro": dict(cin_fwd=2, cin_bwd_dx=2, cin_dw=2, ce_fwd=1, ce_bwd=1),
+                      **{name: ATTN_STEP[name] for name in ("v1", "v2", "dien", "autoint")}}
+GRID_MODELS = sorted({case[1] for case in GRID_CASES.values()})
+# the grid's fit and fit_stream (xDeepFM, all_to_all; histories against the
+# one process's on the card)
+GRID_FIT = dict(batch_size=TRAIN_BATCH, epochs=2, verbose=1, validation_split=0.2, shuffle=True)
+GRID_FIT_METRICS = ["auc"]
+GRID_TIMEOUT = 600
+
+
+def grid_data_kind(name):
+    """The rows a model takes: DIEN's behaviour sequences, else Criteo-like."""
+    return "dien" if name == "dien" else "xdeepfm"
 
 
 def grid_model(name, device, weights):
-    """The canonical xDeepFM, or xDeepFMPro with its SFG dropout off (the
-    ranks draw their own masks), with ``weights``."""
+    """The canonical xDeepFM, xDeepFMPro with its SFG dropout off (the
+    ranks draw their own masks), or a model of MODELS, with ``weights``."""
     if name == "pro":
         return pro_model(device, weights, sfg_dropout=0.0)
-    return canonical_model(device, weights)
+    return canonical_model(device, weights, version=name)
 
 
 def grid_inputs(tmp):
-    """Seeded weights of both models and GRID_STEPS global batches of 4096,
-    written for the ranks; returns them."""
+    """Seeded weights of every GRID_MODELS model and GRID_STEPS global
+    batches of 4096 of each kind of rows, written for the ranks; returns
+    them."""
     weights = {name: seeded_weights(grid_model(name, "cpu", None) if name == "pro"
-                                    else canonical_model("cpu", seeded=False))
-               for name in ("xdeepfm", "pro")}
-    x, y = train_data(np.random.default_rng(SEED + 50), GRID_STEPS * TRAIN_BATCH)
+                                    else canonical_model("cpu", seeded=False, version=name))
+               for name in GRID_MODELS}
+    data = {kind: train_data(np.random.default_rng(SEED + 50), GRID_STEPS * TRAIN_BATCH,
+                             version=kind) for kind in ("xdeepfm", "dien")}
     flat = {f"{name}/{k}": v for name, w in weights.items() for k, v in flatten_tree(w)}
     np.savez(os.path.join(tmp, "weights.npz"), **flat)
-    np.savez(os.path.join(tmp, "batches.npz"), y=y, **{f"x/{k}": v for k, v in x.items()})
-    return weights, x, y
+    np.savez(os.path.join(tmp, "batches.npz"),
+             **{f"{kind}/y": y for kind, (_, y) in data.items()},
+             **{f"{kind}/x/{k}": v for kind, (x, _) in data.items() for k, v in x.items()})
+    return weights, data
 
 
 def grid_read_inputs(tmp):
     with np.load(os.path.join(tmp, "weights.npz")) as f:
         flat = {k: f[k] for k in f.files}
     weights = {}
-    for name in ("xdeepfm", "pro"):
+    for name in GRID_MODELS:
         tree = unflatten_tree({k[len(name) + 1:]: v for k, v in flat.items()
                                if k.startswith(name + "/")})
         weights[name] = {"params": tree["params"], "batch_stats": tree.get("batch_stats", {})}
+    data = {}
     with np.load(os.path.join(tmp, "batches.npz")) as f:
-        x = {k[2:]: f[k] for k in f.files if k.startswith("x/")}
-        y = f["y"]
-    return weights, x, y
+        for kind in ("xdeepfm", "dien"):
+            data[kind] = ({k[len(kind) + 3:]: f[k] for k in f.files
+                           if k.startswith(f"{kind}/x/")}, f[f"{kind}/y"])
+    return weights, data
+
+
+def grid_fit_stream(x, y):
+    """The stream of the grid's fit_stream: the first two batches of 4096 an
+    epoch; the third validates."""
+    return lambda epoch: [({k: v[i : i + TRAIN_BATCH] for k, v in x.items()},
+                           y[i : i + TRAIN_BATCH]) for i in (0, TRAIN_BATCH)]
+
+
+def grid_fit_histories(model, x, y):
+    """{"fit": History, "fit_stream": History} of ``model`` (compiled, and on
+    its grid where it is on one); fit_stream continues from fit's weights."""
+    out = {"fit": model.fit(x, y, **GRID_FIT).history}
+    val = ({k: v[2 * TRAIN_BATCH :] for k, v in x.items()}, y[2 * TRAIN_BATCH :])
+    out["fit_stream"] = model.fit_stream(grid_fit_stream(x, y), epochs=2, verbose=1,
+                                         validation_data=val).history
+    return {k: {m: [float(v) for v in vals] for m, vals in h.items()} for k, h in out.items()}
 
 
 def grid_compile(model, optimizer, kw):
@@ -3599,9 +3862,10 @@ def grid_rank_main(world, rank, port, tmp, backend):
     out["collectives"] = checks
     mesh = make_mesh(device=dev)
     out["grid"] = [mesh.shape["data"], mesh.shape["embed"]]
-    weights, x, y = grid_read_inputs(tmp)
+    weights, data = grid_read_inputs(tmp)
 
-    def rank_batches(model):
+    def rank_batches(model, kind="xdeepfm"):
+        x, y = data[kind]
         packed = model.schema.pack(x)
         yy = y[:, None]
         batches = []
@@ -3623,7 +3887,7 @@ def grid_rank_main(world, rank, port, tmp, backend):
         if w != world:
             continue
         model = on_grid(name, optimizer, kw, mode, comm)
-        batches = rank_batches(model)
+        batches = rank_batches(model, grid_data_kind(name))
         reset_launches()
         totals, step_ms = [], []
         for xb, yb, mb in batches[:steps]:
@@ -3675,6 +3939,21 @@ def grid_rank_main(world, rank, port, tmp, backend):
             epoch=epoch, straight_total=straight, resumed_total=resumed,
             save_call_ms=save_ms, straight_hashes=grid_local_hashes(model),
             resumed_hashes=grid_local_hashes(fresh))
+        set_embedding_mode("gspmd", None)
+        set_active_mesh(None)
+        del model, fresh
+        # fit and fit_stream on the grid (all_to_all), each rank its slice
+        model = grid_model("xdeepfm", dev, weights["xdeepfm"])
+        model.compile("adam", "binary_crossentropy", metrics=GRID_FIT_METRICS)
+        shard_model_state(model, mesh)
+        set_embedding_mode("all_to_all", mesh)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        histories = grid_fit_histories(model, *data["xdeepfm"])
+        torch.cuda.synchronize()
+        out["grid_fit"] = dict(histories=histories, launches=read_launches(),
+                               seconds=time.perf_counter() - t0)
         set_embedding_mode("gspmd", None)
         set_active_mesh(None)
     with open(os.path.join(tmp, f"rank_w{world}_r{rank}.json"), "w") as f:
@@ -3740,7 +4019,7 @@ def phase_sharded(per_gpu=False):
     one.  Step ms are co-located ranks on one card, not a scaling figure.
     ``per_gpu``: every world over NCCL, a rank a card (needs 4 cards)."""
     tmp = tempfile.mkdtemp(prefix="xdeepfm-grid-")
-    weights, x, y = grid_inputs(tmp)
+    weights, data = grid_inputs(tmp)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True,
                          timeout=60).stdout.strip().splitlines()[0]
@@ -3752,6 +4031,7 @@ def phase_sharded(per_gpu=False):
             continue
         model = grid_compile(grid_model(name, "cuda", weights[name]), optimizer, kw)
         mask = torch.ones(TRAIN_BATCH, device="cuda")
+        x, y = data[grid_data_kind(name)]
         totals = []
         for i in range(steps):
             xb, yb = device_batch(model, {k: v[i * TRAIN_BATCH :] for k, v in x.items()},
@@ -3763,6 +4043,11 @@ def phase_sharded(per_gpu=False):
         del model
     one = Scorer(canonical_model("cuda", weights["xdeepfm"]), batch_size=BATCH)
     want_scores = [one.score(r) for r in requests(np.random.default_rng(SEED + 51), REQUESTS)]
+    one = canonical_model("cuda", weights["xdeepfm"])
+    one.compile("adam", "binary_crossentropy", metrics=GRID_FIT_METRICS)
+    want_fit = grid_fit_histories(one, *data["xdeepfm"])
+    fit_steps = GRID_FIT["epochs"] * (-(-int(len(data["xdeepfm"][1]) * 0.8) // TRAIN_BATCH) + 2)
+    del one
     torch.cuda.empty_cache()
 
     t0 = time.time()
@@ -3868,6 +4153,33 @@ def phase_sharded(per_gpu=False):
     emit(phase="sharded", path="grid_checkpoint", world=4, grid=rs[0]["grid"],
          resumed_bit_equal=True, total=ck[0]["straight_total"],
          save_call_ms_per_rank=[c["save_call_ms"] for c in ck], card=smi)
+    # fit and fit_stream: every rank's History against the one process's
+    # (Adam's rtol 1e-4, as tests/test_torch_port_distributed.py holds them);
+    # each train step launches the CIN's 2 + 2 + 2 on every rank
+    fit_err = 0.0
+    for r in rs:
+        got = r["grid_fit"]["histories"]
+        for case, want_h in want_fit.items():
+            if sorted(got[case]) != sorted(want_h):
+                raise AssertionError(f"grid {case}: History keys {sorted(got[case])}")
+            for k, w in want_h.items():
+                np.testing.assert_allclose(got[case][k], w, rtol=1e-4, atol=1e-6,
+                                           err_msg=f"grid {case}: {k}")
+                fit_err = max(fit_err, float(np.max(np.abs(np.subtract(got[case][k], w)))))
+        launches, want = r["grid_fit"]["launches"], expected(
+            cin_fwd=2 * fit_steps, cin_bwd_dx=2 * fit_steps, cin_dw=2 * fit_steps)
+        if any(launches[k] != want[k] for k in ("cin_bwd_dx", "cin_dw")) or \
+                launches["cin_fwd"] < want["cin_fwd"]:  # and the validation batches
+            raise AssertionError(f"grid fit: rank {r['rank']} launched {launches} over "
+                                 f"{fit_steps} steps")
+    grid_fit = dict(world=4, grid=rs[0]["grid"], mode="all_to_all", train_steps=fit_steps,
+                    histories=rs[0]["grid_fit"]["histories"], one_process_histories=want_fit,
+                    max_abs_diff_vs_one_process=fit_err,
+                    launches_per_rank=[{k: v for k, v in r["grid_fit"]["launches"].items() if v}
+                                       for r in rs],
+                    seconds_per_rank=[r["grid_fit"]["seconds"] for r in rs], timing=timing,
+                    card=smi)
+    emit(phase="sharded", path="grid_fit", **grid_fit)
     emit(phase="sharded_summary", backend_world4=multi,
          collectives_on_cuda_world4=ranks[4][0]["collectives"],
          collectives_on_cuda_nccl_one_rank=ranks[1][0]["collectives"], seconds_world4=t4,
@@ -3877,6 +4189,7 @@ def phase_sharded(per_gpu=False):
                      for k in WRAPPERS} for label, rec in records.items()}
     paths["grid_scoring"] = {k: sum(r["grid_scoring"]["launches"][k] for r in rs)
                              for k in WRAPPERS}
+    paths["grid_fit"] = {k: sum(r["grid_fit"]["launches"][k] for r in rs) for k in WRAPPERS}
     return records, paths
 
 
@@ -3929,6 +4242,11 @@ def main():
     pro_scoring = phase_pro_scoring(pro_m)
     del pro_m, pro_batches
     torch.cuda.empty_cache()
+    autodis, autodis_m, autodis_batches = phase_pro_autodis()
+    phase_train_profile(autodis_m, autodis_batches, phase="pro_autodis_train_profile")
+    del autodis_m, autodis_batches
+    torch.cuda.empty_cache()
+    phase_flax_io()
     attn = {}
     for version in ("v1", "v2", "autoint", "difm", "dien"):
         rec, attn_m, attn_batches = phase_model_training(version)
@@ -3958,7 +4276,8 @@ def main():
     lazy = phase_lazy104()
     _, grid_paths = phase_sharded()
     paths = {"training": training["launches"], "pro_training": pro["launches"],
-             "pro_scoring": pro_scoring["launches"]}
+             "pro_scoring": pro_scoring["launches"], "pro_autodis": autodis["launches"],
+             "pro_autodis_scoring": autodis["scoring_launches"]}
     for version, (rec, scoring) in attn.items():
         paths[f"{PHASE[version]}_training"] = rec["launches"]
         paths[f"{PHASE[version]}_scoring"] = scoring["launches"]

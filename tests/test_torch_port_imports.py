@@ -1,6 +1,7 @@
-"""Import guard: every module of the port imports neither JAX nor anything
-of ``xdeepfm_tpu``, and none imports pandas when it is imported (the native
-route runs without it).  Each module is imported in a fresh interpreter, so
+"""Import guard: every module of the port imports neither JAX, flax, msgpack
+nor anything of ``xdeepfm_tpu``, and none imports pandas when it is imported
+(the native route runs without it; ``serialization`` reads flax's files with
+its own codec).  Each module is imported in a fresh interpreter, so
 no other test's imports count."""
 
 import json
@@ -13,6 +14,7 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = ["cli", "cli.common", "cli.xdftrain", "cli.xdftrain_v1", "cli.xdftrain_attn",
            "cli.xdftrain_pro", "data", "native", "profiling", "utils", "callbacks", "serving",
+           "serialization",
            "scripts", "scripts.bench_attn_ablate", "scripts.bench_cin_fwd", "scripts.bench_gru",
            "scripts.bench_lane", "scripts.bench_lazy",
            "ops.attn_ablate",
@@ -37,7 +39,7 @@ PROBE = """
 import importlib, json, sys
 importlib.import_module(sys.argv[1])
 print(json.dumps(sorted({k.split(".")[0] for k in sys.modules}
-                        & {"jax", "jaxlib", "xdeepfm_tpu", "pandas"})))
+                        & {"jax", "jaxlib", "xdeepfm_tpu", "pandas", "flax", "msgpack"})))
 """
 
 

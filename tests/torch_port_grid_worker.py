@@ -4,12 +4,15 @@
 
 runs every case of ``suite`` ("parallel": the sharded lookups and the
 shard-local lazy update; "engine": the train steps, ``fit``,
-``fit_stream``, the ``Scorer`` and the checkpoints) as one rank of a gloo
-world on the CPU, reading ``<dir>/inputs.npz`` and writing
+``fit_stream``, the ``Scorer`` and the checkpoints; "families": the train
+steps of the attention, sequence and zoo families and the JAX package's
+flax files loaded into row-sharded models) as one rank of a gloo world on
+the CPU, reading ``<dir>/inputs.npz`` and writing
 ``<dir>/<suite>_w<world>_r<rank>.npz``.  The rank joins through
 ``parallel.distributed.initialize`` from the ``XDEEPFM_*`` variables, as
 :func:`spawn` sets them.  ``tests/test_torch_port_parallel.py`` and
-``tests/test_torch_port_distributed.py`` spawn the worlds once per file and
+``tests/test_torch_port_distributed.py`` and
+``tests/test_torch_port_grid_families.py`` spawn the worlds once per file and
 hold the results against the JAX package.  The module imports numpy only at
 its top, so the tests import it for the configurations; a rank imports the
 port and never ``jax``.
@@ -83,7 +86,19 @@ LAZY_CASES = ("flat", "packed", "bf16")
 
 def model_data(name):
     """(x, y) numpy of a model case, the JAX mesh tests' shapes
-    (``tests/test_sharding.py:63-76``, :447-525)."""
+    (``tests/test_sharding.py:63-76``, :332-525)."""
+    if name == "dien":  # test_sharding.py:378-431
+        rng = np.random.default_rng(7)
+        n, vocab, maxlen = 16, 16, 4
+        lengths = rng.integers(1, maxlen + 1, n)
+        seq_mask = np.arange(maxlen)[None, :] < lengths[:, None]
+        x = {"user": rng.integers(0, vocab, n).astype(np.int64),
+             "item": rng.integers(0, vocab, n).astype(np.int64),
+             "score": rng.uniform(0, 1, n).astype(np.float32),
+             "hist_item": (rng.integers(1, vocab, (n, maxlen)) * seq_mask).astype(np.int64),
+             "neg_hist_item": (rng.integers(1, vocab, (n, maxlen)) * seq_mask).astype(np.int64),
+             "seq_length": lengths.astype(np.int64)}
+        return x, rng.integers(0, 2, n).astype(np.float32)
     if name == "din":
         rng = np.random.default_rng(0)
         n, vocab, maxlen = 16, 16, 4
@@ -95,7 +110,9 @@ def model_data(name):
             hist[i, : lengths[i]] = rng.integers(1, vocab, lengths[i])
         x["hist_item"], x["seq_length"] = hist, lengths.astype(np.int64)
         return x, (x["item"] % 2).astype(np.float32)
-    rng = np.random.default_rng({"xdeepfm": 3, "pro": 6, "mmoe": 9}[name])
+    # test_sharding.py draws V1's rows from seed 5 (:332), the zoo's
+    # (V2, ONN, MLR, FiBiNET; AutoInt beside them) from seed 9 (:434)
+    rng = np.random.default_rng({"xdeepfm": 3, "pro": 6, "mmoe": 9, "v1": 5}.get(name, 9))
     n = 64 if name == "xdeepfm" else 16
     x = {f"C{i}": rng.integers(0, 16, n) for i in range(4)}
     x.update({f"I{i}": rng.uniform(0, 1, n).astype(np.float32) for i in range(2)})
@@ -108,6 +125,14 @@ def model_data(name):
 
 def model_columns(ns, name):
     F = ns.features
+    if name == "dien":
+        def hist(n):
+            return F.VarLenSparseFeat(F.SparseFeat(n, 16, embedding_dim=8, embedding_name="item"),
+                                      maxlen=4, length_name="seq_length")
+
+        return [F.SparseFeat("user", 16, embedding_dim=8),
+                F.SparseFeat("item", 16, embedding_dim=8), F.DenseFeat("score", 1),
+                hist("hist_item"), hist("neg_hist_item")]
     if name == "din":
         return [F.SparseFeat("user", 16, embedding_dim=8), F.SparseFeat("item", 16, embedding_dim=8),
                 F.DenseFeat("score", 1),
@@ -135,6 +160,27 @@ def build_model(ns, name, **kw):
     if name == "mmoe":
         return ns.models.MMOE(cols, num_experts=2, expert_dnn_hidden_units=(8,),
                               gate_dnn_hidden_units=(4,), tower_dnn_hidden_units=(4,), **kw)
+    # the families of tests/test_sharding.py:332-500, and AutoInt (2 layers
+    # of 2 heads: the lane attention)
+    M = ns.models
+    if name == "v1":
+        return M.xDeepFMAttention(cols, cols, dnn_hidden_units=(8,), cin_layer_size=(4, 4),
+                                  cin_num_heads=2, seed=11, **kw)
+    if name == "v2":
+        return M.xDeepFMAttentionV2(cols, cols, dnn_hidden_units=(8,), cin_layer_size=(4, 4),
+                                    cin_num_heads=2, cin_num_attn_layers=2, seed=11, **kw)
+    if name == "dien":
+        return M.DIEN(cols, ["item"], gru_type="AUGRU", use_negsampling=True,
+                      dnn_hidden_units=(8,), seed=11, **kw)
+    if name == "autoint":
+        return M.AutoInt(cols, cols, att_layer_num=2, att_head_num=2, dnn_hidden_units=(8,),
+                         seed=11, **kw)
+    if name == "onn":
+        return M.ONN(cols, cols, dnn_hidden_units=(8,), **kw)
+    if name == "mlr":
+        return M.MLR(cols, region_num=3, **kw)
+    if name == "fibinet":
+        return M.FiBiNET(cols, cols, dnn_hidden_units=(8,), **kw)
     raise KeyError(name)
 
 
@@ -169,6 +215,30 @@ TRAIN_CASES = {
     "din_shard_map": ("din", "adam", {}, "shard_map", 1, (4,)),
     "mmoe_shard_map": ("mmoe", "adam", {}, "shard_map", 1, (4,)),
 }
+
+# the families on the (data 2, embed 2) grid: case -> (model, embedding
+# mode), one Adam step each as test_sharding.py:502-527 steps them; DIEN's aux
+# loss and V2's stacked blocks also under the all-to-all lookup.  The
+# attention models also take one SGD step at lr FAMILY_SGD_LR, whose step
+# p - lr * g carries each gradient to fp32 precision (FAMILY_SGD_CASES)
+FAMILY_CASES = {
+    "v1_shard_map": ("v1", "shard_map"),
+    "v2_shard_map": ("v2", "shard_map"),
+    "v2_all_to_all": ("v2", "all_to_all"),
+    "dien_shard_map": ("dien", "shard_map"),
+    "dien_all_to_all": ("dien", "all_to_all"),
+    "autoint_shard_map": ("autoint", "shard_map"),
+    "onn_shard_map": ("onn", "shard_map"),
+    "mlr_shard_map": ("mlr", "shard_map"),
+    "fibinet_shard_map": ("fibinet", "shard_map"),
+}
+FAMILY_WORLD = 4
+FAMILY_SGD_CASES = ("v1_shard_map", "v2_shard_map", "v2_all_to_all")
+FAMILY_SGD_LR = 100.0
+# the JAX package's files into row-sharded models: a V2 save_weights file (the
+# initial weights of case "v2_shard_map") and a lazy (split, packed) xDeepFM
+# save_checkpoint, written by the test
+FLAX_WEIGHTS, FLAX_CHECKPOINT = "v2.weights", "xdeepfm_lazy.ckpt"
 
 # fit / fit_stream / Scorer / checkpoints: the port's one-process runs are the
 # yardstick, so these need no JAX model
@@ -303,68 +373,89 @@ def _local_state(model, prefix, out):
         out[f"{prefix}/local/lazy_array_{i}"] = g["array"].numpy().copy()
 
 
-def _port_model(ns, name, kw, weights=None, optimizer="adam"):
+def _on_grid(m, mesh, mode, comm=None):
+    from xdeepfm_tpu_torch.parallel import shard_model_state
+    from xdeepfm_tpu_torch.parallel.sharded_embedding import set_embedding_mode
+
+    shard_model_state(m, mesh)
+    set_embedding_mode(mode, mesh, comm_dtype=comm)
+    m._dropout_gen = m._dropout_generator()
+    return m
+
+
+def _off_grid():
+    from xdeepfm_tpu_torch.parallel.mesh import set_active_mesh
+    from xdeepfm_tpu_torch.parallel.sharded_embedding import set_embedding_mode
+
+    set_embedding_mode("gspmd", None)
+    set_active_mesh(None)
+
+
+def _rank_batch(m, mesh, x, y):
+    """This rank's slice of the global batch (x, y, an all-ones mask)."""
+    from xdeepfm_tpu_torch.parallel import shard_batch
+
+    packed = m.schema.pack(x)
+    yy = y[:, None] if y.ndim == 1 else y
+    b = shard_batch(dict(packed, _y=yy, _mask=np.ones(len(yy), np.float32)), mesh)
+    return b, b.pop("_y"), b.pop("_mask")
+
+
+def _weights_of(inputs, case):
+    """The canonical tree of a case's initial weights in ``inputs``."""
+    from xdeepfm_tpu_torch.weights import unflatten_tree
+
+    flat = {k[len(case) + 1:]: v for k, v in inputs.items() if k.startswith(case + "/")}
+    tree = unflatten_tree(flat)
+    return {"params": tree["params"], "batch_stats": tree.get("batch_stats", {})}
+
+
+def _params_of(m, prefix, out):
+    from xdeepfm_tpu_torch.weights import flatten_tree
+
+    for k, v in flatten_tree(m.get_weights()["params"]):
+        out[f"{prefix}/params/{k}"] = v
+
+
+def _port_model(ns, name, kw, weights=None, optimizer="adam", lr=None):
     m = build_model(ns, name, device="cpu")
-    m.compile(optimizer, model_loss(name), metrics=[], **kw)
+    m.compile(optimizer, model_loss(name), metrics=[], lr=lr, **kw)
     if weights is not None:
         m.set_weights(weights)
     return m
 
 
-def _run_engine(mesh, torch, out, out_dir, inputs):
+def _port_ns():
     import types
 
     import xdeepfm_tpu_torch.features as F
     import xdeepfm_tpu_torch.models as M
     import xdeepfm_tpu_torch.pro as PRO
-    from xdeepfm_tpu_torch.parallel import shard_batch, shard_model_state
-    from xdeepfm_tpu_torch.parallel.mesh import set_active_mesh
-    from xdeepfm_tpu_torch.parallel.sharded_embedding import set_embedding_mode
+
+    return types.SimpleNamespace(features=F, models=M, pro=PRO)
+
+
+def _run_engine(mesh, torch, out, out_dir, inputs):
     from xdeepfm_tpu_torch.serving import Scorer
-    from xdeepfm_tpu_torch.weights import flatten_tree, unflatten_tree
 
-    ns = types.SimpleNamespace(features=F, models=M, pro=PRO)
-
-    def weights_of(case):
-        flat = {k[len(case) + 1:]: v for k, v in inputs.items() if k.startswith(case + "/")}
-        tree = unflatten_tree(flat)
-        return {"params": tree["params"], "batch_stats": tree.get("batch_stats", {})}
-
-    def on_grid(m, mode, comm=None):
-        shard_model_state(m, mesh)
-        set_embedding_mode(mode, mesh, comm_dtype=comm)
-        m._dropout_gen = m._dropout_generator()
-        return m
-
-    def off_grid():
-        set_embedding_mode("gspmd", None)
-        set_active_mesh(None)
-
-    def rank_batch(m, x, y):
-        packed = m.schema.pack(x)
-        yy = y[:, None] if y.ndim == 1 else y
-        b = shard_batch(dict(packed, _y=yy, _mask=np.ones(len(yy), np.float32)), mesh)
-        return b, b.pop("_y"), b.pop("_mask")
-
-    def params_of(m, prefix):
-        for k, v in flatten_tree(m.get_weights()["params"]):
-            out[f"{prefix}/params/{k}"] = v
+    ns = _port_ns()
 
     # the train steps
     for case, (name, optimizer, kw, mode, steps, worlds) in TRAIN_CASES.items():
         if mesh.size not in worlds:
             continue
         x, y = model_data(name)
-        m = on_grid(_port_model(ns, name, kw, weights_of(case), optimizer), mode)
-        xb, yb, mask = rank_batch(m, x, y)
+        m = _on_grid(_port_model(ns, name, kw, _weights_of(inputs, case), optimizer), mesh,
+                     mode)
+        xb, yb, mask = _rank_batch(m, mesh, x, y)
         for _ in range(steps):
             total, _ = m._train_step(xb, yb, mask)
         out[f"{case}/total"] = np.asarray(float(total))
-        params_of(m, case)
+        _params_of(m, case, out)
         _local_state(m, case, out)
         for path, st in m._lazy_state().items():
             out[f"{case}/lazy/{path}"] = st.numpy()
-        off_grid()
+        _off_grid()
     if mesh.size != 4:
         return
 
@@ -376,7 +467,7 @@ def _run_engine(mesh, torch, out, out_dir, inputs):
             m = build_model(ns, "xdeepfm", device="cpu")
             m.compile("adam", "binary_crossentropy", metrics=FIT_METRICS)
             if grid:
-                on_grid(m, mode)
+                _on_grid(m, mesh, mode)
             if case == "fit":
                 h = m.fit(x, y, **FIT).history
             else:  # the same 240 training rows, the rest for validation
@@ -395,10 +486,10 @@ def _run_engine(mesh, torch, out, out_dir, inputs):
                 one.set_weights(m.get_weights())
                 out["scorer/grid"] = Scorer(m, batch_size=128).warmup().score(x)
                 out["scorer/grid_predict"] = m.predict(x, 100)
-                off_grid()
+                _off_grid()
                 out["scorer/one"] = Scorer(one, batch_size=128).score(x)
             else:
-                off_grid()
+                _off_grid()
         for grid, h in histories.items():
             for k, v in h.items():
                 out[f"{case}/{'grid' if grid else 'one'}/{k}"] = np.asarray(v, np.float64)
@@ -407,10 +498,10 @@ def _run_engine(mesh, torch, out, out_dir, inputs):
     xs, ys = model_data("xdeepfm")
     for case, kw, mode in (("ckpt_lazy", LAZY_SPLIT, "shard_map"), ("ckpt_dense", {}, "all_to_all")):
         def fresh():
-            return on_grid(_port_model(ns, "xdeepfm", kw), mode)
+            return _on_grid(_port_model(ns, "xdeepfm", kw), mesh, mode)
 
         m = fresh()
-        xb, yb, mask = rank_batch(m, xs, ys)
+        xb, yb, mask = _rank_batch(m, mesh, xs, ys)
         m._train_step(xb, yb, mask)
         blocking = os.path.join(out_dir, f"{case}_blocking")
         m.save_checkpoint_sharded(blocking, epoch=1)
@@ -433,17 +524,51 @@ def _run_engine(mesh, torch, out, out_dir, inputs):
         t2, _ = m2._train_step(xb, yb, mask)
         t4, _ = m4._train_step(xb, yb, mask)
         out[f"{case}/resumed_total"], out[f"{case}/straight_total"] = float(t2), float(t4)
-        params_of(m2, f"{case}/resumed")
-        params_of(m4, f"{case}/straight")
+        _params_of(m2, f"{case}/resumed", out)
+        _params_of(m4, f"{case}/straight", out)
         # the canonical one-file checkpoint, written by rank 0 from the
         # gathered tree, into a fresh grid model
         npz = os.path.join(out_dir, f"{case}.npz")
         m4.save_checkpoint(npz, epoch=3)
         m5 = fresh()
         out[f"{case}/epoch_npz"] = np.asarray(m5.load_checkpoint(npz))
-        params_of(m4, f"{case}/npz_saved")
-        params_of(m5, f"{case}/npz_loaded")
-        off_grid()
+        _params_of(m4, f"{case}/npz_saved", out)
+        _params_of(m5, f"{case}/npz_loaded", out)
+        _off_grid()
+
+
+def _run_families(mesh, torch, out, out_dir, inputs):
+    """Each FAMILY_CASES step from the case's weights, then the JAX files
+    into row-sharded models: the V2 weights and predict, the lazy
+    checkpoint's weights and row states (gathered)."""
+    ns = _port_ns()
+    for case, (name, mode) in FAMILY_CASES.items():
+        x, y = model_data(name)
+        for optimizer in ("adam", "sgd") if case in FAMILY_SGD_CASES else ("adam",):
+            key = f"{case}/{optimizer}"
+            lr = FAMILY_SGD_LR if optimizer == "sgd" else None
+            m = _on_grid(_port_model(ns, name, {}, _weights_of(inputs, case), optimizer, lr),
+                         mesh, mode)
+            xb, yb, mask = _rank_batch(m, mesh, x, y)
+            total, _ = m._train_step(xb, yb, mask)
+            out[f"{key}/total"] = np.asarray(float(total))
+            _params_of(m, key, out)
+            _local_state(m, key, out)
+            _off_grid()
+    m = _on_grid(_port_model(ns, "v2", {}), mesh, "shard_map")
+    m.load_weights(os.path.join(out_dir, FLAX_WEIGHTS))
+    out["flax_weights/predict"] = m.predict(model_data("v2")[0], 8)
+    out["flax_weights/shards"] = np.asarray(sorted(m._shards))
+    _off_grid()
+    m = _on_grid(_port_model(ns, "xdeepfm", LAZY_SPLIT), mesh, "shard_map")
+    out["flax_checkpoint/epoch"] = np.asarray(m.load_checkpoint(
+        os.path.join(out_dir, FLAX_CHECKPOINT)))
+    _params_of(m, "flax_checkpoint", out)
+    for path, st in m._lazy_state().items():
+        out[f"flax_checkpoint/lazy/{path}"] = st.numpy()
+    out["flax_checkpoint/sharded_groups"] = np.asarray(
+        sum(bool(g.get("sharded")) for g in m._lazy["groups"]))
+    _off_grid()
 
 
 def main():
@@ -463,7 +588,8 @@ def main():
         _run_parallel(mesh, torch, out)
     else:
         inputs = dict(np.load(os.path.join(out_dir, "inputs.npz")))
-        _run_engine(mesh, torch, out, out_dir, inputs)
+        run = _run_engine if suite == "engine" else _run_families
+        run(mesh, torch, out, out_dir, inputs)
     np.savez(os.path.join(out_dir, f"{suite}_w{mesh.size}_r{mesh.rank}.npz"), **out)
     torch.distributed.destroy_process_group()
 

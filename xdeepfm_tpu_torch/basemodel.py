@@ -61,10 +61,13 @@ from .optimizers import (
     segment_run_sums,
     state_slots,
 )
+from . import serialization
 from .weights import (
     canonical_paths,
+    canonical_shapes,
     flatten_tree,
     from_jax_lazy_state,
+    from_jax_opt_state,
     from_jax_weights,
     to_jax_weights,
     unflatten_tree,
@@ -1320,15 +1323,54 @@ class BaseModel:
 
     def save_weights(self, path):
         """``.npz`` keyed by canonical path (``params/cin/conv_w_0``...,
-        ``batch_stats/dnn/bn_0/mean``...)."""
+        ``batch_stats/dnn/bn_0/mean``...).  The JAX package's format is
+        ``serialization.save_file(path, model.get_weights())``."""
         with open(path, "wb") as f:
             np.savez(f, **self._weights_flat())
 
+    @staticmethod
+    def _read_file(path):
+        """(``"npz"``, {key: array}) of the port's ``.npz`` (a zip), or
+        (``"flax"``, tree) of the JAX package's flax msgpack file (a msgpack
+        map), told apart by the first bytes."""
+        with open(path, "rb") as f:
+            head = f.read(4)
+        if head.startswith(b"PK\x03\x04"):
+            with np.load(path, allow_pickle=False) as data:
+                return "npz", {k: data[k] for k in data.files}
+        if serialization.is_msgpack_map(head):
+            return "flax", serialization.restore_file(path)
+        raise ValueError(f"{path} is neither an .npz nor a flax msgpack file (first bytes "
+                         f"{head!r})")
+
+    def _check_architecture(self, weights):
+        """Raise, naming the first canonical path whose shape differs (or
+        that one side lacks), unless ``weights`` has this model's
+        ``params`` and ``batch_stats`` tree (the JAX ``load_weights``
+        fallback's check, ``basemodel.py:1801-1830``).  A row-sharded
+        table counts its full rows."""
+        want = canonical_shapes(self.module, self._shards)
+        got = {f"{c}/{path}": tuple(np.shape(v)) for c in ("params", "batch_stats")
+               for path, v in flatten_tree(weights.get(c) or {})}
+        for path in sorted(set(want) | set(got)):
+            if want.get(path) != got.get(path):
+                raise ValueError(f"the file does not match this architecture at {path}: "
+                                 f"expected {want.get(path)}, got {got.get(path)}")
+
     def load_weights(self, path):
-        """Reads ``save_weights``' file, or the weights of
-        ``save_checkpoint``'s."""
-        with np.load(path, allow_pickle=False) as data:
-            self.set_weights(self._weights_tree({k: data[k] for k in data.files}))
+        """Reads ``save_weights``' ``.npz`` or the weights of
+        ``save_checkpoint``'s, or a file of the JAX package's: its
+        ``save_weights`` (a CLI's ``{model}_best.weights``,
+        ``{model}_weights.bin``) or the ``params`` and ``batch_stats`` of its
+        ``save_checkpoint`` (flax msgpack, :mod:`~xdeepfm_tpu_torch.serialization`).
+        A file of another architecture raises, naming the first path whose
+        shape differs.  Any lazy layout and a row-sharded model take either
+        format (each rank keeps its rows)."""
+        kind, data = self._read_file(path)
+        weights = self._weights_tree(data) if kind == "npz" else {
+            "params": data["params"], "batch_stats": data.get("batch_stats") or {}}
+        self._check_architecture(weights)
+        self.set_weights(weights)
 
     def _parameter_paths(self):
         """(canonical path by parameter id, parameter by canonical path)."""
@@ -1336,21 +1378,9 @@ class BaseModel:
         named = dict(self.module.named_parameters())
         return {id(p): paths[n] for n, p in named.items()}, {paths[n]: p for n, p in named.items()}
 
-    def save_checkpoint(self, path, epoch=0):
-        """The full training checkpoint (``basemodel.py:1860-1877``) in the
-        port's own format, one ``.npz``: the canonical params
-        (``params/...``, as ``save_weights``), the optimizer state keyed by
-        canonical parameter path (``opt_state/<path>/<slot>``, e.g.
-        ``opt_state/dnn/linear_0/kernel/exp_avg``; each slot in the
-        parameter's own layout) and ``epoch``.  Under the lazy optimizer,
-        each table's canonical [rows, k * dim] row state
-        (``opt_state/lazy/<path>``, Adam's m then v, fp32 whatever the layout
-        and state dtype) and its tracked sum(w^2) (``opt_state/reg/<path>``):
-        a checkpoint of any layout loads under any other.  The BatchNorm
-        statistics as ``save_weights`` writes them (``batch_stats/...``).
-        The JAX package's msgpack checkpoints are not read (ROADMAP.md,
-        D1).  A row-sharded model gathers its tables and their state over
-        ``embed`` and rank 0 writes the file; every rank calls it."""
+    def _checkpoint_flat(self, epoch):
+        """``save_checkpoint``'s keys and host arrays (collective on a
+        row-sharded model: every rank calls it)."""
         if self.optimizer is None:
             raise RuntimeError("compile() before save_checkpoint()")
         flat = self._weights_flat()
@@ -1367,6 +1397,25 @@ class BaseModel:
         for where, value in (self._lazy["reg"] if self._lazy else {}).items():
             flat[f"opt_state/reg/{where}"] = np.asarray(value.item(), np.float32)
         flat["epoch"] = np.asarray(epoch, np.int64)
+        return flat
+
+    def save_checkpoint(self, path, epoch=0):
+        """The full training checkpoint (``basemodel.py:1860-1877``) in the
+        port's own format, one ``.npz``: the canonical params
+        (``params/...``, as ``save_weights``), the optimizer state keyed by
+        canonical parameter path (``opt_state/<path>/<slot>``, e.g.
+        ``opt_state/dnn/linear_0/kernel/exp_avg``; each slot in the
+        parameter's own layout) and ``epoch``.  Under the lazy optimizer,
+        each table's canonical [rows, k * dim] row state
+        (``opt_state/lazy/<path>``, Adam's m then v, fp32 whatever the layout
+        and state dtype) and its tracked sum(w^2) (``opt_state/reg/<path>``):
+        a checkpoint of any layout loads under any other.  The BatchNorm
+        statistics as ``save_weights`` writes them (``batch_stats/...``).
+        The JAX package's format is ``serialization.save_file(path,
+        weights.to_jax_checkpoint(model, epoch))``.  A row-sharded model
+        gathers its tables and their state over ``embed`` and rank 0 writes
+        the file; every rank calls it."""
+        flat = self._checkpoint_flat(epoch)
         if self._grid is None or self._grid.rank == 0:
             with open(path, "wb") as f:
                 np.savez(f, **flat)
@@ -1380,13 +1429,30 @@ class BaseModel:
                 and value.shape[0] == param.shape[0])
 
     def load_checkpoint(self, path) -> int:
-        """Restore ``save_checkpoint``'s params and optimizer state; returns
-        the epoch, for ``fit(initial_epoch=...)``."""
+        """Restore ``save_checkpoint``'s params and optimizer state, or those
+        of the JAX package's ``save_checkpoint`` (flax msgpack; its optax
+        state mapped by :func:`~xdeepfm_tpu_torch.weights.from_jax_opt_state`,
+        whose optimizer must be this model's); returns the epoch, for
+        ``fit(initial_epoch=...)``.  The lazy step count restarts, as the
+        next ``fit`` restarts it (the JAX engine stores none)."""
         if self.optimizer is None:
             raise RuntimeError("compile() before load_checkpoint()")
-        with np.load(path, allow_pickle=False) as data:
-            flat = {k: data[k] for k in data.files}
-        self.set_weights(self._weights_tree(flat))
+        kind, data = self._read_file(path)
+        if kind == "npz":
+            flat, weights = data, self._weights_tree(data)
+        else:
+            if "opt_state" not in data or "params" not in data:
+                raise ValueError(f"{path} is a flax weights file, not a checkpoint: "
+                                 "load_weights reads it")
+            name, flat = from_jax_opt_state(data["opt_state"], self.module)
+            mine = self._opt_spec[0]
+            if isinstance(mine, str) and mine != name:
+                raise ValueError(f"the checkpoint holds {name}'s state; this model was "
+                                 f"compiled with {mine}")
+            flat["epoch"] = np.asarray(data["epoch"])
+            weights = {"params": data["params"], "batch_stats": data.get("batch_stats") or {}}
+        self._check_architecture(weights)
+        self.set_weights(weights)
         _, param_at = self._parameter_paths()
         index = {id(p): i for i, p in enumerate(
             p for group in self.optimizer.param_groups for p in group["params"])}
@@ -1401,7 +1467,8 @@ class BaseModel:
                 if id(param) not in index:
                     raise ValueError(f"the checkpoint holds dense optimizer state for {where}, "
                                      "which this model trains lazily")
-                value = torch.from_numpy(value)
+                # a flax file's arrays are read-only views of its mapping
+                value = torch.from_numpy(value if value.flags.writeable else value.copy())
                 if id(param) in self._shard_ids and value.ndim == param.ndim and \
                         value.shape[0] != param.shape[0]:
                     value = shard_rows(value, self._grid)
@@ -1410,6 +1477,7 @@ class BaseModel:
         self.optimizer.load_state_dict({"state": state, "param_groups": sd["param_groups"]})
         if lazy or self._lazy is not None:
             self._set_lazy_state(lazy, reg)
+        self._restart_lazy_steps()
         return int(flat["epoch"])
 
     # ------------------------------------------------- sharded checkpoints

@@ -15,6 +15,8 @@ are the JAX CLIs': ``preprocess.pkl``, ``native_vocab.bin``,
 * ``--device`` defaults to ``"cuda"`` and goes to the model, which raises
   where no GPU is present; ``--device cpu`` runs on the CPU;
 * the weights files hold the port's ``.npz`` (``BaseModel.save_weights``);
+  ``load_weights`` and ``serving.load_scorer`` read them and the JAX CLI's
+  flax msgpack files alike;
 * pandas is imported only on the pandas routes, and ``test_predictions.csv``
   is written without it, so ``--use_native_parser`` runs end to end on a
   machine without pandas;

@@ -2,8 +2,9 @@
 
 * :class:`Scorer` — fixed-batch scoring over a model (pad + slice, float64
   outputs like ``predict``),
-* :func:`load_scorer` — rebuild a scorer from the CLIs' artifacts: the
-  port's ``.npz`` weights and a ``preprocess.pkl`` written by either package.
+* :func:`load_scorer` — rebuild a scorer from the CLIs' artifacts of either
+  package: the port's ``.npz`` weights or the JAX package's flax msgpack
+  ones (a JAX CLI's ``{model}_best.weights``), and a ``preprocess.pkl``.
 """
 
 from __future__ import annotations
@@ -84,8 +85,10 @@ def load_scorer(
 
     ``build_model()`` -> a BaseModel with the right feature columns (the
     CLI's ``training_log.json`` records the config); its weights come from
-    ``weights_path`` (``save_weights``' ``.npz``).  Returns
-    (scorer, preprocess dict | None).
+    ``weights_path`` through ``load_weights``: the port's ``save_weights``
+    ``.npz``, or a file that the JAX package wrote (``save_weights``, a
+    checkpoint's weights; a model trained by the JAX CLI on the TPU, served
+    here).  Returns (scorer, preprocess dict | None).
     """
     model = build_model()
     model.load_weights(weights_path)
