@@ -17,7 +17,12 @@ run in order and any failure raises, so the exit code is non-zero:
    tensor cores) must also be bit-equal over two runs and, against float64
    (out, each of dh and dx0, and dW), within twice the plain fp32 version's
    error (or 1e-6 of the largest entry), with a second bound at the TF32
-   tensor-core peak;
+   tensor-core peak; then the bf16 mode's ``cin_fwd_bf16`` (train and
+   serving shapes) and ``cin_bwd_dx_bf16`` (train shapes) against their
+   bf16 plain versions and float64 of the same rounded operands by the same
+   gate, bit-equal, beside the plain version, one ``torch.einsum`` on bf16
+   operands, the profiler's device ms of the fp32 kernel at the same shape
+   and the bound at the bf16 tensor-core peak (``cin_bf16_kernel`` lines);
 4. serving: the canonical xDeepFM (26 sparse fields, vocab 10000, dim 10,
    13 dense, CIN (256, 128) split-half, DNN (256, 256)) with seeded random
    weights scores four requests through ``Scorer(batch_size=8192)``; the CIN
@@ -169,6 +174,14 @@ run in order and any failure raises, so the exit code is non-zero:
    fp32 step's from the same weights, ``fit`` for two epochs of 8 steps with
    the fp32 path's CIN launches, the loss falling, bf16 GEMM kernels in its
    training profile and its busy ms beside the fp32 step's;
+   ``cin_bf16_training``: the canonical xDeepFM under
+   ``set_cin_precision("bf16")``, ``fit`` for two epochs of 8 steps with 2
+   ``cin_fwd_bf16`` + 2 ``cin_bwd_dx_bf16`` + 2 ``cin_dw`` a step and no
+   fp32 forward or dx launch, one step's gradients under both backward
+   implementations (kernels and plain versions each against float64 in the
+   bf16 mode), one SGD step against the CPU model, ms a step and busy share
+   beside the fp32 CIN's, then ``Scorer(8192)`` with 2 ``cin_fwd_bf16`` a
+   batch against the CPU model;
 18. the embedding tables' backward (``gather`` lines): the port's
    deterministic ``fused_gather`` beside ``F.embedding``'s and
    ``index_select``'s, bit-equality over two calls, error against float64
@@ -178,7 +191,11 @@ run in order and any failure raises, so the exit code is non-zero:
    ``cli_v1``: ``xdftrain_v1`` final; ``cli_attn_v2``: ``xdftrain_attn
    --model_version v2 --num_attn_layers 2``; ``cli_pro_autodis``: ``xdftrain_pro --use_sfg
    --use_autodis``) and ``load_scorer`` over their artifacts
-   (``cli_summary``);
+   (``cli_summary``); then the usage layer (``example`` and ``launcher``
+   lines): the four ``xdeepfm_tpu_torch/examples/`` at their own sizes
+   (wall seconds, examples/s, the CIN's launches, the serving example's
+   largest |scorer - predict|) and the three ``scripts/run*.bash``
+   launchers through bash on a 2048-row corpus;
 20. the lazy row-sparse embedding optimizer (``compile(embedding_optimizer=
    "lazy")``; its sort, run sums and row writes are PyTorch ops, the CIN's
    and the GRU's kernels run on its steps): ``lazy_checks`` at 26 x 100 000
@@ -320,7 +337,7 @@ from xdeepfm_tpu_torch.ops.ce_cuda import (
     ce_rows_forward,
     ce_rows_forward_reference,
 )
-from xdeepfm_tpu_torch.ops.cin import set_backward_impl
+from xdeepfm_tpu_torch.ops.cin import set_backward_impl, set_cin_precision
 from xdeepfm_tpu_torch.ops.gru_cuda import (
     gru_backward,
     gru_backward_reference,
@@ -336,12 +353,18 @@ from xdeepfm_tpu_torch.ops.lane_attention_cuda import (
 from xdeepfm_tpu_torch.ops.cin_cuda import (
     FWD_H_BLOCK,
     cin_rows_backward,
+    cin_rows_backward_bf16,
     cin_rows_backward_reference,
+    cin_rows_backward_reference_bf16,
     cin_rows_dw,
     cin_rows_dw_reference,
     cin_rows_forward,
+    cin_rows_forward_bf16,
     cin_rows_reference,
+    cin_rows_reference_bf16,
 )
+from xdeepfm_tpu_torch.examples import large_tables, quickstart, sharded_training
+from xdeepfm_tpu_torch.examples import serving as serving_example
 from xdeepfm_tpu_torch.pro import xDeepFMPro
 from xdeepfm_tpu_torch.scripts import bench_attn_ablate, bench_lazy
 from xdeepfm_tpu_torch.scripts.bench_gru import KERNELS as GRU_KERNELS
@@ -398,6 +421,11 @@ SOURCES = {
     "cin_fwd": ("xdeepfm_tpu_torch/ops/csrc/cin_fwd.cu", "xdeepfm_tpu/ops/cin_pallas.py:60"),
     "cin_bwd_dx": ("xdeepfm_tpu_torch/ops/csrc/cin_bwd.cu", "xdeepfm_tpu/ops/cin_pallas.py:174"),
     "cin_dw": ("xdeepfm_tpu_torch/ops/csrc/cin_bwd.cu", "xdeepfm_tpu/ops/cin_pallas.py:127"),
+    # the bf16 mode (cin_pallas.set_cin_precision, :332): the same TPU kernels
+    # fed bf16 operands (:353-366 forward, :226 and :241 the fused backward)
+    "cin_fwd_bf16": ("xdeepfm_tpu_torch/ops/csrc/cin_fwd.cu", "xdeepfm_tpu/ops/cin_pallas.py:60"),
+    "cin_bwd_dx_bf16": ("xdeepfm_tpu_torch/ops/csrc/cin_bwd.cu",
+                        "xdeepfm_tpu/ops/cin_pallas.py:174"),
     "ce_fwd": ("xdeepfm_tpu_torch/ops/csrc/ce_fwd.cu",
                ["xdeepfm_tpu/ops/ce_pallas.py:138", "xdeepfm_tpu/ops/ce_pallas.py:369"]),
     "ce_bwd": ("xdeepfm_tpu_torch/ops/csrc/ce_bwd.cu",
@@ -419,6 +447,8 @@ HEADERS = {
     "cin_fwd": ("xdeepfm_tpu_torch/ops/csrc/tc_tf32.cuh",),
     "cin_bwd_dx": ("xdeepfm_tpu_torch/ops/csrc/tc_tf32.cuh",),
     "cin_dw": ("xdeepfm_tpu_torch/ops/csrc/tc_tf32.cuh",),
+    "cin_fwd_bf16": ("xdeepfm_tpu_torch/ops/csrc/tc_tf32.cuh",),
+    "cin_bwd_dx_bf16": ("xdeepfm_tpu_torch/ops/csrc/tc_tf32.cuh",),
     "ce_fwd": ("xdeepfm_tpu_torch/ops/csrc/ce_tc.cuh", "xdeepfm_tpu_torch/ops/csrc/tc_tf32.cuh"),
     "ce_bwd": ("xdeepfm_tpu_torch/ops/csrc/ce_tc.cuh", "xdeepfm_tpu_torch/ops/csrc/tc_tf32.cuh"),
     "sa_fwd": ("xdeepfm_tpu_torch/ops/csrc/attn_fwd_tc.cuh",),
@@ -436,6 +466,7 @@ HEADERS = {
 }
 WRAPPERS = {
     "cin_fwd": cin_rows_forward, "cin_bwd_dx": cin_rows_backward, "cin_dw": cin_rows_dw,
+    "cin_fwd_bf16": cin_rows_forward_bf16, "cin_bwd_dx_bf16": cin_rows_backward_bf16,
     "ce_fwd": ce_rows_forward, "ce_bwd": ce_rows_backward,
     "sa_fwd": sa_forward, "sa_bwd": sa_backward, "ab_fwd": ab_forward, "ab_bwd": ab_backward,
     "la_fwd": la_forward, "la_bwd": la_backward, "gru_fwd": gru_forward, "gru_bwd": gru_backward,
@@ -2316,15 +2347,16 @@ CLI_EVAL.update(cli_attn_v1=ATTN_EVAL["v1"], cli_attn_v2=ATTN_EVAL["v2"])
 CLI_STEM = {xdftrain: "xdeepfm", xdftrain_v1: "xdeepfm_v1", xdftrain_pro: "xdeepfm_pro"}
 
 
-def cli_corpus(d):
-    """A seeded Criteo-like corpus in ``d``: ``train.txt`` (label, 13
-    integer-like dense fields with 10% empty, 26 categories of 8 hex digits
-    drawn from 10 000 values a field with 2% empty; tab-separated, no
-    header), ``eval.txt`` (16 384 more labelled rows) and ``test.txt`` (the
-    same rows without the label: the 39-column test format).  Labels come
-    from a logistic teacher over per-value effects and the dense fields."""
+def cli_corpus(d, train_rows=CLI_TRAIN_ROWS, test_rows=CLI_TEST_ROWS):
+    """A seeded Criteo-like corpus in ``d``: ``train.txt`` (``train_rows``:
+    label, 13 integer-like dense fields with 10% empty, 26 categories of 8
+    hex digits drawn from 10 000 values a field with 2% empty;
+    tab-separated, no header), ``eval.txt`` (``test_rows`` more labelled
+    rows) and ``test.txt`` (the same rows without the label: the 39-column
+    test format).  Labels come from a logistic teacher over per-value
+    effects and the dense fields."""
     rng = np.random.default_rng(SEED + 30)
-    n = CLI_TRAIN_ROWS + CLI_TEST_ROWS
+    n = train_rows + test_rows
     ids = rng.integers(0, CLI_VALUES, (n, N_SPARSE))
     dense = rng.integers(0, 100, (n, N_DENSE))
     dense_empty = rng.uniform(size=(n, N_DENSE)) < 0.1
@@ -2342,11 +2374,11 @@ def cli_corpus(d):
     rows = ["\t".join(nums[r] + cats[r]) for r in range(n)]
     paths = {name: os.path.join(d, f"{name}.txt") for name in ("train", "eval", "test")}
     with open(paths["train"], "w") as f:
-        f.writelines(f"{labels[r]}\t{rows[r]}\n" for r in range(CLI_TRAIN_ROWS))
+        f.writelines(f"{labels[r]}\t{rows[r]}\n" for r in range(train_rows))
     with open(paths["eval"], "w") as f:
-        f.writelines(f"{labels[r]}\t{rows[r]}\n" for r in range(CLI_TRAIN_ROWS, n))
+        f.writelines(f"{labels[r]}\t{rows[r]}\n" for r in range(train_rows, n))
     with open(paths["test"], "w") as f:
-        f.writelines(f"{rows[r]}\n" for r in range(CLI_TRAIN_ROWS, n))
+        f.writelines(f"{rows[r]}\n" for r in range(train_rows, n))
     return paths
 
 
@@ -3279,6 +3311,356 @@ def phase_bf16():
     )
     emit(phase="bf16_training", **record)
     return record
+
+
+# ---------------------------------------------------------------------------
+# the CIN's bf16 mode (cin_pallas.set_cin_precision("bf16")): rows 1-2 of
+# PERF.md's table in their bf16 kernels, cin_fwd_bf16 and cin_bwd_dx_bf16
+# ---------------------------------------------------------------------------
+
+# The bf16 tensor cores' published dense peak at the full power limit (the
+# data sheets' sparse figure halved); first matching name wins, as PEAKS
+BF16_PEAKS = (("H100 PCIe", 756e12), ("H100 NVL", 835e12), ("H200", 989e12), ("H100", 989e12))
+BF16_STEP = dict(cin_fwd_bf16=2, cin_bwd_dx_bf16=2, cin_dw=2)
+BF16_EVAL = dict(cin_fwd_bf16=2)
+BF16_PROFILE_CALLS = 5
+# Card against CPU scores in the bf16 mode: the two sides' layer-0 sums
+# differ in order, so a layer-1 h entry that lies on a bf16 rounding
+# boundary rounds to neighbouring values (2^-8 apart) on the two sides; the
+# scores (probabilities) are held within this
+BF16_SCORE_TOL = 1e-4
+
+
+def profiled_ms(fn, calls=BF16_PROFILE_CALLS):
+    """Device ms a call of ``fn`` (every kernel it launches, summed) from
+    torch.profiler over ``calls`` calls after a warm-up; None where the
+    profiler recorded no device time."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time_total for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False))
+    return total / 1e3 / calls if total > 0 else None
+
+
+def phase_cin_bf16_kernels(peak):
+    """``cin_fwd_bf16`` at the train batch's two layers and the scoring
+    batch's, ``cin_bwd_dx_bf16`` at the train layers: each against its bf16
+    plain version (``CIN_TOL``, ``BWD_RTOL``) and against float64 of the
+    same rounded operands (:func:`_f64_gate`, the fp32 gate), bit-equal over
+    two runs; CUDA-event ms beside the plain version's and one
+    ``torch.einsum`` on bf16 operands (the library yardstick); profiler
+    device ms beside the fp32 kernel's at the same shape; the bound at the
+    bf16 tensor-core peak and the memory rate (fp32 operands read once,
+    outputs written once)."""
+    _, _, peak_bw, _ = peak
+    peak_bf16 = next(p for name, p in BF16_PEAKS if name in peak[0])
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    results = {}
+    cases = [("cin_fwd_bf16", s) for s in TRAIN_SHAPES + SERVE_SHAPES] + [
+        ("cin_bwd_dx_bf16", s) for s in TRAIN_SHAPES]
+    for name, (label, N, H, M, O, strided) in cases:
+        def rand(*shape):
+            return torch.randn(shape, generator=gen, device="cuda")
+
+        h = rand(N, 2 * H)[:, :H] if strided else rand(N, H)
+        x0, W, b, g = rand(N, M), rand(O, H * M), rand(O), rand(N, O)
+        W3b = W.view(O, H, M).bfloat16()
+        hb, xb, gb = h.bfloat16(), x0.bfloat16(), g.bfloat16()
+        if name == "cin_fwd_bf16":
+            kernel = lambda: cin_rows_forward_bf16(h, x0, W, b)  # noqa: E731
+            plain = lambda: cin_rows_reference_bf16(h, x0, W, b)  # noqa: E731
+            fp32 = lambda: cin_rows_forward(h, x0, W, b)  # noqa: E731
+            exact = cin_rows_reference_bf16(h.double(), x0.double(), W.double(), b.double())
+            library = lambda: torch.einsum("nh,nm,ohm->no", hb, xb, W3b)  # noqa: E731
+            nbytes = 4 * (N * H + N * M + O * H * M + O + N * O)
+        else:
+            kernel = lambda: torch.cat(cin_rows_backward_bf16(g, h, x0, W), 1)  # noqa: E731
+            plain = lambda: torch.cat(cin_rows_backward_reference_bf16(g, h, x0, W), 1)  # noqa: E731
+            fp32 = lambda: cin_rows_backward(g, h, x0, W)  # noqa: E731
+            exact = torch.cat(cin_rows_backward_reference_bf16(
+                g.double(), h.double(), x0.double(), W.double()), 1)
+            library = lambda: (torch.einsum("no,nm,ohm->nh", gb, xb, W3b),  # noqa: E731
+                               torch.einsum("no,nh,ohm->nm", gb, hb, W3b))
+            nbytes = 4 * (N * O + O * H * M + 2 * (N * H + N * M))
+        got = kernel()
+        torch.cuda.synchronize()
+        want = plain()
+        err = float((got - want).abs().max())
+        if name == "cin_fwd_bf16":
+            torch.testing.assert_close(got, want, **CIN_TOL)
+            gates = [_f64_gate(f"{name} at {label}", got, want, exact)]
+        else:
+            torch.testing.assert_close(got, want, rtol=BWD_RTOL,
+                                       atol=BWD_RTOL * float(want.abs().max()) + 1e-6)
+            gates = [_f64_gate(f"{name} {out} at {label}", a, p, e) for out, a, p, e in
+                     zip(("dh", "dx0"), got.split((H, M), 1), want.split((H, M), 1),
+                         exact.split((H, M), 1))]
+        again = kernel()
+        bit_equal = bool(torch.equal(got, again))
+        if not bit_equal:
+            raise AssertionError(f"{name} at {label}: two runs differ")
+        # the modes differ: the kernel did round
+        f32_gap = float((got - (fp32() if name == "cin_fwd_bf16" else torch.cat(fp32(), 1)))
+                        .abs().max())
+        del got, want, again, exact
+        iters = 20 if N > 10_000 else 200
+        kernel_ms, plain_ms, library_ms = (cuda_ms(f, iters) for f in (kernel, plain, library))
+        flops = 2 * N * H * M * O
+        by_ops = flops / peak_bf16 >= nbytes / peak_bw
+        results[name, label] = dict(
+            N=N, H=H, M=M, O=O, strided_h=strided, max_abs_err=err,
+            err_vs_float64=max(e for e, _ in gates), plain_err_vs_float64=max(p for _, p in gates),
+            bit_equal=bit_equal, max_abs_diff_vs_fp32_kernel=f32_gap,
+            kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+            library="torch.einsum over bf16 h, x0 and W" if name == "cin_fwd_bf16"
+            else "torch.einsum over bf16 g, x0 / h and W (dh, dx0)",
+            device_ms=profiled_ms(kernel), fp32_kernel_device_ms=profiled_ms(fp32),
+            bound_ms=max(flops / peak_bf16, nbytes / peak_bw) * 1e3,
+            bound_by="operations" if by_ops else "bytes", peak_bf16_flops=peak_bf16,
+            gflop=flops / 1e9, mbytes=nbytes / 1e6, tflops=flops / kernel_ms / 1e9,
+        )
+        emit(phase="cin_bf16_kernel", kernel=name, shape=label, **results[name, label])
+    return results
+
+
+def phase_cin_bf16_training():
+    """The canonical xDeepFM at bench.py's width under
+    ``set_cin_precision("bf16")``: ``fit`` at batch 4096 with Adam for
+    ZOO_EPOCHS epochs of 8 steps (a validation half batch), 2 + 2 + 2 launches
+    a step (``cin_fwd_bf16``, ``cin_bwd_dx_bf16``, ``cin_dw`` on g rounded to
+    bf16) and no fp32 ``cin_fwd`` or ``cin_bwd_dx``, the loss finite and
+    falling; one step's gradients with the kernels and with the bf16 plain
+    versions under each backward implementation (the legacy one: the bf16
+    forward kernel with permuted weights, ``cin_dw`` on the raw g), both
+    against a float64 copy in the bf16 mode (as :func:`phase_model_training`
+    holds them); a second identical step bit-equal; one SGD step on the card
+    against the CPU model in the bf16 mode; ms a step and the profiler's
+    busy and idle share beside the fp32 step's from the same weights; then
+    ``Scorer(8192)`` over the serving requests (2 ``cin_fwd_bf16`` a batch)
+    on the seeded weights, against the CPU model on a small input within
+    BF16_SCORE_TOL and nearer to it than the fp32 mode's scores."""
+    set_cin_precision("bf16")
+    try:
+        return _cin_bf16_training()
+    finally:
+        set_cin_precision("f32")
+        set_backward_impl("auto")
+
+
+def _cin_bf16_training():
+    model = canonical_model("cuda", seeded=False)
+    model.compile("adam", "binary_crossentropy", metrics=["auc"])
+    rng = np.random.default_rng(SEED + 3)
+    x, y = train_data(rng, TRAIN_STEPS_PER_EPOCH * TRAIN_BATCH + TRAIN_BATCH // 2)
+    x, y, val = (  # the last half batch validates
+        {k: v[: -TRAIN_BATCH // 2] for k, v in x.items()}, y[: -TRAIN_BATCH // 2],
+        ({k: v[-TRAIN_BATCH // 2 :] for k, v in x.items()}, y[-TRAIN_BATCH // 2 :]),
+    )
+    steps = TRAIN_STEPS_PER_EPOCH * ZOO_EPOCHS
+    reset_launches()
+    t0 = time.perf_counter()
+    history = model.fit(x, y, batch_size=TRAIN_BATCH, epochs=ZOO_EPOCHS, verbose=1,
+                        validation_data=val)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = read_launches()
+    want = expected(**{k: steps * BF16_STEP.get(k, 0) + ZOO_EPOCHS * BF16_EVAL.get(k, 0)
+                       for k in WRAPPERS})
+    if launches != want:
+        raise AssertionError(f"cin_bf16: launches {launches} over {steps} steps, expected {want}")
+    logs = history.history
+    for k, v in logs.items():
+        if not np.isfinite(v).all():
+            raise AssertionError(f"cin_bf16: {k} is not finite: {v}")
+    if not logs["loss"][0] > logs["loss"][-1]:
+        raise AssertionError(f"cin_bf16: the epoch loss did not fall: {logs['loss']}")
+
+    xb, yb = device_batch(model, x, y, TRAIN_BATCH)
+    grads, step_launches = {}, {}
+    legacy_fwd = len(CIN_LAYERS) + sum(2 * -(-o // FWD_H_BLOCK) for o in CIN_LAYERS)
+    per_impl = {"auto": expected(**BF16_STEP),
+                "legacy": expected(cin_fwd_bf16=legacy_fwd, cin_dw=2)}
+    for impl in ("auto", "legacy"):
+        set_backward_impl(impl)
+        model.module.cin.backend = "torch"
+        want_g, plain_rec = relu_step_grads(model, xb, yb)
+        model.module.cin.backend = None
+        reset_launches()
+        got_g, kernel_rec = relu_step_grads(model, xb, yb)
+        step_launches[impl] = read_launches()
+        if step_launches[impl] != per_impl[impl]:
+            raise AssertionError(f"cin_bf16 {impl}: one step launched {step_launches[impl]}")
+        ref, kernel_vs64 = fp64_grads(model, xb, yb, kernel_rec)
+        ref_plain, plain_vs64 = fp64_grads(model, xb, yb, plain_rec)
+        kernel64, plain64 = per_grad_err(got_g, ref), per_grad_err(want_g, ref_plain)
+        vs64 = {k: (kernel64[k], plain64[k]) for k in ref}
+        bad = {k: e for k, e in vs64.items() if e[0] > max(GRAD_RTOL, FP32_SLACK * e[1])}
+        if bad:
+            raise AssertionError(f"cin_bf16 {impl}: kernel gradients off float64 by "
+                                 f"(kernel, plain) {bad}")
+        grads[impl] = dict(
+            rel_err_vs_plain=grad_err(got_g, want_g),
+            relu_flips=dict(kernel_vs_float64=kernel_vs64, plain_vs_float64=plain_vs64),
+            rel_err_vs_float64_worst={k: {"kernel": e[0], "plain": e[1]} for k, e in sorted(
+                vs64.items(), key=lambda kv: -kv[1][0])[:5]})
+        del want_g, got_g, ref, ref_plain
+    set_backward_impl("auto")
+    unsteady = reproduced("cin_bf16: ", step_grads(model, xb, yb), step_grads(model, xb, yb))
+    cpu_errs = sgd_step_vs_cpu(
+        [canonical_model(dev, model.get_weights()) for dev in ("cuda", "cpu")], x, y,
+        "cin_bf16: ")
+
+    # ms a step and the device's busy share, bf16 CIN against fp32 CIN from
+    # the same weights, in turns
+    batches = [device_batch(model, {k: v[i * TRAIN_BATCH:] for k, v in x.items()},
+                            y[i * TRAIN_BATCH:], TRAIN_BATCH) for i in range(4)]
+    ms = {"bf16": [], "fp32": []}
+    for mode in ("bf16", "fp32", "fp32", "bf16"):
+        set_cin_precision(mode if mode == "bf16" else "f32")
+        ms[mode].append(train_steps_ms(model, batches, 10))
+    set_cin_precision("f32")
+    fp32_profile = phase_train_profile(model, batches, phase="cin_bf16_fp32_train_profile")
+    set_cin_precision("bf16")
+    profile = phase_train_profile(model, batches, phase="cin_bf16_train_profile")
+
+    # scoring at 8192 in the bf16 mode, on the seeded weights (scale 0.1:
+    # the CIN moves the scores, where the trained model's 1e-4 tables keep
+    # its share small)
+    model = canonical_model("cuda")
+    scorer = Scorer(model, batch_size=BATCH).warmup()
+    reqs = requests(np.random.default_rng(SEED + 1), REQUESTS)
+    n_batches = sum(-(-n // BATCH) for n in REQUESTS)
+    reset_launches()
+    preds, eps, score_ms = score_all(scorer, reqs)
+    scoring_launches = read_launches()
+    if scoring_launches != expected(cin_fwd_bf16=2 * n_batches):
+        raise AssertionError(f"cin_bf16: scoring launched {scoring_launches} for {n_batches} "
+                             "batches")
+    for n, p in zip(REQUESTS, preds):
+        if p.shape != (n, 1) or not (np.isfinite(p).all() and (p > 0).all() and (p < 1).all()):
+            raise AssertionError(f"cin_bf16: bad scores of shape {p.shape}")
+    cpu_model = canonical_model("cpu", model.get_weights())
+    small = requests(np.random.default_rng(SEED + 2), (64,))[0]
+    cpu_pred = cpu_model.predict(small, 64)
+    cpu_err = float(np.abs(model.predict(small, 64) - cpu_pred).max())
+    if cpu_err > BF16_SCORE_TOL:
+        raise AssertionError(f"cin_bf16: card and CPU scores differ by {cpu_err}")
+    set_cin_precision("f32")  # the fp32 mode's scores: how far bf16 moves them
+    fp32_gap = float(np.abs(model.predict(small, 64) - cpu_pred).max())
+    set_cin_precision("bf16")
+    if not fp32_gap > cpu_err:
+        raise AssertionError(f"cin_bf16: the fp32 mode's scores ({fp32_gap} from the CPU's "
+                             f"bf16 ones) are no farther than the card's bf16 ones ({cpu_err})")
+    record = dict(
+        batch=TRAIN_BATCH, steps=steps, epochs=ZOO_EPOCHS, fit_seconds=fit_s, launches=launches,
+        step_launches=step_launches, history=logs, grads=grads, grads_not_reproduced=unsteady,
+        rel_err_vs_cpu_one_sgd_step=cpu_errs,
+        ms_per_step=ms, examples_per_s={k: [TRAIN_BATCH / t * 1e3 for t in v]
+                                        for k, v in ms.items()},
+        device_busy_ms_per_step={"bf16": profile["device_busy_ms_per_call"],
+                                 "fp32": fp32_profile["device_busy_ms_per_call"]},
+        device_idle_share={"bf16": profile["device_idle_share"],
+                           "fp32": fp32_profile["device_idle_share"]},
+        scoring_launches=scoring_launches, scoring_examples_per_s=eps, scoring_ms=score_ms,
+        scoring_max_abs_diff_vs_cpu=cpu_err, fp32_mode_max_abs_diff_vs_cpu_bf16=fp32_gap,
+    )
+    emit(phase="cin_bf16_training", **record)
+    return record
+
+
+# ---------------------------------------------------------------------------
+# the usage layer: xdeepfm_tpu_torch/examples/ and scripts/run*.bash
+# ---------------------------------------------------------------------------
+
+# (name, module, keyword arguments, examples trained by main: rows x epochs)
+EXAMPLES = (
+    ("quickstart", quickstart, {}, 18_000 * 3),
+    ("serving", serving_example, {}, 20_000 * 2),
+    ("large_tables", large_tables, {}, 4096 * 8 * 2),
+    ("sharded_training", sharded_training, {}, 29_491 * 2),
+)
+LAUNCHER_TRAIN_ROWS = 2048  # run_sfg.bash: 30 epochs of batch 64 over 90% of them
+LAUNCHER_TIMEOUT = 300
+
+
+def phase_examples():
+    """Each of ``xdeepfm_tpu_torch/examples/`` at its own size on the card
+    (``main`` with its defaults; large_tables' checkpoint and the sharded
+    one, a one-rank grid, into a temporary directory): wall seconds, the
+    examples it trained a second of wall, the CIN kernels' launches (> 0
+    for each; the fp32 mode's: no bf16 launch), the serving example's
+    largest |scorer - predict| (at most 1e-6); then the three launchers
+    ``xdeepfm_tpu_torch/scripts/run.bash``, ``run_attn.bash`` and
+    ``run_sfg.bash`` through bash, with their flags as they are, on a
+    Criteo-like corpus of LAUNCHER_TRAIN_ROWS rows (``DATA_PATH``,
+    ``OUT_DIR``; ``--use_native_parser`` after the flags): exit code 0, the
+    training log written, wall seconds."""
+    records = {}
+    with tempfile.TemporaryDirectory(prefix="xdeepfm-examples-") as d:
+        for name, module, kw, trained in EXAMPLES:
+            if name == "large_tables":
+                kw = dict(kw, checkpoint=os.path.join(d, "large_tables_ckpt.bin"))
+            elif name == "sharded_training":
+                kw = dict(kw, checkpoint=os.path.join(d, "sharded_ckpt"))
+            elif name == "serving":
+                kw = dict(kw, out_dir=d)
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = module.main(**kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            if not (launches["cin_fwd"] > 0 and launches["cin_bwd_dx"] > 0
+                    and launches["cin_dw"] > 0):
+                raise AssertionError(f"example {name}: CIN launches {launches}")
+            if launches["cin_fwd_bf16"] or launches["cin_bwd_dx_bf16"]:
+                raise AssertionError(f"example {name}: bf16 launches in the fp32 mode {launches}")
+            rec = dict(wall_seconds=wall, examples_trained=trained,
+                       examples_per_s=trained / wall, launches=launches)
+            if name == "serving":
+                rec["max_abs_scorer_minus_predict"] = out["max_abs_diff"]
+                if out["max_abs_diff"] > 1e-6:
+                    raise AssertionError(f"serving example: scorer and predict differ by "
+                                         f"{out['max_abs_diff']}")
+            for key in ("predictions", "scores"):
+                if key in out and not np.isfinite(out[key]).all():
+                    raise AssertionError(f"example {name}: {key} not finite")
+            del out
+            torch.cuda.empty_cache()
+            records[name] = rec
+            emit(phase="example", example=name, **rec)
+
+        files = cli_corpus(d, train_rows=LAUNCHER_TRAIN_ROWS, test_rows=256)
+        root = os.path.dirname(os.path.abspath(__file__))
+        for name in ("run", "run_attn", "run_sfg"):
+            out_dir = os.path.join(d, f"out_{name}")
+            env = dict(os.environ, DATA_PATH=files["train"], OUT_DIR=out_dir,
+                       PYTHON=sys.executable)
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                ["bash", os.path.join(root, "xdeepfm_tpu_torch", "scripts", f"{name}.bash"),
+                 "--use_native_parser"], cwd=root, env=env, capture_output=True, text=True,
+                timeout=LAUNCHER_TIMEOUT)
+            wall = time.perf_counter() - t0
+            if proc.returncode != 0 or not os.path.exists(
+                    os.path.join(out_dir, "training_log.json")):
+                raise AssertionError(f"launcher {name}.bash exited {proc.returncode}:\n"
+                                     f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+            with open(os.path.join(out_dir, "training_log.json")) as f:
+                log = json.load(f)
+            rec = dict(wall_seconds=wall, rows=LAUNCHER_TRAIN_ROWS,
+                       training_config=log.get("training_config"),
+                       last_lines=proc.stdout.strip().splitlines()[-3:])
+            records[f"launcher_{name}"] = rec
+            emit(phase="launcher", launcher=f"{name}.bash", **rec)
+    return records
 
 
 # ---------------------------------------------------------------------------
@@ -4225,6 +4607,7 @@ def main():
     name, peak = phase_device()
     phase_build()
     shapes = phase_kernels(peak)
+    bf16_shapes = phase_cin_bf16_kernels(peak)
     ce_shapes = phase_ce_kernels(peak)
     attn_shapes = phase_attn_kernels(peak)
     la_shapes = phase_lane_kernels(peak)
@@ -4269,8 +4652,10 @@ def main():
     phase_zoo_determinism()
     dien_dice = phase_dien_dice()
     bf16 = phase_bf16()
+    cin_bf16 = phase_cin_bf16_training()
     phase_gather()
     cli = phase_cli()
+    examples = phase_examples()
     phase_lazy_checks()
     lazy_dien = phase_lazy_dien()
     lazy = phase_lazy104()
@@ -4290,6 +4675,10 @@ def main():
     paths["zoo_ccpm_tf32_default"] = ccpm_tf32["launches"]
     paths["dien_dice_sgd_step"] = dien_dice["launches"]
     paths["bf16_training"] = bf16["launches"]
+    paths["cin_bf16_training"] = cin_bf16["launches"]
+    paths["cin_bf16_scoring"] = cin_bf16["scoring_launches"]
+    paths.update({f"example_{name}": rec["launches"] for name, rec in examples.items()
+                  if "launches" in rec})
     paths["ablation"] = ablation["launches"]
     paths.update({path: rec["launches"] for path, rec in cli.items()})
     paths.update({path: rec["launches"] for path, rec in lazy.items()})
@@ -4318,6 +4707,29 @@ def main():
             err_vs_float64=max(r["err_vs_float64"] for (k, _), r in shapes.items()
                                if k == kname),
             bit_equal=all(r["bit_equal"] for (k, _), r in shapes.items() if k == kname),
+        ))
+    # rows 1-2's bf16 mode, on its train step (2 launches of each)
+    for kname in ("cin_fwd_bf16", "cin_bwd_dx_bf16"):
+        source, replaces = SOURCES[kname]
+        path = [bf16_shapes[kname, label] for label, *_ in TRAIN_SHAPES]
+        ops_s = sum(r["gflop"] for r in path) * 1e9 / path[0]["peak_bf16_flops"]
+        bytes_s = sum(r["mbytes"] for r in path) * 1e6 / peak[2]
+        kernels.append(dict(
+            name=kname, route="cuda", source=source, replaces=replaces,
+            launches=cin_bf16["launches"][kname],
+            launches_by_path={p: counts[kname] for p, counts in paths.items()},
+            max_abs_err=max(r["max_abs_err"] for (k, _), r in bf16_shapes.items() if k == kname),
+            ms=sum(r["kernel_ms"] for r in path),
+            plain_ms=sum(r["plain_ms"] for r in path),
+            bound_ms=sum(r["bound_ms"] for r in path),
+            bound_by="operations" if ops_s >= bytes_s else "bytes",
+            library_ms=sum(r["library_ms"] for r in path),
+            per="bf16 train step at batch 4096 (2 launches); bound at the bf16 tensor-core peak",
+            device_ms=_sum_measured(r["device_ms"] for r in path),
+            fp32_kernel_device_ms=_sum_measured(r["fp32_kernel_device_ms"] for r in path),
+            err_vs_float64=max(r["err_vs_float64"] for (k, _), r in bf16_shapes.items()
+                               if k == kname),
+            bit_equal=all(r["bit_equal"] for (k, _), r in bf16_shapes.items() if k == kname),
         ))
     for kname, kind in (("ce_fwd", "fwd"), ("ce_bwd", "bwd")):
         source, replaces = SOURCES[kname]

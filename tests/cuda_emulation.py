@@ -20,7 +20,11 @@ keep their phase, arrivals and transaction count beside the barrier, so a
 producer and its consumers, separate threads, wait on real phases; the
 bulk copy is a plain copy that then completes its transactions; a named
 barrier is the warpgroup's; ``setmaxnreg`` and the wgmma fences, commits
-and waits are no-ops (the emulated MMA is synchronous).  This checks a
+and waits are no-ops (the emulated MMA is synchronous).  The CIN's bf16
+mode adds ``cvt.rn.bf16x2`` (round to nearest even, lo in the low half),
+the ``mma.sync`` m16n8k16 bf16 and the ``wgmma`` m64nNk16 bf16 (B's core
+matrices 8 rows of 8 bf16), each reading the 16-bit halves of its operand
+registers by the PTX ISA's fragment layouts.  This checks a
 kernel's indexing, masking, tiling, fragment layouts, barrier phases and
 partial sums without a GPU; it says nothing about its speed, about the
 GPU's compiler or about the order of asynchronous copies and MMAs, which
@@ -321,6 +325,66 @@ inline void wgmma(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc, int 
         uint32_t bv;
         std::memcpy(&bv, b + (col / 8) * sbo + (col % 8) * 16 + (k / 4) * lbo + (k % 4) * 4, 4);
         s += __uint_as_float(av & 0xffffe000u) * __uint_as_float(bv & 0xffffe000u);
+      }
+      d[4 * j + q] = s;
+    }
+  }
+  G->bar.arrive_and_wait();
+}
+// The bf16 forms (the CIN's bf16 mode).  cvt.rn.bf16x2.f32: lo in the low
+// half, both rounded to nearest even
+inline uint32_t bf16x2(float lo, float hi) {
+  return static_cast<uint32_t>(__float2bfloat16_rn(lo).x) |
+         static_cast<uint32_t>(__float2bfloat16_rn(hi).x) << 16;
+}
+// element k % 2 of a bf16 pair, as fp32
+inline float bf16_at(uint32_t v, int k) { return __uint_as_float(k % 2 ? v & 0xffff0000u : v << 16); }
+// mma.sync m16n8k16 row.col f32.bf16 from zero: the warp's lanes post their
+// fragments (A: a0 (group, 2 tig..), a1 (group + 8, ..), a2 (group, 2 tig +
+// 8..), a3 (group + 8, ..); B: b0 (k 2 tig.., column group), b1 (k 2 tig +
+// 8..)), then each sums its own C entries (products exact in fp32)
+inline void mma_bf16_z(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  const int lane = emu::tidx.x % 32;
+  uint32_t (&mine)[6] = emu::warp->frag[lane];
+  for (int q = 0; q < 4; ++q) mine[q] = a[q];
+  mine[4] = b[0];
+  mine[5] = b[1];
+  emu::warp->bar.arrive_and_wait();
+  const int group = lane / 4, tig = lane % 4;
+  for (int q = 0; q < 4; ++q) {
+    const int row = group + 8 * (q / 2), col = 2 * tig + q % 2;
+    float s = 0.f;
+    for (int k = 0; k < 16; ++k) {
+      const uint32_t av = emu::warp->frag[4 * (row % 8) + (k % 8) / 2][(row >= 8) + 2 * (k >= 8)];
+      const uint32_t bv = emu::warp->frag[4 * col + (k % 8) / 2][4 + (k >= 8)];
+      s += bf16_at(av, k) * bf16_at(bv, k);
+    }
+    d[q] = s;
+  }
+  emu::warp->bar.arrive_and_wait();
+}
+// wgmma m64nNk16 bf16, A from registers (each warp's 16 rows in the
+// m16n8k16 A layout), B K-major through its descriptor: core matrices of 8
+// rows x 8 bf16 (16 bytes a row), LBO along K, SBO along N
+template <int N>
+inline void wgmma_bf16(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc, int acc) {
+  const int t = emu::tidx.x % 128;
+  emu::WarpGroup* G = emu::group;
+  for (int q = 0; q < 4; ++q) G->a[t][q] = a[q];
+  G->bar.arrive_and_wait();
+  const char* b = static_cast<const char*>(emu::smem_base) + ((desc & 0x3fff) << 4);
+  const size_t lbo = ((desc >> 16) & 0x3fff) << 4, sbo = ((desc >> 32) & 0x3fff) << 4;
+  const int w = t / 32, grp = (t % 32) / 4, tig = t % 4;
+  for (int j = 0; j < N / 8; ++j) {
+    for (int q = 0; q < 4; ++q) {
+      const int row = 16 * w + grp + 8 * (q / 2), col = 8 * j + 2 * tig + q % 2;
+      float s = acc ? d[4 * j + q] : 0.f;
+      for (int k = 0; k < 16; ++k) {
+        const uint32_t av =
+            G->a[32 * (row / 16) + 4 * (row % 8) + (k % 8) / 2][(row % 16 >= 8) + 2 * (k >= 8)];
+        uint16_t bv;
+        std::memcpy(&bv, b + (col / 8) * sbo + (col % 8) * 16 + (k / 8) * lbo + (k % 8) * 2, 2);
+        s += bf16_at(av, k) * __uint_as_float(static_cast<uint32_t>(bv) << 16);
       }
       d[4 * j + q] = s;
     }

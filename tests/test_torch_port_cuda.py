@@ -24,11 +24,15 @@ from xdeepfm_tpu_torch.ops.ce_cuda import (
 from xdeepfm_tpu_torch.ops.cin import set_backward_impl
 from xdeepfm_tpu_torch.ops.cin_cuda import (
     cin_rows_backward,
+    cin_rows_backward_bf16,
     cin_rows_backward_reference,
+    cin_rows_backward_reference_bf16,
     cin_rows_dw,
     cin_rows_dw_reference,
     cin_rows_forward,
+    cin_rows_forward_bf16,
     cin_rows_reference,
+    cin_rows_reference_bf16,
 )
 from xdeepfm_tpu_torch.ops.attention_cuda import (
     SMEM_BYTES,
@@ -361,6 +365,44 @@ def test_cin_bwd_dx_kernel_is_fp32_accurate_and_deterministic(card, N, H, M, O, 
         _close(a, w)
         _f64_gate(a, w, ex)
     for a, c in zip(got, cin_rows_backward(g, h, x0, W)):
+        assert torch.equal(a, c)
+
+
+# (N, H, M, O, strided): the bf16 mode at layer 1 of a train batch of 1024
+# (split-half's strided h), layer 0 of it, a ragged shape, h of 200 columns
+# (two forward launches; the backward's groups at width 32) and M = 40
+# (the backward's groups padded to 64)
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,H,M,O,strided", [(10240, 128, 26, 128, True),
+                                             (10240, 26, 26, 256, False),
+                                             (1001, 13, 26, 7, False),
+                                             (2000, 200, 26, 64, True),
+                                             (700, 9, 40, 33, False)])
+def test_cin_bf16_kernels_match_plain_and_are_deterministic(card, N, H, M, O, strided):
+    """``cin_fwd_bf16`` and ``cin_bwd_dx_bf16`` against their bf16 plain
+    versions (the same rounded operands, fp32 sums in another order) and
+    against float64 of those operands by the fp32 kernels' gate, bit-equal
+    over two runs."""
+    h, x0, W, b = _inputs(N + H + O + 1, N, 2 * H if strided else H, M, O)
+    h = h[:, :H]
+    W = W[:, :H * M].contiguous()
+    g = torch.randn(N, O, generator=torch.Generator().manual_seed(N + 2)).cuda()
+    before = cin_rows_forward_bf16.launches
+    got = cin_rows_forward_bf16(h, x0, W, b)
+    torch.cuda.synchronize()
+    assert cin_rows_forward_bf16.launches == before + -(-H // 128)
+    want = cin_rows_reference_bf16(h, x0, W, b)
+    torch.testing.assert_close(got, want, **CIN_TOL)
+    _f64_gate(got, want,
+              cin_rows_reference_bf16(h.double(), x0.double(), W.double(), b.double()))
+    assert torch.equal(got, cin_rows_forward_bf16(h, x0, W, b))
+    got = cin_rows_backward_bf16(g, h, x0, W)
+    want = cin_rows_backward_reference_bf16(g, h, x0, W)
+    exact = cin_rows_backward_reference_bf16(g.double(), h.double(), x0.double(), W.double())
+    for a, w, ex in zip(got, want, exact):
+        _close(a, w)
+        _f64_gate(a, w, ex)
+    for a, c in zip(got, cin_rows_backward_bf16(g, h, x0, W)):
         assert torch.equal(a, c)
 
 

@@ -34,7 +34,10 @@ MODULES = ["cli", "cli.common", "cli.xdftrain", "cli.xdftrain_v1", "cli.xdftrain
            "ops.lane_attention", "ops.lane_attention_cuda", "pro", "pro.autodis", "pro.sfg",
            "pro.xdeepfm_pro",
            # the rank grid: mesh, the sharded lookups, the bootstrap
-           "parallel", "parallel.mesh", "parallel.sharded_embedding", "parallel.distributed"]
+           "parallel", "parallel.mesh", "parallel.sharded_embedding", "parallel.distributed",
+           # the usage scripts
+           "examples", "examples.quickstart", "examples.serving", "examples.large_tables",
+           "examples.sharded_training"]
 PROBE = """
 import importlib, json, sys
 importlib.import_module(sys.argv[1])

@@ -137,6 +137,19 @@ def cin_feature_maps_rows(
     return torch.cat(final_result, dim=1)  # [B*D, Fm]
 
 
+def cin_feature_maps(
+    inputs, kernels, biases, act, layer_size, split_half, training=False,
+    backend=None,
+):
+    """[B, featuremap_num, E] feature maps (``interaction.py:238-246``): the
+    row-major stack's [B*D, Fm] output seen as [B, Fm, D]."""
+    B, _, D = inputs.shape
+    rows = cin_feature_maps_rows(
+        inputs, kernels, biases, act, layer_size, split_half, training, backend
+    )
+    return rows.view(B, D, -1).transpose(1, 2)
+
+
 def cin_feature_maps_t(
     inputs, kernels, biases, act, layer_size, split_half, training=False,
     backend=None,

@@ -17,9 +17,21 @@ All three kernels run on the tensor cores in 3xTF32
 three products summed, within the plain fp32 version's error of a float64
 result.
 
+The bf16 mode (``cin_pallas.set_cin_precision("bf16")``) has two kernels
+of its own, the same sources templated on the precision:
+
+* :func:`cin_rows_forward_bf16` — ``cin_fwd_bf16``: h, x0 and W rounded to
+  bf16, z = bf16(h x0), one bf16 ``wgmma`` a k16 step, sums in fp32;
+* :func:`cin_rows_backward_bf16` — ``cin_bwd_dx_bf16``: Z = g W from g and W
+  rounded to bf16 on ``mma.sync`` m16n8k16, dh and dx0 from the fp32 h, x0.
+
+Its dW is :func:`cin_rows_dw` fed g rounded to bf16 (the fused backward)
+or the raw g (the legacy one), as ``ops/cin.py`` arranges.
+
 Beside each is the same function in plain PyTorch (``*_reference``), the
 materialised lowering of ``xdeepfm_tpu/ops/cin.py:114-120`` and of its
-gradient.  The CPU path and the kernels' checks use them.
+gradient, and of the bf16 mode's rounding (``*_reference_bf16``).  The CPU
+path and the kernels' checks use them.
 """
 
 from __future__ import annotations
@@ -64,6 +76,28 @@ def cin_rows_backward_reference(g, h_rows, x0_rows, W):
     return (Z * x0_rows[:, None, :]).sum(2), (Z * h_rows[:, :, None]).sum(1)
 
 
+def bf16_round(t):
+    """``t`` rounded to bf16 (nearest, ties to even), in its own dtype."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def cin_rows_reference_bf16(h_rows, x0_rows, W, b):
+    """The bf16 mode's forward (``cin_pallas.py:353-366`` and ``_fwd_kernel``):
+    h, x0 and W rounded to bf16, each z = h x0 rounded to bf16 once (the
+    product of two bf16 values is exact in fp32), z W^T + b summed in the
+    inputs' dtype."""
+    N, H = h_rows.shape
+    M = x0_rows.shape[1]
+    z = bf16_round(bf16_round(h_rows)[:, :, None] * bf16_round(x0_rows)[:, None, :])
+    return z.reshape(N, H * M) @ bf16_round(W).T + b[None, :]
+
+
+def cin_rows_backward_reference_bf16(g, h_rows, x0_rows, W):
+    """The bf16 mode's fused dh, dx0 (``_bwd_fused_t``, ``cin_pallas.py:226``):
+    Z from g and W rounded to bf16, dh and dx0 from the unrounded h, x0."""
+    return cin_rows_backward_reference(bf16_round(g), h_rows, x0_rows, bf16_round(W))
+
+
 def cin_rows_dw_reference(g, h_rows, x0_rows):
     """g [N, O] -> dW [O, H*M]; materialises z as the forward does."""
     N, H = h_rows.shape
@@ -76,9 +110,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "cin_fwd": {
         "cin_fwd": [_P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "cin_fwd_bf16": [_P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
     "cin_bwd": {
         "cin_bwd_dx": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        "cin_bwd_dx_bf16": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
         "cin_dw": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         "cin_sum_slices": [_P, _I, ctypes.c_longlong, _P, _I, _P],
     },
@@ -124,18 +160,18 @@ def _check(fn, named, h_rows, x0_rows, O):
     return N, H, M
 
 
-def cin_rows_forward(h_rows, x0_rows, W, b):
-    """The forward kernel: same contract as :func:`cin_rows_reference`, on
-    CUDA fp32 tensors, in 3xTF32 on the tensor cores; one launch for each
-    h block of up to ``FWD_H_BLOCK`` columns."""
+def _forward(wrapper, fn, h_rows, x0_rows, W, b):
+    """``csrc/cin_fwd.cu``'s launcher ``fn`` ("cin_fwd" or "cin_fwd_bf16")
+    over h blocks of up to ``FWD_H_BLOCK`` columns, counted on ``wrapper``."""
+    name = wrapper.__name__
     if W.ndim != 2 or b.ndim != 1:
-        raise ValueError("cin_rows_forward: expects W [O, H*M] and b [O]")
+        raise ValueError(f"{name}: expects W [O, H*M] and b [O]")
     O = W.shape[0]
     named = {"h_rows": h_rows, "x0_rows": x0_rows, "W": W, "b": b}
-    N, H, M = _check("cin_rows_forward", named, h_rows, x0_rows, O)
+    N, H, M = _check(name, named, h_rows, x0_rows, O)
     if W.shape[1] != H * M or b.shape[0] != O:
         raise ValueError(
-            f"cin_rows_forward: shape mismatch h {tuple(h_rows.shape)}, "
+            f"{name}: shape mismatch h {tuple(h_rows.shape)}, "
             f"x0 {tuple(x0_rows.shape)}, W {tuple(W.shape)}, b {tuple(b.shape)}"
         )
     dev = h_rows.device
@@ -143,19 +179,34 @@ def cin_rows_forward(h_rows, x0_rows, W, b):
     if N == 0 or O == 0:
         return out
     grid = torch.cuda.get_device_properties(dev).multi_processor_count
-    floats = _build.function("cin_fwd", "cin_fwd_scratch_floats", [_I] * 5)
+    floats = _build.function("cin_fwd", f"{fn}_scratch_floats", [_I] * 5)
     for h0 in range(0, H, FWD_H_BLOCK):
         hb = min(FWD_H_BLOCK, H - h0)
         n = floats(N, hb, M, O, grid)
         if n < 0:
-            raise ValueError(f"cin_rows_forward: M = {M} does not fit the kernel's shared memory")
-        # W split stage by stage, then the split tail tiles' partial sums
+            raise ValueError(f"{name}: M = {M} does not fit the kernel's shared memory")
+        # W staged stage by stage, then the split tail tiles' partial sums
         scratch = torch.empty(n, device=dev, dtype=torch.float32)
-        _launch("cin_fwd", "cin_fwd", dev, h_rows.data_ptr() + 4 * h0, h_rows.stride(0),
+        _launch("cin_fwd", fn, dev, h_rows.data_ptr() + 4 * h0, h_rows.stride(0),
                 x0_rows.data_ptr(), W.data_ptr(), H * M, h0, b.data_ptr(), scratch.data_ptr(),
                 out.data_ptr(), N, hb, M, O, int(h0 > 0), grid)
-        cin_rows_forward.launches += 1
+        wrapper.launches += 1
     return out
+
+
+def cin_rows_forward(h_rows, x0_rows, W, b):
+    """The forward kernel: same contract as :func:`cin_rows_reference`, on
+    CUDA fp32 tensors, in 3xTF32 on the tensor cores; one launch for each
+    h block of up to ``FWD_H_BLOCK`` columns."""
+    return _forward(cin_rows_forward, "cin_fwd", h_rows, x0_rows, W, b)
+
+
+def cin_rows_forward_bf16(h_rows, x0_rows, W, b):
+    """The bf16 mode's forward kernel: same contract as
+    :func:`cin_rows_reference_bf16` on CUDA fp32 tensors (rounded inside),
+    one bf16 ``wgmma`` a k16 step; one launch for each h block of up to
+    ``FWD_H_BLOCK`` columns."""
+    return _forward(cin_rows_forward_bf16, "cin_fwd_bf16", h_rows, x0_rows, W, b)
 
 
 def _slots(device):
@@ -219,41 +270,56 @@ def _dw_slices(N, H, M, O, slots, bm=128, bn=128, kc=32):
     return -(-N // rows), rows
 
 
-def cin_rows_backward(g, h_rows, x0_rows, W):
-    """The ``cin_bwd_dx`` kernel: same contract as
-    :func:`cin_rows_backward_reference` on CUDA fp32 tensors, in 3xTF32 on
-    the tensor cores; ``g`` must be contiguous and M at most
-    ``FUSED_MAX_M``."""
+def _backward_dx(wrapper, fn, g, h_rows, x0_rows, W):
+    """``csrc/cin_bwd.cu``'s launcher ``fn`` ("cin_bwd_dx" or
+    "cin_bwd_dx_bf16"), counted on ``wrapper``."""
+    name = wrapper.__name__
     if g.ndim != 2 or W.ndim != 2:
-        raise ValueError("cin_rows_backward: expects g [N, O] and W [O, H*M]")
+        raise ValueError(f"{name}: expects g [N, O] and W [O, H*M]")
     O = W.shape[0]
     named = {"g": g, "h_rows": h_rows, "x0_rows": x0_rows, "W": W}
-    N, H, M = _check("cin_rows_backward", named, h_rows, x0_rows, O)
+    N, H, M = _check(name, named, h_rows, x0_rows, O)
     if g.shape != (N, O) or W.shape[1] != H * M:
         raise ValueError(
-            f"cin_rows_backward: shape mismatch g {tuple(g.shape)}, h {tuple(h_rows.shape)}, "
+            f"{name}: shape mismatch g {tuple(g.shape)}, h {tuple(h_rows.shape)}, "
             f"x0 {tuple(x0_rows.shape)}, W {tuple(W.shape)}"
         )
     if M > FUSED_MAX_M:
-        raise ValueError(f"cin_rows_backward: M = {M} > {FUSED_MAX_M}; use the legacy backward")
+        raise ValueError(f"{name}: M = {M} > {FUSED_MAX_M}; use the legacy backward")
     dev = h_rows.device
     if N == 0 or O == 0:
         return h_rows.new_zeros((N, H)), h_rows.new_zeros((N, M))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     mp, splits, per = _dx_split(N, H, M, O, _DX_SLOTS_PER_SM * sms)
     if splits * N * M >= 2**31 or N * H >= 2**31 or O * H * mp >= 2**31:
-        raise ValueError("cin_rows_backward: operands exceed 32-bit indexing")
+        raise ValueError(f"{name}: operands exceed 32-bit indexing")
     dh = torch.empty((N, H), device=dev, dtype=torch.float32)
     dx0 = torch.empty((N, M), device=dev, dtype=torch.float32)
     part = dx0 if splits == 1 else torch.empty((splits, N, M), device=dev, dtype=torch.float32)
     wp = torch.empty((O, H * mp), device=dev, dtype=torch.float32)  # W, groups padded to mp
-    _launch("cin_bwd", "cin_bwd_dx", dev, g.data_ptr(), W.data_ptr(), wp.data_ptr(),
+    _launch("cin_bwd", fn, dev, g.data_ptr(), W.data_ptr(), wp.data_ptr(),
             h_rows.data_ptr(), h_rows.stride(0), x0_rows.data_ptr(), dh.data_ptr(),
             part.data_ptr(), N, H, M, O, mp, splits, per)
     if splits > 1:
         _sum_slices(part, dx0)
-    cin_rows_backward.launches += 1
+    wrapper.launches += 1
     return dh, dx0
+
+
+def cin_rows_backward(g, h_rows, x0_rows, W):
+    """The ``cin_bwd_dx`` kernel: same contract as
+    :func:`cin_rows_backward_reference` on CUDA fp32 tensors, in 3xTF32 on
+    the tensor cores; ``g`` must be contiguous and M at most
+    ``FUSED_MAX_M``."""
+    return _backward_dx(cin_rows_backward, "cin_bwd_dx", g, h_rows, x0_rows, W)
+
+
+def cin_rows_backward_bf16(g, h_rows, x0_rows, W):
+    """The bf16 mode's ``cin_bwd_dx_bf16`` kernel: same contract as
+    :func:`cin_rows_backward_reference_bf16` on CUDA fp32 tensors (g and W
+    rounded inside), on ``mma.sync`` m16n8k16 bf16; ``g`` contiguous, M at
+    most ``FUSED_MAX_M``."""
+    return _backward_dx(cin_rows_backward_bf16, "cin_bwd_dx_bf16", g, h_rows, x0_rows, W)
 
 
 def cin_rows_dw(g, h_rows, x0_rows):
@@ -288,5 +354,7 @@ def cin_rows_dw(g, h_rows, x0_rows):
 
 
 cin_rows_forward.launches = 0
+cin_rows_forward_bf16.launches = 0
 cin_rows_backward.launches = 0
+cin_rows_backward_bf16.launches = 0
 cin_rows_dw.launches = 0

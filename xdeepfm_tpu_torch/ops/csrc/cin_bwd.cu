@@ -78,6 +78,20 @@
 // partials instead and dW keeps the parameter's own [O, H*M] layout.  Ragged
 // N, H, M and O edges are masked, not padded.  Each kernel's error against
 // float64 is held to twice the plain fp32 version's in chip_smoke.py.
+//
+// The bf16 mode (cin_bwd_dx_bf16; cin_pallas.set_cin_precision("bf16")):
+// the TPU kernel's fused backward cast only g^T and W^T to bf16
+// (cin_pallas.py:226-241), so Z = g W sums exact bf16 products in fp32 and
+// dh, dx0 take the unrounded fp32 h and x0.  The same kernel, templated on
+// the precision, stages g and W in fp32 as before, rounds each pair to bf16
+// as it loads the fragments (cvt.rn.bf16x2) and runs one mma.sync m16n8k16
+// bf16 a k16 step (a third of the TF32 route's MMAs at twice the depth),
+// each step's product added to Z in fp32; the epilogue is the fp32 one.
+// dW needs no kernel of its own: the TPU kernel formed it from the bf16
+// g^T and the fp32 outer product, so the wrapper hands cin_dw g rounded to
+// bf16 (and stored as fp32); the legacy backward's dW (_dw_contract) stays
+// fp32 on the raw g.  Bound: operations, 2*N*H*M*O at 989 TFLOP/s (bf16
+// tensor cores, H100 SXM): 0.050 ms the train batch's two launches.
 
 #include <stdint.h>
 
@@ -135,7 +149,7 @@ __global__ void cin_pad_w_kernel(const float* __restrict__ w, float* __restrict_
 
 // grid (row tiles of 128, splits of the chunks); wp from cin_pad_w_kernel;
 // dx0 [splits][N][M]
-template <int MP>
+template <int MP, bool BF16>
 __global__ void __launch_bounds__(dx::THREADS, 1)
 cin_bwd_dx_kernel(const float* __restrict__ g, const float* __restrict__ wp,
                   const float* __restrict__ h, int ldh, const float* __restrict__ x0,
@@ -246,7 +260,31 @@ cin_bwd_dx_kernel(const float* __restrict__ g, const float* __restrict__ wp,
     const float* gs = ring + (j % STAGES) * STAGE;
     const float* ws = gs + BR * LDG;
     // a warp whose columns are all padding (past H) skips its products
-    if (q * GPC + wc / MP < H) {
+    if (BF16 && q * GPC + wc / MP < H) {
+      // g and W rounded to bf16 as the fragments are loaded, one m16n8k16
+      // product a k16 step, added to Z in fp32
+#pragma unroll
+      for (int kk = 0; kk < OC; kk += 16) {
+        uint32_t a[MT][4];
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          const int a0 = (wr + 16 * i + group) * LDG + kk + 2 * tig;
+          const int a1 = a0 + 8 * LDG;
+          a[i][0] = tc::bf16x2(gs[a0], gs[a0 + 1]);
+          a[i][1] = tc::bf16x2(gs[a1], gs[a1 + 1]);
+          a[i][2] = tc::bf16x2(gs[a0 + 8], gs[a0 + 9]);
+          a[i][3] = tc::bf16x2(gs[a1 + 8], gs[a1 + 9]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int b0 = (kk + 2 * tig) * LDW + wc + 8 * nt + group;
+          const uint32_t b[2] = {tc::bf16x2(ws[b0], ws[b0 + LDW]),
+                                 tc::bf16x2(ws[b0 + 8 * LDW], ws[b0 + 9 * LDW])};
+#pragma unroll
+          for (int i = 0; i < MT; ++i) tc::mma_bf16_add(acc[i][nt], a[i], b);
+        }
+      }
+    } else if (!BF16 && q * GPC + wc / MP < H) {
 #pragma unroll
       for (int kk = 0; kk < OC; kk += 8) {
         uint32_t ab[MT][4], as[MT][4];
@@ -605,13 +643,13 @@ __global__ void cin_sum_slices_kernel(const float* __restrict__ part, int slices
   }
 }
 
-template <int MP>
+template <int MP, bool BF16>
 int launch_dx(const float* g, const float* w, float* wp, const float* h, int ldh,
               const float* x0, float* dh, float* dx0, int N, int H, int M, int O, int splits,
               int chunks_per_split, cudaStream_t stream) {
   constexpr int smem = dx_smem_floats<MP>() * 4;
   cudaError_t err = cudaFuncSetAttribute(
-      cin_bwd_dx_kernel<MP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      cin_bwd_dx_kernel<MP, BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   int mp = MP;
   long long n = (long long)O * H * MP;
@@ -623,10 +661,41 @@ int launch_dx(const float* g, const float* w, float* wp, const float* h, int ldh
   const float* wpc = wp;
   const dim3 grid((N + dx::BR - 1) / dx::BR, splits);
   void* args[] = {&g, &wpc, &h, &ldh, &x0, &dh, &dx0, &N, &H, &M, &O, &chunks_per_split};
-  err = cudaLaunchKernel(cin_bwd_dx_kernel<MP>, grid, dim3(dx::THREADS), args,
+  err = cudaLaunchKernel(cin_bwd_dx_kernel<MP, BF16>, grid, dim3(dx::THREADS), args,
                          static_cast<size_t>(smem), stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// cin_bwd_dx's launch at the group width mp (8, 16, 32 or 64)
+template <bool BF16>
+int dispatch_dx(const void* g, const void* w, void* wp, const void* h, int ldh, const void* x0,
+                void* dh, void* dx0, int N, int H, int M, int O, int mp, int splits,
+                int chunks_per_split, void* stream) {
+  auto G = static_cast<const float*>(g);
+  auto W = static_cast<const float*>(w);
+  auto WP = static_cast<float*>(wp);
+  auto Hr = static_cast<const float*>(h);
+  auto X0 = static_cast<const float*>(x0);
+  auto DH = static_cast<float*>(dh);
+  auto DX0 = static_cast<float*>(dx0);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (mp) {
+    case 8:
+      return launch_dx<8, BF16>(G, W, WP, Hr, ldh, X0, DH, DX0, N, H, M, O, splits,
+                                chunks_per_split, st);
+    case 16:
+      return launch_dx<16, BF16>(G, W, WP, Hr, ldh, X0, DH, DX0, N, H, M, O, splits,
+                                 chunks_per_split, st);
+    case 32:
+      return launch_dx<32, BF16>(G, W, WP, Hr, ldh, X0, DH, DX0, N, H, M, O, splits,
+                                 chunks_per_split, st);
+    case 64:
+      return launch_dx<64, BF16>(G, W, WP, Hr, ldh, X0, DH, DX0, N, H, M, O, splits,
+                                 chunks_per_split, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -646,30 +715,18 @@ extern "C" {
 int cin_bwd_dx(const void* g, const void* w, void* wp, const void* h, int ldh,
                const void* x0, void* dh, void* dx0, int N, int H, int M,
                int O, int mp, int splits, int chunks_per_split, void* stream) {
-  auto G = static_cast<const float*>(g);
-  auto W = static_cast<const float*>(w);
-  auto WP = static_cast<float*>(wp);
-  auto Hr = static_cast<const float*>(h);
-  auto X0 = static_cast<const float*>(x0);
-  auto DH = static_cast<float*>(dh);
-  auto DX0 = static_cast<float*>(dx0);
-  auto st = static_cast<cudaStream_t>(stream);
-  switch (mp) {
-    case 8:
-      return launch_dx<8>(G, W, WP, Hr, ldh, X0, DH, DX0, N, H, M, O, splits, chunks_per_split,
-                          st);
-    case 16:
-      return launch_dx<16>(G, W, WP, Hr, ldh, X0, DH, DX0, N, H, M, O, splits, chunks_per_split,
-                           st);
-    case 32:
-      return launch_dx<32>(G, W, WP, Hr, ldh, X0, DH, DX0, N, H, M, O, splits, chunks_per_split,
-                           st);
-    case 64:
-      return launch_dx<64>(G, W, WP, Hr, ldh, X0, DH, DX0, N, H, M, O, splits, chunks_per_split,
-                           st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch_dx<false>(g, w, wp, h, ldh, x0, dh, dx0, N, H, M, O, mp, splits,
+                            chunks_per_split, stream);
+}
+
+// The bf16 mode's cin_bwd_dx: the same contract, Z = g W from g and W
+// rounded to bf16 (cin_pallas.py:226: the TPU kernel's g^T and W^T in
+// bf16), dh and dx0 from the fp32 h and x0.
+int cin_bwd_dx_bf16(const void* g, const void* w, void* wp, const void* h, int ldh,
+                    const void* x0, void* dh, void* dx0, int N, int H, int M,
+                    int O, int mp, int splits, int chunks_per_split, void* stream) {
+  return dispatch_dx<true>(g, w, wp, h, ldh, x0, dh, dx0, N, H, M, O, mp, splits,
+                           chunks_per_split, stream);
 }
 
 // part [slices, O, H*M]: slice s sums rows [s * rows_per_slice, ...),

@@ -28,7 +28,7 @@
 //     memory once a row tile, and splits it once into TF32 halves: about
 //     20 instructions a k8 step against three m64n128k8 wgmmas, 192 clocks
 //     of the SM's tensor cores (the padding costs 23% more MMAs at H = 26).
-//   * B = W, split once a launch by a first kernel (cin_fwd_split_w) into
+//   * B = W, split once a launch by a first kernel (cin_fwd_stage_w) into
 //     its TF32 halves and written in (k', column) order, zero-padded, tile
 //     by tile in the exact layout of one shared-memory stage: 8 x 4 core
 //     matrices of 128 bytes, unswizzled.  A stage (KC k' x 128 columns, big
@@ -70,6 +70,27 @@
 // products, and H chunks across a sequential grid axis, in its VMEM
 // output block; its k order is this kernel's, and its H chunks are the
 // wrapper's h blocks.
+//
+// The bf16 mode (cin_fwd_bf16; cin_pallas.set_cin_precision("bf16"),
+// cin_pallas.py:353-366): the TPU kernel cast h, x0 and W to bf16 and
+// formed z = h x0 in bf16, so z is rounded once; its dot with W summed in
+// fp32.  Here the same kernel, templated on the precision, runs one
+// m64n128k16 bf16 wgmma a k16 step instead of three m64n128k8 TF32 ones:
+//   * each consumer rounds its staged h and x0 rows to bf16 in place once a
+//     row tile; a thread forms its A values z = h x0 in fp32 (exact: two
+//     bf16 values' product fits in fp32) and rounds each to bf16 as it
+//     packs them in pairs (cvt.rn.bf16x2), A's 16-bit layout: k' columns
+//     2 tig, 2 tig + 1, 2 tig + 8, 2 tig + 9 of a k16 step, so H is padded
+//     to a multiple of 16 (a k16 step keeps one m) and the staged h pitch
+//     is 8 mod 32 (a quad's pairs fall in distinct banks);
+//   * W is rounded to bf16 once a launch by the same first kernel, into
+//     the stages' K-major layout of 8 x 8 bf16 core matrices (16 bytes a
+//     row, as TF32's 8 x 4), so a stage is half the TF32 one's bytes at
+//     twice its k' (KC 32: two k16 steps a chunk);
+//   * the long-sum rule stays: each KC chunk summed in the tensor core from
+//     zero, then added to the fp32 register sum.
+// Bound: operations, 2*N*H*M*O at the bf16 tensor-core rate (989 TFLOP/s on
+// the H100 SXM): 0.050 ms for the train batch's two launches.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -89,24 +110,39 @@ constexpr int BN = 128;          // columns of a tile: one m64n128k8 wgmma
 constexpr int HMAX = 128;        // padded h columns one launch takes
 constexpr int MAX_STAGES = 4;
 constexpr int MAX_SPLITS = 4;       // K parts of a tail tile
-// k' summed in the tensor cores before each fp32 add.  At the serving and
-// train layer-1 shapes (K 3328; an NVIDIA H100 80GB HBM3 at 700 W, by a
-// chunk sweep since removed) KC 8, 16 and 32 all passed the float64 gate
-// with margin (errors 0.43x / 0.29x / 0.24x the plain fp32 version's at
-// serving, 1.14x / 0.99x / 0.73x at train); KC 16 ran 0.003-0.022 ms (1-3%)
-// a launch faster than 32 and a third faster than 8, so it is taken over
-// the longest chunk that passes.
-constexpr int KC = 16;
 constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory one Hopper block may take
 
+// What the two precisions change.  KC: k' summed in the tensor cores
+// before each fp32 add.  At the serving and train layer-1 shapes (K 3328;
+// an NVIDIA H100 80GB HBM3 at 700 W, by a chunk sweep since removed) TF32's
+// KC 8, 16 and 32 all passed the float64 gate with margin (errors 0.43x /
+// 0.29x / 0.24x the plain fp32 version's at serving, 1.14x / 0.99x / 0.73x
+// at train); KC 16 ran 0.003-0.022 ms (1-3%) a launch faster than 32 and a
+// third faster than 8, so it is taken over the longest chunk that passes.
+// bf16 takes KC 32: two k16 steps, a stage of the same 16-byte core
+// matrices as TF32's KC 16.
+template <bool BF16>
+struct Prec;
+template <>
+struct Prec<false> {  // 3xTF32: m64n128k8 tf32, W's big and small halves
+  static constexpr int KC = 16, KSTEP = 8, HALIGN = 8, HS_MOD = 4;
+  static constexpr int STAGE = 2 * BN * KC;  // floats of a stage
+};
+template <>
+struct Prec<true> {  // bf16: m64n128k16, W in bf16 (two a float)
+  static constexpr int KC = 32, KSTEP = 16, HALIGN = 16, HS_MOD = 8;
+  static constexpr int STAGE = BN * KC / 2;
+};
+
 // The launch's plan, the same on the host and the device.
+template <bool BF16>
 struct Plan {
-  int Hp;      // h columns padded to a multiple of 8
-  int HS;      // staged h row pitch: 4 mod 32 floats, so a warp's fragment loads miss no bank
+  int Hp;      // h columns padded to a multiple of KSTEP (one m a k step)
+  int HS;      // staged h row pitch: HS_MOD mod 32 floats, so a warp's fragment loads miss no bank
   int nch;     // chunks of KC k' over the padded K = M * Hp
   int MPAD;    // staged x0 columns: every m the chunks reach, zero past M
   int XS;      // staged x0 row pitch, odd
-  int stage;   // floats of one ring stage (W's big and small halves)
+  int stage;   // floats of one ring stage (W's big and small halves, or W in bf16)
   int stages;  // ring stages (0: the rows do not fit)
   int bytes;   // dynamic shared memory
   // Tiles: RT of BM rows, each over every column tile.  The first `whole`
@@ -116,12 +152,13 @@ struct Plan {
   int RT, whole, splits, blocks;
 
   __host__ __device__ Plan(int N, int H, int M, int grid) {
-    Hp = (H + 7) / 8 * 8;
-    HS = Hp + ((36 - Hp % 32) % 32);
-    nch = (M * Hp + KC - 1) / KC;
-    MPAD = (nch * KC + Hp - 1) / Hp;
+    using P = Prec<BF16>;
+    Hp = (H + P::HALIGN - 1) / P::HALIGN * P::HALIGN;
+    HS = Hp + ((32 + P::HS_MOD - Hp % 32) % 32);
+    nch = (M * Hp + P::KC - 1) / P::KC;
+    MPAD = (nch * P::KC + Hp - 1) / Hp;
     XS = MPAD | 1;
-    stage = 2 * BN * KC;
+    stage = P::STAGE;
     const int rows = BM * (HS + XS) * 4 + 2 * MAX_STAGES * 8;
     stages = (SMEM_LIMIT - rows) / (stage * 4);
     if (stages > MAX_STAGES) stages = MAX_STAGES;
@@ -141,39 +178,56 @@ struct Plan {
   }
 };
 
-// W [O, ldw] (k = h*M + m, columns h0 + [0, H)) into wsp: for each column
-// tile ct and chunk ch, the big then the small TF32 halves of the stage's
-// KC x BN block, element (n, kk) at ((n / 8) (KC / 4) + kk / 4) 32 +
-// (n % 8) 4 + kk % 4, k' = ch KC + kk = m Hp + h; zero past O, M and H.
-__global__ void cin_fwd_split_w(const float* __restrict__ w, int ldw, int h0, int H, int M,
+// W [O, ldw] (k = h*M + m, columns h0 + [0, H)), element (n, k' = ch KC +
+// kk = m Hp + h) of column tile ct, chunk ch; zero past O, M and H.
+__device__ __forceinline__ float w_at(const float* __restrict__ w, int ldw, int h0, int H, int M,
+                                      int O, int Hp, int ct, int n, int kp) {
+  const int m = kp / Hp, hh = kp - m * Hp, o = ct * BN + n;
+  return (o < O && m < M && hh < H)
+             ? __ldg(w + static_cast<long long>(o) * ldw + (h0 + hh) * M + m)
+             : 0.f;
+}
+
+// W into wsp stage by stage (for each column tile ct and chunk ch, one
+// stage's KC x BN block).  TF32: the big then the small TF32 halves,
+// element (n, kk) at ((n / 8) (KC / 4) + kk / 4) 32 + (n % 8) 4 + kk % 4.
+// bf16: W rounded to bf16 (nearest even), element (n, kk) at 16-bit slot
+// ((n / 8) (KC / 8) + kk / 8) 64 + (n % 8) 8 + kk % 8, two to a word.
+template <bool BF16>
+__global__ void cin_fwd_stage_w(const float* __restrict__ w, int ldw, int h0, int H, int M,
                                 int O, int Hp, int nch, int ct_count,
                                 uint32_t* __restrict__ wsp) {
-  constexpr int TILE = BN * KC;
-  const long long total = static_cast<long long>(ct_count) * nch * TILE;
+  constexpr int KC = Prec<BF16>::KC, TILE = BN * KC;
+  constexpr int WORDS = BF16 ? TILE / 2 : TILE;  // a thread's items of a tile
+  const long long total = static_cast<long long>(ct_count) * nch * WORDS;
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < total;
        i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int e = static_cast<int>(i % TILE);
-    const long long blk = i / TILE;  // ct * nch + ch
+    const int e = static_cast<int>(i % WORDS);
+    const long long blk = i / WORDS;  // ct * nch + ch
     const int ch = static_cast<int>(blk % nch), ct = static_cast<int>(blk / nch);
-    const int cm = e / 32, in = e % 32;
-    const int n = (cm / (KC / 4)) * 8 + in / 4;
-    const int kp = ch * KC + (cm % (KC / 4)) * 4 + in % 4;
-    const int m = kp / Hp, hh = kp - m * Hp, o = ct * BN + n;
-    const float x = (o < O && m < M && hh < H) ? __ldg(w + static_cast<long long>(o) * ldw +
-                                                       (h0 + hh) * M + m)
-                                               : 0.f;
-    uint32_t big, small;
-    tc::split(x, big, small);
-    wsp[blk * 2 * TILE + e] = big;
-    wsp[blk * 2 * TILE + TILE + e] = small;
+    if constexpr (BF16) {  // the 16-bit slots 2e (low half) and 2e + 1
+      const int cm = e / 32, in = 2 * (e % 32);
+      const int n = (cm / (KC / 8)) * 8 + in / 8;
+      const int kp = ch * KC + (cm % (KC / 8)) * 8 + in % 8;
+      wsp[blk * WORDS + e] = tc::bf16x2(w_at(w, ldw, h0, H, M, O, Hp, ct, n, kp),
+                                        w_at(w, ldw, h0, H, M, O, Hp, ct, n, kp + 1));
+    } else {
+      const int cm = e / 32, in = e % 32;
+      const int n = (cm / (KC / 4)) * 8 + in / 4;
+      const int kp = ch * KC + (cm % (KC / 4)) * 4 + in % 4;
+      uint32_t big, small;
+      tc::split(w_at(w, ldw, h0, H, M, O, Hp, ct, n, kp), big, small);
+      wsp[blk * 2 * TILE + e] = big;
+      wsp[blk * 2 * TILE + TILE + e] = small;
+    }
   }
 }
 
 // The block's work: whole tiles blockIdx.x + i gridDim.x below plan.whole,
 // then, where the tail is split, part blockIdx.x of the split tiles.
 // fn(rt, first chunk, end chunk, part or -1).
-template <class Fn>
-__device__ __forceinline__ void for_each_item(const Plan& plan, Fn fn) {
+template <bool BF16, class Fn>
+__device__ __forceinline__ void for_each_item(const Plan<BF16>& plan, Fn fn) {
   for (int rt = blockIdx.x; rt < plan.whole; rt += gridDim.x) fn(rt, 0, plan.nch, -1);
   if (plan.splits > 1 && static_cast<int>(blockIdx.x) < (plan.RT - plan.whole) * plan.splits) {
     const int rt = plan.whole + blockIdx.x / plan.splits, p = blockIdx.x % plan.splits;
@@ -184,13 +238,14 @@ __device__ __forceinline__ void for_each_item(const Plan& plan, Fn fn) {
 // One launch over an h block of H <= HMAX columns.  acc: add into out (a
 // later h block) instead of writing out + b.  Split tiles write their parts'
 // sums to part [splits][tail rows][O] instead.
+template <bool BF16>
 __global__ void __launch_bounds__(THREADS, 1)
 cin_fwd_kernel(const float* __restrict__ h, int ldh, const float* __restrict__ x0,
                const uint32_t* __restrict__ wsp, const float* __restrict__ bias,
                float* __restrict__ out, float* __restrict__ part, int N, int H, int M, int O,
                int acc, int grid) {
-  constexpr int KS = KC / 8;
-  const Plan plan(N, H, M, grid);
+  constexpr int KC = Prec<BF16>::KC, KSTEP = Prec<BF16>::KSTEP, KS = KC / KSTEP;
+  const Plan<BF16> plan(N, H, M, grid);
   const int CT = (O + BN - 1) / BN;
   float* ring = cin_smem;
   float* hs_all = ring + plan.stages * plan.stage;
@@ -257,27 +312,49 @@ cin_fwd_kernel(const float* __restrict__ h, int ldh, const float* __restrict__ x
       tc::cp_async_commit();
       tc::cp_async_wait<0>();
       tc::named_sync(1 + c, WG);
+      if constexpr (BF16) {  // the rows' operands rounded to bf16, as the TPU kernel cast them
+        for (int e = t; e < R * plan.Hp; e += WG) {
+          float& v = hs[(e / plan.Hp) * plan.HS + e % plan.Hp];
+          v = tc::bf16_round(v);
+        }
+        for (int e = t; e < R * plan.MPAD; e += WG) {
+          float& v = xs[(e / plan.MPAD) * plan.XS + e % plan.MPAD];
+          v = tc::bf16_round(v);
+        }
+        tc::named_sync(1 + c, WG);
+      }
 
       const int r0 = 16 * warp + g;  // this thread's rows r0 and r0 + 8
       for (int ct = 0; ct < CT; ++ct) {
         float sum[BN / 2];
 #pragma unroll
         for (int i = 0; i < BN / 2; ++i) sum[i] = 0.f;
-        // k' = m Hp + hh of the next k8 step
+        // k' = m Hp + hh of the next k step
         int m = c0 * KC / plan.Hp, hh = c0 * KC - m * plan.Hp;
         for (int ch = c0; ch < c1; ++ch, ++it) {
-          // this chunk's A fragments: z = h x0 at rows r0 and r0 + 8, k'
-          // columns tig and tig + 4 of each k8 step, split into TF32 halves
+          // this chunk's A fragments: z = h x0 at rows r0 and r0 + 8; TF32:
+          // k' columns tig and tig + 4 of each k8 step, split into TF32
+          // halves; bf16: columns 2 tig, 2 tig + 1, 2 tig + 8 and 2 tig + 9
+          // of each k16 step, rounded to bf16 in pairs (low half first)
           uint32_t ab[KS][4], as[KS][4];
 #pragma unroll
           for (int j = 0; j < KS; ++j) {
-            const float* hr = hs + r0 * plan.HS + hh + tig;
             const float xa = xs[r0 * plan.XS + m], xb = xs[(r0 + 8) * plan.XS + m];
-            const float z[4] = {hr[0] * xa, hr[8 * plan.HS] * xb, hr[4] * xa,
-                                hr[8 * plan.HS + 4] * xb};
+            if constexpr (BF16) {
+              const float* hr = hs + r0 * plan.HS + hh + 2 * tig;
+              const float* hq = hr + 8 * plan.HS;
+              ab[j][0] = tc::bf16x2(hr[0] * xa, hr[1] * xa);
+              ab[j][1] = tc::bf16x2(hq[0] * xb, hq[1] * xb);
+              ab[j][2] = tc::bf16x2(hr[8] * xa, hr[9] * xa);
+              ab[j][3] = tc::bf16x2(hq[8] * xb, hq[9] * xb);
+            } else {
+              const float* hr = hs + r0 * plan.HS + hh + tig;
+              const float z[4] = {hr[0] * xa, hr[8 * plan.HS] * xb, hr[4] * xa,
+                                  hr[8 * plan.HS + 4] * xb};
 #pragma unroll
-            for (int q = 0; q < 4; ++q) tc::split(z[q], ab[j][q], as[j][q]);
-            hh += 8;
+              for (int q = 0; q < 4; ++q) tc::split(z[q], ab[j][q], as[j][q]);
+            }
+            hh += KSTEP;
             if (hh == plan.Hp) {
               hh = 0;
               ++m;
@@ -291,14 +368,19 @@ cin_fwd_kernel(const float* __restrict__ h, int ldh, const float* __restrict__ x
           tc::wgmma_fence();
 #pragma unroll
           for (int j = 0; j < KS; ++j) {
-            // k8 step j: core matrices 2j and 2j + 1 along K (LBO 128 bytes),
-            // 8-column groups KC / 4 core matrices apart (SBO); small terms
-            // first, the chunk's first product from zero (scale-d 0)
-            const uint64_t db = tc::wgmma_desc(sb + 256 * j, 128, 32 * KC);
-            const uint64_t ds = tc::wgmma_desc(sb + BN * KC * 4 + 256 * j, 128, 32 * KC);
-            tc::wgmma<BN>(d, as[j], db, j > 0);
-            tc::wgmma<BN>(d, ab[j], ds, 1);
-            tc::wgmma<BN>(d, ab[j], db, 1);
+            // k step j: core matrices 2j and 2j + 1 along K (LBO 128 bytes),
+            // 8-column groups a row of the stage's core matrices apart
+            // (SBO); the chunk's first product from zero (scale-d 0)
+            if constexpr (BF16) {
+              tc::wgmma_bf16<BN>(d, ab[j], tc::wgmma_desc(sb + 256 * j, 128, 16 * KC), j > 0);
+            } else {
+              // small terms first
+              const uint64_t db = tc::wgmma_desc(sb + 256 * j, 128, 32 * KC);
+              const uint64_t ds = tc::wgmma_desc(sb + BN * KC * 4 + 256 * j, 128, 32 * KC);
+              tc::wgmma<BN>(d, as[j], db, j > 0);
+              tc::wgmma<BN>(d, ab[j], ds, 1);
+              tc::wgmma<BN>(d, ab[j], db, 1);
+            }
           }
           tc::wgmma_commit();
           tc::wgmma_wait<0>();
@@ -342,19 +424,58 @@ __global__ void cin_fwd_sum_parts(const float* __restrict__ part, int splits, in
   }
 }
 
+template <bool BF16>
+int scratch_floats(int N, int H, int M, int O, int grid) {
+  const Plan<BF16> plan(N, H, M, grid);
+  const long long n = static_cast<long long>((O + BN - 1) / BN) * plan.nch * plan.stage +
+                      plan.splits * plan.part_size(N, O);
+  return plan.stages < 2 || n > 0x7fffffff ? -1 : static_cast<int>(n);
+}
+
+template <bool BF16>
+int launch(const void* h, int ldh, const void* x0, const void* w, int ldw, int h0,
+           const void* bias, void* scratch, void* out, int N, int H, int M, int O, int acc,
+           int grid, void* stream) {
+  if (H < 1 || H > HMAX) return static_cast<int>(cudaErrorInvalidValue);
+  const Plan<BF16> plan(N, H, M, grid);
+  if (plan.stages < 2) return static_cast<int>(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  int CT = (O + BN - 1) / BN, Hp = plan.Hp, nch = plan.nch;
+  const long long wfloats = static_cast<long long>(CT) * plan.nch * plan.stage;
+  void* part = static_cast<float*>(scratch) + wfloats;
+  const int sblocks = static_cast<int>(wfloats / 512 + 1 < 2048 ? wfloats / 512 + 1 : 2048);
+  void* sargs[] = {&w, &ldw, &h0, &H, &M, &O, &Hp, &nch, &CT, &scratch};
+  cudaError_t err =
+      cudaLaunchKernel(cin_fwd_stage_w<BF16>, dim3(sblocks), dim3(256), sargs, 0, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(cin_fwd_kernel<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             plan.bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* args[] = {&h, &ldh, &x0, &scratch, &bias, &out, &part, &N, &H, &M, &O, &acc, &grid};
+  err = cudaLaunchKernel(cin_fwd_kernel<BF16>, dim3(plan.blocks), dim3(THREADS), args,
+                         static_cast<size_t>(plan.bytes), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (plan.splits > 1) {
+    int splits = plan.splits, n = static_cast<int>(plan.part_size(N, O));
+    void* tail = static_cast<float*>(out) + static_cast<long long>(plan.whole) * BM * O;
+    void* pargs[] = {&part, &splits, &n, &O, &bias, &tail, &acc};
+    err = cudaLaunchKernel(cin_fwd_sum_parts, dim3(n / 256 + 1 < 1024 ? n / 256 + 1 : 1024),
+                           dim3(256), pargs, 0, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
-// Floats of the scratch (the split W, then the split tiles' parts) that
+// Floats of the scratch (the staged W, then the split tiles' parts) that
 // cin_fwd needs for one h block of H <= 128 columns on `grid` persistent
 // blocks, or -1 where the shared memory cannot hold its rows (or the
 // scratch passes 2^31 floats).
 int cin_fwd_scratch_floats(int N, int H, int M, int O, int grid) {
-  const Plan plan(N, H, M, grid);
-  const long long n = static_cast<long long>((O + BN - 1) / BN) * plan.nch * plan.stage +
-                      plan.splits * plan.part_size(N, O);
-  return plan.stages < 2 || n > 0x7fffffff ? -1 : static_cast<int>(n);
+  return scratch_floats<false>(N, H, M, O, grid);
 }
 
 // Launches the split of W, the contraction and, where the tail is split,
@@ -367,33 +488,21 @@ int cin_fwd_scratch_floats(int N, int H, int M, int O, int grid) {
 int cin_fwd(const void* h, int ldh, const void* x0, const void* w, int ldw, int h0,
             const void* bias, void* scratch, void* out, int N, int H, int M, int O, int acc,
             int grid, void* stream) {
-  if (H < 1 || H > HMAX) return static_cast<int>(cudaErrorInvalidValue);
-  const Plan plan(N, H, M, grid);
-  if (plan.stages < 2) return static_cast<int>(cudaErrorInvalidValue);
-  auto st = static_cast<cudaStream_t>(stream);
-  int CT = (O + BN - 1) / BN, Hp = plan.Hp, nch = plan.nch;
-  const long long wfloats = static_cast<long long>(CT) * plan.nch * plan.stage;
-  void* part = static_cast<float*>(scratch) + wfloats;
-  const int sblocks = static_cast<int>(wfloats / 512 + 1 < 2048 ? wfloats / 512 + 1 : 2048);
-  void* sargs[] = {&w, &ldw, &h0, &H, &M, &O, &Hp, &nch, &CT, &scratch};
-  cudaError_t err = cudaLaunchKernel(cin_fwd_split_w, dim3(sblocks), dim3(256), sargs, 0, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(cin_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             plan.bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  void* args[] = {&h, &ldh, &x0, &scratch, &bias, &out, &part, &N, &H, &M, &O, &acc, &grid};
-  err = cudaLaunchKernel(cin_fwd_kernel, dim3(plan.blocks), dim3(THREADS), args,
-                         static_cast<size_t>(plan.bytes), st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (plan.splits > 1) {
-    int splits = plan.splits, n = static_cast<int>(plan.part_size(N, O));
-    void* tail = static_cast<float*>(out) + static_cast<long long>(plan.whole) * BM * O;
-    void* pargs[] = {&part, &splits, &n, &O, &bias, &tail, &acc};
-    err = cudaLaunchKernel(cin_fwd_sum_parts, dim3(n / 256 + 1 < 1024 ? n / 256 + 1 : 1024),
-                           dim3(256), pargs, 0, st);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(h, ldh, x0, w, ldw, h0, bias, scratch, out, N, H, M, O, acc, grid,
+                       stream);
+}
+
+// The bf16 mode's scratch and launch: the same contract on fp32 inputs,
+// rounded to bf16 inside (h, x0, W and each z = h x0), sums in fp32.
+int cin_fwd_bf16_scratch_floats(int N, int H, int M, int O, int grid) {
+  return scratch_floats<true>(N, H, M, O, grid);
+}
+
+int cin_fwd_bf16(const void* h, int ldh, const void* x0, const void* w, int ldw, int h0,
+                 const void* bias, void* scratch, void* out, int N, int H, int M, int O,
+                 int acc, int grid, void* stream) {
+  return launch<true>(h, ldh, x0, w, ldw, h0, bias, scratch, out, N, H, M, O, acc, grid,
+                      stream);
 }
 
 const char* cin_fwd_error_string(int err) {

@@ -40,6 +40,10 @@
 // .ca ones elsewhere), zero-filled past the source's valid bytes, or, for
 // the wgmma kernel, by bulk copies (cp.async.bulk) that complete a
 // transaction count on an mbarrier in shared memory.
+// The CIN's bf16 mode (cin_pallas.set_cin_precision("bf16")) takes the
+// 16-bit forms instead: operands rounded to bf16 in pairs (bf16x2), one
+// mma.sync m16n8k16 or wgmma m64nNk16 bf16 for each product, summed in fp32
+// from zero and added in fp32 by the same rule (mma_bf16_add).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -79,6 +83,27 @@ __device__ __forceinline__ void mma_z(float (&d)[4], const uint32_t (&a)[4],
                                       const uint32_t (&b)[2]) {
   asm volatile(
       "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f));
+}
+
+// cvt.rn.bf16x2.f32: lo and hi rounded to bf16 (nearest, ties to even), lo
+// in the low half, as the 16-bit MMAs read a pair of neighbouring k
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// d = a * b over one m16n8k16 bf16 tile, summed from zero (fp32 products and
+// sums).  Fragments (PTX ISA): A (16 x 16) a0 (group, 2 tig..+1), a1
+// (group + 8, 2 tig..), a2 (group, 2 tig + 8..), a3 (group + 8, 2 tig + 8..);
+// B (16 x 8) b0 (k 2 tig..+1, column group), b1 (k 2 tig + 8..); C as m16n8k8
+__device__ __forceinline__ void mma_bf16_z(float (&d)[4], const uint32_t (&a)[4],
+                                           const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
       : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f));
@@ -217,6 +242,32 @@ __device__ __forceinline__ void wgmma<128>(float (&d)[64], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
 }
 
+// d (= or +=, as acc) a * B over one m64nNk16 bf16 tile: A from the four
+// registers a (bf16 pairs, each warp's 16 rows in the m16n8k16 A layout), B
+// through its descriptor, K-major (trans-b 0), core matrices of 8 rows x 8
+// bf16
+template <int N>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], const uint32_t (&a)[4],
+                                           uint64_t b, int acc);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64], const uint32_t (&a)[4],
+                                                uint64_t b, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : TC_D16(0), TC_D16(16), TC_D16(32), TC_D16(48)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
 #undef TC_D16
 #undef TC_D4
 
@@ -253,6 +304,21 @@ __device__ __forceinline__ void mma3_add(float (&acc)[4], const uint32_t (&ab)[4
     mma(d, ab, bs);
     mma(d, ab, bb);
   }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) acc[q] += d[q];
+}
+
+// x rounded to bf16 (nearest, ties to even), as fp32
+__device__ __forceinline__ float bf16_round(float x) {
+  return __uint_as_float(bf16x2(0.f, x) & 0xffff0000u);
+}
+
+// acc += a * b over one m16n8k16 bf16 tile (a and b bf16 pairs), the
+// product summed from zero and added to acc in fp32, as mma3_add does
+__device__ __forceinline__ void mma_bf16_add(float (&acc)[4], const uint32_t (&a)[4],
+                                             const uint32_t (&b)[2]) {
+  float d[4];
+  mma_bf16_z(d, a, b);
 #pragma unroll
   for (int q = 0; q < 4; ++q) acc[q] += d[q];
 }
