@@ -21,8 +21,10 @@ run in order and any failure raises, so the exit code is non-zero:
    serving shapes) and ``cin_bwd_dx_bf16`` (train shapes) against their
    bf16 plain versions and float64 of the same rounded operands by the same
    gate, bit-equal, beside the plain version, one ``torch.einsum`` on bf16
-   operands, the profiler's device ms of the fp32 kernel at the same shape
-   and the bound at the bf16 tensor-core peak (``cin_bf16_kernel`` lines);
+   operands, the profiler's device ms of the fp32 kernel at the same shape,
+   the bound at the bf16 tensor-core peak, its share and the built variant,
+   and the rounding pass of g (``cin_round_g_bf16``: its fp32 copy bit-equal
+   to ``bf16_round(g)``, bound by its bytes) (``cin_bf16_kernel`` lines);
 4. serving: the canonical xDeepFM (26 sparse fields, vocab 10000, dim 10,
    13 dense, CIN (256, 128) split-half, DNN (256, 256)) with seeded random
    weights scores four requests through ``Scorer(batch_size=8192)``; the CIN
@@ -176,8 +178,9 @@ run in order and any failure raises, so the exit code is non-zero:
    training profile and its busy ms beside the fp32 step's;
    ``cin_bf16_training``: the canonical xDeepFM under
    ``set_cin_precision("bf16")``, ``fit`` for two epochs of 8 steps with 2
-   ``cin_fwd_bf16`` + 2 ``cin_bwd_dx_bf16`` + 2 ``cin_dw`` a step and no
-   fp32 forward or dx launch, one step's gradients under both backward
+   ``cin_fwd_bf16`` + 2 ``cin_round_g_bf16`` + 2 ``cin_bwd_dx_bf16`` + 2
+   ``cin_dw`` a step and no fp32 forward or dx launch, one step's
+   gradients under both backward
    implementations (kernels and plain versions each against float64 in the
    bf16 mode), one SGD step against the CPU model, ms a step and busy share
    beside the fp32 CIN's, then ``Scorer(8192)`` with 2 ``cin_fwd_bf16`` a
@@ -352,6 +355,7 @@ from xdeepfm_tpu_torch.ops.lane_attention_cuda import (
 )
 from xdeepfm_tpu_torch.ops.cin_cuda import (
     FWD_H_BLOCK,
+    bf16_round,
     cin_rows_backward,
     cin_rows_backward_bf16,
     cin_rows_backward_reference,
@@ -362,6 +366,7 @@ from xdeepfm_tpu_torch.ops.cin_cuda import (
     cin_rows_forward_bf16,
     cin_rows_reference,
     cin_rows_reference_bf16,
+    cin_rows_round_g_bf16,
 )
 from xdeepfm_tpu_torch.examples import large_tables, quickstart, sharded_training
 from xdeepfm_tpu_torch.examples import serving as serving_example
@@ -426,6 +431,10 @@ SOURCES = {
     "cin_fwd_bf16": ("xdeepfm_tpu_torch/ops/csrc/cin_fwd.cu", "xdeepfm_tpu/ops/cin_pallas.py:60"),
     "cin_bwd_dx_bf16": ("xdeepfm_tpu_torch/ops/csrc/cin_bwd.cu",
                         "xdeepfm_tpu/ops/cin_pallas.py:174"),
+    # the fused backward's cast of g to bf16 (_bwd_fused_t), once for both
+    # cin_bwd_dx_bf16 and cin_dw
+    "cin_round_g_bf16": ("xdeepfm_tpu_torch/ops/csrc/cin_bwd.cu",
+                         "xdeepfm_tpu/ops/cin_pallas.py:232"),
     "ce_fwd": ("xdeepfm_tpu_torch/ops/csrc/ce_fwd.cu",
                ["xdeepfm_tpu/ops/ce_pallas.py:138", "xdeepfm_tpu/ops/ce_pallas.py:369"]),
     "ce_bwd": ("xdeepfm_tpu_torch/ops/csrc/ce_bwd.cu",
@@ -449,6 +458,7 @@ HEADERS = {
     "cin_dw": ("xdeepfm_tpu_torch/ops/csrc/tc_tf32.cuh",),
     "cin_fwd_bf16": ("xdeepfm_tpu_torch/ops/csrc/tc_tf32.cuh",),
     "cin_bwd_dx_bf16": ("xdeepfm_tpu_torch/ops/csrc/tc_tf32.cuh",),
+    "cin_round_g_bf16": ("xdeepfm_tpu_torch/ops/csrc/tc_tf32.cuh",),
     "ce_fwd": ("xdeepfm_tpu_torch/ops/csrc/ce_tc.cuh", "xdeepfm_tpu_torch/ops/csrc/tc_tf32.cuh"),
     "ce_bwd": ("xdeepfm_tpu_torch/ops/csrc/ce_tc.cuh", "xdeepfm_tpu_torch/ops/csrc/tc_tf32.cuh"),
     "sa_fwd": ("xdeepfm_tpu_torch/ops/csrc/attn_fwd_tc.cuh",),
@@ -467,6 +477,7 @@ HEADERS = {
 WRAPPERS = {
     "cin_fwd": cin_rows_forward, "cin_bwd_dx": cin_rows_backward, "cin_dw": cin_rows_dw,
     "cin_fwd_bf16": cin_rows_forward_bf16, "cin_bwd_dx_bf16": cin_rows_backward_bf16,
+    "cin_round_g_bf16": cin_rows_round_g_bf16,
     "ce_fwd": ce_rows_forward, "ce_bwd": ce_rows_backward,
     "sa_fwd": sa_forward, "sa_bwd": sa_backward, "ab_fwd": ab_forward, "ab_bwd": ab_backward,
     "la_fwd": la_forward, "la_bwd": la_backward, "gru_fwd": gru_forward, "gru_bwd": gru_backward,
@@ -3321,9 +3332,20 @@ def phase_bf16():
 # The bf16 tensor cores' published dense peak at the full power limit (the
 # data sheets' sparse figure halved); first matching name wins, as PEAKS
 BF16_PEAKS = (("H100 PCIe", 756e12), ("H100 NVL", 835e12), ("H200", 989e12), ("H100", 989e12))
-BF16_STEP = dict(cin_fwd_bf16=2, cin_bwd_dx_bf16=2, cin_dw=2)
+BF16_STEP = dict(cin_fwd_bf16=2, cin_round_g_bf16=2, cin_bwd_dx_bf16=2, cin_dw=2)
 BF16_EVAL = dict(cin_fwd_bf16=2)
 BF16_PROFILE_CALLS = 5
+# The variant each bf16 kernel's source builds (its header gives the sweep
+# that chose it)
+BF16_DESIGN = {
+    "cin_fwd_bf16": "wgmma m64n128k16, A by packed products (mul.rn.bf16x2) of bf16-staged "
+                    "h and x0, KC 128 k' a tensor-core sum (halved to 32 where the rows "
+                    "leave no room), one accumulator set",
+    "cin_bwd_dx_bf16": "wgmma m64n128k16, g and W bf16 tiles bulk-copied, SUMK 128 channels "
+                       "a tensor-core sum, up to 8 W stages of 64 channels, two accumulator "
+                       "sets where O fits one sum",
+    "cin_round_g_bf16": "one pass: bf16 row tiles and the fp32 copy for cin_dw",
+}
 # Card against CPU scores in the bf16 mode: the two sides' layer-0 sums
 # differ in order, so a layer-1 h entry that lies on a bf16 rounding
 # boundary rounds to neighbouring values (2^-8 apart) on the two sides; the
@@ -3350,37 +3372,72 @@ def profiled_ms(fn, calls=BF16_PROFILE_CALLS):
 
 def phase_cin_bf16_kernels(peak):
     """``cin_fwd_bf16`` at the train batch's two layers and the scoring
-    batch's, ``cin_bwd_dx_bf16`` at the train layers: each against its bf16
-    plain version (``CIN_TOL``, ``BWD_RTOL``) and against float64 of the
-    same rounded operands (:func:`_f64_gate`, the fp32 gate), bit-equal over
-    two runs; CUDA-event ms beside the plain version's and one
-    ``torch.einsum`` on bf16 operands (the library yardstick); profiler
-    device ms beside the fp32 kernel's at the same shape; the bound at the
-    bf16 tensor-core peak and the memory rate (fp32 operands read once,
-    outputs written once)."""
+    batch's, ``cin_bwd_dx_bf16`` and ``cin_round_g_bf16`` (the rounding pass
+    of g) at the train layers.  The two contractions each against their bf16
+    plain version (``CIN_TOL``, ``BWD_RTOL``; the backward from the raw g,
+    the pass inside) and against float64 of the same rounded operands
+    (:func:`_f64_gate`, the fp32 gate), bit-equal over two runs; CUDA-event
+    ms (the backward's on g already rounded, as the train step runs it, and
+    from the raw g) beside the plain version's and one ``torch.einsum`` on
+    bf16 operands (the library yardstick); profiler device ms beside the fp32
+    kernel's at the same shape; the bound at the bf16 tensor-core peak and
+    the memory rate (fp32 operands read once, outputs written once) and the
+    share of it; the chosen variant (``BF16_DESIGN``).  The rounding pass:
+    its fp32 copy of g bit-equal to ``bf16_round(g)`` (its plain version),
+    both outputs bit-equal over two runs, its ms and device ms beside one
+    ``g.to(torch.bfloat16)`` (the library yardstick), bound by its bytes (g
+    read, its fp32 copy and bf16 tiles written)."""
     _, _, peak_bw, _ = peak
     peak_bf16 = next(p for name, p in BF16_PEAKS if name in peak[0])
     gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
     results = {}
     cases = [("cin_fwd_bf16", s) for s in TRAIN_SHAPES + SERVE_SHAPES] + [
-        ("cin_bwd_dx_bf16", s) for s in TRAIN_SHAPES]
+        (name, s) for s in TRAIN_SHAPES for name in ("cin_bwd_dx_bf16", "cin_round_g_bf16")]
     for name, (label, N, H, M, O, strided) in cases:
         def rand(*shape):
             return torch.randn(shape, generator=gen, device="cuda")
 
         h = rand(N, 2 * H)[:, :H] if strided else rand(N, H)
         x0, W, b, g = rand(N, M), rand(O, H * M), rand(O), rand(N, O)
+        iters = 20 if N > 10_000 else 200
+        if name == "cin_round_g_bf16":
+            got, again = cin_rows_round_g_bf16(g), cin_rows_round_g_bf16(g)
+            torch.cuda.synchronize()
+            if not torch.equal(got.rounded, bf16_round(g)):
+                raise AssertionError(f"{name} at {label}: g's fp32 copy is not bf16_round(g)")
+            if not (torch.equal(got.tiles, again.tiles) and torch.equal(got.rounded,
+                                                                        again.rounded)):
+                raise AssertionError(f"{name} at {label}: two runs differ")
+            del got, again
+            kernel = lambda: cin_rows_round_g_bf16(g)  # noqa: E731
+            kernel_ms, plain_ms, library_ms = (cuda_ms(f, iters) for f in (
+                kernel, lambda: bf16_round(g), lambda: g.to(torch.bfloat16)))
+            nbytes = N * O * (4 + 4 + 2)
+            bound = nbytes / peak_bw * 1e3
+            results[name, label] = dict(
+                N=N, O=O, max_abs_err=0.0, rounded_bit_equal_to_plain=True, bit_equal=True,
+                kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                plain="bf16_round(g): g.to(bfloat16).to(float32), the fp32 copy alone",
+                library="g.to(torch.bfloat16): the rounding alone, no fp32 copy",
+                design=BF16_DESIGN[name],
+                device_ms=profiled_ms(kernel), bound_ms=bound, bound_by="bytes",
+                bound_share=bound / kernel_ms, gflop=0.0, mbytes=nbytes / 1e6)
+            emit(phase="cin_bf16_kernel", kernel=name, shape=label, **results[name, label])
+            continue
         W3b = W.view(O, H, M).bfloat16()
         hb, xb, gb = h.bfloat16(), x0.bfloat16(), g.bfloat16()
         if name == "cin_fwd_bf16":
             kernel = lambda: cin_rows_forward_bf16(h, x0, W, b)  # noqa: E731
+            path = kernel
             plain = lambda: cin_rows_reference_bf16(h, x0, W, b)  # noqa: E731
             fp32 = lambda: cin_rows_forward(h, x0, W, b)  # noqa: E731
             exact = cin_rows_reference_bf16(h.double(), x0.double(), W.double(), b.double())
             library = lambda: torch.einsum("nh,nm,ohm->no", hb, xb, W3b)  # noqa: E731
             nbytes = 4 * (N * H + N * M + O * H * M + O + N * O)
         else:
+            gq = cin_rows_round_g_bf16(g, rounded=False)
             kernel = lambda: torch.cat(cin_rows_backward_bf16(g, h, x0, W), 1)  # noqa: E731
+            path = lambda: cin_rows_backward_bf16(gq, h, x0, W)  # noqa: E731
             plain = lambda: torch.cat(cin_rows_backward_reference_bf16(g, h, x0, W), 1)  # noqa: E731
             fp32 = lambda: cin_rows_backward(g, h, x0, W)  # noqa: E731
             exact = torch.cat(cin_rows_backward_reference_bf16(
@@ -3401,6 +3458,9 @@ def phase_cin_bf16_kernels(peak):
             gates = [_f64_gate(f"{name} {out} at {label}", a, p, e) for out, a, p, e in
                      zip(("dh", "dx0"), got.split((H, M), 1), want.split((H, M), 1),
                          exact.split((H, M), 1))]
+            if not torch.equal(got, torch.cat(path(), 1)):
+                raise AssertionError(f"{name} at {label}: the rounded g's tiles give other "
+                                     "values than the raw g")
         again = kernel()
         bit_equal = bool(torch.equal(got, again))
         if not bit_equal:
@@ -3409,20 +3469,23 @@ def phase_cin_bf16_kernels(peak):
         f32_gap = float((got - (fp32() if name == "cin_fwd_bf16" else torch.cat(fp32(), 1)))
                         .abs().max())
         del got, want, again, exact
-        iters = 20 if N > 10_000 else 200
-        kernel_ms, plain_ms, library_ms = (cuda_ms(f, iters) for f in (kernel, plain, library))
+        kernel_ms, plain_ms, library_ms = (cuda_ms(f, iters) for f in (path, plain, library))
         flops = 2 * N * H * M * O
         by_ops = flops / peak_bf16 >= nbytes / peak_bw
+        bound = max(flops / peak_bf16, nbytes / peak_bw) * 1e3
         results[name, label] = dict(
             N=N, H=H, M=M, O=O, strided_h=strided, max_abs_err=err,
             err_vs_float64=max(e for e, _ in gates), plain_err_vs_float64=max(p for _, p in gates),
             bit_equal=bit_equal, max_abs_diff_vs_fp32_kernel=f32_gap,
             kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+            **({} if name == "cin_fwd_bf16" else {
+                "kernel_ms_from_raw_g": cuda_ms(kernel, iters),
+                "kernel_ms_is": "on g already rounded by cin_round_g_bf16, as the train step"}),
             library="torch.einsum over bf16 h, x0 and W" if name == "cin_fwd_bf16"
             else "torch.einsum over bf16 g, x0 / h and W (dh, dx0)",
-            device_ms=profiled_ms(kernel), fp32_kernel_device_ms=profiled_ms(fp32),
-            bound_ms=max(flops / peak_bf16, nbytes / peak_bw) * 1e3,
-            bound_by="operations" if by_ops else "bytes", peak_bf16_flops=peak_bf16,
+            device_ms=profiled_ms(path), fp32_kernel_device_ms=profiled_ms(fp32),
+            bound_ms=bound, bound_by="operations" if by_ops else "bytes",
+            bound_share=bound / kernel_ms, design=BF16_DESIGN[name], peak_bf16_flops=peak_bf16,
             gflop=flops / 1e9, mbytes=nbytes / 1e6, tflops=flops / kernel_ms / 1e9,
         )
         emit(phase="cin_bf16_kernel", kernel=name, shape=label, **results[name, label])
@@ -3432,10 +3495,11 @@ def phase_cin_bf16_kernels(peak):
 def phase_cin_bf16_training():
     """The canonical xDeepFM at bench.py's width under
     ``set_cin_precision("bf16")``: ``fit`` at batch 4096 with Adam for
-    ZOO_EPOCHS epochs of 8 steps (a validation half batch), 2 + 2 + 2 launches
-    a step (``cin_fwd_bf16``, ``cin_bwd_dx_bf16``, ``cin_dw`` on g rounded to
-    bf16) and no fp32 ``cin_fwd`` or ``cin_bwd_dx``, the loss finite and
-    falling; one step's gradients with the kernels and with the bf16 plain
+    ZOO_EPOCHS epochs of 8 steps (a validation half batch), 2 + 2 + 2 + 2
+    launches a step (``cin_fwd_bf16``, ``cin_round_g_bf16``, whose rounded g
+    feeds both ``cin_bwd_dx_bf16`` and ``cin_dw``) and no fp32 ``cin_fwd``
+    or ``cin_bwd_dx``, the loss finite and falling; one step's gradients
+    with the kernels and with the bf16 plain
     versions under each backward implementation (the legacy one: the bf16
     forward kernel with permuted weights, ``cin_dw`` on the raw g), both
     against a float64 copy in the bf16 mode (as :func:`phase_model_training`
@@ -3620,7 +3684,8 @@ def phase_examples():
             if not (launches["cin_fwd"] > 0 and launches["cin_bwd_dx"] > 0
                     and launches["cin_dw"] > 0):
                 raise AssertionError(f"example {name}: CIN launches {launches}")
-            if launches["cin_fwd_bf16"] or launches["cin_bwd_dx_bf16"]:
+            if launches["cin_fwd_bf16"] or launches["cin_bwd_dx_bf16"] or \
+                    launches["cin_round_g_bf16"]:
                 raise AssertionError(f"example {name}: bf16 launches in the fp32 mode {launches}")
             rec = dict(wall_seconds=wall, examples_trained=trained,
                        examples_per_s=trained / wall, launches=launches)
@@ -4709,26 +4774,31 @@ def main():
             bit_equal=all(r["bit_equal"] for (k, _), r in shapes.items() if k == kname),
         ))
     # rows 1-2's bf16 mode, on its train step (2 launches of each)
-    for kname in ("cin_fwd_bf16", "cin_bwd_dx_bf16"):
+    for kname in ("cin_fwd_bf16", "cin_bwd_dx_bf16", "cin_round_g_bf16"):
         source, replaces = SOURCES[kname]
         path = [bf16_shapes[kname, label] for label, *_ in TRAIN_SHAPES]
-        ops_s = sum(r["gflop"] for r in path) * 1e9 / path[0]["peak_bf16_flops"]
+        rnd = kname == "cin_round_g_bf16"
+        ops_s = 0.0 if rnd else sum(r["gflop"] for r in path) * 1e9 / path[0]["peak_bf16_flops"]
         bytes_s = sum(r["mbytes"] for r in path) * 1e6 / peak[2]
+        ms = sum(r["kernel_ms"] for r in path)
+        bound = sum(r["bound_ms"] for r in path)
         kernels.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces,
             launches=cin_bf16["launches"][kname],
             launches_by_path={p: counts[kname] for p, counts in paths.items()},
             max_abs_err=max(r["max_abs_err"] for (k, _), r in bf16_shapes.items() if k == kname),
-            ms=sum(r["kernel_ms"] for r in path),
-            plain_ms=sum(r["plain_ms"] for r in path),
-            bound_ms=sum(r["bound_ms"] for r in path),
+            ms=ms, plain_ms=sum(r["plain_ms"] for r in path), bound_ms=bound,
             bound_by="operations" if ops_s >= bytes_s else "bytes",
             library_ms=sum(r["library_ms"] for r in path),
-            per="bf16 train step at batch 4096 (2 launches); bound at the bf16 tensor-core peak",
+            bound_share=bound / ms,
+            per="bf16 train step at batch 4096 (2 launches); " + (
+                "bound by g's bytes" if rnd else "bound at the bf16 tensor-core peak"),
             device_ms=_sum_measured(r["device_ms"] for r in path),
-            fp32_kernel_device_ms=_sum_measured(r["fp32_kernel_device_ms"] for r in path),
-            err_vs_float64=max(r["err_vs_float64"] for (k, _), r in bf16_shapes.items()
-                               if k == kname),
+            design=path[0]["design"],
+            **({} if rnd else dict(
+                fp32_kernel_device_ms=_sum_measured(r["fp32_kernel_device_ms"] for r in path),
+                err_vs_float64=max(r["err_vs_float64"] for (k, _), r in bf16_shapes.items()
+                                   if k == kname))),
             bit_equal=all(r["bit_equal"] for (k, _), r in bf16_shapes.items() if k == kname),
         ))
     for kname, kind in (("ce_fwd", "fwd"), ("ce_bwd", "bwd")):

@@ -2,7 +2,7 @@
 
 ``ops/csrc/sa_ablate.cu`` (TPU kernel row 16: ``full``, ``dots`` and
 ``soft``) is compiled with g++ against the stand-in for the CUDA runtime in
-``tests/cuda_emulation.py`` (a block's threads are OS threads,
+``tests/cuda_emulation.py`` (a block's threads are fibers,
 barriers and shuffles are emulated, one block runs at a time).  Each
 variant's output is held against its plain PyTorch version in
 ``ops/attn_ablate_cuda.py`` at ragged and tiny shapes, at S past one

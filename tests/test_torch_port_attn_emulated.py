@@ -3,7 +3,7 @@
 ``ops/csrc/sa_fwd.cu`` and ``sa_bwd.cu`` (rows 8-9) and ``ab_fwd.cu`` and
 ``ab_bwd.cu`` (rows 10-11, with the backward's fixed-order reduce) are
 compiled with g++ against the stand-in for the CUDA runtime in
-``tests/cuda_emulation.py`` (a block's threads are OS threads,
+``tests/cuda_emulation.py`` (a block's threads are fibers,
 barriers and shuffles are emulated, one block runs at a time), and their
 outputs are held against the plain PyTorch versions in
 ``ops/attention_cuda.py`` and ``ops/attn_block_cuda.py``.  This checks the

@@ -3,7 +3,7 @@
 ``ops/csrc/ce_fwd.cu`` and ``ce_bwd.cu`` (both over the logit walk of
 ``ce_tc.cuh``) are compiled with g++ against the stand-in for the CUDA
 runtime and for ``tc_tf32.cuh`` in ``tests/cuda_emulation.py`` (a block's
-threads are OS threads, barriers, shuffles, the warp vote and the
+threads are fibers, barriers, shuffles, the warp vote and the
 tensor-core MMA are emulated, one block runs at a time).  The emulated
 kernels' outputs are held against the plain PyTorch versions in
 ``ops/ce_cuda.py``, and ll and logz against float64 by the gate that

@@ -3,7 +3,7 @@
 ``ops/csrc/cin_bwd.cu`` (``cin_dw`` and ``cin_bwd_dx``, both in 3xTF32 on
 the tensor cores) is compiled with g++ against the stand-in for the CUDA
 runtime and for ``tc_tf32.cuh`` in ``tests/cuda_emulation.py`` (a block's
-threads are OS threads, barriers, shuffles and the m16n8k8 MMA are
+threads are fibers, barriers, shuffles and the m16n8k8 MMA are
 emulated, one block runs at a time).  So is ``ops/csrc/cin_fwd.cu``
 (3xTF32 on the warpgroup MMA, its W ring fed by bulk copies on mbarriers
 between a producer thread and two consumer warpgroups, all emulated) in

@@ -31,8 +31,10 @@ from xdeepfm_tpu_torch.ops.cin_cuda import (
     cin_rows_dw_reference,
     cin_rows_forward,
     cin_rows_forward_bf16,
+    bf16_round,
     cin_rows_reference,
     cin_rows_reference_bf16,
+    cin_rows_round_g_bf16,
 )
 from xdeepfm_tpu_torch.ops.attention_cuda import (
     SMEM_BYTES,
@@ -404,6 +406,48 @@ def test_cin_bf16_kernels_match_plain_and_are_deterministic(card, N, H, M, O, st
         _f64_gate(a, w, ex)
     for a, c in zip(got, cin_rows_backward_bf16(g, h, x0, W)):
         assert torch.equal(a, c)
+
+
+# M at H 128 past the longest chunk's room: 257 (KC 128 with two stages,
+# the edge), 300 (KC 64), 340 (KC 32); the fp32 rows of the earlier staging
+# took M up to about 285
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [257, 300, 340])
+def test_cin_fwd_bf16_takes_wide_x0_in_shorter_chunks(card, M):
+    """``cin_fwd_bf16`` where the staged rows leave no room for two stages
+    of its 128-k' chunk: the plan halves the chunk, and the kernel stays
+    within its plain version and the float64 gate, bit-equal over two runs;
+    M past the plan's room raises."""
+    N, H, O = 301, 128, 20
+    h, x0, W, b = _inputs(M, N, H, M, O)
+    got = cin_rows_forward_bf16(h, x0, W, b)
+    want = cin_rows_reference_bf16(h, x0, W, b)
+    torch.testing.assert_close(got, want, **CIN_TOL)
+    _f64_gate(got, want,
+              cin_rows_reference_bf16(h.double(), x0.double(), W.double(), b.double()))
+    assert torch.equal(got, cin_rows_forward_bf16(h, x0, W, b))
+    h, x0, W, b = _inputs(M, 8, H, 354, O)
+    with pytest.raises(ValueError, match="does not fit"):
+        cin_rows_forward_bf16(h, x0, W, b)
+
+
+# (N, O): layer 0's and layer 1's g at a train batch of 1024, ragged rows, O
+# not a multiple of 8 (the pass's scalar loads), O past 384 (two segments)
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,O", [(10240, 256), (10240, 128), (1001, 7), (700, 33),
+                                 (300, 400)])
+def test_cin_round_g_bf16_is_bf16_round_and_feeds_the_backward(card, N, O):
+    """The bf16 backward's rounding pass: its fp32 copy of g bit-equal to
+    ``bf16_round(g)``, and the backward on its tiles bit-equal to the
+    backward on the raw g (which runs the pass itself)."""
+    g = torch.randn(N, O, generator=torch.Generator().manual_seed(N + O)).cuda()
+    h, x0, W, _ = _inputs(N + O, N, 5, 26, O)
+    before = cin_rows_round_g_bf16.launches
+    gq = cin_rows_round_g_bf16(g)
+    assert cin_rows_round_g_bf16.launches == before + 1
+    assert torch.equal(gq.rounded, bf16_round(g))
+    for a, b in zip(cin_rows_backward_bf16(gq, h, x0, W), cin_rows_backward_bf16(g, h, x0, W)):
+        assert torch.equal(a, b)
 
 
 # (F, B, K, V, pad, num_valid): the Pro step's stacked heads cut to 4 with a

@@ -2,7 +2,7 @@
 
 ``ops/csrc/gru_fwd.cu`` and ``gru_bwd.cu`` (TPU kernel rows 14-15) are
 compiled with g++ against the stand-in for the CUDA runtime in
-``tests/cuda_emulation.py`` (a block's threads are OS threads, barriers are
+``tests/cuda_emulation.py`` (a block's threads are fibers, barriers are
 emulated, ``cp.async`` is a plain copy, one block runs at a time), extended
 by the warp vote ``__reduce_max_sync`` that gives each warp its longest row
 and by ``__fdividef``.

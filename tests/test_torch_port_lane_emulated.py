@@ -3,7 +3,7 @@ emulation.
 
 ``ops/csrc/la_fwd.cu`` and ``la_bwd.cu`` (rows 12-13) are compiled with g++
 against the stand-in for the CUDA runtime in
-``tests/cuda_emulation.py`` (a block's threads are OS threads,
+``tests/cuda_emulation.py`` (a block's threads are fibers,
 ``__syncthreads`` and ``__syncwarp`` are barriers, one block runs at a time),
 and their outputs are held against the plain PyTorch versions in
 ``ops/lane_attention_cuda.py``.  Every case runs at three stride sets, one

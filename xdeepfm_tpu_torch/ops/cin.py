@@ -51,6 +51,7 @@ from .cin_cuda import (
     cin_rows_forward_bf16,
     cin_rows_reference,
     cin_rows_reference_bf16,
+    cin_rows_round_g_bf16,
 )
 
 BACKENDS = ("auto", "xla", "fused", "pallas", "pallas_sm")
@@ -128,9 +129,14 @@ def _backward(g, h_rows, x0_rows, W, kernel: bool, bf16: bool):
     M = x0_rows.shape[1]
     dw = cin_rows_dw if kernel else cin_rows_dw_reference
     if _BWD_IMPL == "fused_t" or (_BWD_IMPL == "auto" and M <= FUSED_MAX_M):
-        dh, dx0 = _backward_dx_fn(kernel, bf16)(g, h_rows, x0_rows, W)
         # the fused TPU kernel's dW multiplied the fp32 outer product by its
-        # bf16 g^T (cin_pallas.py:226, 260): cin_dw on g rounded to bf16
+        # bf16 g^T (cin_pallas.py:226, 260): cin_dw on g rounded to bf16, which
+        # on the card the one rounding pass hands to both kernels
+        if kernel and bf16:
+            gq = cin_rows_round_g_bf16(g)
+            dh, dx0 = _backward_dx_fn(kernel, bf16)(gq, h_rows, x0_rows, W)
+            return dh, dx0, dw(gq.rounded, h_rows, x0_rows)
+        dh, dx0 = _backward_dx_fn(kernel, bf16)(g, h_rows, x0_rows, W)
         return dh, dx0, dw(bf16_round(g) if bf16 else g, h_rows, x0_rows)
     fwd = _forward_fn(kernel, bf16)
     W3 = W.reshape(O, H, M)

@@ -17,13 +17,17 @@ All three kernels run on the tensor cores in 3xTF32
 three products summed, within the plain fp32 version's error of a float64
 result.
 
-The bf16 mode (``cin_pallas.set_cin_precision("bf16")``) has two kernels
-of its own, the same sources templated on the precision:
+The bf16 mode (``cin_pallas.set_cin_precision("bf16")``) has kernels of
+its own, each designed for its precision:
 
 * :func:`cin_rows_forward_bf16` — ``cin_fwd_bf16``: h, x0 and W rounded to
-  bf16, z = bf16(h x0), one bf16 ``wgmma`` a k16 step, sums in fp32;
-* :func:`cin_rows_backward_bf16` — ``cin_bwd_dx_bf16``: Z = g W from g and W
-  rounded to bf16 on ``mma.sync`` m16n8k16, dh and dx0 from the fp32 h, x0.
+  bf16, z = bf16(h x0) by packed products, one bf16 ``wgmma`` a k16 step,
+  sums in fp32;
+* :func:`cin_rows_round_g_bf16` — ``cin_round_g_bf16``: g rounded to bf16
+  once, as the backward's bf16 tiles and as the fp32 copy ``cin_dw`` takes;
+* :func:`cin_rows_backward_bf16` — ``cin_bwd_dx_bf16``: Z = g W on the
+  warpgroup MMA, both operands bf16 from shared memory, dh and dx0 from the
+  fp32 h, x0.
 
 Its dW is :func:`cin_rows_dw` fed g rounded to bf16 (the fused backward)
 or the raw g (the legacy one), as ``ops/cin.py`` arranges.
@@ -39,6 +43,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import heapq
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -115,6 +120,7 @@ _SIGNATURES = {
     "cin_bwd": {
         "cin_bwd_dx": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
         "cin_bwd_dx_bf16": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        "cin_round_g_bf16": [_P, _I, _I, _P, _P, _P],
         "cin_dw": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         "cin_sum_slices": [_P, _I, ctypes.c_longlong, _P, _I, _P],
     },
@@ -248,6 +254,41 @@ def _dx_split(N, H, M, O, slots):
     return mp, best[1], best[2]
 
 
+# cin_bwd_dx_bf16: a W stage's channels, and an item's own cost (x0, its
+# first stages, dx0 at its end) in such stages
+_DXB_STAGE = 64
+_DXB_ITEM_STAGES = 2
+
+
+@functools.lru_cache(maxsize=None)
+def _dx_bf16_split(N, H, M, O, grid):
+    """(mp, splits, chunks per split) for cin_bwd_dx_bf16, whose ``grid``
+    persistent blocks take items i = s * row tiles + rt (split s of the
+    ceil(H / (128 / mp)) chunks, row tile rt) in strides of the grid: the
+    splits (each but the last ``per`` chunks) whose most loaded block takes
+    the fewest W stages win, ties to fewer splits (each split writes an
+    [N, M] partial)."""
+    mp = 8
+    while mp < M:
+        mp *= 2
+    n_chunks = -(-H // (128 // mp))
+    row_tiles = -(-N // 128)
+    stages = -(-O // _DXB_STAGE)
+    best = None
+    for splits in range(1, min(n_chunks, _MAX_DX_SPLITS) + 1):
+        per = -(-n_chunks // splits)
+        if (splits - 1) * per >= n_chunks:
+            continue
+        load = [0] * min(grid, row_tiles * splits)
+        for i in range(row_tiles * splits):
+            s = i // row_tiles
+            load[i % len(load)] += (min(n_chunks, (s + 1) * per) - s * per) * stages \
+                + _DXB_ITEM_STAGES
+        if best is None or max(load) < best[0]:
+            best = (max(load), splits, per)
+    return mp, best[1], best[2]
+
+
 def _dw_geometry():
     """cin_dw's (tile rows, tile columns, rows a chunk, blocks a SM), read
     from the built kernel."""
@@ -270,10 +311,46 @@ def _dw_slices(N, H, M, O, slots, bm=128, bn=128, kc=32):
     return -(-N // rows), rows
 
 
-def _backward_dx(wrapper, fn, g, h_rows, x0_rows, W):
-    """``csrc/cin_bwd.cu``'s launcher ``fn`` ("cin_bwd_dx" or
-    "cin_bwd_dx_bf16"), counted on ``wrapper``."""
-    name = wrapper.__name__
+class RoundedG(NamedTuple):
+    """g rounded to bf16 once (:func:`cin_rows_round_g_bf16`): ``tiles``, the
+    bf16 row tiles ``cin_bwd_dx_bf16`` copies, and ``rounded``, the same
+    values as fp32 [N, O] (``cin_dw``'s operand; None where not asked for)."""
+
+    tiles: torch.Tensor
+    rounded: Optional[torch.Tensor]
+    shape: tuple
+
+
+def cin_rows_round_g_bf16(g, rounded=True):
+    """The ``cin_round_g_bf16`` kernel: g [N, O] (CUDA fp32, contiguous)
+    rounded to bf16 (nearest, ties to even) once, into the bf16 backward's
+    row tiles and, with ``rounded``, into an fp32 [N, O] copy for
+    ``cin_dw`` (the plain version is :func:`bf16_round`)."""
+    name = "cin_rows_round_g_bf16"
+    if not isinstance(g, torch.Tensor) or g.device.type != "cuda":
+        raise ValueError(f"{name}: g must be a CUDA tensor")
+    if g.dtype != torch.float32 or g.ndim != 2 or not g.is_contiguous():
+        raise ValueError(f"{name}: g must be a contiguous float32 [N, O], got {g.dtype} "
+                         f"{tuple(g.shape)}")
+    N, O = g.shape
+    n = _build.function("cin_bwd", "cin_bwd_dx_bf16_g_elems", [_I] * 2)(N, O) if N and O else 0
+    if n < 0:
+        raise ValueError(f"{name}: operands exceed 32-bit indexing")
+    tiles = torch.empty(n, device=g.device, dtype=torch.bfloat16)
+    out = torch.empty_like(g) if rounded else None
+    if n:
+        _launch("cin_bwd", "cin_round_g_bf16", g.device, g.data_ptr(), N, O,
+                0 if out is None else out.data_ptr(), tiles.data_ptr())
+        cin_rows_round_g_bf16.launches += 1
+    return RoundedG(tiles, out, (N, O))
+
+
+def cin_rows_backward(g, h_rows, x0_rows, W):
+    """The ``cin_bwd_dx`` kernel: same contract as
+    :func:`cin_rows_backward_reference` on CUDA fp32 tensors, in 3xTF32 on
+    the tensor cores; ``g`` must be contiguous and M at most
+    ``FUSED_MAX_M``."""
+    name = "cin_rows_backward"
     if g.ndim != 2 or W.ndim != 2:
         raise ValueError(f"{name}: expects g [N, O] and W [O, H*M]")
     O = W.shape[0]
@@ -297,29 +374,59 @@ def _backward_dx(wrapper, fn, g, h_rows, x0_rows, W):
     dx0 = torch.empty((N, M), device=dev, dtype=torch.float32)
     part = dx0 if splits == 1 else torch.empty((splits, N, M), device=dev, dtype=torch.float32)
     wp = torch.empty((O, H * mp), device=dev, dtype=torch.float32)  # W, groups padded to mp
-    _launch("cin_bwd", fn, dev, g.data_ptr(), W.data_ptr(), wp.data_ptr(),
+    _launch("cin_bwd", "cin_bwd_dx", dev, g.data_ptr(), W.data_ptr(), wp.data_ptr(),
             h_rows.data_ptr(), h_rows.stride(0), x0_rows.data_ptr(), dh.data_ptr(),
             part.data_ptr(), N, H, M, O, mp, splits, per)
     if splits > 1:
         _sum_slices(part, dx0)
-    wrapper.launches += 1
+    cin_rows_backward.launches += 1
     return dh, dx0
-
-
-def cin_rows_backward(g, h_rows, x0_rows, W):
-    """The ``cin_bwd_dx`` kernel: same contract as
-    :func:`cin_rows_backward_reference` on CUDA fp32 tensors, in 3xTF32 on
-    the tensor cores; ``g`` must be contiguous and M at most
-    ``FUSED_MAX_M``."""
-    return _backward_dx(cin_rows_backward, "cin_bwd_dx", g, h_rows, x0_rows, W)
 
 
 def cin_rows_backward_bf16(g, h_rows, x0_rows, W):
     """The bf16 mode's ``cin_bwd_dx_bf16`` kernel: same contract as
-    :func:`cin_rows_backward_reference_bf16` on CUDA fp32 tensors (g and W
-    rounded inside), on ``mma.sync`` m16n8k16 bf16; ``g`` contiguous, M at
-    most ``FUSED_MAX_M``."""
-    return _backward_dx(cin_rows_backward_bf16, "cin_bwd_dx_bf16", g, h_rows, x0_rows, W)
+    :func:`cin_rows_backward_reference_bf16` on CUDA fp32 tensors, on the
+    warpgroup MMA (``wgmma`` m64n128k16 bf16); ``g`` contiguous, or what
+    :func:`cin_rows_round_g_bf16` made of it (else that pass runs first), M
+    at most ``FUSED_MAX_M``."""
+    name = "cin_rows_backward_bf16"
+    if W.ndim != 2:
+        raise ValueError(f"{name}: expects g [N, O] and W [O, H*M]")
+    O = W.shape[0]
+    raw = not isinstance(g, RoundedG)
+    named = {"h_rows": h_rows, "x0_rows": x0_rows, "W": W, **({"g": g} if raw else {})}
+    N, H, M = _check(name, named, h_rows, x0_rows, O)
+    shape = tuple(g.shape) if raw else g.shape
+    if shape != (N, O) or W.shape[1] != H * M:
+        raise ValueError(
+            f"{name}: shape mismatch g {shape}, h {tuple(h_rows.shape)}, "
+            f"x0 {tuple(x0_rows.shape)}, W {tuple(W.shape)}"
+        )
+    if M > FUSED_MAX_M:
+        raise ValueError(f"{name}: M = {M} > {FUSED_MAX_M}; use the legacy backward")
+    dev = h_rows.device
+    if N == 0 or O == 0:
+        return h_rows.new_zeros((N, H)), h_rows.new_zeros((N, M))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    mp, splits, per = _dx_bf16_split(N, H, M, O, sms)
+    n = _build.function("cin_bwd", "cin_bwd_dx_bf16_w_elems", [_I] * 3)(H, O, mp)
+    if n < 0 or splits * N * M >= 2**31 or N * H >= 2**31:
+        raise ValueError(f"{name}: operands exceed 32-bit indexing")
+    if raw:
+        g = cin_rows_round_g_bf16(g, rounded=False)
+    if g.tiles.device != dev:
+        raise ValueError(f"{name}: all inputs must be on one device")
+    dh = torch.empty((N, H), device=dev, dtype=torch.float32)
+    dx0 = torch.empty((N, M), device=dev, dtype=torch.float32)
+    part = dx0 if splits == 1 else torch.empty((splits, N, M), device=dev, dtype=torch.float32)
+    wt = torch.empty(n, device=dev, dtype=torch.bfloat16)  # W's bf16 stages
+    _launch("cin_bwd", "cin_bwd_dx_bf16", dev, g.tiles.data_ptr(), W.data_ptr(), wt.data_ptr(),
+            h_rows.data_ptr(), h_rows.stride(0), x0_rows.data_ptr(), dh.data_ptr(),
+            part.data_ptr(), N, H, M, O, mp, splits, per)
+    if splits > 1:
+        _sum_slices(part, dx0)
+    cin_rows_backward_bf16.launches += 1
+    return dh, dx0
 
 
 def cin_rows_dw(g, h_rows, x0_rows):
@@ -357,4 +464,5 @@ cin_rows_forward.launches = 0
 cin_rows_forward_bf16.launches = 0
 cin_rows_backward.launches = 0
 cin_rows_backward_bf16.launches = 0
+cin_rows_round_g_bf16.launches = 0
 cin_rows_dw.launches = 0

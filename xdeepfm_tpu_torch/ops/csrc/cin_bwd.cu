@@ -82,23 +82,59 @@
 // The bf16 mode (cin_bwd_dx_bf16; cin_pallas.set_cin_precision("bf16")):
 // the TPU kernel's fused backward cast only g^T and W^T to bf16
 // (cin_pallas.py:226-241), so Z = g W sums exact bf16 products in fp32 and
-// dh, dx0 take the unrounded fp32 h and x0.  The same kernel, templated on
-// the precision, stages g and W in fp32 as before, rounds each pair to bf16
-// as it loads the fragments (cvt.rn.bf16x2) and runs one mma.sync m16n8k16
-// bf16 a k16 step (a third of the TF32 route's MMAs at twice the depth),
-// each step's product added to Z in fp32; the epilogue is the fp32 one.
-// dW needs no kernel of its own: the TPU kernel formed it from the bf16
-// g^T and the fp32 outer product, so the wrapper hands cin_dw g rounded to
-// bf16 (and stored as fp32); the legacy backward's dW (_dw_contract) stays
-// fp32 on the raw g.  Bound: operations, 2*N*H*M*O at 989 TFLOP/s (bf16
-// tensor cores, H100 SXM): 0.050 ms the train batch's two launches.
+// dh, dx0 take the unrounded fp32 h and x0.  dW needs no kernel of its own:
+// the TPU kernel formed it from the bf16 g^T and the fp32 outer product, so
+// cin_dw takes g rounded to bf16 (stored as fp32, exact in TF32); the
+// legacy backward's dW (_dw_contract) stays fp32 on the raw g.  Bound:
+// operations, 2*N*H*M*O at 989 TFLOP/s (bf16 tensor cores, H100 SXM): 0.053
+// ms the train batch's two launches (the padded groups' MMAs: 0.061).
+// Design: every operand bf16 once and the product on wgmma:
+//   * cin_round_g_bf16, one pass over g: bf16 row tiles for the MMAs (K-
+//     major 8 x 16-byte core matrices, tc_tf32.cuh's bf16 tiles, the layout
+//     of a shared-memory buffer) and g's fp32 copy for cin_dw, which until
+//     then was a separate torch pass; cin_pad_w_bf16_kernel writes W once a
+//     launch as bf16 stages of 64 channels x 128 padded columns, each
+//     group's M columns padded to MP as in fp32.
+//   * cin_bwd_dx_bf16_kernel: persistent blocks (one a SM) walk items (a
+//     128-row tile, a split of its chunks of 128 padded columns); a
+//     producer thread bulk-copies (cp.async.bulk on mbarriers) the item's g
+//     tile once into one of two buffers and W's stages through a ring of up
+//     to 8; two consumer warpgroups, 64 rows each, run wgmma m64n128k16 with
+//     both operands from shared memory through descriptors: no conversion
+//     and no operand load in the main loop.
+//   * Accumulation: each 128 channels (SUMK) summed in the tensor cores
+//     from zero, then added in fp32 (O 256: two sums; O 128: one).  The
+//     float64 gate chose it: against the plain bf16 version's error, SUMK
+//     64 erred up to 1.26x (dh) / 1.22x (dx0), 128 1.40x / 1.43x, 256
+//     1.83x / 1.79x, at 0.0834 / 0.0782 / 0.0703 ms (layer 0) and 0.207 /
+//     0.178 / 0.176 ms (layer 1); 128 is the longest with margin.
+//   * Where O fits one sum (layer 1), two accumulator sets: chunk q + 1's
+//     MMAs are issued before chunk q's epilogue, which they overlap (layer
+//     1 0.174 ms against 0.202 with one set).
+//   * The epilogue works on the accumulator fragments: each warp holds 16
+//     rows by all 128 columns, so dh's group sums take the lane's m, then
+//     the quad (shuffles, a fixed order), and dx0's m slots stay in the
+//     lane: a chunk's groups added pairwise, 8 chunks' sums together, then
+//     the item's; splits' partials through cin_sum_slices.  Bit-equal from
+//     run to run.
+// Measured (scripts/bench_cin_bf16.py, device ms from the profiler, an
+// NVIDIA H100 80GB HBM3 at 700.00 W, batch 4096): layer 0 0.078-0.081,
+// layer 1 0.172-0.176, against 0.313-0.322 and 0.743-0.756 in the same
+// calls for the design this replaced (g and W staged in fp32, a cvt.rn.bf16x2
+// per fragment pair, mma.sync m16n8k16); the rounding pass 0.039-0.040 and 0.019; errors 0.87-1.43x
+// the plain version's.  The stream of W's stages from L2, re-read by every
+// row tile (335 MB at layer 1), is the largest part left: diagnostic builds
+// (not kept) took layer 1, one accumulator set, from 0.202 ms to 0.120
+// without the epilogue's arithmetic, 0.163 without the MMAs and 0.081
+// without either; 128-byte swizzled tiles and 4 to 8 stages changed it by
+// under 3%.
 
 #include <stdint.h>
 
 #include "tc_tf32.cuh"
 
 // the dynamic shared memory of every kernel here
-extern __shared__ __align__(16) float cin_smem[];
+extern __shared__ __align__(128) float cin_smem[];
 
 namespace {
 
@@ -149,7 +185,7 @@ __global__ void cin_pad_w_kernel(const float* __restrict__ w, float* __restrict_
 
 // grid (row tiles of 128, splits of the chunks); wp from cin_pad_w_kernel;
 // dx0 [splits][N][M]
-template <int MP, bool BF16>
+template <int MP>
 __global__ void __launch_bounds__(dx::THREADS, 1)
 cin_bwd_dx_kernel(const float* __restrict__ g, const float* __restrict__ wp,
                   const float* __restrict__ h, int ldh, const float* __restrict__ x0,
@@ -260,31 +296,7 @@ cin_bwd_dx_kernel(const float* __restrict__ g, const float* __restrict__ wp,
     const float* gs = ring + (j % STAGES) * STAGE;
     const float* ws = gs + BR * LDG;
     // a warp whose columns are all padding (past H) skips its products
-    if (BF16 && q * GPC + wc / MP < H) {
-      // g and W rounded to bf16 as the fragments are loaded, one m16n8k16
-      // product a k16 step, added to Z in fp32
-#pragma unroll
-      for (int kk = 0; kk < OC; kk += 16) {
-        uint32_t a[MT][4];
-#pragma unroll
-        for (int i = 0; i < MT; ++i) {
-          const int a0 = (wr + 16 * i + group) * LDG + kk + 2 * tig;
-          const int a1 = a0 + 8 * LDG;
-          a[i][0] = tc::bf16x2(gs[a0], gs[a0 + 1]);
-          a[i][1] = tc::bf16x2(gs[a1], gs[a1 + 1]);
-          a[i][2] = tc::bf16x2(gs[a0 + 8], gs[a0 + 9]);
-          a[i][3] = tc::bf16x2(gs[a1 + 8], gs[a1 + 9]);
-        }
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int b0 = (kk + 2 * tig) * LDW + wc + 8 * nt + group;
-          const uint32_t b[2] = {tc::bf16x2(ws[b0], ws[b0 + LDW]),
-                                 tc::bf16x2(ws[b0 + 8 * LDW], ws[b0 + 9 * LDW])};
-#pragma unroll
-          for (int i = 0; i < MT; ++i) tc::mma_bf16_add(acc[i][nt], a[i], b);
-        }
-      }
-    } else if (!BF16 && q * GPC + wc / MP < H) {
+    if (q * GPC + wc / MP < H) {
 #pragma unroll
       for (int kk = 0; kk < OC; kk += 8) {
         uint32_t ab[MT][4], as[MT][4];
@@ -398,6 +410,418 @@ cin_bwd_dx_kernel(const float* __restrict__ g, const float* __restrict__ wp,
     for (int c = 0; c < WARPS_C; ++c)
       if (MP < 64 || c % 2 == m / 32) d += red[(c * BR + rl) * 32 + m % 32];
     out[(row0 + rl) * M + m] = d;
+  }
+}
+
+// -------------------------------------------------------- cin_bwd_dx_bf16
+
+namespace dxb {
+constexpr int WG = 128;          // threads of a warpgroup
+constexpr int THREADS = 3 * WG;  // the producer warpgroup, then two consumers
+constexpr int R = 64;            // rows of a consumer: one m64 tile
+constexpr int BM = 2 * R;        // rows of a tile
+constexpr int BN = 128;          // padded columns of a chunk: one m64n128k16 wgmma
+// SUMK: channels summed in the tensor cores from zero before each fp32 add
+// (their own fp32 sums truncate; tc_tf32.cuh), chosen by the float64 gate
+// (the file's header gives the sweep); W stages of KC channels, up to
+// MAX_STAGES of them in the ring.
+constexpr int SUMK = 128;
+constexpr int KC = 64;  // channels of a W stage: one 128-byte row of bf16
+static_assert(SUMK % KC == 0, "SUMK: whole W stages");
+constexpr int MAX_STAGES = 8;
+constexpr int DX0_BLOCK = 8;  // chunks whose dx0 terms are summed before the item's sum
+constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory one Hopper block may take
+constexpr int BARS = (2 * MAX_STAGES + 4) * 8;
+}  // namespace dxb
+
+// The bf16 backward's plan, the same on the host and the device: the
+// channels O laid out in Oq (a multiple of KC, zero past O) and cut into
+// nst W stages of KC, their MMAs over Ok (O rounded up to 16); g's row tile
+// staged in nseg segments of KG channels (one, holding all of Oq, unless O
+// passes 384), two segment buffers and `stages` W stages in shared memory.
+struct DxbPlan {
+  int Oq, Ok, nst, KG, spg, nseg, stages, bytes;
+  __host__ __device__ explicit DxbPlan(int O) {
+    using namespace dxb;
+    constexpr int wst = BN * KC * 2;  // bytes of a W stage
+    Oq = (O + KC - 1) / KC * KC;
+    Ok = (O + 15) / 16 * 16;
+    nst = Oq / KC;
+    const int room = (SMEM_LIMIT - BARS - 2 * wst) / (2 * BM * 2);
+    KG = Oq <= room ? Oq : room / KC * KC;
+    spg = KG / KC;
+    nseg = (Oq + KG - 1) / KG;
+    stages = (SMEM_LIMIT - BARS - 2 * BM * KG * 2) / wst;
+    if (stages > MAX_STAGES) stages = MAX_STAGES;
+    bytes = 2 * BM * KG * 2 + stages * wst + BARS;
+  }
+  // channels of segment seg; k16 steps of W stage st
+  __host__ __device__ int seg_width(int seg) const { return min(KG, Oq - seg * KG); }
+  __host__ __device__ int stage_steps(int st) const { return min(dxb::KC, Ok - st * dxb::KC) / 16; }
+};
+
+// g [N, O] -> gt, g rounded to bf16 (nearest even) in the bf16 backward's
+// row tiles: tile rt (BM rows) at rt BM Oq, its segment seg (KG channels)
+// at seg BM KG, a bf16 tile (tc_tf32.cuh) of BM rows by the segment's
+// channels, zero past N and O; and, where g_round is not null, g_round
+// [N, O], the same values as fp32 (cin_dw's operand).  A thread a 16-byte
+// chunk of gt (8 channels of a row, read and written as 32 bytes of g and
+// g_round), a warp's chunks contiguous.
+__global__ void cin_round_g_bf16_kernel(const float* __restrict__ g, int N, int O,
+                                        float* __restrict__ g_round, uint4* __restrict__ gt) {
+  using dxb::BM;
+  const DxbPlan plan(O);
+  const int per_tile = BM * plan.Oq / 8, per_seg = BM * plan.KG / 8;
+  const int total = (N + BM - 1) / BM * per_tile;
+  const bool vec = (O & 7) == 0 && ((reinterpret_cast<uintptr_t>(g) |
+                                     reinterpret_cast<uintptr_t>(g_round)) & 15) == 0;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < total; i += gridDim.x * blockDim.x) {
+    const int rt = i / per_tile, e = i - rt * per_tile, seg = e / per_seg;
+    int rr, kk;
+    tc::bf16_tile_chunk(16 * (e - seg * per_seg), plan.seg_width(seg), rr, kk);
+    const int r = rt * BM + rr, k = seg * plan.KG + kk;
+    const long long at = static_cast<long long>(r) * O + k;
+    float v[8];
+    if (vec && r < N && k < O) {
+      *reinterpret_cast<float4*>(v) = *reinterpret_cast<const float4*>(g + at);
+      *reinterpret_cast<float4*>(v + 4) = *reinterpret_cast<const float4*>(g + at + 4);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 8; ++u) v[u] = r < N && k + u < O ? g[at + u] : 0.f;
+    }
+    uint32_t w[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) w[u] = tc::bf16x2(v[2 * u], v[2 * u + 1]);
+    gt[i] = make_uint4(w[0], w[1], w[2], w[3]);
+    if (g_round == nullptr || r >= N || k >= O) continue;
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      v[u] = __uint_as_float(u % 2 ? w[u / 2] & 0xffff0000u : w[u / 2] << 16);
+    if (vec) {
+      *reinterpret_cast<float4*>(g_round + at) = *reinterpret_cast<const float4*>(v);
+      *reinterpret_cast<float4*>(g_round + at + 4) = *reinterpret_cast<const float4*>(v + 4);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (k + u < O) g_round[at + u] = v[u];
+    }
+  }
+}
+
+// W [O, H*M] -> wt, W rounded to bf16 with each h group's M columns padded
+// to MP (zeros), in W stages: chunk q (BN padded columns) and stage st (KC
+// channels) at (q nst + st) BN KC, a bf16 tile (tc_tf32.cuh) of BN rows
+// (columns) by KC channels, zero past O and H * MP.  A thread a bf16 pair
+// (two channels), neighbouring threads on neighbouring columns.
+__global__ void cin_pad_w_bf16_kernel(const float* __restrict__ w, int H, int M, int MP, int O,
+                                      int nch, uint32_t* __restrict__ wt) {
+  using dxb::BN;
+  using dxb::KC;
+  const DxbPlan plan(O);
+  constexpr int WORDS = BN * KC / 2;  // words a stage's block holds
+  const long long total = static_cast<long long>(nch) * plan.nst * WORDS;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < total;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long blk = i / WORDS;
+    const int e = static_cast<int>(i - blk * WORDS), st = static_cast<int>(blk % plan.nst);
+    const int q = static_cast<int>(blk / plan.nst), n = e % BN, kk = 2 * (e / BN);
+    const int c = q * BN + n, o = st * KC + kk;
+    float v[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+      v[u] = o + u < O && c < H * MP && c % MP < M
+                 ? __ldg(w + static_cast<long long>(o + u) * H * M + c / MP * M + c % MP)
+                 : 0.f;
+    wt[blk * WORDS + tc::bf16_tile_off(n, kk, KC) / 4] = tc::bf16x2(v[0], v[1]);
+  }
+}
+
+// A consumer thread's rows of an item and its epilogue: a chunk's
+// m64n128k16 D holds Z[rows[hf], chunk column 8 j + 2 tig + u] in
+// z[4 j + 2 hf + u], the column in h group j / JM at m = 8 (j % JM) + 2 tig
+// + u.  dh: a group's m in the lane, then the quad, in a fixed order; dx0:
+// a chunk's Z h of each m summed over its groups pairwise, added to the
+// block's sum (DX0_BLOCK chunks), each block's to the item's.
+template <int MP>
+struct DxbRows {
+  static constexpr int GPC = dxb::BN / MP, JM = MP / 8;
+  int rows[2], tig;
+  float xv[2][JM][2], dacc[2][JM][2], dblk[2][JM][2];
+
+  __device__ DxbRows(const float* __restrict__ x0, int r0, int lane_tig, int N, int M)
+      : rows{r0, r0 + 8}, tig(lane_tig) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int jm = 0; jm < JM; ++jm)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int m = 8 * jm + 2 * tig + u;
+          xv[hf][jm][u] = rows[hf] < N && m < M
+                              ? __ldg(x0 + static_cast<long long>(rows[hf]) * M + m)
+                              : 0.f;
+          dacc[hf][jm][u] = dblk[hf][jm][u] = 0.f;
+        }
+  }
+  // chunk q's h entries of the rows
+  __device__ void load_h(float (&hv)[2][GPC], const float* __restrict__ h, int ldh, int q, int N,
+                         int H) const {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int k = 0; k < GPC; ++k) {
+        const int hh = q * GPC + k;
+        hv[hf][k] = rows[hf] < N && hh < H
+                        ? __ldg(h + static_cast<long long>(rows[hf]) * ldh + hh)
+                        : 0.f;
+      }
+  }
+  __device__ void epilogue(const float (&z)[dxb::BN / 2], const float (&hv)[2][GPC], int q,
+                           int q0, int q1, float* __restrict__ dh, int N, int H) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int k = 0; k < GPC; ++k) {
+        float p = 0.f;
+#pragma unroll
+        for (int jm = 0; jm < JM; ++jm)
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+            p = fmaf(z[4 * (k * JM + jm) + 2 * hf + u], xv[hf][jm][u], p);
+        p += __shfl_xor_sync(0xffffffffu, p, 1);
+        p += __shfl_xor_sync(0xffffffffu, p, 2);
+        const int hh = q * GPC + k;
+        if (tig == 0 && rows[hf] < N && hh < H) dh[static_cast<long long>(rows[hf]) * H + hh] = p;
+      }
+    const bool fold = (q - q0) % dxb::DX0_BLOCK == dxb::DX0_BLOCK - 1 || q == q1 - 1;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int jm = 0; jm < JM; ++jm)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          float p[GPC];
+#pragma unroll
+          for (int k = 0; k < GPC; ++k) p[k] = z[4 * (k * JM + jm) + 2 * hf + u] * hv[hf][k];
+#pragma unroll
+          for (int w = GPC / 2; w > 0; w /= 2)
+#pragma unroll
+            for (int k = 0; k < w; ++k) p[k] += p[k + w];
+          dblk[hf][jm][u] += p[0];
+          if (fold) {
+            dacc[hf][jm][u] += dblk[hf][jm][u];
+            dblk[hf][jm][u] = 0.f;
+          }
+        }
+  }
+  // dx0 of the rows (the split's partial)
+  __device__ void store(float* __restrict__ out, int N, int M) const {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int jm = 0; jm < JM; ++jm)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int m = 8 * jm + 2 * tig + u;
+          if (rows[hf] < N && m < M)
+            out[static_cast<long long>(rows[hf]) * M + m] = dacc[hf][jm][u];
+        }
+  }
+};
+
+// Z = g W on the warpgroup MMA, both operands bf16 from shared memory:
+// items i = s RT + rt (split s over chunks [s per, s per + per), row tile
+// rt) walked by the persistent blocks in strides of the grid; dh [N, H],
+// dx0 [splits][N][M] partials.  gt from cin_round_g_bf16_kernel, wt from
+// cin_pad_w_bf16_kernel.
+template <int MP, bool ONE>
+__global__ void __launch_bounds__(dxb::THREADS, 1)
+cin_bwd_dx_bf16_kernel(const uint16_t* __restrict__ gt, const uint16_t* __restrict__ wt,
+                       const float* __restrict__ h, int ldh, const float* __restrict__ x0,
+                       float* __restrict__ dh, float* __restrict__ dx0, int N, int H, int M,
+                       int O, int splits, int per) {
+  using namespace dxb;
+  static_assert(MP == 8 || MP == 16 || MP == 32 || MP == 64, "MP");
+  constexpr int GPC = BN / MP;  // h groups of a chunk
+  const DxbPlan plan(O);
+  const int RT = (N + BM - 1) / BM, items = RT * splits;
+  const int nch = (H + GPC - 1) / GPC;
+  uint16_t* gbuf = reinterpret_cast<uint16_t*>(cin_smem);  // [2][BM * KG]
+  uint16_t* ring = gbuf + 2 * BM * plan.KG;                 // [stages][BN * KC]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + plan.stages * BN * KC);
+  uint64_t* empty = full + plan.stages;
+  uint64_t* gfull = empty + plan.stages;
+  uint64_t* gempty = gfull + 2;
+  const int wgi = threadIdx.x / WG;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < plan.stages; ++s) {
+      tc::mbar_init(&full[s], 1);
+      tc::mbar_init(&empty[s], 2 * WG);
+    }
+    for (int b = 0; b < 2; ++b) {
+      tc::mbar_init(&gfull[b], 1);
+      tc::mbar_init(&gempty[b], 2 * WG);
+    }
+    tc::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wgi == 0) {  // the producer: one thread copies g's segments and W's stages
+    tc::regs_dec<40>();
+    if (threadIdx.x == 0) {
+      int it = 0, gi = 0;
+      for (int i = blockIdx.x; i < items; i += gridDim.x) {
+        const int rt = i % RT, q0 = i / RT * per, q1 = min(nch, q0 + per);
+        for (int q = q0; q < q1; ++q)
+          for (int st = 0; st < plan.nst; ++st) {
+            if (st % plan.spg == 0 && (plan.nseg > 1 || q == q0)) {
+              const int seg = st / plan.spg, b = gi % 2;
+              const int bytes = BM * plan.seg_width(seg) * 2;
+              tc::mbar_wait(&gempty[b], ((gi / 2) & 1) ^ 1);
+              tc::mbar_arrive_tx(&gfull[b], bytes);
+              tc::bulk_copy(gbuf + b * BM * plan.KG,
+                            gt + static_cast<long long>(rt) * BM * plan.Oq + seg * BM * plan.KG,
+                            bytes, &gfull[b]);
+              ++gi;
+            }
+            const int sl = it % plan.stages, bytes = BN * KC * 2;
+            tc::mbar_wait(&empty[sl], ((it / plan.stages) & 1) ^ 1);
+            tc::mbar_arrive_tx(&full[sl], bytes);
+            tc::bulk_copy(ring + sl * BN * KC,
+                          wt + (static_cast<long long>(q) * plan.nst + st) * BN * KC, bytes,
+                          &full[sl]);
+            ++it;
+          }
+      }
+    }
+  } else {  // a consumer: rows R (wgi - 1) .. of each tile
+    tc::regs_inc<232>();
+    const int c = wgi - 1, t = threadIdx.x % WG, warp = t / 32, lane = t % 32;
+    const uint32_t gaddr = tc::smem_addr(gbuf), raddr = tc::smem_addr(ring);
+    int it = 0, gi = 0;
+    for (int i = blockIdx.x; i < items; i += gridDim.x) {
+      const int rt = i % RT, s = i / RT, q0 = s * per, q1 = min(nch, q0 + per);
+      DxbRows<MP> rs(x0, rt * BM + c * R + 16 * warp + lane / 4, lane % 4, N, M);
+      int gb = 0;
+      if constexpr (ONE) {
+        // O fits one tensor-core sum (and one g segment): chunks in two
+        // accumulator sets, chunk q + 1's MMAs issued before chunk q's
+        // epilogue, which they overlap
+        int rel = it;  // the oldest stage not yet released
+        auto issue = [&](float(&d)[BN / 2], int q) {
+          if (q == q0) {
+            gb = gi % 2;
+            tc::mbar_wait(&gfull[gb], (gi / 2) & 1);
+            ++gi;
+          }
+          tc::fence_regs(d);
+          for (int st = 0; st < plan.nst; ++st) {
+            const int steps = plan.stage_steps(st), sl = it % plan.stages;
+            tc::mbar_wait(&full[sl], (it / plan.stages) & 1);
+            ++it;
+            const uint32_t ab = gaddr + gb * BM * plan.KG * 2, bb = raddr + sl * BN * KC * 2;
+            tc::wgmma_fence();
+#pragma unroll
+            for (int j = 0; j < KC / 16; ++j) {
+              if (j >= steps) break;
+              const int ks = st * KC / 16 + j;  // the k16 step in g's segment
+              tc::wgmma_bf16_ss<BN>(d, tc::bf16_tile_desc(ab, c * R, ks, plan.KG),
+                                    tc::bf16_tile_desc(bb, 0, j, KC), ks);
+            }
+          }
+          tc::wgmma_commit();
+        };
+        // the oldest chunk's MMAs are done: its stages (and after the item's
+        // last chunk, g's buffer) go back to the producer
+        auto release = [&](float(&d)[BN / 2], int q) {
+          tc::fence_regs(d);
+          for (int k = 0; k < plan.nst; ++k, ++rel) tc::mbar_arrive(&empty[rel % plan.stages]);
+          if (q == q1 - 1) tc::mbar_arrive(&gempty[gb]);
+        };
+        float d0[BN / 2], d1[BN / 2], hv0[2][BN / MP], hv1[2][BN / MP];
+        if (q0 < q1) {
+          rs.load_h(hv0, h, ldh, q0, N, H);
+          issue(d0, q0);
+        }
+        for (int q = q0; q < q1; q += 2) {
+          if (q + 1 < q1) {
+            rs.load_h(hv1, h, ldh, q + 1, N, H);
+            issue(d1, q + 1);
+            tc::wgmma_wait<1>();
+          } else {
+            tc::wgmma_wait<0>();
+          }
+          release(d0, q);
+          rs.epilogue(d0, hv0, q, q0, q1, dh, N, H);
+          if (q + 1 == q1) break;
+          if (q + 2 < q1) {
+            rs.load_h(hv0, h, ldh, q + 2, N, H);
+            issue(d0, q + 2);
+            tc::wgmma_wait<1>();
+          } else {
+            tc::wgmma_wait<0>();
+          }
+          release(d1, q + 1);
+          rs.epilogue(d1, hv1, q + 1, q0, q1, dh, N, H);
+        }
+      } else {
+        for (int q = q0; q < q1; ++q) {
+          float hv[2][BN / MP];  // loaded ahead of the chunk's MMAs
+          rs.load_h(hv, h, ldh, q, N, H);
+          // Z: the fp32 sum of the tensor cores' sums
+          float sum[BN / 2], d[BN / 2];
+#pragma unroll
+          for (int e = 0; e < BN / 2; ++e) sum[e] = 0.f;
+          int prev = -1, kin = 0;  // the stage whose MMAs may be in flight; channels into the sum
+          for (int st = 0; st < plan.nst; ++st) {
+            const int seg = st / plan.spg, gw = plan.seg_width(seg), steps = plan.stage_steps(st);
+            if (st % plan.spg == 0 && (plan.nseg > 1 || q == q0)) {
+              gb = gi % 2;
+              tc::mbar_wait(&gfull[gb], (gi / 2) & 1);
+              ++gi;
+            }
+            const int sl = it % plan.stages;
+            tc::mbar_wait(&full[sl], (it / plan.stages) & 1);
+            ++it;
+            // A: this consumer's 64 rows of the segment's tile, B: the
+            // stage's 128 columns (bf16 tiles, tc_tf32.cuh)
+            const uint32_t ab = gaddr + gb * BM * plan.KG * 2, bb = raddr + sl * BN * KC * 2;
+            tc::fence_regs(d);
+            tc::wgmma_fence();
+#pragma unroll
+            for (int j = 0; j < KC / 16; ++j) {
+              if (j >= steps) break;
+              tc::wgmma_bf16_ss<BN>(
+                  d, tc::bf16_tile_desc(ab, c * R, (st % plan.spg) * KC / 16 + j, gw),
+                  tc::bf16_tile_desc(bb, 0, j, KC), kin + 16 * j);
+            }
+            tc::wgmma_commit();
+            kin += KC;
+            const bool last = st == plan.nst - 1, ends = kin >= SUMK || last;
+            const bool seg_end = plan.nseg > 1 && (st % plan.spg == plan.spg - 1 || last);
+            if (ends || seg_end) {  // every MMA of this block done
+              tc::wgmma_wait<0>();
+              tc::fence_regs(d);
+              if (prev >= 0) tc::mbar_arrive(&empty[prev]);
+              tc::mbar_arrive(&empty[sl]);
+              prev = -1;
+            } else {  // the previous stage's MMAs done
+              tc::wgmma_wait<1>();
+              if (prev >= 0) tc::mbar_arrive(&empty[prev]);
+              prev = sl;
+            }
+            if (ends) {
+#pragma unroll
+              for (int e = 0; e < BN / 2; ++e) sum[e] += d[e];
+              kin = 0;
+            }
+            if (seg_end || (plan.nseg == 1 && last && q == q1 - 1)) tc::mbar_arrive(&gempty[gb]);
+          }
+          rs.epilogue(sum, hv, q, q0, q1, dh, N, H);
+        }
+      }
+      rs.store(dx0 + static_cast<long long>(s) * N * M, N, M);
+    }
   }
 }
 
@@ -643,13 +1067,13 @@ __global__ void cin_sum_slices_kernel(const float* __restrict__ part, int slices
   }
 }
 
-template <int MP, bool BF16>
+template <int MP>
 int launch_dx(const float* g, const float* w, float* wp, const float* h, int ldh,
               const float* x0, float* dh, float* dx0, int N, int H, int M, int O, int splits,
               int chunks_per_split, cudaStream_t stream) {
   constexpr int smem = dx_smem_floats<MP>() * 4;
   cudaError_t err = cudaFuncSetAttribute(
-      cin_bwd_dx_kernel<MP, BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      cin_bwd_dx_kernel<MP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   int mp = MP;
   long long n = (long long)O * H * MP;
@@ -661,42 +1085,68 @@ int launch_dx(const float* g, const float* w, float* wp, const float* h, int ldh
   const float* wpc = wp;
   const dim3 grid((N + dx::BR - 1) / dx::BR, splits);
   void* args[] = {&g, &wpc, &h, &ldh, &x0, &dh, &dx0, &N, &H, &M, &O, &chunks_per_split};
-  err = cudaLaunchKernel(cin_bwd_dx_kernel<MP, BF16>, grid, dim3(dx::THREADS), args,
+  err = cudaLaunchKernel(cin_bwd_dx_kernel<MP>, grid, dim3(dx::THREADS), args,
                          static_cast<size_t>(smem), stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// cin_bwd_dx's launch at the group width mp (8, 16, 32 or 64)
-template <bool BF16>
-int dispatch_dx(const void* g, const void* w, void* wp, const void* h, int ldh, const void* x0,
-                void* dh, void* dx0, int N, int H, int M, int O, int mp, int splits,
-                int chunks_per_split, void* stream) {
-  auto G = static_cast<const float*>(g);
-  auto W = static_cast<const float*>(w);
-  auto WP = static_cast<float*>(wp);
-  auto Hr = static_cast<const float*>(h);
-  auto X0 = static_cast<const float*>(x0);
-  auto DH = static_cast<float*>(dh);
-  auto DX0 = static_cast<float*>(dx0);
-  auto st = static_cast<cudaStream_t>(stream);
+// the bf16 backward: W's stages, then the persistent blocks (one a SM)
+template <int MP>
+int launch_dx_bf16(const uint16_t* gt, const float* w, uint32_t* wt, const float* h, int ldh,
+                   const float* x0, float* dh, float* dx0, int N, int H, int M, int O,
+                   int splits, int per, cudaStream_t stream) {
+  const DxbPlan plan(O);
+  if (plan.stages < 2 || plan.KG < 16) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int mp = MP, nch = (H + dxb::BN / MP - 1) / (dxb::BN / MP);
+  const long long words = static_cast<long long>(nch) * plan.nst * dxb::BN * dxb::KC / 2;
+  void* pargs[] = {&w, &H, &M, &mp, &O, &nch, &wt};
+  const long long pblocks = words / 256 + 1;
+  err = cudaLaunchKernel(cin_pad_w_bf16_kernel,
+                         dim3(static_cast<unsigned>(pblocks < 1024 ? pblocks : 1024)), dim3(256),
+                         pargs, 0, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // one tensor-core sum a chunk where O fits it, in two accumulator sets:
+  // chunk q + 1's stages are taken before chunk q's go back, so the ring
+  // must hold both
+  const bool one = plan.Oq <= dxb::SUMK && plan.nseg == 1 && plan.stages >= 2 * plan.nst;
+  auto kernel = one ? cin_bwd_dx_bf16_kernel<MP, true> : cin_bwd_dx_bf16_kernel<MP, false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const uint16_t* wtc = reinterpret_cast<const uint16_t*>(wt);
+  const int items = (N + dxb::BM - 1) / dxb::BM * splits;
+  void* args[] = {&gt, &wtc, &h, &ldh, &x0, &dh, &dx0, &N, &H, &M, &O, &splits, &per};
+  err = cudaLaunchKernel(kernel, dim3(items < sms ? items : sms), dim3(dxb::THREADS), args,
+                         static_cast<size_t>(plan.bytes), stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// a launch at the group width mp (8, 16, 32 or 64)
+template <template <int> class L, class... A>
+int dispatch_mp(int mp, A... args) {
   switch (mp) {
-    case 8:
-      return launch_dx<8, BF16>(G, W, WP, Hr, ldh, X0, DH, DX0, N, H, M, O, splits,
-                                chunks_per_split, st);
-    case 16:
-      return launch_dx<16, BF16>(G, W, WP, Hr, ldh, X0, DH, DX0, N, H, M, O, splits,
-                                 chunks_per_split, st);
-    case 32:
-      return launch_dx<32, BF16>(G, W, WP, Hr, ldh, X0, DH, DX0, N, H, M, O, splits,
-                                 chunks_per_split, st);
-    case 64:
-      return launch_dx<64, BF16>(G, W, WP, Hr, ldh, X0, DH, DX0, N, H, M, O, splits,
-                                 chunks_per_split, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case 8: return L<8>::run(args...);
+    case 16: return L<16>::run(args...);
+    case 32: return L<32>::run(args...);
+    case 64: return L<64>::run(args...);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+template <int MP>
+struct DxLaunch {
+  template <class... A>
+  static int run(A... a) { return launch_dx<MP>(a...); }
+};
+template <int MP>
+struct DxBf16Launch {
+  template <class... A>
+  static int run(A... a) { return launch_dx_bf16<MP>(a...); }
+};
 
 }  // namespace
 
@@ -715,18 +1165,56 @@ extern "C" {
 int cin_bwd_dx(const void* g, const void* w, void* wp, const void* h, int ldh,
                const void* x0, void* dh, void* dx0, int N, int H, int M,
                int O, int mp, int splits, int chunks_per_split, void* stream) {
-  return dispatch_dx<false>(g, w, wp, h, ldh, x0, dh, dx0, N, H, M, O, mp, splits,
-                            chunks_per_split, stream);
+  return dispatch_mp<DxLaunch>(
+      mp, static_cast<const float*>(g), static_cast<const float*>(w), static_cast<float*>(wp),
+      static_cast<const float*>(h), ldh, static_cast<const float*>(x0), static_cast<float*>(dh),
+      static_cast<float*>(dx0), N, H, M, O, splits, chunks_per_split,
+      static_cast<cudaStream_t>(stream));
 }
 
-// The bf16 mode's cin_bwd_dx: the same contract, Z = g W from g and W
-// rounded to bf16 (cin_pallas.py:226: the TPU kernel's g^T and W^T in
-// bf16), dh and dx0 from the fp32 h and x0.
-int cin_bwd_dx_bf16(const void* g, const void* w, void* wp, const void* h, int ldh,
+// bf16 elements of g's row tiles (cin_round_g_bf16's gt) and of W's stages
+// (cin_bwd_dx_bf16's wp) for the bf16 backward, or -1 past 2^31 or where the
+// shared memory cannot hold two W stages
+int cin_bwd_dx_bf16_g_elems(int N, int O) {
+  const DxbPlan plan(O);
+  const long long n = static_cast<long long>((N + dxb::BM - 1) / dxb::BM) * dxb::BM * plan.Oq;
+  return plan.stages < 2 || n > 0x7fffffff ? -1 : static_cast<int>(n);
+}
+int cin_bwd_dx_bf16_w_elems(int H, int O, int mp) {
+  const DxbPlan plan(O);
+  const long long n = static_cast<long long>((H + dxb::BN / mp - 1) / (dxb::BN / mp)) *
+                      plan.nst * dxb::BN * dxb::KC;
+  return plan.stages < 2 || n > 0x7fffffff ? -1 : static_cast<int>(n);
+}
+
+// g [N, O] (fp32, contiguous) rounded to bf16 once: gt (16-byte aligned,
+// cin_bwd_dx_bf16_g_elems(N, O) bf16) in the bf16 backward's row tiles, and,
+// where g_round is not null, g_round [N, O] (fp32), cin_dw's operand.
+int cin_round_g_bf16(const void* g, int N, int O, void* g_round, void* gt, void* stream) {
+  const int n = cin_bwd_dx_bf16_g_elems(N, O);
+  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int items = n / 8;
+  void* args[] = {&g, &N, &O, &g_round, &gt};
+  const int blocks = items / 256 + 1 < 2048 ? items / 256 + 1 : 2048;
+  const cudaError_t err = cudaLaunchKernel(cin_round_g_bf16_kernel, dim3(blocks), dim3(256), args,
+                                           0, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err);
+}
+
+// The bf16 mode's cin_bwd_dx: Z = g W from g and W rounded to bf16
+// (cin_pallas.py:226: the TPU kernel's g^T and W^T in bf16), dh and dx0 from
+// the fp32 h and x0.  gt: g's row tiles from cin_round_g_bf16; wp:
+// cin_bwd_dx_bf16_w_elems(H, O, mp) bf16 of scratch (16-byte aligned) for W's
+// stages; the rest as cin_bwd_dx, on persistent blocks (one a SM) that walk
+// the (row tile, split) items.
+int cin_bwd_dx_bf16(const void* gt, const void* w, void* wp, const void* h, int ldh,
                     const void* x0, void* dh, void* dx0, int N, int H, int M,
                     int O, int mp, int splits, int chunks_per_split, void* stream) {
-  return dispatch_dx<true>(g, w, wp, h, ldh, x0, dh, dx0, N, H, M, O, mp, splits,
-                           chunks_per_split, stream);
+  return dispatch_mp<DxBf16Launch>(
+      mp, static_cast<const uint16_t*>(gt), static_cast<const float*>(w),
+      static_cast<uint32_t*>(wp), static_cast<const float*>(h), ldh,
+      static_cast<const float*>(x0), static_cast<float*>(dh), static_cast<float*>(dx0), N, H,
+      M, O, splits, chunks_per_split, static_cast<cudaStream_t>(stream));
 }
 
 // part [slices, O, H*M]: slice s sums rows [s * rows_per_slice, ...),

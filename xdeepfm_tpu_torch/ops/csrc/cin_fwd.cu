@@ -74,26 +74,46 @@
 // The bf16 mode (cin_fwd_bf16; cin_pallas.set_cin_precision("bf16"),
 // cin_pallas.py:353-366): the TPU kernel cast h, x0 and W to bf16 and
 // formed z = h x0 in bf16, so z is rounded once; its dot with W summed in
-// fp32.  Here the same kernel, templated on the precision, runs one
-// m64n128k16 bf16 wgmma a k16 step instead of three m64n128k8 TF32 ones:
-//   * each consumer rounds its staged h and x0 rows to bf16 in place once a
-//     row tile; a thread forms its A values z = h x0 in fp32 (exact: two
-//     bf16 values' product fits in fp32) and rounds each to bf16 as it
-//     packs them in pairs (cvt.rn.bf16x2), A's 16-bit layout: k' columns
-//     2 tig, 2 tig + 1, 2 tig + 8, 2 tig + 9 of a k16 step, so H is padded
-//     to a multiple of 16 (a k16 step keeps one m) and the staged h pitch
-//     is 8 mod 32 (a quad's pairs fall in distinct banks);
-//   * W is rounded to bf16 once a launch by the same first kernel, into
-//     the stages' K-major layout of 8 x 8 bf16 core matrices (16 bytes a
-//     row, as TF32's 8 x 4), so a stage is half the TF32 one's bytes at
-//     twice its k' (KC 32: two k16 steps a chunk);
-//   * the long-sum rule stays: each KC chunk summed in the tensor core from
-//     zero, then added to the fp32 register sum.
+// fp32.  cin_fwd_kernel<true> keeps the fp32 kernel's producer, W ring,
+// tiles, tail splits and epilogue, and runs one m64n128k16 bf16 wgmma a k16
+// step (H padded to 16, so a k16 step keeps one m).  Against the kernel it
+// replaced (this kernel's fp32 staging: h and x0 rounded in place, A
+// multiplied in fp32 and converted, KC 32) it shortens the consumer's chain
+// between its MMA batches:
+//   * h and x0 are staged in bf16 once a row tile (h as pairs, x0 in both
+//     halves of a word), and A's word is one packed product of an h pair by
+//     {x0, x0} (mul.rn.bf16x2): 4 products and 6 shared loads a k16 step
+//     against the replaced kernel's 8 multiplies, 4 conversions and 10
+//     loads.  The product of two bf16 values is exact in fp32, so this is
+//     bit-equal to the fp32 product rounded once (the outputs' sha256 matched at every
+//     shape against a build that multiplied in fp32 and converted);
+//   * KC = 128 k' summed in the tensor cores before each fp32 add (the replaced
+//     kernel: 32), a W stage of 32 KB; errors 0.17-0.49x the plain version's.
+//     Where the staged rows leave no room for two such stages (at H 128, M
+//     past 257) the plan halves KC, down to 32 (M up to 353; the replaced
+//     kernel's fp32 rows took M up to about 285): shorter sums err less.
+// Measured (scripts/bench_cin_bf16.py, device ms from the profiler, an
+// NVIDIA H100 80GB HBM3 at 700.00 W; the replaced kernel in the same call): a
+// train step's layers 0.099-0.101 + 0.127-0.137 ms (0.119-0.120 +
+// 0.162-0.169), a scoring batch's 0.181-0.186 + 0.247-0.251 (0.211-0.213 +
+// 0.298-0.301).  The sweep (one call, before a staging fix that took
+// 2-3%): KC 32 / 64 / 128 packed 0.1235 / 0.106 / 0.101 (layer 0), 0.186 /
+// 0.1515 / 0.135 (layer 1); KC 64 unpacked 0.110 / 0.161; two accumulator
+// sets (chunk c + 1's MMAs before chunk c's add) KC 32 0.1205 / 0.175, KC
+// 64 0.112 / 0.159 (it spills there); KC 256 (a later call) 0.104 / 0.125,
+// but 0.200 against 0.181 at the scoring batch's layer 0.  m64n256k16 tiles
+// need 128 accumulator registers and 128 for the fp32 sum, past the 255 a
+// thread may hold; without the fp32 sum the tensor cores would sum 52-208
+// k16 steps, and the backward's sweep shows the error growing with that
+// length (1.40x at 8 steps, 1.83x at 16).  The stream of W from L2, read by
+// every 128-row tile (272 MB at layer 1), is what remains.
 // Bound: operations, 2*N*H*M*O at the bf16 tensor-core rate (989 TFLOP/s on
 // the H100 SXM): 0.050 ms for the train batch's two launches.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tc_tf32.cuh"
 
@@ -111,39 +131,41 @@ constexpr int HMAX = 128;        // padded h columns one launch takes
 constexpr int MAX_STAGES = 4;
 constexpr int MAX_SPLITS = 4;       // K parts of a tail tile
 constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory one Hopper block may take
+constexpr int SB = 8;               // a bf16 consumer thread's staging loads in flight
 
 // What the two precisions change.  KC: k' summed in the tensor cores
-// before each fp32 add.  At the serving and train layer-1 shapes (K 3328;
-// an NVIDIA H100 80GB HBM3 at 700 W, by a chunk sweep since removed) TF32's
-// KC 8, 16 and 32 all passed the float64 gate with margin (errors 0.43x /
-// 0.29x / 0.24x the plain fp32 version's at serving, 1.14x / 0.99x / 0.73x
-// at train); KC 16 ran 0.003-0.022 ms (1-3%) a launch faster than 32 and a
-// third faster than 8, so it is taken over the longest chunk that passes.
-// bf16 takes KC 32: two k16 steps, a stage of the same 16-byte core
-// matrices as TF32's KC 16.
+// before each fp32 add (a ring stage's k').  At the serving and train
+// layer-1 shapes (K 3328; an NVIDIA H100 80GB HBM3 at 700 W, by a chunk
+// sweep since removed) TF32's KC 8, 16 and 32 all passed the float64 gate
+// with margin (errors 0.43x / 0.29x / 0.24x the plain fp32 version's at
+// serving, 1.14x / 0.99x / 0.73x at train); KC 16 ran 0.003-0.022 ms (1-3%)
+// a launch faster than 32 and a third faster than 8, so it is taken over
+// the longest chunk that passes.  bf16 takes KC 128 (the header's sweep),
+// halved down to KC_MIN where the staged rows leave no room for two such
+// stages (at H 128: M past 257 takes 64, past 321 takes 32, up to 353).
 template <bool BF16>
 struct Prec;
 template <>
 struct Prec<false> {  // 3xTF32: m64n128k8 tf32, W's big and small halves
-  static constexpr int KC = 16, KSTEP = 8, HALIGN = 8, HS_MOD = 4;
-  static constexpr int STAGE = 2 * BN * KC;  // floats of a stage
+  static constexpr int KC = 16, KC_MIN = 16, KSTEP = 8, HALIGN = 8, HS_MOD = 4;
 };
 template <>
 struct Prec<true> {  // bf16: m64n128k16, W in bf16 (two a float)
-  static constexpr int KC = 32, KSTEP = 16, HALIGN = 16, HS_MOD = 8;
-  static constexpr int STAGE = BN * KC / 2;
+  static constexpr int KC = 128, KC_MIN = 32, KSTEP = 16, HALIGN = 16, HS_MOD = 0;
 };
 
 // The launch's plan, the same on the host and the device.
 template <bool BF16>
 struct Plan {
   int Hp;      // h columns padded to a multiple of KSTEP (one m a k step)
-  int HS;      // staged h row pitch: HS_MOD mod 32 floats, so a warp's fragment loads miss no bank
-  int nch;     // chunks of KC k' over the padded K = M * Hp
+  int HS;      // staged h row pitch, so that a warp's fragment loads miss no bank: TF32 HS_MOD
+               // mod 32 floats; bf16 4 mod 8 words (h in bf16 pairs)
+  int kc;      // k' of a chunk (Prec's KC, or less where the rows leave no room)
+  int nch;     // chunks of kc k' over the padded K = M * Hp
   int MPAD;    // staged x0 columns: every m the chunks reach, zero past M
-  int XS;      // staged x0 row pitch, odd
+  int XS;      // staged x0 row pitch, odd (bf16: words, each x0 in both halves)
   int stage;   // floats of one ring stage (W's big and small halves, or W in bf16)
-  int stages;  // ring stages (0: the rows do not fit)
+  int stages;  // ring stages (under 2: the rows do not fit)
   int bytes;   // dynamic shared memory
   // Tiles: RT of BM rows, each over every column tile.  The first `whole`
   // are walked whole by the persistent blocks in strides of the grid; the
@@ -154,13 +176,15 @@ struct Plan {
   __host__ __device__ Plan(int N, int H, int M, int grid) {
     using P = Prec<BF16>;
     Hp = (H + P::HALIGN - 1) / P::HALIGN * P::HALIGN;
-    HS = Hp + ((32 + P::HS_MOD - Hp % 32) % 32);
-    nch = (M * Hp + P::KC - 1) / P::KC;
-    MPAD = (nch * P::KC + Hp - 1) / Hp;
-    XS = MPAD | 1;
-    stage = P::STAGE;
-    const int rows = BM * (HS + XS) * 4 + 2 * MAX_STAGES * 8;
-    stages = (SMEM_LIMIT - rows) / (stage * 4);
+    HS = BF16 ? Hp / 2 + 4 : Hp + ((32 + P::HS_MOD - Hp % 32) % 32);
+    for (kc = P::KC;; kc /= 2) {  // the longest chunk whose two stages fit beside the rows
+      nch = (M * Hp + kc - 1) / kc;
+      MPAD = (nch * kc + Hp - 1) / Hp;
+      XS = MPAD | 1;
+      stage = BF16 ? BN * kc / 2 : 2 * BN * kc;
+      stages = (SMEM_LIMIT - BM * (HS + XS) * 4 - 2 * MAX_STAGES * 8) / (stage * 4);
+      if (stages >= 2 || kc == P::KC_MIN) break;
+    }
     if (stages > MAX_STAGES) stages = MAX_STAGES;
     bytes = stages * stage * 4 + BM * (HS + XS) * 4 + 2 * stages * 8;
     RT = (N + BM - 1) / BM;
@@ -178,7 +202,7 @@ struct Plan {
   }
 };
 
-// W [O, ldw] (k = h*M + m, columns h0 + [0, H)), element (n, k' = ch KC +
+// W [O, ldw] (k = h*M + m, columns h0 + [0, H)), element (n, k' = ch kc +
 // kk = m Hp + h) of column tile ct, chunk ch; zero past O, M and H.
 __device__ __forceinline__ float w_at(const float* __restrict__ w, int ldw, int h0, int H, int M,
                                       int O, int Hp, int ct, int n, int kp) {
@@ -189,32 +213,31 @@ __device__ __forceinline__ float w_at(const float* __restrict__ w, int ldw, int 
 }
 
 // W into wsp stage by stage (for each column tile ct and chunk ch, one
-// stage's KC x BN block).  TF32: the big then the small TF32 halves,
-// element (n, kk) at ((n / 8) (KC / 4) + kk / 4) 32 + (n % 8) 4 + kk % 4.
-// bf16: W rounded to bf16 (nearest even), element (n, kk) at 16-bit slot
-// ((n / 8) (KC / 8) + kk / 8) 64 + (n % 8) 8 + kk % 8, two to a word.
+// stage's kc x BN block).  TF32: the big then the small TF32 halves,
+// element (n, kk) at ((n / 8) (kc / 4) + kk / 4) 32 + (n % 8) 4 + kk % 4.
+// bf16: W rounded to bf16 (nearest even), a bf16 tile (tc_tf32.cuh) of BN
+// rows (columns n) by kc k', two to a word.
 template <bool BF16>
 __global__ void cin_fwd_stage_w(const float* __restrict__ w, int ldw, int h0, int H, int M,
-                                int O, int Hp, int nch, int ct_count,
+                                int O, int Hp, int kc, int nch, int ct_count,
                                 uint32_t* __restrict__ wsp) {
-  constexpr int KC = Prec<BF16>::KC, TILE = BN * KC;
-  constexpr int WORDS = BF16 ? TILE / 2 : TILE;  // a thread's items of a tile
+  const int TILE = BN * kc;
+  const int WORDS = BF16 ? TILE / 2 : TILE;  // a thread's items of a tile
   const long long total = static_cast<long long>(ct_count) * nch * WORDS;
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < total;
        i += static_cast<long long>(gridDim.x) * blockDim.x) {
     const int e = static_cast<int>(i % WORDS);
     const long long blk = i / WORDS;  // ct * nch + ch
     const int ch = static_cast<int>(blk % nch), ct = static_cast<int>(blk / nch);
-    if constexpr (BF16) {  // the 16-bit slots 2e (low half) and 2e + 1
-      const int cm = e / 32, in = 2 * (e % 32);
-      const int n = (cm / (KC / 8)) * 8 + in / 8;
-      const int kp = ch * KC + (cm % (KC / 8)) * 8 + in % 8;
-      wsp[blk * WORDS + e] = tc::bf16x2(w_at(w, ldw, h0, H, M, O, Hp, ct, n, kp),
-                                        w_at(w, ldw, h0, H, M, O, Hp, ct, n, kp + 1));
+    if constexpr (BF16) {  // a bf16 pair: channels kk, kk + 1 of column n
+      const int n = e % BN, kk = 2 * (e / BN), kp = ch * kc + kk;
+      wsp[blk * WORDS + tc::bf16_tile_off(n, kk, kc) / 4] =
+          tc::bf16x2(w_at(w, ldw, h0, H, M, O, Hp, ct, n, kp),
+                     w_at(w, ldw, h0, H, M, O, Hp, ct, n, kp + 1));
     } else {
       const int cm = e / 32, in = e % 32;
-      const int n = (cm / (KC / 4)) * 8 + in / 4;
-      const int kp = ch * KC + (cm % (KC / 4)) * 4 + in % 4;
+      const int n = (cm / (kc / 4)) * 8 + in / 4;
+      const int kp = ch * kc + (cm % (kc / 4)) * 4 + in % 4;
       uint32_t big, small;
       tc::split(w_at(w, ldw, h0, H, M, O, Hp, ct, n, kp), big, small);
       wsp[blk * 2 * TILE + e] = big;
@@ -235,21 +258,97 @@ __device__ __forceinline__ void for_each_item(const Plan<BF16>& plan, Fn fn) {
   }
 }
 
+// A consumer's R rows from row0 of h and x0 into shared memory, zero past
+// N, H and M; t is the thread of the warpgroup.  TF32: as they stand, by
+// cp.async.  bf16: rounded once (as the TPU kernel cast them), h in bf16
+// pairs and x0 in both halves of a word, SB loads of a thread in flight.
+template <bool BF16, class Word>
+__device__ __forceinline__ void stage_rows(const Plan<BF16>& plan, Word* hs, Word* xs,
+                                           const float* __restrict__ h, int ldh,
+                                           const float* __restrict__ x0, int row0, int N, int H,
+                                           int M, int t) {
+  if constexpr (BF16) {
+    const int HW = plan.Hp / 2;
+    for (int e0 = t; e0 < R * HW; e0 += SB * WG) {
+      float lo[SB], hi[SB];
+#pragma unroll
+      for (int k = 0; k < SB; ++k) {
+        const int e = e0 + k * WG, r = e / HW, q = e - r * HW, gr = row0 + r;
+        const float* hr = h + static_cast<long long>(gr < N ? gr : 0) * ldh;
+        const bool in = e < R * HW && gr < N;
+        lo[k] = in && 2 * q < H ? hr[2 * q] : 0.f;
+        hi[k] = in && 2 * q + 1 < H ? hr[2 * q + 1] : 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < SB; ++k) {
+        const int e = e0 + k * WG, r = e / HW;
+        if (e < R * HW) hs[r * plan.HS + e - r * HW] = tc::bf16x2(lo[k], hi[k]);
+      }
+    }
+    for (int e0 = t; e0 < R * plan.MPAD; e0 += SB * WG) {
+      float v[SB];
+#pragma unroll
+      for (int k = 0; k < SB; ++k) {
+        const int e = e0 + k * WG, r = e / plan.MPAD, m = e - r * plan.MPAD, gr = row0 + r;
+        v[k] = e < R * plan.MPAD && gr < N && m < M ? x0[static_cast<long long>(gr) * M + m]
+                                                     : 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < SB; ++k) {
+        const int e = e0 + k * WG, r = e / plan.MPAD;
+        if (e < R * plan.MPAD) xs[r * plan.XS + e - r * plan.MPAD] = tc::bf16x2(v[k], v[k]);
+      }
+    }
+  } else {
+    const int warp = t / 32, lane = t % 32;
+    const bool h16 = (reinterpret_cast<uintptr_t>(h) & 15) == 0 && ldh % 4 == 0;
+    for (int r = warp; r < R; r += 4) {
+      const int gr = row0 + r;
+      const bool in = gr < N;
+      const float* hrow = h + static_cast<long long>(in ? gr : 0) * ldh;
+      if (h16) {
+        for (int q = lane; q < plan.Hp / 4; q += 32) {
+          const int valid = in ? min(max(H - 4 * q, 0), 4) : 0;
+          tc::cp_async16(hs + r * plan.HS + 4 * q, hrow + (valid ? 4 * q : 0), 4 * valid);
+        }
+      } else {
+        for (int q = lane; q < plan.Hp; q += 32)
+          tc::cp_async4(hs + r * plan.HS + q, hrow + (q < H ? q : 0), in && q < H);
+      }
+      const float* xrow = x0 + static_cast<long long>(in ? gr : 0) * M;
+      for (int q = lane; q < plan.MPAD; q += 32)
+        tc::cp_async4(xs + r * plan.XS + q, xrow + (q < M ? q : 0), in && q < M);
+    }
+    tc::cp_async_commit();
+    tc::cp_async_wait<0>();
+  }
+}
+
 // One launch over an h block of H <= HMAX columns.  acc: add into out (a
 // later h block) instead of writing out + b.  Split tiles write their parts'
-// sums to part [splits][tail rows][O] instead.
+// sums to part [splits][tail rows][O] instead.  A consumer builds each
+// chunk's A fragments, z = h x0 at its rows r0 and r0 + 8, from its staged
+// rows: TF32 at k' columns tig and tig + 4 of each k8 step, split into TF32
+// halves (three MMAs a step, small terms first); bf16 at k' columns 2 tig,
+// 2 tig + 1, 2 tig + 8 and 2 tig + 9 of each k16 step, one packed product
+// of an h pair by {x0, x0} a word (mul.rn.bf16x2: the product of two bf16
+// values is exact in fp32, so this is the fp32 product rounded once, bit for
+// bit).  Each chunk is summed in the tensor cores from zero (scale-d 0 on its
+// first MMA) and added to the fp32 sum in chunk order.
 template <bool BF16>
 __global__ void __launch_bounds__(THREADS, 1)
 cin_fwd_kernel(const float* __restrict__ h, int ldh, const float* __restrict__ x0,
                const uint32_t* __restrict__ wsp, const float* __restrict__ bias,
                float* __restrict__ out, float* __restrict__ part, int N, int H, int M, int O,
                int acc, int grid) {
-  constexpr int KC = Prec<BF16>::KC, KSTEP = Prec<BF16>::KSTEP, KS = KC / KSTEP;
+  using P = Prec<BF16>;
+  using Word = std::conditional_t<BF16, uint32_t, float>;  // a staged h / x0 slot
+  constexpr int KSMAX = P::KC / P::KSTEP;                  // k steps of the longest chunk
   const Plan<BF16> plan(N, H, M, grid);
-  const int CT = (O + BN - 1) / BN;
+  const int CT = (O + BN - 1) / BN, KC = plan.kc, K = M * plan.Hp;
   float* ring = cin_smem;
-  float* hs_all = ring + plan.stages * plan.stage;
-  float* xs_all = hs_all + BM * plan.HS;
+  Word* hs_all = reinterpret_cast<Word*>(ring + plan.stages * plan.stage);
+  Word* xs_all = hs_all + BM * plan.HS;
   uint64_t* full = reinterpret_cast<uint64_t*>(xs_all + BM * plan.XS);
   uint64_t* empty = full + plan.stages;
   const int wgi = threadIdx.x / WG;
@@ -283,100 +382,81 @@ cin_fwd_kernel(const float* __restrict__ h, int ldh, const float* __restrict__ x
     tc::regs_inc<232>();
     const int c = wgi - 1, t = threadIdx.x % WG, warp = t / 32, lane = t % 32;
     const int g = lane / 4, tig = lane % 4;
-    float* hs = hs_all + c * R * plan.HS;
-    float* xs = xs_all + c * R * plan.XS;
+    Word* hs = hs_all + c * R * plan.HS;
+    Word* xs = xs_all + c * R * plan.XS;
     const uint32_t ring_addr = tc::smem_addr(ring);
-    const bool h16 = (reinterpret_cast<uintptr_t>(h) & 15) == 0 && ldh % 4 == 0;
     int it = 0;
     for_each_item(plan, [&](int rt, int c0, int c1, int p) {
       const int row0 = rt * BM + c * R;
-      // stage this consumer's h and x0 rows (the previous tile's reads are done)
+      tc::named_sync(1 + c, WG);  // the previous tile's reads are done
+      stage_rows(plan, hs, xs, h, ldh, x0, row0, N, H, M, t);
       tc::named_sync(1 + c, WG);
-      for (int r = warp; r < R; r += 4) {
-        const int gr = row0 + r;
-        const bool in = gr < N;
-        const float* hrow = h + static_cast<long long>(in ? gr : 0) * ldh;
-        if (h16) {
-          for (int q = lane; q < plan.Hp / 4; q += 32) {
-            const int valid = in ? min(max(H - 4 * q, 0), 4) : 0;
-            tc::cp_async16(hs + r * plan.HS + 4 * q, hrow + (valid ? 4 * q : 0), 4 * valid);
-          }
-        } else {
-          for (int q = lane; q < plan.Hp; q += 32)
-            tc::cp_async4(hs + r * plan.HS + q, hrow + (q < H ? q : 0), in && q < H);
-        }
-        const float* xrow = x0 + static_cast<long long>(in ? gr : 0) * M;
-        for (int q = lane; q < plan.MPAD; q += 32)
-          tc::cp_async4(xs + r * plan.XS + q, xrow + (q < M ? q : 0), in && q < M);
-      }
-      tc::cp_async_commit();
-      tc::cp_async_wait<0>();
-      tc::named_sync(1 + c, WG);
-      if constexpr (BF16) {  // the rows' operands rounded to bf16, as the TPU kernel cast them
-        for (int e = t; e < R * plan.Hp; e += WG) {
-          float& v = hs[(e / plan.Hp) * plan.HS + e % plan.Hp];
-          v = tc::bf16_round(v);
-        }
-        for (int e = t; e < R * plan.MPAD; e += WG) {
-          float& v = xs[(e / plan.MPAD) * plan.XS + e % plan.MPAD];
-          v = tc::bf16_round(v);
-        }
-        tc::named_sync(1 + c, WG);
-      }
 
       const int r0 = 16 * warp + g;  // this thread's rows r0 and r0 + 8
       for (int ct = 0; ct < CT; ++ct) {
         float sum[BN / 2];
 #pragma unroll
         for (int i = 0; i < BN / 2; ++i) sum[i] = 0.f;
-        // k' = m Hp + hh of the next k step
-        int m = c0 * KC / plan.Hp, hh = c0 * KC - m * plan.Hp;
+        int m = c0 * KC / plan.Hp, hh = c0 * KC - m * plan.Hp;  // k' = m Hp + hh of the next step
         for (int ch = c0; ch < c1; ++ch, ++it) {
-          // this chunk's A fragments: z = h x0 at rows r0 and r0 + 8; TF32:
-          // k' columns tig and tig + 4 of each k8 step, split into TF32
-          // halves; bf16: columns 2 tig, 2 tig + 1, 2 tig + 8 and 2 tig + 9
-          // of each k16 step, rounded to bf16 in pairs (low half first)
-          uint32_t ab[KS][4], as[KS][4];
+          const int s = it % plan.stages;
+          // the chunk's W stage, once the copy has landed
+          auto stage = [&] {
+            tc::mbar_wait(&full[s], (it / plan.stages) & 1);
+            return ring_addr + s * plan.stage * 4;
+          };
+          float d[BN / 2];
+          if constexpr (BF16) {  // the k16 steps below K
+            uint32_t a[KSMAX][4];
 #pragma unroll
-          for (int j = 0; j < KS; ++j) {
-            const float xa = xs[r0 * plan.XS + m], xb = xs[(r0 + 8) * plan.XS + m];
-            if constexpr (BF16) {
-              const float* hr = hs + r0 * plan.HS + hh + 2 * tig;
-              const float* hq = hr + 8 * plan.HS;
-              ab[j][0] = tc::bf16x2(hr[0] * xa, hr[1] * xa);
-              ab[j][1] = tc::bf16x2(hq[0] * xb, hq[1] * xb);
-              ab[j][2] = tc::bf16x2(hr[8] * xa, hr[9] * xa);
-              ab[j][3] = tc::bf16x2(hq[8] * xb, hq[9] * xb);
-            } else {
+            for (int j = 0; j < KSMAX; ++j) {
+              if (16 * j >= KC || ch * KC + 16 * j >= K) break;
+              const uint32_t xa = xs[r0 * plan.XS + m], xb = xs[(r0 + 8) * plan.XS + m];
+              const uint32_t* hr = hs + r0 * plan.HS + hh / 2 + tig;
+              const uint32_t* hq = hr + 8 * plan.HS;
+              a[j][0] = tc::mul_bf16x2(hr[0], xa);
+              a[j][1] = tc::mul_bf16x2(hq[0], xb);
+              a[j][2] = tc::mul_bf16x2(hr[4], xa);
+              a[j][3] = tc::mul_bf16x2(hq[4], xb);
+              hh += 16;
+              if (hh == plan.Hp) {
+                hh = 0;
+                ++m;
+              }
+            }
+            const uint32_t sb = stage();
+            tc::fence_regs(d);
+            tc::wgmma_fence();
+#pragma unroll
+            for (int j = 0; j < KSMAX; ++j)
+              if (16 * j < KC && ch * KC + 16 * j < K)
+                tc::wgmma_bf16<BN>(d, a[j], tc::bf16_tile_desc(sb, 0, j, KC), j > 0);
+          } else {
+            uint32_t ab[KSMAX][4], as[KSMAX][4];
+#pragma unroll
+            for (int j = 0; j < KSMAX; ++j) {
+              const float xa = xs[r0 * plan.XS + m], xb = xs[(r0 + 8) * plan.XS + m];
               const float* hr = hs + r0 * plan.HS + hh + tig;
               const float z[4] = {hr[0] * xa, hr[8 * plan.HS] * xb, hr[4] * xa,
                                   hr[8 * plan.HS + 4] * xb};
 #pragma unroll
               for (int q = 0; q < 4; ++q) tc::split(z[q], ab[j][q], as[j][q]);
+              hh += P::KSTEP;
+              if (hh == plan.Hp) {
+                hh = 0;
+                ++m;
+              }
             }
-            hh += KSTEP;
-            if (hh == plan.Hp) {
-              hh = 0;
-              ++m;
-            }
-          }
-          const int s = it % plan.stages;
-          tc::mbar_wait(&full[s], (it / plan.stages) & 1);
-          const uint32_t sb = ring_addr + s * plan.stage * 4;
-          float d[BN / 2];
-          tc::fence_regs(d);
-          tc::wgmma_fence();
+            const uint32_t sb = stage();
+            tc::fence_regs(d);
+            tc::wgmma_fence();
 #pragma unroll
-          for (int j = 0; j < KS; ++j) {
-            // k step j: core matrices 2j and 2j + 1 along K (LBO 128 bytes),
-            // 8-column groups a row of the stage's core matrices apart
-            // (SBO); the chunk's first product from zero (scale-d 0)
-            if constexpr (BF16) {
-              tc::wgmma_bf16<BN>(d, ab[j], tc::wgmma_desc(sb + 256 * j, 128, 16 * KC), j > 0);
-            } else {
-              // small terms first
-              const uint64_t db = tc::wgmma_desc(sb + 256 * j, 128, 32 * KC);
-              const uint64_t ds = tc::wgmma_desc(sb + BN * KC * 4 + 256 * j, 128, 32 * KC);
+            for (int j = 0; j < KSMAX; ++j) {
+              // k step j: core matrices 2j and 2j + 1 along K (LBO 128
+              // bytes), 8-column groups a row of the stage's core matrices
+              // apart (SBO)
+              const uint64_t db = tc::wgmma_desc(sb + 256 * j, 128, 32 * P::KC);
+              const uint64_t ds = tc::wgmma_desc(sb + BN * P::KC * 4 + 256 * j, 128, 32 * P::KC);
               tc::wgmma<BN>(d, as[j], db, j > 0);
               tc::wgmma<BN>(d, ab[j], ds, 1);
               tc::wgmma<BN>(d, ab[j], db, 1);
@@ -389,7 +469,7 @@ cin_fwd_kernel(const float* __restrict__ h, int ldh, const float* __restrict__ x
 #pragma unroll
           for (int i = 0; i < BN / 2; ++i) sum[i] += d[i];
         }
-        // epilogue: d[4 j + q] is row r0 + 8 (q / 2), column 8 j + 2 tig + q % 2
+        // epilogue: sum[4 j + q] is row r0 + 8 (q / 2), column 8 j + 2 tig + q % 2
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
           const int r = row0 + r0 + 8 * hf;
@@ -440,11 +520,11 @@ int launch(const void* h, int ldh, const void* x0, const void* w, int ldw, int h
   const Plan<BF16> plan(N, H, M, grid);
   if (plan.stages < 2) return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
-  int CT = (O + BN - 1) / BN, Hp = plan.Hp, nch = plan.nch;
+  int CT = (O + BN - 1) / BN, Hp = plan.Hp, kc = plan.kc, nch = plan.nch;
   const long long wfloats = static_cast<long long>(CT) * plan.nch * plan.stage;
   void* part = static_cast<float*>(scratch) + wfloats;
   const int sblocks = static_cast<int>(wfloats / 512 + 1 < 2048 ? wfloats / 512 + 1 : 2048);
-  void* sargs[] = {&w, &ldw, &h0, &H, &M, &O, &Hp, &nch, &CT, &scratch};
+  void* sargs[] = {&w, &ldw, &h0, &H, &M, &O, &Hp, &kc, &nch, &CT, &scratch};
   cudaError_t err =
       cudaLaunchKernel(cin_fwd_stage_w<BF16>, dim3(sblocks), dim3(256), sargs, 0, st);
   if (err != cudaSuccess) return static_cast<int>(err);

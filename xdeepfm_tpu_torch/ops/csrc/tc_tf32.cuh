@@ -41,9 +41,11 @@
 // the wgmma kernel, by bulk copies (cp.async.bulk) that complete a
 // transaction count on an mbarrier in shared memory.
 // The CIN's bf16 mode (cin_pallas.set_cin_precision("bf16")) takes the
-// 16-bit forms instead: operands rounded to bf16 in pairs (bf16x2), one
-// mma.sync m16n8k16 or wgmma m64nNk16 bf16 for each product, summed in fp32
-// from zero and added in fp32 by the same rule (mma_bf16_add).
+// 16-bit forms instead: operands rounded to bf16 in pairs (bf16x2, or
+// multiplied as pairs by mul_bf16x2), wgmma m64nNk16 bf16 with A from
+// registers (cin_fwd.cu) or from shared memory (wgmma_bf16_ss, cin_bwd.cu)
+// over K-major bf16 tiles (bf16_tile_*), chunks of k16 steps summed in the
+// tensor cores from zero and added in fp32 by the same rule.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -96,17 +98,12 @@ __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
   return r;
 }
 
-// d = a * b over one m16n8k16 bf16 tile, summed from zero (fp32 products and
-// sums).  Fragments (PTX ISA): A (16 x 16) a0 (group, 2 tig..+1), a1
-// (group + 8, 2 tig..), a2 (group, 2 tig + 8..), a3 (group + 8, 2 tig + 8..);
-// B (16 x 8) b0 (k 2 tig..+1, column group), b1 (k 2 tig + 8..); C as m16n8k8
-__device__ __forceinline__ void mma_bf16_z(float (&d)[4], const uint32_t (&a)[4],
-                                           const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f));
+// mul.rn.bf16x2: the bf16 pairs a and b multiplied half by half, each
+// product rounded to bf16 (nearest, ties to even) once
+__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -268,6 +265,30 @@ __device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
 }
 
+// d (= or +=, as acc) A * B over one m64nNk16 bf16 tile, both operands from
+// shared memory through their descriptors, K-major (trans-a 0, trans-b 0):
+// A's 64 rows and B's N columns each in core matrices of 8 rows x 8 bf16
+template <int N>
+__device__ __forceinline__ void wgmma_bf16_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int acc);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16_ss<128>(float (&d)[64], uint64_t a, uint64_t b,
+                                                   int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : TC_D16(0), TC_D16(16), TC_D16(32), TC_D16(48)
+      : "l"(a), "l"(b), "r"(acc));
+}
+
 #undef TC_D16
 #undef TC_D4
 
@@ -282,6 +303,30 @@ namespace tc {
 __host__ __device__ inline uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return static_cast<uint64_t>((addr & 0x3ffff) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+// The bf16 kernels' operand tiles (cin_fwd.cu's W stages, cin_bwd.cu's g
+// tiles and W stages): K-major, `rows` rows (N of B, M of A; a multiple of
+// 8) by kw bf16 along K (a multiple of 16), copied into shared memory as
+// they stand in device memory: unswizzled core matrices of 8 rows x 16 bytes
+// (8 k), ((row / 8) (kw / 8) + k / 8) 128 bytes on.  (A 128-byte swizzled
+// layout ran no faster in either kernel; PERF.md section 6.)
+// the byte offset of element (row, k)
+__host__ __device__ inline uint32_t bf16_tile_off(int row, int k, int kw) {
+  return ((row / 8) * (kw / 8) + k / 8) * 128 + (row % 8) * 16 + (k % 8) * 2;
+}
+// the inverse for a 16-byte chunk (8 k): the row and first k of the chunk
+// at byte offset o
+__host__ __device__ inline void bf16_tile_chunk(int o, int kw, int& row, int& k) {
+  const int cm = o / 128;
+  row = cm / (kw / 8) * 8 + (o % 128) / 16;
+  k = cm % (kw / 8) * 8;
+}
+// the descriptor of k16 step s of rows row0.. (a multiple of 8) of the tile
+// at shared address addr: core matrices 128 bytes apart along K (LBO), 16 kw
+// along the rows (SBO)
+__host__ __device__ inline uint64_t bf16_tile_desc(uint32_t addr, int row0, int s, int kw) {
+  return wgmma_desc(addr + bf16_tile_off(row0, 16 * s, kw), 128, 16 * kw);
 }
 
 // acc += a * b in 3xTF32 (one MMA under "bf16", where the small halves are
@@ -304,21 +349,6 @@ __device__ __forceinline__ void mma3_add(float (&acc)[4], const uint32_t (&ab)[4
     mma(d, ab, bs);
     mma(d, ab, bb);
   }
-#pragma unroll
-  for (int q = 0; q < 4; ++q) acc[q] += d[q];
-}
-
-// x rounded to bf16 (nearest, ties to even), as fp32
-__device__ __forceinline__ float bf16_round(float x) {
-  return __uint_as_float(bf16x2(0.f, x) & 0xffff0000u);
-}
-
-// acc += a * b over one m16n8k16 bf16 tile (a and b bf16 pairs), the
-// product summed from zero and added to acc in fp32, as mma3_add does
-__device__ __forceinline__ void mma_bf16_add(float (&acc)[4], const uint32_t (&a)[4],
-                                             const uint32_t (&b)[2]) {
-  float d[4];
-  mma_bf16_z(d, a, b);
 #pragma unroll
   for (int q = 0; q < 4; ++q) acc[q] += d[q];
 }
