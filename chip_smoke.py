@@ -55,7 +55,14 @@ run in order and any failure raises, so the exit code is non-zero:
    version's error (or 1e-6 of the largest entry); times beside the plain
    version's, the library's (``F.linear`` then ``F.cross_entropy``, logits
    materialised, backward by autograd) and the bounds on the fp32 pipes and
-   the TF32 tensor cores, and the forward's exp floor;
+   the TF32 tensor cores, and the forward's exp floor; the fp32 outputs'
+   sha256 (``outputs_sha256``); then the CE's bf16 mode (``ce_bf16_kernel``
+   lines, every shape but the full-B one): ``ce_round_bf16`` (its tiles
+   equal to the plain rounding), ``ce_fwd_bf16`` and ``ce_bwd_bf16`` on its
+   tiles, one launch each, against the bf16 plain versions, against float64
+   of the same rounded operands by the same gate, bit-equal over two runs,
+   with their times, the plain and library times (bf16 ``F.linear``) and the
+   bounds at the bf16 tensor-core peak and the exp rate;
 9. Pro training: the canonical xDeepFMPro (the columns above, SFG decoder
    (128, 64) with label attention, positive-only, dropout 0.1), ``fit`` at
    batch 4096 with Adam for three epochs.  Per step one ``ce_fwd`` and one
@@ -185,6 +192,13 @@ run in order and any failure raises, so the exit code is non-zero:
    bf16 mode), one SGD step against the CPU model, ms a step and busy share
    beside the fp32 CIN's, then ``Scorer(8192)`` with 2 ``cin_fwd_bf16`` a
    batch against the CPU model;
+   ``pro_ce_bf16_training``: the canonical xDeepFMPro under
+   ``ce.set_precision("bf16")``, the first step's loss within
+   PRO_CE_BF16_LOSS_RTOL of the fp32 mode's, ``fit`` for two epochs of 8
+   steps with 1 ``ce_round_bf16`` + 1 ``ce_fwd_bf16`` + 1 ``ce_bwd_bf16`` a
+   step and no fp32 CE launch, one SGD step against the CPU model, ms a step
+   and the profiles' busy ms, idle share and device ms by kernel beside the
+   fp32 mode's;
 18. the embedding tables' backward (``gather`` lines): the port's
    deterministic ``fused_gather`` beside ``F.embedding``'s and
    ``index_select``'s, bit-equality over two calls, error against float64
@@ -259,6 +273,7 @@ second side takes the first side's sign) only where both inputs lie within
 
 import concurrent.futures
 import copy
+import hashlib
 import json
 import os
 import pickle
@@ -335,9 +350,13 @@ from xdeepfm_tpu_torch.ops.attn_block_cuda import (
     ab_forward_reference,
 )
 from xdeepfm_tpu_torch.ops.ce_cuda import (
+    ce_round_bf16,
+    ce_round_bf16_reference,
     ce_rows_backward,
+    ce_rows_backward_bf16,
     ce_rows_backward_reference,
     ce_rows_forward,
+    ce_rows_forward_bf16,
     ce_rows_forward_reference,
 )
 from xdeepfm_tpu_torch.ops.cin import set_backward_impl, set_cin_precision
@@ -439,6 +458,13 @@ SOURCES = {
                ["xdeepfm_tpu/ops/ce_pallas.py:138", "xdeepfm_tpu/ops/ce_pallas.py:369"]),
     "ce_bwd": ("xdeepfm_tpu_torch/ops/csrc/ce_bwd.cu",
                ["xdeepfm_tpu/ops/ce_pallas.py:204", "xdeepfm_tpu/ops/ce_pallas.py:423"]),
+    # the bf16 mode (ce_pallas.set_precision, its default, :58): the same TPU
+    # kernels with every product's operands cast to bf16 in _dot (:128)
+    "ce_round_bf16": ("xdeepfm_tpu_torch/ops/csrc/ce_bf16.cu", "xdeepfm_tpu/ops/ce_pallas.py:128"),
+    "ce_fwd_bf16": ("xdeepfm_tpu_torch/ops/csrc/ce_bf16.cu",
+                    ["xdeepfm_tpu/ops/ce_pallas.py:138", "xdeepfm_tpu/ops/ce_pallas.py:369"]),
+    "ce_bwd_bf16": ("xdeepfm_tpu_torch/ops/csrc/ce_bf16.cu",
+                    ["xdeepfm_tpu/ops/ce_pallas.py:204", "xdeepfm_tpu/ops/ce_pallas.py:423"]),
     "sa_fwd": ("xdeepfm_tpu_torch/ops/csrc/sa_fwd.cu", "xdeepfm_tpu/ops/attention_pallas.py:204"),
     "sa_bwd": ("xdeepfm_tpu_torch/ops/csrc/sa_bwd.cu", "xdeepfm_tpu/ops/attention_pallas.py:229"),
     "ab_fwd": ("xdeepfm_tpu_torch/ops/csrc/ab_fwd.cu", "xdeepfm_tpu/ops/attn_block_pallas.py:502"),
@@ -461,6 +487,8 @@ HEADERS = {
     "cin_round_g_bf16": ("xdeepfm_tpu_torch/ops/csrc/tc_tf32.cuh",),
     "ce_fwd": ("xdeepfm_tpu_torch/ops/csrc/ce_tc.cuh", "xdeepfm_tpu_torch/ops/csrc/tc_tf32.cuh"),
     "ce_bwd": ("xdeepfm_tpu_torch/ops/csrc/ce_tc.cuh", "xdeepfm_tpu_torch/ops/csrc/tc_tf32.cuh"),
+    **{k: ("xdeepfm_tpu_torch/ops/csrc/ce_tc.cuh", "xdeepfm_tpu_torch/ops/csrc/tc_tf32.cuh")
+       for k in ("ce_round_bf16", "ce_fwd_bf16", "ce_bwd_bf16")},
     "sa_fwd": ("xdeepfm_tpu_torch/ops/csrc/attn_fwd_tc.cuh",),
     "sa_bwd": ("xdeepfm_tpu_torch/ops/csrc/attn_bwd_tc.cuh",),
     "ab_fwd": ("xdeepfm_tpu_torch/ops/csrc/attn_fwd_tc.cuh",
@@ -479,6 +507,8 @@ WRAPPERS = {
     "cin_fwd_bf16": cin_rows_forward_bf16, "cin_bwd_dx_bf16": cin_rows_backward_bf16,
     "cin_round_g_bf16": cin_rows_round_g_bf16,
     "ce_fwd": ce_rows_forward, "ce_bwd": ce_rows_backward,
+    "ce_round_bf16": ce_round_bf16, "ce_fwd_bf16": ce_rows_forward_bf16,
+    "ce_bwd_bf16": ce_rows_backward_bf16,
     "sa_fwd": sa_forward, "sa_bwd": sa_backward, "ab_fwd": ab_forward, "ab_bwd": ab_backward,
     "la_fwd": la_forward, "la_bwd": la_backward, "gru_fwd": gru_forward, "gru_bwd": gru_backward,
     "ablate_full": ablate_full, "ablate_dots": ablate_dots, "ablate_soft": ablate_soft,
@@ -498,6 +528,13 @@ CE_SHAPES = (
     ("tiny", 1, 5, 3, 7, 0, None),
 )
 CE_PATH_SHAPE = "stacked_third"
+# the bf16 mode's shapes: all but the full-B "stacked" one, whose float64
+# [F, B, V] block (8.6 GB) the fp32 phase already takes once
+CE_BF16_SHAPES = tuple(s for s in CE_SHAPES if s[0] != "stacked")
+# the bf16 sub-rows of PERF.md's table: rows 4-5 (one head) at "single_head",
+# rows 6-7 (stacked heads) at the Pro path's shape
+CE_BF16_ROWS = {"4 bf16": ("single_head", "fwd"), "5 bf16": ("single_head", "bwd"),
+                "6 bf16": (CE_PATH_SHAPE, "fwd"), "7 bf16": (CE_PATH_SHAPE, "bwd")}
 # ll: fp32 logsumexp over 10112 columns in another order than the plain
 # version's; each gradient within 1e-4 of its largest entry (as BWD_RTOL)
 CE_TOL = dict(rtol=1e-5, atol=1e-4)
@@ -1288,14 +1325,21 @@ def _ce_case(label, F_, B, K, V, pad, nv, gen):
     return h, W, b, t, g, nv_dev
 
 
-def _ce_library(h, W, b, t, nv):
+def _ce_library(h, W, b, t, nv, bf16=False):
     """One PyTorch call per head: F.linear, then F.cross_entropy with
     reduction="none" (the [B, V] logits materialised), rows past nv
-    zeroed."""
+    zeroed.  ``bf16``: F.linear on h and W cast to bf16 (cuBLAS's bf16
+    GEMM), the logits taken to fp32 before the bias and the CE."""
     keep = torch.ones(h.shape[0], device=h.device) if nv is None else (
         torch.arange(h.shape[0], device=h.device) < nv).float()
+
+    def logits(f):
+        if bf16:
+            return F.linear(h.bfloat16(), W[f].bfloat16()).float() + b[f]
+        return F.linear(h, W[f], b[f])
+
     return torch.stack([
-        F.cross_entropy(F.linear(h, W[f], b[f]), t[f], reduction="none") for f in range(W.shape[0])
+        F.cross_entropy(logits(f), t[f], reduction="none") for f in range(W.shape[0])
     ]) * keep
 
 
@@ -1351,8 +1395,10 @@ def phase_ce_kernels(peak):
         deterministic = all(torch.equal(a, c) for a, c in zip(grads, again))
         if not deterministic:
             raise AssertionError(f"ce_bwd at {label}: two runs differ")
-        del grads, again, want_ll, want_logz
 
+        # the outputs' sha256 (first 16 hex digits), bit-equal variants share it
+        sha = hashlib.sha256(b"".join(x.cpu().numpy().tobytes()
+                                      for x in (ll, logz, *grads))).hexdigest()[:16]
         big = B * V * F_ > 10**8
         iters = 5 if big else 50
         hl = h.clone().requires_grad_(True)
@@ -1375,7 +1421,9 @@ def phase_ce_kernels(peak):
         fwd_bytes = 4 * (rows * K + F_ * V * K + F_ * V + 2 * F_ * B) + 8 * F_ * rows
         bwd_bytes = (4 * (rows * K + F_ * V * K + F_ * V + 2 * F_ * rows) + 8 * F_ * rows
                      + 4 * (B * K + F_ * V * K + F_ * V))
+        del grads, again, want_ll, want_logz
         rec = dict(F=F_, B=B, K=K, V=V, padded_columns=pad, num_valid=nv, **times,
+                   outputs_sha256=sha,
                    fwd_max_abs_err=fwd_err, bwd_max_abs_err=bwd_err, fwd_bit_equal=True,
                    bwd_bit_equal=deterministic,
                    fwd_err_vs_float64={k: e[0] for k, e in fwd64.items()},
@@ -1396,6 +1444,123 @@ def phase_ce_kernels(peak):
         results[label] = rec
         emit(phase="ce_kernel", shape=label, **rec)
         del h, W, b, t, g, ll, logz
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_ce_bf16_kernels(peak):
+    """The CE's bf16 mode (``ce.set_precision("bf16")``, the JAX package's
+    default) at CE_BF16_SHAPES: ``ce_round_bf16`` (its tiles read back
+    equal to the plain rounding), ``ce_fwd_bf16`` and ``ce_bwd_bf16`` on its
+    tiles, one launch each, against the plain versions with
+    ``precision="bf16"`` within CE_TOL / BWD_RTOL, against float64 of the same
+    rounded operands by :func:`_f64_gate`, and bit-equal over two runs.
+    Times: each kernel alone, the forward with its rounding (``fwd_ms``, what
+    a step runs), the plain versions and the library (``_ce_library`` on
+    bf16 h and W, backward by autograd).  Bounds at the bf16 tensor cores'
+    peak: the forward's products 2*nv*K*V*F against its nv*V*F exps at the
+    exp rate (its floor), the backward's least work three such products
+    against one exp pass; the bytes as the fp32 phase counts them
+    (``ce_kernel`` lines)."""
+    _, peak_flops, peak_bw, _ = peak
+    peak_bf16 = next(p for name, p in BF16_PEAKS if name in peak[0])
+    exp_rate = peak_flops * EXP_PER_FLOP
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    results = {}
+    for label, F_, B, K, V, pad, nv in CE_BF16_SHAPES:
+        h, W, b, t, g, nvd = _ce_case(label, F_, B, K, V, pad, nv, gen)
+        reset_launches()
+        r = ce_round_bf16(h, W, b, nvd)
+        ll, logz = ce_rows_forward_bf16(r, t, nvd)
+        grads = ce_rows_backward_bf16(g, r, t, logz, nvd)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        if launches != expected(ce_round_bf16=1, ce_fwd_bf16=1, ce_bwd_bf16=1):
+            raise AssertionError(f"ce bf16 at {label}: launched {launches}")
+        for got, want in zip(r.values(), ce_round_bf16_reference(h, W, b, nvd)):
+            if not torch.equal(got, want):
+                raise AssertionError(f"ce_round_bf16 at {label}: tiles differ from the plain "
+                                     "rounding")
+        want_ll, want_logz = ce_rows_forward_reference(h, W, b, t, nvd, "bf16")
+        torch.testing.assert_close(ll, want_ll, **CE_TOL)
+        torch.testing.assert_close(logz, want_logz, **CE_TOL)
+        fwd_err = max(float((ll - want_ll).abs().max()), float((logz - want_logz).abs().max()))
+        exact = ce_rows_forward_reference(h.double(), W.double(), b.double(), t, nvd, "bf16")
+        fwd64 = {out: _f64_gate(f"ce_fwd_bf16 {out} at {label}", got, want, ex)
+                 for out, got, want, ex in zip(("ll", "logz"), (ll, logz),
+                                                (want_ll, want_logz), exact)}
+        del exact, want_ll, want_logz
+        torch.cuda.empty_cache()
+        again = ce_rows_forward_bf16(ce_round_bf16(h, W, b, nvd), t, nvd)
+        if not (torch.equal(ll, again[0]) and torch.equal(logz, again[1])):
+            raise AssertionError(f"ce_fwd_bf16 at {label}: two runs differ")
+        bwd_err = 0.0
+        plain = ce_rows_backward_reference(g, h, W, b, t, logz, nvd, "bf16")
+        for got, want in zip(grads, plain):
+            torch.testing.assert_close(got, want, rtol=BWD_RTOL,
+                                       atol=BWD_RTOL * float(want.abs().max()) + 1e-6)
+            bwd_err = max(bwd_err, float((got - want).abs().max()) if got.numel() else 0.0)
+        exact = ce_rows_backward_reference(g.double(), h.double(), W.double(), b.double(), t,
+                                           logz.double(), nvd, "bf16")
+        vs64 = {out: _f64_gate(f"ce_bwd_bf16 {out} at {label}", got, want, ex)
+                for out, got, want, ex in zip(("dh", "dW", "db"), grads, plain, exact)}
+        del exact, plain
+        torch.cuda.empty_cache()
+        again = ce_rows_backward_bf16(g, r, t, logz, nvd)
+        if not all(torch.equal(a, c) for a, c in zip(grads, again)):
+            raise AssertionError(f"ce_bwd_bf16 at {label}: two runs differ")
+        del grads, again
+
+        iters = 5 if B * V * F_ > 10**8 else 50
+        hl = h.clone().requires_grad_(True)
+        Wl = W.clone().requires_grad_(True)
+        bl = b.clone().requires_grad_(True)
+        lib_out = _ce_library(hl, Wl, bl, t, nvd, bf16=True)
+        times = dict(
+            round_ms=cuda_ms(lambda: ce_round_bf16(h, W, b, nvd), iters),
+            fwd_kernel_ms=cuda_ms(lambda: ce_rows_forward_bf16(r, t, nvd), iters),
+            fwd_ms=cuda_ms(lambda: ce_rows_forward(h, W, b, t, nvd, "bf16"), iters),
+            bwd_ms=cuda_ms(lambda: ce_rows_backward_bf16(g, r, t, logz, nvd), iters),
+            plain_fwd_ms=cuda_ms(
+                lambda: ce_rows_forward_reference(h, W, b, t, nvd, "bf16"), iters),
+            plain_bwd_ms=cuda_ms(
+                lambda: ce_rows_backward_reference(g, h, W, b, t, logz, nvd, "bf16"), iters),
+            plain_round_ms=cuda_ms(lambda: ce_round_bf16_reference(h, W, b, nvd), iters),
+            library_fwd_ms=cuda_ms(lambda: _ce_library(h, W, b, t, nvd, bf16=True), iters),
+            library_bwd_ms=cuda_ms(lambda: torch.autograd.grad(
+                lib_out, (hl, Wl, bl), g, retain_graph=True), iters),
+        )
+        del lib_out, hl, Wl, bl
+        rows = B if nv is None else nv
+        flops = 2 * rows * K * V * F_
+        exps = rows * V * F_
+        fwd_bytes = 4 * (rows * K + F_ * V * K + F_ * V + 2 * F_ * B) + 8 * F_ * rows
+        bwd_bytes = (4 * (rows * K + F_ * V * K + F_ * V + 2 * F_ * rows) + 8 * F_ * rows
+                     + 4 * (B * K + F_ * V * K + F_ * V))
+        rec = dict(F=F_, B=B, K=K, V=V, padded_columns=pad, num_valid=nv, **times,
+                   launches=launches, fwd_max_abs_err=fwd_err, bwd_max_abs_err=bwd_err,
+                   fwd_bit_equal=True, bwd_bit_equal=True, round_equal_to_plain=True,
+                   fwd_err_vs_float64={k: e[0] for k, e in fwd64.items()},
+                   plain_fwd_err_vs_float64={k: e[1] for k, e in fwd64.items()},
+                   bwd_err_vs_float64={k: e[0] for k, e in vs64.items()},
+                   plain_bwd_err_vs_float64={k: e[1] for k, e in vs64.items()},
+                   fwd_exp_floor_ms=exps / exp_rate * 1e3, peak_bf16_flops=peak_bf16,
+                   # h's valid rows, W and b read; their bf16 tiles and the
+                   # padded bias written
+                   round_bound_ms=(4 * (rows * K + F_ * V * K + 2 * F_ * V) + 2 * (
+                       rows * K + F_ * V * K)) / peak_bw * 1e3)
+        for kind, n_flops, n_bytes, ms in (("fwd", flops, fwd_bytes, times["fwd_ms"]),
+                                           ("bwd", 3 * flops, bwd_bytes, times["bwd_ms"])):
+            rec[f"{kind}_mma_ms"] = n_flops / peak_bf16 * 1e3
+            rec[f"{kind}_bound_ms"] = max(n_flops / peak_bf16, exps / exp_rate,
+                                          n_bytes / peak_bw) * 1e3
+            rec[f"{kind}_bound_by"] = ("bytes" if n_bytes / peak_bw > max(
+                n_flops / peak_bf16, exps / exp_rate) else "operations")
+            rec[f"{kind}_gflop"] = n_flops / 1e9
+            rec[f"{kind}_bound_share"] = rec[f"{kind}_bound_ms"] / ms if ms > 0 else 0.0
+        results[label] = rec
+        emit(phase="ce_bf16_kernel", shape=label, **rec)
+        del h, W, b, t, g, ll, logz, r
         torch.cuda.empty_cache()
     return results
 
@@ -1512,6 +1677,126 @@ def phase_pro_training():
     )
     emit(phase="pro_training", **record)
     return record, model, batches
+
+
+# a Pro train step in the CE's bf16 mode: the fp32 step's CIN launches and one
+# launch of each bf16 CE kernel (one bucket of 26 stacked heads)
+PRO_CE_BF16_STEP = dict(cin_fwd=2, cin_bwd_dx=2, cin_dw=2, ce_round_bf16=1, ce_fwd_bf16=1,
+                        ce_bwd_bf16=1)
+# bf16 operands keep 8 significant bits (relative rounding up to 2^-9): each
+# logit moves by about that share of |h| |W|, with random signs, and the SFG
+# loss averages some 35 000 CE rows, so the two modes' first-step losses (the
+# whole and its SFG part, which alone the CE's mode moves) must agree well
+# within 1%
+PRO_CE_BF16_LOSS_RTOL = 1e-2
+
+
+def pro_step_loss(model, batch, yb):
+    """One step's loss (sum-BCE + L2 registry + SFG aux) and its SFG aux
+    part, without a backward."""
+    with torch.no_grad():
+        out = model.module(batch, training=True)
+        mask = torch.ones(yb.shape[0], device=yb.device)
+        loss = sum_loss("binary_crossentropy", out["pred"], yb, mask)
+        aux = out["aux_loss"]
+        return float(loss + model._regularization_loss() + aux), float(aux)
+
+
+def phase_pro_ce_bf16_training():
+    """The canonical xDeepFMPro (bench.py's ``pro`` row) under
+    ``ce.set_precision("bf16")``: the first step's loss against the fp32
+    mode's from the same weights (SFG dropout off) within
+    PRO_CE_BF16_LOSS_RTOL; ``fit`` at batch 4096 with Adam for ZOO_EPOCHS
+    epochs of 8 steps (a validation half batch) with PRO_CE_BF16_STEP
+    launches a step and no fp32 CE launch, the loss finite and falling; one
+    SGD step on the card against the CPU model in the bf16 mode (the plain
+    bf16 CE); ms a step in turns with the fp32 mode, and each mode's
+    profile: busy ms a step, idle share and device ms by kernel."""
+    ce.set_precision("bf16")
+    try:
+        return _pro_ce_bf16_training()
+    finally:
+        ce.set_precision("fp32")
+
+
+def _pro_ce_bf16_training():
+    model = pro_model("cuda")
+    model.compile("adam", "binary_crossentropy", metrics=["auc"])
+    rng = np.random.default_rng(SEED + 3)
+    x, y = train_data(rng, TRAIN_STEPS_PER_EPOCH * TRAIN_BATCH + TRAIN_BATCH // 2)
+    x, y, val = (  # the last half batch validates
+        {k: v[: -TRAIN_BATCH // 2] for k, v in x.items()}, y[: -TRAIN_BATCH // 2],
+        ({k: v[-TRAIN_BATCH // 2 :] for k, v in x.items()}, y[-TRAIN_BATCH // 2 :]),
+    )
+    batch, yb = pro_batch(model, x, y, TRAIN_BATCH)
+    dec = model.module.sfg_decoder
+    dec.dropout_rate = 0.0
+    first_loss, first_launches = {}, {}
+    for mode in ("fp32", "bf16"):
+        ce.set_precision(mode)
+        reset_launches()
+        first_loss[mode] = pro_step_loss(model, batch, yb)
+        first_launches[mode] = read_launches()
+    dec.dropout_rate = model.sfg_dropout
+    if first_launches["bf16"] != expected(cin_fwd=2, ce_round_bf16=1, ce_fwd_bf16=1):
+        raise AssertionError(f"Pro bf16 CE: the first-step loss launched {first_launches}")
+    loss_rel = [abs(b - f) / abs(f) for b, f in zip(first_loss["bf16"], first_loss["fp32"])]
+    if not max(loss_rel) <= PRO_CE_BF16_LOSS_RTOL:
+        raise AssertionError(f"Pro bf16 CE: first-step (loss, SFG loss) {first_loss} differ by "
+                             f"{loss_rel}")
+
+    steps = TRAIN_STEPS_PER_EPOCH * ZOO_EPOCHS
+    reset_launches()
+    t0 = time.perf_counter()
+    history = model.fit(x, y, batch_size=TRAIN_BATCH, epochs=ZOO_EPOCHS, verbose=1,
+                        validation_data=val)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = read_launches()
+    want = expected(**{k: n * steps for k, n in PRO_CE_BF16_STEP.items()})
+    want["cin_fwd"] += 2 * ZOO_EPOCHS  # the validation batches' forwards (no CE there)
+    if launches != want:
+        raise AssertionError(f"Pro bf16 CE: launches {launches} over {steps} steps, "
+                             f"expected {want}")
+    logs = history.history
+    for k, v in logs.items():
+        if not np.isfinite(v).all():
+            raise AssertionError(f"Pro bf16 CE: {k} is not finite: {v}")
+    if not logs["loss"][0] > logs["loss"][-1]:
+        raise AssertionError(f"Pro bf16 CE: the epoch loss did not fall: {logs['loss']}")
+
+    cpu_errs = sgd_step_vs_cpu(
+        [pro_model(dev, model.get_weights(), sfg_dropout=0.0) for dev in ("cuda", "cpu")],
+        x, y, "Pro bf16 CE: ")
+
+    # ms a step, bf16 CE against fp32 CE from the same weights, in turns
+    batches = [device_batch(model, {k: v[i * TRAIN_BATCH:] for k, v in x.items()},
+                            y[i * TRAIN_BATCH:], TRAIN_BATCH) for i in range(4)]
+    ms = {"bf16": [], "fp32": []}
+    for mode in ("bf16", "fp32", "fp32", "bf16"):
+        ce.set_precision(mode)
+        ms[mode].append(train_steps_ms(model, batches, 10))
+    ce.set_precision("fp32")
+    fp32_profile = phase_train_profile(model, batches, phase="pro_ce_fp32_train_profile")
+    ce.set_precision("bf16")
+    reset_launches()
+    profile = phase_train_profile(model, batches, phase="pro_ce_bf16_train_profile")
+    record = dict(
+        batch=TRAIN_BATCH, steps=steps, epochs=ZOO_EPOCHS, fit_seconds=fit_s, launches=launches,
+        profiled_launches=read_launches(), history=logs,
+        first_step_loss_and_sfg_loss=first_loss, first_step_rel_diff=loss_rel,
+        rel_err_vs_cpu_one_sgd_step=cpu_errs,
+        ms_per_step=ms, examples_per_s={k: [TRAIN_BATCH / t * 1e3 for t in v]
+                                        for k, v in ms.items()},
+        device_busy_ms_per_step={"bf16": profile["device_busy_ms_per_call"],
+                                 "fp32": fp32_profile["device_busy_ms_per_call"]},
+        device_idle_share={"bf16": profile["device_idle_share"],
+                           "fp32": fp32_profile["device_idle_share"]},
+        top_device_ms_per_step={"bf16": profile["top_device_ms_per_call"],
+                                "fp32": fp32_profile["top_device_ms_per_call"]},
+    )
+    emit(phase="pro_ce_bf16_training", **record)
+    return record
 
 
 def phase_pro_scoring(model):
@@ -4674,6 +4959,7 @@ def main():
     shapes = phase_kernels(peak)
     bf16_shapes = phase_cin_bf16_kernels(peak)
     ce_shapes = phase_ce_kernels(peak)
+    ce_bf16_shapes = phase_ce_bf16_kernels(peak)
     attn_shapes = phase_attn_kernels(peak)
     la_shapes = phase_lane_kernels(peak)
     gru_shapes = phase_gru_kernels(peak)
@@ -4718,6 +5004,7 @@ def main():
     dien_dice = phase_dien_dice()
     bf16 = phase_bf16()
     cin_bf16 = phase_cin_bf16_training()
+    pro_ce_bf16 = phase_pro_ce_bf16_training()
     phase_gather()
     cli = phase_cli()
     examples = phase_examples()
@@ -4742,6 +5029,7 @@ def main():
     paths["bf16_training"] = bf16["launches"]
     paths["cin_bf16_training"] = cin_bf16["launches"]
     paths["cin_bf16_scoring"] = cin_bf16["scoring_launches"]
+    paths["pro_ce_bf16_training"] = pro_ce_bf16["launches"]
     paths.update({f"example_{name}": rec["launches"] for name, rec in examples.items()
                   if "launches" in rec})
     paths["ablation"] = ablation["launches"]
@@ -4819,6 +5107,36 @@ def main():
             err_vs_float64=max(e for x in ce_shapes.values()
                                for e in x[f"{kind}_err_vs_float64"].values()),
             bit_equal=all(x[f"{kind}_bit_equal"] for x in ce_shapes.values()),
+        ))
+    # rows 4-7's bf16 mode on the Pro step (1 launch of each): the rounding
+    # pass (bound by its bytes), the forward (by its exps), the backward
+    for kname, kind in (("ce_round_bf16", "round"), ("ce_fwd_bf16", "fwd"),
+                        ("ce_bwd_bf16", "bwd")):
+        source, replaces = SOURCES[kname]
+        r = ce_bf16_shapes[CE_PATH_SHAPE]
+        rnd = kind == "round"
+        ms = r[f"{kind}_kernel_ms" if kind == "fwd" else f"{kind}_ms"]
+        bound = r["round_bound_ms" if rnd else f"{kind}_bound_ms"]
+        kernels.append(dict(
+            name=kname, route="cuda", source=source, replaces=replaces,
+            launches=pro_ce_bf16["launches"][kname],
+            launches_by_path={path: counts[kname] for path, counts in paths.items()},
+            max_abs_err=0.0 if rnd else max(x[f"{kind}_max_abs_err"]
+                                            for x in ce_bf16_shapes.values()),
+            ms=ms, plain_ms=r[f"plain_{kind}_ms"], bound_ms=bound,
+            bound_by="bytes" if rnd else r[f"{kind}_bound_by"],
+            library_ms=None if rnd else r[f"library_{kind}_ms"],
+            bound_share=bound / ms if ms > 0 else 0.0,
+            per=f"Pro train step at batch 4096 in the bf16 mode, {r['F']} stacked heads, "
+                f"{r['num_valid']} valid rows (1 launch)" + (
+                    "; no library call rounds into the kernels' tiles" if rnd else
+                    "; bound at the bf16 tensor-core peak and the exp rate"),
+            **({} if rnd else dict(
+                mma_ms=r[f"{kind}_mma_ms"], exp_floor_ms=r["fwd_exp_floor_ms"],
+                err_vs_float64=max(e for x in ce_bf16_shapes.values()
+                                   for e in x[f"{kind}_err_vs_float64"].values()),
+                **({"with_rounding_ms": r["fwd_ms"]} if kind == "fwd" else {}))),
+            bit_equal=True,
         ))
     # rows 8-9 on V2's train step (2 launches of each), rows 10-11 on V1's (1)
     for kname, kind, key, path, n in (

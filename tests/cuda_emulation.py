@@ -27,7 +27,8 @@ mode adds ``cvt.rn.bf16x2`` (round to nearest even, lo in the low half),
 ``mul.rn.bf16x2`` (each half's exact product rounded once) and the
 ``wgmma`` m64nNk16 bf16, A from registers (read by the PTX ISA's fragment
 layout) or, like B, from shared memory through a descriptor (core matrices
-of 8 rows x 8 bf16).  This checks a
+of 8 rows x 8 bf16); the CE's bf16 mode B read MN-major (trans-b 1, its N
+contiguous in the core matrices).  This checks a
 kernel's indexing, masking, tiling, fragment layouts, barrier phases and
 partial sums without a GPU; it says nothing about its speed, about the
 GPU's compiler or about the order of asynchronous copies and MMAs, which
@@ -475,6 +476,38 @@ inline void wgmma_bf16(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc,
         const uint32_t av =
             A[32 * (row / 16) + 4 * (row % 8) + (k % 8) / 2][(row % 16 >= 8) + 2 * (k >= 8)];
         s += bf16_at(av, k) * bf16_operand(desc, col, k);
+      }
+      d[4 * j + q] = s;
+    }
+  }
+}
+// wgmma m64nNk16 bf16, A from registers as wgmma_bf16 takes it, B MN-major
+// through its descriptor (trans-b 1; the CE bf16 kernels' second products):
+// element (k, n) at the start address + (n / 8) SBO + (n % 8) 2 + (k / 8) LBO
+// + (k % 8) 16 bytes, N contiguous in 8 x 16-byte core matrices
+inline float bf16_operand_mn(uint64_t desc, int n, int k) {
+  const size_t start = (desc & 0x3fff) << 4;
+  const size_t lbo = ((desc >> 16) & 0x3fff) << 4, sbo = ((desc >> 32) & 0x3fff) << 4;
+  const size_t at = start + (n / 8) * sbo + (n % 8) * 2 + (k / 8) * lbo + (k % 8) * 16;
+  uint16_t v;
+  std::memcpy(&v, static_cast<const char*>(emu::smem_base) + at, 2);
+  return __uint_as_float(static_cast<uint32_t>(v) << 16);
+}
+template <int N>
+inline void wgmma_bf16_mn(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc, int acc) {
+  const int t = emu::tidx.x % 128;
+  uint32_t (*A)[4] = emu::group->a[emu::wgmma_calls++ % 2];
+  for (int q = 0; q < 4; ++q) A[t][q] = a[q];
+  emu::group->bar.arrive_and_wait();
+  const int w = t / 32, grp = (t % 32) / 4, tig = t % 4;
+  for (int j = 0; j < N / 8; ++j) {
+    for (int q = 0; q < 4; ++q) {
+      const int row = 16 * w + grp + 8 * (q / 2), col = 8 * j + 2 * tig + q % 2;
+      float s = acc ? d[4 * j + q] : 0.f;
+      for (int k = 0; k < 16; ++k) {
+        const uint32_t av =
+            A[32 * (row / 16) + 4 * (row % 8) + (k % 8) / 2][(row % 16 >= 8) + 2 * (k >= 8)];
+        s += bf16_at(av, k) * bf16_operand_mn(desc, col, k);
       }
       d[4 * j + q] = s;
     }

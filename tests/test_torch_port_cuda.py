@@ -16,9 +16,12 @@ from xdeepfm_tpu_torch.features import DenseFeat, SparseFeat
 from xdeepfm_tpu_torch.models import xDeepFM
 from xdeepfm_tpu_torch.ops import ce
 from xdeepfm_tpu_torch.ops.ce_cuda import (
+    ce_round_bf16,
     ce_rows_backward,
+    ce_rows_backward_bf16,
     ce_rows_backward_reference,
     ce_rows_forward,
+    ce_rows_forward_bf16,
     ce_rows_forward_reference,
 )
 from xdeepfm_tpu_torch.ops.cin import set_backward_impl
@@ -250,13 +253,14 @@ def _ce_inputs(seed, F, B, K, V, pad=0):
 
 
 # (F, B, K, V, pad, num_valid): the canonical stacked shape cut in depth, a
-# single head, ragged B, K and V, a tile straddling num_valid, num_valid 0,
-# a tiny one
+# single head, ragged B, K and V, a tile straddling num_valid, K 21 (the bf16
+# kernels' KW 32; the others take KW 16, 48 and 64), num_valid 0, a tiny one
 CE_SHAPES = [
     (26, 512, 64, 10112, 112, None),
     (1, 1000, 64, 10000, 0, 333),
     (3, 1001, 13, 1000, 0, 700),
     (2, 300, 40, 257, 5, 129),
+    (3, 200, 21, 300, 0, 150),
     (2, 256, 64, 1000, 0, 0),
     (1, 5, 3, 7, 0, None),
 ]
@@ -267,11 +271,16 @@ CE_SHAPES = [
 @pytest.mark.parametrize("F,B,K,V,pad,nv", CE_SHAPES)
 def test_ce_kernels_match_plain(card, F, B, K, V, pad, nv, precision):
     h, W, b, t, g = _ce_inputs(F + B + K + V, F, B, K, V, pad)
-    n_fwd, n_bwd = ce_rows_forward.launches, ce_rows_backward.launches
+    wrappers = (ce_rows_forward, ce_rows_backward, ce_round_bf16, ce_rows_forward_bf16,
+                ce_rows_backward_bf16)
+    before = [w.launches for w in wrappers]
     ll, logz = ce_rows_forward(h, W, b, t, nv, precision)
     grads = ce_rows_backward(g, h, W, b, t, logz, nv, precision)
     torch.cuda.synchronize()
-    assert (ce_rows_forward.launches, ce_rows_backward.launches) == (n_fwd + 1, n_bwd + 1)
+    # fp32: one launch of each kernel; bf16: the bf16 mode's own kernels, the
+    # operands rounded once by each call
+    added = (1, 1, 0, 0, 0) if precision == "fp32" else (0, 0, 2, 1, 1)
+    assert [w.launches - n for w, n in zip(wrappers, before)] == list(added)
     want_ll, want_logz = ce_rows_forward_reference(h, W, b, t, nv, precision)
     torch.testing.assert_close(ll, want_ll, rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(logz, want_logz, rtol=1e-5, atol=1e-4)

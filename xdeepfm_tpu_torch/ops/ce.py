@@ -24,9 +24,13 @@ from torch.autograd.function import once_differentiable
 from ._build import fp32_forward
 from .ce_cuda import (
     CE_MAX_K,
+    Rounded,
+    ce_round_bf16,
     ce_rows_backward,
+    ce_rows_backward_bf16,
     ce_rows_backward_reference,
     ce_rows_forward,
+    ce_rows_forward_bf16,
     ce_rows_forward_reference,
 )
 
@@ -35,7 +39,8 @@ _NEG = -1e30  # pad-column bias: exp underflows to 0, never the row max
 # The JAX package defaults to bf16 operands with fp32 accumulation, which is
 # what XLA's default matmul precision does on the TPU.  The port runs every
 # product in fp32 with TF32 off, so its default is "fp32"; "bf16" rounds h, W
-# (and dS in the backward) to bf16 before the fp32 products, as JAX does.
+# (and dS in the backward) to bf16 before the fp32 sums, as JAX does, on the
+# card through the bf16 kernels (ops/csrc/ce_bf16.cu).
 _PRECISION = "fp32"
 
 
@@ -77,6 +82,13 @@ class _CERows(torch.autograd.Function):
         ctx.kernel = backend is None and h.device.type == "cuda"
         ctx.precision = _PRECISION
         ctx.num_valid = num_valid
+        if ctx.kernel and ctx.precision == "bf16":
+            # the operands rounded once, their tiles kept for the backward
+            r = ce_round_bf16(h, W, b, num_valid)
+            ll, logz = ce_rows_forward_bf16(r, targets, num_valid)
+            ctx.shape = r[3:]
+            ctx.save_for_backward(r.hb, r.wb, r.bp, targets, logz)
+            return ll
         fwd = ce_rows_forward if ctx.kernel else ce_rows_forward_reference
         ll, logz = fwd(h, W, b, targets, num_valid, ctx.precision)
         ctx.save_for_backward(h, W, b, targets, logz)
@@ -85,6 +97,11 @@ class _CERows(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
+        if ctx.kernel and ctx.precision == "bf16":
+            hb, wb, bp, targets, logz = ctx.saved_tensors
+            dh, dW, db = ce_rows_backward_bf16(g.contiguous(), Rounded(hb, wb, bp, *ctx.shape),
+                                               targets, logz, ctx.num_valid)
+            return dh, dW, db, None, None, None
         h, W, b, targets, logz = ctx.saved_tensors
         bwd = ce_rows_backward if ctx.kernel else ce_rows_backward_reference
         dh, dW, db = bwd(g.contiguous(), h, W, b, targets, logz, ctx.num_valid, ctx.precision)

@@ -9,8 +9,7 @@
 //   db[f, v]    = sum_r dS[f, r, v]
 //
 // where S = h W^T + b is recomputed tile by tile, never stored.  Layouts and
-// types as in ce_fwd.cu.  Under "bf16" the products round h, W and dS to bf16
-// (as the TPU kernel's bf16 dots did); db sums dS in fp32.
+// types as in ce_fwd.cu.  The bf16 mode has kernels of its own (ce_bf16.cu).
 //
 // Replaces: xdeepfm_tpu/ops/ce_pallas.py _ce_bwd / _bwd_kernel (one head) and
 // _ces_bwd / _bwd_kernel_stacked (F heads in one launch).
@@ -20,8 +19,7 @@
 // step's nv = 1365 valid rows of B = 4096, K = 64, F = 26, V = 10112), against
 // W, dW and a few MB of row data in bytes: 2.057 ms on the fp32 FMA pipes
 // (67 TFLOP/s), 0.835 ms on the tensor cores in 3xTF32 (495 / 3 TFLOP/s).
-// Every product here is a 3xTF32 mma.sync of tc_tf32.cuh (one MMA under
-// "bf16", exact since a bf16 operand's TF32 small part is 0).  The TPU
+// Every product here is a 3xTF32 mma.sync of tc_tf32.cuh.  The TPU
 // kernel carried dW/db in its output block along a sequential batch axis
 // and dh in VMEM for the whole grid; Hopper's blocks run in no order and
 // nothing carries between them, so the work is split by what each block
@@ -71,7 +69,6 @@ using ce::copy_rows;
 using ce::ITEM_R;
 using ce::KMAX;
 using ce::LDK;
-using ce::split_op;
 using ce::split_rows;
 using ce::split_stage;
 using ce::THREADS;
@@ -92,8 +89,7 @@ ce_dw_kernel(const float* __restrict__ h, const float* __restrict__ w,
              const float* __restrict__ bias, const long long* __restrict__ tgt,
              const float* __restrict__ logz, const float* __restrict__ g,
              const int* __restrict__ nv_ptr, float* __restrict__ dw,
-             float* __restrict__ db, int B, int K, int V, int F, int rows_per_slice,
-             int bf16) {
+             float* __restrict__ db, int B, int K, int V, int F, int rows_per_slice) {
   const int KP = ce::round_up(K, 8);
   uint32_t* wb = reinterpret_cast<uint32_t*>(ce_smem);  // [DW_V][LDK]: W tile, big
   uint32_t* ws = wb + DW_V * LDK;                        // small
@@ -135,7 +131,7 @@ ce_dw_kernel(const float* __restrict__ h, const float* __restrict__ w,
   tc::cp_async_wait<1>();
   __syncthreads();
   split_rows<DW_V * KMAX / THREADS>(reinterpret_cast<const float*>(ws), wb, ws, DW_V, K, KP,
-                                    bf16, tid);
+                                    tid);
 
   const int vb = warp * 16;  // this warp's columns of the tile
   float acc[8][4];           // dW [vb + 16][k]: k tiles of 8
@@ -155,7 +151,7 @@ ce_dw_kernel(const float* __restrict__ h, const float* __restrict__ w,
     }
     __syncthreads();  // chunk c has landed; every warp is done with chunk c - 1
     const float* st = ring + (c % 2) * DW_STAGE;
-    split_stage(st, hb, hs, DW_R, K, KP, bf16, tid);
+    split_stage(st, hb, hs, DW_R, K, KP, tid);
     for (int e = tid; e < 3 * DW_R; e += THREADS) rv[e] = st[DW_R * KMAX + e];
     __syncthreads();
 
@@ -176,7 +172,7 @@ ce_dw_kernel(const float* __restrict__ h, const float* __restrict__ w,
         const int b0 = (8 * nt + group) * LDK + k8 + tig;
         const uint32_t bb[2] = {hb[b0], hb[b0 + 4]};
         const uint32_t bsm[2] = {hs[b0], hs[b0 + 4]};
-        tc::mma3_add(s[nt], ab, as, bb, bsm, bf16);
+        tc::mma3_add(s[nt], ab, as, bb, bsm);
       }
     }
     // dS in the fragments: s[nt][q] is column vb + group + 8 (q / 2), row
@@ -206,17 +202,17 @@ ce_dw_kernel(const float* __restrict__ h, const float* __restrict__ w,
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt) {
       uint32_t ab[4], as[4];
-      split_op(s[nt][0], bf16, ab[0], as[0]);
-      split_op(s[nt][2], bf16, ab[1], as[1]);
-      split_op(s[nt][1], bf16, ab[2], as[2]);
-      split_op(s[nt][3], bf16, ab[3], as[3]);
+      tc::split(s[nt][0], ab[0], as[0]);
+      tc::split(s[nt][2], ab[1], as[1]);
+      tc::split(s[nt][1], ab[2], as[2]);
+      tc::split(s[nt][3], ab[3], as[3]);
       const int b0 = (8 * nt + 2 * tig) * LDK + group;
 #pragma unroll
       for (int kt = 0; kt < 8; ++kt) {
         if (8 * kt >= KP) break;
         const uint32_t bb[2] = {hb[b0 + 8 * kt], hb[b0 + LDK + 8 * kt]};
         const uint32_t bsm[2] = {hs[b0 + 8 * kt], hs[b0 + LDK + 8 * kt]};
-        tc::mma3_add(acc[kt], ab, as, bb, bsm, bf16);
+        tc::mma3_add(acc[kt], ab, as, bb, bsm);
       }
     }
   }
@@ -251,7 +247,7 @@ ce_dh_kernel(const float* __restrict__ h, const float* __restrict__ w,
              const float* __restrict__ bias, const long long* __restrict__ tgt,
              const float* __restrict__ logz, const float* __restrict__ g,
              const int* __restrict__ nv_ptr, float* __restrict__ dh_part, int B, int K, int V,
-             int F, int splits, int pairs_per_split, int bf16) {
+             int F, int splits, int pairs_per_split) {
   const int KP = ce::round_up(K, 8);
   const ce::ItemTiles t = ce::item_tiles();
   float* red = reinterpret_cast<float*>(t.wb);  // [ITEM_R][LDK]: the item's end
@@ -277,7 +273,7 @@ ce_dh_kernel(const float* __restrict__ h, const float* __restrict__ w,
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc[kt][q] = 0.f;
 
-    ce::logit_walk(h, w, bias, tgt, logz, g, B, K, V, row0, rows, p_begin, n_steps, bf16, t,
+    ce::logit_walk(h, w, bias, tgt, logz, g, B, K, V, row0, rows, p_begin, n_steps, t,
                    [&](int, int, int v0, float (&s)[4][4]) {
       // dS in the fragments: s[nt][q] is row rb + group + 8 (q / 2), column
       // vb + 8 nt + 2 tig + q % 2
@@ -302,17 +298,17 @@ ce_dh_kernel(const float* __restrict__ h, const float* __restrict__ w,
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
         uint32_t ab[4], as[4];
-        split_op(s[nt][0], bf16, ab[0], as[0]);
-        split_op(s[nt][2], bf16, ab[1], as[1]);
-        split_op(s[nt][1], bf16, ab[2], as[2]);
-        split_op(s[nt][3], bf16, ab[3], as[3]);
+        tc::split(s[nt][0], ab[0], as[0]);
+        tc::split(s[nt][2], ab[1], as[1]);
+        tc::split(s[nt][1], ab[2], as[2]);
+        tc::split(s[nt][3], ab[3], as[3]);
         const int b0 = (vb + 8 * nt + 2 * tig) * LDK + group;
 #pragma unroll
         for (int kt = 0; kt < 8; ++kt) {
           if (8 * kt >= KP) break;
           const uint32_t bb[2] = {t.wb[b0 + 8 * kt], t.wb[b0 + LDK + 8 * kt]};
           const uint32_t bsm[2] = {t.ws[b0 + 8 * kt], t.ws[b0 + LDK + 8 * kt]};
-          tc::mma3_add(acc[kt], ab, as, bb, bsm, bf16);
+          tc::mma3_add(acc[kt], ab, as, bb, bsm);
         }
       }
     });
@@ -343,43 +339,6 @@ ce_dh_kernel(const float* __restrict__ h, const float* __restrict__ w,
   }
 }
 
-// out[i] = sum_s part[s * n + i], s = 0, 1, ... in order: deterministic
-__global__ void ce_sum_slices_kernel(const float* __restrict__ part, int slices, long long n,
-                                     float* __restrict__ out) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    float s = 0.f;
-    for (int t = 0; t < slices; ++t) s += __ldg(part + t * n + i);
-    out[i] = s;
-  }
-}
-
-// dh[r, k] = sum_s part[s][r][k] in order for r < num_valid, else 0
-__global__ void ce_dh_sum_kernel(const float* __restrict__ part, int splits,
-                                 const int* __restrict__ nv_ptr, int B, int K,
-                                 float* __restrict__ dh) {
-  const long long n = (long long)B * K;
-  const long long valid = (long long)ce::valid_rows(nv_ptr, B) * K;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    float s = 0.f;
-    if (i < valid)
-      for (int t = 0; t < splits; ++t) s += __ldg(part + t * n + i);
-    dh[i] = s;
-  }
-}
-
-dim3 sum_grid(long long n) {
-  const long long blocks = (n + 255) / 256;
-  return dim3(static_cast<unsigned>(blocks < 2048 ? blocks : 2048));
-}
-
-cudaError_t sum_slices(const float* part, int slices, long long n, float* out,
-                       cudaStream_t stream) {
-  void* args[] = {&part, &slices, &n, &out};
-  return cudaLaunchKernel(ce_sum_slices_kernel, sum_grid(n), dim3(256), args, 0, stream);
-}
-
 }  // namespace
 
 extern "C" {
@@ -397,7 +356,7 @@ extern "C" {
 int ce_bwd(const void* h, const void* w, const void* b, const void* t, const void* logz,
            const void* g, const void* nv, void* dh, void* dh_part, int splits,
            int pairs_per_split, int dh_blocks, void* dw, void* db, void* dw_part,
-           void* db_part, int slices, int rows_per_slice, int B, int K, int V, int F, int bf16,
+           void* db_part, int slices, int rows_per_slice, int B, int K, int V, int F,
            void* stream) {
   const int dw_smem = dw_smem_floats() * 4;
   const int dh_smem = ce::item_smem_floats() * 4;
@@ -418,27 +377,24 @@ int ce_bwd(const void* h, const void* w, const void* b, const void* t, const voi
   float* dwo = static_cast<float*>(slices > 1 ? dw_part : dw);
   float* dbo = static_cast<float*>(slices > 1 ? db_part : db);
   void* dw_args[] = {&hp, &wp, &bp, &tp, &lzp, &gp, &nvp, &dwo, &dbo,
-                     &B, &K, &V, &F, &rows_per_slice, &bf16};
+                     &B, &K, &V, &F, &rows_per_slice};
   err = cudaLaunchKernel(ce_dw_kernel, dim3((V + DW_V - 1) / DW_V, F, slices), dim3(THREADS),
                          dw_args, static_cast<size_t>(dw_smem), st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   float* dhp = static_cast<float*>(dh_part);
   void* dh_args[] = {&hp, &wp, &bp, &tp, &lzp, &gp, &nvp, &dhp,
-                     &B, &K, &V, &F, &splits, &pairs_per_split, &bf16};
+                     &B, &K, &V, &F, &splits, &pairs_per_split};
   err = cudaLaunchKernel(ce_dh_kernel, dim3(dh_blocks), dim3(THREADS), dh_args,
                          static_cast<size_t>(dh_smem), st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long n = (long long)B * K;
-  float* dho = static_cast<float*>(dh);
-  void* sum_args[] = {&dhp, &splits, &nvp, &B, &K, &dho};
-  err = cudaLaunchKernel(ce_dh_sum_kernel, sum_grid(n), dim3(256), sum_args, 0, st);
+  err = ce::launch_dh_sum(dhp, splits, nvp, B, K, static_cast<float*>(dh), st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   if (slices > 1) {
-    err = sum_slices(dwo, slices, (long long)F * V * K, static_cast<float*>(dw), st);
+    err = ce::sum_slices(dwo, slices, (long long)F * V * K, static_cast<float*>(dw), st);
     if (err != cudaSuccess) return static_cast<int>(err);
-    err = sum_slices(dbo, slices, (long long)F * V, static_cast<float*>(db), st);
+    err = ce::sum_slices(dbo, slices, (long long)F * V, static_cast<float*>(db), st);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());

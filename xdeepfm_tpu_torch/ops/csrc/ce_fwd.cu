@@ -13,7 +13,8 @@
 // head is F = 1.
 //
 // Replaces: xdeepfm_tpu/ops/ce_pallas.py _ce_fwd / _fwd_kernel (one head) and
-// _ces_fwd / _fwd_kernel_stacked (F heads in one launch).
+// _ces_fwd / _fwd_kernel_stacked (F heads in one launch).  The bf16 mode
+// (set_precision("bf16")) has kernels of its own, in ce_bf16.cu.
 //
 // Bound: operations.  At the canonical Pro step (F = 26 heads, K = 64, V
 // padded to 10112, nv = 1365 valid rows of B = 4096) the product is
@@ -30,9 +31,9 @@
 //     that ce_dh_kernel recomputes the logits with: h rows split once into
 //     TF32 halves in shared memory, each 64-column W half-tile and its bias
 //     brought by cp.async through a two-stage ring and split once, the logit
-//     tile S = h W^T summed from zero in k8 steps of 3xTF32 MMAs (one exact
-//     MMA under "bf16"), then the bias added.  So the backward's
-//     exp(S - logz) takes the forward's own logits;
+//     tile S = h W^T summed from zero in k8 steps of 3xTF32 MMAs, then the
+//     bias added.  So the backward's exp(S - logz) takes the forward's own
+//     logits;
 //   * the logsumexp is taken straight from the accumulator fragments: a lane
 //     holds 8 columns of each of its 2 rows a step and keeps a running max
 //     and sum of exp for each row, the sum taken step by step (8 exps added
@@ -71,18 +72,6 @@ using ce::ITEM_R;
 using ce::STEP_V;
 using ce::THREADS;
 
-// Split s covers pairs [s * per, (s + 1) * per); head f's pairs are
-// [f * n_vt, (f + 1) * n_vt).  The splits that reach head f are
-// first_split(f) .. last_split(f); split s writes its partials of head f in
-// slots 2 (s - first_split(f)) and 2 (s - first_split(f)) + 1 (the two
-// column warps).
-__host__ __device__ __forceinline__ int first_split(int f, int n_vt, int per) {
-  return f * n_vt / per;
-}
-__host__ __device__ __forceinline__ int last_split(int f, int n_vt, int per) {
-  return ((f + 1) * n_vt - 1) / per;
-}
-
 // Persistent: block b takes items b, b + gridDim.x, ... of the
 // ceil(num_valid / 64) x splits items (row tile = item % tiles, split =
 // item / tiles).  part [3][slots][F][B]: each valid row's running max, sum
@@ -92,7 +81,7 @@ __global__ void __launch_bounds__(THREADS, 2)
 ce_fwd_kernel(const float* __restrict__ h, const float* __restrict__ w,
               const float* __restrict__ bias, const long long* __restrict__ tgt,
               const int* __restrict__ nv_ptr, float* __restrict__ part, int B, int K, int V,
-              int F, int splits, int pairs_per_split, int slots, int bf16) {
+              int F, int splits, int pairs_per_split, int slots) {
   const ce::ItemTiles t = ce::item_tiles();
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32, group = lane / 4, tig = lane % 4;
@@ -129,7 +118,7 @@ ce_fwd_kernel(const float* __restrict__ h, const float* __restrict__ w,
           pk[i] += po;
         }
       if (tig == 0) {
-        const int slot = 2 * (split - first_split(cur, n_vt, pairs_per_split)) + vb / 32;
+        const int slot = 2 * (split - ce::first_split(cur, n_vt, pairs_per_split)) + vb / 32;
         float* out = part + ((long long)slot * F + cur) * B + row0;
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
@@ -143,7 +132,7 @@ ce_fwd_kernel(const float* __restrict__ h, const float* __restrict__ w,
     };
 
     ce::logit_walk(h, w, bias, tgt, nullptr, nullptr, B, K, V, row0, rows, p_begin, n_steps,
-                   bf16, t, [&](int, int f, int v0, float (&s)[4][4]) {
+                   t, [&](int, int f, int v0, float (&s)[4][4]) {
       if (f != cur) {  // a new head: the last one's partials out, fresh statistics
         if (cur >= 0) flush();
         cur = f;
@@ -202,40 +191,6 @@ ce_fwd_kernel(const float* __restrict__ h, const float* __restrict__ w,
   }
 }
 
-// ll, logz [F, B] from each head's partials, merged in slot order; rows at or
-// past num_valid give 0 (their partials are never read)
-__global__ void ce_fwd_combine(const float* __restrict__ part, const int* __restrict__ nv_ptr,
-                               float* __restrict__ ll, float* __restrict__ logz, int B, int F,
-                               int V, int pairs_per_split, int slots) {
-  const int nv = ce::valid_rows(nv_ptr, B);
-  const int n_vt = (V + 127) / 128;
-  const long long n = (long long)F * B;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < n;
-       e += (long long)gridDim.x * blockDim.x) {
-    if (e % B >= nv) {
-      ll[e] = 0.f;
-      logz[e] = 0.f;
-      continue;
-    }
-    const int f = static_cast<int>(e / B);
-    const int used = 2 * (last_split(f, n_vt, pairs_per_split) -
-                          first_split(f, n_vt, pairs_per_split) + 1);
-    float m = __ldg(part + e);
-    float s = __ldg(part + slots * n + e);
-    float p = __ldg(part + 2 * slots * n + e);
-    for (int q = 1; q < used; ++q) {
-      const float mq = __ldg(part + q * n + e);
-      const float mn = fmaxf(m, mq);
-      s = s * __expf(m - mn) + __ldg(part + (slots + q) * n + e) * __expf(mq - mn);
-      m = mn;
-      p += __ldg(part + (2 * slots + q) * n + e);
-    }
-    const float lz = m + logf(s);
-    ll[e] = lz - p;
-    logz[e] = lz;
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -250,7 +205,7 @@ extern "C" {
 // f * tiles + t; nv may be null (all rows valid).
 int ce_fwd(const void* h, const void* w, const void* b, const void* t, const void* nv,
            void* ll, void* logz, void* part, int slots, int splits, int pairs_per_split,
-           int blocks, int B, int K, int V, int F, int bf16, void* stream) {
+           int blocks, int B, int K, int V, int F, void* stream) {
   const int smem = ce::item_smem_floats() * 4;
   cudaError_t err = cudaFuncSetAttribute(
       ce_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -263,18 +218,12 @@ int ce_fwd(const void* h, const void* w, const void* b, const void* t, const voi
   const int* nvp = static_cast<const int*>(nv);
   float* pp = static_cast<float*>(part);
   void* args[] = {&hp, &wp, &bp, &tp, &nvp, &pp, &B, &K, &V, &F,
-                  &splits, &pairs_per_split, &slots, &bf16};
+                  &splits, &pairs_per_split, &slots};
   err = cudaLaunchKernel(ce_fwd_kernel, dim3(blocks), dim3(THREADS), args,
                          static_cast<size_t>(smem), st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const float* cp = pp;
-  float* llp = static_cast<float*>(ll);
-  float* lzp = static_cast<float*>(logz);
-  void* cargs[] = {&cp, &nvp, &llp, &lzp, &B, &F, &V, &pairs_per_split, &slots};
-  const long long cblocks = ((long long)F * B + 255) / 256;
-  err = cudaLaunchKernel(ce_fwd_combine,
-                         dim3(static_cast<unsigned>(cblocks < 1024 ? cblocks : 1024)), dim3(256),
-                         cargs, 0, st);
+  err = ce::launch_fwd_combine(pp, nvp, static_cast<float*>(ll), static_cast<float*>(logz), B,
+                               F, V, pairs_per_split, slots, 2, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,8 @@
-// The logit-tile walk of the softmax cross-entropy kernels (ce_fwd.cu,
-// ce_bwd.cu) on the tensor cores: ce_fwd.cu's forward and ce_bwd.cu's ce_dh_kernel both call
-// logit_walk, so the logits the forward folds into logz are, operation for
-// operation, the logits the backward recomputes for exp(S - logz).  Also the
-// copy and split helpers that ce_dw_kernel shares.
+// The logit-tile walk of the fp32 softmax cross-entropy kernels (ce_fwd.cu,
+// ce_bwd.cu) on the tensor cores: ce_fwd.cu's forward and ce_bwd.cu's
+// ce_dh_kernel both call logit_walk, so the logits the forward folds into
+// logz are, operation for operation, the logits the backward recomputes for
+// exp(S - logz).  Also the copy and split helpers that ce_dw_kernel shares.
 //
 // An item is 64 rows of h (below num_valid) and a run of (head, 128-column
 // vocabulary tile) pairs, walked 64 columns a step.  The item's h rows are
@@ -11,7 +11,7 @@
 // backward) come by cp.async through a ring of two stages while the previous
 // step computes, and the W rows are split once per step.  Eight warps own
 // 16 rows x 32 columns of the step's logit tile S = h W^T, each k8 step's
-// 3xTF32 product added in fp32 (tc::mma3_add; one exact MMA under "bf16").
+// 3xTF32 product added in fp32 (tc::mma3_add).
 // The caller's epilogue gets S without the bias, in the m16n8k8 accumulator
 // layout: s[nt][q] is row rb + group + 8 (q / 2), column vb + 8 nt + 2 tig +
 // q % 2 of the step, with the step's split W rows (ItemTiles::wb, ::ws), bias
@@ -21,13 +21,12 @@
 // into device memory, and loading the fragments by ldmatrix each measured
 // no faster than this on an NVIDIA H100 80GB HBM3 at 700.00 W.)
 //
-// Also the pieces every CE kernel shares: the dynamic shared memory, the
-// widest hidden width they take, the operand rounding under
-// set_precision("bf16") (round to nearest even, which is what the TPU
-// kernel's bf16 dots did) and the device count of valid rows.
+// Also the pieces every CE kernel shares, the bf16 mode's (ce_bf16.cu) too:
+// the dynamic shared memory, the widest hidden width they take, the device
+// count of valid rows, the forward's plan of partials and their ordered
+// merge (ce_fwd_combine), and the ordered sums of the backward's partials.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -44,11 +43,6 @@ __host__ __device__ __forceinline__ int round_up(int x, int m) {
   return (x + m - 1) / m * m;
 }
 
-// An operand of a product: x itself, or x rounded to bf16 under "bf16".
-__device__ __forceinline__ float operand(float x, int bf16) {
-  return bf16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
-}
-
 // Rows below this take part; `nv` is a device scalar (nullptr: all B rows).
 __device__ __forceinline__ int valid_rows(const int* nv, int B) {
   if (nv == nullptr) return B;
@@ -62,16 +56,6 @@ constexpr int ITEM_R = 64;     // rows of an item
 constexpr int STEP_V = 64;     // vocabulary columns of a step (half a tile)
 constexpr int STAGE = STEP_V * KMAX + STEP_V + 3 * ITEM_R;  // W rows, bias, row values
 static_assert(4 * 16 == ITEM_R && 2 * 32 == STEP_V, "4 x 2 warps of 16 x 32");
-
-// x as TF32 halves (x itself rounded to bf16 and a zero small half under "bf16")
-__device__ __forceinline__ void split_op(float x, int bf16, uint32_t& big, uint32_t& small) {
-  if (bf16) {
-    big = __float_as_uint(operand(x, 1));
-    small = 0u;
-  } else {
-    tc::split(x, big, small);
-  }
-}
 
 // n floats at src (rows of a contiguous [*, K] operand) to dst by cp.async,
 // `valid` of them read, the rest zero; 16-byte copies when src is aligned.
@@ -113,7 +97,7 @@ __device__ __forceinline__ void copy_row_values(float* dst, const float* lz, con
 // overlap).  n * KP / THREADS <= CAP.
 template <int CAP>
 __device__ __forceinline__ void split_rows(const float* src, uint32_t* big, uint32_t* small, int n,
-                                           int K, int KP, int bf16, int tid) {
+                                           int K, int KP, int tid) {
   float v[CAP];
 #pragma unroll
   for (int i = 0; i < CAP; ++i) {
@@ -128,14 +112,14 @@ __device__ __forceinline__ void split_rows(const float* src, uint32_t* big, uint
     const int e = tid + i * THREADS;
     const int r = e / KP;
     const int k = e - r * KP;
-    if (r < n) split_op(v[i], bf16, big[r * LDK + k], small[r * LDK + k]);
+    if (r < n) tc::split(v[i], big[r * LDK + k], small[r * LDK + k]);
   }
 }
 
 // n packed rows [n][K] of a ring stage -> split big / small [n][LDK], zero
 // for k in [K, KP): four columns a thread where K is a multiple of 4
 __device__ __forceinline__ void split_stage(const float* st, uint32_t* big, uint32_t* small,
-                                            int n, int K, int KP, int bf16, int tid) {
+                                            int n, int K, int KP, int tid) {
   if ((K & 3) == 0) {
     for (int e = 4 * tid; e < n * KP; e += 4 * THREADS) {
       const int r = e / KP;
@@ -143,10 +127,10 @@ __device__ __forceinline__ void split_stage(const float* st, uint32_t* big, uint
       const float4 v = k < K ? *reinterpret_cast<const float4*>(st + r * K + k)
                              : make_float4(0.f, 0.f, 0.f, 0.f);
       uint4 b, sm;
-      split_op(v.x, bf16, b.x, sm.x);
-      split_op(v.y, bf16, b.y, sm.y);
-      split_op(v.z, bf16, b.z, sm.z);
-      split_op(v.w, bf16, b.w, sm.w);
+      tc::split(v.x, b.x, sm.x);
+      tc::split(v.y, b.y, sm.y);
+      tc::split(v.z, b.z, sm.z);
+      tc::split(v.w, b.w, sm.w);
       *reinterpret_cast<uint4*>(big + r * LDK + k) = b;
       *reinterpret_cast<uint4*>(small + r * LDK + k) = sm;
     }
@@ -154,7 +138,7 @@ __device__ __forceinline__ void split_stage(const float* st, uint32_t* big, uint
     for (int e = tid; e < n * KP; e += THREADS) {
       const int r = e / KP;
       const int k = e - r * KP;
-      split_op(k < K ? st[r * K + k] : 0.f, bf16, big[r * LDK + k], small[r * LDK + k]);
+      tc::split(k < K ? st[r * K + k] : 0.f, big[r * LDK + k], small[r * LDK + k]);
     }
   }
 }
@@ -193,7 +177,7 @@ template <class Epilogue>
 __device__ __forceinline__ void logit_walk(const float* h, const float* w, const float* bias,
                                            const long long* tgt, const float* lz, const float* g,
                                            int B, int K, int V, int row0, int rows, int p_begin,
-                                           int n_steps, int bf16, const ItemTiles& t,
+                                           int n_steps, const ItemTiles& t,
                                            Epilogue&& epilogue) {
   const int KP = round_up(K, 8);
   const int n_vt = (V + 127) / 128;
@@ -224,7 +208,7 @@ __device__ __forceinline__ void logit_walk(const float* h, const float* w, const
   tc::cp_async_wait<1>();
   __syncthreads();
   split_rows<ITEM_R * KMAX / THREADS>(reinterpret_cast<const float*>(t.hs), t.hb, t.hs, ITEM_R,
-                                      K, KP, bf16, tid);
+                                      K, KP, tid);
 
   for (int j = 0; j < n_steps; ++j) {
     if (j + 1 < n_steps) {
@@ -236,7 +220,7 @@ __device__ __forceinline__ void logit_walk(const float* h, const float* w, const
     }
     __syncthreads();  // step j has landed; every warp is done with step j - 1
     const float* st = t.ring + (j % 2) * STAGE;
-    split_stage(st, t.wb, t.ws, STEP_V, K, KP, bf16, tid);
+    split_stage(st, t.wb, t.ws, STEP_V, K, KP, tid);
     for (int e = tid; e < STEP_V + 3 * ITEM_R; e += THREADS) t.bs[e] = st[STEP_V * KMAX + e];
     __syncthreads();
 
@@ -261,11 +245,122 @@ __device__ __forceinline__ void logit_walk(const float* h, const float* w, const
         const int b0 = (vb + 8 * nt + group) * LDK + k8 + tig;
         const uint32_t bb[2] = {t.wb[b0], t.wb[b0 + 4]};
         const uint32_t bsm[2] = {t.ws[b0], t.ws[b0 + 4]};
-        tc::mma3_add(s[nt], ab, as, bb, bsm, bf16);
+        tc::mma3_add(s[nt], ab, as, bb, bsm);
       }
     }
     epilogue(j, f, v0, s);
   }
 }
+
+// ---- the forward's partials (ce_fwd.cu, ce_bf16.cu) ----
+
+// Split s covers pairs [s * per, (s + 1) * per); head f's pairs are
+// [f * n_vt, (f + 1) * n_vt).  The splits that reach head f are
+// first_split(f) .. last_split(f); split s writes its partials of head f in
+// slots width (s - first_split(f)) .. + width - 1 (ce_fwd.cu: its two column
+// warps; ce_bf16.cu: one).
+__host__ __device__ __forceinline__ int first_split(int f, int n_vt, int per) {
+  return f * n_vt / per;
+}
+__host__ __device__ __forceinline__ int last_split(int f, int n_vt, int per) {
+  return ((f + 1) * n_vt - 1) / per;
+}
+
+// The kernels below have internal linkage: each source that includes this
+// header builds its own.
+namespace {
+
+// ll, logz [F, B] from each head's partials part [3][slots][F][B] (running
+// max, sum of exp relative to it, target logit), merged in slot order; rows
+// at or past num_valid give 0 (their partials are never read)
+__global__ void ce_fwd_combine(const float* __restrict__ part, const int* __restrict__ nv_ptr,
+                               float* __restrict__ ll, float* __restrict__ logz, int B, int F,
+                               int V, int pairs_per_split, int slots, int width) {
+  const int nv = valid_rows(nv_ptr, B);
+  const int n_vt = (V + 127) / 128;
+  const long long n = (long long)F * B;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < n;
+       e += (long long)gridDim.x * blockDim.x) {
+    if (e % B >= nv) {
+      ll[e] = 0.f;
+      logz[e] = 0.f;
+      continue;
+    }
+    const int f = static_cast<int>(e / B);
+    const int used = width * (last_split(f, n_vt, pairs_per_split) -
+                              first_split(f, n_vt, pairs_per_split) + 1);
+    float m = __ldg(part + e);
+    float s = __ldg(part + slots * n + e);
+    float p = __ldg(part + 2 * slots * n + e);
+    for (int q = 1; q < used; ++q) {
+      const float mq = __ldg(part + q * n + e);
+      const float mn = fmaxf(m, mq);
+      s = s * __expf(m - mn) + __ldg(part + (slots + q) * n + e) * __expf(mq - mn);
+      m = mn;
+      p += __ldg(part + (2 * slots + q) * n + e);
+    }
+    const float lz = m + logf(s);
+    ll[e] = lz - p;
+    logz[e] = lz;
+  }
+}
+
+inline cudaError_t launch_fwd_combine(const float* part, const int* nv, float* ll, float* logz,
+                                      int B, int F, int V, int pairs_per_split, int slots,
+                                      int width, cudaStream_t stream) {
+  void* args[] = {&part, &nv, &ll, &logz, &B, &F, &V, &pairs_per_split, &slots, &width};
+  const long long blocks = ((long long)F * B + 255) / 256;
+  return cudaLaunchKernel(ce_fwd_combine,
+                          dim3(static_cast<unsigned>(blocks < 1024 ? blocks : 1024)), dim3(256),
+                          args, 0, stream);
+}
+
+// ---- the backward's ordered sums (ce_bwd.cu, ce_bf16.cu) ----
+
+// out[i] = sum_s part[s * n + i], s = 0, 1, ... in order: deterministic
+__global__ void ce_sum_slices_kernel(const float* __restrict__ part, int slices, long long n,
+                                     float* __restrict__ out) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    float s = 0.f;
+    for (int t = 0; t < slices; ++t) s += __ldg(part + t * n + i);
+    out[i] = s;
+  }
+}
+
+// dh[r, k] = sum_s part[s][r][k] in order for r < num_valid, else 0
+__global__ void ce_dh_sum_kernel(const float* __restrict__ part, int splits,
+                                 const int* __restrict__ nv_ptr, int B, int K,
+                                 float* __restrict__ dh) {
+  const long long n = (long long)B * K;
+  const long long valid = (long long)valid_rows(nv_ptr, B) * K;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    float s = 0.f;
+    if (i < valid)
+      for (int t = 0; t < splits; ++t) s += __ldg(part + t * n + i);
+    dh[i] = s;
+  }
+}
+
+inline dim3 sum_grid(long long n) {
+  const long long blocks = (n + 255) / 256;
+  return dim3(static_cast<unsigned>(blocks < 2048 ? blocks : 2048));
+}
+
+inline cudaError_t sum_slices(const float* part, int slices, long long n, float* out,
+                              cudaStream_t stream) {
+  void* args[] = {&part, &slices, &n, &out};
+  return cudaLaunchKernel(ce_sum_slices_kernel, sum_grid(n), dim3(256), args, 0, stream);
+}
+
+inline cudaError_t launch_dh_sum(const float* part, int splits, const int* nv, int B, int K,
+                                 float* dh, cudaStream_t stream) {
+  void* args[] = {&part, &splits, &nv, &B, &K, &dh};
+  return cudaLaunchKernel(ce_dh_sum_kernel, sum_grid((long long)B * K), dim3(256), args, 0,
+                          stream);
+}
+
+}  // namespace
 
 }  // namespace ce

@@ -45,7 +45,10 @@
 // multiplied as pairs by mul_bf16x2), wgmma m64nNk16 bf16 with A from
 // registers (cin_fwd.cu) or from shared memory (wgmma_bf16_ss, cin_bwd.cu)
 // over K-major bf16 tiles (bf16_tile_*), chunks of k16 steps summed in the
-// tensor cores from zero and added in fp32 by the same rule.
+// tensor cores from zero and added in fp32 by the same rule.  The CE's bf16
+// mode (ce_bf16.cu) adds m64n64 and B read MN-major (wgmma_bf16_mn,
+// bf16_tile_desc_mn), so one bf16 tile serves as K-major B of one product
+// and MN-major B of the next.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -289,6 +292,92 @@ __device__ __forceinline__ void wgmma_bf16_ss<128>(float (&d)[64], uint64_t a, u
       : "l"(a), "l"(b), "r"(acc));
 }
 
+// d (= or +=, as acc) a * B over one m64nNk16 bf16 tile: A from the four
+// registers a as in wgmma_bf16, B through its descriptor MN-major (trans-b
+// 1): B's N columns contiguous, 8 to a 16-byte core-matrix row, one row for
+// each k (the CE kernels' bf16 tiles read across, bf16_tile_desc_mn)
+template <int N>
+__device__ __forceinline__ void wgmma_bf16_mn(float (&d)[N / 2], const uint32_t (&a)[4],
+                                              uint64_t b, int acc);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16_mn<16>(float (&d)[8], const uint32_t (&a)[4],
+                                                uint64_t b, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n"
+      "}\n"
+      : TC_D4(0), TC_D4(4)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16_mn<32>(float (&d)[16], const uint32_t (&a)[4],
+                                                uint64_t b, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"
+      "}\n"
+      : TC_D16(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16_mn<48>(float (&d)[24], const uint32_t (&a)[4],
+                                                uint64_t b, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1, 1;\n"
+      "}\n"
+      : TC_D16(0), TC_D4(16), TC_D4(20)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16_mn<64>(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t b, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : TC_D16(0), TC_D16(16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16_ss<64>(float (&d)[32], uint64_t a, uint64_t b,
+                                                  int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : TC_D16(0), TC_D16(16)
+      : "l"(a), "l"(b), "r"(acc));
+}
+
 #undef TC_D16
 #undef TC_D4
 
@@ -327,6 +416,15 @@ __host__ __device__ inline void bf16_tile_chunk(int o, int kw, int& row, int& k)
 // along the rows (SBO)
 __host__ __device__ inline uint64_t bf16_tile_desc(uint32_t addr, int row0, int s, int kw) {
   return wgmma_desc(addr + bf16_tile_off(row0, 16 * s, kw), 128, 16 * kw);
+}
+
+// The same tiles read MN-major, as the B operand of wgmma_bf16_mn: the
+// tile's rows are the product's reduction axis and its kw columns its N.
+// The descriptor of k16 step s (rows 16 s ..): core matrices 128 bytes
+// apart along N (SBO), 16 kw bytes apart along the rows (LBO), the
+// unswizzled MN-major layout's strides
+__host__ __device__ inline uint64_t bf16_tile_desc_mn(uint32_t addr, int s, int kw) {
+  return wgmma_desc(addr + bf16_tile_off(16 * s, 0, kw), 16 * kw, 128);
 }
 
 // acc += a * b in 3xTF32 (one MMA under "bf16", where the small halves are
