@@ -83,7 +83,15 @@ run in order and any failure raises, so the exit code is non-zero:
    (B 4096, E 10, S 256, 2 heads, L 1), at L = 2, without the residual,
    without the LayerNorm and ragged; every backward bit-equal over two runs;
    at the train shapes ``sa_fwd``'s o, ``ab_fwd``'s pooled and every
-   gradient also against float64;
+   gradient also against float64; then the bf16 mode's ``sa_fwd_bf16`` /
+   ``sa_bwd_bf16`` (``attn_bf16_kernel`` lines) at V2's train and serving
+   shapes, ragged, tiny and S 600: against the bf16 plain versions and the
+   float64 function of the same rounded inputs (twice the plain version's
+   error), bit-equal over two runs, m bit-equal to the plain version's where
+   the scores are exact, beside the plain versions, the fp32 kernels' bf16
+   flag that they replaced and SDPA on bf16 operands, with device ms and the
+   bounds at the exp rate and the bf16 tensor-core peak; and the fp32
+   kernels' outputs' sha256 (``attn_fp32_outputs``);
 12. attention training, for xDeepFMAttention (V1) and xDeepFMAttentionV2
    (V2, 2 layers) at the canonical widths: ``fit`` at batch 4096 with Adam
    for three epochs; per step the CIN's 2 + 2 + 2 launches and V1's
@@ -199,6 +207,15 @@ run in order and any failure raises, so the exit code is non-zero:
    step and no fp32 CE launch, one SGD step against the CPU model, ms a step
    and the profiles' busy ms, idle share and device ms by kernel beside the
    fp32 mode's;
+   ``v2_attn_bf16_training``: the canonical xDeepFMAttentionV2 under
+   ``attention.set_precision("bf16")``, the first step's loss with the
+   kernels within V2_BF16_LOSS_RTOL of the bf16 plain versions' on the card,
+   ``fit`` for two epochs of 8 steps with 2 ``sa_fwd_bf16`` + 2
+   ``sa_bwd_bf16`` (and the CIN's 2 + 2 + 2) a step and no fp32 ``sa_*``
+   launch, one SGD step against the CPU model in the bf16 mode,
+   ``Scorer(8192)`` with 2 ``sa_fwd_bf16`` (G 16384) a batch against the CPU
+   model, ms a step and the profiles' busy ms, idle share and device ms by
+   kernel beside the fp32 mode's;
 18. the embedding tables' backward (``gather`` lines): the port's
    deterministic ``fused_gather`` beside ``F.embedding``'s and
    ``index_select``'s, bit-equality over two calls, error against float64
@@ -272,6 +289,7 @@ second side takes the first side's sign) only where both inputs lie within
 """
 
 import concurrent.futures
+import contextlib
 import copy
 import hashlib
 import json
@@ -338,8 +356,11 @@ from xdeepfm_tpu_torch.ops.attn_ablate_cuda import (
 )
 from xdeepfm_tpu_torch.ops.attention_cuda import (
     sa_backward,
+    sa_backward_bf16,
     sa_backward_reference,
+    sa_bf16_float64,
     sa_forward,
+    sa_forward_bf16,
     sa_forward_reference,
 )
 from xdeepfm_tpu_torch.ops.attn_block_cuda import (
@@ -390,7 +411,7 @@ from xdeepfm_tpu_torch.ops.cin_cuda import (
 from xdeepfm_tpu_torch.examples import large_tables, quickstart, sharded_training
 from xdeepfm_tpu_torch.examples import serving as serving_example
 from xdeepfm_tpu_torch.pro import xDeepFMPro
-from xdeepfm_tpu_torch.scripts import bench_attn_ablate, bench_lazy
+from xdeepfm_tpu_torch.scripts import bench_attn_ablate, bench_attn_bf16, bench_lazy
 from xdeepfm_tpu_torch.scripts.bench_gru import KERNELS as GRU_KERNELS
 from xdeepfm_tpu_torch.scripts.bench_gru import device_ms as gru_device_ms
 from xdeepfm_tpu_torch.scripts.bench_lane import device_ms
@@ -467,6 +488,12 @@ SOURCES = {
                     ["xdeepfm_tpu/ops/ce_pallas.py:204", "xdeepfm_tpu/ops/ce_pallas.py:423"]),
     "sa_fwd": ("xdeepfm_tpu_torch/ops/csrc/sa_fwd.cu", "xdeepfm_tpu/ops/attention_pallas.py:204"),
     "sa_bwd": ("xdeepfm_tpu_torch/ops/csrc/sa_bwd.cu", "xdeepfm_tpu/ops/attention_pallas.py:229"),
+    # the bf16 mode (attention_pallas.set_precision, :56): the same TPU kernels
+    # with every product's operands cast to bf16 in _dot (:70)
+    "sa_fwd_bf16": ("xdeepfm_tpu_torch/ops/csrc/sa_bf16.cu",
+                    "xdeepfm_tpu/ops/attention_pallas.py:204"),
+    "sa_bwd_bf16": ("xdeepfm_tpu_torch/ops/csrc/sa_bf16.cu",
+                    "xdeepfm_tpu/ops/attention_pallas.py:229"),
     "ab_fwd": ("xdeepfm_tpu_torch/ops/csrc/ab_fwd.cu", "xdeepfm_tpu/ops/attn_block_pallas.py:502"),
     "ab_bwd": ("xdeepfm_tpu_torch/ops/csrc/ab_bwd.cu", "xdeepfm_tpu/ops/attn_block_pallas.py:541"),
     "la_fwd": ("xdeepfm_tpu_torch/ops/csrc/la_fwd.cu", "xdeepfm_tpu/ops/lane_attention.py:124"),
@@ -491,6 +518,8 @@ HEADERS = {
        for k in ("ce_round_bf16", "ce_fwd_bf16", "ce_bwd_bf16")},
     "sa_fwd": ("xdeepfm_tpu_torch/ops/csrc/attn_fwd_tc.cuh",),
     "sa_bwd": ("xdeepfm_tpu_torch/ops/csrc/attn_bwd_tc.cuh",),
+    **{k: ("xdeepfm_tpu_torch/ops/csrc/attn_common.cuh", "xdeepfm_tpu_torch/ops/csrc/tc_tf32.cuh")
+       for k in ("sa_fwd_bf16", "sa_bwd_bf16")},
     "ab_fwd": ("xdeepfm_tpu_torch/ops/csrc/attn_fwd_tc.cuh",
                "xdeepfm_tpu_torch/ops/csrc/attn_block.cuh"),
     "ab_bwd": ("xdeepfm_tpu_torch/ops/csrc/attn_bwd_tc.cuh",),
@@ -509,7 +538,8 @@ WRAPPERS = {
     "ce_fwd": ce_rows_forward, "ce_bwd": ce_rows_backward,
     "ce_round_bf16": ce_round_bf16, "ce_fwd_bf16": ce_rows_forward_bf16,
     "ce_bwd_bf16": ce_rows_backward_bf16,
-    "sa_fwd": sa_forward, "sa_bwd": sa_backward, "ab_fwd": ab_forward, "ab_bwd": ab_backward,
+    "sa_fwd": sa_forward, "sa_bwd": sa_backward, "sa_fwd_bf16": sa_forward_bf16,
+    "sa_bwd_bf16": sa_backward_bf16, "ab_fwd": ab_forward, "ab_bwd": ab_backward,
     "la_fwd": la_forward, "la_bwd": la_backward, "gru_fwd": gru_forward, "gru_bwd": gru_backward,
     "ablate_full": ablate_full, "ablate_dots": ablate_dots, "ablate_soft": ablate_soft,
 }
@@ -1115,7 +1145,8 @@ def grad_err(got, want, floor=0.0):
 GRAD_RTOL = 1e-4
 
 
-def sgd_step_vs_cpu(pair, x, y, label, floor=0.0, loss="binary_crossentropy"):
+def sgd_step_vs_cpu(pair, x, y, label, floor=0.0, loss="binary_crossentropy",
+                    f64_route=contextlib.nullcontext):
     """One SGD step on 256 rows from the same weights by the card's and the
     CPU's model (``pair``) under ``loss`` (a name, or a multitask model's
     list over the [n, T] labels ``y``), the CPU's kernel-fed relus compared
@@ -1125,7 +1156,9 @@ def sgd_step_vs_cpu(pair, x, y, label, floor=0.0, loss="binary_crossentropy"):
     float64 copy's gradients as the CPU's own fp32 ones, up to FP32_SLACK,
     and then each weight's change likewise as close to lr times the float64
     gradient as the CPU's change; the BatchNorm running statistics within
-    GRAD_RTOL.  Returns the errors and the relu flips."""
+    GRAD_RTOL.  The float64 copy runs inside ``f64_route()`` (a context
+    manager: a route of its own where a mode's plain version takes only
+    fp32).  Returns the errors and the relu flips."""
     small, recs, ref = 256, [], None
     m64 = copy.deepcopy(pair[1])  # the CPU model before its step
     before = {k: p.detach().cpu().clone() for k, p in pair[1].module.named_parameters()}
@@ -1147,7 +1180,8 @@ def sgd_step_vs_cpu(pair, x, y, label, floor=0.0, loss="binary_crossentropy"):
         m64.compile("sgd", loss)
         xb, yb = device_batch(m64, x, y, small)
         xb = {k: v.double() if v.is_floating_point() else v for k, v in xb.items()}
-        ref, held = relu_step_grads(m64, xb, yb.double(), recs[0], loss)
+        with f64_route():
+            ref, held = relu_step_grads(m64, xb, yb.double(), recs[0], loss)
         card64, cpu64 = per_grad_err(card, ref, floor), per_grad_err(cpu, ref, floor)
         vs64 = {k: (card64[k], cpu64[k]) for k in ref}
         bad = {k: e for k, e in vs64.items() if e[0] > max(GRAD_RTOL, FP32_SLACK * e[1])}
@@ -2014,7 +2048,8 @@ def phase_flax_io():
 ATTN_S = CIN_LAYERS[0] // 2 + CIN_LAYERS[1]  # 256 feature maps (split-half)
 # (label, G, dh, S, precision): V2's train step launches small_attention twice
 # at G = 4096 rows x 2 heads; scoring at batch 8192; a ragged and a tiny
-# shape; the train shape under set_precision("bf16")
+# shape; the train shape under set_precision("bf16"), which runs the bf16
+# mode's own kernels (their lines: SA_BF16_SHAPES)
 SA_SHAPES = (
     ("v2_train", TRAIN_BATCH * 2, DIM // 2, ATTN_S, "fp32"),
     ("v2_serve", BATCH * 2, DIM // 2, ATTN_S, "fp32"),
@@ -2232,6 +2267,331 @@ def phase_attn_kernels(peak):
         del x, ws, g, pooled, saved
         torch.cuda.empty_cache()
     return results
+
+
+# the bf16 mode's small attention (attention.set_precision("bf16")): rows 8-9
+# bf16, csrc/sa_bf16.cu.  (label, G, dh, S): V2's train shape (the path), its
+# serving shape (G 16384), a ragged and a tiny shape, and S 600, whose pair
+# does not fit in a block's shared memory (the kernels then stage each chunk
+# from device memory where it is used)
+SA_BF16_SHAPES = (
+    ("v2_train_bf16", TRAIN_BATCH * 2, DIM // 2, ATTN_S),
+    ("v2_serve_bf16", BATCH * 2, DIM // 2, ATTN_S),
+    ("ragged_bf16", 7, 3, 37),
+    ("tiny_bf16", 2, 1, 5),
+    ("long_bf16", 64, DIM // 2, 600),
+)
+SA_BF16_PATH_SHAPE = "v2_train_bf16"
+SA_GATE_PAIRS = 1024  # pairs a slice of the checks against the plain version and float64
+
+
+def _on_grid(t):
+    """t on the grid of multiples of 1/8 in [-2, 2]: bf16 values whose
+    products and sums over dh <= 16 are exact in fp32, so that every order
+    and every MMA gives the same scores"""
+    return (t * 4).round().clamp(-16, 16) / 8
+
+
+def _sa_bf16_checks(label, outs, grads, q, k, v, g, scale):
+    """The bf16 kernels' outputs against the bf16 plain versions (o and the
+    gradients within ATTN_RTOL["bf16"] of the largest entry, inv_z within
+    1e-4, m within 1e-5) and against the float64 function of the same
+    rounded inputs (``sa_bf16_float64``, :func:`_f64_gate`'s rule), by
+    slices of SA_GATE_PAIRS pairs.  Returns (largest error against the
+    plain forward and backward, {output: (kernel, plain) error against
+    float64}, share of rows whose m is bit-equal to the plain version's)."""
+    o, m, z = outs
+    errs, tops, f64, f64_top, m_equal = {}, {}, {}, {}, 0
+    names = ("o", "m", "inv_z", "dq", "dk", "dv")
+    for a in range(0, q.shape[0], SA_GATE_PAIRS):
+        sl = slice(a, a + SA_GATE_PAIRS)
+        qs, ks, vs, gs = q[sl], k[sl], v[sl], g[sl]
+        want = list(sa_forward_reference(qs, ks, vs, scale, "bf16"))
+        m_equal += int((m[sl] == want[1]).sum())
+        want += sa_backward_reference(gs, qs, ks, vs, o[sl], m[sl], z[sl], scale, "bf16")
+        exact = dict(zip(("dq", "dk", "dv"),
+                         sa_bf16_float64(qs, ks, vs, scale, gs, o[sl], m[sl], z[sl])))
+        exact["o"] = sa_bf16_float64(qs, ks, vs, scale)
+        for name, got, w in zip(names, (o[sl], m[sl], z[sl], *(t[sl] for t in grads)), want):
+            errs[name] = max(errs.get(name, 0.0), float((got - w).abs().max()))
+            tops[name] = max(tops.get(name, 0.0), float(w.abs().max()))
+            if name in exact:
+                e = exact[name]
+                k64, p64 = (float((t.double() - e).abs().max()) for t in (got, w))
+                old = f64.get(name, (0.0, 0.0))
+                f64[name] = (max(old[0], k64), max(old[1], p64))
+                f64_top[name] = max(f64_top.get(name, 0.0), float(e.abs().max()))
+        del want, exact
+    rtol = {"m": 1e-5, "inv_z": 1e-4}
+    for name in names:
+        tol = rtol.get(name, ATTN_RTOL["bf16"]) * tops[name] + 1e-6
+        if not errs[name] <= tol:
+            raise AssertionError(f"sa bf16 {name} at {label}: {errs[name]} off the plain "
+                                 f"version, above {tol}")
+    for name, (err, plain) in f64.items():
+        if not (err <= 2 * plain or err <= 1e-6 * f64_top[name]):
+            raise AssertionError(f"sa bf16 {name} at {label}: error against float64 {err} "
+                                 f"exceeds twice the plain version's {plain}")
+    fwd = max(errs[n] for n in ("o", "m", "inv_z"))
+    bwd = max(errs[n] for n in ("dq", "dk", "dv"))
+    return fwd, bwd, f64, m_equal / m.numel()
+
+
+def phase_attn_bf16_kernels(peak):
+    """``sa_fwd_bf16`` / ``sa_bwd_bf16`` (the bf16 mode's kernels) at
+    SA_BF16_SHAPES, one launch each, against the bf16 plain versions and the
+    float64 function of the same rounded inputs (:func:`_sa_bf16_checks`),
+    bit-equal over two runs, m bit-equal to the plain version's on inputs
+    whose scores are exact (:func:`_on_grid`); times by CUDA events and
+    device ms by the profiler, beside the plain versions, the fp32 kernels'
+    bf16 flag (the path these replaced, ``bench_attn_bf16.flag_forward``)
+    and SDPA on bf16 [G, S, dh] views (the library yardstick).  Bounds: the
+    exps (G S^2 a launch) at the exp rate, the products (4 G S^2 dh forward,
+    10 backward) at the bf16 tensor cores' peak, the bytes as the fp32
+    ``attn_kernel`` lines count them.  Also prints the fp32 kernels'
+    outputs' sha256 at V2's train shape on ``bench_attn_bf16``'s seeded
+    inputs (``fp32_outputs_sha256``), comparable with that script's run in
+    another checkout."""
+    peak_bf16 = next(p for name, p in BF16_PEAKS if name in peak[0])
+    exp_rate = peak[1] * EXP_PER_FLOP
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    results = {}
+    for label, G, dh, S in SA_BF16_SHAPES:
+        q, k, v, g = (torch.randn(G, dh, S, generator=gen, device="cuda") for _ in range(4))
+        scale = dh ** -0.5
+        reset_launches()
+        outs = sa_forward_bf16(q, k, v, scale)
+        grads = sa_backward_bf16(g, q, k, v, *outs, scale)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        if launches != expected(sa_fwd_bf16=1, sa_bwd_bf16=1):
+            raise AssertionError(f"sa bf16 at {label}: launched {launches}")
+        if not all(torch.equal(a, b) for a, b in zip(outs, sa_forward_bf16(q, k, v, scale))):
+            raise AssertionError(f"sa_fwd_bf16 at {label}: two runs differ")
+        if not all(torch.equal(a, b) for a, b in zip(
+                grads, sa_backward_bf16(g, q, k, v, *outs, scale))):
+            raise AssertionError(f"sa_bwd_bf16 at {label}: two runs differ")
+        fwd_err, bwd_err, f64, m_share = _sa_bf16_checks(label, outs, grads, q, k, v, g, scale)
+        del grads
+        qg, kg = _on_grid(q), _on_grid(k)
+        m_grid = sa_forward_bf16(qg, kg, v, scale)[1]
+        if not torch.equal(m_grid, sa_forward_reference(qg, kg, v, scale, "bf16")[1]):
+            raise AssertionError(f"sa_fwd_bf16 at {label}: m differs from the plain version's "
+                                 "on scores that are exact in fp32")
+        del qg, kg, m_grid
+        torch.cuda.empty_cache()
+        o, m, z = outs
+        ql, kl, vl = (t.transpose(1, 2).to(torch.bfloat16).requires_grad_(True)
+                      for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
+        gl = g.transpose(1, 2).to(torch.bfloat16)
+        fm, mm, zm = bench_attn_bf16.flag_forward(q, k, v, scale)
+        iters = 5 if G > 1000 else 50
+        times = dict(
+            fwd_ms=cuda_ms(lambda: sa_forward_bf16(q, k, v, scale), iters),
+            bwd_ms=cuda_ms(lambda: sa_backward_bf16(g, q, k, v, o, m, z, scale), iters),
+            plain_fwd_ms=cuda_ms(lambda: sa_forward_reference(q, k, v, scale, "bf16"), iters),
+            plain_bwd_ms=cuda_ms(
+                lambda: sa_backward_reference(g, q, k, v, o, m, z, scale, "bf16"), iters),
+            flag_fwd_ms=cuda_ms(lambda: bench_attn_bf16.flag_forward(q, k, v, scale), iters),
+            flag_bwd_ms=cuda_ms(
+                lambda: bench_attn_bf16.flag_backward(g, q, k, v, fm, mm, zm, scale), iters),
+            library_fwd_ms=cuda_ms(
+                lambda: F.scaled_dot_product_attention(ql, kl, vl, scale=scale), iters),
+            library_bwd_ms=cuda_ms(lambda: torch.autograd.grad(
+                lib_out, (ql, kl, vl), gl, retain_graph=True), iters),
+            fwd_device_ms=device_ms(lambda: sa_forward_bf16(q, k, v, scale),
+                                    "sa_fwd_bf16_kernel"),
+            bwd_device_ms=device_ms(lambda: sa_backward_bf16(g, q, k, v, o, m, z, scale),
+                                    "sa_bwd_bf16_kernel"),
+            flag_fwd_device_ms=device_ms(lambda: bench_attn_bf16.flag_forward(q, k, v, scale),
+                                         "sa_fwd_kernel"),
+            flag_bwd_device_ms=device_ms(
+                lambda: bench_attn_bf16.flag_backward(g, q, k, v, fm, mm, zm, scale),
+                "sa_bwd_kernel"),
+        )
+        del lib_out, ql, kl, vl, fm, mm, zm
+        rec = dict(G=G, dh=dh, S=S, launches=launches, **times, fwd_max_abs_err=fwd_err,
+                   bwd_max_abs_err=bwd_err, fwd_bit_equal=True, bwd_bit_equal=True,
+                   m_bit_equal_on_exact_scores=True, m_bit_equal_share=m_share,
+                   err_vs_float64={n: e[0] for n, e in f64.items()},
+                   plain_err_vs_float64={n: e[1] for n, e in f64.items()},
+                   gexp=G * S * S / 1e9, peak_bf16_flops=peak_bf16)
+        n = G * dh * S
+        exps = G * S * S
+        for kind, flops, nbytes in (("fwd", 4 * G * S * S * dh, 4 * (4 * n + 2 * G * S)),
+                                    ("bwd", 10 * G * S * S * dh, 4 * (8 * n + 2 * G * S))):
+            rec[f"{kind}_mma_ms"] = flops / peak_bf16 * 1e3
+            rec[f"{kind}_exp_floor_ms"] = exps / exp_rate * 1e3
+            rec[f"{kind}_bound_ms"] = max(flops / peak_bf16, exps / exp_rate,
+                                          nbytes / peak[2]) * 1e3
+            rec[f"{kind}_bound_by"] = ("bytes" if nbytes / peak[2] > max(
+                flops / peak_bf16, exps / exp_rate) else "operations")
+            rec[f"{kind}_bound_share"] = rec[f"{kind}_bound_ms"] / rec[f"{kind}_ms"]
+        results[label] = rec
+        emit(phase="attn_bf16_kernel", shape=label, **rec)
+        del q, k, v, g, o, m, z, outs
+        torch.cuda.empty_cache()
+    G, dh, S = bench_attn_bf16.SHAPES["v2"]
+    q, k, v, g = bench_attn_bf16.inputs(G, dh, S)
+    digest = bench_attn_bf16.fp32_outputs_sha256(q, k, v, g, dh ** -0.5)
+    emit(phase="attn_fp32_outputs", G=G, dh=dh, S=S, fp32_outputs_sha256=digest)
+    del q, k, v, g
+    torch.cuda.empty_cache()
+    return results
+
+
+# a V2 train step in the attention's bf16 mode: the CIN's launches and V2's
+# two attention layers' (forward and backward); a forward-only batch
+V2_BF16_STEP = dict(cin_fwd=2, cin_bwd_dx=2, cin_dw=2, sa_fwd_bf16=2, sa_bwd_bf16=2)
+V2_BF16_EVAL = dict(cin_fwd=2, sa_fwd_bf16=2)
+# the first step's loss with the kernels against the bf16 plain versions on
+# the card, from the same weights and batch: the two round the same operands
+# to bf16, and an e or ds that lands on the other side of a rounding boundary
+# moves one term of a sum over 256 by 2^-8 of itself, so the mean BCE over
+# 4096 rows moves by far less than this
+V2_BF16_LOSS_RTOL = 1e-4
+
+
+def step_loss(model, xb, yb):
+    """One step's loss (sum-BCE + L2 registry + aux), without a backward."""
+    with torch.no_grad():
+        out = model.module(xb, training=True)
+        mask = torch.ones(yb.shape[0], device=yb.device)
+        loss = sum_loss("binary_crossentropy", out["pred"], yb, mask)
+        return float(loss + model._regularization_loss() + out.get("aux_loss", 0.0))
+
+
+@contextlib.contextmanager
+def xla_attention():
+    """The MHSA on its plain einsum route (``set_mhsa_backend("xla")``),
+    which takes float64: the float64 reference of the bf16 mode's SGD step,
+    whose attention is then the exact function of the unrounded operands
+    (the card's and the CPU's bf16 roundings alike count as their error)."""
+    attention.set_mhsa_backend("xla")
+    try:
+        yield
+    finally:
+        attention.set_mhsa_backend("auto")
+
+
+def phase_v2_attn_bf16_training():
+    """The canonical xDeepFMAttentionV2 (bench.py's ``attn2`` row) under
+    ``attention.set_precision("bf16")``: the first step's loss with the
+    kernels against the bf16 plain versions on the card within
+    V2_BF16_LOSS_RTOL; ``fit`` at batch 4096 with Adam for ZOO_EPOCHS epochs
+    of 8 steps (a validation half batch) with V2_BF16_STEP launches a step
+    and no fp32 ``sa_*`` launch, the loss finite and falling; one SGD step on
+    the card against the CPU model in the bf16 mode; ``Scorer(8192)`` with 2
+    ``sa_fwd_bf16`` (G 16384) + 2 ``cin_fwd`` a batch, the scores within
+    BF16_SCORE_TOL of the CPU model's; ms a step in turns with the fp32
+    mode, and each mode's profile: busy ms a step, idle share and device ms
+    by kernel.  The global random state is restored after it, so that the
+    phases after it draw what they drew before it was added."""
+    attention.set_precision("bf16")
+    try:
+        with torch.random.fork_rng(devices=[torch.cuda.current_device()]):
+            return _v2_attn_bf16_training()
+    finally:
+        attention.set_precision("fp32")
+
+
+def _v2_attn_bf16_training():
+    model = canonical_model("cuda", seeded=False, version="v2")
+    model.compile("adam", "binary_crossentropy", metrics=["auc"])
+    rng = np.random.default_rng(SEED + 3)
+    x, y = train_data(rng, TRAIN_STEPS_PER_EPOCH * TRAIN_BATCH + TRAIN_BATCH // 2, "v2")
+    x, y, val = (  # the last half batch validates
+        {k: v[: -TRAIN_BATCH // 2] for k, v in x.items()}, y[: -TRAIN_BATCH // 2],
+        ({k: v[-TRAIN_BATCH // 2 :] for k, v in x.items()}, y[-TRAIN_BATCH // 2 :]),
+    )
+    xb, yb = device_batch(model, x, y, TRAIN_BATCH)
+    first_loss, first_launches = {}, {}
+    for route, backend in (("kernel", None), ("plain", "torch")):
+        set_kernel_backend(model, backend)
+        reset_launches()
+        first_loss[route] = step_loss(model, xb, yb)
+        first_launches[route] = read_launches()
+    set_kernel_backend(model, None)
+    if first_launches != {"kernel": expected(**V2_BF16_EVAL), "plain": expected()}:
+        raise AssertionError(f"V2 bf16 attention: the first-step losses launched "
+                             f"{first_launches}")
+    loss_rel = abs(first_loss["kernel"] - first_loss["plain"]) / abs(first_loss["plain"])
+    if not loss_rel <= V2_BF16_LOSS_RTOL:
+        raise AssertionError(f"V2 bf16 attention: first-step losses {first_loss} differ by "
+                             f"{loss_rel}")
+
+    steps = TRAIN_STEPS_PER_EPOCH * ZOO_EPOCHS
+    reset_launches()
+    t0 = time.perf_counter()
+    history = model.fit(x, y, batch_size=TRAIN_BATCH, epochs=ZOO_EPOCHS, verbose=1,
+                        validation_data=val)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = read_launches()
+    want = expected(**{k: n * steps + V2_BF16_EVAL.get(k, 0) * ZOO_EPOCHS
+                       for k, n in V2_BF16_STEP.items()})
+    if launches != want:
+        raise AssertionError(f"V2 bf16 attention: launches {launches} over {steps} steps, "
+                             f"expected {want}")
+    logs = history.history
+    for k, v in logs.items():
+        if not np.isfinite(v).all():
+            raise AssertionError(f"V2 bf16 attention: {k} is not finite: {v}")
+    if not logs["loss"][0] > logs["loss"][-1]:
+        raise AssertionError(f"V2 bf16 attention: the epoch loss did not fall: {logs['loss']}")
+
+    cpu_errs = sgd_step_vs_cpu(
+        [canonical_model(dev, model.get_weights(), version="v2") for dev in ("cuda", "cpu")],
+        x, y, "V2 bf16 attention: ", f64_route=xla_attention)
+
+    # scoring: 2 sa_fwd_bf16 at G 16384 and 2 cin_fwd a batch
+    scorer = Scorer(model, batch_size=BATCH).warmup()
+    reqs = requests(np.random.default_rng(SEED + 1), REQUESTS, "v2")
+    n_batches = sum(-(-n // BATCH) for n in REQUESTS)
+    reset_launches()
+    preds, eps, score_ms = score_all(scorer, reqs)
+    scoring_launches = read_launches()
+    if scoring_launches != expected(**{k: n_batches * c for k, c in V2_BF16_EVAL.items()}):
+        raise AssertionError(f"V2 bf16 attention: scoring launched {scoring_launches} for "
+                             f"{n_batches} batches")
+    for n, p in zip(REQUESTS, preds):
+        if p.shape != (n, 1) or not (np.isfinite(p).all() and (p > 0).all() and (p < 1).all()):
+            raise AssertionError(f"V2 bf16 attention: bad scores, shape {p.shape}")
+    cpu_model = canonical_model("cpu", model.get_weights(), version="v2")
+    small = requests(np.random.default_rng(SEED + 2), (64,), "v2")[0]
+    score_err = float(np.abs(model.predict(small, 64) - cpu_model.predict(small, 64)).max())
+    if score_err > BF16_SCORE_TOL:
+        raise AssertionError(f"V2 bf16 attention: card and CPU scores differ by {score_err}")
+    del scorer, cpu_model
+
+    # ms a step, the bf16 mode against the fp32 mode from the same weights, in turns
+    batches = [device_batch(model, {k: v[i * TRAIN_BATCH:] for k, v in x.items()},
+                            y[i * TRAIN_BATCH:], TRAIN_BATCH) for i in range(4)]
+    ms = {"bf16": [], "fp32": []}
+    for mode in ("bf16", "fp32", "fp32", "bf16"):
+        attention.set_precision(mode)
+        ms[mode].append(train_steps_ms(model, batches, 10))
+    attention.set_precision("fp32")
+    fp32_profile = phase_train_profile(model, batches, phase="attn_v2_fp32_train_profile")
+    attention.set_precision("bf16")
+    profile = phase_train_profile(model, batches, phase="attn_v2_bf16_train_profile")
+    record = dict(
+        batch=TRAIN_BATCH, steps=steps, epochs=ZOO_EPOCHS, fit_seconds=fit_s, launches=launches,
+        history=logs, first_step_loss=first_loss, first_step_rel_diff=loss_rel,
+        rel_err_vs_cpu_one_sgd_step=cpu_errs, scoring_launches=scoring_launches,
+        scoring_examples_per_s=eps, scoring_ms=score_ms, max_abs_score_diff_vs_cpu=score_err,
+        ms_per_step=ms, examples_per_s={k: [TRAIN_BATCH / t * 1e3 for t in v]
+                                        for k, v in ms.items()},
+        device_busy_ms_per_step={"bf16": profile["device_busy_ms_per_call"],
+                                 "fp32": fp32_profile["device_busy_ms_per_call"]},
+        device_idle_share={"bf16": profile["device_idle_share"],
+                           "fp32": fp32_profile["device_idle_share"]},
+        top_device_ms_per_step={"bf16": profile["top_device_ms_per_call"],
+                                "fp32": fp32_profile["top_device_ms_per_call"]},
+    )
+    emit(phase="v2_attn_bf16_training", **record)
+    return record
 
 
 # ---------------------------------------------------------------------------
@@ -4961,6 +5321,7 @@ def main():
     ce_shapes = phase_ce_kernels(peak)
     ce_bf16_shapes = phase_ce_bf16_kernels(peak)
     attn_shapes = phase_attn_kernels(peak)
+    attn_bf16_shapes = phase_attn_bf16_kernels(peak)
     la_shapes = phase_lane_kernels(peak)
     gru_shapes = phase_gru_kernels(peak)
     ablate_shapes = phase_ablate_kernels(peak)
@@ -5005,6 +5366,7 @@ def main():
     bf16 = phase_bf16()
     cin_bf16 = phase_cin_bf16_training()
     pro_ce_bf16 = phase_pro_ce_bf16_training()
+    v2_bf16 = phase_v2_attn_bf16_training()
     phase_gather()
     cli = phase_cli()
     examples = phase_examples()
@@ -5030,6 +5392,8 @@ def main():
     paths["cin_bf16_training"] = cin_bf16["launches"]
     paths["cin_bf16_scoring"] = cin_bf16["scoring_launches"]
     paths["pro_ce_bf16_training"] = pro_ce_bf16["launches"]
+    paths["v2_attn_bf16_training"] = v2_bf16["launches"]
+    paths["v2_attn_bf16_scoring"] = v2_bf16["scoring_launches"]
     paths.update({f"example_{name}": rec["launches"] for name, rec in examples.items()
                   if "launches" in rec})
     paths["ablation"] = ablation["launches"]
@@ -5163,6 +5527,31 @@ def main():
             per=(f"V2 train step at batch 4096 ({n} launches, G {r['G']}, dh {r['dh']}, "
                  f"S {r['S']})" if key[0] == "sa" else
                  f"V1 train step at batch 4096 (1 launch, E {r['E']}, S {r['S']}, H {r['H']})"),
+        ))
+    # rows 8-9's bf16 mode on V2's train step (2 launches of each)
+    for kname, kind in (("sa_fwd_bf16", "fwd"), ("sa_bwd_bf16", "bwd")):
+        source, replaces = SOURCES[kname]
+        r = attn_bf16_shapes[SA_BF16_PATH_SHAPE]
+        n = V2_BF16_STEP[kname]
+        kernels.append(dict(
+            name=kname, route="cuda", source=source, replaces=replaces,
+            launches=v2_bf16["launches"][kname],
+            launches_by_path={p: counts[kname] for p, counts in paths.items()},
+            max_abs_err=max(x[f"{kind}_max_abs_err"] for x in attn_bf16_shapes.values()),
+            ms=n * r[f"{kind}_ms"], plain_ms=n * r[f"plain_{kind}_ms"],
+            bound_ms=n * r[f"{kind}_bound_ms"], bound_by=r[f"{kind}_bound_by"],
+            library_ms=n * r[f"library_{kind}_ms"],
+            bound_share=r[f"{kind}_bound_share"],
+            device_ms=_times(n, r[f"{kind}_device_ms"]),
+            flag_ms=n * r[f"flag_{kind}_ms"],
+            flag_device_ms=_times(n, r[f"flag_{kind}_device_ms"]),
+            mma_ms=n * r[f"{kind}_mma_ms"], exp_floor_ms=n * r[f"{kind}_exp_floor_ms"],
+            err_vs_float64=max(x["err_vs_float64"][o] for x in attn_bf16_shapes.values()
+                               for o in (("o",) if kind == "fwd" else ("dq", "dk", "dv"))),
+            bit_equal=True,
+            per=(f"V2 train step at batch 4096 in the bf16 mode ({n} launches, G {r['G']}, "
+                 f"dh {r['dh']}, S {r['S']}); bound by the exps, SDPA on bf16 operands as "
+                 "the library; flag_ms: the fp32 kernels' bf16 flag these replaced"),
         ))
     # rows 12-13 on AutoInt's train step (3 launches of each)
     for kname, kind in (("la_fwd", "fwd"), ("la_bwd", "bwd")):

@@ -28,7 +28,12 @@ mode adds ``cvt.rn.bf16x2`` (round to nearest even, lo in the low half),
 ``wgmma`` m64nNk16 bf16, A from registers (read by the PTX ISA's fragment
 layout) or, like B, from shared memory through a descriptor (core matrices
 of 8 rows x 8 bf16); the CE's bf16 mode B read MN-major (trans-b 1, its N
-contiguous in the core matrices).  This checks a
+contiguous in the core matrices).  The small attention's bf16 mode
+(``sa_bf16.cu``) adds the warp-level ``mma.sync`` m16n8k16 and m16n8k8
+bf16 (their fragments computed by the warp's 32 lanes through the warp
+barrier, as the TF32 one), each summing its exact bf16 products in k order
+from its accumulator, as a chain of fmaf from d = 0 does; the pair's copy
+into shared memory by ``cp.async`` is the plain copy above.  This checks a
 kernel's indexing, masking, tiling, fragment layouts, barrier phases and
 partial sums without a GPU; it says nothing about its speed, about the
 GPU's compiler or about the order of asynchronous copies and MMAs, which
@@ -400,6 +405,8 @@ inline void bulk_copy(void* dst, const void* src, int bytes, uint64_t* bar) {
 }
 // the kernels name one barrier a warpgroup
 inline void named_sync(int, int) { emu::group->bar.arrive_and_wait(); }
+// plain stores are visible to the emulated MMA as they stand
+inline void fence_proxy_async() {}
 template <int R> inline void regs_inc() {}
 template <int R> inline void regs_dec() {}
 inline void wgmma_fence() {}
@@ -458,6 +465,53 @@ inline float bf16_operand(uint64_t desc, int row, int k) {
   uint16_t v;
   std::memcpy(&v, static_cast<const char*>(emu::smem_base) + at, 2);
   return __uint_as_float(static_cast<uint32_t>(v) << 16);
+}
+// mma.sync m16n8k16 bf16 (sa_bf16.cu): the warp's 32 lanes post their A
+// and B fragments, then each lane sums its own four C entries in k order
+// (products of bf16 values are exact in fp32); A (row, k) at lane
+// 4 (row % 8) + (k % 8) / 2, register (row >= 8) + 2 (k >= 8); B (k, n) at
+// lane 4 n + (k % 8) / 2, register k >= 8; the lower k in the low half
+inline void mma_bf16(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  const int lane = emu::tidx.x % 32;
+  uint32_t (*frag)[6] = emu::warp->frag[emu::warp_calls++ % 2];
+  uint32_t (&mine)[6] = frag[lane];
+  for (int q = 0; q < 4; ++q) mine[q] = a[q];
+  mine[4] = b[0];
+  mine[5] = b[1];
+  emu::warp->bar.arrive_and_wait();
+  const int group = lane / 4, tig = lane % 4;
+  for (int q = 0; q < 4; ++q) {
+    const int row = group + 8 * (q / 2), col = 2 * tig + q % 2;
+    float s = c[q];
+    for (int k = 0; k < 16; ++k) {
+      const uint32_t av = frag[4 * (row % 8) + (k % 8) / 2][(row >= 8) + 2 * (k >= 8)];
+      const uint32_t bv = frag[4 * col + (k % 8) / 2][4 + (k >= 8)];
+      s += bf16_at(av, k) * bf16_at(bv, k);
+    }
+    c[q] = s;
+  }
+}
+inline void mma_bf16_z(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  for (int q = 0; q < 4; ++q) d[q] = 0.f;
+  mma_bf16(d, a, b);
+}
+// mma.sync m16n8k8 bf16, from zero: A (row, k) at lane 4 (row % 8) + k / 2,
+// register row >= 8; B (k, n) at lane 4 n + k / 2
+inline void mma_bf16_k8_z(float (&d)[4], const uint32_t (&a)[2], const uint32_t (&b)[1]) {
+  const int lane = emu::tidx.x % 32;
+  uint32_t (*frag)[6] = emu::warp->frag[emu::warp_calls++ % 2];
+  frag[lane][0] = a[0];
+  frag[lane][1] = a[1];
+  frag[lane][4] = b[0];
+  emu::warp->bar.arrive_and_wait();
+  const int group = lane / 4, tig = lane % 4;
+  for (int q = 0; q < 4; ++q) {
+    const int row = group + 8 * (q / 2), col = 2 * tig + q % 2;
+    float s = 0.f;
+    for (int k = 0; k < 8; ++k)
+      s += bf16_at(frag[4 * (row % 8) + k / 2][row >= 8], k) * bf16_at(frag[4 * col + k / 2][4], k);
+    d[q] = s;
+  }
 }
 // wgmma m64nNk16 bf16, A from registers (each warp's 16 rows in the
 // m16n8k16 A layout), B K-major through its descriptor

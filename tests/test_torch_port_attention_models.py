@@ -12,8 +12,12 @@ also hold those routes against the reference composition.
 Tolerances: predictions rtol 1e-5, atol 1e-6; one SGD step's weight changes
 within 1e-4 of each parameter's largest change; ``fit`` histories rtol 1e-4,
 atol 1e-6 (as ``tests/test_torch_port_train.py``) and the weights after it
-within 1e-4 (adam; see the test).
+within 1e-4 (adam; see the test).  V2 in the attention's bf16 mode (the JAX
+kernel in interpret mode): predictions within atol 1e-6, one SGD step's
+changes within 1e-3 of each parameter's largest (see the tests).
 """
+
+import contextlib
 
 import jax
 import numpy as np
@@ -23,13 +27,15 @@ import xdeepfm_tpu.features as jf
 import xdeepfm_tpu_torch.features as tf
 from xdeepfm_tpu.models.xdeepfm_attn import xDeepFMAttention as JaxV1
 from xdeepfm_tpu.models.xdeepfm_attn import xDeepFMAttentionV2 as JaxV2
+from xdeepfm_tpu.ops import attention_pallas
 from xdeepfm_tpu_torch.models import xDeepFMAttention, xDeepFMAttentionV2
-from xdeepfm_tpu_torch.ops import attention_cuda, attn_block_cuda
+from xdeepfm_tpu_torch.ops import attention, attention_cuda, attn_block_cuda
 from xdeepfm_tpu_torch.weights import canonical_paths, flatten_tree
 
 
 def _assert_launches_zero():
     for fn in (attention_cuda.sa_forward, attention_cuda.sa_backward,
+               attention_cuda.sa_forward_bf16, attention_cuda.sa_backward_bf16,
                attn_block_cuda.ab_forward, attn_block_cuda.ab_backward):
         assert fn.launches == 0
 
@@ -160,4 +166,58 @@ def test_attention_model_fit_matches_jax(version):
     want_w = dict(flatten_tree(jm.get_weights()["params"]))
     for k, v in flatten_tree(pm.get_weights()["params"]):
         np.testing.assert_allclose(v, np.asarray(want_w[k]), rtol=1e-4, atol=1e-4, err_msg=k)
+    _assert_launches_zero()
+
+
+@contextlib.contextmanager
+def _bf16_attention():
+    """Both packages' small attention in the bf16 mode: the JAX kernel in
+    interpret mode (its "auto" route then takes the kernel) with
+    ``attention_pallas.set_precision("bf16")``, the port's plain versions
+    with ``attention.set_precision("bf16")``; fp32 and the XLA route again
+    after."""
+    attention_pallas.set_interpret(True)
+    attention_pallas.set_precision("bf16")
+    attention.set_precision("bf16")
+    try:
+        yield
+    finally:
+        attention_pallas.set_interpret(False)
+        attention_pallas.set_precision("fp32")
+        attention.set_precision("fp32")
+
+
+def test_attention_v2_bf16_mode_predict_matches_jax():
+    """V2 in the attention's bf16 mode: the port's plain versions against the
+    JAX kernel (interpret mode, traced in the mode).  Both round the same
+    operands to bf16 at the same points and sum in fp32; an e computed by
+    another exp can land on the other side of a bf16 rounding boundary, so
+    the predictions are held within atol 1e-6 (they differ by ~2e-7), while
+    the mode moves them ~3.5e-6 off the fp32 mode's: a side left in fp32
+    would fail."""
+    jm, pm = _pair("v2")
+    x, _ = _data(150, seed=2)
+    fp32 = pm.predict(x, 64)
+    with _bf16_attention():
+        got, want = pm.predict(x, 64), jm.predict(x, 64)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    assert np.abs(got - fp32).max() > 2e-6
+    _assert_launches_zero()
+
+
+def test_attention_v2_bf16_mode_one_sgd_step_matches_jax():
+    """One SGD step of V2 in the bf16 mode from the same weights: each
+    weight change within 1e-3 of its largest change (ds and g inv_z rounded
+    to bf16 on both sides, a rounding boundary apart at most; the worst
+    parameter differs by ~2e-4 of its largest change)."""
+    jm, pm = _pair("v2", "sgd", l2_reg_cin=1e-3)
+    x, y = _data(96, seed=3)
+    with _bf16_attention():
+        want = _first_batch_delta(jm, x, y, 96)
+        got = _first_batch_delta(pm, x, y, 96)
+    assert sorted(got) == sorted(want)
+    assert any(k.startswith("cin/mhsa") and np.abs(want[k]).max() > 0 for k in want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-3,
+                                   atol=1e-3 * np.abs(want[k]).max() + 1e-8, err_msg=k)
     _assert_launches_zero()

@@ -39,11 +39,15 @@ from xdeepfm_tpu_torch.ops.cin_cuda import (
     cin_rows_reference_bf16,
     cin_rows_round_g_bf16,
 )
+from xdeepfm_tpu_torch.ops import attention
 from xdeepfm_tpu_torch.ops.attention_cuda import (
     SMEM_BYTES,
     sa_backward,
+    sa_backward_bf16,
     sa_backward_reference,
+    sa_bf16_float64,
     sa_forward,
+    sa_forward_bf16,
     sa_forward_reference,
     sa_smem_bytes,
     smem_bytes_of_kernel,
@@ -599,11 +603,14 @@ def test_small_attention_kernels_match_plain(card, G, dh, S, precision):
     gen = torch.Generator().manual_seed(G + dh + S)
     q, k, v, g = (torch.randn(G, dh, S, generator=gen).cuda() for _ in range(4))
     scale = dh ** -0.5
-    n_fwd, n_bwd = sa_forward.launches, sa_backward.launches
+    counters = (sa_forward, sa_backward, sa_forward_bf16, sa_backward_bf16)
+    before = [fn.launches for fn in counters]
     o, m, inv_z = sa_forward(q, k, v, scale, precision)
     grads = sa_backward(g, q, k, v, o, m, inv_z, scale, precision)
     torch.cuda.synchronize()
-    assert (sa_forward.launches, sa_backward.launches) == (n_fwd + 1, n_bwd + 1)
+    # "bf16" runs the bf16 mode's own kernels (sa_bf16.cu), not the fp32 ones
+    launched = [fn.launches - b for fn, b in zip(counters, before)]
+    assert launched == ([1, 1, 0, 0] if precision == "fp32" else [0, 0, 1, 1])
     want_o, want_m, want_z = sa_forward_reference(q, k, v, scale, precision)
     # fp32 sums of S terms in another order than cuBLAS's; bf16: an e or ds
     # on the other side of a rounding boundary moves one bf16 step (2^-8)
@@ -616,6 +623,78 @@ def test_small_attention_kernels_match_plain(card, G, dh, S, precision):
     # every sum is one thread's loop: a second run is bit-equal
     for a, b in zip(grads, sa_backward(g, q, k, v, o, m, inv_z, scale, precision)):
         assert torch.equal(a, b)
+
+
+# (G, dh, S): chip_smoke.py's SA_BF16_SHAPES (V2's train and serving pairs,
+# ragged, tiny, and S 600, a pair staged chunk by chunk from device memory)
+SA_BF16_SHAPES = [(8192, 5, 256), (16384, 5, 256), (7, 3, 37), (2, 1, 5), (64, 5, 600)]
+
+
+def _bf16_slices(G, step=1024):
+    return [slice(a, a + step) for a in range(0, G, step)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,dh,S", SA_BF16_SHAPES)
+def test_bf16_small_attention_kernels_match_plain(card, G, dh, S):
+    """sa_fwd_bf16 / sa_bwd_bf16 at the smoke's shapes: one launch each on
+    their own counters, within 1e-2 of the largest entry of the bf16 plain
+    versions (an e or ds on the other side of a rounding boundary moves one
+    bf16 step, 2^-8) and inv_z within 1e-4, against the float64 function of
+    the same rounded inputs at most twice the plain version's error, and
+    bit-equal over two runs (no atomics)."""
+    gen = torch.Generator().manual_seed(G + dh + S)
+    q, k, v, g = (torch.randn(G, dh, S, generator=gen).cuda() for _ in range(4))
+    scale = dh ** -0.5
+    before = (sa_forward_bf16.launches, sa_backward_bf16.launches)
+    o, m, inv_z = sa_forward_bf16(q, k, v, scale)
+    grads = sa_backward_bf16(g, q, k, v, o, m, inv_z, scale)
+    torch.cuda.synchronize()
+    assert (sa_forward_bf16.launches, sa_backward_bf16.launches) == (before[0] + 1, before[1] + 1)
+    for sl in _bf16_slices(G):
+        want_o, want_m, want_z = sa_forward_reference(q[sl], k[sl], v[sl], scale, "bf16")
+        _close(o[sl], want_o, 1e-2)
+        torch.testing.assert_close(m[sl], want_m, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(inv_z[sl], want_z, rtol=1e-4, atol=1e-7)
+        exact = sa_bf16_float64(q[sl], k[sl], v[sl], scale)
+        err, plain = ((t.double() - exact).abs().max() for t in (o[sl], want_o))
+        assert err <= 2 * plain or err <= 1e-6 * exact.abs().max()
+        args = (g[sl], q[sl], k[sl], v[sl], o[sl], m[sl], inv_z[sl])
+        want = sa_backward_reference(*args, scale, "bf16")
+        exact = sa_bf16_float64(q[sl], k[sl], v[sl], scale, g[sl], o[sl], m[sl], inv_z[sl])
+        for got, w, e in zip(grads, want, exact):
+            _close(got[sl], w, 1e-2)
+            err, plain = ((t.double() - e).abs().max() for t in (got[sl], w))
+            assert err <= 2 * plain or err <= 1e-6 * e.abs().max()
+    for a, b in zip((o, m, inv_z), sa_forward_bf16(q, k, v, scale)):
+        assert torch.equal(a, b)
+    for a, b in zip(grads, sa_backward_bf16(g, q, k, v, o, m, inv_z, scale)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,dh,S", [(64, 5, 256), (3, 16, 100), (2, 1, 600)])
+def test_bf16_small_attention_row_max_is_exact_where_the_scores_are(card, G, dh, S):
+    """On q and k of multiples of 1/8 in [-2, 2] every score is exact in
+    fp32, so sa_fwd_bf16's m (the max of the tensor cores' sums) is
+    bit-equal to the plain version's."""
+    gen = torch.Generator().manual_seed(3 * G + S)
+    q, k, v = ((torch.randn(G, dh, S, generator=gen) * 4).round().clamp(-16, 16).cuda() / 8
+               for _ in range(3))
+    m = sa_forward_bf16(q, k, v, dh ** -0.5)[1]
+    assert torch.equal(m, sa_forward_reference(q, k, v, dh ** -0.5, "bf16")[1])
+
+
+@pytest.mark.cuda
+def test_bf16_small_attention_kernels_reject_bad_input(card):
+    q = torch.randn(4, 5, 32, device="cuda")
+    for bad in ((q.double(), q, q), (q.cpu(), q, q), (torch.randn(4, 17, 32, device="cuda"),) * 3,
+                (torch.randn(1, 5, 4000, device="cuda"),) * 3):
+        with pytest.raises(ValueError):
+            sa_forward_bf16(*bad, 0.5)
+    with pytest.raises(ValueError):
+        sa_backward_bf16(q, q, q, q, q, torch.zeros(4, 31, device="cuda"),
+                         torch.zeros(4, 32, device="cuda"), 0.5)
 
 
 @pytest.mark.cuda
@@ -874,6 +953,40 @@ def test_attention_model_gradients_through_kernels_match_plain(card, version):
     assert any(k.startswith("cin.mhsa") and grads[None][k].abs().max() > 0 for k in params)
     for k in params:
         _close(grads[None][k], grads["torch"][k])
+
+
+@pytest.mark.cuda
+def test_attention_model_gradients_through_bf16_kernels_match_plain(card):
+    """test_attention_model_gradients_through_kernels_match_plain[v2] under
+    ``attention.set_precision("bf16")``: V2's two small_attention layers run
+    sa_fwd_bf16 and sa_bwd_bf16 (2 + 2 launches, no fp32 sa_* launch), and
+    every parameter's gradient matches the bf16 plain versions' within 1e-2
+    of its largest entry (bf16 rounding points, 2^-8 apart)."""
+    model = _attn_models("cuda")[1]["v2"]
+    rng = np.random.default_rng(5)
+    batch = {
+        "sparse": torch.as_tensor(rng.integers(0, 100, (300, 6)), device="cuda"),
+        "dense": torch.as_tensor(rng.uniform(0, 1, (300, 3)), dtype=torch.float32, device="cuda"),
+    }
+    params = dict(model.module.named_parameters())
+    counters = (sa_forward, sa_backward, sa_forward_bf16, sa_backward_bf16)
+    grads, launches = {}, {}
+    attention.set_precision("bf16")
+    try:
+        for backend in (None, "torch"):
+            model.module.cin.backend = backend
+            model.module.zero_grad(set_to_none=True)
+            before = [fn.launches for fn in counters]
+            model.module(batch, training=True)["pred"].square().sum().backward()
+            launches[backend] = tuple(fn.launches - b for fn, b in zip(counters, before))
+            grads[backend] = {k: p.grad.clone() for k, p in params.items()}
+    finally:
+        attention.set_precision("fp32")
+        model.module.cin.backend = None
+    assert launches == {None: (0, 0, 2, 2), "torch": (0, 0, 0, 0)}
+    assert any(k.startswith("cin.mhsa") and grads[None][k].abs().max() > 0 for k in params)
+    for k in params:
+        _close(grads[None][k], grads["torch"][k], 1e-2)
 
 
 @pytest.mark.cuda

@@ -16,12 +16,25 @@ in ``<wrapper>.launches``:
   sweep first under bf16);
 * :func:`sa_backward` — ``csrc/sa_bwd.cu`` over the backward routine
   ``csrc/attn_bwd_tc.cuh`` (replaces ``_sa_bwd`` / ``_bwd_kernel``):
-  (dq, dk, dv) from the saved m and inv_z.
+  (dq, dk, dv) from the saved m and inv_z;
+* :func:`sa_forward_bf16` and :func:`sa_backward_bf16` — the bf16 mode's
+  kernels ``sa_fwd_bf16`` and ``sa_bwd_bf16`` in ``csrc/sa_bf16.cu``
+  (replace ``_sa_fwd`` / ``_sa_bwd`` under ``set_precision("bf16")``), on
+  bf16 ``mma.sync``: a block a pair, a warp 32 rows; the forward takes the
+  exact row max in a first pass, then e rounded in registers into the A
+  operand of o^T = E V^T; the backward runs a key pass (dk, dv) and a query
+  pass (dq) over the pair's one copy in shared memory.
+  :func:`sa_forward` and :func:`sa_backward` with ``precision="bf16"`` go
+  to them.
 
 Beside each is the same function in plain PyTorch (``*_reference``), which
 materialises the [G, S, S] scores.  The CPU path and the kernels' checks use
 them.  ``precision`` "bf16" rounds every product operand to bf16 and sums in
-fp32, as the TPU kernel's ``set_precision("bf16")``.
+fp32, as the TPU kernel's ``set_precision("bf16")``.  The fp32 kernels keep
+a bf16 flag of their own (a max sweep, then the fp32 walk on rounded
+operands, the backward's 3xTF32 routine with one MMA kept), which no wrapper
+sets: ``scripts/bench_attn_bf16.py`` times it as the yardstick that the bf16
+kernels replaced.
 """
 
 from __future__ import annotations
@@ -83,7 +96,9 @@ def check_sa_shape(dh: int, S: int) -> None:
 
 
 def _bf16(x, precision):
-    return x.to(torch.bfloat16).float() if precision == "bf16" else x
+    """x rounded to bf16 under "bf16", in x's own dtype (so that a float64
+    reference rounds the same operands)."""
+    return x.to(torch.bfloat16).to(x.dtype) if precision == "bf16" else x
 
 
 def sa_forward_reference(q, k, v, scale, precision="fp32"):
@@ -113,10 +128,32 @@ def sa_backward_reference(g, q, k, v, o, m, inv_z, scale, precision="fp32"):
     return dq, dk, dv
 
 
+def sa_bf16_float64(q, k, v, scale, g=None, o=None, m=None, inv_z=None):
+    """The bf16 mode's function in float64 with only its inputs rounded to
+    bf16 (q, k, v, and g where it is an operand of dp): the yardstick of the
+    float64 gate, against which the kernels' and the plain version's
+    roundings of e, g inv_z and ds alike count as error.  Without g: o; with
+    g and the forward's o, m and inv_z: (dq, dk, dv)."""
+    def rounded(t):
+        return t.to(torch.bfloat16).double()
+
+    qb, kb, vb = rounded(q), rounded(k), rounded(v)
+    if g is None:
+        return sa_forward_reference(qb, kb, vb, scale)[0]
+    g, o, m, z = (t.double() for t in (g, o, m, inv_z))
+    e = torch.exp((torch.einsum("gds,gdt->gst", qb, kb) - m[..., None]) * scale)
+    dv = torch.einsum("gds,gst->gdt", g * z[:, None, :], e)
+    dp = torch.einsum("gds,gdt->gst", rounded(g), vb)
+    ds = (dp - (g * o).sum(1)[..., None]) * (z * scale)[..., None] * e
+    return torch.einsum("gdt,gst->gds", kb, ds), torch.einsum("gds,gst->gdt", qb, ds), dv
+
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "sa_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "sa_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    "sa_fwd_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "sa_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
 }
 
 
@@ -128,8 +165,10 @@ def smem_bytes_of_kernel(dh: int, S: int) -> int:
 
 
 def _launch(name, device, *args):
-    """``csrc/<name>.cu``'s launcher ``name`` on ``device``'s current stream."""
-    _build.launch(name, name, _SIGNATURES[name], device, *args)
+    """The launcher ``name`` of ``csrc/<name>.cu`` (of ``csrc/sa_bf16.cu``
+    for the bf16 mode's) on ``device``'s current stream."""
+    lib = "sa_bf16" if name.endswith("_bf16") else name
+    _build.launch(lib, name, _SIGNATURES[name], device, *args)
 
 
 def _check(fn, precision, **named):
@@ -164,30 +203,66 @@ def _check(fn, precision, **named):
 
 def sa_forward(q, k, v, scale, precision="fp32"):
     """The forward kernel: same contract as :func:`sa_forward_reference`,
-    on CUDA fp32 contiguous tensors.  m is bit-equal to the row max of the
-    scores summed by fmaf over d from 0, the backward's order; o is held
-    against float64 by ``chip_smoke.py``; bit-equal from run to run."""
+    on CUDA fp32 contiguous tensors; "bf16" runs :func:`sa_forward_bf16`.
+    m is bit-equal to the row max of the scores summed by fmaf over d from
+    0, the backward's order; o is held against float64 by
+    ``chip_smoke.py``; bit-equal from run to run."""
+    if precision == "bf16":
+        return sa_forward_bf16(q, k, v, scale)
     G, dh, S = _check("sa_forward", precision, q=q, k=k, v=v)
     o = torch.empty_like(q)
     m = torch.empty((G, S), device=q.device, dtype=torch.float32)
     inv_z = torch.empty_like(m)
     _launch("sa_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            m.data_ptr(), inv_z.data_ptr(), G, dh, S, float(scale), int(precision == "bf16"))
+            m.data_ptr(), inv_z.data_ptr(), G, dh, S, float(scale), 0)
     sa_forward.launches += 1
     return o, m, inv_z
 
 
 def sa_backward(g, q, k, v, o, m, inv_z, scale, precision="fp32"):
     """The backward kernel: same contract as :func:`sa_backward_reference`,
-    on CUDA fp32 contiguous tensors."""
+    on CUDA fp32 contiguous tensors; "bf16" runs :func:`sa_backward_bf16`."""
+    if precision == "bf16":
+        return sa_backward_bf16(g, q, k, v, o, m, inv_z, scale)
     G, dh, S = _check("sa_backward", precision, q=q, k=k, v=v, g=g, o=o, m=m, inv_z=inv_z)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     _launch("sa_bwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             o.data_ptr(), m.data_ptr(), inv_z.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), G, dh, S, float(scale), int(precision == "bf16"))
+            dv.data_ptr(), G, dh, S, float(scale), 0)
     sa_backward.launches += 1
+    return dq, dk, dv
+
+
+def sa_forward_bf16(q, k, v, scale):
+    """``sa_fwd_bf16``: same contract as ``sa_forward_reference(...,
+    precision="bf16")`` on CUDA fp32 contiguous tensors, the same shape gate
+    as the fp32 kernels.  m is the row max of the scores as the tensor cores
+    sum them, the sums that :func:`sa_backward_bf16` recomputes; bit-equal
+    from run to run."""
+    G, dh, S = _check("sa_forward_bf16", "bf16", q=q, k=k, v=v)
+    o = torch.empty_like(q)
+    m = torch.empty((G, S), device=q.device, dtype=torch.float32)
+    inv_z = torch.empty_like(m)
+    _launch("sa_fwd_bf16", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            m.data_ptr(), inv_z.data_ptr(), G, dh, S, float(scale))
+    sa_forward_bf16.launches += 1
+    return o, m, inv_z
+
+
+def sa_backward_bf16(g, q, k, v, o, m, inv_z, scale):
+    """``sa_bwd_bf16``: same contract as ``sa_backward_reference(...,
+    precision="bf16")`` on CUDA fp32 contiguous tensors; bit-equal from run
+    to run (no atomics)."""
+    G, dh, S = _check("sa_backward_bf16", "bf16", q=q, k=k, v=v, g=g, o=o, m=m, inv_z=inv_z)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    _launch("sa_bwd_bf16", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            o.data_ptr(), m.data_ptr(), inv_z.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), G, dh, S, float(scale))
+    sa_backward_bf16.launches += 1
     return dq, dk, dv
 
 
 sa_forward.launches = 0
 sa_backward.launches = 0
+sa_forward_bf16.launches = 0
+sa_backward_bf16.launches = 0

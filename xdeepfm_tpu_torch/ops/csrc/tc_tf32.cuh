@@ -48,7 +48,9 @@
 // tensor cores from zero and added in fp32 by the same rule.  The CE's bf16
 // mode (ce_bf16.cu) adds m64n64 and B read MN-major (wgmma_bf16_mn,
 // bf16_tile_desc_mn), so one bf16 tile serves as K-major B of one product
-// and MN-major B of the next.
+// and MN-major B of the next.  The small attention's bf16 mode
+// (sa_bf16.cu) takes the warp-level mma.sync m16n8k16 and m16n8k8 bf16
+// (mma_bf16, mma_bf16_k8_z) with B fragments read from the same tiles.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -91,6 +93,37 @@ __device__ __forceinline__ void mma_z(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
       : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f));
+}
+
+// c (= or +=) a * b over one m16n8k16 tile of bf16 operands, fp32 sums
+// (sa_bf16.cu's products over a walked chunk): a is the m16n8k16 A fragment
+// (a warp's 16 rows of wgmma_bf16's A), b the B fragment, b0 (k 2 tig and
+// 2 tig + 1, n group) and b1 (k 2 tig + 8 and + 9, n group), the lower k in
+// the low half; c the m16n8k8 C layout above.  mma_bf16_z sums from zero.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+__device__ __forceinline__ void mma_bf16_z(float (&d)[4], const uint32_t (&a)[4],
+                                           const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f));
+}
+
+// d = a * b over one m16n8k8 tile of bf16 operands, summed from zero: a
+// (row group, k 2 tig and 2 tig + 1), (row group + 8, ...); b (k 2 tig and
+// 2 tig + 1, n group)
+__device__ __forceinline__ void mma_bf16_k8_z(float (&d)[4], const uint32_t (&a)[2],
+                                              const uint32_t (&b)[1]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%7, %7, %7, %7};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b[0]), "f"(0.f));
 }
 
 // cvt.rn.bf16x2.f32: lo and hi rounded to bf16 (nearest, ties to even), lo
