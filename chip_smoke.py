@@ -220,6 +220,22 @@ run in order and any failure raises, so the exit code is non-zero:
    deterministic ``fused_gather`` beside ``F.embedding``'s and
    ``index_select``'s, bit-equality over two calls, error against float64
    and time, at DIEN's and xDeepFM's step;
+   the compiled dispatch (``graph_*`` lines, ``xdeepfm_tpu_torch/dispatch.py``):
+   ``graph_training``, the canonical xDeepFM at batch 4096 with Adam, ``fit``
+   of GRAPH_STEPS steps at K = GRAPH_K (CUDA graphs of K chained steps; the
+   first group runs eagerly as the warm-up, the second is captured) against K = 1
+   from the same seeded weights, dense, lazy (split, packed) and under
+   ``set_cin_precision("bf16")``: the weights, row states and history equal
+   to the bit, the launch counts GRAPH_STEPS times a step's, then a timed
+   and a profiled second and third fit of each (3 replays), the profiler's
+   records of every hand-written kernel equal to the eager steps' and
+   GRAPH_K times a step's per replay, wall, busy and idle ms a step;
+   ``graph_pro_training``, xDeepFMPro with the CE in its bf16 mode and SFG
+   dropout, the same checks; ``graph_serving``, ``Scorer(8192)``'s graph
+   against the eager forward, bit-equal, then ``load_weights`` of other
+   weights with no new capture, bit-equal to the eager forward and to the
+   other model, wall, busy and idle ms a batch of each.  ``--graph-only``
+   runs the device, build and these phases alone;
 19. the training CLIs over the native parser (``cli`` lines, among them
    ``cli_lazy``: ``xdftrain --embedding_optimizer lazy``, split and packed;
    ``cli_v1``: ``xdftrain_v1`` final; ``cli_attn_v2``: ``xdftrain_attn
@@ -295,6 +311,7 @@ import hashlib
 import json
 import os
 import pickle
+import re
 import shutil
 import subprocess
 import sys
@@ -5285,6 +5302,259 @@ def phase_sharded(per_gpu=False):
     return records, paths
 
 
+# Compiled dispatch (xdeepfm_tpu_torch/dispatch.py): fit(steps_per_dispatch=K)
+# as CUDA graphs of K chained train steps, predict and the Scorer as graphs
+# of their forwards.  One epoch of GRAPH_STEPS steps: its first group of K
+# runs eagerly (the warm-up), the second is captured and replayed, the third
+# replays; a second fit replays all three.
+GRAPH_K = 8
+GRAPH_STEPS = 24
+GRAPH_MODES = (  # (label, compile keywords, CIN precision)
+    ("dense_adam", {}, "f32"),
+    ("lazy_adam", dict(embedding_optimizer="lazy"), "f32"),  # split, packed
+    ("cin_bf16", {}, "bf16"),
+)
+# the hand-written kernels' names, as the profiler lists them
+KERNEL_NAMES = sorted({m for src in {s for s, _ in SOURCES.values()}
+                       for m in re.findall(r"__global__ void(?: __launch_bounds__\([^)]*\))?\s+(\w+)",
+                                           open(src).read())})
+
+
+def own_kernel_counts(prof):
+    """{kernel name: records} of the hand-written kernels in a profile."""
+    counts = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for name in KERNEL_NAMES:
+            if re.search(r"\b" + name + r"[<(]", e.name):
+                counts[e.name[:80]] = counts.get(e.name[:80], 0) + 1
+    return counts
+
+
+def flat_state(model):
+    """The canonical weights, and under the lazy optimizer the row states,
+    as {key: numpy array}."""
+    out = dict(model._weights_flat())
+    out.update({f"lazy/{k}": v.cpu().numpy() for k, v in model._lazy_state().items()})
+    return out
+
+
+def states_equal(label, a, b):
+    """Raise unless two flat states are equal to the bit."""
+    if sorted(a) != sorted(b):
+        raise AssertionError(f"{label}: the states hold other keys")
+    off = [k for k in a if not np.array_equal(a[k], b[k])]
+    if off:
+        worst = max(float(np.abs(a[k].astype(np.float64) - b[k]).max()) for k in off)
+        raise AssertionError(f"{label}: {len(off)} arrays differ (max {worst}), e.g. {off[:4]}")
+
+
+def graph_fits(label, models, x, y, val, step_launches):
+    """``fit`` of GRAPH_STEPS steps with K = 1 (``models[0]``, eager) and K =
+    GRAPH_K (``models[1]``) from the same weights: the weights and the
+    history equal to the bit, each model's launch counts GRAPH_STEPS times
+    ``step_launches`` (and the validation forwards); then a second fit of
+    each, timed, and a third, profiled: wall, busy and idle ms a step, the
+    replays' kernel records against the eager steps' and the counters.
+    Models without validation data skip the first check's validation."""
+    fit_kw = dict(batch_size=TRAIN_BATCH, epochs=1, verbose=1, shuffle=True)
+    hist, launches, replays = [], [], []
+    for model, k in zip(models, (1, GRAPH_K)):
+        reset_launches()
+        hist.append(model.fit(x, y, steps_per_dispatch=k, validation_data=val,
+                              **fit_kw).history)
+        launches.append(read_launches())
+    if hist[0] != hist[1]:
+        raise AssertionError(f"{label}: K={GRAPH_K} history {hist[1]} is not K=1's {hist[0]}")
+    states_equal(f"{label}: K={GRAPH_K} against K=1 after one fit", *map(flat_state, models))
+    val_fwd = launches[0]["cin_fwd"] + launches[0]["cin_fwd_bf16"] - GRAPH_STEPS * (
+        step_launches.get("cin_fwd", 0) + step_launches.get("cin_fwd_bf16", 0))
+    want = expected(**{n: GRAPH_STEPS * c for n, c in step_launches.items()})
+    want["cin_fwd_bf16" if "cin_fwd_bf16" in step_launches else "cin_fwd"] += val_fwd
+    for counts in launches:
+        if counts != want or val_fwd != 2:
+            raise AssertionError(f"{label}: launches {launches}, expected {want} (2 validation)")
+    rec = dict(history=hist[0], launches=launches[1], captures=models[1]._graphs.captures)
+    timing = {}
+    for model, k, name in zip(models, (1, GRAPH_K), ("eager", "graph")):
+        torch.cuda.synchronize()
+        before = model._graphs.replays
+        reset_launches()
+        t0 = time.perf_counter()
+        model.fit(x, y, steps_per_dispatch=k, **fit_kw)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        replays.append(model._graphs.replays - before)
+        counts = read_launches()
+        if counts != expected(**{n: GRAPH_STEPS * c for n, c in step_launches.items()}):
+            raise AssertionError(f"{label}: {name} fit launched {counts}")
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model.fit(x, y, steps_per_dispatch=k, **fit_kw)
+            torch.cuda.synchronize()
+            prof_wall = (time.perf_counter() - t0) * 1e3
+        br = device_breakdown(prof, prof_wall, GRAPH_STEPS)
+        timing[name] = dict(wall_ms_per_step=wall / GRAPH_STEPS,
+                            examples_per_s=GRAPH_STEPS * TRAIN_BATCH / wall * 1e3,
+                            profiled_wall_ms_per_step=br["wall_ms_per_call"],
+                            busy_ms_per_step=br["device_busy_ms_per_call"],
+                            idle_share=br["device_idle_share"],
+                            top_device_ms_per_step=br["top_device_ms_per_call"][:6],
+                            kernel_records=own_kernel_counts(prof))
+    if replays != [0, GRAPH_STEPS // GRAPH_K]:
+        raise AssertionError(f"{label}: replays {replays} in the second fits, expected "
+                             f"[0, {GRAPH_STEPS // GRAPH_K}]")
+    eager_rec, graph_rec = timing["eager"]["kernel_records"], timing["graph"]["kernel_records"]
+    if eager_rec != graph_rec or not graph_rec:
+        raise AssertionError(f"{label}: the replays ran kernels {graph_rec}, the eager steps "
+                             f"{eager_rec}")
+    per_replay = {n: c / replays[1] for n, c in graph_rec.items()}
+    per_step = {n: c / GRAPH_STEPS for n, c in eager_rec.items()}
+    if any(per_replay[n] != GRAPH_K * per_step[n] for n in per_step):
+        raise AssertionError(f"{label}: {per_replay} kernels a replay, {per_step} a step")
+    states_equal(f"{label}: K={GRAPH_K} against K=1 after three fits",
+                 *map(flat_state, models))
+    rec.update(replays_in_second_fit=replays[1], kernel_records_per_replay=per_replay,
+               **timing)
+    return rec
+
+
+def graph_train_data(seed):
+    rng = np.random.default_rng(seed)
+    x, y = train_data(rng, GRAPH_STEPS * TRAIN_BATCH + TRAIN_BATCH // 2)
+    return ({k: v[: -TRAIN_BATCH // 2] for k, v in x.items()}, y[: -TRAIN_BATCH // 2],
+            ({k: v[-TRAIN_BATCH // 2 :] for k, v in x.items()}, y[-TRAIN_BATCH // 2 :]))
+
+
+def phase_graph_training():
+    """The canonical xDeepFM at batch 4096 with Adam, ``fit`` of GRAPH_STEPS
+    steps at K = GRAPH_K against K = 1 from the same seeded weights, dense,
+    lazy (split, packed: the lazy step count advances inside a graph) and
+    under ``set_cin_precision("bf16")`` (:func:`graph_fits`)."""
+    x, y, val = graph_train_data(SEED + 11)
+    out = {}
+    for label, compile_kw, precision in GRAPH_MODES:
+        set_cin_precision(precision)
+        try:
+            models = [canonical_model("cuda") for _ in range(2)]
+            for m in models:
+                m.compile("adam", "binary_crossentropy", metrics=["auc"], **compile_kw)
+            step = (dict(cin_fwd_bf16=2, cin_round_g_bf16=2, cin_bwd_dx_bf16=2, cin_dw=2)
+                    if precision == "bf16" else dict(cin_fwd=2, cin_bwd_dx=2, cin_dw=2))
+            out[label] = graph_fits(f"graph_training {label}", models, x, y, val, step)
+        finally:
+            set_cin_precision("f32")
+        del models
+        torch.cuda.empty_cache()
+    emit(phase="graph_training", k=GRAPH_K, steps=GRAPH_STEPS, batch=TRAIN_BATCH, **out)
+    return out
+
+
+def phase_graph_pro_training():
+    """The canonical xDeepFMPro (SFG dropout 0.1, drawn from the fit's
+    generator) with the CE in its bf16 mode, K = GRAPH_K against K = 1
+    (:func:`graph_fits`)."""
+    x, y, val = graph_train_data(SEED + 12)
+    ce.set_precision("bf16")
+    try:
+        first = pro_model("cuda")
+        models = [first, pro_model("cuda", first.get_weights())]
+        for m in models:
+            m.compile("adam", "binary_crossentropy", metrics=["auc"])
+        rec = graph_fits("graph_pro_training", models, x, y, val, PRO_CE_BF16_STEP)
+    finally:
+        ce.set_precision("fp32")
+    emit(phase="graph_pro_training", k=GRAPH_K, steps=GRAPH_STEPS, batch=TRAIN_BATCH,
+         ce_precision="bf16", **rec)
+    return rec
+
+
+def eager_score(model, x):
+    """``Scorer.score`` through the eager forward (``_predict_step``)."""
+    batch = model._pack_x(x)
+    n = len(next(iter(batch.values())))
+    out = []
+    for start in range(0, n, BATCH):
+        xb = {k: v[start : start + BATCH] for k, v in batch.items()}
+        bs = len(next(iter(xb.values())))
+        xb = {k: np.concatenate([v, np.repeat(v[-1:], BATCH - bs, axis=0)]) for k, v in xb.items()}
+        out.append(model._predict_step(xb)[:bs])
+    return torch.cat(out).cpu().numpy().astype("float64")
+
+
+def phase_graph_serving():
+    """``Scorer(8192)`` over the canonical xDeepFM: ``warmup`` captures the
+    graph, so the first request replays it; the graph against the eager
+    forward on the same requests, equal to the bit; then
+    ``load_weights`` of other weights, and the graph's scores, with no new
+    capture, against the eager scores under them; wall, busy and idle ms a
+    batch of each."""
+    model = canonical_model("cuda")
+    scorer = Scorer(model, batch_size=BATCH).warmup()
+    if model._graphs.captures != 1:
+        raise AssertionError(f"graph_serving: warmup made {model._graphs.captures} captures")
+    reqs = requests(np.random.default_rng(SEED + 13), REQUESTS)
+    n_batches = sum(-(-n // BATCH) for n in REQUESTS)
+    reset_launches()
+    graph = [scorer.score(reqs[0])]
+    if model._graphs.captures != 1:
+        raise AssertionError("graph_serving: the first request after warmup captured a graph")
+    graph += [scorer.score(r) for r in reqs[1:]]
+    if read_launches() != expected(cin_fwd=2 * n_batches):
+        raise AssertionError(f"graph_serving: launches {read_launches()}")
+    eager = [eager_score(model, r) for r in reqs]
+    if not all(np.array_equal(a, b) for a, b in zip(graph, eager)):
+        raise AssertionError("graph_serving: the graph's scores are not the eager forward's")
+    captures = model._graphs.captures
+    other = canonical_model("cuda", seeded=False)  # the model's own initialisation
+    with tempfile.TemporaryDirectory() as d:
+        other.save_weights(os.path.join(d, "w.npz"))
+        model.load_weights(os.path.join(d, "w.npz"))
+    reloaded = [scorer.score(r) for r in reqs]
+    eager_reloaded = [eager_score(model, r) for r in reqs]
+    if not all(np.array_equal(a, b) for a, b in zip(reloaded, eager_reloaded)):
+        raise AssertionError("graph_serving: after load_weights the graph's scores are not "
+                             "the eager forward's")
+    if not all(np.array_equal(a, b) for a, b in zip(reloaded, [other.predict(r, BATCH)
+                                                               for r in reqs])):
+        raise AssertionError("graph_serving: the reloaded scores are not the other model's")
+    moved = max(float(np.abs(a - b).max()) for a, b in zip(graph, reloaded))
+    if moved < 1e-3 or model._graphs.captures != captures:
+        raise AssertionError(f"graph_serving: scores moved {moved} after load_weights, "
+                             f"captures {captures} -> {model._graphs.captures}")
+    timing = {}
+    for name, fn in (("eager", lambda r: eager_score(model, r)), ("graph", scorer.score)):
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for r in reqs:
+                fn(r)
+            ms.append((time.perf_counter() - t0) * 1e3 / n_batches)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for r in reqs:
+                fn(r)
+            prof_wall = (time.perf_counter() - t0) * 1e3
+        br = device_breakdown(prof, prof_wall, n_batches)
+        timing[name] = dict(wall_ms_per_batch=ms,
+                            examples_per_s=[sum(REQUESTS) / n_batches / m * 1e3 for m in ms],
+                            profiled_wall_ms_per_batch=br["wall_ms_per_call"],
+                            busy_ms_per_batch=br["device_busy_ms_per_call"],
+                            idle_share=br["device_idle_share"],
+                            kernel_records=own_kernel_counts(prof))
+    if timing["eager"]["kernel_records"] != timing["graph"]["kernel_records"]:
+        raise AssertionError(f"graph_serving: kernel records {timing}")
+    rec = dict(requests=list(REQUESTS), batches=n_batches, launches=expected(cin_fwd=2 * n_batches),
+               max_abs_moved_by_reload=moved, captures=model._graphs.captures,
+               replays=model._graphs.replays, **timing)
+    emit(phase="graph_serving", **rec)
+    return rec
+
+
 def _times(n, ms):
     """``n`` launches' device ms, None where the profiler did not measure it."""
     return None if ms is None else n * ms
@@ -5368,6 +5638,9 @@ def main():
     pro_ce_bf16 = phase_pro_ce_bf16_training()
     v2_bf16 = phase_v2_attn_bf16_training()
     phase_gather()
+    graph_train = phase_graph_training()
+    graph_pro = phase_graph_pro_training()
+    graph_serve = phase_graph_serving()
     cli = phase_cli()
     examples = phase_examples()
     phase_lazy_checks()
@@ -5394,6 +5667,9 @@ def main():
     paths["pro_ce_bf16_training"] = pro_ce_bf16["launches"]
     paths["v2_attn_bf16_training"] = v2_bf16["launches"]
     paths["v2_attn_bf16_scoring"] = v2_bf16["scoring_launches"]
+    paths.update({f"graph_training_{label}": rec["launches"] for label, rec in graph_train.items()})
+    paths["graph_pro_training"] = graph_pro["launches"]
+    paths["graph_serving"] = graph_serve["launches"]
     paths.update({f"example_{name}": rec["launches"] for name, rec in examples.items()
                   if "launches" in rec})
     paths["ablation"] = ablation["launches"]
@@ -5618,6 +5894,17 @@ def main():
     emit(ok=True, device=dict(platform="gpu", kind=name, count=torch.cuda.device_count()))
 
 
+def main_graph_only():
+    """``--graph-only``: the device, build and compiled-dispatch phases
+    alone (a quick run of the CUDA graphs on the card)."""
+    name, _ = phase_device()
+    phase_build()
+    phase_graph_training()
+    phase_graph_pro_training()
+    phase_graph_serving()
+    emit(ok=True, device=dict(platform="gpu", kind=name, count=torch.cuda.device_count()))
+
+
 def main_sharded_only(per_gpu=False):
     """``--sharded-only [--per-gpu]``: the device, build and sharded phases
     alone (a quick run of the rank grid on the card; ``--per-gpu`` puts a
@@ -5634,5 +5921,7 @@ if __name__ == "__main__":
         grid_rank_main(world, rank, port, *sys.argv[5:7])
     elif sys.argv[1:2] == ["--sharded-only"]:
         main_sharded_only(per_gpu="--per-gpu" in sys.argv)
+    elif sys.argv[1:2] == ["--graph-only"]:
+        main_graph_only()
     else:
         main()

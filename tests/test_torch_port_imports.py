@@ -21,7 +21,7 @@ MODULES = ["cli", "cli.common", "cli.xdftrain", "cli.xdftrain_v1", "cli.xdftrain
            "ops.attn_ablate_cuda",
            # the rest of the port: the engine, the models, the layers, the kernel
            # routes and their wrappers, Pro
-           "basemodel", "embeddings", "weights", "features", "metrics", "optimizers",
+           "basemodel", "dispatch", "embeddings", "weights", "features", "metrics", "optimizers",
            "models", "models.afm", "models.afn", "models.autoint", "models.ccpm", "models.dcn",
            "models.dcnmix", "models.deepfm", "models.dien", "models.difm", "models.din",
            "models.fibinet", "models.ifm", "models.mlr", "models.multitask",

@@ -10,6 +10,14 @@ registry over canonical parameter paths, the tail batch padded with row 0
 under a zero mask, per-batch metrics on the device, one host sync per epoch.
 ``fit`` copies its data to the device once and gathers each batch there.
 
+Compiled dispatch (``basemodel.py:1212-1275`` of the JAX engine): on a CUDA
+device ``fit(steps_per_dispatch=K)`` and ``fit_stream`` run each group of K
+steps (and the shorter remainder group) as one replay of a CUDA graph of K
+chained :meth:`BaseModel._train_step` calls, and ``predict`` / ``evaluate``
+/ the ``Scorer`` replay a graph of K forwards (:mod:`.dispatch`).  A group of
+one step runs eagerly, as the JAX engine runs its jitted single step.
+``compile``, ``shard_model_state`` and the checkpoint loads drop the graphs.
+
 On a rank grid (``parallel.shard_model_state``) the model runs as one
 process per rank, each given the same data and seed: every rank takes its
 slice of each global batch, row-sharded tables are looked up collectively,
@@ -27,6 +35,7 @@ scalars averaged into the epoch logs).
 
 from __future__ import annotations
 
+import functools
 import itertools
 import queue
 import threading
@@ -40,6 +49,7 @@ from torch import nn
 from .callbacks import CallbackList, History
 from .embeddings import EmbeddingCollection, run_first, table_touched_spec, touched_ids
 from .features import FeatureSchema, SparseFeat, VarLenSparseFeat, compute_input_dim
+from .dispatch import GraphCache
 from .metrics import DEVICE_METRICS, HOST_METRICS
 from .parallel.mesh import (
     REPLICATED,
@@ -54,6 +64,7 @@ from .parallel.mesh import (
 from .optimizers import (
     LAZY_OPTIMIZERS,
     LAZY_ROW_MATH,
+    adam_bias_corrections,
     decode_state,
     encode_state,
     _row_set,
@@ -190,6 +201,10 @@ class BaseModel:
         self._shards: Dict[str, int] = {}
         self._shard_ids = frozenset()
         self._checkpoints = []  # save_checkpoint_sharded(block=False) in flight
+        # captured step graphs (dispatch.GraphCache): the train steps' and
+        # the forwards'; the dropout generator, re-seeded by each fit
+        self._graphs = GraphCache()
+        self._dropout_gen = None
 
     def _finalize(self):
         """Build the module on the CPU from the seed, then move it to the
@@ -369,6 +384,7 @@ class BaseModel:
         if embedding_state_dtype == "bfloat16" and not packed:
             raise ValueError("embedding_state_dtype='bfloat16' requires lazy+split (packed "
                              "layout): nothing was packed under this config")
+        self._graphs.clear()
         self._matmul_precision = matmul_precision
         self._opt_spec = (optimizer, lr)
         self.loss_names = list(loss) if isinstance(loss, list) else loss
@@ -414,6 +430,18 @@ class BaseModel:
 
     def _lazy_members(self):
         return [m for g in self._lazy["groups"] for m in g["members"]] if self._lazy else []
+
+    def _lazy_bc(self, t0, n):
+        """[n, 2] device rows of Adam's bias corrections for steps t0 + 1 ..
+        t0 + n (:func:`~xdeepfm_tpu_torch.optimizers.adam_bias_corrections`),
+        from a table written by the host and grown by doubling: a step reads
+        its row, and a graph's steps their slots, with no sync."""
+        table = self._lazy["bc"]
+        if t0 + n > table.shape[0]:
+            rows = max(4096, 2 * (t0 + n))
+            table = torch.from_numpy(adam_bias_corrections(0, rows)).to(self.device)
+            self._lazy["bc"] = table
+        return table[t0 : t0 + n]
 
     def _pack_lazy(self, specs, kind, lr, split, packed, state_dtype):
         """Move every lazy table into its group's array.  A group is the
@@ -470,7 +498,8 @@ class BaseModel:
             g["array"] = arr
         lazy = dict(groups=groups, kind=kind, row_math=row_math, split=split, packed=packed,
                     state_dtype=state_dtype,
-                    lr=LAZY_OPTIMIZERS[kind][2]["lr"] if lr is None else lr, t=0, reg={})
+                    lr=LAZY_OPTIMIZERS[kind][2]["lr"] if lr is None else lr, t=0, reg={},
+                    bc=torch.zeros(0, 2, device=self.device))
         if split:
             # sum(w^2) of each l2-only table, kept up to date by the steps
             # from their touched rows: the L2 value costs no table read
@@ -543,7 +572,7 @@ class BaseModel:
         return compact, saved
 
     @torch.no_grad()
-    def _lazy_update(self, batch, saved, axis=None):
+    def _lazy_update(self, batch, saved, axis=None, bc=None):
         """The lazy row update of every group (``basemodel.py:1008-1183``),
         :func:`~xdeepfm_tpu_torch.optimizers.lazy_adam_rows` on the group's
         array: sort the touched ids, give every occurrence its id's gradient
@@ -560,6 +589,8 @@ class BaseModel:
         the split gradient it runs ``sharded_lazy_row_update``."""
         lz = self._lazy
         lz["t"] += 1
+        if bc is None:  # an eager step: its row of the table
+            bc = self._lazy_bc(lz["t"] - 1, 1)[0]
         grid = self._grid if axis is not None else None
         for i, g in enumerate(lz["groups"]):
             dsum, k = g["dsum"], g["k"]
@@ -571,7 +602,7 @@ class BaseModel:
                                            "block of the split step")
                 grad = leaf.grad if leaf.grad is not None else torch.zeros_like(leaf)
                 if g.get("sharded"):
-                    self._sharded_group_update(g, ids, grad, axis)
+                    self._sharded_group_update(g, ids, grad, axis, bc)
                     continue
                 if grid is not None:
                     ids = all_gather_rows(ids, grid, axis)
@@ -604,7 +635,7 @@ class BaseModel:
                 g_rows = g_rows + 2.0 * g["l2vec"] * p
             if g["l1vec"] is not None:
                 g_rows = g_rows + g["l1vec"] * torch.sign(p)
-            p_new, st_new = lz["row_math"](p, st, g_rows, lz["t"], lr=lz["lr"])
+            p_new, st_new = lz["row_math"](p, st, g_rows, lz["t"], lr=lz["lr"], bc=bc)
             _row_set(g["array"], sids,
                      torch.cat([p_new, encode_state(st_new, lz["state_dtype"])], 1))
             for m in g["members"]:
@@ -613,7 +644,7 @@ class BaseModel:
                     delta = p_new[:, sl].square().sum(1) - p[:, sl].square().sum(1)
                     lz["reg"][m["path"]] += torch.where(first, delta, 0.0).sum()
 
-    def _sharded_group_update(self, g, ids, grad, axis):
+    def _sharded_group_update(self, g, ids, grad, axis, bc):
         """A row-sharded group's split-gradient update:
         ``sharded_lazy_row_update`` of this rank's block of the global
         occurrence stream.  Under the psum lookup the members of an embed
@@ -628,7 +659,8 @@ class BaseModel:
             g["array"], None, ids, grad, lz["t"], None, grid, lr=lz["lr"],
             l1=0.0 if g["l1vec"] is None else g["l1vec"],
             l2=0.0 if g["l2vec"] is None else g["l2vec"],
-            packed_dim=g["dsum"], row_math=lz["row_math"], state_mult=g["k"],
+            packed_dim=g["dsum"], row_math=functools.partial(lz["row_math"], bc=bc),
+            state_mult=g["k"],
             state_dtype=lz["state_dtype"])
 
     def _lazy_state(self):
@@ -673,9 +705,9 @@ class BaseModel:
         for path in self._lazy["reg"] if self._lazy else ():
             value = reg.get(path)
             param = next(m["param"] for m in self._lazy_members() if m["path"] == path)
-            self._lazy["reg"][path] = (
-                torch.tensor(float(value), device=self.device) if value is not None
-                else _sum_squares(param))
+            # in place: a captured step adds to this tensor
+            self._lazy["reg"][path].copy_(
+                torch.tensor(float(value)) if value is not None else _sum_squares(param))
 
     # ------------------------------------------------------------ rank grid
 
@@ -718,6 +750,7 @@ class BaseModel:
                 mod = self.module.get_submodule(owner) if owner else self.module
                 setattr(mod, attr, nn.Parameter(shard_rows(p.detach(), grid).clone()))
                 shards[key] = p.shape[0]
+        self._graphs.clear()
         self._grid, self._shards = grid, shards
         named = dict(self.module.named_parameters())
         self._shard_ids = frozenset(id(named[k]) for k in shards)
@@ -768,9 +801,7 @@ class BaseModel:
         saved = None
         if self._lazy is not None and self._lazy["split"]:
             xb["_compact"], saved = self._lazy_blocks(xb)
-        with batch_statistics(grid, axis), torch.autocast(
-                self.device.type, dtype=torch.bfloat16,
-                enabled=self._matmul_precision == "bfloat16"):
+        with batch_statistics(grid, axis), self._autocast():
             out = self.module(xb, training=True, generator=self._dropout_gen)
         pred = out["pred"].float()
         aux = out.get("aux_loss")
@@ -829,15 +860,24 @@ class BaseModel:
 
     # ----------------------------------------------------------------- fit
 
-    def _train_step(self, xb, y, mask, with_metrics=True):
+    def _autocast(self):
+        """The train step's forward precision: bf16 autocast under
+        ``matmul_precision="bfloat16"``.  Its cast cache is off, as a CUDA
+        graph's capture needs, so eager and replayed steps cast alike."""
+        return torch.autocast(self.device.type, dtype=torch.bfloat16, cache_enabled=False,
+                              enabled=self._matmul_precision == "bfloat16")
+
+    def _train_step(self, xb, y, mask, with_metrics=True, bc=None):
         """One step on device tensors (``basemodel.py:901-1210``): forward,
         the sum-loss (:func:`sum_loss`) + regularisation + aux loss, backward,
         optimizer update.  Returns (total loss, {metric or module log:
         value}) as device scalars.  The batch gains ``labels`` and ``sample_mask``, as the JAX
         engine's does (``basemodel.py:904-905``), for modules whose loss needs
         them (the SFG decoder).  Under the lazy optimizer the tables' rows
-        are updated after the dense optimizer's step (:meth:`_lazy_update`).
-        The BatchNorm and Dice statistics update in the forward.  Under
+        are updated after the dense optimizer's step (:meth:`_lazy_update`),
+        lazy Adam with the step's bias corrections ``bc`` [2] (a graph's step
+        slot; None: the host-written table's row).  The BatchNorm and Dice
+        statistics update in the forward.  Under
         ``matmul_precision="bfloat16"`` the forward runs under bf16 autocast
         and its outputs are cast back to fp32.  On a rank grid of more than
         one rank: :meth:`_train_step_grid`."""
@@ -847,8 +887,7 @@ class BaseModel:
         saved = None
         if self._lazy is not None and self._lazy["split"]:
             xb["_compact"], saved = self._lazy_blocks(xb)
-        with torch.autocast(self.device.type, dtype=torch.bfloat16,
-                            enabled=self._matmul_precision == "bfloat16"):
+        with self._autocast():
             out = self.module(xb, training=True, generator=self._dropout_gen)
         pred = out["pred"].float()
         aux = out.get("aux_loss")
@@ -858,7 +897,7 @@ class BaseModel:
         total.backward()
         self.optimizer.step()
         if self._lazy is not None:
-            self._lazy_update(xb, saved)
+            self._lazy_update(xb, saved, bc=bc)
         mvals = {}
         if with_metrics:
             with torch.no_grad():
@@ -877,14 +916,50 @@ class BaseModel:
             mvals[name] = value.detach().float()
         return total.detach(), mvals
 
+    def _train_steps(self, inputs, k, with_metrics):
+        """``k`` chained :meth:`_train_step` calls (``train_step_multi``,
+        ``basemodel.py:1212-1232``): ``inputs`` hold the k batches stacked,
+        ``x/<key>`` [k, B, ...], ``y`` [k, B, T] and ``mask`` [k, B], and
+        under the lazy optimizer each step's bias corrections ``bc`` [k, 2].
+        On a CUDA device one replay of a graph of the k steps
+        (:class:`~xdeepfm_tpu_torch.dispatch.GraphCache`), on the CPU the
+        steps in turn.  Returns ([k] totals, {metric or log: [k]})."""
+        lz = self._lazy
+        t0 = lz["t"] if lz is not None else 0
+
+        def body(st):
+            totals, logs = [], []
+            for j in range(k):
+                xb = {key[2:]: v[j] for key, v in st.items() if key.startswith("x/")}
+                total, mv = self._train_step(xb, st["y"][j], st["mask"][j], with_metrics,
+                                             bc=st["bc"][j] if lz is not None else None)
+                totals.append(total)
+                logs.append(mv)
+            return torch.stack(totals), {n: torch.stack([mv[n] for mv in logs]) for n in logs[0]}
+
+        if lz is not None:
+            inputs = dict(inputs, bc=self._lazy_bc(t0, k))
+        gen = self._dropout_gen
+        key = ("train", k, with_metrics, id(gen),
+               tuple((n, tuple(v.shape), v.dtype) for n, v in sorted(inputs.items())))
+        out = self._graphs.run(key, body, inputs, self.device,
+                               generators=(gen,) if gen is not None and gen.device.type == "cuda"
+                               else ())
+        if lz is not None:
+            lz["t"] = t0 + k  # a replay advanced it on the card only
+        return out
+
     def fit(self, x=None, y=None, batch_size=None, epochs=1, verbose=1,
             initial_epoch=0, validation_split=0.0, validation_data=None,
             shuffle=True, callbacks=None, steps_per_dispatch=1):
         """Keras-style training loop (``basemodel.py:1288-1461``).  Returns the
-        ``History``.  ``steps_per_dispatch`` is accepted for the JAX engine's
-        signature, where it runs K steps as one XLA program; here every step
-        is its own Python-loop turn (K steps in one CUDA graph is later
-        work), so it changes no result."""
+        ``History``.  ``steps_per_dispatch=K``: each epoch's steps run in
+        groups of K and a shorter remainder group, as the JAX engine's loop
+        groups them (``basemodel.py:1378-1400``); a group of more than one
+        step is one :meth:`_train_steps` dispatch, a CUDA graph's replay on
+        the card, and a group of one an eager step.  On a rank grid of more
+        than one rank every step is an eager step (``ROADMAP.md``: a gloo
+        collective cannot be captured).  The results are those of K = 1."""
         if self.optimizer is None:
             raise RuntimeError("call compile() before fit()")
         if steps_per_dispatch < 1:
@@ -957,20 +1032,37 @@ class BaseModel:
             idx = torch.as_tensor(idx, device=self.device)
             mask = torch.as_tensor(mask, device=self.device)
             totals, mvals = [], []
-            for i in range(steps_per_epoch):
-                lo, hi = i * batch_size, (i + 1) * batch_size
-                if part is not None:  # this rank's slice of the global batch
-                    b = batch_size // part[1]
-                    lo, hi = lo + part[0] * b, lo + (part[0] + 1) * b
-                take = idx[lo:hi]
-                total, mv = self._train_step(
-                    {k: v.index_select(0, take) for k, v in x_dev.items()},
-                    y_dev.index_select(0, take),
-                    mask[lo:hi],
-                    with_metrics=verbose > 0,
-                )
-                totals.append(total)
-                mvals.append(mv)
+            i = 0
+            while i < steps_per_epoch:
+                k = min(steps_per_dispatch, steps_per_epoch - i)
+                if k > 1 and part is None:  # one dispatch of k steps
+                    lo, hi = i * batch_size, (i + k) * batch_size
+                    take = idx[lo:hi]
+                    inputs = {"x/" + key: v.index_select(0, take).reshape(k, batch_size,
+                                                                          *v.shape[1:])
+                              for key, v in x_dev.items()}
+                    inputs["y"] = y_dev.index_select(0, take).reshape(k, batch_size, -1)
+                    inputs["mask"] = mask[lo:hi].reshape(k, batch_size)
+                    total, mv = self._train_steps(inputs, k, with_metrics=verbose > 0)
+                    totals.append(total)
+                    mvals.append(mv)
+                    i += k
+                    continue
+                for j in range(i, i + k):
+                    lo, hi = j * batch_size, (j + 1) * batch_size
+                    if part is not None:  # this rank's slice of the global batch
+                        b = batch_size // part[1]
+                        lo, hi = lo + part[0] * b, lo + (part[0] + 1) * b
+                    take = idx[lo:hi]
+                    total, mv = self._train_step(
+                        {key: v.index_select(0, take) for key, v in x_dev.items()},
+                        y_dev.index_select(0, take),
+                        mask[lo:hi],
+                        with_metrics=verbose > 0,
+                    )
+                    totals.append(total)
+                    mvals.append(mv)
+                i += k
             epoch_logs = self._epoch_logs(totals, mvals, n, steps_per_epoch)
             if do_validation:
                 eval_result = self._evaluate_packed(val_batch, val_y, batch_size)
@@ -999,10 +1091,15 @@ class BaseModel:
         """Dropout masks: one stream per fit, as the JAX engine folds the step
         number into a key seeded with seed + 1.  On a grid each slice of the
         batch draws its own stream (the members of an embed group, which hold
-        the same rows under the psum lookup, the same one)."""
+        the same rows under the psum lookup, the same one).  The model's
+        generator is re-seeded in place, so a captured step graph, which
+        holds its state, stays valid from one fit to the next."""
         part = self._batch_part()
         offset = 0 if part is None else 7919 * part[0]
-        return torch.Generator(device=self.device).manual_seed(self.seed + 1 + offset)
+        gen = self._dropout_gen
+        if gen is None or gen.device.type != self.device.type:
+            gen = torch.Generator(device=self.device)
+        return gen.manual_seed(self.seed + 1 + offset)
 
     def _restart_lazy_steps(self):
         """The lazy optimizer's step count starts again at 1 with each
@@ -1072,8 +1169,10 @@ class BaseModel:
         Epoch logs, callbacks, the sum-loss normalisation and the train
         metrics follow :meth:`fit`.  ``steps_per_epoch`` caps each epoch, the
         read-ahead included (the source is consumed exactly that many times);
-        by default an epoch is one pass of the stream.  ``steps_per_dispatch``
-        changes no result, as in :meth:`fit`."""
+        by default an epoch is one pass of the stream.  ``steps_per_dispatch=K``
+        groups the stream's batches K at a time, and the epoch's last group
+        may be shorter (``basemodel.py:1603-1665``); each group runs as in
+        :meth:`fit`, its K batches staged in one [K, B, ...] array."""
         if self.optimizer is None:
             raise RuntimeError("call compile() before fit_stream()")
         if steps_per_dispatch < 1:
@@ -1113,6 +1212,28 @@ class BaseModel:
                 if steps_per_epoch:
                     src = itertools.islice(src, steps_per_epoch)
                 stream = self._prefetch_iter(src, depth=prefetch)
+            group = []
+
+            def dispatch(group):
+                if len(group) > 1 and part is None:
+                    inputs = {"x/" + key: torch.from_numpy(np.stack([g[0][key] for g in group]))
+                              for key in group[0][0]}
+                    inputs["y"] = torch.from_numpy(np.stack([g[1] for g in group]))
+                    inputs["mask"] = torch.from_numpy(np.stack([g[2] for g in group]))
+                    out = [self._train_steps(inputs, len(group), with_metrics=verbose > 0)]
+                else:
+                    out = [self._train_step(
+                        {k: torch.as_tensor(v, device=self.device) for k, v in xb.items()},
+                        torch.as_tensor(yb, device=self.device),
+                        torch.as_tensor(mask, device=self.device),
+                        with_metrics=verbose > 0,
+                    ) for xb, yb, mask in group]
+                for total, mv in out:
+                    totals.append(total)
+                    mvals.append(mv)
+                return len(group)
+
+            n_steps = 0
             try:
                 for x, yb in stream:
                     xb = self._pack_x(x)
@@ -1140,21 +1261,19 @@ class BaseModel:
                         b = batch_size // part[1]
                         cut = slice(part[0] * b, (part[0] + 1) * b)
                         xb, yb, mask = {k: v[cut] for k, v in xb.items()}, yb[cut], mask[cut]
-                    total, mv = self._train_step(
-                        {k: torch.as_tensor(v, device=self.device) for k, v in xb.items()},
-                        torch.as_tensor(yb, device=self.device),
-                        torch.as_tensor(mask, device=self.device),
-                        with_metrics=verbose > 0,
-                    )
-                    totals.append(total)
-                    mvals.append(mv)
-                    if steps_per_epoch and len(totals) >= steps_per_epoch:
+                    group.append((xb, yb, mask))
+                    if len(group) == steps_per_dispatch:
+                        n_steps += dispatch(group)
+                        group = []
+                    if steps_per_epoch and n_steps + len(group) >= steps_per_epoch:
                         break
+                if group:
+                    n_steps += dispatch(group)
             finally:
                 if prefetch:
                     stream.close()  # stops the prefetch thread, also on an error
             if totals:
-                epoch_logs = self._epoch_logs(totals, mvals, n_seen, len(totals))
+                epoch_logs = self._epoch_logs(totals, mvals, n_seen, n_steps)
             else:
                 epoch_logs = {"loss": float("nan")}
             if do_validation:
@@ -1183,13 +1302,16 @@ class BaseModel:
     @staticmethod
     def _epoch_logs(totals, mvals, n, steps_per_epoch) -> Dict[str, float]:
         """The epoch's loss (sum of step totals over n) and train metrics and
-        module logs (mean over steps), read from the device in one transfer."""
+        module logs (mean over steps), read from the device in one transfer.
+        Each entry of ``totals`` and ``mvals`` is one step's values or a
+        dispatch's [k] of them."""
         names = list(mvals[0]) if mvals else []
-        values = torch.stack(totals + [mv[k] for mv in mvals for k in names]).cpu().numpy()
-        logs = {"loss": float(np.sum(values[: len(totals)].astype(np.float64))) / n}
-        per_step = values[len(totals) :].reshape(len(mvals), len(names)).astype(np.float64)
+        parts = [torch.cat([t.reshape(-1) for t in totals])]
+        parts += [torch.cat([mv[k].reshape(-1) for mv in mvals]) for k in names]
+        values = torch.stack(parts).cpu().numpy().astype(np.float64)
+        logs = {"loss": float(np.sum(values[0])) / n}
         for j, name in enumerate(names):
-            logs[name] = float(np.sum(per_step[:, j]) / steps_per_epoch)
+            logs[name] = float(np.sum(values[j + 1]) / steps_per_epoch)
         return logs
 
     # ------------------------------------------------------ evaluate/predict
@@ -1247,9 +1369,33 @@ class BaseModel:
     def predict(self, x, batch_size=256):
         return self._predict_packed(self._pack_x(x), batch_size)
 
-    def _predict_packed(self, batch, batch_size=256):
+    def _predict_batches(self, batches):
+        """``batches``: typed numpy arrays of k whole batches, [k, B, ...]
+        each -> predictions [k * B, T] on the device (``predict_step_multi``,
+        ``lax.map`` over the k batches, ``basemodel.py:1264-1275``).  On a
+        CUDA device one replay of a graph of the k forwards on static
+        buffers (:class:`~xdeepfm_tpu_torch.dispatch.GraphCache`), which
+        read the weights as they are at each call; on the CPU the forwards
+        in turn; on a rank grid :meth:`_predict_step` a batch at a time."""
+        k, B = next(iter(batches.values())).shape[:2]
+        if self._batch_part() is not None:
+            return torch.cat([self._predict_step({n: v[j] for n, v in batches.items()})
+                              for j in range(k)])
+
+        def body(st):
+            return torch.cat([self.module({n: v[j] for n, v in st.items()}, training=False)["pred"]
+                              for j in range(k)])
+
+        inputs = {n: torch.from_numpy(np.ascontiguousarray(v)) for n, v in batches.items()}
+        key = ("predict", k, tuple((n, tuple(v.shape), v.dtype) for n, v in sorted(inputs.items())))
+        with torch.inference_mode():
+            return self._graphs.run(key, body, inputs, self.device)
+
+    def _predict_packed(self, batch, batch_size=256, batches_per_dispatch=8):
         """Whole batches only: the tail is padded by repeating the last row
-        and sliced off again; float64 out (``basemodel.py:1726-1761``)."""
+        and sliced off again; float64 out (``basemodel.py:1726-1761``).  Up to
+        ``batches_per_dispatch`` batches a dispatch (:meth:`_predict_batches`),
+        the last dispatch holding the rest."""
         n = len(next(iter(batch.values())))
         n_batches = (n - 1) // batch_size + 1 if n else 0
         n_pad = n_batches * batch_size - n
@@ -1258,12 +1404,15 @@ class BaseModel:
                 k: np.concatenate([v, np.repeat(v[-1:], n_pad, axis=0)])
                 for k, v in batch.items()
             }
-        preds = [
-            self._predict_step(
-                {k: v[i * batch_size : (i + 1) * batch_size] for k, v in batch.items()}
-            )
-            for i in range(n_batches)
-        ]
+        preds = []
+        i = 0
+        while i < n_batches:
+            k_b = min(batches_per_dispatch, n_batches - i)
+            preds.append(self._predict_batches({
+                key: v[i * batch_size : (i + k_b) * batch_size].reshape(
+                    (k_b, batch_size) + v.shape[1:])
+                for key, v in batch.items()}))
+            i += k_b
         if not preds:
             return np.zeros((0, 1), dtype="float64")
         return torch.cat(preds)[:n].cpu().numpy().astype("float64")
@@ -1305,7 +1454,7 @@ class BaseModel:
             # set_weights leaves it as it was)
             for m in self._lazy_members():
                 if m["path"] in self._lazy["reg"]:
-                    self._lazy["reg"][m["path"]] = _sum_squares(m["param"])
+                    self._lazy["reg"][m["path"]].copy_(_sum_squares(m["param"]))
 
     def _weights_flat(self):
         """{canonical key: array} of ``get_weights``: ``params/<path>`` and
@@ -1475,6 +1624,7 @@ class BaseModel:
                 state.setdefault(index[id(param)], {})[slot] = value
         sd = self.optimizer.state_dict()
         self.optimizer.load_state_dict({"state": state, "param_groups": sd["param_groups"]})
+        self._graphs.clear()  # the optimizer's state tensors were replaced
         if lazy or self._lazy is not None:
             self._set_lazy_state(lazy, reg)
         self._restart_lazy_steps()
@@ -1608,4 +1758,5 @@ class BaseModel:
                 opt.setdefault(index[id(param_at[where])], {})[slot] = value
         sd = self.optimizer.state_dict()
         self.optimizer.load_state_dict({"state": opt, "param_groups": sd["param_groups"]})
+        self._graphs.clear()  # the optimizer's state tensors were replaced
         return int(state["epoch"])

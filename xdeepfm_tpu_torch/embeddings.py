@@ -338,11 +338,10 @@ class EmbeddingCollection(nn.Module):
         feature's batch column plus its table's row offset."""
         dim = self.uniform_dim(feats)
         cols = [self.schema.sparse_index(f.name) for f in feats]
-        offs = torch.tensor(
-            [self._offsets[f.embedding_name][1] for f in feats],
-            dtype=torch.int64, device=batch["sparse"].device,
-        )
-        return dim, batch["sparse"][:, cols].long() + offs[None, :]
+        offs = _device_list([self._offsets[f.embedding_name][1] for f in feats],
+                            batch["sparse"].device)
+        ids = batch["sparse"].index_select(1, _device_list(cols, batch["sparse"].device))
+        return dim, ids.long() + offs[None, :]
 
     def stacked_sparse(self, batch, feats: Sequence[SparseFeat], rows=None):
         """One gather for a set of equal-dim SparseFeats -> [B, F, dim].

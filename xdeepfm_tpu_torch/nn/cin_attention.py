@@ -29,6 +29,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from ..dispatch import Switch
 from ..ops import attn_block as abp
 from ..ops.attention import mhsa_attention_packed, mhsa_attention_packed_t
 from .activations import make_activation
@@ -197,6 +198,8 @@ def _fused_block_apply(x_t, mhsas, layer_norms, pooling, num_heads, use_residual
 
 
 class _CINAttentionBase(nn.Module):
+    backend = Switch()
+
     def __init__(self, field_size, embedding_size, layer_size, activation, split_half,
                  num_heads, attn_dropout, use_layer_norm, use_residual, generator, backend):
         super().__init__()

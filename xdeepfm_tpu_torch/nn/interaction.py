@@ -20,6 +20,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from ..dispatch import Switch
 from ..ops import lane_attention as _lane
 from ..ops.cin import cin_rows_contract
 from .activations import apply_activation, make_activation
@@ -178,6 +179,7 @@ class CIN(nn.Module):
     [B, M, E] -> [B, featuremap_num].  ``backend`` (None: by device, or
     "torch") selects the contraction; see :func:`cin_rows_contract`.
     """
+    backend = Switch()
 
     def __init__(
         self,
@@ -239,6 +241,7 @@ class InteractingLayer(nn.Module):
     ``ops.lane_attention.lane_mhsa_packed`` when ``use_lane_attention(F)``
     holds, else the plain head-split einsums.  ``backend`` goes to the lane
     route: None (by device) or "torch" (the plain version on any device)."""
+    backend = Switch()
 
     def __init__(
         self,
@@ -456,8 +459,11 @@ class LogTransformLayer(nn.Module):
         self.bn1 = BatchNorm(embedding_size, axis=1, eps=1e-5)
 
     def forward(self, inputs, training: bool = False):
-        # jnp.clip's maximum: at a tie the gradient splits, as torch.maximum's
-        x = torch.log(torch.maximum(inputs.abs(), inputs.new_tensor(1e-7)))
+        # jnp.clip's maximum: at a tie the gradient splits, as torch.maximum's;
+        # the floor is filled on the device (no host copy: a CUDA graph
+        # captures this forward)
+        floor = torch.full((), 1e-7, dtype=inputs.dtype, device=inputs.device)
+        x = torch.log(torch.maximum(inputs.abs(), floor))
         x = self.bn0(x, training=training)
         x = torch.exp(torch.einsum("bfe,fh->beh", x, self.ltl_weights) + self.ltl_biases)
         x = self.bn1(x, training=training)

@@ -23,6 +23,7 @@ import torch
 from torch import nn
 from torch.autograd.function import once_differentiable
 
+from ..dispatch import Switch
 from ..ops import gru as gru_ops
 from ..ops.gru_cuda import valid_mask
 from .core import LocalActivationUnit
@@ -191,6 +192,7 @@ class GRU(nn.Module):
     U(+-1/sqrt(H)).  Parameters ``weight_ih`` [3H, I], ``weight_hh`` [3H, H],
     ``bias_ih``, ``bias_hh`` [3H] (r, z, n).  ``backend``: None (the kernels
     on a CUDA tensor) or "torch" (their plain versions)."""
+    backend = Switch()
 
     def __init__(self, input_size: int, hidden_size: int, init_std: float = 0.001,
                  generator: Optional[torch.Generator] = None):
@@ -309,6 +311,7 @@ class DynamicGRU(nn.Module):
     """AGRU / AUGRU over padded sequences (``sequence.py:455-546``): inputs
     [B, T, I], att_scores [B, T], lengths [B] -> FROZEN states [B, T, H].
     Parameters under ``rnn``.  ``backend`` as :class:`GRU`'s."""
+    backend = Switch()
 
     def __init__(self, input_size: int, hidden_size: int, use_bias: bool = True,
                  gru_type: str = "AGRU", init_std: Optional[float] = None,

@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..dispatch import bump
 from ._build import fp32_forward
 from .attention_cuda import (
     check_sa_shape,
@@ -43,6 +44,8 @@ def set_precision(name: str):
     global _PRECISION
     if name not in ("fp32", "bf16"):
         raise ValueError(f"unknown attention precision {name!r}")
+    if name != _PRECISION:
+        bump()
     _PRECISION = name
 
 
@@ -96,6 +99,8 @@ def set_mhsa_backend(name: str):
     global _MHSA_BACKEND
     if name not in ("auto", "xla", "pallas"):
         raise ValueError(f"unknown MHSA backend {name!r}")
+    if name != _MHSA_BACKEND:
+        bump()
     _MHSA_BACKEND = name
 
 

@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..dispatch import bump
 from ._build import fp32_forward
 from .attn_block_cuda import (
     BlockCfg,
@@ -86,6 +87,8 @@ def set_backend(name: str):
     global _BACKEND
     if name not in ("auto", "xla", "pallas"):
         raise ValueError(f"unknown attention-block backend {name!r}")
+    if name != _BACKEND:
+        bump()
     _BACKEND = name
 
 

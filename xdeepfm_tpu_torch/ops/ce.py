@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..dispatch import bump
 from ._build import fp32_forward
 from .ce_cuda import (
     CE_MAX_K,
@@ -49,6 +50,8 @@ def set_precision(name: str):
     global _PRECISION
     if name not in ("fp32", "bf16"):
         raise ValueError(f"unknown CE precision {name!r}")
+    if name != _PRECISION:
+        bump()
     _PRECISION = name
 
 
@@ -60,6 +63,8 @@ def set_stack_heads(flag: bool):
     128-padded vocabulary (``pro/sfg.py`` buckets them); on by default, as in
     the JAX package."""
     global _STACK_HEADS
+    if bool(flag) != _STACK_HEADS:
+        bump()
     _STACK_HEADS = bool(flag)
 
 

@@ -37,6 +37,7 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..dispatch import bump
 from ._build import fp32_forward
 from .cin_cuda import (
     FUSED_MAX_M,
@@ -65,6 +66,8 @@ def set_cin_backend(name: str) -> None:
     global _CIN_BACKEND
     if name not in BACKENDS:
         raise ValueError(f"unknown CIN backend {name!r}; expected one of {BACKENDS}")
+    if name != _CIN_BACKEND:
+        bump()
     _CIN_BACKEND = name
 
 
@@ -79,6 +82,8 @@ def set_cin_precision(p: str) -> None:
     global _PRECISION
     if p not in ("f32", "bf16"):
         raise ValueError(f"CIN precision must be 'f32' or 'bf16', got {p!r}")
+    if p != _PRECISION:
+        bump()
     _PRECISION = p
 
 
@@ -99,6 +104,8 @@ def set_backward_impl(name: str) -> None:
     global _BWD_IMPL
     if name not in ("auto", "fused_t", "legacy"):
         raise ValueError(f"unknown CIN backward {name!r}")
+    if name != _BWD_IMPL:
+        bump()
     _BWD_IMPL = name
 
 

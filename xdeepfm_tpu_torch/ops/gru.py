@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..dispatch import bump
 from ._build import fp32_forward
 from .gru_cuda import (
     fits_kernel,
@@ -94,6 +95,8 @@ def set_backend(name: str):
     global _BACKEND
     if name not in ("auto", "xla", "pallas"):
         raise ValueError(f"unknown GRU backend {name!r}")
+    if name != _BACKEND:
+        bump()
     _BACKEND = name
 
 

@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..dispatch import bump
 from ._build import fp32_forward
 from .lane_attention_cuda import (
     check_la_shape,
@@ -92,6 +93,8 @@ def set_backend(name: str):
     global _BACKEND
     if name not in ("auto", "xla", "lanes"):
         raise ValueError(f"unknown lane-attention backend {name!r}")
+    if name != _BACKEND:
+        bump()
     _BACKEND = name
 
 

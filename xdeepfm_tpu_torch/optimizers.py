@@ -1,13 +1,14 @@
 """Optimizers (port of ``xdeepfm_tpu/optimizers.py`` and of the optax half of
 ``xdeepfm_tpu``'s ``basemodel._get_optimizer``).
 
-Dense: ``sgd`` and ``adam`` are ``torch.optim.SGD`` and ``torch.optim.Adam``:
-their update math is optax's (Adam's bias-corrected m/(sqrt(v) + eps) is the
-same expression).  ``adagrad`` and ``rmsprop`` are not: optax starts
-adagrad's accumulator at 0.1 and adds eps inside the square root of both,
-where ``torch.optim`` starts at 0 and adds eps outside.  So they are written
-here to optax's math.  PyTorch picks its ``foreach`` implementation on CUDA
-tensors by default; nothing here asks for ``fused``.
+Dense: ``sgd`` is ``torch.optim.SGD``, whose update math is optax's.
+``adam``, ``adagrad`` and ``rmsprop`` are written here to optax's math:
+``torch.optim``'s Adam places eps otherwise and its bias corrections on the
+host, and its adagrad and rmsprop start their accumulators elsewhere and
+add eps outside the square root.  Their state lives on the parameters'
+device, Adam's step count too, and no step reads the host, so a step can be
+captured in a CUDA graph (:mod:`~xdeepfm_tpu_torch.dispatch`) and an eager
+step computes what a replayed one does.
 
 Lazy (row-sparse): the embedding tables' optimizer of
 ``compile(embedding_optimizer="lazy")``, which updates only the rows a batch
@@ -28,6 +29,61 @@ import numpy as np
 import torch
 
 from .embeddings import run_prefix_sums
+
+
+class Adam(torch.optim.Adam):
+    """``optax.adam``: m and v start at 0; m = b1 m + (1 - b1) g and
+    v = b2 v + (1 - b2) g^2; p += -lr * (m / bc1) / (sqrt(v / bc2) + eps),
+    with bc = 1 - b^t.  The step count t is an fp32 tensor on the
+    parameters' device (the ``step`` slot of ``torch.optim.Adam``'s state, so
+    checkpoints keep their keys), and bc is b^t in float64 on that device
+    rounded to fp32, then taken from 1 in fp32: the JAX package's fp32
+    ``power`` (:func:`adam_bias_corrections`).  Built ``capturable``, so a
+    loaded state's step count moves to the device.
+
+    The update runs in place, in ``torch.optim.Adam``'s foreach passes: m
+    by one ``lerp``, v by a scale and an ``addcmul``, the denominator
+    (sqrt(v / bc2) + eps) * bc1 in one temporary list, and p by one
+    ``addcdiv``: 20 reads and writes of the parameters' size, where
+    ``torch.optim.Adam`` takes 18 with its bias corrections on the host.
+    Rounding each of optax's products and quotients apart takes about 33,
+    since a foreach op writes no given output; the two orders part by a few
+    fp32 ulps a step.  The bias corrections only scale and divide: a
+    foreach add of a 0-dim device tensor synchronises with the host, which
+    a capture refuses."""
+
+    def __init__(self, params, lr=1e-3, eps=1e-8, betas=(0.9, 0.999)):
+        super().__init__(params, lr=lr, betas=betas, eps=eps, capturable=True)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            for p in params:
+                state = self.state[p]
+                if not state:
+                    state["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
+                    state["exp_avg"] = torch.zeros_like(p)
+                    state["exp_avg_sq"] = torch.zeros_like(p)
+            states = [self.state[p] for p in params]
+            grads = [p.grad for p in params]
+            m = [st["exp_avg"] for st in states]
+            v = [st["exp_avg_sq"] for st in states]
+            (b1, b2), lr, eps = group["betas"], group["lr"], group["eps"]
+            torch._foreach_add_([st["step"] for st in states], 1.0)
+            t = states[0]["step"].double()
+            bc1 = 1.0 - torch.pow(float(np.float32(b1)), t).float()
+            bc2 = 1.0 - torch.pow(float(np.float32(b2)), t).float()
+            torch._foreach_lerp_(m, grads, 1 - b1)
+            torch._foreach_mul_(v, b2)
+            torch._foreach_addcmul_(v, grads, grads, 1 - b2)
+            denom = torch._foreach_div(v, bc2)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, eps)
+            torch._foreach_mul_(denom, bc1)
+            torch._foreach_addcdiv_(params, m, denom, value=-lr)
 
 
 class Adagrad(torch.optim.Optimizer):
@@ -89,7 +145,7 @@ def get_optimizer(optimizer, params, lr=None):
     if optimizer == "sgd":
         return torch.optim.SGD(params, lr=0.01 if lr is None else lr)
     if optimizer == "adam":
-        return torch.optim.Adam(params, lr=1e-3 if lr is None else lr, eps=1e-8)
+        return Adam(params, lr=1e-3 if lr is None else lr, eps=1e-8)
     if optimizer == "adagrad":
         return Adagrad(params, lr=0.01 if lr is None else lr, eps=1e-10)
     if optimizer == "rmsprop":
@@ -98,11 +154,27 @@ def get_optimizer(optimizer, params, lr=None):
 
 
 # ---------------------------------------------------------------------------
-# Lazy row-sparse optimizers.  ``t`` is the 1-based step, a host int: the
-# bias corrections are fp32 scalars computed on the host, as the JAX
-# package's fp32 ``jnp.power`` computes them, so a step needs no device
-# scalar and no sync.
+# Lazy row-sparse optimizers.  ``t`` is the 1-based step, a host int.  Adam's
+# bias corrections (1 - b1^t, 1 - b2^t) are fp32 values computed on the host
+# (:func:`adam_bias_corrections`); the engine hands each step its pair as a
+# [2] device tensor ``bc`` (a row of a host-written table, or a CUDA graph's
+# step slot), so a step needs no sync and a replayed step reads its own.
 # ---------------------------------------------------------------------------
+
+
+def adam_bias_corrections(t0: int, n: int, b1: float = 0.9, b2: float = 0.999) -> np.ndarray:
+    """[n, 2] fp32 (1 - b1^t, 1 - b2^t) for t = t0 + 1 .. t0 + n: the fp32
+    power rounded from numpy's float64 one, then subtracted in fp32.  That is
+    the JAX package's value (``jnp.power`` on an fp32 t, ``optimizers.py:49-50``)
+    bit for bit at every t in 1..20000 but b2's t = 2958 and 3606, where the
+    power lies within a thousandth of an ulp of a tie; numpy's fp32 power
+    differs at 254 of t = 1..2000."""
+    t = np.arange(t0 + 1, t0 + n + 1, dtype=np.float64)
+    out = np.empty((n, 2), np.float32)
+    for j, b in enumerate((b1, b2)):
+        power = np.power(np.float64(np.float32(b)), t).astype(np.float32)
+        out[:, j] = np.float32(1) - power
+    return out
 
 
 def lazy_adam_init(table: torch.Tensor) -> torch.Tensor:
@@ -111,16 +183,18 @@ def lazy_adam_init(table: torch.Tensor) -> torch.Tensor:
     return table.new_zeros(rows, 2 * dim)
 
 
-def lazy_adam_row_math(p_rows, mv_rows, g_rows, t, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8):
+def lazy_adam_row_math(p_rows, mv_rows, g_rows, t, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8,
+                       bc=None):
     """Adam on row blocks, no table access: ``p_rows`` [N, D], ``mv_rows``
-    [N, 2D] (m | v), ``g_rows`` [N, D] -> ``(p_rows_new, mv_rows_new)``."""
+    [N, 2D] (m | v), ``g_rows`` [N, D] -> ``(p_rows_new, mv_rows_new)``.
+    ``bc``: step ``t``'s (1 - b1^t, 1 - b2^t) as a [2] tensor on the rows'
+    device; without it they are made from ``t`` here."""
     D = p_rows.shape[1]
     m = b1 * mv_rows[:, :D] + (1 - b1) * g_rows
     v = b2 * mv_rows[:, D:] + (1 - b2) * g_rows.square()
-    t = np.float32(t)
-    bc1 = float(np.float32(1) - np.power(np.float32(b1), t))
-    bc2 = float(np.float32(1) - np.power(np.float32(b2), t))
-    p_new = p_rows - lr * (m / bc1) / ((v / bc2).sqrt() + eps)
+    if bc is None:
+        bc = torch.from_numpy(adam_bias_corrections(t - 1, 1, b1, b2)[0]).to(p_rows.device)
+    p_new = p_rows - lr * (m / bc[0]) / ((v / bc[1]).sqrt() + eps)
     return p_new, torch.cat([m, v], dim=1)
 
 
@@ -128,10 +202,11 @@ def lazy_adagrad_init(table: torch.Tensor) -> torch.Tensor:
     return torch.zeros_like(table)
 
 
-def lazy_adagrad_row_math(p_rows, acc_rows, g_rows, t, lr=0.01, eps=1e-10):
+def lazy_adagrad_row_math(p_rows, acc_rows, g_rows, t, lr=0.01, eps=1e-10, bc=None):
     """Adagrad on row blocks (see :func:`lazy_adam_row_math`): the
-    accumulator starts at 0 and eps is added outside the square root."""
-    del t
+    accumulator starts at 0 and eps is added outside the square root; it
+    reads no step count."""
+    del t, bc
     acc = acc_rows + g_rows.square()
     return p_rows - lr * g_rows / (acc.sqrt() + eps), acc
 
@@ -161,19 +236,24 @@ def _lazy_rows(row_math, p, state, ids, g_rows, t, p_rows=None, **hyper):
 
 
 def lazy_adam_rows(p, state, ids, g_rows, t, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8,
-                   p_rows=None):
+                   sorted_ids=False, p_rows=None):
     """Row-wise Adam on the rows ``ids`` of ``p`` and its state, IN PLACE.
     ``g_rows`` [N, D] holds, for every occurrence of an id, the SUM over all
     of its occurrences (duplicates carry identical values); ``p_rows``, if
     given, the rows' current values in ``ids`` order.  Returns ``(p, state,
     p_rows_new)``, the last the updated rows in ``ids`` order.  Ids outside
-    the table (padding) are not written."""
+    the table (padding) are not written.  ``sorted_ids`` is taken in the JAX
+    signature's place and ignored: there it only reaches XLA's
+    ``indices_are_sorted``."""
+    del sorted_ids
     return _lazy_rows(lazy_adam_row_math, p, state, ids, g_rows, t, p_rows,
                       lr=lr, b1=b1, b2=b2, eps=eps)
 
 
-def lazy_adagrad_rows(p, state, ids, g_rows, t, lr=0.01, eps=1e-10, p_rows=None):
+def lazy_adagrad_rows(p, state, ids, g_rows, t, lr=0.01, eps=1e-10, sorted_ids=False,
+                      p_rows=None):
     """See :func:`lazy_adam_rows`."""
+    del sorted_ids
     return _lazy_rows(lazy_adagrad_row_math, p, state, ids, g_rows, t, p_rows, lr=lr, eps=eps)
 
 

@@ -36,6 +36,8 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import torch
 import torch.distributed as dist
 
+from ..dispatch import bump
+
 AxisName = Union[str, Tuple[str, ...]]
 
 # param_sharding_rule's two layouts, written as the JAX PartitionSpecs
@@ -105,6 +107,8 @@ def set_active_mesh(mesh: Optional[RankGrid]):
     """Record the grid the model state was sharded over (the lookups of a
     row-sharded table and ``embedding_gradient="auto"`` consult it)."""
     global _ACTIVE_MESH
+    if mesh != _ACTIVE_MESH:
+        bump()
     _ACTIVE_MESH = mesh
 
 

@@ -38,6 +38,7 @@ from typing import Optional, Sequence
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..dispatch import bump
 from ..embeddings import fused_gather, run_first, sorted_segment_sum
 from ..optimizers import _row_set, decode_state, encode_state, segment_run_sums
 from .mesh import all_gather_rows, all_reduce_, all_to_all_rows, get_active_mesh
@@ -60,6 +61,8 @@ def set_embedding_mode(mode: str, mesh=None, ragged: Optional[bool] = None, comm
         comm_dtype = torch.bfloat16
     if comm_dtype not in (None, torch.bfloat16, torch.float32):
         raise ValueError(f"comm_dtype must be None or bfloat16, not {comm_dtype!r}")
+    if (mode, mesh, comm_dtype) != (_MODE, _MESH, _COMM_DTYPE):
+        bump()
     _MODE, _MESH, _COMM_DTYPE = mode, mesh, comm_dtype
 
 

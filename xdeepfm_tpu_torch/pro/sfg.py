@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..dispatch import Switch
 from ..nn.core import dropout, torch_bias_init, torch_linear_init
 from ..ops import ce
 from ..parallel.mesh import batch_ranks, batch_sum
@@ -72,6 +73,7 @@ class SFGDecoder(nn.Module):
     the training path uses :meth:`ce_rows`.  ``ce_backend`` (None: by device,
     or "torch") goes to the fused CE of the kernel route.
     """
+    ce_backend = Switch()
 
     def __init__(self, embedding_dim: int, sparse_vocab_sizes: Sequence[Tuple[str, int]],
                  num_dense: int, hidden_units: Sequence[int] = (128, 64),

@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from ..basemodel import BaseModel
+from ..dispatch import Switch
 from ..embeddings import EmbeddingCollection, LinearModel, can_fuse_lookup, lookup_inputs
 from ..features import SparseFeat, compute_input_dim, split_columns
 from ..nn.core import DNN, PredictionLayer, torch_linear_init
@@ -34,6 +35,7 @@ class XDeepFMProModule(nn.Module):
     """Parameters follow the JAX paths: ``embedding_dict``, ``linear_model``,
     ``cin``, ``cin_linear``, ``dnn``, ``dnn_linear``, ``autodis_encoder``,
     ``sfg_decoder``, ``out``."""
+    sfg_fused_ce = Switch()
 
     def __init__(self, linear_cols, dnn_cols, schema, embedding_dim,
                  dnn_hidden_units=(256, 256), cin_layer_size=(256, 128), cin_split_half=True,

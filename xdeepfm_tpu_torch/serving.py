@@ -1,7 +1,9 @@
 """Serving / scoring path (port of ``xdeepfm_tpu/serving.py``).
 
 * :class:`Scorer` — fixed-batch scoring over a model (pad + slice, float64
-  outputs like ``predict``),
+  outputs like ``predict``); on the card each batch is one replay of a CUDA
+  graph of the model's forward at that batch (the JAX scorer's jitted
+  program),
 * :func:`load_scorer` — rebuild a scorer from the CLIs' artifacts of either
   package: the port's ``.npz`` weights or the JAX package's flax msgpack
   ones (a JAX CLI's ``{model}_best.weights``), and a ``preprocess.pkl``.
@@ -18,15 +20,23 @@ import torch
 
 class Scorer:
     """Fixed-batch scorer over a BaseModel.  Reads the model's weights live
-    at every call, so weights loaded after construction are used."""
+    at every call, so weights loaded after construction are used: a batch
+    is one forward (``BaseModel._predict_batches``), on the card the replay
+    of a graph captured once, which reads the weights where
+    ``load_weights`` / ``set_weights`` write them, in place.  A ``compile``
+    of the model drops the graph; the next call captures it again."""
 
     def __init__(self, model, batch_size: int = 8192):
         self.model = model
         self.batch_size = batch_size
 
     def warmup(self):
-        """Score one all-zero batch: builds the CUDA kernels on first use."""
-        self.model._predict_step(self.model._dummy_batch(self.batch_size))
+        """Score an all-zero batch twice: the first call builds the CUDA
+        kernels and runs the forward eagerly, the second captures the graph
+        and replays it, so that no request pays either."""
+        dummy = {k: v[None] for k, v in self.model._dummy_batch(self.batch_size).items()}
+        for _ in range(2):
+            self.model._predict_batches(dummy)
         return self
 
     def score(self, x: Dict[str, np.ndarray]) -> np.ndarray:
@@ -46,7 +56,7 @@ class Scorer:
                     )
                     for k, v in xb.items()
                 }
-            out.append(self.model._predict_step(xb)[:bs])
+            out.append(self.model._predict_batches({k: v[None] for k, v in xb.items()})[:bs])
         return torch.cat(out).cpu().numpy().astype("float64")
 
 
